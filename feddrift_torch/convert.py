@@ -1,0 +1,29 @@
+"""Carry a JAX (flax) parameter tree across into the port.
+
+``params_from_jax`` takes the tree as nested dicts of numpy arrays (what
+``jax.tree_util.tree_map(np.asarray, params)`` gives) and returns the
+port's flat dict keyed by the flax path: ``{"block_0": {"Dense_0":
+{"kernel": a}}}`` becomes ``{"block_0/Dense_0/kernel": tensor(a)}``. The
+port keeps flax's layouts (Dense kernels ``[in, out]``, embeddings
+``[n, E]``), so no leaf is transposed. A stacked pool tree (leading
+``[M]`` axis on every leaf) converts the same way.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+
+def params_from_jax(tree: Mapping, device: str | torch.device = "cuda",
+                    prefix: str = "") -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    for name, value in tree.items():
+        path = f"{prefix}/{name}" if prefix else str(name)
+        if isinstance(value, Mapping):
+            out.update(params_from_jax(value, device, path))
+        else:
+            out[path] = torch.from_numpy(np.array(value, copy=True)).to(device)
+    return out

@@ -1,0 +1,60 @@
+"""Dataset registry of the port: ``make_dataset(cfg)``.
+
+Mirrors ``feddrift_tpu/data/registry.py``. Only the character datasets of
+the transformer serving slice are ported so far (``shakespeare`` and its
+alias ``fed_shakespeare``); any other name raises ``KeyError``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+
+from feddrift_torch.config import ExperimentConfig
+from feddrift_torch.data import changepoints as cp
+from feddrift_torch.data.drift_dataset import DriftDataset
+from feddrift_torch.data.text import generate_text_drift
+
+_REGISTRY: dict[str, Callable[..., DriftDataset]] = {}
+
+
+def register_dataset(*names: str):
+    """Register a builder ``(cfg, change_points) -> DriftDataset`` under names."""
+    def deco(fn: Callable[[ExperimentConfig, np.ndarray], DriftDataset]):
+        for n in names:
+            _REGISTRY[n] = fn
+        return fn
+    return deco
+
+
+def available_datasets() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def _resolve_change_points(cfg: ExperimentConfig) -> np.ndarray:
+    if cfg.change_points == "rand":
+        return cp.generate_random_change_points(
+            cfg.train_iterations, cfg.client_num_in_total, cfg.drift_together,
+            cfg.time_stretch, seed=cfg.seed)
+    return cp.load_change_points(cfg.change_points)
+
+
+@register_dataset("shakespeare", "fed_shakespeare")
+def _mk_text(cfg: ExperimentConfig, change_points: np.ndarray) -> DriftDataset:
+    return generate_text_drift(
+        change_points, cfg.train_iterations, cfg.client_num_in_total,
+        cfg.sample_num, cfg.noise_prob, cfg.time_stretch, cfg.seed,
+        seq_len=cfg.text_seq_len, data_dir=cfg.data_dir)
+
+
+def make_dataset(cfg: ExperimentConfig) -> DriftDataset:
+    if cfg.dataset not in _REGISTRY:
+        raise KeyError(f"unknown dataset {cfg.dataset!r}; available: "
+                       f"{available_datasets()}")
+    change_points = _resolve_change_points(cfg)
+    if change_points.shape[1] < cfg.client_num_in_total:
+        raise ValueError(
+            f"change-point matrix has {change_points.shape[1]} clients < "
+            f"client_num_in_total={cfg.client_num_in_total}")
+    return _REGISTRY[cfg.dataset](cfg, change_points)

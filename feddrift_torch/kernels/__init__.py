@@ -1,0 +1,4 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version."""
+
+from feddrift_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention, flash_attention_ref)

@@ -1,0 +1,77 @@
+"""The port stands alone: importing it loads no JAX, no flax and nothing of
+``feddrift_tpu``; its entry points default to the CUDA device; and
+``chip_smoke.py`` refuses to run without a card or outside the repo."""
+
+import inspect
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import feddrift_torch
+names = [m.name for m in pkgutil.walk_packages(feddrift_torch.__path__,
+                                               "feddrift_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "feddrift_tpu"))
+print(len(names), bad)
+"""
+
+
+def _clean_env():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    return env
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 15           # every module of the package
+    assert bad == "[]", bad
+
+
+@pytest.mark.parametrize("target", [
+    "feddrift_torch.core.pool:ModelPool.create",
+    "feddrift_torch.convert:params_from_jax",
+    "feddrift_torch.models.transformer:TransformerLM.init_params",
+])
+def test_entry_points_default_to_cuda(target):
+    import importlib
+    mod, attr = target.split(":")
+    obj = importlib.import_module(mod)
+    for part in attr.split("."):
+        obj = getattr(obj, part)
+    assert inspect.signature(obj).parameters["device"].default == "cuda"
+
+
+def test_package_default_device():
+    import feddrift_torch
+    assert feddrift_torch.DEFAULT_DEVICE == "cuda"
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
+def test_chip_smoke_refuses_without_card_or_repo(tmp_path, alone):
+    if alone:
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+        cwd, env = str(tmp_path), {k: v for k, v in os.environ.items()
+                                   if k != "PYTHONPATH"}
+    else:
+        cwd, env = REPO, _clean_env()
+    # hide any card so the run here is the same with or without one
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
