@@ -8,11 +8,15 @@ Phases, one or more lines of output each:
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
 2. build: compiles every CUDA source of ``feddrift_torch/kernels/csrc``
-   with nvcc (sm_90a) and prints the build seconds and ptxas' resource use.
+   with nvcc (sm_90a) and prints the build seconds, ptxas' registers and
+   spills per kernel, and the count of tensor-core (``HMMA``) instructions
+   in the flash library's SASS (``cuobjdump``; "not measured" without it).
 3. kernel: holds the flash-attention kernel against its plain PyTorch
-   version on the card at the serving shape and two others, and times the
-   kernel, the plain version and ``F.scaled_dot_product_attention`` (a
-   yardstick only; the port never calls it).
+   version on the card at the serving shape, the mean served micro-batch
+   and two others, and times the kernel, the plain version and
+   ``F.scaled_dot_product_attention`` (a yardstick only; the port never
+   calls it): per call, on the device, and the host's enqueue alone (host
+   times in turns, five rounds, medians).
 4. serve: the port's main path at full registry width. The ``shakespeare``
    dataset at its defaults, a pool of 4 distinct ``transformer`` models,
    10 clients spread over them, ``InferenceEngine`` with the
@@ -29,6 +33,9 @@ nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -42,11 +49,15 @@ KERNEL_ATOL = 1e-5
 SERVE_ATOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# the kernel's route: TF32 tensor cores (495 TFLOP/s dense), three TF32
+# products per float32 product to keep float32 accuracy
+TC_3XTF32_FLOPS_PER_S = 495e12 / 3
 NUM_REQUESTS = 512
 CONCURRENCY = 8
 SLICE_SHAPE = (32, 4, 80, 32)  # largest bucket x heads x seq x head dim
-SHAPES = ((SLICE_SHAPE, True), ((2, 2, 100, 8), False),
-          ((4, 8, 2048, 64), True))
+SHAPES = ((SLICE_SHAPE, True),
+          ((8, 4, 80, 32), True),   # the mean served micro-batch, 7.88 rows
+          ((2, 2, 100, 8), False), ((4, 8, 2048, 64), True))
 
 
 def _say(phase: str, **fields) -> None:
@@ -98,14 +109,41 @@ def _device_ms(fn, reps: int = 20):
     return busy_us / reps / 1e3 if busy_us > 0 else None
 
 
-def _attention_bound_ms(shape, causal: bool) -> tuple[float, str]:
+def _interleaved(measure, calls: dict, rounds: int = 5) -> dict:
+    """``measure(fn)`` of each call, in turns for ``rounds`` rounds; the
+    median of each. Host-side times drift within a run on a shared host,
+    so the calls compared are measured side by side."""
+    import statistics
+    got = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            got[name].append(measure(fn))
+    return {name: statistics.median(v) for name, v in got.items()}
+
+
+def _host_enqueue_ms(fn, iters: int = 200) -> float:
+    """Host time per call to enqueue ``fn``, without waiting for the card
+    (the queue is drained before and after)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return ms
+
+
+def _attention_bound_ms(shape, causal: bool,
+                        flops_per_s: float) -> tuple[float, str]:
     """Least time for the function on the card: q, k, v read once and out
     written once over HBM, against the multiply-adds of the (q, k) pairs the
-    mask keeps (q.k and p.v, 2 flops each per dim) at the f32 peak."""
+    mask keeps (q.k and p.v, 2 flops each per dim) at ``flops_per_s``."""
     B, H, L, D = shape
     pairs = L * (L + 1) // 2 if causal else L * L
     t_bytes = 4 * B * H * L * D * 4 / HBM_BYTES_PER_S
-    t_ops = 4 * B * H * pairs * D / F32_FLOPS_PER_S
+    t_ops = 4 * B * H * pairs * D / flops_per_s
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -127,13 +165,47 @@ def phase_device() -> str:
     return card
 
 
+def _ptxas_per_kernel(log: str) -> dict:
+    """ptxas' registers and spills for each compiled kernel, keyed by the
+    kernel's template arguments (``D=32``) or its name."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", ln)
+        if m:
+            t = re.search(r"ILi(\d+)E", m.group(1))
+            name = f"D={t.group(1)}" if t else m.group(1)
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def _sass_count(lib_path: str, opcode: str):
+    """Count of ``opcode`` instructions in a library's SASS, or "not
+    measured" where the toolkit has no ``cuobjdump``."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = os.path.join(home, "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        return "not measured"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120)
+    if sass.returncode != 0:
+        return f"not measured (cuobjdump: {sass.stderr.strip()[:200]})"
+    return sum(1 for ln in sass.stdout.splitlines()
+               if re.search(rf"\b{opcode}\b", ln))
+
+
 def phase_build() -> None:
     from feddrift_torch.kernels import build
     build.build_all()
-    ptxas = [ln.strip() for log in build.build_log.values()
-             for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {src: _ptxas_per_kernel(log)
+             for src, log in sorted(build.build_log.items())}
     _say("build", seconds=round(build.build_seconds, 3),
-         sources=sorted(build.build_log), ptxas=ptxas)
+         sources=sorted(build.build_log), ptxas=ptxas,
+         flash_sass_hmma=_sass_count(build.lib_path("flash_attn_fwd.cu"),
+                                     "HMMA"))
 
 
 def phase_kernel() -> dict:
@@ -149,22 +221,35 @@ def phase_kernel() -> dict:
         out = flash_attention(q, k, v, causal)
         torch.cuda.synchronize()
         err = (out - flash_attention_ref(q, k, v, causal)).abs().max().item()
-        ms = _time_ms(lambda: flash_attention(q, k, v, causal))
-        plain_ms = _time_ms(lambda: flash_attention_ref(q, k, v, causal))
-        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal))
-        device = {name: _device_ms(f) for name, f in (
-            ("kernel", lambda: flash_attention(q, k, v, causal)),
-            ("plain", lambda: flash_attention_ref(q, k, v, causal)),
-            ("library", lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal)))}
-        bound_ms, bound_by = _attention_bound_ms(shape, causal)
+        calls = {
+            "kernel": lambda: flash_attention(q, k, v, causal),
+            "plain": lambda: flash_attention_ref(q, k, v, causal),
+            "library": lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal)}
+        ms, plain_ms, library_ms = _interleaved(_time_ms, calls).values()
+        device = {name: _device_ms(f) for name, f in calls.items()}
+        # the host's floor: one PyTorch elementwise op on the same card
+        enqueue = _interleaved(_host_enqueue_ms, {
+            "kernel": calls["kernel"], "library": calls["library"],
+            "one_op": lambda: torch.add(q, 1.0)})
+        bound_ms, bound_by = _attention_bound_ms(shape, causal,
+                                                 TC_3XTF32_FLOPS_PER_S)
+        simt_ms, simt_by = _attention_bound_ms(shape, causal,
+                                               F32_FLOPS_PER_S)
+        device_vs_library = device["kernel"] / device["library"] \
+            if device["kernel"] and device["library"] else "not measured"
         _say("kernel", name="flash_attn_fwd", shape=shape, causal=causal,
              max_abs_err=err, atol=KERNEL_ATOL, kernel_ms=ms,
-             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-             bound_by=bound_by, kernel_device_ms=device["kernel"],
+             plain_ms=plain_ms, library_ms=library_ms,
+             call_vs_library=ms / library_ms,
+             device_vs_library=device_vs_library, bound_ms=bound_ms,
+             bound_by=bound_by, bound_f32_simt_ms=simt_ms,
+             bound_f32_simt_by=simt_by, kernel_device_ms=device["kernel"],
              plain_device_ms=device["plain"],
-             library_device_ms=device["library"])
+             library_device_ms=device["library"],
+             kernel_enqueue_ms=enqueue["kernel"],
+             library_enqueue_ms=enqueue["library"],
+             one_op_enqueue_ms=enqueue["one_op"])
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"flash_attn_fwd at {shape} causal={causal}: "
                                  f"max |kernel - plain| {err} > {KERNEL_ATOL}")
@@ -175,7 +260,8 @@ def phase_kernel() -> dict:
                      "launches": None, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
-                     "device_ms": device["kernel"]}
+                     "device_ms": device["kernel"],
+                     "bound_f32_simt_ms": simt_ms}
     return entry
 
 

@@ -48,7 +48,7 @@ def _sources() -> list[str]:
     return sorted(f for f in os.listdir(CSRC) if f.endswith(".cu"))
 
 
-def _lib_path(src: str) -> str:
+def lib_path(src: str) -> str:
     with open(os.path.join(CSRC, src), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{src[:-3]}-{digest.hexdigest()[:16]}.so")
@@ -67,7 +67,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
         nvcc = None
         procs = []
         for src in _sources():
-            out = _lib_path(src)
+            out = lib_path(src)
             if os.path.isfile(out):
                 continue
             nvcc = nvcc or _nvcc()
@@ -87,7 +87,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         for src in _sources():
-            _libs[src[:-3]] = ctypes.CDLL(_lib_path(src))
+            _libs[src[:-3]] = ctypes.CDLL(lib_path(src))
         build_seconds = time.perf_counter() - t0
         return dict(_libs)
 

@@ -117,9 +117,11 @@ class MultiHeadAttention(_Functional):
         B, L, E = x.shape
         H = self.num_heads
         D = E // H
-        q, k, v = dense(x, params, "qkv").split(E, dim=-1)
-        q, k, v = (t.reshape(B, L, H, D).transpose(1, 2).contiguous()
-                   for t in (q, k, v))
+        # views of the one qkv projection; the kernel reads them strided
+        # and returns a transpose view of [B, L, H, D], so the reshape of
+        # its output back to [B, L, E] is a view as well
+        q, k, v = (t.view(B, L, H, D).transpose(1, 2)
+                   for t in dense(x, params, "qkv").split(E, dim=-1))
         impl = self.attention_impl
         if impl == "auto":
             impl = "flash" if x.is_cuda else "blockwise"
