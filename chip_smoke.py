@@ -12,8 +12,10 @@ Phases, one or more lines of output each:
    spills per kernel, and the count of tensor-core (``HMMA``) instructions
    in the flash library's SASS (``cuobjdump``; "not measured" without it).
 3. kernel: holds the flash-attention kernel against its plain PyTorch
-   version on the card at the serving shape, the mean served micro-batch
-   and two others, and times the kernel, the plain version and
+   version on the card at the serving shape and the mean served
+   micro-batch (q, k, v split off one qkv projection, as the transformer
+   hands them over), and at three others, the last at L = 8192 for the
+   error at long sequences; it times the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only; the port never
    calls it): per call, on the device, and the host's enqueue alone (host
    times in turns, five rounds, medians).
@@ -55,9 +57,14 @@ TC_3XTF32_FLOPS_PER_S = 495e12 / 3
 NUM_REQUESTS = 512
 CONCURRENCY = 8
 SLICE_SHAPE = (32, 4, 80, 32)  # largest bucket x heads x seq x head dim
-SHAPES = ((SLICE_SHAPE, True),
-          ((8, 4, 80, 32), True),   # the mean served micro-batch, 7.88 rows
-          ((2, 2, 100, 8), False), ((4, 8, 2048, 64), True))
+# (shape, causal, layout): "qkv" gives q, k, v as the transformer does,
+# [B, H, L, D] views split off one [B, L, 3E] projection; "contiguous"
+# gives three separate [B, H, L, D] tensors
+SHAPES = ((SLICE_SHAPE, True, "qkv"),
+          ((8, 4, 80, 32), True, "qkv"),  # the mean served micro-batch
+          ((2, 2, 100, 8), False, "contiguous"),
+          ((4, 8, 2048, 64), True, "contiguous"),
+          ((1, 2, 8192, 64), True, "contiguous"))   # the error at long L
 
 
 def _say(phase: str, **fields) -> None:
@@ -215,9 +222,15 @@ def phase_kernel() -> dict:
                                                         flash_attention_ref)
     gen = torch.Generator(device="cuda").manual_seed(0)
     entry = None
-    for shape, causal in SHAPES:
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
-                   for _ in range(3))
+    for shape, causal, layout in SHAPES:
+        B, H, L, D = shape
+        if layout == "qkv":
+            qkv = torch.randn((B, L, 3 * H * D), generator=gen, device="cuda")
+            q, k, v = (t.view(B, L, H, D).transpose(1, 2)
+                       for t in qkv.split(H * D, dim=-1))
+        else:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                       for _ in range(3))
         out = flash_attention(q, k, v, causal)
         torch.cuda.synchronize()
         err = (out - flash_attention_ref(q, k, v, causal)).abs().max().item()
@@ -239,7 +252,7 @@ def phase_kernel() -> dict:
         device_vs_library = device["kernel"] / device["library"] \
             if device["kernel"] and device["library"] else "not measured"
         _say("kernel", name="flash_attn_fwd", shape=shape, causal=causal,
-             max_abs_err=err, atol=KERNEL_ATOL, kernel_ms=ms,
+             layout=layout, max_abs_err=err, atol=KERNEL_ATOL, kernel_ms=ms,
              plain_ms=plain_ms, library_ms=library_ms,
              call_vs_library=ms / library_ms,
              device_vs_library=device_vs_library, bound_ms=bound_ms,

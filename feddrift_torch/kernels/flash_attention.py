@@ -61,8 +61,6 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # csrc/flash_attn_fwd.cu's Params: q, k, v, o pointers; q, k, v strides
 # (B, H, L); H, L, D, causal; scale; grid x, grid y, warps, block_k; device
 _PARAMS = struct.Struct("=4Q9q4if5i")
-# the current stream's handle without building a torch.cuda.Stream
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 @functools.cache
@@ -72,12 +70,6 @@ def _kernel():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
     return fn
-
-
-def _stream(index: int) -> int:
-    if _raw_stream is not None:
-        return _raw_stream(index)
-    return torch.cuda.current_stream(index).cuda_stream
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,7 +115,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _kernel()(_PARAMS.pack(
         qp, kp, vp, out.data_ptr(), *qs[:3], *ks[:3], *vs[:3], H, L, D,
         causal, 1.0 / math.sqrt(D), gx, gy, cfg.warps, cfg.block_k, index),
-        _stream(index))
+        # the current stream's handle, without building a torch.cuda.Stream
+        torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd_f32 launch failed: cudaError "
                            f"{err}")

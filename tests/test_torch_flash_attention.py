@@ -144,25 +144,6 @@ class TestWrapper:
         np.testing.assert_allclose(out.numpy(), same.numpy(), atol=1e-6)
 
 
-def test_transformer_attention_without_copies_is_unchanged():
-    # the views path against the former contiguous-copies path on the CPU,
-    # at the registry's attention width (4 heads of 32, L = 80)
-    from feddrift_torch.models.transformer import (MultiHeadAttention,
-                                                   dense)
-    mha = MultiHeadAttention(128, 4)
-    params = {k: p[None].expand(3, *p.shape) for k, p in mha.init_params(
-        torch.Generator().manual_seed(0), device="cpu").items()}
-    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
-        (3, 80, 128)).astype(np.float32))
-    q, k, v = (t.reshape(3, 80, 4, 32).transpose(1, 2).contiguous()
-               for t in dense(x, params, "qkv").split(128, dim=-1))
-    ref = dense(blockwise_attention(q, k, v, causal=True).transpose(1, 2)
-                .reshape(3, 80, 128), params, "proj")
-    with torch.no_grad():
-        out = mha(params, x)
-    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL)
-
-
 class TestTensorCoreArithmetic:
     @pytest.mark.parametrize("shape", [(32, 4, 80, 32), (2, 2, 130, 128)])
     def test_three_tf32_terms_hold_atol_and_one_does_not(self, shape):

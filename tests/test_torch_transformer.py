@@ -85,6 +85,14 @@ class TestParityWithJax:
     def test_small(self, impl):
         _compare(SMALL, B=3, L=24, atol=1e-5, impl=impl)
 
+    @pytest.mark.parametrize("impl", ["auto", "blockwise"])
+    def test_registry_attention_width_one_layer(self, impl):
+        # the served attention: q, k, v split off one qkv projection as
+        # views, 4 heads of 32, L = 80, heads merged without a copy
+        kw = dict(vocab_size=90, d_model=128, num_heads=4, num_layers=1,
+                  max_len=128)
+        _compare(kw, B=3, L=80, atol=1e-5, impl=impl)
+
     @pytest.mark.parametrize("seed", [0, 1])
     def test_single_layer_and_short_sequence(self, seed):
         _compare(dict(SMALL, num_layers=1), B=2, L=5, atol=1e-5, seed=seed)
