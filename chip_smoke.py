@@ -25,7 +25,26 @@ Phases, one or more lines of output each:
    (1, 2, 4, 8, 16, 32) buckets, 512 requests from 8 closed-loop workers
    with dataset windows as inputs. Fails unless every request completed
    with no error and the kernel was launched on that path; then checks
-   served answers against one-row forwards and against the plain CPU path.
+   served answers against one-row forwards and against the plain CPU path,
+   and runs one row alone and in a batch of 32, op by op, to name the
+   first op whose answer for that row depends on the batch.
+5. train_kernel: holds K1, the fused local-SGD kernel, against its plain
+   version on the card at the canonical SEA shape (M=4 models, C=10
+   clients, T1=11 steps, N=B=500 rows, S=5 local steps, 3->10->2 fnn) with
+   three pairs and one whole model inactive, and at F=2 (sine); times the
+   kernel (per call and on the device) and the plain version in turns;
+   then times the round's two other device steps, still plain PyTorch
+   (the masked FedAvg and the eval matrices), against their bounds.
+6. train: the port's training main path at full width, the canonical
+   ``python -m feddrift_torch run`` configuration (SEA, change points A,
+   fnn, softcluster H_A_C_1_10_0, 10 steps x 200 rounds, checkpoint every
+   step): per-step wall, rounds/s, final Test/Acc and models in use, then
+   K1's launches and the device-busy share of one profiled time step.
+   Fails unless every step ran, the checkpoint exists, K1 carried all
+   2000 rounds and Test/Acc tracks the committed reference run
+   ``runs/sea-fnn-softcluster-H_A_C_1_10_0-s0`` (each step within 0.04,
+   the 10-step mean within 0.015: across seeds 0-2 of the committed
+   ``H_A_F_1_3_0`` runs one step differs by up to 0.025, the mean by 0.003).
 
 It then prints the kernels' JSON line, the card line and, last, the result
 line. Any failed phase exits non-zero before the result line. It imports
@@ -54,6 +73,18 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # the kernel's route: TF32 tensor cores (495 TFLOP/s dense), three TF32
 # products per float32 product to keep float32 accuracy
 TC_3XTF32_FLOPS_PER_S = 495e12 / 3
+# |K1 - plain| on params, mu and losses: float32 gradient sums over 500
+# rows in another order, five AMSGrad steps of lr = 0.01; nu and nu_max
+# (squares of gradients) at a relative 1e-4
+TRAIN_ATOL = 1e-5
+TRAIN_NU_RTOL = 1e-4
+REF_RUN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs",
+                       "sea-fnn-softcluster-H_A_C_1_10_0-s0", "metrics.jsonl")
+# that run's final Test/Acc per step, as committed
+REF_ACCS = (0.859, 0.8566, 0.8718, 0.8478, 0.8548, 0.8702, 0.8646, 0.87,
+            0.8632, 0.8626)
+STEP_ACC_TOL = 0.04
+MEAN_ACC_TOL = 0.015
 NUM_REQUESTS = 512
 CONCURRENCY = 8
 SLICE_SHAPE = (32, 4, 80, 32)  # largest bucket x heads x seq x head dim
@@ -181,7 +212,9 @@ def _ptxas_per_kernel(log: str) -> dict:
                       r"for) '?(\w+)", ln)
         if m:
             t = re.search(r"ILi(\d+)E", m.group(1))
-            name = f"D={t.group(1)}" if t else m.group(1)
+            k = re.search(r"\d+([a-z_]+_kernel)E", m.group(1))
+            name = f"D={t.group(1)}" if t else k.group(1) if k \
+                else m.group(1)
         elif name and ("registers" in ln or "spill" in ln):
             out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
     return {k: "; ".join(v) for k, v in out.items()}
@@ -378,6 +411,8 @@ def phase_serve(entry: dict) -> None:
             raise AssertionError("served answers disagree with the one-row "
                                  "forward or the plain CPU path")
 
+        _batch_variance(engine.step, gen.params, windows, cfg.num_models)
+
         # device time of one micro-batch forward per bucket (CUDA events)
         fwd = {}
         for b in SERVE_BUCKETS:
@@ -389,6 +424,26 @@ def phase_serve(entry: dict) -> None:
         _profile_forward(engine.step, gen.params, x, midx)
     finally:
         engine.close()
+
+
+def _batch_variance(step, params, windows, num_models: int) -> None:
+    """One serving forward of the same row alone (b1) and first in a batch
+    of 32, every op's output recorded: the max difference of that row per
+    op, and the first op whose row differs bitwise."""
+    import torch
+    from feddrift_torch.models import transformer
+    from feddrift_torch.obs.optrace import first_difference, record_calls
+    x = torch.from_numpy(windows[:32].copy()).cuda()
+    midx = torch.arange(32, device="cuda") % num_models
+    ops = ("embed", "layer_norm", "dense", "flash_attention")
+    with record_calls(transformer, ops) as one:
+        step.forward(params, x[:1], midx[:1])
+    with record_calls(transformer, ops) as many:
+        step.forward(params, x, midx)
+    torch.cuda.synchronize()
+    diffs, first = first_difference(one, many)
+    _say("serve_check", what="batch_variance", row=0, batches=(1, 32),
+         first_op_that_differs=first, max_abs_diff_per_op=dict(diffs))
 
 
 def _profile_forward(step, params, x, midx, reps: int = 10) -> None:
@@ -404,6 +459,289 @@ def _profile_forward(step, params, x, midx, reps: int = 10) -> None:
          kernel_launches_per_forward=sum(e.count for e in kernels) / reps,
          top_kernels_us_per_forward={
              e.key[:60]: e.self_device_time_total / reps for e in top})
+
+
+def _train_case(dataset: str, seed: int):
+    """One canonical round's K1 inputs on the card: the dataset at its
+    registry defaults, a pool of 4 distinct fnn draws, fresh optimizer
+    state, seeded time weights with pairs (0, 3), (2, 7) and all of model
+    3 inactive, and seeded batch indices."""
+    import numpy as np
+    import torch
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.data.registry import make_dataset
+    from feddrift_torch.kernels.local_sgd import init_opt_state
+    from feddrift_torch.models import create_model
+    cfg = ExperimentConfig(dataset=dataset,
+                           change_points="A" if dataset == "sea" else "W")
+    ds = make_dataset(cfg)
+    mod = create_model("fnn", ds, cfg)
+    gen = torch.Generator().manual_seed(seed)
+    M, (C, T1, N, F) = cfg.num_models, ds.x.shape
+    params = torch.stack([mod.pack(mod.init_params(gen, "cuda"))
+                          for _ in range(M)])
+    rng = np.random.default_rng(seed)
+    tw = (rng.random((M, C, T1)) < 0.5).astype(np.float32)
+    tw[:, :, -1] = 0
+    tw[0, 3] = tw[2, 7] = tw[3] = 0
+    S, B = cfg.epochs, min(cfg.batch_size, N)
+    t_idx = rng.integers(0, T1 - 1, (M, C, S)).astype(np.int32)
+    slot = rng.integers(0, N // B, (M, C, S)).astype(np.int32)
+    dev = lambda a: torch.from_numpy(a).cuda()
+    args = (dev(ds.x), dev(ds.y), params,
+            init_opt_state(M, C, mod.num_params, "cuda"), dev(t_idx),
+            dev(slot), dev(tw.sum(-1)))
+    kw = dict(hidden=mod.hidden_dim, batch_size=B, lr=cfg.lr, wd=cfg.wd)
+    return args, kw, dict(M=M, C=C, S=S, B=B, F=F, H=mod.hidden_dim,
+                          K=mod.num_classes)
+
+
+def _local_sgd_bound_ms(t_idx, slot, total_w, M: int, C: int, S: int, B: int,
+                        F: int, H: int, K: int) -> tuple[float, str]:
+    """Least time for one K1 call on the card, counting the active pairs'
+    work. Bytes: each distinct batch (client, time step, slot) that an
+    active pair draws read once (x and label rows), the pool read once, the
+    active pairs' optimizer state read and written, the client params, n
+    and loss written, the indices and weights read. Operations: the float32
+    work of the active pairs' forward, backward and AMSGrad steps."""
+    import torch
+    P = F * H + H + H * K + K
+    act = total_w > 0                                            # [M, C]
+    client = torch.arange(C, device=t_idx.device)[None, :, None]
+    batches = torch.stack([client.expand_as(t_idx), t_idx, slot], -1)[act]
+    distinct = torch.unique(batches.reshape(-1, 3), dim=0).shape[0]
+    active = int(act.sum())
+    nbytes = (distinct * B * (4 * F + 4) + M * P * 4
+              + active * 2 * (3 * P * 4 + 4) + M * C * (P * 4 + 8)
+              + M * C * (2 * S * 4 + 4))
+    flops = active * S * (B * (4 * F * H + 6 * H * K + 6 * K + 2 * H)
+                          + 14 * P)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops \
+        else (t_ops * 1e3, "operations")
+
+
+def phase_train_kernel() -> dict:
+    import torch
+    from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_ref
+    entry = None
+    for dataset, seed in (("sea", 0), ("sine", 1)):
+        args, kw, dims = _train_case(dataset, seed)
+        x, y, params, opt, t_idx, slot, total_w = args
+        fresh = lambda: {k: v.clone() for k, v in opt.items()}
+        client, k_opt, n, loss = local_sgd(x, y, params, fresh(), t_idx, slot,
+                                           total_w, **kw)
+        torch.cuda.synchronize()
+        r_client, r_opt, r_n, r_loss = local_sgd_ref(
+            x, y, params, fresh(), t_idx, slot, total_w, **kw)
+        err = max(float((client - r_client).abs().max()),
+                  float((loss - r_loss).abs().max()),
+                  float((k_opt["mu"] - r_opt["mu"]).abs().max()))
+        over = int(((client - r_client).abs() > TRAIN_ATOL).sum())
+        nu_rel = max(float(((k_opt[k] - r_opt[k]).abs()
+                            / r_opt[k].abs().clamp_min(1e-30)).max())
+                     for k in ("nu", "nu_max"))
+        inactive = total_w == 0
+        untouched = bool(torch.equal(client[inactive],
+                                     params[:, None].expand_as(client)
+                                     [inactive])
+                         and (k_opt["count"][inactive] == 0).all()
+                         and (n[inactive] == 0).all())
+        same = bool(torch.equal(n, r_n)
+                    and torch.equal(k_opt["count"], r_opt["count"]))
+        state = fresh()
+        calls = {"kernel": lambda: local_sgd(x, y, params, state, t_idx, slot,
+                                             total_w, **kw),
+                 "plain": lambda: local_sgd_ref(x, y, params, state, t_idx,
+                                                slot, total_w, **kw)}
+        ms, plain_ms = _interleaved(_time_ms, calls).values()
+        device = {name: _device_ms(f) for name, f in calls.items()}
+        active = int((total_w > 0).sum())
+        bound_ms, bound_by = _local_sgd_bound_ms(t_idx, slot, total_w,
+                                                 **dims)
+        _say("train_kernel", name="local_sgd", dataset=dataset, **dims,
+             active_pairs=active, max_abs_err=err, atol=TRAIN_ATOL,
+             coords_over_atol=over, nu_max_rel_err=nu_rel,
+             nu_rtol=TRAIN_NU_RTOL, inactive_untouched=untouched,
+             n_and_count_equal=same, kernel_ms=ms, plain_ms=plain_ms,
+             kernel_device_ms=device["kernel"],
+             plain_device_ms=device["plain"], bound_ms=bound_ms,
+             bound_by=bound_by, kernel_vs_bound=(device["kernel"] or ms)
+             / bound_ms)
+        if not (err <= TRAIN_ATOL and nu_rel <= TRAIN_NU_RTOL and untouched
+                and same):
+            raise AssertionError(f"local_sgd on {dataset}: |kernel - plain| "
+                                 f"{err} (atol {TRAIN_ATOL}), nu rel "
+                                 f"{nu_rel}, inactive untouched {untouched}, "
+                                 f"n/count equal {same}")
+        if dataset == "sea":
+            entry = {"name": "local_sgd", "route": "cuda",
+                     "source": "feddrift_torch/kernels/csrc/local_sgd.cu",
+                     "replaces": "feddrift_tpu/core/step.py:225",
+                     "launches": None, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None,
+                     "device_ms": device["kernel"]}
+    return entry
+
+
+def phase_train_plain() -> None:
+    """The two other device steps of a round, plain PyTorch on the card for
+    now (K2: the masked FedAvg; K3: the eval matrices), at the canonical
+    shapes: per call and device time against the bound of each."""
+    import torch
+    from feddrift_torch.kernels.local_sgd import local_sgd
+    from feddrift_torch.models.mlp import FeedForwardNN
+    from feddrift_torch.resilience.robust_agg import agg_mean
+    from feddrift_torch.core.step import TrainStep
+    args, kw, d = _train_case("sea", 0)
+    x, y, params, opt, t_idx, slot, total_w = args
+    client, _, n, _ = local_sgd(*args, **kw)
+    M, C, P = client.shape
+    N = x.shape[2]
+    step = TrainStep(FeedForwardNN((d["F"],), d["K"], d["H"]), d["B"],
+                     d["S"], d["K"])
+    tree = step.module.unpack(params)
+    calls = {
+        "masked_fedavg": (lambda: agg_mean(client, n, params),
+                          4 * (M * C * P + M * C + 2 * M * P + 3 * M), 3 * M
+                          * C * P),
+        "acc_matrix": (lambda: step.acc_matrix(tree, x[:, 0], y[:, 0]),
+                       4 * (C * N * (d["F"] + 1) + M * P + 2 * M * C),
+                       M * C * N * (2 * d["F"] * d["H"] + 2 * d["H"]
+                                    * d["K"] + 6 * d["K"])),
+        "acc_cells": (lambda: step.acc_cells(tree, x, y),
+                      4 * (x.numel() + y.numel() + M * P
+                           + M * C * x.shape[1]),
+                      M * x.numel() // d["F"] * (2 * d["F"] * d["H"]
+                                                 + 2 * d["H"] * d["K"]))}
+    for name, (fn, nbytes, flops) in calls.items():
+        ms = _time_ms(fn)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        _say("train_plain", name=name, ms=ms, device_ms=_device_ms(fn),
+             launches_per_call=_launches(fn),
+             bound_ms=max(t_bytes, t_ops) * 1e3,
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _launches(fn, reps: int = 5) -> float:
+    kernels, _ = _profile(fn, reps)
+    return sum(e.count for e in kernels) / reps
+
+
+def _reference_accs() -> list[float]:
+    """Final Test/Acc of each step of the committed reference run. Refuses
+    a file that holds more than one run (its rounds do not rise strictly:
+    ``python -m feddrift_torch run`` with the default ``--out_dir`` appends
+    to this very file) or whose values are not the committed ones."""
+    final, rounds = {}, []
+    with open(REF_RUN) as f:
+        for line in f:
+            rec = json.loads(line)
+            rounds.append(rec["round"])
+            final[rec["iteration"]] = rec["Test/Acc"]
+    accs = [final[t] for t in sorted(final)]
+    if rounds != sorted(set(rounds)) or accs != list(REF_ACCS):
+        raise AssertionError(f"{REF_RUN} is not the committed reference run "
+                             f"(one run, final Test/Acc {REF_ACCS}); got "
+                             f"rounds {rounds} and final Test/Acc {accs}")
+    return accs
+
+
+def phase_train(entry: dict) -> None:
+    import collections
+    import tempfile
+
+    import torch
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.core import step as step_mod
+    from feddrift_torch.kernels.local_sgd import local_sgd
+    from feddrift_torch.simulation.runner import Experiment
+    from feddrift_torch.utils.prng import iteration_seed
+    cfg = ExperimentConfig()
+    ref = _reference_accs()
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        exp = Experiment(cfg, out_dir=out_dir)
+        setup_s = time.perf_counter() - t0
+        # calls of the plain K2 / K3 steps during the run, counted by name
+        counts = collections.Counter()
+
+        def counted(name, fn):
+            def inner(*a, **k):
+                counts[name] += 1
+                return fn(*a, **k)
+            return inner
+        plain = {"agg_mean": step_mod.agg_mean}
+        step_mod.agg_mean = counted("masked_fedavg", plain["agg_mean"])
+        exp.step._acc_matrix_body = counted("acc_matrix",
+                                            exp.step._acc_matrix_body)
+        exp.step.acc_cells = counted("acc_cells", exp.step.acc_cells)
+        local_sgd.launches = 0
+        try:
+            t0 = time.perf_counter()
+            exp.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            step_mod.agg_mean = plain["agg_mean"]
+            del exp.step._acc_matrix_body, exp.step.acc_cells
+        launches = local_sgd.launches
+        ckpt = os.path.isfile(os.path.join(out_dir, "ckpt", "MANIFEST.json"))
+        ends = exp.events.events("iteration_end")
+        models = [e["num_models"] for e in exp.events.events("cluster_state")]
+        final = {}
+        for rec in exp.logger.history:
+            final[rec["iteration"]] = rec["Test/Acc"]
+        accs = [final[t] for t in sorted(final)]
+        for t, e in enumerate(ends):
+            _say("train_step", iteration=t, wall_s=e["wall_s"],
+                 rounds_per_s=e["rounds_per_s"], test_acc=accs[t],
+                 reference_test_acc=ref[t], models_in_use=models[t])
+        entry["launches"] = launches
+        # one more time step under the profiler: where its wall goes
+        R, freq = cfg.comm_round, cfg.frequency_of_the_test
+        T = cfg.train_iterations
+        params = exp.pool.params
+        opt = exp.step.init_opt_states(params, exp.pool.num_models, exp.C_)
+        tw = exp.algo.round_inputs(T - 1, 0)[0]
+        exp.step.generator.manual_seed(iteration_seed(cfg.seed, T - 1))
+        kernels, prof_us = _profile(
+            lambda: exp.step.train_iteration_eval(
+                params, {k: v.clone() for k, v in opt.items()}, exp.x, exp.y,
+                tw, 1.0, R, freq, T - 1), 1)
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        mean_acc = sum(accs) / len(accs)
+        ref_mean = sum(ref) / len(ref)
+        diffs = [a - b for a, b in zip(accs, ref)]
+        _say("train", dataset=cfg.dataset, model=cfg.model,
+             algo=cfg.concept_drift_algo, algo_arg=cfg.concept_drift_algo_arg,
+             steps=len(ends), rounds=exp.global_round, setup_s=setup_s,
+             wall_s=wall, local_sgd_launches=launches,
+             plain_calls=dict(counts), checkpoint=ckpt,
+             test_acc_mean=mean_acc, reference_mean=ref_mean,
+             max_step_diff=max(map(abs, diffs)),
+             profiled_step_wall_ms=prof_us / 1e3,
+             profiled_step_device_busy_ms=busy_us / 1e3,
+             device_busy_share=busy_us / prof_us if busy_us
+             else "not measured",
+             kernel_launches_per_round=sum(e.count for e in kernels) / R,
+             top_kernels_us_per_round={e.key[:60]: e.self_device_time_total / R
+                                       for e in top})
+        want = cfg.train_iterations * cfg.comm_round
+        if len(ends) != cfg.train_iterations or len(accs) != len(ref):
+            raise AssertionError(f"{len(ends)} of {cfg.train_iterations} "
+                                 f"steps ran")
+        if not ckpt:
+            raise AssertionError("no checkpoint was written")
+        if launches != want:
+            raise AssertionError(f"local_sgd launched {launches} times for "
+                                 f"{want} rounds")
+        if max(map(abs, diffs)) > STEP_ACC_TOL \
+                or abs(mean_acc - ref_mean) > MEAN_ACC_TOL:
+            raise AssertionError(f"Test/Acc per step {accs} against the "
+                                 f"reference {ref}")
 
 
 def main() -> int:
@@ -427,11 +765,14 @@ def main() -> int:
         phase_build()
         entry = phase_kernel()
         phase_serve(entry)
+        train_entry = phase_train_kernel()
+        phase_train_plain()
+        phase_train(train_entry)
     except Exception:   # noqa: BLE001 — report the phase that failed
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, train_entry]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,35 +3,90 @@
 A copy of the subset of ``feddrift_tpu/config.py::ExperimentConfig`` that
 the port uses so far, with the same names and defaults, so one set of
 keyword arguments builds the same experiment in both packages. Fields are
-added here as later slices need them.
+added here as later slices need them. The port runs the dense mode only:
+population cohorts, host-streamed data and the multi-step megastep are
+refused with ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass
+from typing import Any
+
+# Default drift-detection deltas per dataset (reference tables at
+# FedAvgEnsDataLoader.py:1274 (softcluster), :455 (mmacc) and :274
+# (driftsurf)).
+DEFAULT_DELTAS = {"sea": 0.04, "sine": 0.20, "circle": 0.10, "MNIST": 0.10}
+DRIFTSURF_DELTAS = {"sea": 0.02, "sine": 0.10, "circle": 0.05}
 
 
 @dataclass
 class ExperimentConfig:
+    # --- model & dataset
     model: str = "fnn"
     dataset: str = "sea"
     data_dir: str = "./data"
     client_num_in_total: int = 10
+    client_num_per_round: int = 10
+    batch_size: int = 500
+    fnn_hidden_dim: int = 10
+    chunk_rounds: bool = True          # all rounds of a step in one loop
+    megastep_k: int = 1                # > 1 not ported
+
+    # --- optimization (`epochs` = local SGD steps per round)
+    client_optimizer: str = "adam"     # optax amsgrad after weight decay
+    lr: float = 0.01
+    wd: float = 0.001
+    epochs: int = 5
+    comm_round: int = 200
+    frequency_of_the_test: int = 5
+
+    # --- drift simulation
     train_iterations: int = 10         # number of simulated time steps T
     sample_num: int = 500              # samples per client per time step
     concept_drift_algo: str = "softcluster"
+    concept_drift_algo_arg: str = "H_A_C_1_10_0"
     concept_num: int = 4               # model-pool size M (and #concepts)
     drift_together: int = 0
     change_points: str = "A"           # preset name, 'rand', or matrix literal
     time_stretch: int = 1
     noise_prob: float = 0.0
     ensemble_window: int = 3           # AUE window (sets num_models for aue)
+    report_client: int = 1
     text_seq_len: int = 80             # char-dataset sequence length
+
+    # --- reproducibility, execution, output
     seed: int = 0
+    stream_data: bool = False          # True not ported
+    population_size: int = 0           # > 0 not ported
+    out_dir: str = "./runs"
+    checkpoint_every_iteration: bool = True
 
     def __post_init__(self) -> None:
+        if self.client_num_per_round > self.client_num_in_total:
+            raise ValueError("client_num_per_round > client_num_in_total")
         if self.time_stretch < 1:
             raise ValueError("time_stretch must be >= 1")
+        for name, off in (("population_size", 0), ("stream_data", False),
+                          ("megastep_k", 1)):
+            if getattr(self, name) != off:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r}: the port runs the dense "
+                    f"per-iteration path only (ROADMAP items 11-12)")
+
+    @property
+    def device_clients(self) -> int:
+        """Size of the client axis the device sees: every client (dense
+        mode, the only mode ported)."""
+        return self.client_num_in_total
+
+    @property
+    def base_dataset(self) -> str:
+        """Dataset name with task-family suffixes stripped (the key of the
+        per-dataset delta tables)."""
+        return self.dataset.removesuffix("-smooth")
 
     @property
     def num_models(self) -> int:
@@ -44,3 +99,62 @@ class ExperimentConfig:
                                        "oblivious", "window"):
             return 1
         return self.concept_num
+
+    def algo_params(self) -> dict[str, Any]:
+        """Parse ``concept_drift_algo_arg`` as the reference does.
+
+        FedDrift:   "H_{distance}_{cluster}_{W}_{100*delta}_{100*delta'}"
+        CFL:        "cfl_{gamma}_{win-1|all}"
+        mmacc:      "mmacc_{100*delta}"
+        softmax:    "softmax_{alpha}"
+        ada:        "{win-1|all}_{round|iter}"
+        driftsurf:  "{100*delta}"
+        """
+        arg = self.concept_drift_algo_arg
+        out: dict[str, Any] = {"raw": arg}
+        if self.concept_drift_algo == "driftsurf":
+            delta = 0.01 * float(arg) if arg and arg.replace(".", "").isdigit() \
+                else 0.0
+            if delta == 0:
+                delta = DRIFTSURF_DELTAS.get(self.base_dataset, 0.1)
+            out.update(kind="driftsurf", delta=delta)
+            return out
+        if self.concept_drift_algo == "ada":
+            parts = arg.split("_")
+            out.update(kind="ada",
+                       ada_retrain=parts[0] if parts[0] in ("win-1", "all")
+                       else "win-1",
+                       ada_update=parts[1] if len(parts) > 1 else "round")
+            return out
+        if "mmacc" in arg:
+            delta = 0.01 * float(arg.split("_")[-1])
+            if delta == 0:
+                delta = DEFAULT_DELTAS.get(self.base_dataset, 0.1)
+            out.update(kind="mmacc", mmacc_delta=delta)
+        elif "softmax" in arg:
+            out.update(kind="softmax", softmax_alpha=int(arg.split("_")[-1]))
+        elif arg == "geni":
+            out.update(kind="geni")
+        elif arg.startswith("H"):
+            parts = arg.split("_")
+            h_delta = 0.01 * float(parts[4])
+            if h_delta == 0:
+                h_delta = DEFAULT_DELTAS.get(self.base_dataset, 0.1)
+            h_deltap = 0.01 * float(parts[5])
+            if h_deltap == 0:
+                h_deltap = h_delta
+            out.update(kind="hierarchical", h_distance=parts[1],
+                       h_cluster=parts[2], h_w=int(parts[3]),
+                       h_delta=h_delta, h_deltap=h_deltap)
+        elif "cfl" in arg:
+            parts = arg.split("_")
+            out.update(kind="cfl", cfl_gamma=float(parts[1]),
+                       cfl_retrain=parts[2])
+        elif arg in ("hard", "hard-r"):
+            out.update(kind=arg)
+        else:
+            out.update(kind=arg or "none")
+        return out
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)

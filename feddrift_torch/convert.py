@@ -6,7 +6,8 @@ port's flat dict keyed by the flax path: ``{"block_0": {"Dense_0":
 {"kernel": a}}}`` becomes ``{"block_0/Dense_0/kernel": tensor(a)}``. The
 port keeps flax's layouts (Dense kernels ``[in, out]``, embeddings
 ``[n, E]``), so no leaf is transposed. A stacked pool tree (leading
-``[M]`` axis on every leaf) converts the same way.
+``[M]`` axis on every leaf) converts the same way; ``pool_from_jax`` turns
+a whole JAX ``ModelPool`` into the port's, given the port's module.
 """
 
 from __future__ import annotations
@@ -27,3 +28,13 @@ def params_from_jax(tree: Mapping, device: str | torch.device = "cuda",
         else:
             out[path] = torch.from_numpy(np.array(value, copy=True)).to(device)
     return out
+
+
+def pool_from_jax(jax_pool, module, device: str | torch.device = "cuda"):
+    """The port's ``ModelPool`` holding a JAX pool's params and its reinit
+    target (``init_params``), for the port's counterpart ``module``."""
+    from feddrift_torch.core.pool import ModelPool
+    return ModelPool(module=module,
+                     params=params_from_jax(jax_pool.params, device),
+                     init_params=params_from_jax(jax_pool.init_params, device),
+                     num_models=jax_pool.num_models)

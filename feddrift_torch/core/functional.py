@@ -1,0 +1,23 @@
+"""Numerical primitives: loss and selection over parameter dicts.
+
+Counterparts of ``feddrift_tpu/core/functional.py::cross_entropy`` and
+``tree_select``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy over every leading axis (the reference's
+    ``nn.CrossEntropyLoss``)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels.long().unsqueeze(-1)).mean()
+
+
+def tree_select(cond: torch.Tensor | bool, a: dict, b: dict) -> dict:
+    """Leaf-wise ``where(cond, a, b)`` over two dicts of tensors; ``cond``
+    is a scalar (a Python bool or a 0-d tensor)."""
+    return {k: torch.where(torch.as_tensor(cond, device=a[k].device), a[k],
+                           b[k]) for k in a}

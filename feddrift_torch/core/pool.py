@@ -5,7 +5,10 @@ Counterpart of ``feddrift_tpu/core/pool.py::ModelPool``. Each leaf of
 model out and ``set_slot`` writes one back. The module is functional
 (``feddrift_torch.models.transformer``): it takes per-row parameters, so
 ``apply`` broadcasts one model's leaves over the batch rows and
-``apply_rows`` takes rows already gathered (the serving step's path).
+``apply_rows`` takes rows already gathered (the serving step's path). The
+edits a training algorithm makes (``reinit_slot``, ``distinct_reinit_slot``,
+``copy_slot``, ``merge_slots``) rebuild the dict, as the reference rebinds
+its pytree.
 """
 
 from __future__ import annotations
@@ -75,3 +78,36 @@ class ModelPool:
         with torch.no_grad():
             for k, p in self.params.items():
                 p[m].copy_(new_params[k])
+
+    # The pool edits a training algorithm makes. Each builds a NEW params
+    # dict, as the reference rebinds its pytree: a cache keyed on the
+    # identity of ``params`` (DriftAlgorithm.offer_acc_matrix) must miss
+    # after any of them, and nobody holding the old dict sees it change.
+    def _with_slot(self, m: int, values: dict[str, torch.Tensor]) -> None:
+        new = {k: p.clone() for k, p in self.params.items()}
+        with torch.no_grad():
+            for k, p in new.items():
+                p[m] = values[k]
+        self.params = new
+
+    def reinit_slot(self, m: int) -> None:
+        """Deterministic reinit: the stored ``init_params`` (reference
+        reinitialize, model/utils.py:20-24)."""
+        self._with_slot(m, self.init_params)
+
+    def distinct_reinit_slot(self, m: int, seed: int) -> None:
+        """Fresh random params from ``seed`` (IFCA symmetry breaking)."""
+        gen = torch.Generator().manual_seed(seed)
+        self._with_slot(m, self.module.init_params(gen, self.device))
+
+    def copy_slot(self, dst: int, src: int) -> None:
+        """dst := src (LRU reuse starts from the drifted client's model)."""
+        self._with_slot(dst, self.slot(src))
+
+    def merge_slots(self, base: int, second: int, w1: float,
+                    w2: float) -> None:
+        """base := w1*base + w2*second; second := deterministic reinit
+        (FedDrift merge, FedAvgEnsDataLoader.py:1059-1066)."""
+        self._with_slot(base, {k: w1 * p[base] + w2 * p[second]
+                               for k, p in self.params.items()})
+        self.reinit_slot(second)

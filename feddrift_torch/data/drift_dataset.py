@@ -36,5 +36,18 @@ class DriftDataset:
         assert self.concepts.shape[0] == self.x.shape[1]
 
     @property
+    def num_clients(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def num_steps(self) -> int:
+        """Number of *training* time steps T (last array slot is test-only)."""
+        return self.x.shape[1] - 1
+
+    @property
+    def samples_per_step(self) -> int:
+        return self.x.shape[2]
+
+    @property
     def feature_shape(self) -> tuple[int, ...]:
         return self.x.shape[3:]

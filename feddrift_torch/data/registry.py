@@ -1,8 +1,10 @@
 """Dataset registry of the port: ``make_dataset(cfg)``.
 
-Mirrors ``feddrift_tpu/data/registry.py``. Only the character datasets of
-the transformer serving slice are ported so far (``shakespeare`` and its
-alias ``fed_shakespeare``); any other name raises ``KeyError``.
+Mirrors ``feddrift_tpu/data/registry.py``. Ported so far: the synthetic
+tabular datasets of the training slice (``sea``, ``sine``, ``circle``, their
+numpy path) and the character datasets of the transformer serving slice
+(``shakespeare`` and its alias ``fed_shakespeare``); any other name raises
+``KeyError``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 from feddrift_torch.config import ExperimentConfig
 from feddrift_torch.data import changepoints as cp
 from feddrift_torch.data.drift_dataset import DriftDataset
+from feddrift_torch.data.synthetic import generate_synthetic
 from feddrift_torch.data.text import generate_text_drift
 
 _REGISTRY: dict[str, Callable[..., DriftDataset]] = {}
@@ -38,6 +41,15 @@ def _resolve_change_points(cfg: ExperimentConfig) -> np.ndarray:
             cfg.train_iterations, cfg.client_num_in_total, cfg.drift_together,
             cfg.time_stretch, seed=cfg.seed)
     return cp.load_change_points(cfg.change_points)
+
+
+for _name in ("sea", "sine", "circle"):
+    @register_dataset(_name)
+    def _mk(cfg: ExperimentConfig, change_points: np.ndarray, *,
+            _n=_name) -> DriftDataset:
+        return generate_synthetic(
+            _n, change_points, cfg.train_iterations, cfg.client_num_in_total,
+            cfg.sample_num, cfg.noise_prob, cfg.time_stretch, cfg.seed)
 
 
 @register_dataset("shakespeare", "fed_shakespeare")

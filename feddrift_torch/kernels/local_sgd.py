@@ -1,0 +1,196 @@
+"""Fused local SGD of one round (K1): the CUDA kernel's wrapper and its
+plain version.
+
+Counterpart of ``feddrift_tpu/core/step.py::TrainStep._local_sgd`` under
+``_round_body``'s double vmap, with ``make_optimizer("adam")``'s
+``add_decayed_weights`` + optax AMSGrad. The kernel is ``csrc/local_sgd.cu``;
+its source notes what bounds it and its design. It trains the fnn
+(dense -> relu -> dense) of every (model, client) pair for S local steps in
+one launch.
+
+Shapes (float32 unless noted): ``x [C, T1, N, F]``, ``y [C, T1, N]`` int32,
+``params [M, P]`` (the fnn's leaves packed in ``FeedForwardNN.param_specs``
+order, P = F·H + H + H·K + K), the optimizer state ``{"mu", "nu", "nu_max":
+[M, C, P], "count": [M, C] int32}``, the batch draws ``t_idx, slot [M, C,
+S]`` int32 and ``total_w [M, C]``. Returns the client params ``[M, C, P]``
+(a new buffer), the optimizer state, ``n [M, C]`` (``total_w·N``, 0 for an
+inactive pair) and the mean loss over the S steps ``[M, C]``.
+
+``local_sgd`` launches the kernel for CUDA tensors and updates the optimizer
+state IN PLACE (the dict it returns is the one it was given); for CPU
+tensors it runs ``local_sgd_ref``, which returns a new state. There is no
+fallback for a CUDA tensor: the kernel launches or the call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import struct
+
+import torch
+
+from feddrift_torch.kernels.build import library
+
+B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.amsgrad defaults
+MAX_BLOCKS = 2 ** 31 - 1
+# csrc/local_sgd.cu's kErrSmem: the shape needs more shared memory per block
+# than the kernel may take (the size and the limit live in that file only)
+_ERR_SMEM = -1
+
+
+def init_opt_state(M: int, C: int, P: int,
+                   device: str | torch.device) -> dict[str, torch.Tensor]:
+    """Fresh AMSGrad state of every pair (optax's init: zeros, count 0)."""
+    return {"mu": torch.zeros(M, C, P, device=device),
+            "nu": torch.zeros(M, C, P, device=device),
+            "nu_max": torch.zeros(M, C, P, device=device),
+            "count": torch.zeros(M, C, dtype=torch.int32, device=device)}
+
+
+def _unpack(p: torch.Tensor, F: int, H: int, K: int):
+    o1, o2, o3 = F * H, F * H + H, F * H + H + H * K
+    return (p[..., :o1].unflatten(-1, (F, H)), p[..., o1:o2],
+            p[..., o2:o3].unflatten(-1, (H, K)), p[..., o3:])
+
+
+def amsgrad_step(p, grad, mu, nu, nu_max, count, *, lr: float, wd: float,
+                 lr_scale: float = 1.0):
+    """One step of optax.chain(add_decayed_weights(wd), amsgrad(lr)) and the
+    reference's lr_scale; ``count [...]`` has p's shape without the last
+    axis. Returns ``(p, mu, nu, nu_max, count)``."""
+    g = grad + wd * p
+    mu = (1 - B1) * g + B1 * mu
+    nu = (1 - B2) * (g * g) + B2 * nu
+    count = torch.where(count < torch.iinfo(torch.int32).max, count + 1, count)
+    c = count.float()[..., None]
+    nu_max = torch.maximum(nu_max, nu / (1 - B2 ** c))
+    u = (mu / (1 - B1 ** c)) / (torch.sqrt(nu_max) + EPS)
+    return p + (-lr * u) * lr_scale, mu, nu, nu_max, count
+
+
+def local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w, *,
+                  hidden: int, batch_size: int, lr: float, wd: float,
+                  lr_scale: float = 1.0):
+    """The plain version: the S steps batched over ``[M, C]`` with autograd
+    for the gradient; returns a new optimizer state."""
+    C, T1, N, F = x.shape
+    M, P = params.shape
+    S, B, H = t_idx.shape[-1], batch_size, hidden
+    K = (P - F * H - H) // (H + 1)
+    rows = (t_idx.long() * N + slot.long() * B)[..., None] \
+        + torch.arange(B, device=x.device)                    # [M, C, S, B]
+    cidx = torch.arange(C, device=x.device)[None, :, None, None]
+    xb = x.reshape(C, T1 * N, F)[cidx, rows]                  # [M, C, S, B, F]
+    yb = y.reshape(C, T1 * N)[cidx, rows].long()              # [M, C, S, B]
+    p = params[:, None].expand(M, C, P)
+    mu, nu, vmax = opt_state["mu"], opt_state["nu"], opt_state["nu_max"]
+    count = opt_state["count"]
+    losses = []
+    for s in range(S):
+        with torch.enable_grad():
+            pg = p.detach().requires_grad_(True)
+            w0, b0, w1, b1 = _unpack(pg, F, H, K)
+            h = torch.relu(xb[:, :, s] @ w0 + b0.unsqueeze(-2))
+            logp = torch.log_softmax(h @ w1 + b1.unsqueeze(-2), dim=-1)
+            loss = -logp.gather(-1, yb[:, :, s, :, None])[..., 0].mean(-1)
+            grad, = torch.autograd.grad(loss.sum(), pg)
+        losses.append(loss.detach())
+        p, mu, nu, vmax, count = amsgrad_step(p, grad, mu, nu, vmax, count,
+                                              lr=lr, wd=wd, lr_scale=lr_scale)
+    active = total_w > 0
+    a = active[..., None]
+    new_state = {"mu": torch.where(a, mu, opt_state["mu"]),
+                 "nu": torch.where(a, nu, opt_state["nu"]),
+                 "nu_max": torch.where(a, vmax, opt_state["nu_max"]),
+                 "count": torch.where(active, count, opt_state["count"])}
+    client = torch.where(a, p, params[:, None])
+    n = torch.where(active, total_w * N, torch.zeros_like(total_w))
+    return client, new_state, n, torch.stack(losses, -1).mean(-1)
+
+
+# csrc/local_sgd.cu's Params: 13 pointers; M, C, T1, N, F, H, K, B, S,
+# device; -lr, wd, lr_scale, b1, b2, 1 - b1, 1 - b2, eps
+_PARAMS = struct.Struct("=13Q10i8f")
+
+
+@functools.cache
+def _kernel():
+    """The C entry point, its ctypes signature set once at first load."""
+    fn = library("local_sgd").local_sgd_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    return fn
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
+           index: int) -> None:
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f"{name}: want {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if not t.is_cuda or t.get_device() != index:
+        raise ValueError(f"{name} must lie on cuda:{index} with x")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
+              batch_size: int, lr: float, wd: float, lr_scale: float = 1.0):
+    """S local AMSGrad steps of every (model, client) pair: through the CUDA
+    kernel for CUDA tensors (optimizer state updated in place), through
+    ``local_sgd_ref`` for CPU tensors."""
+    kw = dict(hidden=hidden, batch_size=batch_size, lr=lr, wd=wd,
+              lr_scale=lr_scale)
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"local_sgd runs on cuda or cpu, not "
+                             f"{x.device.type}")
+        return local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w,
+                             **kw)
+    if x.dim() != 4 or params.dim() != 2 or t_idx.dim() != 3:
+        raise ValueError("local_sgd takes x [C, T1, N, F], params [M, P] and "
+                         "t_idx [M, C, S]")
+    C, T1, N, F = x.shape
+    M, P = params.shape
+    S, H, B = t_idx.shape[-1], hidden, batch_size
+    K, rest = divmod(P - F * H - H, H + 1)
+    if K < 1 or rest or not 1 <= B <= N:
+        raise ValueError(f"P={P} is not a {F}->{H}->K fnn, or batch {B} is "
+                         f"outside [1, N={N}]")
+    if M * C > MAX_BLOCKS:
+        raise ValueError(f"M*C={M * C} blocks exceed {MAX_BLOCKS}")
+    index = x.get_device()
+    i32, f32 = torch.int32, torch.float32
+    for name, t, shape, dt in (
+            ("x", x, (C, T1, N, F), f32), ("y", y, (C, T1, N), i32),
+            ("params", params, (M, P), f32),
+            ("mu", opt_state["mu"], (M, C, P), f32),
+            ("nu", opt_state["nu"], (M, C, P), f32),
+            ("nu_max", opt_state["nu_max"], (M, C, P), f32),
+            ("count", opt_state["count"], (M, C), i32),
+            ("t_idx", t_idx, (M, C, S), i32), ("slot", slot, (M, C, S), i32),
+            ("total_w", total_w, (M, C), f32)):
+        _check(name, t, shape, dt, index)
+    client = torch.empty((M, C, P), dtype=f32, device=x.device)
+    n = torch.empty((M, C), dtype=f32, device=x.device)
+    loss = torch.empty((M, C), dtype=f32, device=x.device)
+    err = _kernel()(_PARAMS.pack(
+        x.data_ptr(), y.data_ptr(), params.data_ptr(),
+        opt_state["mu"].data_ptr(), opt_state["nu"].data_ptr(),
+        opt_state["nu_max"].data_ptr(), opt_state["count"].data_ptr(),
+        t_idx.data_ptr(), slot.data_ptr(), total_w.data_ptr(),
+        client.data_ptr(), n.data_ptr(), loss.data_ptr(),
+        M, C, T1, N, F, H, K, B, S, index,
+        -lr, wd, lr_scale, B1, B2, 1 - B1, 1 - B2, EPS),
+        torch._C._cuda_getCurrentRawStream(index))
+    if err == _ERR_SMEM:
+        raise ValueError(f"F={F}, H={H}, K={K}, B={B} need more shared "
+                         f"memory per block than the kernel may take "
+                         f"(csrc/local_sgd.cu states the size and limit)")
+    if err != 0:
+        raise RuntimeError(f"local_sgd_f32 launch failed: cudaError {err}")
+    local_sgd.launches += 1
+    return client, opt_state, n, loss
+
+
+local_sgd.launches = 0

@@ -20,20 +20,17 @@ not ported.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from feddrift_torch.kernels.flash_attention import flash_attention
+from feddrift_torch.models.base import Functional as _Functional
+from feddrift_torch.models.base import Params
 from feddrift_torch.parallel.ring_attention import blockwise_attention
 
 ATTENTION_IMPLS = ("auto", "flash", "blockwise")
 LN_EPS = 1e-6                       # flax LayerNorm default
-_TRUNC_STD = 0.87962566103423978    # std of N(0, 1) truncated to (-2, 2)
-
-Params = dict[str, torch.Tensor]
 
 
 def _scope(params: Params, prefix: str) -> Params:
@@ -67,35 +64,6 @@ def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return torch.where(valid[..., None], out,
                        torch.full((), float("nan"), dtype=out.dtype,
                                   device=out.device))
-
-
-def _init_leaf(kind: str, shape: tuple[int, ...],
-               gen: torch.Generator) -> torch.Tensor:
-    if kind == "zeros":
-        return torch.zeros(shape)
-    if kind == "ones":
-        return torch.ones(shape)
-    if kind == "lecun_normal":      # flax Dense kernel, fan_in = shape[0]
-        std = math.sqrt(1.0 / shape[0]) / _TRUNC_STD
-        return nn.init.trunc_normal_(torch.empty(shape), 0.0, std,
-                                     -2.0 * std, 2.0 * std, generator=gen)
-    if kind == "embed":             # flax default_embed_init, fan_in = E
-        return torch.randn(shape, generator=gen) * math.sqrt(1.0 / shape[1])
-    raise ValueError(kind)
-
-
-class _Functional(nn.Module):
-    """A module whose parameters live outside it, in a flat dict."""
-
-    def param_specs(self) -> dict[str, tuple[tuple[int, ...], str]]:
-        raise NotImplementedError
-
-    def init_params(self, generator: torch.Generator,
-                    device: str | torch.device = "cuda") -> Params:
-        """One model's parameters (no row axis), flax's distributions,
-        drawn on the CPU from ``generator`` and moved to ``device``."""
-        return {name: _init_leaf(kind, shape, generator).to(device)
-                for name, (shape, kind) in self.param_specs().items()}
 
 
 class MultiHeadAttention(_Functional):

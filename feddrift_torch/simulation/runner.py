@@ -1,0 +1,268 @@
+"""The experiment runner: the whole time x round loop in one process.
+
+Counterpart of ``feddrift_tpu/simulation/runner.py::Experiment`` on the main
+path (dense clients, float32, no fault injection, the fused
+``chunk_rounds`` loop):
+
+    for t in time steps:
+        algo.begin_iteration(t)           # clustering / drift detection
+        fresh per-(m, c) optimizer states
+        TrainStep.train_iteration_eval    # R rounds: K1 + masked FedAvg,
+                                          # evals every freq rounds + last
+        algo.after_round, offer_acc_matrix, eval logging
+        algo.end_iteration(t), checkpoint
+
+``Experiment(cfg, out_dir=None, device="cuda")`` runs on the card unless the
+caller passes ``device="cpu"``. Not ported: the per-round path (algorithms
+that are not chunkable), ensembles, the megastep, population cohorts,
+streamed data, fault/byzantine injection and the divergence guard, and the
+alert/SLO/incident/ops planes.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from feddrift_torch import obs
+from feddrift_torch.algorithms import make_algorithm
+from feddrift_torch.config import ExperimentConfig
+from feddrift_torch.core.pool import ModelPool
+from feddrift_torch.core.step import TrainStep
+from feddrift_torch.data.registry import make_dataset
+from feddrift_torch.models import create_model
+from feddrift_torch.utils.device import resolve_device
+from feddrift_torch.utils.metrics import MetricsLogger
+from feddrift_torch.utils.prng import iteration_seed
+
+log = logging.getLogger("feddrift_torch")
+
+
+class Experiment:
+    """The state and steps of one configured run."""
+
+    def __init__(self, cfg: ExperimentConfig, out_dir: Optional[str] = None,
+                 device: str | torch.device = "cuda") -> None:
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.ds = make_dataset(cfg)
+        self.module = create_model(cfg.model, self.ds, cfg)
+        self.pool = ModelPool.create(
+            self.module, torch.from_numpy(self.ds.x[0, 0, :2]),
+            cfg.num_models, seed=cfg.seed + 42, device=self.device)
+        self.step = TrainStep.create(cfg, self.module, self.ds.num_classes,
+                                     device=self.device)
+        self.x = torch.from_numpy(self.ds.x).to(self.device)
+        self.y = torch.from_numpy(self.ds.y).to(self.device)
+        self.algo = make_algorithm(cfg, self.ds, self.pool, self.step)
+        self.logger = MetricsLogger(out_dir)
+        self.events = obs.configure(
+            os.path.join(out_dir, "events.jsonl") if out_dir else None)
+        self.algo.bind(self.x, self.y, self.logger)
+        self.global_round = 0
+        self.start_iteration = 0
+        self.out_dir = out_dir
+        # per-iteration wall segments (device_compute, eval, drift_decision,
+        # writeback); the rest of the wall is the dispatch gap
+        self._segs: dict[str, float] = {}
+        self.last_round_breakdown: "dict | None" = None
+        concepts = self.ds.concepts
+        self.events.emit(
+            "run_start", dataset=cfg.dataset, model=cfg.model,
+            algo=cfg.concept_drift_algo, algo_arg=cfg.concept_drift_algo_arg,
+            clients=self.C_, num_models=self.pool.num_models,
+            comm_round=cfg.comm_round, train_iterations=cfg.train_iterations,
+            backend=self.device.type, precision="f32", seed=cfg.seed,
+            concept_matrix=concepts[:, : self.C_].tolist()
+            if concepts[:, : self.C_].size <= 20000 else None)
+
+    @property
+    def C_(self) -> int:
+        return self.cfg.device_clients
+
+    def _seg_add(self, name: str, dt: float) -> None:
+        self._segs[name] = self._segs.get(name, 0.0) + dt
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    def evaluate(self, t: int, round_idx: int) -> dict:
+        """Reference ``test_on_all_clients``: each client's train accuracy
+        on step t with its plurality model, and test accuracy on step t+1
+        (temporal holdout), from two fresh ``acc_matrix`` calls."""
+        fetched = [
+            [v.cpu().numpy() for v in self.step.acc_matrix(
+                self.pool.params, self.x[:, s], self.y[:, s])]
+            for s in (t, t + 1)]
+        (correct, loss_sum, total), (corr_te, loss_te, _) = fetched
+        C = self.C_
+        return self._log_eval(t, correct[:, :C], loss_sum[:, :C],
+                              corr_te[:, :C], loss_te[:, :C], total[:C])
+
+    def _log_eval(self, t: int, correct, loss_sum, corr_te, loss_te,
+                  total) -> dict:
+        """Log one eval point from host-side [M, C] / [C] matrices."""
+        tidx = self.algo.train_model_idx(t)
+        idx = self.algo.test_model_idx(t)
+        cr = np.arange(self.C_)
+        return self._log_metrics(t, idx, correct[tidx, cr], loss_sum[tidx, cr],
+                                 total, corr_te[idx, cr], loss_te[idx, cr],
+                                 total)
+
+    def _log_metrics(self, t: int, idx, train_correct, train_loss, total,
+                     tcorrect, tloss, ttotal) -> dict:
+        """The reference's metric schema from per-client vectors."""
+        tot = max(float(np.asarray(total).sum()), 1.0)
+        ttot = max(float(np.asarray(ttotal).sum()), 1.0)
+        metrics = {
+            "round": self.global_round,
+            "iteration": t,
+            "Train/Acc": float(train_correct.sum() / tot),
+            "Train/Loss": float(train_loss.sum() / tot),
+            "Test/Acc": float(tcorrect.sum() / ttot),
+            "Test/Loss": float(tloss.sum() / ttot),
+        }
+        if self.cfg.report_client:
+            for c in range(self.C_):
+                metrics[f"Train/Acc-CL-{c}"] = float(train_correct[c] / total[c])
+                metrics[f"Test/Acc-CL-{c}"] = float(tcorrect[c] / ttotal[c])
+                metrics[f"Plurality/CL-{c}"] = int(idx[c])
+        self.logger.log(metrics)
+        self.events.emit("eval", round=self.global_round,
+                         test_acc=metrics["Test/Acc"],
+                         train_acc=metrics["Train/Acc"],
+                         test_loss=metrics["Test/Loss"])
+        return metrics
+
+    # ------------------------------------------------------------------
+    def run_iteration(self, t: int) -> None:
+        cfg = self.cfg
+        t0 = time.time()
+        self._segs = {}
+        self.events.set_context(iteration=t, round=self.global_round)
+        self.events.emit("iteration_start")
+        d0 = time.perf_counter()
+        self.algo.begin_iteration(t)
+        self._seg_add("drift_decision", time.perf_counter() - d0)
+        opt_states = self.step.init_opt_states(
+            self.pool.params, self.pool.num_models, self.C_)
+        if not (cfg.chunk_rounds and self.algo.chunkable(t)
+                and self.algo.ensemble_spec(t) is None):
+            raise NotImplementedError(
+                "the per-round path (chunk_rounds off, per-round algorithms, "
+                "ensembles) is not ported; the port runs the fused loop")
+        self._run_iteration_fused(t, opt_states)
+        d0 = time.perf_counter()
+        self.algo.end_iteration(t)
+        self._seg_add("drift_decision", time.perf_counter() - d0)
+        if cfg.checkpoint_every_iteration and self.out_dir:
+            w0 = time.perf_counter()
+            self.save_checkpoint(t)
+            self._seg_add("writeback", time.perf_counter() - w0)
+            self.events.emit("checkpoint_save", path=self.ckpt_path())
+        wall = time.time() - t0
+        log.info("iteration %d done in %.1fs (Test/Acc=%.4f)", t, wall,
+                 self.logger.last("Test/Acc", -1))
+        B = min(cfg.batch_size, self.ds.samples_per_step)
+        participants = min(cfg.client_num_per_round, self.C_)
+        examples = cfg.comm_round * cfg.epochs * B * participants
+        self.events.emit(
+            "iteration_end", wall_s=round(wall, 4), rounds=cfg.comm_round,
+            examples=examples,
+            examples_per_s=round(examples / max(wall, 1e-9), 1),
+            rounds_per_s=round(cfg.comm_round / max(wall, 1e-9), 3),
+            test_acc=self.logger.last("Test/Acc"))
+        gap = max(wall - sum(self._segs.values()), 0.0)
+        dev = self._segs.get("device_compute", 0.0)
+        segments = {k: round(v, 6) for k, v in sorted(self._segs.items())}
+        segments["dispatch_gap"] = round(gap, 6)
+        self.last_round_breakdown = {
+            "iteration": t, "wall_s": round(wall, 6),
+            "rounds": cfg.comm_round, "segments": segments,
+            "dispatch_gap_s": round(gap, 6),
+            "host_overhead_frac": round(
+                min(max(1.0 - dev / max(wall, 1e-9), 0.0), 1.0), 6)}
+        self.events.emit("round_breakdown", **self.last_round_breakdown)
+        obs.registry().quantile_sketch("round_wall_seconds_q").observe(
+            wall / max(cfg.comm_round, 1))
+
+    def _run_iteration_fused(self, t: int, opt_states) -> None:
+        """ALL rounds of the time step and every scheduled eval in one
+        ``TrainStep.train_iteration_eval`` call, then one bulk fetch of the
+        eval buffers. The step's generator is seeded from (seed, t), so a
+        resumed run draws what a continuous one draws."""
+        cfg = self.cfg
+        R, freq = cfg.comm_round, cfg.frequency_of_the_test
+        tw, _sw, _fm, lr_scale = self.algo.round_inputs(t, 0)
+        g0 = self.global_round
+        self.step.generator.manual_seed(iteration_seed(cfg.seed, t))
+        c0 = time.perf_counter()
+        new_params, opt_states, n, losses, bufs, total, _stats = \
+            self.step.train_iteration_eval(
+                self.pool.params, opt_states, self.x, self.y, tw, lr_scale,
+                R, freq, t)
+        self._sync()
+        # host enqueue and device work of the R rounds: the loop enqueues
+        # faster than the card drains only if the card is the bottleneck
+        self._seg_add("device_compute", time.perf_counter() - c0)
+        self.pool.params = self.algo.after_round(t, R - 1, None, new_params,
+                                                 None, n)
+        e0 = time.perf_counter()
+        C = self.C_
+        corr_tr, loss_tr, corr_te, loss_te = (b.cpu().numpy() for b in bufs)
+        total = total.cpu().numpy()
+        for slot, r in enumerate(self.step.eval_rounds(R, freq)):
+            self.global_round = g0 + r
+            self._log_eval(t, corr_tr[slot][:, :C], loss_tr[slot][:, :C],
+                           corr_te[slot][:, :C], loss_te[slot][:, :C],
+                           total[:C])
+        self._seg_add("eval", time.perf_counter() - e0)
+        self.global_round = g0 + R
+        # the final eval slot holds acc(final params) on steps t and t+1:
+        # the next cluster phase reads them instead of recomputing
+        tot = np.maximum(total[None, :C], 1)
+        self.algo.offer_acc_matrix(new_params,
+                                   {t: corr_tr[-1][:, :C] / tot,
+                                    t + 1: corr_te[-1][:, :C] / tot})
+
+    # ------------------------------------------------------------------
+    def run(self) -> MetricsLogger:
+        with self.logger, self.events:
+            for t in range(self.start_iteration, self.cfg.train_iterations):
+                self.run_iteration(t)
+            self.events.emit("run_end", global_round=self.global_round,
+                             test_acc=self.logger.last("Test/Acc"),
+                             preempted=False)
+        return self.logger
+
+    def ckpt_path(self) -> str:
+        return os.path.join(self.out_dir or self.cfg.out_dir, "ckpt")
+
+    def save_checkpoint(self, completed_iteration: int) -> None:
+        from feddrift_torch.utils.checkpoint import save_checkpoint
+        save_checkpoint(
+            self.ckpt_path(), config_json=self.cfg.to_json(),
+            iteration=completed_iteration, global_round=self.global_round,
+            pool_params=self.pool.params, algo_state=self.algo.state_dict())
+
+    @classmethod
+    def resume(cls, cfg: ExperimentConfig, out_dir: str,
+               device: str | torch.device = "cuda") -> "Experiment":
+        """Rebuild an Experiment and continue after the last completed
+        iteration recorded in ``out_dir``'s checkpoint."""
+        from feddrift_torch.utils.checkpoint import load_checkpoint
+        exp = cls(cfg, out_dir=out_dir, device=device)
+        state = load_checkpoint(os.path.join(out_dir, "ckpt"), exp.device)
+        exp.pool.params = state["pool_params"]
+        exp.algo.load_state_dict(state["algo_state"])
+        exp.global_round = state["global_round"]
+        exp.start_iteration = state["iteration"] + 1
+        exp.logger.truncate_from(exp.start_iteration)
+        return exp

@@ -1,0 +1,176 @@
+"""Tests of the port that need the CUDA card (``gpu`` marker); they skip
+without one. They import nothing of JAX, so they run on the card with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_card.py
+
+- K1 (``kernels/csrc/local_sgd.cu``) against its plain version
+  ``local_sgd_ref`` at the canonical SEA shape (M=4, C=10, T1=11, N=B=500,
+  S=5, F=3, H=10, K=2) and at F=2 (sine, circle), some pairs inactive.
+  Tolerance: params, mu and losses at atol 1e-5 (float32 sums over 500 rows
+  in another order, five AMSGrad steps of lr = 0.01); nu and nu_max at
+  rtol 1e-4 (squares of gradients). Inactive pairs come back bitwise equal
+  to what went in.
+- ``local_sgd.launches`` advances by one per round, and a canonical
+  ``Experiment`` on the card takes every round through K1.
+- Where a served row's answer depends on its batch: one serving forward at
+  b1 and at b32 with the same row, op by op.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from feddrift_torch.kernels.local_sgd import (init_opt_state, local_sgd,
+                                              local_sgd_ref)
+
+ATOL = 1e-5
+NU_RTOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(F, M=4, C=10, T1=11, N=500, B=500, S=5, H=10, K=2, seed=0):
+    """Seeded inputs of one round; pairs (0, 3), (2, 7) and all of model 3
+    inactive; optimizer state part-way through a step (count 15)."""
+    rng = np.random.default_rng(seed)
+    P = F * H + H + H * K + K
+    x = rng.uniform(0, 10, (C, T1, N, F)).astype(np.float32)
+    y = (x[..., -1] + x[..., 0] > 10).astype(np.int32)
+    params = (rng.standard_normal((M, P)) * 0.3).astype(np.float32)
+    opt = {"mu": rng.standard_normal((M, C, P)).astype(np.float32) * 1e-2,
+           "nu": rng.random((M, C, P)).astype(np.float32) * 1e-3,
+           "count": np.full((M, C), 15, np.int32)}
+    opt["nu_max"] = opt["nu"] * 1.5
+    tw = (rng.random((M, C, T1)) < 0.5).astype(np.float32)
+    tw[:, :, -1] = 0
+    if M == 4 and C == 10:
+        tw[0, 3] = tw[2, 7] = tw[3] = 0
+    t_idx = rng.integers(0, T1 - 1, (M, C, S)).astype(np.int32)
+    slot = rng.integers(0, N // B, (M, C, S)).astype(np.int32)
+    return (x, y, params, opt, t_idx, slot, tw.sum(-1)), dict(
+        hidden=H, batch_size=B, lr=0.01, wd=0.001)
+
+
+def _to(dev, args):
+    x, y, params, opt, t_idx, slot, total_w = args
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (t(x), t(y), t(params), {k: t(v) for k, v in opt.items()},
+            t(t_idx), t(slot), t(total_w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [3, 2])
+def test_local_sgd_kernel_matches_plain(cuda, F):
+    args, kw = _case(F)
+    k_args, r_args = _to(cuda, args), _to(cuda, args)
+    before = local_sgd.launches
+    client, opt, n, loss = local_sgd(*k_args, **kw)
+    torch.cuda.synchronize()
+    assert local_sgd.launches == before + 1
+    assert opt is k_args[3]                     # updated in place
+    r_client, r_opt, r_n, r_loss = local_sgd_ref(*r_args, **kw)
+    torch.testing.assert_close(client, r_client, atol=ATOL, rtol=0)
+    torch.testing.assert_close(loss, r_loss, atol=ATOL, rtol=0)
+    assert torch.equal(n, r_n)
+    torch.testing.assert_close(opt["mu"], r_opt["mu"], atol=ATOL, rtol=0)
+    for k in ("nu", "nu_max"):
+        torch.testing.assert_close(opt[k], r_opt[k], atol=1e-9, rtol=NU_RTOL)
+    assert torch.equal(opt["count"], r_opt["count"])
+    # inactive pairs: outputs bitwise equal to the inputs
+    fresh = _to(cuda, args)
+    for m, c in ((0, 3), (2, 7), (3, 0), (3, 9)):
+        assert torch.equal(client[m, c], fresh[2][m])
+        for key in ("mu", "nu", "nu_max", "count"):
+            assert torch.equal(opt[key][m, c], fresh[3][key][m, c])
+        assert n[m, c] == 0 and loss[m, c] > 0
+    assert int(opt["count"][1, 1]) == 20
+
+
+@pytest.mark.gpu
+def test_local_sgd_refuses_what_it_cannot_take(cuda):
+    args, kw = _case(3, M=1, C=1, T1=2, N=6000, B=6000)
+    a = _to(cuda, args)
+    before = local_sgd.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        local_sgd(*a, **kw)                # 283 KB > 227 KB a block
+    assert local_sgd.launches == before    # refused without a launch
+    args, kw = _case(3, M=1, C=2, T1=3, N=40, B=40)
+    a = _to(cuda, args)
+    with pytest.raises(ValueError, match="not a 3->7->K fnn"):
+        local_sgd(*a, **{**kw, "hidden": 7})
+    with pytest.raises(ValueError, match="y: want torch.int32"):
+        local_sgd(a[0], a[1].long(), *a[2:], **kw)
+
+
+@pytest.mark.gpu
+def test_launches_one_per_round(cuda):
+    from feddrift_torch.core.step import TrainStep
+    from feddrift_torch.models.mlp import FeedForwardNN
+    mod = FeedForwardNN((3,), 2, 10)
+    step = TrainStep(mod, 500, 5, 2, device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    params = mod.unpack(torch.stack([mod.pack(mod.init_params(gen, cuda))
+                                     for _ in range(4)]))
+    (x, y, *_), _ = _case(3)
+    x, y = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    tw = torch.ones(4, 10, 11, device=cuda)
+    tw[..., -1] = 0
+    step.generator.manual_seed(1)
+    before = local_sgd.launches
+    step.train_round(params, step.init_opt_states(params, 4, 10), x, y, tw)
+    assert local_sgd.launches == before + 1
+    out = step.train_iteration_eval(params, step.init_opt_states(params, 4, 10),
+                                    x, y, tw, 1.0, 12, 5, 3)
+    torch.cuda.synchronize()
+    assert local_sgd.launches == before + 13
+    assert all(b.shape == (4, 4, 10) for b in out[4])
+
+
+@pytest.mark.gpu
+def test_experiment_rounds_go_through_the_kernel(cuda, tmp_path):
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.simulation.runner import Experiment
+    cfg = ExperimentConfig(train_iterations=2, comm_round=20)
+    exp = Experiment(cfg, out_dir=str(tmp_path))
+    before = local_sgd.launches
+    exp.run()
+    assert local_sgd.launches == before + 40
+    accs = [r["Test/Acc"] for r in exp.logger.history]
+    assert len(accs) == 2 * 5 and all(0.0 <= a <= 1.0 for a in accs)
+    assert accs[-1] > 0.7
+    assert (tmp_path / "ckpt" / "MANIFEST.json").is_file()
+
+
+@pytest.mark.gpu
+def test_served_row_batch_variance_located(cuda):
+    """Row 0 served alone (b1) and in a batch of 32: the first op whose row
+    output differs bitwise is printed, with the max difference per op."""
+    from feddrift_torch.core.step import ForwardStep
+    from feddrift_torch.core.pool import ModelPool
+    from feddrift_torch.models import transformer
+    from feddrift_torch.obs.optrace import first_difference, record_calls
+    model = transformer.TransformerLM(vocab_size=90, max_len=128)
+    pool = ModelPool.create(model, None, 4, seed=0, identical=False,
+                            device=cuda)
+    step = ForwardStep(apply_rows=pool.apply_rows)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 90, (32, 80))).to(cuda)
+    midx = torch.from_numpy(rng.integers(0, 4, 32)).to(cuda)
+    ops = ("embed", "layer_norm", "dense", "flash_attention")
+    with record_calls(transformer, ops) as one:
+        out1 = step.forward(pool.params, x[:1], midx[:1])
+    with record_calls(transformer, ops) as many:
+        out32 = step.forward(pool.params, x, midx)
+    diffs, first = first_difference(one, many)
+    print("batch-variance per op:", diffs, "first:", first)
+    assert len(diffs) == 2 + 2 * 7 + 2
+    torch.testing.assert_close(out1[0], out32[0], atol=ATOL, rtol=0)
+    # the flash kernel computes each (b, h) alone: it is never where a
+    # row's answer starts to depend on its batch
+    assert first is None or "flash_attention" not in first

@@ -17,10 +17,10 @@ def _both(tmp_path, **kw):
     from feddrift_tpu.config import ExperimentConfig as JaxConfig
     from feddrift_tpu.data.registry import make_dataset as jax_make
     kw.setdefault("data_dir", str(tmp_path))
-    # the reference also checks the per-round cohort, which the port lacks
-    per_round = min(10, kw.get("client_num_in_total", 10))
-    return torch_make(TorchConfig(**kw)), jax_make(
-        JaxConfig(client_num_per_round=per_round, **kw))
+    # both configs check the per-round cohort against the client count
+    kw.setdefault("client_num_per_round",
+                  min(10, kw.get("client_num_in_total", 10)))
+    return torch_make(TorchConfig(**kw)), jax_make(JaxConfig(**kw))
 
 
 @pytest.mark.parametrize("kw", [
@@ -78,8 +78,8 @@ def test_presets_are_copies():
 
 
 def test_errors(tmp_path):
-    with pytest.raises(KeyError):
-        torch_make(TorchConfig(dataset="sea"))
+    with pytest.raises(KeyError):             # not ported yet
+        torch_make(TorchConfig(dataset="MNIST"))
     with pytest.raises(FileNotFoundError):
         torch_make(TorchConfig(dataset="shakespeare", change_points="nope",
                                data_dir=str(tmp_path)))

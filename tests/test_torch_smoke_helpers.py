@@ -1,0 +1,65 @@
+"""The pure helpers of ``chip_smoke.py`` on the CPU: the reference run it
+holds the training against, and K1's bound from the round's own draws."""
+
+import json
+import shutil
+
+import pytest
+import torch
+
+import chip_smoke
+
+
+def test_reference_run_is_the_committed_one():
+    assert chip_smoke._reference_accs() == list(chip_smoke.REF_ACCS)
+
+
+@pytest.mark.parametrize("how", ["appended", "altered"])
+def test_reference_refuses_another_file(tmp_path, monkeypatch, how):
+    path = tmp_path / "metrics.jsonl"
+    shutil.copy(chip_smoke.REF_RUN, path)
+    rows = [json.loads(ln) for ln in path.read_text().splitlines()]
+    if how == "appended":       # a second run written into the same file
+        extra = [dict(r, **{"Test/Acc": 0.5}) for r in rows]
+    else:                       # one value off
+        rows[-1]["Test/Acc"] += 1e-4
+        extra = []
+    path.write_text("".join(json.dumps(r) + "\n" for r in rows + extra))
+    monkeypatch.setattr(chip_smoke, "REF_RUN", str(path))
+    with pytest.raises(AssertionError, match="not the committed reference"):
+        chip_smoke._reference_accs()
+
+
+DIMS = dict(M=2, C=3, S=4, B=500, F=3, H=10, K=2)
+
+
+def _bound(t_idx, total_w):
+    slot = torch.zeros_like(t_idx)
+    return chip_smoke._local_sgd_bound_ms(t_idx, slot, total_w, **DIMS)
+
+
+def test_local_sgd_bound_reads_each_batch_once():
+    M, C, S = DIMS["M"], DIMS["C"], DIMS["S"]
+    total_w = torch.ones(M, C)
+    same = torch.zeros(M, C, S, dtype=torch.int32)       # C distinct batches
+    apart = torch.arange(M * C * S, dtype=torch.int32).view(M, C, S) % 7
+    lo, lo_by = _bound(same, total_w)
+    hi, _ = _bound(apart, total_w)
+    # the pairs' work is the same, so only the batch bytes differ
+    assert lo_by == "operations" and hi >= lo
+    P = 3 * 10 + 10 + 10 * 2 + 2
+    flops = M * C * S * (500 * (4 * 3 * 10 + 6 * 10 * 2 + 6 * 2 + 2 * 10)
+                         + 14 * P)
+    assert lo == pytest.approx(flops / chip_smoke.F32_FLOPS_PER_S * 1e3)
+
+
+def test_local_sgd_bound_counts_active_pairs_only():
+    M, C, S = DIMS["M"], DIMS["C"], DIMS["S"]
+    t_idx = torch.arange(M * C * S, dtype=torch.int32).view(M, C, S)
+    total_w = torch.ones(M, C)
+    full, _ = _bound(t_idx, total_w)
+    total_w[1] = 0
+    half, _ = _bound(t_idx, total_w)
+    assert half < full
+    total_w[:] = 0
+    assert _bound(t_idx, total_w)[0] < half

@@ -1,0 +1,404 @@
+"""The port's training step (K1's plain version, the round, the eval
+matrices) against the JAX ``TrainStep`` on the CPU.
+
+Both packages get the same seeded numpy data and the same parameters
+(flax's, carried across with ``params_from_jax``). The reference draws its
+batches inside the program from fold_in keys; the tests reproduce that key
+path (``split(key, M·C)`` -> ``split(k, S)`` -> ``split(k)`` into k1, k2 ->
+``categorical(k1, log(w_safe + 1e-30))``, ``randint(k2, (), 0, nb)``) and
+inject the resulting indices into the port.
+
+Tolerances: params, optimizer moments and losses at atol 2e-6 (float32;
+the two packages sum the 20-40 batch rows of a gradient in other orders,
+~1e-7 relative, and AMSGrad's steps are ~lr = 0.05 in size); nu and
+nu_max, which are squares of gradients ~1e-2, at rtol 1e-4; n exactly.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from feddrift_torch.config import ExperimentConfig
+from feddrift_torch.convert import params_from_jax
+from feddrift_torch.core.step import TrainStep
+from feddrift_torch.kernels.local_sgd import (amsgrad_step, init_opt_state,
+                                              local_sgd, local_sgd_ref)
+from feddrift_torch.models.mlp import FeedForwardNN
+from feddrift_torch.resilience.robust_agg import agg_mean
+
+M, C, T, N, B, S, H, LR, WD = 3, 4, 2, 40, 20, 4, 6, 0.05, 0.001
+ATOL = 2e-6
+NU_RTOL = 1e-4
+
+
+def _data(seed=0, F=3):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (C, T + 1, N, F)).astype(np.float32)
+    y = (x[..., 0] + 0.3 * rng.standard_normal((C, T + 1, N)) > 0.5) \
+        .astype(np.int32)
+    return x, y
+
+
+def _time_w(seed=0):
+    rng = np.random.default_rng(seed + 100)
+    tw = (rng.random((M, C, T + 1)) < 0.6).astype(np.float32)
+    tw[:, :, T] = 0.0                      # the test step never trains
+    tw[0, 0, :] = 0.0                      # inactive pairs
+    tw[2, 3, :] = 0.0
+    tw[1, 1, :T] = 1.0
+    return tw
+
+
+def _jax_setup(F=3, seed=0, num_steps=S):
+    from feddrift_tpu.core.step import TrainStep as JStep
+    from feddrift_tpu.core.step import make_optimizer
+    from feddrift_tpu.models.mlp import FeedForwardNN as JFnn
+    jm = JFnn(num_classes=2, hidden_dim=H)
+    keys = jax.random.split(jax.random.PRNGKey(seed), M)
+    params = jax.vmap(lambda k: jm.init(k, jnp.zeros((1, F)))["params"])(keys)
+    step = JStep(lambda p, x: jm.apply({"params": p}, x),
+                 make_optimizer("adam", LR, WD), B, num_steps, 2)
+    return jm, params, step
+
+
+def _module(F=3):
+    return FeedForwardNN((F,), num_classes=2, hidden_dim=H)
+
+
+def _pack(module, tree):
+    return module.pack(params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                              tree), "cpu"))
+
+
+def _jax_draws(key, time_w, num_steps=S, nb=N // B):
+    """The reference's batch indices of one round, [M, C, S] each."""
+    keys = jax.random.split(key, M * C).reshape(M, C, 2)
+
+    def pair(k, w):
+        w_safe = jnp.where(w.sum() > 0, w, jnp.ones_like(w))
+        logits = jnp.log(w_safe + 1e-30)
+
+        def one(kk):
+            k1, k2 = jax.random.split(kk)
+            return (jax.random.categorical(k1, logits),
+                    jax.random.randint(k2, (), 0, nb))
+        return jax.vmap(one)(jax.random.split(k, num_steps))
+    t_idx, slot = jax.vmap(jax.vmap(pair))(keys, jnp.asarray(time_w))
+    return (torch.from_numpy(np.array(t_idx, np.int32)),
+            torch.from_numpy(np.array(slot, np.int32)))
+
+
+def _opt_to_port(module, jopt):
+    st = jopt[1][0]
+    return {"mu": _pack(module, st.mu), "nu": _pack(module, st.nu),
+            "nu_max": _pack(module, st.nu_max),
+            "count": torch.from_numpy(np.array(st.count, np.int32))}
+
+
+def _close(a, b, atol=ATOL, rtol=0.0):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a, b, atol=atol, rtol=rtol)
+
+
+@pytest.fixture(scope="module")
+def jax_round():
+    """One reference train_round on seeded data, with its draws."""
+    x, y = _data()
+    tw = _time_w()
+    jm, jp, jstep = _jax_setup()
+    opt = jstep.init_opt_states(jp, M, C)
+    key = jax.random.PRNGKey(11)
+    out = jstep.train_round(
+        jp, opt, key, jnp.asarray(x), jnp.asarray(y), jnp.asarray(tw),
+        jnp.ones((M, C, N)), jnp.ones((M, 3)), jnp.float32(1.0),
+        with_agg_stats=True)
+    return dict(x=x, y=y, tw=tw, jp=jp, out=out, draws=_jax_draws(key, tw))
+
+
+class TestLocalSGDRef:
+    def test_matches_reference_local_sgd(self, jax_round):
+        """Client params, opt state, n and loss of every pair, inactive
+        pairs included, against _local_sgd under _round_body's vmap."""
+        r = jax_round
+        mod = _module()
+        t_idx, slot = r["draws"]
+        client, opt, n, loss = local_sgd_ref(
+            torch.from_numpy(r["x"]), torch.from_numpy(r["y"]),
+            _pack(mod, r["jp"]), init_opt_state(M, C, mod.num_params, "cpu"),
+            t_idx, slot, torch.from_numpy(r["tw"]).sum(-1), hidden=H,
+            batch_size=B, lr=LR, wd=WD)
+        _newp, jopt, jclient, jn, jloss, _stats, _ = r["out"]
+        _close(client, _pack(mod, jclient))
+        _close(n, jn, atol=0)
+        _close(loss, jloss)
+        want = _opt_to_port(mod, jopt)
+        _close(opt["mu"], want["mu"])
+        for k in ("nu", "nu_max"):
+            _close(opt[k], want[k], atol=1e-9, rtol=NU_RTOL)
+        assert torch.equal(opt["count"], want["count"])
+        # inactive pairs: untouched params and state, n = 0, loss reported
+        for m, c in ((0, 0), (2, 3)):
+            assert n[m, c] == 0 and loss[m, c] > 0
+            assert torch.equal(client[m, c], _pack(mod, r["jp"])[m])
+            assert int(opt["count"][m, c]) == 0
+
+    def test_wrapper_takes_plain_version_on_cpu(self, jax_round):
+        r = jax_round
+        mod = _module()
+        before = local_sgd.launches
+        args = (torch.from_numpy(r["x"]), torch.from_numpy(r["y"]),
+                _pack(mod, r["jp"]), init_opt_state(M, C, mod.num_params,
+                                                    "cpu"),
+                *r["draws"], torch.from_numpy(r["tw"]).sum(-1))
+        kw = dict(hidden=H, batch_size=B, lr=LR, wd=WD)
+        got = local_sgd(*args, **kw)
+        want = local_sgd_ref(*args, **kw)
+        assert local_sgd.launches == before      # no kernel on the CPU
+        for a, b in zip((got[0], got[2], got[3]), (want[0], want[2], want[3])):
+            assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("F", [2, 3])
+    def test_feature_widths(self, F):
+        """F = 2 (sine, circle) and 3 (SEA) through the reference's step."""
+        x, y = _data(3, F)
+        tw = _time_w(3)
+        jm, jp, jstep = _jax_setup(F, seed=3)
+        opt = jstep.init_opt_states(jp, M, C)
+        key = jax.random.PRNGKey(5)
+        _p, _o, jclient, jn, jloss = jstep.train_round(
+            jp, opt, key, jnp.asarray(x), jnp.asarray(y), jnp.asarray(tw),
+            jnp.ones((M, C, N)), jnp.ones((M, F)), jnp.float32(1.0))
+        mod = _module(F)
+        client, _, n, loss = local_sgd_ref(
+            torch.from_numpy(x), torch.from_numpy(y), _pack(mod, jp),
+            init_opt_state(M, C, mod.num_params, "cpu"),
+            *_jax_draws(key, tw), torch.from_numpy(tw).sum(-1), hidden=H,
+            batch_size=B, lr=LR, wd=WD)
+        _close(client, _pack(mod, jclient))
+        _close(loss, jloss)
+
+
+class TestAMSGrad:
+    def test_matches_optax_chain_over_20_steps(self):
+        from feddrift_tpu.core.step import make_optimizer
+        rng = np.random.default_rng(0)
+        p0 = rng.standard_normal(37).astype(np.float32)
+        grads = rng.standard_normal((20, 37)).astype(np.float32) \
+            * np.logspace(-4, 0, 37, dtype=np.float32)
+        opt = make_optimizer("adam", LR, WD)
+        jp, js = jnp.asarray(p0), opt.init(jnp.asarray(p0))
+        p = torch.from_numpy(p0)
+        mu, nu, vmax = (torch.zeros(37) for _ in range(3))
+        count = torch.zeros((), dtype=torch.int32)
+        for g in grads:
+            u, js = opt.update(jnp.asarray(g), js, jp)
+            jp = jp + u
+            p, mu, nu, vmax, count = amsgrad_step(
+                p, torch.from_numpy(g), mu, nu, vmax, count, lr=LR, wd=WD)
+        _close(p, jp)
+        _close(vmax, js[1][0].nu_max, atol=0, rtol=NU_RTOL)
+        assert int(count) == int(js[1][0].count) == 20
+
+    def test_max_is_of_the_corrected_nu(self):
+        """optax keeps max(nu_max, nu_hat) of the bias-corrected nu, not
+        torch.optim.Adam(amsgrad=True)'s max of the raw nu."""
+        z = torch.zeros(1)
+        _, _, nu, vmax, _ = amsgrad_step(
+            z, torch.ones(1), z, z, z, torch.zeros((), dtype=torch.int32),
+            lr=LR, wd=0.0)
+        assert float(nu) == pytest.approx(0.001, rel=1e-6)
+        # 0.001 / (1 - 0.999) in float32
+        assert float(vmax) == pytest.approx(1.0, rel=1e-4)
+
+
+class TestTrainRound:
+    def _port(self, F=3):
+        mod = _module(F)
+        return mod, TrainStep(mod, B, S, 2, lr=LR, wd=WD, device="cpu")
+
+    def test_round_matches_reference(self, jax_round):
+        r = jax_round
+        mod, step = self._port()
+        params = params_from_jax(jax.tree_util.tree_map(np.asarray, r["jp"]),
+                                 "cpu")
+        newp, _opt, client, n, losses, stats = step.train_round(
+            params, step.init_opt_states(params, M, C),
+            torch.from_numpy(r["x"]), torch.from_numpy(r["y"]),
+            torch.from_numpy(r["tw"]), draws=r["draws"], with_agg_stats=True)
+        jnewp, _, jclient, jn, jloss, jstats, _ = r["out"]
+        _close(mod.pack(newp), _pack(mod, jnewp))
+        _close(mod.pack(client), _pack(mod, jclient))
+        _close(n, jn, atol=0)
+        _close(losses, jloss)
+        _close(stats, jstats, atol=0)
+
+    def _round(self, tw, lr_scale=1.0, seed=0):
+        x, y = _data(seed)
+        mod, step = self._port()
+        params = mod.unpack(torch.stack(
+            [mod.pack(mod.init_params(torch.Generator().manual_seed(m), "cpu"))
+             for m in range(M)]))
+        step.generator.manual_seed(seed)
+        out = step.train_round(params, step.init_opt_states(params, M, C),
+                               torch.from_numpy(x), torch.from_numpy(y),
+                               torch.from_numpy(tw), lr_scale)
+        return mod, params, out
+
+    def test_unused_models_untouched(self):
+        tw = np.zeros((M, C, T + 1), np.float32)
+        tw[0, :, 0] = 1.0          # only model 0 trains
+        mod, params, (newp, _, _, n, _) = self._round(tw)
+        assert (n[0] == N).all() and (n[1:] == 0).all()
+        flat, new = mod.pack(params), mod.pack(newp)
+        assert not torch.equal(new[0], flat[0])
+        assert torch.equal(new[1:], flat[1:])
+
+    def test_zero_weight_clients_masked(self):
+        tw = np.zeros((M, C, T + 1), np.float32)
+        tw[0, :2, 0] = 1.0         # model 0: only clients 0, 1 take part
+        mod, params, (_, _, client, n, _) = self._round(tw)
+        assert (n[0, :2] == N).all() and (n[0, 2:] == 0).all()
+        flat = mod.pack(params)
+        assert torch.equal(mod.pack(client)[0, 2], flat[0])
+        assert torch.equal(mod.pack(client)[0, 3], flat[0])
+
+    def test_aggregation_is_weighted_mean(self):
+        tw = np.zeros((M, C, T + 1), np.float32)
+        tw[0, 0, :2] = 1.0         # client 0 on steps 0 and 1 (n = 2N)
+        tw[0, 1, 0] = 1.0          # client 1 on step 0 (n = N)
+        mod, _, (newp, _, client, n, _) = self._round(tw, seed=1)
+        assert n[0, 0] == 2 * N and n[0, 1] == N
+        cp = mod.pack(client)
+        manual = (cp[0, 0] * 2 * N + cp[0, 1] * N) / (3 * N)
+        _close(mod.pack(newp)[0], manual, atol=1e-6)
+
+    def test_lr_scale_zero_freezes(self):
+        tw = np.ones((M, C, T + 1), np.float32)
+        mod, params, (newp, *_) = self._round(tw, lr_scale=0.0)
+        assert torch.equal(mod.pack(newp), mod.pack(params))
+
+    def test_same_generator_seed_same_round(self):
+        tw = np.ones((M, C, T + 1), np.float32)
+        mod, _, a = self._round(tw, seed=4)
+        _, _, b = self._round(tw, seed=4)
+        assert torch.equal(mod.pack(a[0]), mod.pack(b[0]))
+
+    def test_draws_follow_the_weights(self):
+        _, step = self._port()
+        tw = torch.zeros(M, C, T + 1)
+        tw[:, :, 1] = 1.0
+        tw[0, 0] = 0.0             # inactive pair: uniform over T1
+        step.generator.manual_seed(0)
+        t_idx, slot = step.draw_batches(tw, 50, N)
+        assert t_idx.shape == slot.shape == (50, M, C, S)
+        assert t_idx.dtype == slot.dtype == torch.int32
+        assert (t_idx[:, 1:] == 1).all() and (t_idx[:, 0, 1:] == 1).all()
+        assert set(t_idx[:, 0, 0].flatten().tolist()) == {0, 1, 2}
+        assert set(slot.flatten().tolist()) == {0, 1}
+
+
+class TestAggregation:
+    @pytest.mark.parametrize("seed", [2, 3, 4])
+    def test_mean_matches_reference(self, seed):
+        from feddrift_tpu.resilience import robust_agg as jagg
+        rng = np.random.default_rng(seed)
+        cp = rng.standard_normal((M, C, 7)).astype(np.float32)
+        prev = rng.standard_normal((M, 7)).astype(np.float32)
+        n = (rng.random((M, C)) * 80).astype(np.float32)
+        n[1] = 0.0                  # a cluster with no active client
+        n[2, :2] = 0.0
+        got, stats = agg_mean(torch.from_numpy(cp), torch.from_numpy(n),
+                              torch.from_numpy(prev))
+        want, wstats = jagg.aggregate("mean", jnp.asarray(cp), jnp.asarray(n),
+                                      jnp.asarray(prev), None,
+                                      jagg.RobustAggConfig())
+        _close(got, want, atol=1e-6)
+        assert torch.equal(got[1], torch.from_numpy(prev)[1])
+        _close(stats, wstats, atol=0)
+        assert stats[:, 0].tolist() == [C, 0, C - 2]
+
+
+class TestEval:
+    def _both(self, seed=0):
+        x, y = _data(seed)
+        jm, jp, jstep = _jax_setup(seed=seed)
+        mod = _module()
+        step = TrainStep(mod, B, S, 2, device="cpu")
+        params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+        return x, y, jm, jp, jstep, mod, step, params
+
+    def test_acc_matrix_matches_reference_and_manual(self):
+        x, y, jm, jp, jstep, mod, step, params = self._both()
+        correct, loss_sum, total = step.acc_matrix(
+            params, torch.from_numpy(x[:, 0]), torch.from_numpy(y[:, 0]))
+        jc, jl, jt = jstep.acc_matrix(jp, jnp.asarray(x[:, 0]),
+                                      jnp.asarray(y[:, 0]), jnp.ones((M, 3)))
+        assert correct.dtype == torch.int32
+        assert np.array_equal(correct.numpy(), np.asarray(jc))
+        _close(loss_sum, jl, atol=1e-4)           # sums of 40 f32 NLLs
+        assert np.array_equal(total.numpy(), np.asarray(jt))
+        one = {k: v[1] for k, v in params.items()}
+        logits = mod(one, torch.from_numpy(x[2, 0]))
+        manual = int((logits.argmax(-1) == torch.from_numpy(y[2, 0])).sum())
+        assert int(correct[1, 2]) == manual
+
+    def test_acc_cells_matches_reference(self):
+        x, y, jm, jp, jstep, mod, step, params = self._both(1)
+        cells = step.acc_cells(params, torch.from_numpy(x), torch.from_numpy(y))
+        want = jstep.acc_cells(jp, jnp.asarray(x), jnp.asarray(y),
+                               jnp.ones((M, 3)))
+        assert cells.shape == (M, C, T + 1) and cells.dtype == torch.int32
+        assert np.array_equal(cells.numpy(), np.asarray(want))
+
+
+class TestIterationEval:
+    def test_fused_iteration_matches_reference(self):
+        """R rounds + the eval buffers of train_iteration_eval, with the
+        reference's fold_in(iter_key, r) draws injected round by round."""
+        R, freq, t = 7, 3, 1
+        x, y = _data(5)
+        tw = _time_w(5)
+        jm, jp, jstep = _jax_setup(seed=5)
+        jp = jax.tree_util.tree_map(np.asarray, jp)   # the call donates its
+        it_key = jax.random.PRNGKey(21)               # params buffers
+        jout = jstep.train_iteration_eval(
+            jax.tree_util.tree_map(jnp.asarray, jp),
+            jstep.init_opt_states(jp, M, C), it_key, jnp.asarray(x),
+            jnp.asarray(y), jnp.asarray(tw), jnp.ones((M, C, N)),
+            jnp.ones((M, 3)), jnp.float32(1.0), R, freq, jnp.int32(t),
+            with_agg_stats=True)
+        draws = [_jax_draws(jax.random.fold_in(it_key, r), tw)
+                 for r in range(R)]
+        draws = tuple(torch.stack([d[i] for d in draws]) for i in (0, 1))
+        mod = _module()
+        step = TrainStep(mod, B, S, 2, lr=LR, wd=WD, device="cpu")
+        params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+        out = step.train_iteration_eval(
+            params, step.init_opt_states(params, M, C), torch.from_numpy(x),
+            torch.from_numpy(y), torch.from_numpy(tw), 1.0, R, freq, t,
+            draws=draws)
+        newp, _, n, losses, bufs, total, stats = out
+        jp2, _, jn, jl, jbufs, jtot, jstats = jout
+        assert step.eval_rounds(R, freq) == [0, 3, 6]
+        _close(mod.pack(newp), _pack(mod, jp2), atol=1e-5)   # 7 rounds
+        _close(n, jn, atol=0)
+        _close(losses, jl, atol=1e-5)
+        for got, want in zip(bufs, jbufs):
+            assert got.shape == (3, M, C)
+            if got.dtype == torch.int32:
+                assert np.abs(got.numpy() - np.asarray(want)).max() <= 1
+            else:
+                _close(got, want, atol=1e-3)
+        assert np.array_equal(total.numpy(), np.asarray(jtot))
+        _close(stats, jstats, atol=0)
+
+
+def test_step_refuses_what_the_kernel_does_not_train():
+    with pytest.raises(NotImplementedError):
+        TrainStep(_module(), B, S, 2, optimizer="sgd", device="cpu")
+    cfg = ExperimentConfig()
+    with pytest.raises(NotImplementedError):
+        TrainStep.create(cfg, torch.nn.Identity(), 2, device="cpu")
