@@ -8,9 +8,10 @@ Phases, one or more lines of output each:
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as ``nvidia-smi`` reports them.
 2. build: compiles every CUDA source of ``feddrift_torch/kernels/csrc``
-   with nvcc (sm_90a) and prints the build seconds, ptxas' registers and
-   spills per kernel, and the count of tensor-core (``HMMA``) instructions
-   in the flash library's SASS (``cuobjdump``; "not measured" without it).
+   with nvcc (sm_90a, one process a source, all at once) and prints the
+   build seconds, ptxas' registers and spills per kernel of every source,
+   and the count of tensor-core (``HMMA``) instructions in the flash
+   library's SASS (``cuobjdump``; "not measured" without it).
 3. kernel: holds the flash-attention kernel against its plain PyTorch
    version on the card at the serving shape and the mean served
    micro-batch (q, k, v split off one qkv projection, as the transformer
@@ -18,28 +19,38 @@ Phases, one or more lines of output each:
    error at long sequences; it times the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only; the port never
    calls it): per call, on the device, and the host's enqueue alone (host
-   times in turns, five rounds, medians).
+   times in turns, five rounds, medians). Then the per-row Dense kernel
+   (``dense_rows``) at the five Dense shapes of the served transformer at
+   b32 and b8: against its plain version, a row bitwise equal to its b1
+   call, and its times beside ``torch.bmm``'s (``torch.baddbmm`` where the
+   layer has a bias) and the bound.
 4. serve: the port's main path at full registry width. The ``shakespeare``
    dataset at its defaults, a pool of 4 distinct ``transformer`` models,
    10 clients spread over them, ``InferenceEngine`` with the
    (1, 2, 4, 8, 16, 32) buckets, 512 requests from 8 closed-loop workers
    with dataset windows as inputs. Fails unless every request completed
-   with no error and the kernel was launched on that path; then checks
-   served answers against one-row forwards and against the plain CPU path,
-   and runs one row alone and in a batch of 32, op by op, to name the
-   first op whose answer for that row depends on the batch.
-5. train_kernel: holds K1, the fused local-SGD kernel, against its plain
-   version on the card at the canonical SEA shape (M=4 models, C=10
-   clients, T1=11 steps, N=B=500 rows, S=5 local steps, 3->10->2 fnn) with
-   three pairs and one whole model inactive, and at F=2 (sine); times the
-   kernel (per call and on the device) and the plain version in turns;
-   then times the round's two other device steps, still plain PyTorch
-   (the masked FedAvg and the eval matrices), against their bounds.
+   with no error and both kernels were launched on that path (2 flash and
+   9 Dense launches a micro-batch); then checks served answers against
+   one-row forwards (bitwise) and against the plain CPU path, and runs one
+   row alone and in a batch of 32, op by op: it fails if any op's answer
+   for that row depends on the batch.
+5. train_kernel: holds K1, the local-SGD kernel, against its plain version
+   on the card through both of its kernels: the fused one at the canonical
+   SEA shape (M=4 models, C=10 clients, T1=11 steps, N=B=500 rows, S=5
+   local steps, 3->10->2 fnn) with three pairs and one whole model
+   inactive and at F=2 (sine), the general one at the SEA shape (forced:
+   the kernel of the first design, timed in the same run) and at H=32;
+   two calls of each must agree bitwise. It times each (per call and on
+   the device, and the device time per local step) and the plain version
+   in turns; then times the round's two other device steps, still plain
+   PyTorch (the masked FedAvg and the eval matrices), against their
+   bounds.
 6. train: the port's training main path at full width, the canonical
    ``python -m feddrift_torch run`` configuration (SEA, change points A,
    fnn, softcluster H_A_C_1_10_0, 10 steps x 200 rounds, checkpoint every
    step): per-step wall, rounds/s, final Test/Acc and models in use, then
-   K1's launches and the device-busy share of one profiled time step.
+   K1's launches (through the fused kernel) and the device-busy share of
+   one profiled time step.
    Fails unless every step ran, the checkpoint exists, K1 carried all
    2000 rounds and Test/Acc tracks the committed reference run
    ``runs/sea-fnn-softcluster-H_A_C_1_10_0-s0`` (each step within 0.04,
@@ -87,6 +98,10 @@ STEP_ACC_TOL = 0.04
 MEAN_ACC_TOL = 0.015
 NUM_REQUESTS = 512
 CONCURRENCY = 8
+# K1's device time at the canonical shape as recorded for its first design
+# (PERF.md's kernel table, NVIDIA H100 80GB HBM3, 700 W), printed beside
+# this run's
+K1_FIRST_DESIGN_DEVICE_MS = 0.08191
 SLICE_SHAPE = (32, 4, 80, 32)  # largest bucket x heads x seq x head dim
 # (shape, causal, layout): "qkv" gives q, k, v as the transformer does,
 # [B, H, L, D] views split off one [B, L, 3E] projection; "contiguous"
@@ -96,6 +111,14 @@ SHAPES = ((SLICE_SHAPE, True, "qkv"),
           ((2, 2, 100, 8), False, "contiguous"),
           ((4, 8, 2048, 64), True, "contiguous"),
           ((1, 2, 8192, 64), True, "contiguous"))   # the error at long L
+# the served transformer's Dense layers: (layer, L, in, out, bias); the
+# lm_head sees the last position only
+DENSE_SHAPES = (("qkv", 80, 128, 384, False), ("proj", 80, 128, 128, False),
+                ("Dense_0", 80, 128, 512, True),
+                ("Dense_1", 80, 512, 128, True),
+                ("lm_head", 1, 128, 90, True))
+DENSE_BATCHES = (32, 8)        # the largest bucket and the mean micro-batch
+DENSE_ENTRY = ("Dense_0", 32)  # the kernels line's representative call
 
 
 def _say(phase: str, **fields) -> None:
@@ -205,16 +228,17 @@ def phase_device() -> str:
 
 def _ptxas_per_kernel(log: str) -> dict:
     """ptxas' registers and spills for each compiled kernel, keyed by the
-    kernel's template arguments (``D=32``) or its name."""
+    kernel's name and template arguments (``flash_fwd_kernel<32>``)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", ln)
         if m:
-            t = re.search(r"ILi(\d+)E", m.group(1))
-            k = re.search(r"\d+([a-z_]+_kernel)E", m.group(1))
-            name = f"D={t.group(1)}" if t else k.group(1) if k \
-                else m.group(1)
+            k = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?",
+                          m.group(1))
+            ints = re.findall(r"Li(\d+)E", k.group(2) or "") if k else []
+            name = (k.group(1) + (f"<{','.join(ints)}>" if ints else "")) \
+                if k else m.group(1)
         elif name and ("registers" in ln or "spill" in ln):
             out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
     return {k: "; ".join(v) for k, v in out.items()}
@@ -311,7 +335,80 @@ def phase_kernel() -> dict:
     return entry
 
 
-def phase_serve(entry: dict) -> None:
+def _dense_bound_ms(B: int, L: int, n_in: int, n_out: int,
+                    bias: bool) -> tuple[float, str]:
+    """Least time for one per-row Dense on the card: x, the per-row weights
+    (and bias) read once and y written once over HBM, against its
+    multiply-adds (and bias adds) at the float32 rate."""
+    nbytes = 4 * (B * L * n_in + B * n_in * n_out + B * L * n_out
+                  + (B * n_out if bias else 0))
+    flops = 2 * B * L * n_in * n_out + (B * L * n_out if bias else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops \
+        else (t_ops * 1e3, "operations")
+
+
+def phase_dense() -> dict:
+    """The per-row Dense kernel at the served transformer's Dense shapes:
+    error against its plain version, a row bitwise equal to its b1 call,
+    and its times beside torch.bmm's (baddbmm's with a bias) and the
+    bound."""
+    import torch
+    from feddrift_torch.kernels.dense_rows import dense_rows, dense_rows_ref
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    entry = None
+    for B in DENSE_BATCHES:
+        for layer, L, n_in, n_out, has_bias in DENSE_SHAPES:
+            x = torch.randn((B, L, n_in), generator=gen, device="cuda")
+            w = torch.randn((B, n_in, n_out), generator=gen,
+                            device="cuda") / n_in ** 0.5
+            b = torch.randn((B, n_out), generator=gen, device="cuda") * 0.1 \
+                if has_bias else None
+            out = dense_rows(x, w, b)
+            one = dense_rows(x[:1], w[:1], None if b is None else b[:1])
+            torch.cuda.synchronize()
+            err = (out - dense_rows_ref(x, w, b)).abs().max().item()
+            row_bitwise = bool(torch.equal(one[0], out[0]))
+            library = (lambda: torch.baddbmm(b[:, None, :], x, w)) \
+                if has_bias else (lambda: torch.bmm(x, w))
+            calls = {"kernel": lambda: dense_rows(x, w, b),
+                     "plain": lambda: dense_rows_ref(x, w, b),
+                     "library": library}
+            ms, plain_ms, library_ms = _interleaved(_time_ms, calls).values()
+            device = {name: _device_ms(f) for name, f in calls.items()}
+            enqueue = _interleaved(_host_enqueue_ms, {
+                "kernel": calls["kernel"], "library": library})
+            bound_ms, bound_by = _dense_bound_ms(B, L, n_in, n_out, has_bias)
+            _say("kernel", name="dense_rows", layer=layer,
+                 shape=(B, L, n_in, n_out), bias=has_bias,
+                 max_abs_err=err, atol=KERNEL_ATOL, row_bitwise=row_bitwise,
+                 kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 library="torch.baddbmm" if has_bias else "torch.bmm",
+                 kernel_device_ms=device["kernel"],
+                 plain_device_ms=device["plain"],
+                 library_device_ms=device["library"],
+                 kernel_enqueue_ms=enqueue["kernel"],
+                 library_enqueue_ms=enqueue["library"], bound_ms=bound_ms,
+                 bound_by=bound_by,
+                 device_vs_bound=(device["kernel"] or ms) / bound_ms)
+            if not (err <= KERNEL_ATOL and row_bitwise):
+                raise AssertionError(f"dense_rows {layer} at b{B}: max "
+                                     f"|kernel - plain| {err} (atol "
+                                     f"{KERNEL_ATOL}), row bitwise "
+                                     f"{row_bitwise}")
+            if (layer, B) == DENSE_ENTRY:
+                entry = {"name": "dense_rows", "route": "cuda",
+                         "source": "feddrift_torch/kernels/csrc/dense_rows.cu",
+                         "replaces": "feddrift_tpu/models/transformer.py:77",
+                         "launches": None, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": library_ms,
+                         "device_ms": device["kernel"],
+                         "shape": (B, L, n_in, n_out)}
+    return entry
+
+
+def phase_serve(entry: dict, dense_entry: dict) -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -319,6 +416,7 @@ def phase_serve(entry: dict) -> None:
     from feddrift_torch.config import ExperimentConfig
     from feddrift_torch.core.pool import ModelPool
     from feddrift_torch.data.registry import make_dataset
+    from feddrift_torch.kernels.dense_rows import dense_rows
     from feddrift_torch.kernels.flash_attention import flash_attention
     from feddrift_torch.models import create_model
     from feddrift_torch.models.transformer import TransformerLM
@@ -347,29 +445,38 @@ def phase_serve(entry: dict) -> None:
         batches0 = engine.stats()["batches"]
 
         flash_attention.launches = 0
+        dense_rows.launches = 0
         traffic = TrafficGenerator(
             engine, range(cfg.client_num_in_total), seed=cfg.seed,
             concurrency=CONCURRENCY,
             make_x=lambda rng: windows[rng.randint(len(windows))]
         ).run(NUM_REQUESTS)
         launches = flash_attention.launches
+        dense_launches = dense_rows.launches
 
         stats = engine.stats()
         batches = stats["batches"] - batches0
+        layers = len(model.blocks)
         _say("serve", dataset=cfg.dataset, x_shape=ds.x.shape,
              data_s=data_s, model=cfg.model, d_model=model.d_model,
-             heads=model.num_heads, layers=len(model.blocks),
+             heads=model.num_heads, layers=layers,
              vocab=model.vocab_size, pool=cfg.num_models,
              warmup_s=warmup_s, flash_launches=launches,
-             micro_batches=batches,
+             dense_rows_launches=dense_launches, micro_batches=batches,
              mean_batch=stats["served"] / max(stats["batches"], 1),
              **traffic, engine=stats)
         entry["launches"] = launches
+        dense_entry["launches"] = dense_launches
         if traffic["errors"] or traffic["completed"] != NUM_REQUESTS:
             raise AssertionError(f"serving failed: {traffic}")
-        if launches <= 0 or launches != len(model.blocks) * batches:
+        if launches <= 0 or launches != layers * batches:
             raise AssertionError(f"flash launches {launches} for {batches} "
-                                 f"micro-batches of {len(model.blocks)} layers")
+                                 f"micro-batches of {layers} layers")
+        # four Dense layers a block and the lm_head
+        if dense_launches <= 0 or dense_launches != (4 * layers + 1) * batches:
+            raise AssertionError(f"dense_rows launches {dense_launches} for "
+                                 f"{batches} micro-batches of {layers} "
+                                 f"layers")
 
         # served answers, coalesced into mixed-model micro-batches, against
         # one-row forwards of the same request and against the plain path
@@ -399,19 +506,24 @@ def phase_serve(entry: dict) -> None:
                  for k, p in cpu_params.items()}, torch.from_numpy(xs)
             ).numpy()
         plain_err = float(np.abs(served - plain).max())
+        one_row_bitwise = bool(np.array_equal(served, rows))
         _say("serve_check", requests=len(results),
              models=sorted({r.model for r in results}),
              finite=bool(np.isfinite(served).all()),
-             one_row_bitwise=bool(np.array_equal(served, rows)),
+             one_row_bitwise=one_row_bitwise,
              one_row_max_abs_err=one_row_err,
              plain_cpu_max_abs_err=plain_err, atol=SERVE_ATOL)
         if not (np.isfinite(served).all() and served.shape == (48, 90)):
             raise AssertionError("served logits not finite [48, 90]")
-        if not (one_row_err <= KERNEL_ATOL and plain_err <= SERVE_ATOL):
-            raise AssertionError("served answers disagree with the one-row "
-                                 "forward or the plain CPU path")
+        if not (one_row_bitwise and plain_err <= SERVE_ATOL):
+            raise AssertionError("served answers differ from the one-row "
+                                 "forward (bitwise) or the plain CPU path")
 
-        _batch_variance(engine.step, gen.params, windows, cfg.num_models)
+        first = _batch_variance(engine.step, gen.params, windows,
+                                cfg.num_models)
+        if first is not None:
+            raise AssertionError(f"row 0's answer depends on its batch from "
+                                 f"op {first} on")
 
         # device time of one micro-batch forward per bucket (CUDA events)
         fwd = {}
@@ -426,10 +538,11 @@ def phase_serve(entry: dict) -> None:
         engine.close()
 
 
-def _batch_variance(step, params, windows, num_models: int) -> None:
+def _batch_variance(step, params, windows, num_models: int):
     """One serving forward of the same row alone (b1) and first in a batch
     of 32, every op's output recorded: the max difference of that row per
-    op, and the first op whose row differs bitwise."""
+    op, and the first op whose row differs bitwise (returned; None when
+    every op agrees)."""
     import torch
     from feddrift_torch.models import transformer
     from feddrift_torch.obs.optrace import first_difference, record_calls
@@ -444,6 +557,7 @@ def _batch_variance(step, params, windows, num_models: int) -> None:
     diffs, first = first_difference(one, many)
     _say("serve_check", what="batch_variance", row=0, batches=(1, 32),
          first_op_that_differs=first, max_abs_diff_per_op=dict(diffs))
+    return first
 
 
 def _profile_forward(step, params, x, midx, reps: int = 10) -> None:
@@ -461,11 +575,12 @@ def _profile_forward(step, params, x, midx, reps: int = 10) -> None:
              e.key[:60]: e.self_device_time_total / reps for e in top})
 
 
-def _train_case(dataset: str, seed: int):
+def _train_case(dataset: str, seed: int, hidden: int = 10):
     """One canonical round's K1 inputs on the card: the dataset at its
-    registry defaults, a pool of 4 distinct fnn draws, fresh optimizer
-    state, seeded time weights with pairs (0, 3), (2, 7) and all of model
-    3 inactive, and seeded batch indices."""
+    registry defaults (the fnn's hidden width ``hidden``), a pool of 4
+    distinct fnn draws, fresh optimizer state, seeded time weights with
+    pairs (0, 3), (2, 7) and all of model 3 inactive, and seeded batch
+    indices."""
     import numpy as np
     import torch
     from feddrift_torch.config import ExperimentConfig
@@ -473,7 +588,8 @@ def _train_case(dataset: str, seed: int):
     from feddrift_torch.kernels.local_sgd import init_opt_state
     from feddrift_torch.models import create_model
     cfg = ExperimentConfig(dataset=dataset,
-                           change_points="A" if dataset == "sea" else "W")
+                           change_points="A" if dataset == "sea" else "W",
+                           fnn_hidden_dim=hidden)
     ds = make_dataset(cfg)
     mod = create_model("fnn", ds, cfg)
     gen = torch.Generator().manual_seed(seed)
@@ -521,19 +637,35 @@ def _local_sgd_bound_ms(t_idx, slot, total_w, M: int, C: int, S: int, B: int,
         else (t_ops * 1e3, "operations")
 
 
+# K1's cases: (label, dataset, seed, fnn hidden width, forced route); the
+# registry's widths take the fused kernel, H = 32 the general one, and the
+# general one forced at the SEA shape is the first design, timed here too
+K1_CASES = (("sea", "sea", 0, 10, None), ("sine", "sine", 1, 10, None),
+            ("sea_general", "sea", 0, 10, "general"),
+            ("h32", "sea", 2, 32, None))
+
+
 def phase_train_kernel() -> dict:
     import torch
-    from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_ref
-    entry = None
-    for dataset, seed in (("sea", 0), ("sine", 1)):
-        args, kw, dims = _train_case(dataset, seed)
+    from feddrift_torch.kernels.local_sgd import (_route, local_sgd,
+                                                  local_sgd_ref)
+    entry, device_ms = None, {}
+    for label, dataset, seed, hidden, forced in K1_CASES:
+        args, kw, dims = _train_case(dataset, seed, hidden)
         x, y, params, opt, t_idx, slot, total_w = args
+        route = forced or _route(dims["F"], dims["H"], dims["K"], dims["B"])
+        kw = dict(kw, route=route)
         fresh = lambda: {k: v.clone() for k, v in opt.items()}
         client, k_opt, n, loss = local_sgd(x, y, params, fresh(), t_idx, slot,
                                            total_w, **kw)
+        again = local_sgd(x, y, params, fresh(), t_idx, slot, total_w, **kw)
         torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(
+            (client, loss, n, *k_opt.values()),
+            (again[0], again[3], again[2], *again[1].values())))
         r_client, r_opt, r_n, r_loss = local_sgd_ref(
-            x, y, params, fresh(), t_idx, slot, total_w, **kw)
+            x, y, params, fresh(), t_idx, slot, total_w,
+            **{k: v for k, v in kw.items() if k != "route"})
         err = max(float((client - r_client).abs().max()),
                   float((loss - r_loss).abs().max()),
                   float((k_opt["mu"] - r_opt["mu"]).abs().max()))
@@ -552,29 +684,39 @@ def phase_train_kernel() -> dict:
         state = fresh()
         calls = {"kernel": lambda: local_sgd(x, y, params, state, t_idx, slot,
                                              total_w, **kw),
-                 "plain": lambda: local_sgd_ref(x, y, params, state, t_idx,
-                                                slot, total_w, **kw)}
+                 "plain": lambda: local_sgd_ref(
+                     x, y, params, state, t_idx, slot, total_w,
+                     **{k: v for k, v in kw.items() if k != "route"})}
         ms, plain_ms = _interleaved(_time_ms, calls).values()
         device = {name: _device_ms(f) for name, f in calls.items()}
+        device_ms[label] = device["kernel"]
+        enqueue_ms = _host_enqueue_ms(calls["kernel"])
         active = int((total_w > 0).sum())
         bound_ms, bound_by = _local_sgd_bound_ms(t_idx, slot, total_w,
                                                  **dims)
-        _say("train_kernel", name="local_sgd", dataset=dataset, **dims,
-             active_pairs=active, max_abs_err=err, atol=TRAIN_ATOL,
-             coords_over_atol=over, nu_max_rel_err=nu_rel,
+        _say("train_kernel", name="local_sgd", case=label, dataset=dataset,
+             route=route, **dims, active_pairs=active, max_abs_err=err,
+             atol=TRAIN_ATOL, coords_over_atol=over, nu_max_rel_err=nu_rel,
              nu_rtol=TRAIN_NU_RTOL, inactive_untouched=untouched,
-             n_and_count_equal=same, kernel_ms=ms, plain_ms=plain_ms,
-             kernel_device_ms=device["kernel"],
+             n_and_count_equal=same, two_calls_bitwise=bitwise,
+             kernel_ms=ms, plain_ms=plain_ms,
+             kernel_device_ms=device["kernel"], kernel_enqueue_ms=enqueue_ms,
+             step_us=device["kernel"] * 1e3 / dims["S"]
+             if device["kernel"] else "not measured",
              plain_device_ms=device["plain"], bound_ms=bound_ms,
              bound_by=bound_by, kernel_vs_bound=(device["kernel"] or ms)
              / bound_ms)
         if not (err <= TRAIN_ATOL and nu_rel <= TRAIN_NU_RTOL and untouched
-                and same):
-            raise AssertionError(f"local_sgd on {dataset}: |kernel - plain| "
-                                 f"{err} (atol {TRAIN_ATOL}), nu rel "
+                and same and bitwise):
+            raise AssertionError(f"local_sgd ({label}, {route}): |kernel - "
+                                 f"plain| {err} (atol {TRAIN_ATOL}), nu rel "
                                  f"{nu_rel}, inactive untouched {untouched}, "
-                                 f"n/count equal {same}")
-        if dataset == "sea":
+                                 f"n/count equal {same}, two calls bitwise "
+                                 f"{bitwise}")
+        if label == "sea":
+            if route != "fused":
+                raise AssertionError(f"the canonical shape took the {route} "
+                                     f"kernel")
             entry = {"name": "local_sgd", "route": "cuda",
                      "source": "feddrift_torch/kernels/csrc/local_sgd.cu",
                      "replaces": "feddrift_tpu/core/step.py:225",
@@ -582,6 +724,13 @@ def phase_train_kernel() -> dict:
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None,
                      "device_ms": device["kernel"]}
+    fused, general = device_ms["sea"], device_ms["sea_general"]
+    _say("train_kernel", what="canonical_shape_by_kernel",
+         fused_device_ms=fused, general_device_ms=general,
+         fused_vs_general=fused / general if fused and general
+         else "not measured",
+         first_design_device_ms_recorded=K1_FIRST_DESIGN_DEVICE_MS,
+         bound_ms=entry["bound_ms"])
     return entry
 
 
@@ -655,7 +804,7 @@ def phase_train(entry: dict) -> None:
     import torch
     from feddrift_torch.config import ExperimentConfig
     from feddrift_torch.core import step as step_mod
-    from feddrift_torch.kernels.local_sgd import local_sgd
+    from feddrift_torch.kernels.local_sgd import _route, local_sgd
     from feddrift_torch.simulation.runner import Experiment
     from feddrift_torch.utils.prng import iteration_seed
     cfg = ExperimentConfig()
@@ -715,10 +864,14 @@ def phase_train(entry: dict) -> None:
         mean_acc = sum(accs) / len(accs)
         ref_mean = sum(ref) / len(ref)
         diffs = [a - b for a, b in zip(accs, ref)]
+        mod = exp.step.module
+        route = _route(exp.x.shape[-1], mod.hidden_dim, mod.num_classes,
+                       min(cfg.batch_size, exp.x.shape[2]))
         _say("train", dataset=cfg.dataset, model=cfg.model,
              algo=cfg.concept_drift_algo, algo_arg=cfg.concept_drift_algo_arg,
              steps=len(ends), rounds=exp.global_round, setup_s=setup_s,
              wall_s=wall, local_sgd_launches=launches,
+             local_sgd_route=route,
              plain_calls=dict(counts), checkpoint=ckpt,
              test_acc_mean=mean_acc, reference_mean=ref_mean,
              max_step_diff=max(map(abs, diffs)),
@@ -735,9 +888,10 @@ def phase_train(entry: dict) -> None:
                                  f"steps ran")
         if not ckpt:
             raise AssertionError("no checkpoint was written")
-        if launches != want:
+        if launches != want or route != "fused":
             raise AssertionError(f"local_sgd launched {launches} times for "
-                                 f"{want} rounds")
+                                 f"{want} rounds, through the {route} "
+                                 f"kernel")
         if max(map(abs, diffs)) > STEP_ACC_TOL \
                 or abs(mean_acc - ref_mean) > MEAN_ACC_TOL:
             raise AssertionError(f"Test/Acc per step {accs} against the "
@@ -764,7 +918,8 @@ def main() -> int:
         card = phase_device()
         phase_build()
         entry = phase_kernel()
-        phase_serve(entry)
+        dense_entry = phase_dense()
+        phase_serve(entry, dense_entry)
         train_entry = phase_train_kernel()
         phase_train_plain()
         phase_train(train_entry)
@@ -772,7 +927,7 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [entry, train_entry]}))
+    print(json.dumps({"kernels": [entry, train_entry, dense_entry]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

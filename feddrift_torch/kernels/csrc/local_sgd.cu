@@ -21,29 +21,55 @@
 // masked back and their n is 0; their mean loss is still reported.
 //
 // Bound on the H100 SXM at the canonical SEA shape (M=4, C=10, S=5, B=500,
-// F=3, H=10, K=2): a round reads ~1.6 MB of batch rows (40 pairs x 5 steps
-// x 500 rows x 16 B) and ~80 KB of params and state, ~0.5 us at 3.35 TB/s;
-// it does ~30 MFLOP, ~0.45 us at 67 TFLOP/s: bound by bytes, ~0.5 us. This
-// first design sits far above that: the S steps of a pair run one after
-// another, each with five block-wide barriers, and 40 blocks fill 40 of 132
-// SMs.
+// F=3, H=10, K=2): each distinct batch read once is ~0.6 MB, ~0.2 us at
+// 3.35 TB/s; the active pairs' ~19 MFLOP take ~0.29 us at 67 TFLOP/s, so
+// the bound is set by operations. What a round really waits on is the chain
+// of S dependent steps of one pair: latency, not throughput.
 //
-// Design (simple and right first).
-// - One block of 256 threads per pair; grid M*C.
-// - The pair's params, mu, nu, nu_max and gradient (5 x P floats) live in
-//   shared memory for all S steps; the optimizer state is written back once,
-//   and only for active pairs.
-// - Forward and dlogits: threads over batch rows. The hidden activations
-//   [B, H] and logits [B, K] stay in shared memory; dlogits overwrite the
-//   logits, and dh overwrites the activations once dW2 is summed.
-// - Gradient sums over B: one warp per parameter, lanes over rows, then a
-//   shuffle tree (a fixed order, so the kernel is deterministic). x is read
-//   from global memory (the SEA dataset is 660 KB and stays in L2).
-// - AMSGrad: threads over parameters, with __syncthreads between phases.
-// Shared memory is 4 * (5P + B(H + K) + 8) bytes, 45 KB at the SEA shape.
-// This file holds the only copy of that size and of the 227 KB a block may
-// opt in to: for larger shapes the entry point returns kErrSmem without a
-// launch, and the wrapper (local_sgd.py) raises ValueError.
+// Two kernels compute this one function; the wrapper (local_sgd.py::_route)
+// picks one by shape alone, before the launch.
+//
+// local_sgd_fused_kernel<F, H, K>: the widths the port's registry produces
+// at the default fnn_hidden_dim = 10 (F = 3 for SEA, F = 2 for sine and
+// circle; H = 10, K = 2; P = 62 and 52) and B <= 512.
+// - One block per pair of round_up(B, 32) threads (at least 64): one batch
+//   row a thread. Each thread runs its row's forward, softmax cross-entropy,
+//   dlogits, the ReLU mask and its row's share of all P gradients (x (x) dh,
+//   dh, h (x) dz, dz) and of the loss: P + 1 values in registers. No
+//   activations go through shared memory.
+// - A deterministic two-barrier reduction. Each warp folds its P + 1 values
+//   (padded to V = 64) with a transpose-reduce: five butterfly rounds, each
+//   lane keeping the half of the values its lane bit selects, so the warp
+//   spends V - V/32 shuffles instead of P separate 5-level trees, and lane l
+//   ends with the sums of values [l * V/32, (l + 1) * V/32). Those go to
+//   shared memory [warps, V]; after __syncthreads, thread p sums parameter
+//   p's warps in order 0, 1, ... and steps AMSGrad with mu, nu and nu_max
+//   held in its registers for all S steps; the next __syncthreads publishes
+//   the new parameters. Two barriers a step (the first design had five),
+//   and a fixed summation order: the result is bitwise the same call after
+//   call.
+// - Asynchronous batch copies. Every step's rows are known at entry, and
+//   each batch is contiguous (B*F*4 bytes of x, B*4 of labels). One thread
+//   issues them as TMA bulk copies (cp.async.bulk, completion counted in
+//   bytes on one mbarrier per stage) into a ring of min(S, 8) stages, and
+//   refills a stage for step s + stages as soon as step s has read it, so
+//   global latency is paid once. Where an address or a size is not a
+//   multiple of 16 bytes the bulk copy is not allowed: then every thread
+//   copies its own row with 4-byte cp.async and arrives on the same
+//   mbarrier (cp.async.mbarrier.arrive.noinc).
+// - No tensor cores: at H = 10 and K = 2 an mma tile would be more than
+//   80 % padding. No thread-block clusters: the chain is latency-bound, and
+//   a cluster barrier per step would cost more than the rows it splits.
+// Shared memory: stages * B * (F + 1) * 4 bytes of batches (40 KB at SEA),
+// warps * V * 4 of partials, P * 4 of parameters, 8 a stage of mbarriers.
+//
+// local_sgd_general_kernel: any other width (e.g. fnn_hidden_dim = 32) or
+// batch. One block of 256 threads per pair; params and moments in shared
+// memory for all S steps; threads over rows for the forward; a warp per
+// parameter for the gradient sums (a shuffle tree, fixed order); five
+// barriers a step. Its shared memory is 4 * (5P + B(H + K) + 8) bytes; for
+// shapes above the 227 KB a block may take the entry point returns kErrSmem
+// without a launch, and the wrapper raises ValueError.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,11 +79,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSmem = 232448;
 constexpr int kErrSmem = -1;  // local_sgd.py's _ERR_SMEM
+constexpr int kGeneralThreads = 256;
+constexpr int kGeneralWarps = kGeneralThreads / 32;
+constexpr int kFusedMaxThreads = 512;
+constexpr int kStages = 8;    // batch stages of the fused kernel's ring
 
 struct Args {
   const float* x;        // [C, T1, N, F]
@@ -83,7 +111,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads) local_sgd_kernel(Args a) {
+// ---------------------------------------------------------------------------
+// The general kernel (any width).
+
+__global__ void __launch_bounds__(kGeneralThreads)
+local_sgd_general_kernel(Args a) {
   extern __shared__ float smem[];
   const int F = a.F, H = a.H, K = a.K, B = a.B, N = a.N;
   const int P = F * H + H + H * K + K;
@@ -95,14 +127,14 @@ __global__ void __launch_bounds__(kThreads) local_sgd_kernel(Args a) {
   float* s_g = s_vmax + P;          // [P] gradient
   float* s_h = s_g + P;             // [B, H] activations, then dh
   float* s_z = s_h + B * H;         // [B, K] logits, then dlogits
-  float* s_red = s_z + B * K;       // [kWarps] loss partials
+  float* s_red = s_z + B * K;       // [kGeneralWarps] loss partials
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int pair = blockIdx.x;
   const int m = pair / a.C, c = pair % a.C;
   const float* pm = a.params + (size_t)m * P;
   const size_t so = (size_t)pair * P;
-  for (int p = tid; p < P; p += kThreads) {
+  for (int p = tid; p < P; p += kGeneralThreads) {
     s_p[p] = pm[p];
     s_mu[p] = a.mu[so + p];
     s_nu[p] = a.nu[so + p];
@@ -123,7 +155,7 @@ __global__ void __launch_bounds__(kThreads) local_sgd_kernel(Args a) {
 
     // forward, loss and dlogits: threads over rows
     float part = 0.f;
-    for (int i = tid; i < B; i += kThreads) {
+    for (int i = tid; i < B; i += kGeneralThreads) {
       const float* xr = xb + (size_t)i * F;
       for (int j = 0; j < H; ++j) {
         float acc = 0.f;
@@ -154,12 +186,12 @@ __global__ void __launch_bounds__(kThreads) local_sgd_kernel(Args a) {
     __syncthreads();
     if (tid == 0) {
       float tot = 0.f;
-      for (int w = 0; w < kWarps; ++w) tot += s_red[w];
+      for (int w = 0; w < kGeneralWarps; ++w) tot += s_red[w];
       loss_sum += tot * inv_b;
     }
 
     // dW2 = h^T dz, db2 = sum dz: a warp per parameter
-    for (int q = warp; q < H * K + K; q += kWarps) {
+    for (int q = warp; q < H * K + K; q += kGeneralWarps) {
       float acc = 0.f;
       if (q < H * K) {
         const int j = q / K, k = q % K;
@@ -175,7 +207,7 @@ __global__ void __launch_bounds__(kThreads) local_sgd_kernel(Args a) {
     __syncthreads();
 
     // dh = (dz W2^T) * (h > 0), over the activations
-    for (int i = tid; i < B; i += kThreads) {
+    for (int i = tid; i < B; i += kGeneralThreads) {
       for (int j = 0; j < H; ++j) {
         float d = 0.f;
         if (s_h[i * H + j] > 0.f)
@@ -187,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) local_sgd_kernel(Args a) {
     __syncthreads();
 
     // dW1 = x^T dh, db1 = sum dh: a warp per parameter
-    for (int q = warp; q < F * H + H; q += kWarps) {
+    for (int q = warp; q < F * H + H; q += kGeneralWarps) {
       float acc = 0.f;
       if (q < F * H) {
         const int f = q / H, j = q % H;
@@ -206,7 +238,7 @@ __global__ void __launch_bounds__(kThreads) local_sgd_kernel(Args a) {
     count = count < INT_MAX ? count + 1 : count;
     const float bc1 = 1.f - powf(a.b1, (float)count);
     const float bc2 = 1.f - powf(a.b2, (float)count);
-    for (int p = tid; p < P; p += kThreads) {
+    for (int p = tid; p < P; p += kGeneralThreads) {
       const float w = s_p[p];
       const float g = s_g[p] + a.wd * w;
       const float mu = a.one_minus_b1 * g + a.b1 * s_mu[p];
@@ -224,7 +256,7 @@ __global__ void __launch_bounds__(kThreads) local_sgd_kernel(Args a) {
   const float tw = a.total_w[pair];
   const bool active = tw > 0.f;
   float* op = a.out_params + so;
-  for (int p = tid; p < P; p += kThreads) {
+  for (int p = tid; p < P; p += kGeneralThreads) {
     op[p] = active ? s_p[p] : pm[p];
     if (active) {
       a.mu[so + p] = s_mu[p];
@@ -239,10 +271,324 @@ __global__ void __launch_bounds__(kThreads) local_sgd_kernel(Args a) {
   }
 }
 
-// Shared memory one block needs for these sizes.
-long long smem_bytes(int F, int H, int K, int B) {
+// Shared memory one block of the general kernel needs for these sizes.
+long long general_smem_bytes(int F, int H, int K, int B) {
   const long long P = (long long)F * H + H + (long long)H * K + K;
-  return 4 * (5 * P + (long long)B * (H + K) + kWarps);
+  return 4 * (5 * P + (long long)B * (H + K) + kGeneralWarps);
+}
+
+// ---------------------------------------------------------------------------
+// The fused kernel's asynchronous copies (sm_90: TMA bulk copies, mbarrier).
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A copy of a few KB
+// lands in microseconds; a wait that has not ended after 2^24 tries is a
+// fault, and the trap ends the launch with an error instead of a hang.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (tries == (1u << 24)) __trap();
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copies_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Start the copies of step s's batch into ring stage `st`: x rows [B, F]
+// and labels [B]. Bulk: thread 0 alone, the stage's mbarrier expecting the
+// bytes (its count is 1). Otherwise: thread i copies row i and every thread
+// arrives (the count is the block's size).
+template <int F>
+__device__ __forceinline__ void stage_batch(const Args& a, const float* xc,
+                                            const int* yc, int pair, int s,
+                                            int st, bool bulk, float* s_x,
+                                            int* s_y, uint64_t* bars) {
+  const int B = a.B;
+  const size_t row0 = (size_t)a.t_idx[pair * a.S + s] * a.N
+                      + (size_t)a.slot[pair * a.S + s] * B;
+  float* dx = s_x + (size_t)st * B * F;
+  int* dy = s_y + (size_t)st * B;
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      // the stage was last read through the generic proxy
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_expect_tx(bars + st, (unsigned)(B * (F + 1) * 4));
+      bulk_copy(dx, xc + row0 * F, (unsigned)(B * F * 4), bars + st);
+      bulk_copy(dy, yc + row0, (unsigned)(B * 4), bars + st);
+    }
+  } else {
+    const int i = threadIdx.x;
+    if (i < B) {
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+        copy4(dx + (size_t)i * F + f, xc + (row0 + i) * F + f);
+      copy4(dy + i, yc + row0 + i);
+    }
+    copies_arrive(bars + st);
+  }
+}
+
+// One butterfly round of the transpose-reduce: lanes with bit O set keep
+// the upper half of their HALF * 2 values, the others the lower half, and
+// each adds its partner's copy of the half it keeps.
+template <int O, int HALF, int V>
+__device__ __forceinline__ void fold(float (&v)[V], int lane) {
+  const bool upper = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = upper ? v[i] : v[i + HALF];
+    const float keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, O);
+  }
+}
+
+template <int F, int H, int K>
+__global__ void __launch_bounds__(kFusedMaxThreads, 1)
+local_sgd_fused_kernel(const Args a, int stages, int bulk) {
+  constexpr int P = F * H + H + H * K + K;
+  constexpr int oB1 = F * H, oW2 = oB1 + H, oB2 = oW2 + H * K;
+  constexpr int V = (P + 1 + 31) / 32 * 32;  // P gradients and the loss
+  constexpr int VL = V / 32;                 // of them a lane keeps
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);   // [kStages]
+  const int B = a.B, S = a.S;
+  const int warps = blockDim.x >> 5;
+  float* s_x = reinterpret_cast<float*>(smem_raw + 8 * kStages);  // [st, B, F]
+  int* s_y = reinterpret_cast<int*>(s_x + (size_t)stages * B * F); // [st, B]
+  float* s_red = reinterpret_cast<float*>(s_y + (size_t)stages * B); // [w, V]
+  float* s_p = s_red + warps * V;                                  // [P]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pair = blockIdx.x;
+  const int m = pair / a.C, c = pair % a.C;
+  const float* pm = a.params + (size_t)m * P;
+  const size_t so = (size_t)pair * P;
+  const float* xc = a.x + (size_t)c * a.T1 * a.N * F;
+  const int* yc = a.y + (size_t)c * a.T1 * a.N;
+
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st)
+      mbar_init(bars + st, bulk ? 1u : blockDim.x);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // thread p owns parameter p: its value and its optimizer state stay in
+  // registers for all S steps
+  float w_own = 0.f, mu = 0.f, nu = 0.f, vmax = 0.f;
+  if (tid < P) {
+    w_own = pm[tid];
+    mu = a.mu[so + tid];
+    nu = a.nu[so + tid];
+    vmax = a.nu_max[so + tid];
+    s_p[tid] = w_own;
+  }
+  int count = a.count[pair];
+  __syncthreads();
+  for (int s = 0; s < stages; ++s)
+    stage_batch<F>(a, xc, yc, pair, s, s, bulk, s_x, s_y, bars);
+
+  const float inv_b = 1.0f / (float)B;
+  float loss_sum = 0.f;             // thread P's sum of the S step losses
+  for (int s = 0; s < S; ++s) {
+    const int st = s % stages;
+    mbar_wait(bars + st, (unsigned)(s / stages) & 1u);
+
+    // this thread's row: forward, loss, dlogits, dh and its gradient share
+    float v[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = 0.f;
+    if (tid < B) {
+      const float* xr = s_x + ((size_t)st * B + tid) * F;
+      const int yi = s_y[(size_t)st * B + tid];
+      float xv[F], h[H], z[K], e[K];
+#pragma unroll
+      for (int f = 0; f < F; ++f) xv[f] = xr[f];
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        float acc = 0.f;
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc = fmaf(xv[f], s_p[f * H + j], acc);
+        acc += s_p[oB1 + j];
+        h[j] = acc > 0.f ? acc : 0.f;
+      }
+      float zmax = -INFINITY;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < H; ++j)
+          acc = fmaf(h[j], s_p[oW2 + j * K + k], acc);
+        z[k] = acc + s_p[oB2 + k];
+        zmax = fmaxf(zmax, z[k]);
+      }
+      float se = 0.f, zy = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        e[k] = expf(z[k] - zmax);
+        se += e[k];
+        zy = k == yi ? z[k] : zy;
+      }
+      v[P] = logf(se) - (zy - zmax);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float dz = (e[k] / se - (k == yi ? 1.f : 0.f)) * inv_b;
+        v[oB2 + k] = dz;
+#pragma unroll
+        for (int j = 0; j < H; ++j) v[oW2 + j * K + k] = h[j] * dz;
+      }
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        float d = 0.f;
+        if (h[j] > 0.f) {
+#pragma unroll
+          for (int k = 0; k < K; ++k)
+            d = fmaf(v[oB2 + k], s_p[oW2 + j * K + k], d);
+        }
+        v[oB1 + j] = d;
+#pragma unroll
+        for (int f = 0; f < F; ++f) v[f * H + j] = xv[f] * d;
+      }
+    }
+
+    // the warp's sums: lane l ends with values [l * VL, (l + 1) * VL)
+    fold<16, V / 2>(v, lane);
+    fold<8, V / 4>(v, lane);
+    fold<4, V / 8>(v, lane);
+    fold<2, V / 16>(v, lane);
+    fold<1, V / 32>(v, lane);
+#pragma unroll
+    for (int i = 0; i < VL; ++i) s_red[warp * V + lane * VL + i] = v[i];
+    __syncthreads();
+
+    // every thread has read stage st: refill it for step s + stages
+    if (s + stages < S)
+      stage_batch<F>(a, xc, yc, pair, s + stages, st, bulk, s_x, s_y, bars);
+
+    // add_decayed_weights, then scale_by_amsgrad, lr and lr_scale
+    count = count < INT_MAX ? count + 1 : count;
+    if (tid < P) {
+      float g = 0.f;
+      for (int w = 0; w < warps; ++w) g += s_red[w * V + tid];
+      g = g + a.wd * w_own;
+      const float bc1 = 1.f - powf(a.b1, (float)count);
+      const float bc2 = 1.f - powf(a.b2, (float)count);
+      mu = a.one_minus_b1 * g + a.b1 * mu;
+      nu = a.one_minus_b2 * (g * g) + a.b2 * nu;
+      vmax = fmaxf(vmax, nu / bc2);
+      const float u = (mu / bc1) / (sqrtf(vmax) + a.eps);
+      w_own = w_own + (a.neg_lr * u) * a.lr_scale;
+      s_p[tid] = w_own;
+    } else if (tid == P) {
+      float tot = 0.f;
+      for (int w = 0; w < warps; ++w) tot += s_red[w * V + P];
+      loss_sum += tot * inv_b;
+    }
+    __syncthreads();
+  }
+
+  const float tw = a.total_w[pair];
+  const bool active = tw > 0.f;
+  if (tid < P) {
+    a.out_params[so + tid] = active ? w_own : pm[tid];
+    if (active) {
+      a.mu[so + tid] = mu;
+      a.nu[so + tid] = nu;
+      a.nu_max[so + tid] = vmax;
+    }
+  } else if (tid == P) {
+    if (active) a.count[pair] = count;
+    a.n_out[pair] = active ? tw * (float)a.N : 0.f;
+    a.loss_out[pair] = loss_sum / (float)S;
+  }
+}
+
+// Opt in to more than 48 KB of dynamic shared memory, once per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned long long>& ready,
+                       int device) {
+  const unsigned long long bit = device < 64 ? 1ull << device : 0;
+  if (ready.load() & bit) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess) ready.fetch_or(bit);
+  return err;
+}
+
+// Both launchers return a cudaError_t, or kErrSmem without a launch.
+int launch_general(const Args& a, int pairs, int device, cudaStream_t st) {
+  const long long smem = general_smem_bytes(a.F, a.H, a.K, a.B);
+  if (smem > kMaxSmem) return kErrSmem;
+  if (smem > 48 * 1024) {
+    static std::atomic<unsigned long long> ready{0};
+    const cudaError_t err = allow_smem(local_sgd_general_kernel, ready,
+                                       device);
+    if (err != cudaSuccess) return (int)err;
+  }
+  local_sgd_general_kernel<<<pairs, kGeneralThreads, (size_t)smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int F, int H, int K>
+int launch_fused(const Args& a, int pairs, int device, cudaStream_t st) {
+  constexpr int P = F * H + H + H * K + K;
+  constexpr int V = (P + 1 + 31) / 32 * 32;
+  if (a.B > kFusedMaxThreads) return (int)cudaErrorInvalidValue;
+  const int rows = (a.B + 31) / 32 * 32;
+  const int threads = rows < 64 ? 64 : rows;  // P + 1 <= 64 threads own the
+                                              // parameters and the loss
+  const int stages = a.S < kStages ? a.S : kStages;
+  // TMA bulk copies need 16-byte aligned addresses and sizes: every batch
+  // offset t*N + slot*B is a multiple of 4 rows when N and B are
+  const bool bulk = ((reinterpret_cast<uintptr_t>(a.x)
+                      | reinterpret_cast<uintptr_t>(a.y)) & 15) == 0
+                    && a.N % 4 == 0 && a.B % 4 == 0;
+  const long long smem = 8LL * kStages
+                         + 4LL * stages * a.B * (F + 1)
+                         + 4LL * (threads / 32) * V + 4LL * P;
+  if (smem > 48 * 1024) {
+    static std::atomic<unsigned long long> ready{0};
+    const cudaError_t err = allow_smem(local_sgd_fused_kernel<F, H, K>, ready,
+                                       device);
+    if (err != cudaSuccess) return (int)err;
+  }
+  local_sgd_fused_kernel<F, H, K>
+      <<<pairs, threads, (size_t)smem, st>>>(a, stages, bulk ? 1 : 0);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -258,16 +604,16 @@ struct Params {
 static_assert(sizeof(Params) == 176, "Params must match the wrapper's pack");
 
 // Plain C entry point bound with ctypes. Every tensor contiguous on device
-// `device`, float32 except y, count, t_idx and slot (int32). `stream` is a
-// stream of that device; the device is made current for the launch only if
-// it is not. Returns the cudaError_t of the launch (0 = ok), or kErrSmem
-// (nothing launched) when the shape needs more shared memory than a block
-// may take.
-extern "C" int local_sgd_f32(const Params* p, void* stream) {
+// `device`, float32 except y, count, t_idx and slot (int32). `route` is
+// local_sgd.py's _ROUTES: 0 the general kernel, 1 the fused kernel (only
+// for the (F, H, K) it is built for and B <= 512). `stream` is a stream of
+// that device; the device is made current for the launch only if it is not.
+// Returns the cudaError_t of the launch (0 = ok), or kErrSmem (nothing
+// launched) when the general kernel would need more shared memory than a
+// block may take.
+extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
   if (p->M < 1 || p->C < 1 || p->S < 1 || p->B < 1)
     return (int)cudaErrorInvalidValue;
-  const long long smem = smem_bytes(p->F, p->H, p->K, p->B);
-  if (smem > kMaxSmem) return kErrSmem;
   const Args a{reinterpret_cast<const float*>(p->x),
                reinterpret_cast<const int*>(p->y),
                reinterpret_cast<const float*>(p->params),
@@ -290,20 +636,16 @@ extern "C" int local_sgd_f32(const Params* p, void* stream) {
   if (err == cudaSuccess && current != p->device)
     err = cudaSetDevice(p->device);
   if (err != cudaSuccess) return (int)err;
-  if (smem > 48 * 1024) {  // opt in to more, once per device
-    static std::atomic<unsigned long long> ready{0};
-    const unsigned long long bit = p->device < 64 ? 1ull << p->device : 0;
-    if (!(ready.load() & bit)) {
-      err = cudaFuncSetAttribute(local_sgd_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kMaxSmem);
-      if (err == cudaSuccess) ready.fetch_or(bit);
-    }
-  }
-  if (err == cudaSuccess) {
-    local_sgd_kernel<<<p->M * p->C, kThreads, (size_t)smem, st>>>(a);
-    err = cudaGetLastError();
-  }
+  const int pairs = p->M * p->C;
+  int ret;
+  if (route == 0)
+    ret = launch_general(a, pairs, p->device, st);
+  else if (route == 1 && p->F == 3 && p->H == 10 && p->K == 2)
+    ret = launch_fused<3, 10, 2>(a, pairs, p->device, st);
+  else if (route == 1 && p->F == 2 && p->H == 10 && p->K == 2)
+    ret = launch_fused<2, 10, 2>(a, pairs, p->device, st);
+  else
+    ret = (int)cudaErrorInvalidValue;
   if (current != p->device) cudaSetDevice(current);
-  return (int)err;
+  return ret;
 }

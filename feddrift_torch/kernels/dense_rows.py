@@ -1,0 +1,126 @@
+"""Per-row Dense of the serving forward: the CUDA kernel's wrapper and its
+plain version.
+
+``y[b] = x[b] @ W[b] (+ bias[b])`` with x ``[B, L, in]``, W ``[B, in, out]``
+(flax's ``[in, out]`` kernel layout, one per row) and bias ``[B, out]``, all
+float32. The counterpart of the reference's ``nn.Dense`` vmapped over the
+per-row gathered params of a mixed-model micro-batch
+(``feddrift_tpu/models/transformer.py``). The kernel is
+``csrc/dense_rows.cu``; its source notes what bounds it and its design.
+
+Its launch geometry and its k order depend on ``(L, in, out)`` only
+(``_launch_config``), never on B, so a row's answer is bitwise the same in
+any batch, B = 1 included: served answers do not depend on the micro-batch
+a request lands in. ``dense_rows`` launches the kernel for CUDA tensors and
+takes the plain version, ``dense_rows_ref``, for CPU tensors. There is no
+fallback for a CUDA tensor: the kernel launches or the call raises. The
+kernel has no backward, so it refuses inputs that need a gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import struct
+from typing import NamedTuple
+
+import torch
+
+from feddrift_torch.kernels.build import library
+
+MAX_GRID_X = 2 ** 31 - 1
+MAX_GRID_YZ = 65535
+
+
+class LaunchConfig(NamedTuple):
+    tile_l: int     # positions of a block's output tile (TL)
+    tile_out: int   # outputs of a block's output tile (TO)
+    thread_l: int   # positions of a thread's register tile (RL)
+    thread_out: int  # outputs of a thread's register tile (RO)
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_config(L: int, in_: int, out: int) -> LaunchConfig:
+    """The kernel's tiles: from the layer's shape only, never from B. The
+    k loop runs over all of ``in_`` in order whatever the tile."""
+    del in_, out                # one tile serves every width on the path
+    return LaunchConfig(1, 64, 1, 1) if L == 1 else LaunchConfig(16, 64, 4, 4)
+
+
+def dense_rows_ref(x: torch.Tensor, w: torch.Tensor,
+                   bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version: ``torch.bmm`` and the bias."""
+    y = torch.bmm(x, w)
+    return y if bias is None else y + bias[:, None, :]
+
+
+# csrc/dense_rows.cu's Params: x, w, bias, y pointers; x strides (B, L), W
+# strides (B, in), bias stride B; B, L, in, out, tile_l, device
+_PARAMS = struct.Struct("=4Q5q6i")
+
+
+@functools.cache
+def _kernel():
+    """The C entry point, its ctypes signature set once at first load."""
+    fn = library("dense_rows").dense_rows_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    return fn
+
+
+def dense_rows(x: torch.Tensor, w: torch.Tensor,
+               bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``[B, L, in] @ [B, in, out] (+ [B, out]) -> [B, L, out]`` through the
+    CUDA kernel (CPU tensors: ``dense_rows_ref``)."""
+    tensors = (x, w) if bias is None else (x, w, bias)
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0] \
+            or x.shape[2] != w.shape[1]:
+        raise ValueError(f"dense_rows takes x [B, L, in] and w [B, in, out], "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    B, L, n_in = x.shape
+    n_out = w.shape[2]
+    if bias is not None and tuple(bias.shape) != (B, n_out):
+        raise ValueError(f"bias: want ({B}, {n_out}), got "
+                         f"{tuple(bias.shape)}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"dense_rows takes float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    if not x.is_cuda:
+        if any(t.device != x.device for t in tensors):
+            raise ValueError("x, w and bias must lie on one device")
+        if x.device.type == "cpu":
+            return dense_rows_ref(x, w, bias)
+        raise ValueError(f"dense_rows runs on cuda or cpu, not "
+                         f"{x.device.type}")
+    index = x.get_device()
+    if any(not t.is_cuda or t.get_device() != index for t in tensors):
+        raise ValueError("x, w and bias must lie on one device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("dense_rows has no backward: call it under "
+                           "torch.no_grad() or on tensors that need no "
+                           "gradient")
+    if (n_in > 1 and x.stride(2) != 1) or (n_out > 1 and w.stride(2) != 1) \
+            or (bias is not None and n_out > 1 and bias.stride(1) != 1):
+        raise ValueError("dense_rows needs stride 1 in the last dimension "
+                         "of x, w and bias")
+    cfg = _launch_config(L, n_in, n_out)
+    if B > MAX_GRID_X or -(-L // cfg.tile_l) > MAX_GRID_YZ \
+            or -(-n_out // cfg.tile_out) > MAX_GRID_YZ:
+        raise ValueError(f"B={B}, L={L}, out={n_out} give a grid outside "
+                         f"[1, {MAX_GRID_X}] x [1, {MAX_GRID_YZ}]^2")
+    y = torch.empty((B, L, n_out), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    err = _kernel()(_PARAMS.pack(
+        x.data_ptr(), w.data_ptr(), 0 if bias is None else bias.data_ptr(),
+        y.data_ptr(), x.stride(0), x.stride(1), w.stride(0), w.stride(1),
+        0 if bias is None else bias.stride(0), B, L, n_in, n_out,
+        cfg.tile_l, index),
+        torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"dense_rows_f32 launch failed: cudaError {err}")
+    dense_rows.launches += 1
+    return y
+
+
+dense_rows.launches = 0

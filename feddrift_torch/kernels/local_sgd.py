@@ -16,10 +16,14 @@ S]`` int32 and ``total_w [M, C]``. Returns the client params ``[M, C, P]``
 (a new buffer), the optimizer state, ``n [M, C]`` (``total_w·N``, 0 for an
 inactive pair) and the mean loss over the S steps ``[M, C]``.
 
-``local_sgd`` launches the kernel for CUDA tensors and updates the optimizer
+``local_sgd`` launches a kernel for CUDA tensors and updates the optimizer
 state IN PLACE (the dict it returns is the one it was given); for CPU
 tensors it runs ``local_sgd_ref``, which returns a new state. There is no
-fallback for a CUDA tensor: the kernel launches or the call raises.
+fallback for a CUDA tensor: the kernel launches or the call raises. The
+source holds two kernels of the one function, and ``_route`` picks one by
+shape alone before the launch: the fused kernel (one batch row a thread,
+two barriers a step) for the widths it is built for, the general kernel
+for any other.
 """
 
 from __future__ import annotations
@@ -37,6 +41,18 @@ MAX_BLOCKS = 2 ** 31 - 1
 # csrc/local_sgd.cu's kErrSmem: the shape needs more shared memory per block
 # than the kernel may take (the size and the limit live in that file only)
 _ERR_SMEM = -1
+# the (F, H, K) fnn widths csrc/local_sgd.cu's fused kernel is built for
+# (sine and circle, SEA at fnn_hidden_dim = 10) and its most rows (a block)
+FUSED_WIDTHS = ((2, 10, 2), (3, 10, 2))
+FUSED_MAX_BATCH = 512
+_ROUTES = {"general": 0, "fused": 1}      # local_sgd_f32's route argument
+
+
+def _route(F: int, H: int, K: int, B: int) -> str:
+    """Which kernel takes a ``F -> H -> K`` fnn at batch ``B``: by shape
+    alone, decided before the launch."""
+    return "fused" if (F, H, K) in FUSED_WIDTHS and B <= FUSED_MAX_BATCH \
+        else "general"
 
 
 def init_opt_state(M: int, C: int, P: int,
@@ -119,7 +135,7 @@ def _kernel():
     """The C entry point, its ctypes signature set once at first load."""
     fn = library("local_sgd").local_sgd_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
@@ -135,10 +151,13 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
 
 
 def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
-              batch_size: int, lr: float, wd: float, lr_scale: float = 1.0):
-    """S local AMSGrad steps of every (model, client) pair: through the CUDA
+              batch_size: int, lr: float, wd: float, lr_scale: float = 1.0,
+              route: str | None = None):
+    """S local AMSGrad steps of every (model, client) pair: through a CUDA
     kernel for CUDA tensors (optimizer state updated in place), through
-    ``local_sgd_ref`` for CPU tensors."""
+    ``local_sgd_ref`` for CPU tensors. ``route`` names the kernel where a
+    comparison needs one ("general" takes any shape); by default
+    ``_route`` picks it from the shape."""
     kw = dict(hidden=hidden, batch_size=batch_size, lr=lr, wd=wd,
               lr_scale=lr_scale)
     if not x.is_cuda:
@@ -159,6 +178,13 @@ def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
                          f"outside [1, N={N}]")
     if M * C > MAX_BLOCKS:
         raise ValueError(f"M*C={M * C} blocks exceed {MAX_BLOCKS}")
+    if route is None:
+        route = _route(F, H, K, B)
+    elif route not in _ROUTES or (route == "fused"
+                                  and _route(F, H, K, B) != "fused"):
+        raise ValueError(f"route {route!r}: the fused kernel takes (F, H, K) "
+                         f"in {FUSED_WIDTHS} and B <= {FUSED_MAX_BATCH}, the "
+                         f"general one any shape")
     index = x.get_device()
     i32, f32 = torch.int32, torch.float32
     for name, t, shape, dt in (
@@ -181,14 +207,15 @@ def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
         t_idx.data_ptr(), slot.data_ptr(), total_w.data_ptr(),
         client.data_ptr(), n.data_ptr(), loss.data_ptr(),
         M, C, T1, N, F, H, K, B, S, index,
-        -lr, wd, lr_scale, B1, B2, 1 - B1, 1 - B2, EPS),
+        -lr, wd, lr_scale, B1, B2, 1 - B1, 1 - B2, EPS), _ROUTES[route],
         torch._C._cuda_getCurrentRawStream(index))
     if err == _ERR_SMEM:
         raise ValueError(f"F={F}, H={H}, K={K}, B={B} need more shared "
                          f"memory per block than the kernel may take "
                          f"(csrc/local_sgd.cu states the size and limit)")
     if err != 0:
-        raise RuntimeError(f"local_sgd_f32 launch failed: cudaError {err}")
+        raise RuntimeError(f"local_sgd_f32 ({route}) launch failed: "
+                           f"cudaError {err}")
     local_sgd.launches += 1
     return client, opt_state, n, loss
 

@@ -8,8 +8,10 @@ across by name (``feddrift_torch.convert``). Every leaf carries a leading
 ROW axis: row ``b`` of the batch is computed with its own weights. That is
 how one forward serves a micro-batch whose rows belong to different models
 of the pool: the reference ``vmap``s the apply over gathered params, here
-the batch axis is written out and the Dense layers are ``torch.bmm``s of
-``[B, L, in] @ [B, in, out]``.
+the batch axis is written out and the Dense layers are per-row products
+``[B, L, in] @ [B, in, out]`` (``kernels/dense_rows.py``: a kernel whose
+tiles do not depend on B on the card, so a row's answer does not depend on
+its batch; ``torch.bmm`` on the CPU).
 
 Numerics follow flax: Dense kernels are ``[in, out]``, LayerNorm eps is
 1e-6, ``gelu`` is the tanh approximation, and an embedding id outside
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from feddrift_torch.kernels.dense_rows import dense_rows
 from feddrift_torch.kernels.flash_attention import flash_attention
 from feddrift_torch.models.base import Functional as _Functional
 from feddrift_torch.models.base import Params
@@ -40,10 +43,8 @@ def _scope(params: Params, prefix: str) -> Params:
 
 def dense(x: torch.Tensor, params: Params, name: str) -> torch.Tensor:
     """Per-row Dense: x ``[B, L, in]`` with kernel ``[B, in, out]`` (and
-    bias ``[B, out]`` when the layer has one)."""
-    y = torch.bmm(x, params[f"{name}/kernel"])
-    bias = params.get(f"{name}/bias")
-    return y if bias is None else y + bias[:, None, :]
+    bias ``[B, out]`` when the layer has one, added in the kernel)."""
+    return dense_rows(x, params[f"{name}/kernel"], params.get(f"{name}/bias"))
 
 
 def layer_norm(x: torch.Tensor, params: Params, name: str) -> torch.Tensor:

@@ -4,24 +4,27 @@ without one. They import nothing of JAX, so they run on the card with
     python -m pytest --noconftest -m gpu tests/test_torch_card.py
 
 - K1 (``kernels/csrc/local_sgd.cu``) against its plain version
-  ``local_sgd_ref`` at the canonical SEA shape (M=4, C=10, T1=11, N=B=500,
-  S=5, F=3, H=10, K=2) and at F=2 (sine, circle), some pairs inactive.
-  Tolerance: params, mu and losses at atol 1e-5 (float32 sums over 500 rows
-  in another order, five AMSGrad steps of lr = 0.01); nu and nu_max at
-  rtol 1e-4 (squares of gradients). Inactive pairs come back bitwise equal
-  to what went in.
+  ``local_sgd_ref``, through both of its kernels: the fused one at the
+  canonical SEA shape (M=4, C=10, T1=11, N=B=500, S=5, F=3, H=10, K=2), at
+  F=2 (sine, circle), with more steps than its ring has stages, with rows
+  whose offsets rule out the bulk copies, and with fewer rows than
+  threads; the general one at H=32 and, forced, at the SEA shape; some
+  pairs inactive. Tolerance: params, mu and losses at atol 1e-5 (float32
+  sums over 500 rows in another order, five AMSGrad steps of lr = 0.01);
+  nu and nu_max at rtol 1e-4 (squares of gradients). Inactive pairs come
+  back bitwise equal to what went in, and two calls agree bitwise.
 - ``local_sgd.launches`` advances by one per round, and a canonical
   ``Experiment`` on the card takes every round through K1.
-- Where a served row's answer depends on its batch: one serving forward at
-  b1 and at b32 with the same row, op by op.
+- A served row's answer does not depend on its batch: one serving forward
+  at b1 and at b32 with the same row agree bitwise, op by op.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from feddrift_torch.kernels.local_sgd import (init_opt_state, local_sgd,
-                                              local_sgd_ref)
+from feddrift_torch.kernels.local_sgd import (_route, init_opt_state,
+                                              local_sgd, local_sgd_ref)
 
 ATOL = 1e-5
 NU_RTOL = 1e-4
@@ -64,13 +67,30 @@ def _to(dev, args):
             t(t_idx), t(slot), t(total_w))
 
 
+# (name, _case arguments, route): the canonical SEA shape and sine's F = 2;
+# 12 steps through the fused kernel's 8-stage ring; N = B = 498, whose
+# batch offsets are not 16-byte aligned (per-thread copies); 20 rows in a
+# block of 64 threads; H = 32 (the general kernel); SEA forced general
+K1_CASES = (("sea", dict(F=3), "fused"), ("sine", dict(F=2), "fused"),
+            ("ring", dict(F=2, S=12), "fused"),
+            ("unaligned", dict(F=3, N=498, B=498, S=10), "fused"),
+            ("few_rows", dict(F=3, N=40, B=20, S=12), "fused"),
+            ("h32", dict(F=3, H=32), "general"),
+            ("sea_general", dict(F=3), "general"))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("F", [3, 2])
-def test_local_sgd_kernel_matches_plain(cuda, F):
-    args, kw = _case(F)
+@pytest.mark.parametrize("name,case,route", K1_CASES,
+                         ids=[c[0] for c in K1_CASES])
+def test_local_sgd_kernel_matches_plain(cuda, name, case, route):
+    args, kw = _case(**case)
+    F, H, B = case["F"], kw["hidden"], kw["batch_size"]
+    forced = name == "sea_general"
+    assert forced or _route(F, H, 2, B) == route
     k_args, r_args = _to(cuda, args), _to(cuda, args)
     before = local_sgd.launches
-    client, opt, n, loss = local_sgd(*k_args, **kw)
+    client, opt, n, loss = local_sgd(*k_args, **kw,
+                                     route=route if forced else None)
     torch.cuda.synchronize()
     assert local_sgd.launches == before + 1
     assert opt is k_args[3]                     # updated in place
@@ -89,7 +109,23 @@ def test_local_sgd_kernel_matches_plain(cuda, F):
         for key in ("mu", "nu", "nu_max", "count"):
             assert torch.equal(opt[key][m, c], fresh[3][key][m, c])
         assert n[m, c] == 0 and loss[m, c] > 0
-    assert int(opt["count"][1, 1]) == 20
+    active = k_args[-1] > 0
+    assert (opt["count"][active] == 15 + case.get("S", 5)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["fused", "general"])
+def test_local_sgd_two_calls_are_bitwise_equal(cuda, route):
+    """A fixed summation order: the same inputs give the same bits."""
+    args, kw = _case(3)
+    outs = []
+    for _ in range(2):
+        a = _to(cuda, args)
+        client, opt, n, loss = local_sgd(*a, **kw, route=route)
+        outs.append((client, loss, n, *opt.values()))
+    torch.cuda.synchronize()
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.gpu
@@ -149,8 +185,9 @@ def test_experiment_rounds_go_through_the_kernel(cuda, tmp_path):
 
 @pytest.mark.gpu
 def test_served_row_batch_variance_located(cuda):
-    """Row 0 served alone (b1) and in a batch of 32: the first op whose row
-    output differs bitwise is printed, with the max difference per op."""
+    """Row 0 served alone (b1) and in a batch of 32: every op's output for
+    that row, and so its logits, agree bitwise (the Dense layers' kernel
+    tiles do not depend on the batch)."""
     from feddrift_torch.core.step import ForwardStep
     from feddrift_torch.core.pool import ModelPool
     from feddrift_torch.models import transformer
@@ -170,7 +207,5 @@ def test_served_row_batch_variance_located(cuda):
     diffs, first = first_difference(one, many)
     print("batch-variance per op:", diffs, "first:", first)
     assert len(diffs) == 2 + 2 * 7 + 2
-    torch.testing.assert_close(out1[0], out32[0], atol=ATOL, rtol=0)
-    # the flash kernel computes each (b, h) alone: it is never where a
-    # row's answer starts to depend on its batch
-    assert first is None or "flash_attention" not in first
+    assert first is None, diffs
+    assert torch.equal(out1[0], out32[0])

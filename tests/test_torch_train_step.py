@@ -23,8 +23,9 @@ import torch
 from feddrift_torch.config import ExperimentConfig
 from feddrift_torch.convert import params_from_jax
 from feddrift_torch.core.step import TrainStep
-from feddrift_torch.kernels.local_sgd import (amsgrad_step, init_opt_state,
-                                              local_sgd, local_sgd_ref)
+from feddrift_torch.kernels.local_sgd import (_route, _unpack, amsgrad_step,
+                                              init_opt_state, local_sgd,
+                                              local_sgd_ref)
 from feddrift_torch.models.mlp import FeedForwardNN
 from feddrift_torch.resilience.robust_agg import agg_mean
 
@@ -402,3 +403,114 @@ def test_step_refuses_what_the_kernel_does_not_train():
     cfg = ExperimentConfig()
     with pytest.raises(NotImplementedError):
         TrainStep.create(cfg, torch.nn.Identity(), 2, device="cpu")
+
+
+class TestKernelRoute:
+    @pytest.mark.parametrize("dataset", ["sea", "sine", "circle"])
+    def test_registry_defaults_take_the_fused_kernel(self, dataset):
+        from feddrift_torch.data.registry import make_dataset
+        from feddrift_torch.models import create_model
+        cfg = ExperimentConfig(dataset=dataset,
+                               change_points="A" if dataset == "sea" else "W")
+        ds = make_dataset(cfg)
+        mod = create_model("fnn", ds, cfg)
+        F, H, K = ds.x.shape[-1], mod.hidden_dim, mod.num_classes
+        assert (F, H, K) == ((3 if dataset == "sea" else 2), 10, 2)
+        assert _route(F, H, K, min(cfg.batch_size, ds.x.shape[2])) == "fused"
+
+    @pytest.mark.parametrize("F,H,K,B", [(3, 32, 2, 500), (2, 32, 2, 500),
+                                         (784, 10, 10, 500), (3, 10, 2, 513),
+                                         (3, 10, 3, 500)])
+    def test_other_shapes_take_the_general_kernel(self, F, H, K, B):
+        assert _route(F, H, K, B) == "general"
+
+
+
+def _fold_warp(v):
+    """The fused K1 kernel's transpose-reduce of one warp, in float32: ``v
+    [32 lanes, V]``; in each of five butterfly rounds (lane bit 16, 8, 4,
+    2, 1) a lane keeps the half of its values its bit selects and adds its
+    partner's copy of that half. Returns ``[V]``: lane l's V/32 sums are
+    values ``[l * V/32, (l + 1) * V/32)``."""
+    lanes = torch.arange(32)
+    half = v.shape[1] // 2
+    for o in (16, 8, 4, 2, 1):
+        upper = ((lanes & o) != 0)[:, None]
+        keep = torch.where(upper, v[:, half:2 * half], v[:, :half])
+        recv = torch.where(upper, v[lanes ^ o, half:2 * half],
+                           v[lanes ^ o, :half])
+        v = keep + recv
+        half //= 2
+    return v.reshape(-1)
+
+
+def _kernel_order_grad(x, y, packed, F, H, K, threads=512):
+    """Loss and gradient of one batch as the fused K1 kernel forms them:
+    each row's terms from the written-out backward (dlogits, ReLU mask,
+    x (x) dh, h (x) dz), padded to V = 64 values and to ``threads`` rows,
+    folded a warp at a time, then the warps summed in order."""
+    B = x.shape[0]
+    w1, b1, w2, b2 = (t[0] for t in _unpack(packed, F, H, K))
+    inv_b = torch.tensor(1.0, dtype=torch.float32) / B
+    h = torch.relu(x @ w1 + b1)                                # [B, H]
+    z = h @ w2 + b2                                            # [B, K]
+    zmax = z.max(-1, keepdim=True).values
+    e = torch.exp(z - zmax)
+    se = e.sum(-1, keepdim=True)
+    onehot = torch.nn.functional.one_hot(y.long(), K).float()
+    loss_row = torch.log(se[:, 0]) - ((z * onehot).sum(-1) - zmax[:, 0])
+    dz = (e / se - onehot) * inv_b                             # dlogits
+    dh = (dz @ w2.T) * (h > 0)                                 # ReLU mask
+    terms = torch.cat([(x[:, :, None] * dh[:, None, :]).reshape(B, F * H),
+                       dh, (h[:, :, None] * dz[:, None, :]).reshape(B, H * K),
+                       dz, loss_row[:, None]], dim=1)          # [B, P + 1]
+    V = -(-terms.shape[1] // 32) * 32
+    rows = torch.zeros(threads, V)
+    rows[:B, :terms.shape[1]] = terms
+    total = torch.zeros(V)
+    for w in range(threads // 32):
+        total = total + _fold_warp(rows[32 * w:32 * (w + 1)])
+    P = terms.shape[1] - 1
+    return total[P] * inv_b, total[:P]
+
+
+class TestFusedKernelGradient:
+    """The per-row backward the fused K1 kernel computes, summed in its
+    thread -> warp -> block order, against autograd and against JAX's
+    value_and_grad of the loss ``_local_sgd`` differentiates, at the
+    canonical shape (B = 500 rows, a 3 -> 10 -> 2 fnn, SEA-like inputs in
+    [0, 10]). Tolerance 1e-6 on values of order 1, scaled by the largest
+    |gradient| where that is above 1 (up to ~10 here, where one float32 ulp
+    is ~1e-6): float32 sums of 500 rows in other orders."""
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_matches_autograd_and_jax(self, seed):
+        from feddrift_tpu.core.functional import cross_entropy
+        from feddrift_tpu.models.mlp import FeedForwardNN as JFnn
+        F, Hd, K, Bn = 3, 10, 2, 500
+        rng = np.random.default_rng(seed)
+        x = rng.uniform(0, 10, (Bn, F)).astype(np.float32)
+        y = (x[:, 0] + x[:, 1] > 8).astype(np.int32)
+        jm = JFnn(num_classes=K, hidden_dim=Hd)
+        jp = jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, F)))["params"]
+        jloss, jgrad = jax.value_and_grad(
+            lambda p: cross_entropy(jm.apply({"params": p}, jnp.asarray(x)),
+                                    jnp.asarray(y)))(jp)
+        mod = FeedForwardNN((F,), num_classes=K, hidden_dim=Hd)
+        packed = _pack(mod, jax.tree_util.tree_map(lambda a: a[None], jp))
+        loss, grad = _kernel_order_grad(torch.from_numpy(x),
+                                        torch.from_numpy(y), packed, F, Hd, K)
+        want = _pack(mod, jax.tree_util.tree_map(lambda a: a[None],
+                                                 jgrad))[0]
+        tol = 1e-6 * max(1.0, float(want.abs().max()))
+        _close(loss, jloss, atol=1e-6)
+        _close(grad, want, atol=tol)
+        pg = packed[0].clone().requires_grad_(True)
+        w1, b1, w2, b2 = _unpack(pg, F, Hd, K)
+        logits = torch.relu(torch.from_numpy(x) @ w1 + b1) @ w2 + b2
+        ref = torch.nn.functional.cross_entropy(logits,
+                                                torch.from_numpy(y).long())
+        ref_grad, = torch.autograd.grad(ref, pg)
+        _close(loss, ref.detach(), atol=1e-6)
+        _close(grad, ref_grad, atol=tol)
+        assert grad.abs().max() > 1e-3         # a gradient, not all zeros
