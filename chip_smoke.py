@@ -10,8 +10,9 @@ Phases, one or more lines of output each:
 2. build: compiles every CUDA source of ``feddrift_torch/kernels/csrc``
    with nvcc (sm_90a, one process a source, all at once) and prints the
    build seconds, ptxas' registers and spills per kernel of every source,
-   and the count of tensor-core (``HMMA``) instructions in the flash
-   library's SASS (``cuobjdump``; "not measured" without it).
+   and the count of tensor-core (``HMMA``) instructions in the flash and
+   ``dense_rows`` libraries' SASS (``cuobjdump``; "not measured" without
+   it).
 3. kernel: holds the flash-attention kernel against its plain PyTorch
    version on the card at the serving shape and the mean served
    micro-batch (q, k, v split off one qkv projection, as the transformer
@@ -21,9 +22,14 @@ Phases, one or more lines of output each:
    calls it): per call, on the device, and the host's enqueue alone (host
    times in turns, five rounds, medians). Then the per-row Dense kernel
    (``dense_rows``) at the five Dense shapes of the served transformer at
-   b32 and b8: against its plain version, a row bitwise equal to its b1
-   call, and its times beside ``torch.bmm``'s (``torch.baddbmm`` where the
-   layer has a bias) and the bound.
+   b32 and b8: against its plain version (and both against the float64
+   product), its first and last rows bitwise equal to their b1 calls, and
+   its times (with its route) beside ``torch.bmm``'s (``torch.baddbmm``
+   where the layer has a bias), the device time recorded for its first
+   design (SIMT float32) and the bound (over the routes the card offers:
+   bytes against 3xTF32 tensor-core operations, the float32 SIMT figure
+   beside it); then the Dense work of one forward (``dense_forward``: 2 x
+   the four block layers + the lm_head) at each batch.
 4. serve: the port's main path at full registry width. The ``shakespeare``
    dataset at its defaults, a pool of 4 distinct ``transformer`` models,
    10 clients spread over them, ``InferenceEngine`` with the
@@ -81,7 +87,7 @@ KERNEL_ATOL = 1e-5
 SERVE_ATOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
-# the kernel's route: TF32 tensor cores (495 TFLOP/s dense), three TF32
+# the kernels' route: TF32 tensor cores (495 TFLOP/s dense), three TF32
 # products per float32 product to keep float32 accuracy
 TC_3XTF32_FLOPS_PER_S = 495e12 / 3
 # |K1 - plain| on params, mu and losses: float32 gradient sums over 500
@@ -119,6 +125,17 @@ DENSE_SHAPES = (("qkv", 80, 128, 384, False), ("proj", 80, 128, 128, False),
                 ("lm_head", 1, 128, 90, True))
 DENSE_BATCHES = (32, 8)        # the largest bucket and the mean micro-batch
 DENSE_ENTRY = ("Dense_0", 32)  # the kernels line's representative call
+# launches of each Dense layer in one forward of the 2-block transformer
+DENSE_PER_FORWARD = {"qkv": 2, "proj": 2, "Dense_0": 2, "Dense_1": 2,
+                     "lm_head": 1}
+# dense_rows's device ms per layer and batch as recorded for its first
+# design (SIMT float32; PERF.md's kernel table, NVIDIA H100 80GB HBM3,
+# 700 W), printed beside this run's as pr4_device_ms
+DENSE_FIRST_DESIGN_DEVICE_MS = {
+    32: {"qkv": 0.02168, "proj": 0.01561, "Dense_0": 0.02700,
+         "Dense_1": 0.05562, "lm_head": 0.01023},
+    8: {"qkv": 0.01372, "proj": 0.01344, "Dense_0": 0.01614,
+        "Dense_1": 0.04987, "lm_head": 0.00997}}
 
 
 def _say(phase: str, **fields) -> None:
@@ -228,15 +245,16 @@ def phase_device() -> str:
 
 def _ptxas_per_kernel(log: str) -> dict:
     """ptxas' registers and spills for each compiled kernel, keyed by the
-    kernel's name and template arguments (``flash_fwd_kernel<32>``)."""
+    kernel's name and its int and bool template arguments
+    (``flash_fwd_kernel<32>``, ``dense_rows_mma_kernel<64,1>``)."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", ln)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?",
+            k = re.search(r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?",
                           m.group(1))
-            ints = re.findall(r"Li(\d+)E", k.group(2) or "") if k else []
+            ints = re.findall(r"L[ib](\d+)E", k.group(2) or "") if k else []
             name = (k.group(1) + (f"<{','.join(ints)}>" if ints else "")) \
                 if k else m.group(1)
         elif name and ("registers" in ln or "spill" in ln):
@@ -269,6 +287,8 @@ def phase_build() -> None:
     _say("build", seconds=round(build.build_seconds, 3),
          sources=sorted(build.build_log), ptxas=ptxas,
          flash_sass_hmma=_sass_count(build.lib_path("flash_attn_fwd.cu"),
+                                     "HMMA"),
+         dense_sass_hmma=_sass_count(build.lib_path("dense_rows.cu"),
                                      "HMMA"))
 
 
@@ -335,29 +355,36 @@ def phase_kernel() -> dict:
     return entry
 
 
-def _dense_bound_ms(B: int, L: int, n_in: int, n_out: int,
-                    bias: bool) -> tuple[float, str]:
+def _dense_bound_ms(B: int, L: int, n_in: int, n_out: int, bias: bool,
+                    flops_per_s: float = TC_3XTF32_FLOPS_PER_S
+                    ) -> tuple[float, str]:
     """Least time for one per-row Dense on the card: x, the per-row weights
     (and bias) read once and y written once over HBM, against its
-    multiply-adds (and bias adds) at the float32 rate."""
+    multiply-adds (and bias adds) at ``flops_per_s``. The default is the
+    fastest float32-accurate route the card offers, 3xTF32 on the tensor
+    cores; ``F32_FLOPS_PER_S`` gives the SIMT figure."""
     nbytes = 4 * (B * L * n_in + B * n_in * n_out + B * L * n_out
                   + (B * n_out if bias else 0))
     flops = 2 * B * L * n_in * n_out + (B * L * n_out if bias else 0)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops \
         else (t_ops * 1e3, "operations")
 
 
 def phase_dense() -> dict:
     """The per-row Dense kernel at the served transformer's Dense shapes:
-    error against its plain version, a row bitwise equal to its b1 call,
-    and its times beside torch.bmm's (baddbmm's with a bias) and the
-    bound."""
+    error against its plain version, its first and last rows bitwise equal
+    to their b1 calls, and its times beside torch.bmm's (baddbmm's with a
+    bias), its first design's recorded time and the bound; then the Dense
+    work of one forward at each batch."""
     import torch
-    from feddrift_torch.kernels.dense_rows import dense_rows, dense_rows_ref
+    from feddrift_torch.kernels.dense_rows import (_launch_config,
+                                                   dense_rows, dense_rows_ref)
     gen = torch.Generator(device="cuda").manual_seed(1)
     entry = None
     for B in DENSE_BATCHES:
+        forward = {"kernel": 0.0, "library": 0.0, "first": 0.0,
+                   "bound": 0.0, "simt": 0.0}
         for layer, L, n_in, n_out, has_bias in DENSE_SHAPES:
             x = torch.randn((B, L, n_in), generator=gen, device="cuda")
             w = torch.randn((B, n_in, n_out), generator=gen,
@@ -365,10 +392,20 @@ def phase_dense() -> dict:
             b = torch.randn((B, n_out), generator=gen, device="cuda") * 0.1 \
                 if has_bias else None
             out = dense_rows(x, w, b)
-            one = dense_rows(x[:1], w[:1], None if b is None else b[:1])
+            ones = [dense_rows(x[r:r + 1], w[r:r + 1],
+                               None if b is None else b[r:r + 1])
+                    for r in (0, B - 1)]
             torch.cuda.synchronize()
-            err = (out - dense_rows_ref(x, w, b)).abs().max().item()
-            row_bitwise = bool(torch.equal(one[0], out[0]))
+            plain = dense_rows_ref(x, w, b)
+            err = (out - plain).abs().max().item()
+            # both against the exact product (float64): the kernel's own
+            # error apart from the plain version's rounding
+            exact = dense_rows_ref(x.double(), w.double(),
+                                   None if b is None else b.double())
+            err64 = (out - exact).abs().max().item()
+            plain_err64 = (plain - exact).abs().max().item()
+            row_bitwise = bool(torch.equal(ones[0][0], out[0])
+                               and torch.equal(ones[1][0], out[B - 1]))
             library = (lambda: torch.baddbmm(b[:, None, :], x, w)) \
                 if has_bias else (lambda: torch.bmm(x, w))
             calls = {"kernel": lambda: dense_rows(x, w, b),
@@ -379,23 +416,42 @@ def phase_dense() -> dict:
             enqueue = _interleaved(_host_enqueue_ms, {
                 "kernel": calls["kernel"], "library": library})
             bound_ms, bound_by = _dense_bound_ms(B, L, n_in, n_out, has_bias)
+            simt_ms, simt_by = _dense_bound_ms(B, L, n_in, n_out, has_bias,
+                                               F32_FLOPS_PER_S)
+            first_ms = DENSE_FIRST_DESIGN_DEVICE_MS[B][layer]
+            cfg = _launch_config(L, n_in, n_out)
             _say("kernel", name="dense_rows", layer=layer,
-                 shape=(B, L, n_in, n_out), bias=has_bias,
-                 max_abs_err=err, atol=KERNEL_ATOL, row_bitwise=row_bitwise,
+                 shape=(B, L, n_in, n_out), bias=has_bias, route=cfg.route,
+                 tile=(cfg.tile_l, cfg.tile_out), warps=cfg.warps,
+                 max_abs_err=err, atol=KERNEL_ATOL,
+                 max_abs_err_vs_f64=err64,
+                 plain_max_abs_err_vs_f64=plain_err64,
+                 row_bitwise=row_bitwise,
                  kernel_ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                  library="torch.baddbmm" if has_bias else "torch.bmm",
                  kernel_device_ms=device["kernel"],
                  plain_device_ms=device["plain"],
                  library_device_ms=device["library"],
+                 device_vs_library=device["kernel"] / device["library"]
+                 if device["kernel"] and device["library"]
+                 else "not measured",
+                 pr4_device_ms=first_ms,
                  kernel_enqueue_ms=enqueue["kernel"],
                  library_enqueue_ms=enqueue["library"], bound_ms=bound_ms,
-                 bound_by=bound_by,
+                 bound_by=bound_by, bound_f32_simt_ms=simt_ms,
+                 bound_f32_simt_by=simt_by,
                  device_vs_bound=(device["kernel"] or ms) / bound_ms)
             if not (err <= KERNEL_ATOL and row_bitwise):
                 raise AssertionError(f"dense_rows {layer} at b{B}: max "
                                      f"|kernel - plain| {err} (atol "
                                      f"{KERNEL_ATOL}), row bitwise "
                                      f"{row_bitwise}")
+            n = DENSE_PER_FORWARD[layer]
+            forward["kernel"] += n * (device["kernel"] or float("nan"))
+            forward["library"] += n * (device["library"] or float("nan"))
+            forward["first"] += n * first_ms
+            forward["bound"] += n * bound_ms
+            forward["simt"] += n * simt_ms
             if (layer, B) == DENSE_ENTRY:
                 entry = {"name": "dense_rows", "route": "cuda",
                          "source": "feddrift_torch/kernels/csrc/dense_rows.cu",
@@ -404,7 +460,16 @@ def phase_dense() -> dict:
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": library_ms,
                          "device_ms": device["kernel"],
+                         "bound_f32_simt_ms": simt_ms,
                          "shape": (B, L, n_in, n_out)}
+        _say("dense_forward", batch=B,
+             launches=sum(DENSE_PER_FORWARD.values()),
+             kernel_device_ms=forward["kernel"],
+             library_device_ms=forward["library"],
+             pr4_device_ms=forward["first"], bound_ms=forward["bound"],
+             bound_f32_simt_ms=forward["simt"],
+             device_vs_library=forward["kernel"] / forward["library"],
+             device_vs_bound=forward["kernel"] / forward["bound"])
     return entry
 
 

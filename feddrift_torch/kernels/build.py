@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled on its
 own into a shared library for ``sm_90a``. All sources are compiled at once
 (one ``nvcc`` process each), at first use, into ``kernels/_build/`` (listed
-in ``.gitignore``). A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale one is never loaded.
+in ``.gitignore``). A library's file name carries a hash of its source, of
+every header in ``csrc/`` (``*.cuh``, which the sources may include) and of
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded.
 
 No source includes PyTorch's headers: a plain C file builds in seconds,
 where one that includes ``torch/extension.h`` takes minutes.
@@ -49,8 +51,11 @@ def _sources() -> list[str]:
 
 
 def lib_path(src: str) -> str:
-    with open(os.path.join(CSRC, src), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in (src, *headers):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{src[:-3]}-{digest.hexdigest()[:16]}.so")
 
 

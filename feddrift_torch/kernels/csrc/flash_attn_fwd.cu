@@ -17,16 +17,10 @@
 //
 // Design.
 // - Tensor cores at f32 accuracy. Both products, S = Q K^T and O += P V,
-//   run as mma.sync m16n8k8 tf32 with f32 accumulators. One TF32 term keeps
-//   a 10-bit mantissa (errors ~1e-3); each operand x is split into
-//   big = x with its low 13 bits cleared and small = x - big (exact in
-//   f32), and a*b is accumulated as small*big + big*small, then big*big
-//   (3xTF32, the route of PyTorch's f32 mem-efficient attention), which
-//   holds |kernel - plain| near 4e-6. The tensor core reads the top 19 bits
-//   of a tf32 operand, so small goes in as it is. The split is thus one
-//   LOP3 and one FADD, where cvt.rna.tf32.f32 lowers to a sequence of four
-//   instructions (with its NaN check) on sm_90: rounding both halves with
-//   it made the kernel markedly slower for a slightly smaller error.
+//   run as mma.sync m16n8k8 tf32 with f32 accumulators, each operand split
+//   into a tf32 big part and a small remainder and every product taken as
+//   three TF32 terms (3xTF32, the route of PyTorch's f32 mem-efficient
+//   attention; mma_tf32.cuh), which holds |kernel - plain| near 4e-6.
 // - Short accumulation chains. Each key tile's P V goes into fresh
 //   accumulators and is merged into O with an f32 FMA (O * corr + PV), so
 //   the tensor core's own summation spans one tile, whatever L is.
@@ -69,6 +63,8 @@
 
 #include <atomic>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -93,59 +89,6 @@ struct Args {
   int H, L, causal;
   float scale;
 };
-
-// x = big + small, big a tf32 value (the low 13 bits cleared) and small
-// exact in f32; the tensor core reads the top 19 bits of small.
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = __float_as_uint(x) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a * b in 3xTF32: the two small cross terms first, then big * big.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&a_big)[4],
-                                           const uint32_t (&a_small)[4],
-                                           float b0, float b1) {
-  uint32_t b0_big, b0_small, b1_big, b1_small;
-  split(b0, b0_big, b0_small);
-  split(b1, b1_big, b1_small);
-  mma_tf32(d, a_small, b0_big, b1_big);
-  mma_tf32(d, a_big, b0_small, b1_small);
-  mma_tf32(d, a_big, b0_big, b1_big);
-}
-
-__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&big)[4],
-                                       uint32_t (&small)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(x[i], big[i], small[i]);
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-fills when !in.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool in) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
@@ -191,9 +134,9 @@ flash_fwd_kernel(const Args a) {
       const int kpos = j * BK + r;
       const bool in = kpos < L;
       cp_async16(ks + r * T::kKStride + c, in ? kb + kpos * a.ks[2] + c : kb,
-                 in);
+                 in ? 16 : 0);
       cp_async16(vs + r * T::kVStride + c, in ? vb + kpos * a.vs[2] + c : vb,
-                 in);
+                 in ? 16 : 0);
     }
     cp_async_commit();
   };

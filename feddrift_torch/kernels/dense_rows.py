@@ -8,13 +8,17 @@ per-row gathered params of a mixed-model micro-batch
 (``feddrift_tpu/models/transformer.py``). The kernel is
 ``csrc/dense_rows.cu``; its source notes what bounds it and its design.
 
-Its launch geometry and its k order depend on ``(L, in, out)`` only
-(``_launch_config``), never on B, so a row's answer is bitwise the same in
-any batch, B = 1 included: served answers do not depend on the micro-batch
-a request lands in. ``dense_rows`` launches the kernel for CUDA tensors and
-takes the plain version, ``dense_rows_ref``, for CPU tensors. There is no
-fallback for a CUDA tensor: the kernel launches or the call raises. The
-kernel has no backward, so it refuses inputs that need a gradient.
+Two routes, picked by shape alone (``_launch_config``): for L > 1 the
+product runs on the tensor cores at float32 accuracy (3xTF32 ``mma.sync``,
+a ``cp.async`` ring of x and W tiles), for L = 1 (the lm_head's last
+position) as a per-row GEMV that streams W once. The route, the tiles and
+the k order depend on ``(L, in, out)`` only, never on B, so a row's answer
+is bitwise the same in any batch, B = 1 included: served answers do not
+depend on the micro-batch a request lands in. ``dense_rows`` launches the
+kernel for CUDA tensors and takes the plain version, ``dense_rows_ref``,
+for CPU tensors. There is no fallback for a CUDA tensor: the kernel
+launches or the call raises. The kernel has no backward, so it refuses
+inputs that need a gradient.
 """
 
 from __future__ import annotations
@@ -29,22 +33,35 @@ import torch
 from feddrift_torch.kernels.build import library
 
 MAX_GRID_X = 2 ** 31 - 1
-MAX_GRID_YZ = 65535
+# 16 x 64 tiles unless a row then has too few of them for a micro-batch of
+# FILL_ROWS rows (the mean served micro-batch) to fill the card's SMs
+FILL_ROWS, SMS = 8, 132
+_ROUTES = {"gemv": 0, "mma": 1}     # csrc/dense_rows.cu's kRoute*
 
 
 class LaunchConfig(NamedTuple):
-    tile_l: int     # positions of a block's output tile (TL)
-    tile_out: int   # outputs of a block's output tile (TO)
-    thread_l: int   # positions of a thread's register tile (RL)
-    thread_out: int  # outputs of a thread's register tile (RO)
+    route: str      # "mma" (3xTF32 tensor cores) or "gemv" (L = 1)
+    tile_l: int     # positions of a block's output tile
+    tile_out: int   # outputs of a block's output tile
+    warps: int      # warps of a block; they share out the k loop
 
 
 @functools.lru_cache(maxsize=64)
 def _launch_config(L: int, in_: int, out: int) -> LaunchConfig:
-    """The kernel's tiles: from the layer's shape only, never from B. The
-    k loop runs over all of ``in_`` in order whatever the tile."""
-    del in_, out                # one tile serves every width on the path
-    return LaunchConfig(1, 64, 1, 1) if L == 1 else LaunchConfig(16, 64, 4, 4)
+    """The kernel's route and tiles: from the layer's shape only, never
+    from B. The k order follows from them: in the mma route warp w sums
+    k8 slice w of every 32-deep k tile, in the gemv route k = w, w + 8,
+    ...; both add the warps' partials in warp order, then the bias."""
+    del in_                     # one k tile serves every depth
+    if L == 1:
+        return LaunchConfig("gemv", 1, 64, 8)
+    wide = -(-L // 16) * -(-out // 64) * FILL_ROWS >= SMS
+    return LaunchConfig("mma", 16, 64 if wide else 32, 4)
+
+
+def grid_blocks(B: int, L: int, out: int, cfg: LaunchConfig) -> int:
+    """Blocks of one launch: one per (row, position tile, output tile)."""
+    return B * -(-L // cfg.tile_l) * -(-out // cfg.tile_out)
 
 
 def dense_rows_ref(x: torch.Tensor, w: torch.Tensor,
@@ -55,8 +72,9 @@ def dense_rows_ref(x: torch.Tensor, w: torch.Tensor,
 
 
 # csrc/dense_rows.cu's Params: x, w, bias, y pointers; x strides (B, L), W
-# strides (B, in), bias stride B; B, L, in, out, tile_l, device
-_PARAMS = struct.Struct("=4Q5q6i")
+# strides (B, in), bias stride B; B; L, in, out; route, tile_l, tile_out,
+# warps; device
+_PARAMS = struct.Struct("=4Q6q8i")
 
 
 @functools.cache
@@ -104,10 +122,10 @@ def dense_rows(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("dense_rows needs stride 1 in the last dimension "
                          "of x, w and bias")
     cfg = _launch_config(L, n_in, n_out)
-    if B > MAX_GRID_X or -(-L // cfg.tile_l) > MAX_GRID_YZ \
-            or -(-n_out // cfg.tile_out) > MAX_GRID_YZ:
-        raise ValueError(f"B={B}, L={L}, out={n_out} give a grid outside "
-                         f"[1, {MAX_GRID_X}] x [1, {MAX_GRID_YZ}]^2")
+    blocks = grid_blocks(B, L, n_out, cfg)
+    if blocks > MAX_GRID_X:
+        raise ValueError(f"B={B}, L={L}, out={n_out} give {blocks} blocks, "
+                         f"more than the grid's {MAX_GRID_X}")
     y = torch.empty((B, L, n_out), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
@@ -115,7 +133,7 @@ def dense_rows(x: torch.Tensor, w: torch.Tensor,
         x.data_ptr(), w.data_ptr(), 0 if bias is None else bias.data_ptr(),
         y.data_ptr(), x.stride(0), x.stride(1), w.stride(0), w.stride(1),
         0 if bias is None else bias.stride(0), B, L, n_in, n_out,
-        cfg.tile_l, index),
+        _ROUTES[cfg.route], *cfg[1:], index),
         torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"dense_rows_f32 launch failed: cudaError {err}")

@@ -17,6 +17,10 @@ without one. They import nothing of JAX, so they run on the card with
   ``Experiment`` on the card takes every round through K1.
 - A served row's answer does not depend on its batch: one serving forward
   at b1 and at b32 with the same row agree bitwise, op by op.
+- A serving forward at every bucket goes through the per-row Dense kernel
+  (9 launches: four Dense layers in each of two blocks and the lm_head)
+  and gives the plain CPU path's logits within 1e-4 (two 128-wide blocks
+  summed in other orders).
 """
 
 import numpy as np
@@ -209,3 +213,30 @@ def test_served_row_batch_variance_located(cuda):
     assert len(diffs) == 2 + 2 * 7 + 2
     assert first is None, diffs
     assert torch.equal(out1[0], out32[0])
+
+
+@pytest.mark.gpu
+def test_served_forward_goes_through_dense_rows_at_every_bucket(cuda):
+    from feddrift_torch.core.pool import ModelPool
+    from feddrift_torch.core.step import ForwardStep
+    from feddrift_torch.kernels.dense_rows import dense_rows
+    from feddrift_torch.models import transformer
+    from feddrift_torch.platform.serving import SERVE_BUCKETS
+    model = transformer.TransformerLM(vocab_size=90, max_len=128)
+    pool = ModelPool.create(model, None, 4, seed=0, identical=False,
+                            device=cuda)
+    step = ForwardStep(apply_rows=pool.apply_rows)
+    plain = transformer.TransformerLM(vocab_size=90, max_len=128,
+                                      attention_impl="blockwise")
+    cpu_params = {k: v.cpu() for k, v in pool.params.items()}
+    rng = np.random.default_rng(1)
+    for B in SERVE_BUCKETS:
+        x = torch.from_numpy(rng.integers(0, 90, (B, 80)))
+        midx = torch.from_numpy(rng.integers(0, 4, B))
+        before = dense_rows.launches
+        out = step.forward(pool.params, x.to(cuda), midx.to(cuda))
+        torch.cuda.synchronize()
+        assert dense_rows.launches == before + 9, B
+        with torch.no_grad():
+            want = plain({k: v[midx] for k, v in cpu_params.items()}, x)
+        torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=0)

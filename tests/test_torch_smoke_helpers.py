@@ -1,5 +1,6 @@
 """The pure helpers of ``chip_smoke.py`` on the CPU: the reference run it
-holds the training against, and K1's bound from the round's own draws."""
+holds the training against, K1's bound from the round's own draws, and the
+per-row Dense's bound over the routes the card offers."""
 
 import json
 import shutil
@@ -63,3 +64,24 @@ def test_local_sgd_bound_counts_active_pairs_only():
     assert half < full
     total_w[:] = 0
     assert _bound(t_idx, total_w)[0] < half
+
+
+@pytest.mark.parametrize("B", chip_smoke.DENSE_BATCHES)
+def test_dense_bound_is_bytes_at_every_serving_shape(B):
+    """Through 3xTF32 tensor-core operations every served Dense layer is
+    bound by its bytes (the per-row weights); the SIMT figure is larger."""
+    total = simt = 0.0
+    for layer, L, n_in, n_out, bias in chip_smoke.DENSE_SHAPES:
+        ms, by = chip_smoke._dense_bound_ms(B, L, n_in, n_out, bias)
+        simt_ms, _ = chip_smoke._dense_bound_ms(B, L, n_in, n_out, bias,
+                                                chip_smoke.F32_FLOPS_PER_S)
+        nbytes = 4 * (B * L * n_in + B * n_in * n_out + B * L * n_out
+                      + (B * n_out if bias else 0))
+        assert by == "bytes"
+        assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+        assert simt_ms >= ms
+        total += chip_smoke.DENSE_PER_FORWARD[layer] * ms
+        simt += chip_smoke.DENSE_PER_FORWARD[layer] * simt_ms
+    # a b32 forward's nine launches: 0.0281 ms of bytes (SIMT: 0.0309)
+    assert total == pytest.approx(0.0281 * B / 32, rel=0.01)
+    assert simt > total
