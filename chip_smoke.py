@@ -63,6 +63,27 @@ Phases, one or more lines of output each:
    the 10-step mean within 0.015: across seeds 0-2 of the committed
    ``H_A_F_1_3_0`` runs one step differs by up to 0.025, the mean by 0.003).
 
+7. train_algos: the paper's other algorithms at the canonical full width
+   (SEA, change points A, 10 clients, 10 steps x 200 rounds of 5 AMSGrad
+   steps on 500 rows): CFL (``softcluster cfl_0.1_win-1``, the per-round
+   path), IFCA on the current step (``softclusterwin-1 hard``) and the
+   single-model baselines ``win-1``, ``oblivious``, ``exp`` and ``lin``
+   (M = 1), each on the fused path. One ``train_algo`` line each: the
+   path, wall, rounds/s, K1 launches, the plain K2/K3 calls, host syncs a
+   round, models in use per step and per-step Test/Acc beside its
+   committed SEA reference run; then the kernel launches a round and K1's
+   device time in one profiled time step. Fails unless K1 carried all 2000
+   rounds on the expected path and every step is within 0.04 (the mean
+   within 0.015) of the committed run, whose final Test/Acc are pinned.
+8. train_sampling: 4 of 10 clients a round at full width, T = 2, R = 50,
+   once fused and once per round: fails unless the two give bitwise-equal
+   Test/Acc series and final pools, the series differs from k = 10, and a
+   round's n is 0 exactly for the clients its mask leaves out.
+9. train_per_round_kinds: ``hard-r`` (per round), ``softcluster
+   mmacc_06``, ``softmax_3``, ``geni`` and ``softclusterreset softmax_3``
+   at full width, T = 3, R = 20: each must take its path, launch K1 once a
+   round and give finite metrics.
+
 It then prints the kernels' JSON line, the card line and, last, the result
 line. Any failed phase exits non-zero before the result line. It imports
 nothing of JAX.
@@ -102,6 +123,80 @@ REF_ACCS = (0.859, 0.8566, 0.8718, 0.8478, 0.8548, 0.8702, 0.8646, 0.87,
             0.8632, 0.8626)
 STEP_ACC_TOL = 0.04
 MEAN_ACC_TOL = 0.015
+# train_algos: (algo, arg, expected path, committed SEA run, that run's
+# final Test/Acc per step as committed); each run has R = 200, T = 10 and a
+# final eval at round 199 of every step
+ALGO_RUNS = (
+    ("softcluster", "cfl_0.1_win-1", "per_round",
+     "sea-fnn-softcluster-cfl_0.1_win-1-s0",
+     (0.8636, 0.8596, 0.8604, 0.8536, 0.8584, 0.8674, 0.8548, 0.865, 0.8622,
+      0.863)),
+    ("softclusterwin-1", "hard", "fused", "sea-fnn-softclusterwin-1-hard-s0",
+     (0.8702, 0.8672, 0.8668, 0.8558, 0.8572, 0.864, 0.864, 0.8692, 0.8632,
+      0.8608)),
+    ("win-1", "H_A_C_1_10_0", "fused", "sea-fnn-win-1-H_A_C_1_10_0-s0",
+     (0.8594, 0.8654, 0.871, 0.8576, 0.8564, 0.8642, 0.863, 0.8678, 0.8626,
+      0.8588)),
+    ("oblivious", "H_A_C_1_10_0", "fused",
+     "sea-fnn-oblivious-H_A_C_1_10_0-s0",
+     (0.8594, 0.8622, 0.871, 0.8494, 0.8572, 0.8704, 0.867, 0.8694, 0.863,
+      0.8642)),
+    ("exp", "H_A_C_1_10_0", "fused", "sea-fnn-exp-H_A_C_1_10_0-s0",
+     (0.8594, 0.8624, 0.8736, 0.8546, 0.8548, 0.867, 0.8668, 0.8678, 0.864,
+      0.862)),
+    ("lin", "H_A_C_1_10_0", "fused", "sea-fnn-lin-H_A_C_1_10_0-s0",
+     (0.8594, 0.8624, 0.8736, 0.854, 0.8552, 0.8678, 0.866, 0.867, 0.8634,
+      0.8628)))
+# The CFL run starts from the reference's own initial params for seed 0 (the
+# fnn 3 -> 10 -> 2 that feddrift_tpu's ModelPool.create draws with seed 42,
+# in every slot and as the reinit target; biases zero), so that its splits
+# can be held to the reference's: which clients split off, and when, turns
+# on the init. tests/test_torch_cfl.py checks these numbers against the
+# reference's pool.
+CFL_REFERENCE_INIT = {
+    "Dense_0/kernel": (
+        (-0.3013927936553955, -0.7337485551834106, 0.735293447971344,
+         1.1579012870788574, -0.9330488443374634, -0.47260305285453796,
+         -0.5756090879440308, -0.6413235664367676, -0.13448485732078552,
+         -0.32538720965385437),
+        (0.5787304043769836, 0.09523212909698486, -0.6297964453697205,
+         0.017802000045776367, 0.0036465830635279417, -0.5373333096504211,
+         -0.19254755973815918, -0.6379693150520325, -0.6390431523323059,
+         0.54328852891922),
+        (-0.7591025233268738, 0.48755326867103577, 1.1067979335784912,
+         0.2585987150669098, 0.252706378698349, 0.4743505120277405,
+         -0.8023117780685425, 0.0012960204621776938, -0.15250730514526367,
+         -0.17975205183029175)),
+    "Dense_0/bias": (0.0,) * 10,
+    "Dense_1/kernel": (
+        (0.7070286273956299, 0.46985214948654175),
+        (0.4172981083393097, -0.14754554629325867),
+        (0.1774415671825409, -0.26158806681632996),
+        (-0.26701608300209045, -0.08199362456798553),
+        (-0.4387688636779785, -0.42183682322502136),
+        (0.35413286089897156, -0.18944045901298523),
+        (0.0019123121164739132, -0.6498702168464661),
+        (-0.42706796526908875, 0.5786910057067871),
+        (-0.3704472780227661, -0.2757079005241394),
+        (-0.49893784523010254, -0.24591310322284698)),
+    "Dense_1/bias": (0.0, 0.0)}
+# what the reference does from that init on the CPU (tests/test_torch_cfl.py
+# runs both packages and holds them to these): its first split, as (round,
+# model split, new model, clients kept, clients moved), and each client's
+# model (Plurality/CL-c) at the final eval of every step. The committed run
+# makes the same first split; from step 1 on it, and the port on the card,
+# split other clients at other times, as rounding steers CFL's later
+# decisions (PERF.md), so the card is held to step 0 and the rest printed
+CFL_FIRST_SPLIT = (44, 0, 1, [0, 2, 6, 7], [1, 3, 4, 5, 8, 9])
+SPLIT_KEYS = ("round", "model", "new_model", "clients_kept", "clients_moved")
+CFL_ASSIGNMENT = ((0, 1, 0, 1, 1, 1, 0, 0, 1, 1),) + (
+    (0, 1, 0, 2, 2, 2, 0, 0, 1, 1),) * 9
+# train_per_round_kinds: (algo, arg, expected path) at T = 3, R = 20
+PER_ROUND_KINDS = (("softcluster", "hard-r", "per_round"),
+                   ("softcluster", "mmacc_06", "fused"),
+                   ("softcluster", "softmax_3", "fused"),
+                   ("softcluster", "geni", "fused"),
+                   ("softclusterreset", "softmax_3", "fused"))
 NUM_REQUESTS = 512
 CONCURRENCY = 8
 # K1's device time at the canonical shape as recorded for its first design
@@ -843,21 +938,25 @@ def _launches(fn, reps: int = 5) -> float:
     return sum(e.count for e in kernels) / reps
 
 
-def _reference_accs() -> list[float]:
-    """Final Test/Acc of each step of the committed reference run. Refuses
-    a file that holds more than one run (its rounds do not rise strictly:
-    ``python -m feddrift_torch run`` with the default ``--out_dir`` appends
-    to this very file) or whose values are not the committed ones."""
+def _reference_accs(path: str | None = None,
+                    pinned: tuple | None = None) -> list[float]:
+    """Final Test/Acc of each step of a committed reference run (default:
+    the canonical ``REF_RUN``, pinned by ``REF_ACCS``). Refuses a file that
+    holds more than one run (its rounds do not rise strictly: ``python -m
+    feddrift_torch run`` with the default ``--out_dir`` appends to such a
+    file) or whose values are not the committed ones."""
+    if path is None:
+        path, pinned = REF_RUN, REF_ACCS
     final, rounds = {}, []
-    with open(REF_RUN) as f:
+    with open(path) as f:
         for line in f:
             rec = json.loads(line)
             rounds.append(rec["round"])
             final[rec["iteration"]] = rec["Test/Acc"]
     accs = [final[t] for t in sorted(final)]
-    if rounds != sorted(set(rounds)) or accs != list(REF_ACCS):
-        raise AssertionError(f"{REF_RUN} is not the committed reference run "
-                             f"(one run, final Test/Acc {REF_ACCS}); got "
+    if rounds != sorted(set(rounds)) or accs != list(pinned):
+        raise AssertionError(f"{path} is not the committed reference run "
+                             f"(one run, final Test/Acc {pinned}); got "
                              f"rounds {rounds} and final Test/Acc {accs}")
     return accs
 
@@ -963,6 +1062,294 @@ def phase_train(entry: dict) -> None:
                                  f"reference {ref}")
 
 
+def _experiment(cfg, out_dir=None, init=None):
+    """An ``Experiment`` of ``cfg`` on the card; ``init`` (a flat dict of
+    one model's params, as ``CFL_REFERENCE_INIT``) replaces its initial
+    params in every slot and as the reinit target."""
+    import torch
+    from feddrift_torch.simulation.runner import Experiment
+    exp = Experiment(cfg, out_dir=out_dir)
+    if init is not None:
+        pool = exp.pool
+        pool.init_params = {
+            k: torch.tensor(init[k], dtype=v.dtype, device=v.device)
+            for k, v in pool.init_params.items()}
+        pool.params = {k: v[None].expand(pool.num_models, *v.shape).clone()
+                       for k, v in pool.init_params.items()}
+    return exp
+
+
+def _drive(cfg, out_dir=None, init=None) -> dict:
+    """Run one ``Experiment`` of ``cfg`` on the card through its entry point
+    and report what carried it: which path each step took, K1's launches
+    (its count set to 0 just before the run and read just after), the calls
+    of the plain K2 / K3 steps, and the wall. Host syncs are counted in a
+    second run of the same configuration (``_host_syncs_per_round``), so
+    that the count's cost stays out of the timed one."""
+    import collections
+    import tempfile
+
+    import torch
+    from feddrift_torch.core import step as step_mod
+    from feddrift_torch.kernels.local_sgd import local_sgd
+    exp = _experiment(cfg, out_dir, init)
+    paths, counts = [], collections.Counter()
+
+    def counted(name, fn):
+        def inner(*a, **k):
+            counts[name] += 1
+            return fn(*a, **k)
+        return inner
+
+    def path(name, fn):
+        def inner(t, opt):
+            paths.append(name)
+            return fn(t, opt)
+        return inner
+    exp._run_iteration_fused = path("fused", exp._run_iteration_fused)
+    exp._run_rounds = path("per_round", exp._run_rounds)
+    plain = step_mod.agg_mean
+    step_mod.agg_mean = counted("masked_fedavg", plain)
+    exp.step._acc_matrix_body = counted("acc_matrix",
+                                        exp.step._acc_matrix_body)
+    exp.step.acc_cells = counted("acc_cells", exp.step.acc_cells)
+    local_sgd.launches = 0
+    try:
+        t0 = time.perf_counter()
+        exp.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        step_mod.agg_mean = plain
+        del exp.step._acc_matrix_body, exp.step.acc_cells
+    launches = local_sgd.launches
+    rounds = cfg.train_iterations * cfg.comm_round
+    final = {}
+    for rec in exp.logger.history:
+        final[rec["iteration"]] = rec
+    models = [e["num_models"] for e in exp.events.events("cluster_state")]
+    if out_dir is None:
+        syncs = _host_syncs_per_round(cfg, None, init)
+    else:
+        with tempfile.TemporaryDirectory() as sync_dir:
+            syncs = _host_syncs_per_round(cfg, sync_dir, init)
+    return {"exp": exp, "wall_s": wall, "paths": list(paths),
+            "k1_launches": launches, "plain_calls": dict(counts),
+            "host_syncs_per_round": syncs,
+            "rounds_per_s": rounds / wall,
+            "step_wall_s": [e["wall_s"] for e in
+                            exp.events.events("iteration_end")],
+            "accs": [final[t]["Test/Acc"] for t in sorted(final)],
+            "assignment": [_assignment(final[t]) for t in sorted(final)],
+            "models_in_use": models or [exp.pool.num_models]
+            * cfg.train_iterations}
+
+
+def _assignment(rec: dict) -> list[int]:
+    """Each client's model (``Plurality/CL-c``) in one logged eval."""
+    return [rec[f"Plurality/CL-{c}"] for c in range(
+        sum(k.startswith("Plurality/CL-") for k in rec))]
+
+
+def _host_syncs_per_round(cfg, out_dir=None, init=None):
+    """Host syncs a round over a whole run of ``cfg``, untimed: CUDA's sync
+    debug mode warns once per synchronising call (None when it recorded
+    none)."""
+    import warnings
+
+    import torch
+    exp = _experiment(cfg, out_dir, init)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            exp.run()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return syncs / (cfg.train_iterations * cfg.comm_round) if syncs \
+        else None
+
+
+def _profile_step(exp) -> dict:
+    """One more time step of a finished run under the profiler, on the path
+    its last step took: kernel launches a round, the device-busy share and
+    K1's device time a launch."""
+    T, R = exp.cfg.train_iterations, exp.cfg.comm_round
+    opt = exp.step.init_opt_states(exp.pool.params, exp.pool.num_models,
+                                   exp.C_)
+    fused = exp.cfg.chunk_rounds and exp.algo.chunkable(T - 1)
+    run = exp._run_iteration_fused if fused else exp._run_rounds
+    kernels, wall_us = _profile(lambda: run(T - 1, {k: v.clone() for k, v
+                                                    in opt.items()}), 1)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    k1 = [e for e in kernels if "local_sgd" in e.key]
+    k1_us = sum(e.self_device_time_total for e in k1)
+    return {"launches_per_round": sum(e.count for e in kernels) / R,
+            "device_busy_share": busy_us / wall_us if busy_us
+            else "not measured",
+            "k1_device_ms": k1_us / sum(e.count for e in k1) / 1e3
+            if k1_us else "not measured",
+            "profiled_step_wall_ms": wall_us / 1e3}
+
+
+def _reference_assignment(path: str) -> list[list[int]]:
+    """Each client's model at the final eval of every step of a committed
+    run (``_reference_accs`` has checked that the file is that run)."""
+    final = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            final[rec["iteration"]] = rec
+    return [_assignment(final[t]) for t in sorted(final)]
+
+
+def phase_train_algos() -> None:
+    import tempfile
+
+    from feddrift_torch.config import ExperimentConfig
+    here = os.path.dirname(os.path.abspath(__file__))
+    for algo, arg, want_path, run, pinned in ALGO_RUNS:
+        ref_path = os.path.join(here, "runs", run, "metrics.jsonl")
+        ref = _reference_accs(ref_path, pinned)
+        cfg = ExperimentConfig(concept_drift_algo=algo,
+                               concept_drift_algo_arg=arg)
+        cfl = arg.startswith("cfl")
+        with tempfile.TemporaryDirectory() as out_dir:
+            got = _drive(cfg, out_dir, CFL_REFERENCE_INIT if cfl else None)
+            exp, accs = got.pop("exp"), got["accs"]
+            prof = _profile_step(exp)
+        diffs = [a - b for a, b in zip(accs, ref)]
+        mean, ref_mean = sum(accs) / len(accs), sum(ref) / len(ref)
+        paths = set(got["paths"])
+        held = {}
+        if cfl:
+            splits = exp.events.events("cluster_split")
+            held = {"init": "reference",
+                    "first_split": [splits[0][k] for k in SPLIT_KEYS]
+                    if splits else None,
+                    "splits": [[e[k] for k in SPLIT_KEYS] for e in splits],
+                    "assignment": got["assignment"],
+                    "reference_assignment": [list(a) for a in
+                                             CFL_ASSIGNMENT],
+                    "committed_assignment": _reference_assignment(ref_path)}
+        _say("train_algo", algo=algo, arg=arg, models=exp.pool.num_models,
+             path=want_path if paths == {want_path} else sorted(paths),
+             wall_s=got["wall_s"], rounds_per_s=got["rounds_per_s"],
+             step_wall_s=got["step_wall_s"], k1_launches=got["k1_launches"],
+             plain_calls=got["plain_calls"],
+             host_syncs_per_round=got["host_syncs_per_round"] or
+             "not measured", models_in_use=got["models_in_use"],
+             test_acc=accs, reference_test_acc=ref, test_acc_mean=mean,
+             reference_mean=ref_mean,
+             max_step_diff=max(map(abs, diffs)) if diffs else None,
+             reference_run=run, **held, **prof)
+        want = cfg.train_iterations * cfg.comm_round
+        if got["k1_launches"] != want or paths != {want_path} \
+                or len(accs) != len(ref):
+            raise AssertionError(f"{algo} {arg}: K1 launched "
+                                 f"{got['k1_launches']} times for {want} "
+                                 f"rounds on paths {paths} (want "
+                                 f"{want_path}), {len(accs)} steps")
+        if max(map(abs, diffs)) > STEP_ACC_TOL \
+                or abs(mean - ref_mean) > MEAN_ACC_TOL:
+            raise AssertionError(f"{algo} {arg}: Test/Acc per step {accs} "
+                                 f"against the reference {ref}")
+        # CFL's clusters: from the reference's init, step 0 splits in the
+        # reference's round into the reference's clusters, which are the
+        # committed run's too
+        if cfl and (held["first_split"] != list(CFL_FIRST_SPLIT)
+                    or got["assignment"][0] != list(CFL_ASSIGNMENT[0])
+                    or got["assignment"][0]
+                    != held["committed_assignment"][0]):
+            raise AssertionError(
+                f"{arg}: first split {held['first_split']} (the "
+                f"reference's {CFL_FIRST_SPLIT}); clients' models per step "
+                f"{got['assignment']}, the reference's "
+                f"{held['reference_assignment']}, the committed run's "
+                f"{held['committed_assignment']}")
+
+
+def phase_train_sampling() -> None:
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from feddrift_torch.config import ExperimentConfig
+    cfg = ExperimentConfig(client_num_per_round=4, train_iterations=2,
+                           comm_round=50)
+    runs, seen = {}, {}
+    for name, c in (("fused", cfg),
+                    ("per_round", dataclasses.replace(cfg,
+                                                      chunk_rounds=False)),
+                    ("all_clients", dataclasses.replace(
+                        cfg, client_num_per_round=10))):
+        got = runs[name] = _drive(c)
+        _say("train_sampling", run=name, k=c.client_num_per_round,
+             paths=got["paths"], wall_s=got["wall_s"],
+             rounds_per_s=got["rounds_per_s"], k1_launches=got["k1_launches"],
+             host_syncs_per_round=got["host_syncs_per_round"] or
+             "not measured", test_acc=got["accs"])
+        if got["k1_launches"] != c.train_iterations * c.comm_round:
+            raise AssertionError(f"{name}: K1 launched {got['k1_launches']}"
+                                 f" times")
+    series = {k: [(r["round"], r["Test/Acc"]) for r in
+                  v["exp"].logger.history] for k, v in runs.items()}
+    pools = {k: v["exp"].pool.params for k, v in runs.items()}
+    same_pool = all(torch.equal(v, pools["per_round"][k])
+                    for k, v in pools["fused"].items())
+    # one round on the host: n of the clients the mask leaves out
+    exp = runs["per_round"]["exp"]
+    masks = exp._client_masks(range(cfg.comm_round))
+    r = min(7, cfg.comm_round - 1)
+    tw = exp.algo.round_inputs(cfg.train_iterations - 1, r)[0]
+    opt = exp.step.init_opt_states(exp.pool.params, exp.pool.num_models,
+                                   exp.C_)
+    mask = torch.from_numpy(masks[r]).to(exp.device)
+    n = exp.step.train_round(exp.pool.params, opt, exp.x, exp.y, tw, 1.0,
+                             mask)[3].cpu()
+    out = masks[r] == 0
+    n_ok = bool((n[:, out] == 0).all() and (n[0, ~out] > 0).all())
+    _say("train_sampling", series_bitwise=series["fused"]
+         == series["per_round"], pools_bitwise=same_pool,
+         differs_from_k10=series["fused"] != series["all_clients"],
+         checked_round=r, sampled=np.nonzero(masks[r])[0].tolist(),
+         unsampled_n_zero=n_ok)
+    if series["fused"] != series["per_round"] or not same_pool \
+            or series["fused"] == series["all_clients"] or not n_ok:
+        raise AssertionError("client sampling: the fused and per-round "
+                             "paths disagree, sampling changed nothing, or "
+                             "an unsampled client reported samples")
+
+
+def phase_train_per_round_kinds() -> None:
+    import math
+
+    from feddrift_torch.config import ExperimentConfig
+    for algo, arg, want_path in PER_ROUND_KINDS:
+        cfg = ExperimentConfig(concept_drift_algo=algo,
+                               concept_drift_algo_arg=arg,
+                               train_iterations=3, comm_round=20)
+        got = _drive(cfg)
+        paths = set(got["paths"])
+        finite = all(math.isfinite(v) for rec in got["exp"].logger.history
+                     for k, v in rec.items() if "/" in k)
+        _say("train_per_round_kind", algo=algo, arg=arg,
+             path=want_path if paths == {want_path} else sorted(paths),
+             wall_s=got["wall_s"], rounds_per_s=got["rounds_per_s"],
+             k1_launches=got["k1_launches"], plain_calls=got["plain_calls"],
+             host_syncs_per_round=got["host_syncs_per_round"] or
+             "not measured", models_in_use=got["models_in_use"],
+             test_acc=got["accs"], finite=finite)
+        if got["k1_launches"] != cfg.train_iterations * cfg.comm_round \
+                or paths != {want_path} or not finite:
+            raise AssertionError(f"{algo} {arg}: K1 launched "
+                                 f"{got['k1_launches']} times on paths "
+                                 f"{paths} (want {want_path}), finite "
+                                 f"{finite}")
+
+
 def main() -> int:
     try:
         import torch
@@ -988,6 +1375,9 @@ def main() -> int:
         train_entry = phase_train_kernel()
         phase_train_plain()
         phase_train(train_entry)
+        phase_train_algos()
+        phase_train_sampling()
+        phase_train_per_round_kinds()
     except Exception:   # noqa: BLE001 — report the phase that failed
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

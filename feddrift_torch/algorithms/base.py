@@ -9,7 +9,8 @@ host-side state machine and steers the device through four hooks:
   per-sample weights, feature masks and LR scale of algorithms not ported
   yet) consumed by ``TrainStep``.
 - ``after_round(...)``: post-aggregation work; returns the params the pool
-  adopts.
+  adopts. On the per-round path it runs after every round; on the fused
+  path (``chunkable``) once, after the last.
 - ``end_iteration(t)``: state updates at the end of a time step.
 
 Only dense mode is ported: every client is on the device axis, and no
@@ -54,6 +55,9 @@ def make_algorithm(cfg, ds, pool, step) -> "DriftAlgorithm":
 
 class DriftAlgorithm:
     name = "base"
+    # True for an algorithm whose after_round reads the [M, C, ...] client
+    # params of the round (CFL); the others get None there
+    needs_client_params = False
 
     def __init__(self, cfg, ds, pool, step) -> None:
         self.cfg = cfg

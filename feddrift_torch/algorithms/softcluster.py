@@ -1,18 +1,27 @@
-"""FedDrift's hierarchical clustering: the ``softcluster`` algorithm with an
-``H_*`` argument.
+"""The SoftCluster family: FedDrift, FedDrift-Eager, IFCA, CFL, softmax and
+the change-point oracle.
 
-Counterpart of ``feddrift_tpu/algorithms/softcluster.py::SoftCluster``
-restricted to the ``hierarchical`` kind (``H_{distance}_{cluster}_{W}_
-{100 delta}_{100 delta'}``), the main path's algorithm. The time-indexed
-weights are a dense ``[T1, M, C]`` numpy tensor; accuracy matrices and cells
-come from the device (``TrainStep.acc_matrix``/``acc_cells``); the
-decisions (drift detection, LRU model slots, the hierarchical merge through
-scipy's linkage) stay host-side numpy on O(M^2) matrices, as in the
-reference. The same seed and the same accuracy inputs give the same
-weights, merges, spawns, LRU picks and events. The other kinds (mmacc,
-hard, softmax, gmm, geni, cfl) and the ``softclusterwin-1`` /
-``softclusterreset`` variants raise ``NotImplementedError`` (ROADMAP
-item 6).
+Counterpart of ``feddrift_tpu/algorithms/softcluster.py::SoftCluster`` in
+dense mode. The time-indexed weights are a dense ``[T1, M, C]`` numpy
+tensor; accuracy matrices and cells come from the device
+(``TrainStep.acc_matrix``/``acc_cells``); the decisions (drift detection,
+LRU model slots, the hierarchical merge through scipy's linkage, CFL's
+bipartition) stay host-side numpy on O(M^2) matrices, as in the reference.
+The same seed and the same accuracy inputs (for CFL, the same client
+updates) give the same weights, merges, spawns, splits, LRU picks and
+events. Kinds, from ``concept_drift_algo_arg``:
+
+  'H_*'              FedDrift hierarchical clustering
+  'mmacc_*'          FedDrift-Eager: drift detection, one spawn a step
+  'hard' / 'hard-r'  IFCA; '-r' re-clusters after every round
+  'softmax_{alpha}'  softmax weights over the accuracies
+  'geni'             the change-point oracle (the dataset's concepts)
+  'cfl_{gamma}_{rt}' clustered FL: bipartition from client updates
+
+``softclusterwin-1`` zeroes the weights of past steps; ``softclusterreset``
+deletes non-competitive models. Every client counts as live (the port has
+no failure detector, so no accuracy is stale). ``gmm`` is refused: it fits
+scikit-learn's GaussianMixture, which the port does not depend on.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import numpy as np
 import scipy.cluster.hierarchy as sch
 import torch
 from scipy.spatial.distance import squareform
+from scipy.special import softmax as sp_softmax
 
 from feddrift_torch import obs
 from feddrift_torch.algorithms.base import DriftAlgorithm, register_algorithm
@@ -35,25 +45,35 @@ class SoftCluster(DriftAlgorithm):
         p = cfg.algo_params()
         self.kind = p["kind"]
         self.p = p
-        if cfg.concept_drift_algo != "softcluster" \
-                or self.kind != "hierarchical":
+        if self.kind == "gmm":
             raise NotImplementedError(
-                f"{cfg.concept_drift_algo!r} with {cfg.concept_drift_algo_arg!r}"
-                f" (kind {self.kind!r}): the port has FedDrift's H_* "
-                f"hierarchical softcluster only (ROADMAP item 6)")
+                "softcluster 'gmm' fits sklearn.mixture.GaussianMixture; "
+                "scikit-learn is not installed beside the port and the port "
+                "does not depend on it (a hand-written two-component EM is "
+                "queued in ROADMAP)")
         # dense [T1, M, C] replaces the reference's {t -> M x C} dict
         self.weights = np.zeros((self.T1, self.M, self.C), dtype=np.float32)
         self.mmacc_acc = np.zeros(self.C)           # per-client last best acc
-        self.h_delta = p["h_delta"]
-        self.h_deltap = p["h_deltap"]
-        self.h_w = p["h_w"]
-        self.h_distance = p["h_distance"]
-        self.h_cluster = p["h_cluster"]
+        self.mmacc_delta = p.get("mmacc_delta", p.get("h_delta", 0.1))
+        self.h_delta = p.get("h_delta", 0.1)
+        self.h_deltap = p.get("h_deltap", 0.1)
+        self.h_w = p.get("h_w", 1)
+        self.h_distance = p.get("h_distance", "A")
+        self.h_cluster = p.get("h_cluster", "C")
         self.h_marked: dict[int, tuple[int, int]] = {}   # client -> (model, unmark t)
         self.h_next_free = 1
+        self.cfl_gamma = p.get("cfl_gamma", 0.1)
+        self.cfl_retrain = p.get("cfl_retrain", "win-1")
+        self.cfl_norm = 0.0
+        self.cfl_eps1 = 0.0
+        self.cfl_eps2 = 1e4
+        if self.kind == "geni":
+            self.geni_concepts = ds.concepts[:, : self.C]
         self.rng = np.random.default_rng(cfg.seed + 1009)
         self.event_counts = {"spawns": 0, "merges": 0, "linkage_calls": 0}
         self._tw = None
+        # only CFL reads the per-client updates in after_round
+        self.needs_client_params = self.kind == "cfl"
 
     # ------------------------------------------------------------------
     def _models_in_use_before(self, t: int,
@@ -74,34 +94,70 @@ class SoftCluster(DriftAlgorithm):
         return self._tw, None, None, 1.0
 
     def chunkable(self, t: int) -> bool:
-        return True
+        # cfl checks for a split after every round and hard-r re-clusters
+        # after every round: both steer the rounds one at a time
+        return self.kind not in ("cfl", "hard-r")
 
     def test_model_idx(self, t: int) -> np.ndarray:
         return np.argmax(self.weights[t], axis=0)
 
     # ------------------------------------------------------------------
     def begin_iteration(self, t: int) -> None:
+        acc_t = None   # the [M, C] acc matrix at step 0, if computed
         if t == 0:
             self._cluster_init()
+            if self.kind in ("hard", "hard-r"):
+                # IFCA symmetry breaking: distinct random models at t = 0
+                for m in range(self.M):
+                    self.pool.distinct_reinit_slot(
+                        m, seed=self.cfg.seed + 7700 + m)
+                acc_t = self.acc_matrix_at(0)
+                self._cluster(acc_t, 0, round_idx=0)
+        elif self.kind == "hierarchical":
+            self._cluster_hierarchical(t)
+        elif self.kind == "mmacc":
+            self._cluster_mmacc2(t)
+        elif self.kind == "cfl":
+            self._cluster_cfl_init(t)
+        elif self.kind in ("hard", "hard-r"):
+            # IFCA clusters only; the reset variant never applies to it
+            self._cluster(self.acc_matrix_at(t), t, round_idx=0)
+        else:
+            # the reference's final branch: the reset variant applies here
+            if self.cfg.concept_drift_algo == "softclusterreset":
+                self._reset_noncompetitive(t)
+            self._cluster(self.acc_matrix_at(t), t, round_idx=0)
+
+        if self.cfg.concept_drift_algo == "softclusterwin-1":
+            self.weights[:t] = 0.0
+
+        if t == 0:
             # arm the drift detector with the initial accuracies
-            acc = self.acc_matrix_at(0)
+            acc = acc_t if acc_t is not None else self.acc_matrix_at(0)
             idx = self.test_model_idx(0)
             for c in range(self.C):
                 self.mmacc_acc[c] = acc[idx[c], c]
-        else:
-            self._cluster_hierarchical(t)
         self._log_models(t)
         self._sync_device_weights()
 
     def after_round(self, t: int, r: int, prev_params, agg_params,
                     client_params, n):
+        if self.kind == "cfl" and self._cluster_cfl_round(
+                t, prev_params, client_params, n):
+            # a split skips this round's aggregation: the local updates
+            # belong to the assignment before the split
+            self._sync_device_weights()
+            return self.pool.params
         self.pool.params = agg_params
+        if self.kind == "hard-r":
+            self._cluster(self.acc_matrix_at(t), t, round_idx=r + 1)
+            self._sync_device_weights()
         return self.pool.params
 
     def _cluster_init(self) -> None:
         """Everyone on model 0, or one model per client for FedDrift-F."""
         self.weights[0] = 0.0
-        if self.h_cluster == "F":
+        if self.h_cluster == "F" and self.kind == "hierarchical":
             if self.M < self.C:
                 raise ValueError(
                     f"h_cluster='F' needs concept_num >= clients "
@@ -111,6 +167,51 @@ class SoftCluster(DriftAlgorithm):
             self.h_next_free = self.C
         else:
             self.weights[0, 0, :] = 1.0
+
+    def _cluster(self, acc: np.ndarray, t: int, round_idx: int) -> None:
+        """The kinds that cluster from one accuracy matrix."""
+        if self.kind in ("hard", "hard-r"):
+            self.weights[t] = 0.0
+            best = np.argmax(acc, axis=0)
+            self.weights[t, best, np.arange(self.C)] = 1.0
+        elif self.kind == "softmax":
+            alpha = self.p.get("softmax_alpha", 0)
+            self.weights[t] = sp_softmax(acc * (2**alpha), axis=0)
+        elif self.kind == "geni":
+            if round_idx == 0:
+                self.weights[t] = 0.0
+                best = self.geni_concepts[t] % self.M
+                self.weights[t, best, np.arange(self.C)] = 1.0
+        else:
+            raise NameError(self.kind)
+
+    # ------------------------------------------------------------------
+    def _cluster_mmacc2(self, t: int) -> None:
+        """FedDrift-Eager: drift detection and at most one new model a
+        step, no merge (cluster_mmacc2)."""
+        acc = self.acc_matrix_at(t)
+        in_use = self._models_in_use_before(t)
+        self.weights[t] = 0.0
+        best = np.asarray(in_use)[np.argmax(acc[in_use], axis=0)]
+        self.weights[t, best, np.arange(self.C)] = 1.0
+
+        next_free = -42
+        for c in range(self.C):
+            newest_acc = acc[best[c], c]
+            drop = self.mmacc_acc[c] - newest_acc
+            if drop > self.mmacc_delta:
+                obs.emit("drift_detected", client=c,
+                         acc_drop=round(float(drop), 4),
+                         threshold=self.mmacc_delta,
+                         best_model=int(best[c]))
+                if next_free == -42:
+                    next_free = self._find_unused_model_lru(
+                        t, original_model=best[c], client=c)
+                if next_free != -1:
+                    self.event_counts["spawns"] += 1
+                    self.weights[t, :, c] = 0.0
+                    self.weights[t, next_free, c] = 1.0
+            self.mmacc_acc[c] = newest_acc
 
     # ------------------------------------------------------------------
     def _cluster_hierarchical(self, t: int) -> None:
@@ -255,6 +356,116 @@ class SoftCluster(DriftAlgorithm):
         return nxt
 
     # ------------------------------------------------------------------
+    def _reset_noncompetitive(self, t: int) -> None:
+        """softclusterreset: delete the models that are not 0.01 better
+        than the rest on some client."""
+        acc = self.acc_matrix_at(t)
+        deleted: list[int] = []
+        for m in reversed(range(self.M)):
+            rest = np.delete(acc, deleted + [m], axis=0)
+            if rest.shape[0] > 0 \
+                    and (acc[m] < np.max(rest, axis=0) + 0.01).all():
+                deleted.append(m)
+                if self.logger:
+                    self.logger.set_summary(f"Reset-{m}", 1)
+                self.weights[:, m, :] = 0.0
+                self.pool.reinit_slot(m)
+                obs.emit("cluster_delete", model=int(m),
+                         reason="noncompetitive_reset")
+
+    # ------------------------------------------------------------------
+    def _cluster_cfl_init(self, t: int) -> None:
+        """Carry the assignment into step t (cluster_cfl_init)."""
+        self.weights[t] = self.weights[t - 1].copy()
+        if self.cfl_retrain == "win-1":
+            self.weights[:t] = 0.0
+
+    def _client_updates(self, prev_params, client_params,
+                        n) -> tuple[np.ndarray, np.ndarray]:
+        """``(n [M, C], updates [M, C, P])`` on the host, in one copy: each
+        model's client params minus its round-start params, packed (the
+        order of the coordinates moves no norm and no cosine)."""
+        mod = self.pool.module
+        delta = mod.pack(client_params) - mod.pack(prev_params)[:, None]
+        host = torch.cat([n.reshape(-1).to(delta.dtype),
+                          delta.reshape(-1)]).cpu().numpy()
+        return (host[: n.numel()].reshape(n.shape)[:, : self.C],
+                host[n.numel():].reshape(delta.shape))
+
+    def _cluster_cfl_round(self, t: int, prev_params, client_params,
+                           n) -> bool:
+        """Gradient-norm gated bipartition of each cluster's participating
+        clients (cluster_cfl). Returns True when a cluster split."""
+        did_split = False
+        in_use = [m for m in range(self.M) if (self.weights[t, m] > 0).any()]
+        n_np, updates = self._client_updates(prev_params, client_params, n)
+        for m in in_use:
+            clients = np.nonzero(self.weights[t, m])[0]
+            participating = [c for c in clients if n_np[m, c] > 0]
+            if not participating:
+                continue
+            dW = updates[m][participating]
+            norms = np.linalg.norm(dW, axis=1)
+            max_norm = float(norms.max())
+            mean_norm = float(np.linalg.norm(dW.mean(axis=0)))
+
+            if mean_norm > self.cfl_norm:
+                self.cfl_norm = mean_norm
+                self.cfl_eps1 = self.cfl_norm / 10.0
+                self.cfl_eps2 = 6 * self.cfl_eps1
+            elif mean_norm < self.cfl_eps1 and max_norm > self.cfl_eps2:
+                S = (dW @ dW.T) / (np.outer(norms, norms) + 1e-12)
+                cl1, cl2 = self._bipartition(S)
+                alpha_cross = max(S[i, j] for i in cl1 for j in cl2)
+                if ((1 - alpha_cross) / 2.0) ** 0.5 > self.cfl_gamma:
+                    nxt = self._find_unused_model_capped()
+                    if nxt != -1:
+                        did_split = True
+                        self.pool.reinit_slot(m)
+                        self.weights[t, m, :] = 0.0
+                        for i in cl1:
+                            self.weights[t, m, participating[i]] = 1.0
+                        for i in cl2:
+                            self.weights[t, nxt, participating[i]] = 1.0
+                        obs.emit(
+                            "cluster_split", model=int(m), new_model=int(nxt),
+                            clients_kept=[int(participating[i]) for i in cl1],
+                            clients_moved=[int(participating[i]) for i in cl2],
+                            alpha_cross=round(float(alpha_cross), 4),
+                            gamma=self.cfl_gamma,
+                            mean_norm=round(mean_norm, 6),
+                            max_norm=round(max_norm, 6))
+
+        if did_split and self.cfl_retrain == "all":
+            for tt in range(t):
+                self.weights[tt] = self.weights[t].copy()
+        return did_split
+
+    def _find_unused_model_capped(self) -> int:
+        """The next never-used slot, or -1 once the pool is full."""
+        if self.h_next_free < self.M:
+            nxt = self.h_next_free
+            self.h_next_free += 1
+            return nxt
+        return -1
+
+    @staticmethod
+    def _bipartition(S: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Complete-linkage bipartition on the cosine similarities S
+        (d = 1 - S, a monotone transform of the reference's -S, gives the
+        same 2-way cut)."""
+        # clip: float error can push a cosine past 1.0, which would hand
+        # scipy a negative distance
+        d = 1.0 - np.clip(S, -1.0, 1.0)
+        np.fill_diagonal(d, 0.0)
+        d = (d + d.T) / 2.0     # numerical symmetry for squareform
+        Z = sch.linkage(squareform(d, checks=False), method="complete")
+        labels = sch.fcluster(Z, t=2, criterion="maxclust")
+        cl1 = np.where(labels == labels[0])[0]
+        cl2 = np.where(labels != labels[0])[0]
+        return cl1, cl2
+
+    # ------------------------------------------------------------------
     def _log_models(self, t: int) -> None:
         if not self.logger:
             return
@@ -293,6 +504,9 @@ class SoftCluster(DriftAlgorithm):
             "mmacc_acc": self.mmacc_acc,
             "h_marked": dict(self.h_marked),
             "h_next_free": self.h_next_free,
+            "cfl_norm": self.cfl_norm,
+            "cfl_eps1": self.cfl_eps1,
+            "cfl_eps2": self.cfl_eps2,
             # the rng state, so a resumed run replays the same LRU ties and
             # FedDrift-C keep-one choices as a continuous one
             "rng_state": self.rng.bit_generator.state,
@@ -303,5 +517,10 @@ class SoftCluster(DriftAlgorithm):
         self.mmacc_acc = np.asarray(d["mmacc_acc"])
         self.h_marked = {int(k): tuple(v) for k, v in d["h_marked"].items()}
         self.h_next_free = int(d["h_next_free"])
+        # a checkpoint written before CFL was ported has no CFL state: the
+        # values a fresh run starts from
+        self.cfl_norm = float(d.get("cfl_norm", 0.0))
+        self.cfl_eps1 = float(d.get("cfl_eps1", 0.0))
+        self.cfl_eps2 = float(d.get("cfl_eps2", 1e4))
         if "rng_state" in d:
             self.rng.bit_generator.state = d["rng_state"]

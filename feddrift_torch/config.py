@@ -54,6 +54,7 @@ class ExperimentConfig:
     time_stretch: int = 1
     noise_prob: float = 0.0
     ensemble_window: int = 3           # AUE window (sets num_models for aue)
+    retrain_data: str = "win-1"        # for single-model continual baselines
     report_client: int = 1
     text_seq_len: int = 80             # char-dataset sequence length
 

@@ -16,12 +16,20 @@ launch) followed by the masked sample-weighted FedAvg
 (``resilience/robust_agg.py``). Inside a time step the parameters travel
 packed as one ``[M, P]`` tensor, the kernel's layout; the caller sees the
 usual dict of leaves. Where the reference draws each batch inside its
-program from fold_in keys, the port draws a whole time step's batches up
-front on the device in two calls (``draw_batches``) from the step's own
-``generator``: ``t_idx ~ Cat(w_t)`` (uniform for a pair of total weight 0)
-and ``slot ~ U[0, nb)``. The caller seeds the generator per time step; the
-draws can also be passed in, which is how the tests inject the
-reference's. The eval matrices (K3's function) are plain batched PyTorch
+program from fold_in keys, the port draws a whole time step's randomness up
+front on the device from the step's own ``generator`` (``draw_uniforms``):
+``u ~ U[0, 1)`` and ``slot ~ U[0, nb)``, each ``[R, M, C, S]``. Round r's
+``u`` becomes its time-step indices through the inverse CDF of round r's
+weights (``time_index``, the reference's ``weight_cdf`` /
+``inverse_cdf_draw``; uniform for a pair of total weight 0). The fused
+loop converts all R rounds with the step's weights at once, the per-round
+loop one round at a time with that round's weights, so a chunkable
+algorithm trains on the same batches on both paths. The caller seeds the
+generator per time step; the draws can also be passed in, which is how the
+tests inject the reference's. A client mask ``[C]`` (the reference's
+``client_mask``: client sampling) zeroes the unsampled clients' weights
+before K1 sees their total, so K1 leaves those pairs as they were and
+reports n = 0. The eval matrices (K3's function) are plain batched PyTorch
 for now.
 
 ``ForwardStep`` is the counterpart of ``ForwardStep`` (:905-960): one call
@@ -88,23 +96,54 @@ class TrainStep:
         return init_opt_state(num_models, num_clients,
                               self.module.num_params, self.device)
 
+    def draw_uniforms(self, R: int, M: int, C: int, N: int):
+        """One time step's raw batch draws ``(u, slot)``, each ``[R, M, C,
+        S]``, from ``self.generator``: ``u ~ U[0, 1)`` float32 (turned into
+        time-step indices by ``time_index``), ``slot ~ U[0, N // B)``
+        int32."""
+        shape = (R, M, C, self.num_steps)
+        nb = N // min(self.batch_size, N)
+        u = torch.rand(shape, generator=self.generator, device=self.device)
+        slot = torch.randint(0, nb, shape, generator=self.generator,
+                             device=self.device, dtype=torch.int32)
+        return u, slot
+
+    @staticmethod
+    def time_index(time_w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """Time-step indices ``t_idx`` int32 for uniforms ``u [M, C, S]`` or
+        ``[R, M, C, S]``, by the inverse CDF of ``time_w [M, C, T1]``
+        (reference ``weight_cdf`` / ``inverse_cdf_draw``, core/step.py:72-91:
+        ``searchsorted(side="right")``, so a zero-weight step is never
+        drawn, clipped). A pair of total weight 0 draws uniformly."""
+        M, C, T1 = time_w.shape
+        active = time_w.sum(-1, keepdim=True) > 0
+        cdf = torch.cumsum(torch.where(active, time_w,
+                                       torch.ones_like(time_w)), -1)
+        cdf = cdf / cdf[..., -1:]
+        vals = u if u.dim() == 3 else u.permute(1, 2, 0, 3).reshape(M, C, -1)
+        t_idx = torch.searchsorted(cdf, vals.contiguous(), right=True,
+                                   out_int32=True).clamp_(max=T1 - 1)
+        if u.dim() == 3:
+            return t_idx
+        R, S = u.shape[0], u.shape[-1]
+        return t_idx.view(M, C, R, S).permute(2, 0, 1, 3).contiguous()
+
     def draw_batches(self, time_w: torch.Tensor, R: int, N: int):
         """One time step's batch draws ``(t_idx, slot)``, each ``[R, M, C,
-        S]`` int32, from ``self.generator``: ``t_idx ~ Cat(w_t)`` with a
-        uniform fallback for pairs whose total weight is 0, ``slot ~ U[0,
-        N // B)``."""
-        M, C, T1 = time_w.shape
-        S = self.num_steps
-        nb = N // min(self.batch_size, N)
-        active = time_w.sum(-1, keepdim=True) > 0
-        w = torch.where(active, time_w, torch.ones_like(time_w))
-        t_idx = torch.multinomial(w.reshape(M * C, T1), R * S,
-                                  replacement=True,
-                                  generator=self.generator)
-        t_idx = t_idx.view(M, C, R, S).permute(2, 0, 1, 3).to(torch.int32)
-        slot = torch.randint(0, nb, (R, M, C, S), generator=self.generator,
-                             device=time_w.device, dtype=torch.int32)
-        return t_idx.contiguous(), slot
+        S]`` int32, for R rounds of the weights ``time_w``."""
+        M, C, _ = time_w.shape
+        u, slot = self.draw_uniforms(R, M, C, N)
+        return self.time_index(time_w, u), slot
+
+    @staticmethod
+    def total_weight(time_w: torch.Tensor,
+                     client_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """``[M, C]`` total weight of each pair, 0 for a client the mask
+        leaves out (reference ``_round_body``: ``time_w * client_mask``
+        before the sum)."""
+        if client_mask is not None:
+            time_w = time_w * client_mask[None, :, None]
+        return time_w.sum(-1)
 
     # ------------------------------------------------------------------
     def _round_body(self, flat, opt_state, x, y, total_w, t_idx, slot,
@@ -122,19 +161,22 @@ class TrainStep:
 
     @torch.no_grad()
     def train_round(self, params, opt_states, x, y, time_w,
-                    lr_scale: float = 1.0, *, draws=None,
+                    lr_scale: float = 1.0, client_mask=None, *, draws=None,
                     with_agg_stats: bool = False):
         """One communication round. Returns ``(new_params [M, ...],
         new_opt_states, client_params [M, C, ...], n [M, C], mean_loss [M,
         C])``, plus the ``[M, 3]`` aggregation stats when
-        ``with_agg_stats``. ``draws``: this round's ``(t_idx, slot)``, each
-        ``[M, C, S]``; otherwise drawn from ``self.generator``."""
+        ``with_agg_stats``. ``client_mask``: ``[C]`` 0/1, the clients
+        sampled this round (None: all). ``draws``: this round's ``(t_idx,
+        slot)``, each ``[M, C, S]``; otherwise drawn from
+        ``self.generator``."""
         if draws is None:
             t_idx, slot = self.draw_batches(time_w, 1, x.shape[2])
             draws = (t_idx[0], slot[0])
         flat = self.module.pack(params)
         new_flat, opt, client, n, losses, stats = self._round_body(
-            flat, opt_states, x, y, time_w.sum(-1), *draws, lr_scale)
+            flat, opt_states, x, y, self.total_weight(time_w, client_mask),
+            *draws, lr_scale)
         out = (self.module.unpack(new_flat), opt,
                self.module.unpack(client), n, losses)
         return out + (stats,) if with_agg_stats else out
@@ -150,15 +192,16 @@ class TrainStep:
 
     @torch.no_grad()
     def train_iteration_eval(self, params, opt_states, x, y, time_w,
-                             lr_scale: float, R: int, freq: int, t: int, *,
-                             draws=None):
+                             lr_scale: float, R: int, freq: int, t: int,
+                             client_masks=None, *, draws=None):
         """ALL R rounds of time step ``t`` with every scheduled eval.
 
         Eval slot ``r // freq`` holds the eval after round r for ``r %
         freq == 0``, and the final round takes slot E-1. The ``[E, M, C]``
         buffers stay on the device; the caller fetches them once.
-        ``draws``: ``(t_idx, slot)`` each ``[R, M, C, S]``, else drawn up
-        front from ``self.generator``.
+        ``client_masks``: ``[R, C]`` 0/1, round r samples row r's clients
+        (None: all). ``draws``: ``(t_idx, slot)`` each ``[R, M, C, S]``,
+        else drawn up front from ``self.generator``.
 
         Returns ``(params, opt_states, n [M, C], losses [M, C], (corr_tr,
         loss_tr, corr_te, loss_te) each [E, M, C], total [C], agg_stats [R,
@@ -171,12 +214,14 @@ class TrainStep:
             draws = self.draw_batches(time_w, R, x.shape[2])
         t_idx, slot = draws
         xt, yt, xe, ye = x[:, t], y[:, t], x[:, t + 1], y[:, t + 1]
-        total_w = time_w.sum(-1)
+        total_w = self.total_weight(time_w)
         bufs = tuple(torch.zeros((E, M, C), dtype=d, device=x.device)
                      for d in (torch.int32, torch.float32) * 2)
         flat = self.module.pack(params)
         stats = []
         for r in range(R):
+            if client_masks is not None:
+                total_w = self.total_weight(time_w, client_masks[r])
             flat, opt_states, _, n, losses, st = self._round_body(
                 flat, opt_states, x, y, total_w, t_idx[r], slot[r], lr_scale)
             stats.append(st)

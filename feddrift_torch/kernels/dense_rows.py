@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from feddrift_torch.kernels._checks import needs_grad
 from feddrift_torch.kernels.build import library
 
 MAX_GRID_X = 2 ** 31 - 1
@@ -113,7 +114,7 @@ def dense_rows(x: torch.Tensor, w: torch.Tensor,
     index = x.get_device()
     if any(not t.is_cuda or t.get_device() != index for t in tensors):
         raise ValueError("x, w and bias must lie on one device")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         raise RuntimeError("dense_rows has no backward: call it under "
                            "torch.no_grad() or on tensors that need no "
                            "gradient")

@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from feddrift_torch.kernels._checks import needs_grad
 from feddrift_torch.kernels.build import library
 
 NEG_INF = -1e30
@@ -75,7 +76,9 @@ def _kernel():
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Attention ``[B, H, L, D] -> [B, H, L, D]`` through the CUDA kernel
-    (CPU tensors: ``flash_attention_ref``)."""
+    (CPU tensors: ``flash_attention_ref``, which is differentiable). The
+    kernel has no backward yet: on the card a call that needs gradients
+    raises."""
     shape = q.shape
     if len(shape) != 4 or shape != k.shape or shape != v.shape:
         raise ValueError(f"q, k, v must share one [B, H, L, D] shape, got "
@@ -95,6 +98,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     index = q.get_device()
     if k.get_device() != index or v.get_device() != index:
         raise ValueError("q, k, v must lie on one device")
+    if needs_grad(q, k, v):
+        raise RuntimeError("flash_attention has no backward on the card: "
+                           "call it under torch.no_grad() or on tensors "
+                           "that need no gradient")
     B, H, L, D = shape
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")

@@ -34,6 +34,7 @@ EVENT_KINDS = frozenset({
     "cluster_create",       # a model slot was (re)allocated for a client
     "cluster_merge",        # two clusters merged (FedDrift linkage)
     "cluster_delete",       # a model slot was cleared
+    "cluster_split",        # CFL gradient bipartition fired
     "cluster_state",        # per-iteration cluster count summary
     "cluster_assign",       # per-iteration client -> model vector
 })

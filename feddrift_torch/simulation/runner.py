@@ -1,22 +1,29 @@
 """The experiment runner: the whole time x round loop in one process.
 
-Counterpart of ``feddrift_tpu/simulation/runner.py::Experiment`` on the main
-path (dense clients, float32, no fault injection, the fused
-``chunk_rounds`` loop):
+Counterpart of ``feddrift_tpu/simulation/runner.py::Experiment`` in dense
+mode (every client on the device axis, float32, no fault injection):
 
     for t in time steps:
         algo.begin_iteration(t)           # clustering / drift detection
         fresh per-(m, c) optimizer states
-        TrainStep.train_iteration_eval    # R rounds: K1 + masked FedAvg,
-                                          # evals every freq rounds + last
-        algo.after_round, offer_acc_matrix, eval logging
+        fused (chunkable algorithms, chunk_rounds on):
+            TrainStep.train_iteration_eval  # R rounds: K1 + masked FedAvg,
+                                            # evals every freq rounds + last
+            algo.after_round, offer_acc_matrix, eval logging
+        per-round (otherwise), for each round r:
+            algo.round_inputs(t, r) -> TrainStep.train_round
+            algo.after_round(t, r, ...)     # CFL splits, IFCA re-clusters
+            evaluate(t, r) every freq rounds + last
         algo.end_iteration(t), checkpoint
 
-``Experiment(cfg, out_dir=None, device="cuda")`` runs on the card unless the
-caller passes ``device="cpu"``. Not ported: the per-round path (algorithms
-that are not chunkable), ensembles, the megastep, population cohorts,
-streamed data, fault/byzantine injection and the divergence guard, and the
-alert/SLO/incident/ops planes.
+Both paths sample ``client_num_per_round`` clients a round as the
+reference does (``_client_masks``) and draw the step's batches from one
+generator seeded by (seed, t), so a chunkable algorithm gives the same
+numbers on either path. ``Experiment(cfg, out_dir=None, device="cuda")``
+runs on the card unless the caller passes ``device="cpu"``. Not ported:
+ensembles, the megastep, population cohorts, streamed data,
+fault/byzantine injection, codecs, hierarchy, secure aggregation, the
+divergence guard, and the alert/SLO/incident/ops planes.
 """
 
 from __future__ import annotations
@@ -153,12 +160,13 @@ class Experiment:
         self._seg_add("drift_decision", time.perf_counter() - d0)
         opt_states = self.step.init_opt_states(
             self.pool.params, self.pool.num_models, self.C_)
-        if not (cfg.chunk_rounds and self.algo.chunkable(t)
-                and self.algo.ensemble_spec(t) is None):
+        if self.algo.ensemble_spec(t) is not None:
             raise NotImplementedError(
-                "the per-round path (chunk_rounds off, per-round algorithms, "
-                "ensembles) is not ported; the port runs the fused loop")
-        self._run_iteration_fused(t, opt_states)
+                "ensemble test paths (aue, auepc, kue) are not ported")
+        if cfg.chunk_rounds and self.algo.chunkable(t):
+            self._run_iteration_fused(t, opt_states)
+        else:
+            self._run_rounds(t, opt_states)
         d0 = time.perf_counter()
         self.algo.end_iteration(t)
         self._seg_add("drift_decision", time.perf_counter() - d0)
@@ -183,15 +191,72 @@ class Experiment:
         dev = self._segs.get("device_compute", 0.0)
         segments = {k: round(v, 6) for k, v in sorted(self._segs.items())}
         segments["dispatch_gap"] = round(gap, 6)
+        # the per-round path does not wait for the device each round, so it
+        # has no device_compute segment and no host share to report
+        host_frac = None if "device_compute" not in self._segs else round(
+            min(max(1.0 - dev / max(wall, 1e-9), 0.0), 1.0), 6)
         self.last_round_breakdown = {
             "iteration": t, "wall_s": round(wall, 6),
             "rounds": cfg.comm_round, "segments": segments,
-            "dispatch_gap_s": round(gap, 6),
-            "host_overhead_frac": round(
-                min(max(1.0 - dev / max(wall, 1e-9), 0.0), 1.0), 6)}
+            "dispatch_gap_s": round(gap, 6), "host_overhead_frac": host_frac}
         self.events.emit("round_breakdown", **self.last_round_breakdown)
         obs.registry().quantile_sketch("round_wall_seconds_q").observe(
             wall / max(cfg.comm_round, 1))
+
+    def _client_masks(self, rounds) -> "np.ndarray | None":
+        """``[len(rounds), C]`` float32 0/1 participation masks, or None
+        when every client takes part in every round: the reference's
+        round-seeded sampling without replacement,
+        ``RandomState(r).choice(C, k, replace=False)``, with r the round's
+        index within its time step (so every step repeats the same
+        participation sequence, as in the reference)."""
+        k = self.cfg.client_num_per_round
+        if k >= self.C_:
+            return None
+        masks = np.zeros((len(rounds), self.C_), dtype=np.float32)
+        for i, r in enumerate(rounds):
+            masks[i, np.random.RandomState(int(r)).choice(
+                self.C_, k, replace=False)] = 1.0
+        return masks
+
+    def _device_masks(self, R: int) -> "torch.Tensor | None":
+        masks = self._client_masks(range(R))
+        return None if masks is None else torch.from_numpy(masks).to(
+            self.device)
+
+    def _run_rounds(self, t: int, opt_states) -> None:
+        """The per-round host loop, for algorithms that steer every round
+        (and for ``chunk_rounds`` off). The step's uniforms are drawn up
+        front as on the fused path; round r turns its row into batch
+        indices through round r's weights."""
+        cfg = self.cfg
+        R, freq = cfg.comm_round, cfg.frequency_of_the_test
+        step = self.step
+        step.generator.manual_seed(iteration_seed(cfg.seed, t))
+        u, slot = step.draw_uniforms(R, self.pool.num_models, self.C_,
+                                     self.x.shape[2])
+        masks = self._device_masks(R)
+        keep_cp = self.algo.needs_client_params
+        for r in range(R):
+            self.events.set_context(round=self.global_round)
+            tw, _sw, _fm, lr_scale = self.algo.round_inputs(t, r)
+            prev_params = self.pool.params
+            d0 = time.perf_counter()
+            new_params, opt_states, client_params, n, _ = step.train_round(
+                prev_params, opt_states, self.x, self.y, tw, lr_scale,
+                None if masks is None else masks[r],
+                draws=(step.time_index(tw, u[r]), slot[r]))
+            self._seg_add("dispatch", time.perf_counter() - d0)
+            w0 = time.perf_counter()
+            self.pool.params = self.algo.after_round(
+                t, r, prev_params, new_params,
+                client_params if keep_cp else None, n)
+            self._seg_add("writeback", time.perf_counter() - w0)
+            if r % freq == 0 or r == R - 1:
+                e0 = time.perf_counter()
+                self.evaluate(t, r)
+                self._seg_add("eval", time.perf_counter() - e0)
+            self.global_round += 1
 
     def _run_iteration_fused(self, t: int, opt_states) -> None:
         """ALL rounds of the time step and every scheduled eval in one
@@ -207,7 +272,7 @@ class Experiment:
         new_params, opt_states, n, losses, bufs, total, _stats = \
             self.step.train_iteration_eval(
                 self.pool.params, opt_states, self.x, self.y, tw, lr_scale,
-                R, freq, t)
+                R, freq, t, self._device_masks(R))
         self._sync()
         # host enqueue and device work of the R rounds: the loop enqueues
         # faster than the card drains only if the card is the bottleneck

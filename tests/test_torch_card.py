@@ -14,7 +14,10 @@ without one. They import nothing of JAX, so they run on the card with
   nu and nu_max at rtol 1e-4 (squares of gradients). Inactive pairs come
   back bitwise equal to what went in, and two calls agree bitwise.
 - ``local_sgd.launches`` advances by one per round, and a canonical
-  ``Experiment`` on the card takes every round through K1.
+  ``Experiment`` on the card takes every round through K1, on the fused
+  and the per-round path alike (the two give the same numbers bitwise). A
+  client mask reaches K1 as total weight 0: masked pairs come back as they
+  went in, sampled pairs bitwise as in the unmasked call.
 - A served row's answer does not depend on its batch: one serving forward
   at b1 and at b32 with the same row agree bitwise, op by op.
 - A serving forward at every bucket goes through the per-row Dense kernel
@@ -130,6 +133,57 @@ def test_local_sgd_two_calls_are_bitwise_equal(cuda, route):
     torch.cuda.synchronize()
     for x, y in zip(*outs):
         assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_local_sgd_with_a_client_mask(cuda):
+    """A client mask reaches K1 as total weight 0: the masked pairs come
+    back bitwise as they went in, with n = 0, and every sampled pair's
+    rows are bitwise those of the unmasked call."""
+    from feddrift_torch.core.step import TrainStep
+    args, kw = _case(3)
+    mask = torch.zeros(10, device=cuda)
+    mask[[1, 4, 5, 8]] = 1.0
+    tw = np.random.default_rng(3).random((4, 10, 11)).astype(np.float32)
+    tw[..., -1] = 0
+    tw = torch.from_numpy(tw).to(cuda)
+    a, b = _to(cuda, args), _to(cuda, args)
+    full = local_sgd(*a[:6], TrainStep.total_weight(tw), **kw)
+    masked = local_sgd(*b[:6], TrainStep.total_weight(tw, mask), **kw)
+    torch.cuda.synchronize()
+    fresh = _to(cuda, args)
+    on, off = mask.bool(), ~mask.bool()
+    assert (masked[2][:, off] == 0).all() and (masked[2][:, on] > 0).all()
+    assert torch.equal(masked[0][:, off],
+                       fresh[2][:, None].expand(4, 10, -1)[:, off])
+    for key in ("mu", "nu", "nu_max", "count"):
+        assert torch.equal(masked[1][key][:, off], fresh[3][key][:, off])
+        assert torch.equal(masked[1][key][:, on], full[1][key][:, on])
+    for i in (0, 2, 3):
+        assert torch.equal(masked[i][:, on], full[i][:, on])
+
+
+@pytest.mark.gpu
+def test_per_round_path_goes_through_the_kernel(cuda):
+    """CFL (per-round) and a sampled run on both paths, on the card: one
+    K1 launch a round, and the fused and per-round paths give the same
+    Test/Acc series and pool bitwise."""
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.simulation.runner import Experiment
+    kw = dict(train_iterations=2, comm_round=20, client_num_per_round=4)
+    runs = {}
+    for name, extra in (("fused", {}), ("per_round", {"chunk_rounds": False}),
+                        ("cfl", {"concept_drift_algo_arg": "cfl_0.1_win-1"})):
+        exp = Experiment(ExperimentConfig(**kw, **extra))
+        before = local_sgd.launches
+        exp.run()
+        assert local_sgd.launches == before + 40, name
+        runs[name] = exp
+    series = [[(r["round"], r["Test/Acc"]) for r in runs[k].logger.history]
+              for k in ("fused", "per_round")]
+    assert series[0] == series[1]
+    for key, v in runs["fused"].pool.params.items():
+        assert torch.equal(v, runs["per_round"].pool.params[key])
 
 
 @pytest.mark.gpu

@@ -46,3 +46,17 @@ def test_cli_without_a_card_exits_nonzero(tmp_path):
     assert out.returncode != 0
     assert "--platform cpu" in out.stderr
     assert not (tmp_path / "sea-fnn-softcluster-H_A_C_1_10_0-s0").exists()
+
+
+def test_cli_runs_the_per_round_path_with_sampling(tmp_path):
+    out = _cli(["--platform", "cpu", "--comm_round", "6",
+                "--train_iterations", "2", "--concept_drift_algo_arg",
+                "cfl_0.1_win-1", "--client_num_per_round", "4",
+                "--chunk_rounds", "false", "--retrain_data", "win-1",
+                "--out_dir", str(tmp_path / "runs")], tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1])["rounds"] == 12
+    run = tmp_path / "runs" / "sea-fnn-softcluster-cfl_0.1_win-1-s0"
+    assert (run / "ckpt" / "MANIFEST.json").is_file()
+    cfg = json.loads((run / "ckpt" / "MANIFEST.json").read_text())["config"]
+    assert (cfg["client_num_per_round"], cfg["chunk_rounds"]) == (4, False)

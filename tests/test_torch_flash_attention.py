@@ -126,6 +126,20 @@ class TestWrapper:
         assert flash_attention.launches == before
         assert torch.equal(out, flash_attention_ref(q, k, v, True))
 
+    def test_gradient_refusal_condition(self):
+        """The card refuses a call that needs gradients (the kernel has no
+        backward); the CPU path stays differentiable."""
+        from feddrift_torch.kernels._checks import needs_grad
+        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 8, 8))
+        assert not needs_grad(q, k, v)
+        kg = k.clone().requires_grad_(True)
+        assert needs_grad(q, kg, v)
+        with torch.no_grad():
+            assert not needs_grad(q, kg, v)
+        out = flash_attention(q, kg, v, True)
+        out.sum().backward()
+        assert kg.grad is not None and kg.grad.abs().sum() > 0
+
     def test_rejects_bad_inputs(self):
         q, k, v = (torch.from_numpy(a) for a in _qkv(L=16, seed=4))
         with pytest.raises(TypeError):
@@ -247,6 +261,18 @@ class TestKernelOnCard:
         assert 24 not in HEAD_DIMS
         with pytest.raises(TypeError):       # no plain fallback on the card
             flash_attention(q.double(), q.double(), q.double())
+
+    def test_kernel_refuses_gradients(self, cuda):
+        q, k, v = (torch.from_numpy(a).to(cuda) for a in _qkv(1, 2, 16, 8))
+        before = flash_attention.launches
+        for i in range(3):
+            args = [q, k, v]
+            args[i] = args[i].clone().requires_grad_(True)
+            with pytest.raises(RuntimeError, match="no backward"):
+                flash_attention(*args, True)
+            with torch.no_grad():
+                flash_attention(*args, True)
+        assert flash_attention.launches == before + 3
 
     def test_transformer_goes_through_the_kernel(self, cuda):
         from feddrift_torch.models.transformer import TransformerLM

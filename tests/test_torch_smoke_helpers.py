@@ -3,6 +3,7 @@ holds the training against, K1's bound from the round's own draws, and the
 per-row Dense's bound over the routes the card offers."""
 
 import json
+import os
 import shutil
 
 import pytest
@@ -13,6 +14,36 @@ import chip_smoke
 
 def test_reference_run_is_the_committed_one():
     assert chip_smoke._reference_accs() == list(chip_smoke.REF_ACCS)
+
+
+@pytest.mark.parametrize("run", chip_smoke.ALGO_RUNS, ids=lambda r: r[3])
+def test_algorithm_reference_runs_are_the_committed_ones(run):
+    """train_algos' committed SEA runs: R = 200, T = 10, one run a file."""
+    algo, arg, path, name, pinned = run
+    metrics = os.path.join(os.path.dirname(chip_smoke.REF_RUN), "..", name,
+                           "metrics.jsonl")
+    assert chip_smoke._reference_accs(metrics, pinned) == list(pinned)
+    rows = [json.loads(ln) for ln in open(metrics)]
+    assert rows[-1]["round"] == 1999 and rows[-1]["iteration"] == 9
+    assert name == f"sea-fnn-{algo}-{arg}-s0"
+    assert path == ("per_round" if "cfl" in arg else "fused")
+
+
+def test_committed_cfl_run_makes_the_pinned_first_split():
+    """The committed CFL run ends step 0 with the clients on the models
+    that ``CFL_FIRST_SPLIT`` and ``CFL_ASSIGNMENT`` pin, and later puts
+    other clients elsewhere than ``CFL_ASSIGNMENT`` does (section 6 of
+    PERF.md says why the card is held to step 0 only)."""
+    name = chip_smoke.ALGO_RUNS[0][3]
+    assert "cfl" in name
+    got = chip_smoke._reference_assignment(os.path.join(
+        os.path.dirname(chip_smoke.REF_RUN), "..", name, "metrics.jsonl"))
+    _, model, new_model, kept, moved = chip_smoke.CFL_FIRST_SPLIT
+    assert got[0] == list(chip_smoke.CFL_ASSIGNMENT[0])
+    assert [c for c, m in enumerate(got[0]) if m == model] == kept
+    assert [c for c, m in enumerate(got[0]) if m == new_model] == moved
+    assert len(got) == len(chip_smoke.CFL_ASSIGNMENT)
+    assert got[1:] != [list(a) for a in chip_smoke.CFL_ASSIGNMENT[1:]]
 
 
 @pytest.mark.parametrize("how", ["appended", "altered"])

@@ -236,6 +236,43 @@ class TestTrainRound:
         _close(losses, jloss)
         _close(stats, jstats, atol=0)
 
+    @pytest.mark.parametrize("sampled", [(0, 2), (1, 2, 3)])
+    def test_masked_round_matches_reference(self, sampled):
+        """A client mask (client sampling): the reference's
+        ``train_round(client_mask=...)`` under its own draws, injected.
+        Unsampled clients keep their params and report n = 0."""
+        x, y = _data(7)
+        tw = _time_w(7)
+        mask = np.zeros(C, np.float32)
+        mask[list(sampled)] = 1.0
+        jm, jp, jstep = _jax_setup(seed=7)
+        key = jax.random.PRNGKey(17)
+        jout = jstep.train_round(
+            jp, jstep.init_opt_states(jp, M, C), key, jnp.asarray(x),
+            jnp.asarray(y), jnp.asarray(tw), jnp.ones((M, C, N)),
+            jnp.ones((M, 3)), jnp.float32(1.0), jnp.asarray(mask),
+            with_agg_stats=True)
+        mod, step = self._port()
+        params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                 "cpu")
+        newp, opt, client, n, losses, stats = step.train_round(
+            params, step.init_opt_states(params, M, C),
+            torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(tw),
+            1.0, torch.from_numpy(mask),
+            draws=_jax_draws(key, tw * mask[None, :, None]),
+            with_agg_stats=True)
+        jnewp, jopt, jclient, jn, jloss, jstats, _ = jout
+        _close(mod.pack(newp), _pack(mod, jnewp))
+        _close(mod.pack(client), _pack(mod, jclient))
+        _close(losses, jloss)
+        _close(n, jn, atol=0)
+        _close(stats, jstats, atol=0)
+        out = [c for c in range(C) if c not in sampled]
+        assert (n[:, out] == 0).all() and (opt["count"][:, out] == 0).all()
+        flat = mod.pack(params)
+        for c in out:
+            assert torch.equal(mod.pack(client)[:, c], flat)
+
     def _round(self, tw, lr_scale=1.0, seed=0):
         x, y = _data(seed)
         mod, step = self._port()
@@ -299,6 +336,46 @@ class TestTrainRound:
         assert (t_idx[:, 1:] == 1).all() and (t_idx[:, 0, 1:] == 1).all()
         assert set(t_idx[:, 0, 0].flatten().tolist()) == {0, 1, 2}
         assert set(slot.flatten().tolist()) == {0, 1}
+
+
+class TestDraws:
+    """Batch draws: ``t_idx`` from uniforms by the inverse CDF of a
+    round's weights, the reference's ``weight_cdf`` /
+    ``inverse_cdf_draw`` arithmetic."""
+
+    def test_inverse_cdf_matches_reference(self):
+        from feddrift_tpu.core.step import weight_cdf
+        rng = np.random.default_rng(3)
+        tw = _time_w(3) * rng.uniform(0.5, 4.0, (M, C, T + 1)).astype(
+            np.float32)
+        u = rng.random((M, C, 64)).astype(np.float32)
+        u[0, 1, :3] = (0.0, np.nextafter(np.float32(1), np.float32(0)), 0.5)
+        got = TrainStep.time_index(torch.from_numpy(tw), torch.from_numpy(u))
+        assert got.dtype == torch.int32 and got.shape == (M, C, 64)
+        for m in range(M):
+            for c in range(C):
+                w = tw[m, c] if tw[m, c].sum() > 0 else np.ones(T + 1,
+                                                                np.float32)
+                want = jnp.clip(jnp.searchsorted(
+                    weight_cdf(jnp.asarray(w)), jnp.asarray(u[m, c]),
+                    side="right"), 0, T)
+                assert np.array_equal(got[m, c].numpy(), np.asarray(want))
+                assert (tw[m, c][got[m, c].numpy()] > 0).all() \
+                    or tw[m, c].sum() == 0
+
+    def test_rounds_at_once_equal_round_by_round(self):
+        """The fused loop converts all R rounds at once, the per-round
+        loop one row at a time: the same indices, bitwise."""
+        _, step = TestTrainRound()._port()
+        tw = torch.from_numpy(_time_w(4))
+        step.generator.manual_seed(9)
+        u, slot = step.draw_uniforms(6, M, C, N)
+        assert u.shape == slot.shape == (6, M, C, S)
+        at_once = step.time_index(tw, u)
+        for r in range(6):
+            assert torch.equal(at_once[r], step.time_index(tw, u[r]))
+        step.generator.manual_seed(9)
+        assert torch.equal(step.draw_batches(tw, 6, N)[0], at_once)
 
 
 class TestAggregation:
@@ -395,6 +472,46 @@ class TestIterationEval:
                 _close(got, want, atol=1e-3)
         assert np.array_equal(total.numpy(), np.asarray(jtot))
         _close(stats, jstats, atol=0)
+
+
+    def test_fused_iteration_with_masks_matches_reference(self):
+        """``client_masks [R, C]``: round r samples row r's clients, as the
+        reference's fused program does."""
+        R, freq, t = 5, 2, 1
+        x, y = _data(6)
+        tw = _time_w(6)
+        masks = np.zeros((R, C), np.float32)
+        for r in range(R):
+            masks[r, np.random.RandomState(r).choice(C, 2, replace=False)] = 1
+        jm, jp, jstep = _jax_setup(seed=6)
+        jp = jax.tree_util.tree_map(np.asarray, jp)
+        it_key = jax.random.PRNGKey(23)
+        jout = jstep.train_iteration_eval(
+            jax.tree_util.tree_map(jnp.asarray, jp),
+            jstep.init_opt_states(jp, M, C), it_key, jnp.asarray(x),
+            jnp.asarray(y), jnp.asarray(tw), jnp.ones((M, C, N)),
+            jnp.ones((M, 3)), jnp.float32(1.0), R, freq, jnp.int32(t),
+            jnp.asarray(masks))
+        draws = [_jax_draws(jax.random.fold_in(it_key, r),
+                            tw * masks[r][None, :, None]) for r in range(R)]
+        draws = tuple(torch.stack([d[i] for d in draws]) for i in (0, 1))
+        mod = _module()
+        step = TrainStep(mod, B, S, 2, lr=LR, wd=WD, device="cpu")
+        params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+        newp, _, n, losses, bufs, _, stats = step.train_iteration_eval(
+            params, step.init_opt_states(params, M, C), torch.from_numpy(x),
+            torch.from_numpy(y), torch.from_numpy(tw), 1.0, R, freq, t,
+            torch.from_numpy(masks), draws=draws)
+        jp2, _, jn, jl, jbufs, _ = jout
+        _close(mod.pack(newp), _pack(mod, jp2), atol=1e-5)
+        _close(n, jn, atol=0)
+        assert (n[:, masks[-1] == 0] == 0).all()
+        _close(losses, jl, atol=1e-5)
+        for got, want in zip(bufs, jbufs):
+            if got.dtype == torch.int32:
+                assert np.abs(got.numpy() - np.asarray(want)).max() <= 1
+            else:
+                _close(got, want, atol=1e-3)
 
 
 def test_step_refuses_what_the_kernel_does_not_train():
