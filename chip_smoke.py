@@ -45,12 +45,19 @@ Phases, one or more lines of output each:
    SEA shape (M=4 models, C=10 clients, T1=11 steps, N=B=500 rows, S=5
    local steps, 3->10->2 fnn) with three pairs and one whole model
    inactive and at F=2 (sine), the general one at the SEA shape (forced:
-   the kernel of the first design, timed in the same run) and at H=32;
-   two calls of each must agree bitwise. It times each (per call and on
-   the device, and the device time per local step) and the plain version
-   in turns; then times the round's two other device steps, still plain
-   PyTorch (the masked FedAvg and the eval matrices), against their
-   bounds.
+   the kernel of the first design, timed in the same run) and at H=32,
+   and both on gathered batches (rows drawn by K4 under Poisson sample
+   weights, per-model feature masks: KUE's route); two calls of each must
+   agree bitwise. It times each (per call and on the device, and the
+   device time per local step) and the plain version in turns.
+   train_draw: K4, the weighted draw, against its plain version at KUE's
+   canonical shape (integer weights: rows and cdf bitwise) and with
+   non-integer weights (the cdf to 1e-6 relative, a row differing only
+   where its uniform lies within that of a cdf boundary; the count is
+   printed), timed per call, enqueue and on the device beside the plain
+   version, ``torch.searchsorted`` after ``torch.cumsum`` and the bound.
+   Then it times the round's two other device steps, still plain PyTorch
+   (the masked FedAvg and the eval matrices), against their bounds.
 6. train: the port's training main path at full width, the canonical
    ``python -m feddrift_torch run`` configuration (SEA, change points A,
    fnn, softcluster H_A_C_1_10_0, 10 steps x 200 rounds, checkpoint every
@@ -66,15 +73,21 @@ Phases, one or more lines of output each:
 7. train_algos: the paper's other algorithms at the canonical full width
    (SEA, change points A, 10 clients, 10 steps x 200 rounds of 5 AMSGrad
    steps on 500 rows): CFL (``softcluster cfl_0.1_win-1``, the per-round
-   path), IFCA on the current step (``softclusterwin-1 hard``) and the
+   path), IFCA on the current step (``softclusterwin-1 hard``), the
    single-model baselines ``win-1``, ``oblivious``, ``exp`` and ``lin``
-   (M = 1), each on the fused path. One ``train_algo`` line each: the
-   path, wall, rounds/s, K1 launches, the plain K2/K3 calls, host syncs a
-   round, models in use per step and per-step Test/Acc beside its
-   committed SEA reference run; then the kernel launches a round and K1's
+   (M = 1), DriftSurf, MultiModel ``mmacc_06`` and ``mmgeni`` (fused),
+   Adaptive-FedAvg ``win-1_iter``, the legacy ``clusterfl``, AUE, AUE-PC
+   and KUE (per round; KUE through K4 and K1's gather route). One
+   ``train_algo`` line each: the path, wall, rounds/s, K1 launches (and
+   KUE's K4 launches), the plain K2/K3 calls, host syncs a round, models
+   in use per step, per-step Test/Acc beside its committed SEA reference
+   run, and the card's decisions (each client's model at every step's
+   end, and the counts of drift, spawn, split and replacement events)
+   beside the committed run's; then the kernel launches a round and K1's
    device time in one profiled time step. Fails unless K1 carried all 2000
-   rounds on the expected path and every step is within 0.04 (the mean
-   within 0.015) of the committed run, whose final Test/Acc are pinned.
+   rounds on the expected path (K4 too for KUE, and nowhere else) and
+   every step is within 0.04 (the mean within 0.015) of the committed run,
+   whose final Test/Acc are pinned.
 8. train_sampling: 4 of 10 clients a round at full width, T = 2, R = 50,
    once fused and once per round: fails unless the two give bitwise-equal
    Test/Acc series and final pools, the series differs from k = 10, and a
@@ -146,7 +159,33 @@ ALGO_RUNS = (
       0.862)),
     ("lin", "H_A_C_1_10_0", "fused", "sea-fnn-lin-H_A_C_1_10_0-s0",
      (0.8594, 0.8624, 0.8736, 0.854, 0.8552, 0.8678, 0.866, 0.867, 0.8634,
-      0.8628)))
+      0.8628)),
+    # the rest of the paper's table (statebased.py, ensembles.py)
+    ("driftsurf", "H_A_C_1_10_0", "fused", "sea-fnn-driftsurf-H_A_C_1_10_0-s0",
+     (0.859, 0.8566, 0.8718, 0.8478, 0.8548, 0.8578, 0.8646, 0.87, 0.8632,
+      0.8626)),
+    ("mmacc", "mmacc_06", "fused", "sea-fnn-mmacc-mmacc_06-s0",
+     (0.859, 0.8566, 0.8758, 0.8716, 0.861, 0.8786, 0.8672, 0.887, 0.8874,
+      0.883)),
+    ("mmgeni", "H_A_C_1_10_0", "fused", "sea-fnn-mmgeni-H_A_C_1_10_0-s0",
+     (0.859, 0.8646, 0.875, 0.8726, 0.8556, 0.8764, 0.8732, 0.8848, 0.8858,
+      0.887)),
+    ("ada", "win-1_iter", "per_round", "sea-fnn-ada-win-1_iter-s0",
+     (0.8594, 0.8652, 0.8696, 0.8576, 0.8556, 0.8634, 0.8656, 0.8674, 0.8604,
+      0.8644)),
+    ("clusterfl", "H_A_C_1_10_0", "per_round",
+     "sea-fnn-clusterfl-H_A_C_1_10_0-s0",
+     (0.859, 0.867, 0.8632, 0.8572, 0.8596, 0.855, 0.8484, 0.865, 0.8486,
+      0.8596)),
+    ("aue", "H_A_C_1_10_0", "per_round", "sea-fnn-aue-H_A_C_1_10_0-s0",
+     (0.859, 0.867, 0.8712, 0.8536, 0.855, 0.8624, 0.8574, 0.8672, 0.8592,
+      0.8602)),
+    ("auepc", "H_A_C_1_10_0", "per_round", "sea-fnn-auepc-H_A_C_1_10_0-s0",
+     (0.859, 0.867, 0.8712, 0.8536, 0.855, 0.8624, 0.8574, 0.8672, 0.8592,
+      0.8602)),
+    ("kue", "H_A_C_1_10_0", "per_round", "sea-fnn-kue-H_A_C_1_10_0-s0",
+     (0.85, 0.8414, 0.8414, 0.8344, 0.8524, 0.8654, 0.8538, 0.8684, 0.8578,
+      0.8606)))
 # The CFL run starts from the reference's own initial params for seed 0 (the
 # fnn 3 -> 10 -> 2 that feddrift_tpu's ModelPool.create draws with seed 42,
 # in every slot and as the reinit target; biases zero), so that its splits
@@ -769,27 +808,30 @@ def _train_case(dataset: str, seed: int, hidden: int = 10):
             dev(slot), dev(tw.sum(-1)))
     kw = dict(hidden=mod.hidden_dim, batch_size=B, lr=cfg.lr, wd=cfg.wd)
     return args, kw, dict(M=M, C=C, S=S, B=B, F=F, H=mod.hidden_dim,
-                          K=mod.num_classes)
+                          K=mod.num_classes), tw
 
 
-def _local_sgd_bound_ms(t_idx, slot, total_w, M: int, C: int, S: int, B: int,
-                        F: int, H: int, K: int) -> tuple[float, str]:
+def _local_sgd_bound_ms(rows, total_w, M: int, C: int, S: int, B: int,
+                        F: int, H: int, K: int, index_bytes: int
+                        ) -> tuple[float, str]:
     """Least time for one K1 call on the card, counting the active pairs'
-    work. Bytes: each distinct batch (client, time step, slot) that an
-    active pair draws read once (x and label rows), the pool read once, the
-    active pairs' optimizer state read and written, the client params, n
-    and loss written, the indices and weights read. Operations: the float32
-    work of the active pairs' forward, backward and AMSGrad steps."""
+    work. Bytes: each distinct row (client, row of its T1·N) that an active
+    pair's batches ``rows [M, C, S, B]`` read, read once (x and label), the
+    pool read once, the active pairs' optimizer state read and written, the
+    client params, n and loss written, the batch indices (``index_bytes``)
+    and the weights read; with a feature mask, that too. Operations: the
+    float32 work of the active pairs' forward, backward and AMSGrad
+    steps."""
     import torch
     P = F * H + H + H * K + K
     act = total_w > 0                                            # [M, C]
-    client = torch.arange(C, device=t_idx.device)[None, :, None]
-    batches = torch.stack([client.expand_as(t_idx), t_idx, slot], -1)[act]
-    distinct = torch.unique(batches.reshape(-1, 3), dim=0).shape[0]
+    client = torch.arange(C, device=rows.device)[None, :, None, None]
+    key = (client * (1 << 32) + rows.long()).expand(M, C, S, B)[act]
+    distinct = torch.unique(key).numel()
     active = int(act.sum())
-    nbytes = (distinct * B * (4 * F + 4) + M * P * 4
+    nbytes = (distinct * (4 * F + 4) + M * P * 4
               + active * 2 * (3 * P * 4 + 4) + M * C * (P * 4 + 8)
-              + M * C * (2 * S * 4 + 4))
+              + index_bytes + M * C * 4)
     flops = active * S * (B * (4 * F * H + 6 * H * K + 6 * K + 2 * H)
                           + 14 * P)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
@@ -797,12 +839,38 @@ def _local_sgd_bound_ms(t_idx, slot, total_w, M: int, C: int, S: int, B: int,
         else (t_ops * 1e3, "operations")
 
 
-# K1's cases: (label, dataset, seed, fnn hidden width, forced route); the
-# registry's widths take the fused kernel, H = 32 the general one, and the
-# general one forced at the SEA shape is the first design, timed here too
-K1_CASES = (("sea", "sea", 0, 10, None), ("sine", "sine", 1, 10, None),
-            ("sea_general", "sea", 0, 10, "general"),
-            ("h32", "sea", 2, 32, None))
+# K1's cases: (label, dataset, seed, fnn hidden width, forced route,
+# gathered batches); the registry's widths take the fused kernel, H = 32
+# the general one, and the general one forced at the SEA shape is the first
+# design, timed here too. A gathered case trains on rows drawn by K4 (the
+# weighted draw, Poisson sample weights) with per-model feature masks, as
+# KUE does: the per-thread copy branch of either kernel
+K1_CASES = (("sea", "sea", 0, 10, None, False),
+            ("sine", "sine", 1, 10, None, False),
+            ("sea_general", "sea", 0, 10, "general", False),
+            ("h32", "sea", 2, 32, None, False),
+            ("sea_gather", "sea", 3, 10, None, True),
+            ("sea_gather_general", "sea", 3, 10, "general", True))
+
+
+def _gathered(x, tw, S: int, B: int, seed: int):
+    """K1's gathered inputs for one case: rows drawn by K4 under the case's
+    time weights and Poisson(1) sample weights, and 0/1 feature masks with
+    at least one feature on per model (KUE's)."""
+    import numpy as np
+    import torch
+    from feddrift_torch.kernels.weighted_draw import weighted_draw
+    rng = np.random.default_rng(seed + 100)
+    C, T1, N, F = x.shape
+    M = tw.shape[0]
+    sw = rng.poisson(1.0, (M, C, N)).astype(np.float32)
+    fm = (rng.random((M, F)) < 0.6).astype(np.float32)
+    fm[np.arange(M), rng.integers(0, F, M)] = 1.0
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.rand((M, C, S, B), generator=gen, device="cuda")
+    idx = weighted_draw(torch.from_numpy(tw).cuda(),
+                        torch.from_numpy(sw).cuda(), u)
+    return idx, torch.from_numpy(fm).cuda()
 
 
 def phase_train_kernel() -> dict:
@@ -810,11 +878,20 @@ def phase_train_kernel() -> dict:
     from feddrift_torch.kernels.local_sgd import (_route, local_sgd,
                                                   local_sgd_ref)
     entry, device_ms = None, {}
-    for label, dataset, seed, hidden, forced in K1_CASES:
-        args, kw, dims = _train_case(dataset, seed, hidden)
+    for label, dataset, seed, hidden, forced, gather in K1_CASES:
+        args, kw, dims, tw = _train_case(dataset, seed, hidden)
         x, y, params, opt, t_idx, slot, total_w = args
         route = forced or _route(dims["F"], dims["H"], dims["K"], dims["B"])
         kw = dict(kw, route=route)
+        N, B = x.shape[2], dims["B"]
+        if gather:
+            idx, fm = _gathered(x, tw, dims["S"], B, seed)
+            t_idx = slot = None
+            kw = dict(kw, idx=idx, feat_mask=fm)
+            rows = idx
+        else:
+            rows = (t_idx * N + slot * B)[..., None] \
+                + torch.arange(B, device="cuda")
         fresh = lambda: {k: v.clone() for k, v in opt.items()}
         client, k_opt, n, loss = local_sgd(x, y, params, fresh(), t_idx, slot,
                                            total_w, **kw)
@@ -852,10 +929,14 @@ def phase_train_kernel() -> dict:
         device_ms[label] = device["kernel"]
         enqueue_ms = _host_enqueue_ms(calls["kernel"])
         active = int((total_w > 0).sum())
-        bound_ms, bound_by = _local_sgd_bound_ms(t_idx, slot, total_w,
-                                                 **dims)
+        bound_ms, bound_by = _local_sgd_bound_ms(
+            rows, total_w, **dims, index_bytes=4 * (
+                rows.numel() + dims["M"] * dims["F"] if gather
+                else 2 * t_idx.numel()))
         _say("train_kernel", name="local_sgd", case=label, dataset=dataset,
-             route=route, **dims, active_pairs=active, max_abs_err=err,
+             route=route, batches="gathered (K4 rows, feature masks)"
+             if gather else "contiguous", **dims, active_pairs=active,
+             max_abs_err=err,
              atol=TRAIN_ATOL, coords_over_atol=over, nu_max_rel_err=nu_rel,
              nu_rtol=TRAIN_NU_RTOL, inactive_untouched=untouched,
              n_and_count_equal=same, two_calls_bitwise=bitwise,
@@ -890,7 +971,135 @@ def phase_train_kernel() -> dict:
          fused_vs_general=fused / general if fused and general
          else "not measured",
          first_design_device_ms_recorded=K1_FIRST_DESIGN_DEVICE_MS,
-         bound_ms=entry["bound_ms"])
+         bound_ms=entry["bound_ms"],
+         gather_fused_device_ms=device_ms["sea_gather"],
+         gather_general_device_ms=device_ms["sea_gather_general"],
+         gather_vs_contiguous_fused=device_ms["sea_gather"] / fused
+         if fused and device_ms["sea_gather"] else "not measured")
+    return entry
+
+
+# K4's cases: (label, time weights, sample weights) at KUE's canonical
+# shape (M = 4, C = 10, T1 = 11, N = 500, S = 5, B = 500): KUE's own
+# (win-1 at step 5 times Poisson(1) counts: integers, so the kernel's rows
+# must equal the plain version's bit for bit), and non-integer weights
+# (linear recency over steps 0..5 times counts scaled by U(0.5, 2)), where
+# the cdf is held to DRAW_CDF_RTOL and a row may differ only where its
+# uniform lies within that distance of a cdf boundary. Client 3 is left
+# out of every model (the uniform fallback) in both.
+DRAW_CASES = (("kue", "integer"), ("recency", "non_integer"))
+DRAW_CDF_RTOL = 1e-6
+
+
+def _draw_case(kind: str):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(7 if kind == "integer" else 8)
+    M, C, T1, N, S, B, t = 4, 10, 11, 500, 5, 500, 5
+    tw = np.zeros((M, C, T1), np.float32)
+    if kind == "integer":
+        tw[:, :, t] = 1.0
+        sw = rng.poisson(1.0, (M, C, N)).astype(np.float32)
+    else:
+        tw[:, :, : t + 1] = np.arange(1, t + 2, dtype=np.float32)
+        sw = (rng.poisson(1.0, (M, C, N))
+              * rng.uniform(0.5, 2.0, (M, C, N))).astype(np.float32)
+    tw[:, 3] = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    u = torch.rand((M, C, S, B), generator=gen, device="cuda")
+    return (torch.from_numpy(tw).cuda(), torch.from_numpy(sw).cuda(), u,
+            dict(M=M, C=C, T1=T1, N=N, S=S, B=B))
+
+
+def _draw_bound_ms(d: dict) -> tuple[float, str]:
+    """Least time for one K4 call: the weights and uniforms read once and
+    the rows written once, against its operations (a multiply, an add and
+    a divide per row of the scan, ceil(log2(T1·N)) + 1 comparisons a
+    uniform)."""
+    import math
+    pairs, L, D = d["M"] * d["C"], d["T1"] * d["N"], d["S"] * d["B"]
+    nbytes = 4 * pairs * (d["T1"] + d["N"] + 2 * D)
+    ops = pairs * (3 * L + D * (math.ceil(math.log2(L)) + 1))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops \
+        else (t_ops * 1e3, "operations")
+
+
+def phase_train_draw() -> dict:
+    """K4, the weighted draw, against its plain version on the card (rule
+    of ``DRAW_CASES``), with its times beside the plain version's, the
+    bound and ``torch.searchsorted`` after ``torch.cumsum``."""
+    import torch
+    from feddrift_torch.kernels.weighted_draw import (weighted_cdf_ref,
+                                                      weighted_draw,
+                                                      weighted_draw_ref)
+    entry = None
+    for label, kind in DRAW_CASES:
+        tw, sw, u, d = _draw_case(kind)
+        L = d["T1"] * d["N"]
+        cdf = torch.empty((d["M"], d["C"], L), device="cuda")
+        idx = weighted_draw(tw, sw, u, cdf_out=cdf)
+        again = weighted_draw(tw, sw, u)
+        torch.cuda.synchronize()
+        want_cdf = weighted_cdf_ref(tw, sw)
+        want = weighted_draw_ref(tw, sw, u)
+        cdf_rel = float(((cdf - want_cdf).abs()
+                         / want_cdf.abs().clamp_min(1e-30)).max())
+        differ = idx != want
+        # where a row differs, its uniform must lie within the tolerance
+        # of the plain cdf's boundary between the two rows (rows of weight
+        # 0 between them share that boundary)
+        flat_u = u.reshape(d["M"], d["C"], -1)
+        lo = torch.minimum(idx, want).reshape(d["M"], d["C"], -1).long()
+        edge = want_cdf.gather(-1, lo)
+        near = ((flat_u - edge).abs() <= DRAW_CDF_RTOL * edge.abs()) \
+            .reshape(u.shape)
+        gap = (idx - want).abs().max().item()
+        ok = bool(torch.equal(idx, again)) and (
+            bool(torch.equal(idx, want)) and bool(torch.equal(cdf, want_cdf))
+            if kind == "integer" else cdf_rel <= DRAW_CDF_RTOL
+            and bool(near[differ].all()))
+        # the plain version's pieces as the library computes them: cumsum
+        # of the probabilities, then searchsorted of the scaled uniforms
+        p = (tw[..., :, None] * sw[..., None, :]).reshape(d["M"], d["C"], -1)
+        p = torch.where(p.sum(-1, keepdim=True) > 0, p, torch.ones_like(p))
+        scaled = (flat_u * p.sum(-1, keepdim=True)).contiguous()
+        calls = {"kernel": lambda: weighted_draw(tw, sw, u),
+                 "plain": lambda: weighted_draw_ref(tw, sw, u),
+                 "library": lambda: torch.searchsorted(
+                     torch.cumsum(p, -1), scaled, right=True)}
+        ms, plain_ms, library_ms = _interleaved(_time_ms, calls).values()
+        device = {name: _device_ms(f) for name, f in calls.items()}
+        enqueue_ms = _host_enqueue_ms(calls["kernel"])
+        bound_ms, bound_by = _draw_bound_ms(d)
+        _say("train_draw", name="weighted_draw", case=label, weights=kind,
+             **d, rows_equal=bool(torch.equal(idx, want)),
+             rows_differing=int(differ.sum()),
+             rows_differing_near_boundary=int(near[differ].sum()),
+             max_row_gap=gap, cdf_bitwise=bool(torch.equal(cdf, want_cdf)),
+             cdf_max_rel_err=cdf_rel, cdf_rtol=DRAW_CDF_RTOL,
+             two_calls_bitwise=bool(torch.equal(idx, again)),
+             kernel_ms=ms, kernel_device_ms=device["kernel"],
+             kernel_enqueue_ms=enqueue_ms, plain_ms=plain_ms,
+             plain_device_ms=device["plain"], library_ms=library_ms,
+             library_device_ms=device["library"], bound_ms=bound_ms,
+             bound_by=bound_by, kernel_vs_bound=(device["kernel"] or ms)
+             / bound_ms)
+        if not ok:
+            raise AssertionError(f"weighted_draw ({label}): rows equal "
+                                 f"{bool(torch.equal(idx, want))}, "
+                                 f"{int(differ.sum())} differ "
+                                 f"({int(near[differ].sum())} near a "
+                                 f"boundary), cdf rel {cdf_rel}")
+        if kind == "integer":
+            entry = {"name": "weighted_draw", "route": "cuda",
+                     "source": "feddrift_torch/kernels/csrc/weighted_draw.cu",
+                     "replaces": "feddrift_tpu/core/step.py:72",
+                     "launches": None, "max_abs_err": float(
+                         (idx - want).abs().max()), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "device_ms": device["kernel"]}
     return entry
 
 
@@ -903,7 +1112,7 @@ def phase_train_plain() -> None:
     from feddrift_torch.models.mlp import FeedForwardNN
     from feddrift_torch.resilience.robust_agg import agg_mean
     from feddrift_torch.core.step import TrainStep
-    args, kw, d = _train_case("sea", 0)
+    args, kw, d, _ = _train_case("sea", 0)
     x, y, params, opt, t_idx, slot, total_w = args
     client, _, n, _ = local_sgd(*args, **kw)
     M, C, P = client.shape
@@ -1092,6 +1301,7 @@ def _drive(cfg, out_dir=None, init=None) -> dict:
     import torch
     from feddrift_torch.core import step as step_mod
     from feddrift_torch.kernels.local_sgd import local_sgd
+    from feddrift_torch.kernels.weighted_draw import weighted_draw
     exp = _experiment(cfg, out_dir, init)
     paths, counts = [], collections.Counter()
 
@@ -1113,7 +1323,7 @@ def _drive(cfg, out_dir=None, init=None) -> dict:
     exp.step._acc_matrix_body = counted("acc_matrix",
                                         exp.step._acc_matrix_body)
     exp.step.acc_cells = counted("acc_cells", exp.step.acc_cells)
-    local_sgd.launches = 0
+    local_sgd.launches = weighted_draw.launches = 0
     try:
         t0 = time.perf_counter()
         exp.run()
@@ -1122,7 +1332,7 @@ def _drive(cfg, out_dir=None, init=None) -> dict:
     finally:
         step_mod.agg_mean = plain
         del exp.step._acc_matrix_body, exp.step.acc_cells
-    launches = local_sgd.launches
+    launches, k4_launches = local_sgd.launches, weighted_draw.launches
     rounds = cfg.train_iterations * cfg.comm_round
     final = {}
     for rec in exp.logger.history:
@@ -1134,7 +1344,8 @@ def _drive(cfg, out_dir=None, init=None) -> dict:
         with tempfile.TemporaryDirectory() as sync_dir:
             syncs = _host_syncs_per_round(cfg, sync_dir, init)
     return {"exp": exp, "wall_s": wall, "paths": list(paths),
-            "k1_launches": launches, "plain_calls": dict(counts),
+            "k1_launches": launches, "k4_launches": k4_launches,
+            "plain_calls": dict(counts),
             "host_syncs_per_round": syncs,
             "rounds_per_s": rounds / wall,
             "step_wall_s": [e["wall_s"] for e in
@@ -1205,7 +1416,12 @@ def _reference_assignment(path: str) -> list[list[int]]:
     return [_assignment(final[t]) for t in sorted(final)]
 
 
-def phase_train_algos() -> None:
+def phase_train_algos(draw_entry: dict) -> None:
+    """Every algorithm of ``ALGO_RUNS`` at full width against its committed
+    SEA run. Besides the numbers, each line prints the card's decisions
+    (each client's model at each step's final eval) beside the committed
+    run's, and the run's own decision events; KUE's line counts K4's
+    launches, which the kernels line reports."""
     import tempfile
 
     from feddrift_torch.config import ExperimentConfig
@@ -1223,17 +1439,25 @@ def phase_train_algos() -> None:
         diffs = [a - b for a, b in zip(accs, ref)]
         mean, ref_mean = sum(accs) / len(accs), sum(ref) / len(ref)
         paths = set(got["paths"])
-        held = {}
+        held = {"assignment": got["assignment"],
+                "committed_assignment": _reference_assignment(ref_path),
+                "decision_events": {
+                    k: len(exp.events.events(k)) for k in (
+                        "drift_detected", "cluster_create", "cluster_split",
+                        "model_replaced")}}
+        splits = exp.events.events("cluster_split")
+        if splits:
+            held["splits"] = [[e.get(k) for k in SPLIT_KEYS] for e in splits]
         if cfl:
-            splits = exp.events.events("cluster_split")
-            held = {"init": "reference",
-                    "first_split": [splits[0][k] for k in SPLIT_KEYS]
-                    if splits else None,
-                    "splits": [[e[k] for k in SPLIT_KEYS] for e in splits],
-                    "assignment": got["assignment"],
-                    "reference_assignment": [list(a) for a in
-                                             CFL_ASSIGNMENT],
-                    "committed_assignment": _reference_assignment(ref_path)}
+            held.update(init="reference",
+                        first_split=held["splits"][0] if splits else None,
+                        reference_assignment=[list(a)
+                                              for a in CFL_ASSIGNMENT])
+        if algo == "driftsurf":
+            held["driftsurf_state"] = exp.algo.state
+        if algo == "kue":
+            held.update(k4_launches=got["k4_launches"],
+                        kappas=[float(k) for k in exp.algo.ens_weights])
         _say("train_algo", algo=algo, arg=arg, models=exp.pool.num_models,
              path=want_path if paths == {want_path} else sorted(paths),
              wall_s=got["wall_s"], rounds_per_s=got["rounds_per_s"],
@@ -1252,6 +1476,11 @@ def phase_train_algos() -> None:
                                  f"{got['k1_launches']} times for {want} "
                                  f"rounds on paths {paths} (want "
                                  f"{want_path}), {len(accs)} steps")
+        if got["k4_launches"] != (want if algo == "kue" else 0):
+            raise AssertionError(f"{algo}: K4 launched {got['k4_launches']} "
+                                 f"times in {want} rounds")
+        if algo == "kue":
+            draw_entry["launches"] = got["k4_launches"]
         if max(map(abs, diffs)) > STEP_ACC_TOL \
                 or abs(mean - ref_mean) > MEAN_ACC_TOL:
             raise AssertionError(f"{algo} {arg}: Test/Acc per step {accs} "
@@ -1373,16 +1602,18 @@ def main() -> int:
         dense_entry = phase_dense()
         phase_serve(entry, dense_entry)
         train_entry = phase_train_kernel()
+        draw_entry = phase_train_draw()
         phase_train_plain()
         phase_train(train_entry)
-        phase_train_algos()
+        phase_train_algos(draw_entry)
         phase_train_sampling()
         phase_train_per_round_kinds()
     except Exception:   # noqa: BLE001 — report the phase that failed
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [entry, train_entry, dense_entry]}))
+    print(json.dumps({"kernels": [entry, train_entry, dense_entry,
+                                  draw_entry]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

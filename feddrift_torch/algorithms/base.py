@@ -5,9 +5,9 @@ host-side state machine and steers the device through four hooks:
 
 - ``begin_iteration(t)``: start-of-time-step clustering / drift detection.
   May edit the model pool.
-- ``round_inputs(t, r)``: the ``[M, C, T1]`` time-weight tensor (plus the
-  per-sample weights, feature masks and LR scale of algorithms not ported
-  yet) consumed by ``TrainStep``.
+- ``round_inputs(t, r)``: the ``[M, C, T1]`` time-weight tensor, the
+  per-sample weights ``[M, C, N]`` and feature masks ``[M, *features]``
+  (None: ones) and the LR scale, consumed by ``TrainStep``.
 - ``after_round(...)``: post-aggregation work; returns the params the pool
   adopts. On the per-round path it runs after every round; on the fused
   path (``chunkable``) once, after the last.
@@ -15,15 +15,18 @@ host-side state machine and steers the device through four hooks:
 
 Only dense mode is ported: every client is on the device axis, and no
 client's accuracies are excluded as stale (the reference's behaviour with
-``acc_staleness_limit`` 0, its default). Population cohorts and ensembles
-are not ported.
+``acc_staleness_limit`` 0, its default). Population cohorts are not
+ported. An ensemble algorithm (AUE, KUE) names its test-time vote with
+``ensemble_spec``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
 
 import numpy as np
+import torch
 
 from feddrift_torch import obs
 
@@ -53,11 +56,24 @@ def make_algorithm(cfg, ds, pool, step) -> "DriftAlgorithm":
     return algorithm_class(cfg.concept_drift_algo)(cfg, ds, pool, step)
 
 
+@dataclass
+class EnsembleSpec:
+    """Ensemble-vote evaluation (AUE's hard vote, KUE's soft vote)."""
+    mode: str                                   # 'hard' | 'soft'
+    weights: np.ndarray                         # [M] or [M, C]
+    model_mask: Optional[np.ndarray] = None     # [M], 1 = votes
+
+
 class DriftAlgorithm:
     name = "base"
     # True for an algorithm whose after_round reads the [M, C, ...] client
-    # params of the round (CFL); the others get None there
+    # params of the round (CFL, legacy ClusterFL); the others get None there
     needs_client_params = False
+    # Class trait: True if round_inputs returns per-sample weights (KUE's
+    # Poisson bootstrap). The runner reads it before the algorithm exists
+    # and builds its TrainStep with the weighted draw (K4); sample weights
+    # from an algorithm without it would be ignored.
+    uses_sample_weights = False
 
     def __init__(self, cfg, ds, pool, step) -> None:
         self.cfg = cfg
@@ -151,6 +167,12 @@ class DriftAlgorithm:
         pass
 
     # -- helpers --------------------------------------------------------
+    def feature_mask_for(self, mask_flat: np.ndarray) -> torch.Tensor:
+        """``[M, F_flat]`` masks reshaped to ``[M, *feature_shape]`` on the
+        step's device (KUE masks a sample's features)."""
+        return torch.as_tensor(np.asarray(mask_flat, np.float32)).reshape(
+            self.M, *self.ds.feature_shape).to(self.step.device)
+
     def emit_assignment(self, t: int) -> None:
         """The per-iteration ``cluster_assign`` event: the client -> model
         vector, per-model client counts and, where the dataset carries

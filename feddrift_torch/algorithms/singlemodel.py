@@ -36,7 +36,9 @@ class WindowBaseline(_TimeWeighted):
     """One model on a retrain window of past steps: ``cfg.retrain_data``
     ('win-N', 'all', 'weight-exp', ...), or the algorithm's own name for
     ``win-1`` / ``all``; ``oblivious`` is the drift-oblivious baseline, one
-    model on all data (``all``), as in the reference."""
+    model on all data (``all``), as in the reference. ``poisson*`` trains
+    as win-1 with unit sample weights, as the reference's window does (the
+    per-sample Poisson counts are KUE's)."""
 
     name = "window"
 
@@ -47,11 +49,6 @@ class WindowBaseline(_TimeWeighted):
             spec = cfg.concept_drift_algo
         elif cfg.concept_drift_algo == "oblivious":
             spec = "all"
-        if spec.startswith("poisson"):
-            raise NotImplementedError(
-                f"retrain_data {spec!r}: its Poisson bootstrap needs "
-                f"per-sample weights and the weighted draw (K4), which the "
-                f"port's local SGD kernel does not take yet (ROADMAP)")
         if not is_retrain_spec(spec, self.C, self.T1):
             raise ValueError(f"retrain_data {spec!r} is not a retrain spec "
                              f"for {self.C} clients and {self.T1} steps")

@@ -10,6 +10,11 @@ codec or hierarchy path):
                                 each step boundary
     x, y        [C, T1, N, ...] the whole drift dataset, on the device
     time_w      [M, C, T1]      per-(model, client) time-step weights
+    sample_w    [M, C, N]       per-sample weights (KUE's Poisson bootstrap;
+                                None: ones), read when weighted_sampling
+    feat_mask   [M, *features]  multiplicative feature masks (KUE; None:
+                                ones)
+    lr_scale    float           the LR multiplier (Adaptive-FedAvg)
 
 A round is K1 (``kernels/local_sgd.py``: every pair's local steps in one
 launch) followed by the masked sample-weighted FedAvg
@@ -24,13 +29,21 @@ weights (``time_index``, the reference's ``weight_cdf`` /
 ``inverse_cdf_draw``; uniform for a pair of total weight 0). The fused
 loop converts all R rounds with the step's weights at once, the per-round
 loop one round at a time with that round's weights, so a chunkable
-algorithm trains on the same batches on both paths. The caller seeds the
-generator per time step; the draws can also be passed in, which is how the
-tests inject the reference's. A client mask ``[C]`` (the reference's
+algorithm trains on the same batches on both paths. With
+``weighted_sampling`` (the class trait ``uses_sample_weights``: KUE) a
+batch is instead B rows drawn with replacement over the pair's ``T1·N``
+rows with probability ``w_t[t]·s_n[n]``: each round draws ``u [M, C, S,
+B]`` from the generator and K4 (``kernels/weighted_draw.py``) turns it into
+rows, which K1 gathers; both paths draw round by round in the same order,
+so they agree bitwise here too (a step's draws up front would be R·M·C·S·B
+floats, 80 MB at KUE's canonical shape). The caller seeds the generator
+per time step; the draws can also be passed in, which is how the tests
+inject the reference's. A client mask ``[C]`` (the reference's
 ``client_mask``: client sampling) zeroes the unsampled clients' weights
 before K1 sees their total, so K1 leaves those pairs as they were and
-reports n = 0. The eval matrices (K3's function) are plain batched PyTorch
-for now.
+reports n = 0. The eval matrices (K3's function), the ensemble vote, the
+MSE matrix and the confusion matrices (K5's) are plain batched PyTorch for
+now.
 
 ``ForwardStep`` is the counterpart of ``ForwardStep`` (:905-960): one call
 answers a whole micro-batch whose rows may target different models; each
@@ -49,7 +62,9 @@ from typing import Callable
 
 import torch
 
+from feddrift_torch.core.functional import confusion_matrix
 from feddrift_torch.kernels.local_sgd import init_opt_state, local_sgd
+from feddrift_torch.kernels.weighted_draw import weighted_draw
 from feddrift_torch.models.mlp import FeedForwardNN
 from feddrift_torch.resilience.robust_agg import agg_mean
 from feddrift_torch.utils.device import resolve_device
@@ -67,6 +82,8 @@ class TrainStep:
     wd: float = 0.001
     optimizer: str = "adam"
     device: str | torch.device = "cuda"
+    # per-sample weighted batches (KUE's Poisson bootstrap) through K4
+    weighted_sampling: bool = False
 
     def __post_init__(self) -> None:
         if self.optimizer != "adam":
@@ -82,11 +99,13 @@ class TrainStep:
 
     @classmethod
     def create(cls, cfg, module, num_classes: int,
-               device: str | torch.device = "cuda") -> "TrainStep":
+               device: str | torch.device = "cuda",
+               weighted_sampling: bool = False) -> "TrainStep":
         """The step an ``ExperimentConfig`` describes."""
         return cls(module=module, batch_size=cfg.batch_size,
                    num_steps=cfg.epochs, num_classes=num_classes, lr=cfg.lr,
-                   wd=cfg.wd, optimizer=cfg.client_optimizer, device=device)
+                   wd=cfg.wd, optimizer=cfg.client_optimizer, device=device,
+                   weighted_sampling=weighted_sampling)
 
     # ------------------------------------------------------------------
     def init_opt_states(self, params, num_models: int,
@@ -135,6 +154,12 @@ class TrainStep:
         u, slot = self.draw_uniforms(R, M, C, N)
         return self.time_index(time_w, u), slot
 
+    def draw_row_uniforms(self, M: int, C: int, N: int) -> torch.Tensor:
+        """One round's uniforms ``u [M, C, S, B]`` for the weighted draw,
+        from ``self.generator``."""
+        shape = (M, C, self.num_steps, min(self.batch_size, N))
+        return torch.rand(shape, generator=self.generator, device=self.device)
+
     @staticmethod
     def total_weight(time_w: torch.Tensor,
                      client_mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -146,37 +171,63 @@ class TrainStep:
         return time_w.sum(-1)
 
     # ------------------------------------------------------------------
-    def _round_body(self, flat, opt_state, x, y, total_w, t_idx, slot,
-                    lr_scale: float):
-        """One round on packed params ``flat [M, P]``: K1, then the masked
-        FedAvg. Returns ``(new_flat, opt_state, client [M, C, P], n, losses,
-        agg_stats [M, 3])``."""
+    def _round_body(self, flat, opt_state, x, y, time_w, total_w, rows,
+                    lr_scale: float, sample_w=None, feat_mask=None):
+        """One round on packed params ``flat [M, P]``: K4 (weighted
+        sampling only), K1, then the masked FedAvg. ``time_w`` and its sums
+        ``total_w [M, C]`` carry the round's client mask. ``rows``:
+        ``(t_idx, slot)`` of contiguous batches, or the weighted draw's
+        uniforms ``u [M, C, S, B]``. Returns ``(new_flat, opt_state, client
+        [M, C, P], n, losses, agg_stats [M, 3])``."""
+        t_idx = slot = idx = None
+        if self.weighted_sampling:           # K4: the rows the uniforms draw
+            if sample_w is None:
+                sample_w = torch.ones((*time_w.shape[:2], x.shape[2]),
+                                      device=x.device)
+            idx = weighted_draw(time_w.contiguous(), sample_w.contiguous(),
+                                rows)
+        else:
+            t_idx, slot = rows
+        fm = None if feat_mask is None else \
+            feat_mask.reshape(feat_mask.shape[0], -1).contiguous()
         client, opt_state, n, losses = local_sgd(
             x, y, flat, opt_state, t_idx, slot, total_w,
             hidden=self.module.hidden_dim,
             batch_size=min(self.batch_size, x.shape[2]), lr=self.lr,
-            wd=self.wd, lr_scale=lr_scale)
+            wd=self.wd, lr_scale=lr_scale, idx=idx, feat_mask=fm)
         new_flat, agg_stats = agg_mean(client, n, flat)
         return new_flat, opt_state, client, n, losses, agg_stats
 
+    def _round_rows(self, time_w, N: int):
+        """One round's draws from ``self.generator``: the weighted draw's
+        uniforms, or ``(t_idx, slot)`` under ``time_w``."""
+        M, C, _ = time_w.shape
+        if self.weighted_sampling:
+            return self.draw_row_uniforms(M, C, N)
+        t_idx, slot = self.draw_batches(time_w, 1, N)
+        return t_idx[0], slot[0]
+
     @torch.no_grad()
     def train_round(self, params, opt_states, x, y, time_w,
-                    lr_scale: float = 1.0, client_mask=None, *, draws=None,
-                    with_agg_stats: bool = False):
+                    lr_scale: float = 1.0, client_mask=None, *, sample_w=None,
+                    feat_mask=None, draws=None, with_agg_stats: bool = False):
         """One communication round. Returns ``(new_params [M, ...],
         new_opt_states, client_params [M, C, ...], n [M, C], mean_loss [M,
         C])``, plus the ``[M, 3]`` aggregation stats when
         ``with_agg_stats``. ``client_mask``: ``[C]`` 0/1, the clients
-        sampled this round (None: all). ``draws``: this round's ``(t_idx,
-        slot)``, each ``[M, C, S]``; otherwise drawn from
+        sampled this round (None: all). ``sample_w [M, C, N]`` and
+        ``feat_mask [M, *features]``: None for ones. ``draws``: this round's
+        ``(t_idx, slot)``, each ``[M, C, S]`` (with weighted sampling: the
+        uniforms ``u [M, C, S, B]``); otherwise drawn from
         ``self.generator``."""
         if draws is None:
-            t_idx, slot = self.draw_batches(time_w, 1, x.shape[2])
-            draws = (t_idx[0], slot[0])
+            draws = self._round_rows(time_w, x.shape[2])
+        if client_mask is not None:
+            time_w = time_w * client_mask[None, :, None]
         flat = self.module.pack(params)
         new_flat, opt, client, n, losses, stats = self._round_body(
-            flat, opt_states, x, y, self.total_weight(time_w, client_mask),
-            *draws, lr_scale)
+            flat, opt_states, x, y, time_w, time_w.sum(-1), draws, lr_scale,
+            sample_w, feat_mask)
         out = (self.module.unpack(new_flat), opt,
                self.module.unpack(client), n, losses)
         return out + (stats,) if with_agg_stats else out
@@ -193,15 +244,18 @@ class TrainStep:
     @torch.no_grad()
     def train_iteration_eval(self, params, opt_states, x, y, time_w,
                              lr_scale: float, R: int, freq: int, t: int,
-                             client_masks=None, *, draws=None):
+                             client_masks=None, *, sample_w=None,
+                             feat_mask=None, draws=None):
         """ALL R rounds of time step ``t`` with every scheduled eval.
 
         Eval slot ``r // freq`` holds the eval after round r for ``r %
         freq == 0``, and the final round takes slot E-1. The ``[E, M, C]``
         buffers stay on the device; the caller fetches them once.
         ``client_masks``: ``[R, C]`` 0/1, round r samples row r's clients
-        (None: all). ``draws``: ``(t_idx, slot)`` each ``[R, M, C, S]``,
-        else drawn up front from ``self.generator``.
+        (None: all). ``sample_w``, ``feat_mask``: as ``train_round``.
+        ``draws``: ``(t_idx, slot)`` each ``[R, M, C, S]``, else drawn up
+        front from ``self.generator``; with weighted sampling the uniforms
+        ``[R, M, C, S, B]``, else drawn round by round.
 
         Returns ``(params, opt_states, n [M, C], losses [M, C], (corr_tr,
         loss_tr, corr_te, loss_te) each [E, M, C], total [C], agg_stats [R,
@@ -210,26 +264,33 @@ class TrainStep:
         evs = self.eval_rounds(R, freq)
         E = len(evs)
         M, C = time_w.shape[:2]
-        if draws is None:
+        if draws is None and not self.weighted_sampling:
             draws = self.draw_batches(time_w, R, x.shape[2])
-        t_idx, slot = draws
         xt, yt, xe, ye = x[:, t], y[:, t], x[:, t + 1], y[:, t + 1]
-        total_w = self.total_weight(time_w)
         bufs = tuple(torch.zeros((E, M, C), dtype=d, device=x.device)
                      for d in (torch.int32, torch.float32) * 2)
         flat = self.module.pack(params)
+        tw, total_w = time_w, self.total_weight(time_w)
         stats = []
         for r in range(R):
             if client_masks is not None:
-                total_w = self.total_weight(time_w, client_masks[r])
+                tw = time_w * client_masks[r][None, :, None]
+                total_w = tw.sum(-1)
+            if draws is None:
+                rows = self.draw_row_uniforms(M, C, x.shape[2])
+            elif self.weighted_sampling:
+                rows = draws[r]
+            else:
+                rows = (draws[0][r], draws[1][r])
             flat, opt_states, _, n, losses, st = self._round_body(
-                flat, opt_states, x, y, total_w, t_idx[r], slot[r], lr_scale)
+                flat, opt_states, x, y, tw, total_w, rows, lr_scale,
+                sample_w, feat_mask)
             stats.append(st)
             if r % freq == 0 or r == R - 1:
                 e = E - 1 if r == R - 1 else r // freq
                 p = self.module.unpack(flat)
-                mats = (*self._acc_matrix_body(p, xt, yt)[:2],
-                        *self._acc_matrix_body(p, xe, ye)[:2])
+                mats = (*self._acc_matrix_body(p, xt, yt, feat_mask)[:2],
+                        *self._acc_matrix_body(p, xe, ye, feat_mask)[:2])
                 for b, v in zip(bufs, mats):
                     b[e] = v
         total = torch.full((C,), x.shape[2], dtype=torch.int32,
@@ -238,15 +299,23 @@ class TrainStep:
                 torch.stack(stats))
 
     # ------------------------------------------------------------------
-    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, params, x: torch.Tensor,
+                feat_mask: torch.Tensor | None = None) -> torch.Tensor:
         """Every model on every client: params leaves ``[M, ...]``, x ``[C,
-        ..., N, *features]`` -> ``[M, C, ..., N, K]``."""
-        extra = x.dim() - 1 - len(self.module.feature_shape)
+        ..., N, *features]`` -> ``[M, C, ..., N, K]``; ``feat_mask [M,
+        *features]`` multiplies model m's input (None: ones)."""
+        fs = len(self.module.feature_shape)
+        extra = x.dim() - 1 - fs
         lead = (slice(None),) + (None,) * extra
-        return self.module({k: v[lead] for k, v in params.items()}, x[None])
+        xin = x[None]
+        if feat_mask is not None:
+            xin = xin * feat_mask.reshape(
+                feat_mask.shape[0], *(1,) * (x.dim() - fs),
+                *feat_mask.shape[1:])
+        return self.module({k: v[lead] for k, v in params.items()}, xin)
 
-    def _acc_matrix_body(self, params, x, y):
-        logits = self._logits(params, x)                       # [M, C, N, K]
+    def _acc_matrix_body(self, params, x, y, feat_mask=None):
+        logits = self._logits(params, x, feat_mask)            # [M, C, N, K]
         logp = torch.log_softmax(logits, dim=-1)
         yl = y.long()[None].expand(logits.shape[:-1])
         nll = -logp.gather(-1, yl[..., None])[..., 0].sum(-1)
@@ -256,18 +325,69 @@ class TrainStep:
         return correct, nll, total
 
     @torch.no_grad()
-    def acc_matrix(self, params, x, y):
+    def acc_matrix(self, params, x, y, feat_mask=None):
         """Batched ``[M, C]`` eval of every model on every client's data.
         x: ``[C, N, ...]``; returns (correct [M, C] int32, loss_sum [M, C],
         total [C])."""
-        return self._acc_matrix_body(params, x, y)
+        return self._acc_matrix_body(params, x, y, feat_mask)
 
     @torch.no_grad()
-    def acc_cells(self, params, x, y) -> torch.Tensor:
+    def acc_cells(self, params, x, y, feat_mask=None) -> torch.Tensor:
         """Correct-prediction counts per (model, client, time step): x
         ``[C, T1, N, ...]`` -> ``[M, C, T1]`` int32."""
-        logits = self._logits(params, x)                    # [M, C, T1, N, K]
+        logits = self._logits(params, x, feat_mask)        # [M, C, T1, N, K]
         return (logits.argmax(-1) == y.long()[None]).sum(-1).to(torch.int32)
+
+    @torch.no_grad()
+    def ensemble_eval(self, params, x, y, ens_weights: torch.Tensor,
+                      mode: str = "hard", model_mask=None, feat_mask=None):
+        """Weighted-vote ensemble accuracy per client (reference
+        ``ensemble_eval``). ``mode="hard"``: AUE, each model casts its
+        weight on its argmax class; ``"soft"``: KUE, a weighted sum of
+        softmaxes over the models of weight > 0. ``ens_weights [M]`` or
+        ``[M, C]`` (AUE-PC's per-client weights), ``model_mask [M]`` (1 =
+        votes; None: all). x: ``[C, N, ...]``; returns (correct [C] int32,
+        total [C], loss_sum [C]), the loss the NLL of the normalised
+        vote."""
+        logits = self._logits(params, x, feat_mask)           # [M, C, N, K]
+        M, C, N, K = logits.shape
+        if model_mask is None:
+            model_mask = torch.ones(M, device=x.device)
+        if ens_weights.dim() == 1:
+            ens_weights = ens_weights[:, None].expand(M, C)
+        w = ens_weights * model_mask[:, None]                 # [M, C]
+        if mode == "hard":
+            votes = torch.nn.functional.one_hot(logits.argmax(-1), K).to(
+                logits.dtype)
+        else:
+            votes = torch.softmax(logits, dim=-1)
+            w = w.clamp_min(0.0) * (ens_weights > 0)          # kappa > 0
+        combined = (votes * w[:, :, None, None]).sum(0)       # [C, N, K]
+        yl = y.long()
+        correct = (combined.argmax(-1) == yl).sum(1).to(torch.int32)
+        probs = combined / combined.sum(-1, keepdim=True).clamp_min(1e-12)
+        nll = -torch.log(probs.gather(-1, yl[..., None])[..., 0] + 1e-12)
+        total = torch.full((C,), N, dtype=torch.int32, device=x.device)
+        return correct, total, nll.sum(1)
+
+    @torch.no_grad()
+    def mse_matrix(self, params, x, y, feat_mask=None):
+        """Per-(model, client) Brier sums ``sum_n (1 - p_y(x_n))^2`` (AUE's
+        weights). x: ``[C, N, ...]`` -> (mse_sum [M, C], total [C])."""
+        probs = torch.softmax(self._logits(params, x, feat_mask), dim=-1)
+        yl = y.long()[None].expand(probs.shape[:-1])
+        p_true = probs.gather(-1, yl[..., None])[..., 0]
+        total = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                           device=x.device)
+        return ((1.0 - p_true) ** 2).sum(-1), total
+
+    @torch.no_grad()
+    def confusion_matrices(self, params, x, y, feat_mask=None):
+        """Per-(model, client) confusion matrices ``[M, C, K, K]`` float32,
+        rows the true label (KUE's kappa)."""
+        logits = self._logits(params, x, feat_mask)
+        return confusion_matrix(logits, y[None].expand(logits.shape[:-1]),
+                                self.num_classes)
 
 
 @dataclass(eq=False)

@@ -12,8 +12,8 @@ steps. A weight of w on step t means samples of that step are drawn with
 relative probability w during local SGD, which equals the reference's
 duplicated-rows sampling because every step holds the same number of
 samples. ``poisson`` is win-1 at the step level; its per-sample Poisson(1)
-counts (KUE's bootstrap) need per-sample weights, which the port's local
-SGD kernel does not take yet, so the algorithms refuse it.
+counts (KUE's bootstrap) come from ``poisson_sample_counts`` and reach
+local SGD as per-sample weights through the weighted draw (K4).
 """
 
 from __future__ import annotations
@@ -74,3 +74,13 @@ def time_weights(retrain_method: str, num_clients: int, current_iteration: int,
     else:
         raise NameError(retrain_method)
     return w
+
+
+def poisson_sample_counts(num_clients: int, sample_num: int,
+                          rng: np.random.Generator) -> np.ndarray:
+    """Per-sample Poisson(1) bootstrap counts ``[C, N]`` float32 (KUE),
+    drawn from ``rng``. A client whose counts sum to zero gets ones (the
+    reference's "if sum(weights) != 0" guard)."""
+    counts = rng.poisson(1.0, size=(num_clients, sample_num)).astype(np.float32)
+    counts[counts.sum(axis=1) == 0] = 1.0
+    return counts

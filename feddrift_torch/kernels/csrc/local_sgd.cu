@@ -10,7 +10,11 @@
 // What it computes. For each pair (m, c), S local steps starting from
 // params[m] and the pair's optimizer state (mu, nu, nu_max, count). Step s
 // reads the batch rows t_idx*N + slot*B + [0, B) of client c's [T1*N] rows
-// and runs dense -> relu -> dense, the mean softmax cross-entropy and its
+// (a contiguous batch), or, where the caller passes explicit rows idx
+// [M, C, S, B] (the weighted draw, K4: weighted_draw.cu), rows idx[m, c, s]
+// (a gathered batch). x is multiplied by model m's feature mask fmask[m]
+// (KUE's; none: ones) as it is staged. It runs dense -> relu -> dense, the
+// mean softmax cross-entropy and its
 // gradient, g += wd * p, then optax's scale_by_amsgrad exactly: mu and nu
 // moments, bias-corrected mu_hat and nu_hat (1 - b^count in float32, as
 // optax's bias_correction), nu_max = max(nu_max, nu_hat) -- the max of the
@@ -54,8 +58,9 @@
 //   bytes on one mbarrier per stage) into a ring of min(S, 8) stages, and
 //   refills a stage for step s + stages as soon as step s has read it, so
 //   global latency is paid once. Where an address or a size is not a
-//   multiple of 16 bytes the bulk copy is not allowed: then every thread
-//   copies its own row with 4-byte cp.async and arrives on the same
+//   multiple of 16 bytes the bulk copy is not allowed, and a gathered
+//   batch has no contiguous rows: then every thread copies its own row
+//   (row0 + i, or idx[i]) with 4-byte cp.async and arrives on the same
 //   mbarrier (cp.async.mbarrier.arrive.noinc).
 // - No tensor cores: at H = 10 and K = 2 an mma tile would be more than
 //   80 % padding. No thread-block clusters: the chain is latency-bound, and
@@ -67,7 +72,7 @@
 // batch. One block of 256 threads per pair; params and moments in shared
 // memory for all S steps; threads over rows for the forward; a warp per
 // parameter for the gradient sums (a shuffle tree, fixed order); five
-// barriers a step. Its shared memory is 4 * (5P + B(H + K) + 8) bytes; for
+// barriers a step. Its shared memory is 4 * (5P + B(H + K) + 8 + F) bytes; for
 // shapes above the 227 KB a block may take the entry point returns kErrSmem
 // without a launch, and the wrapper raises ValueError.
 
@@ -95,8 +100,10 @@ struct Args {
   float* nu;             // [M, C, P], updated in place
   float* nu_max;         // [M, C, P], updated in place
   int* count;            // [M, C], updated in place
-  const int* t_idx;      // [M, C, S]
-  const int* slot;       // [M, C, S]
+  const int* t_idx;      // [M, C, S], or null with idx
+  const int* slot;       // [M, C, S], or null with idx
+  const int* idx;        // [M, C, S, B] rows of a gathered batch, or null
+  const float* fmask;    // [M, F] feature masks, or null (ones)
   const float* total_w;  // [M, C]
   float* out_params;     // [M, C, P]
   float* n_out;          // [M, C]
@@ -128,6 +135,7 @@ local_sgd_general_kernel(Args a) {
   float* s_h = s_g + P;             // [B, H] activations, then dh
   float* s_z = s_h + B * H;         // [B, K] logits, then dlogits
   float* s_red = s_z + B * K;       // [kGeneralWarps] loss partials
+  float* s_fm = s_red + kGeneralWarps;  // [F] model m's feature mask
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int pair = blockIdx.x;
@@ -140,6 +148,8 @@ local_sgd_general_kernel(Args a) {
     s_nu[p] = a.nu[so + p];
     s_vmax[p] = a.nu_max[so + p];
   }
+  for (int f = tid; f < F; f += kGeneralThreads)
+    s_fm[f] = a.fmask ? a.fmask[(size_t)m * F + f] : 1.f;
   const float* xc = a.x + (size_t)c * a.T1 * N * F;
   const int* yc = a.y + (size_t)c * a.T1 * N;
   const float inv_b = 1.0f / (float)B;
@@ -148,18 +158,21 @@ local_sgd_general_kernel(Args a) {
   __syncthreads();
 
   for (int s = 0; s < a.S; ++s) {
-    const size_t row0 = (size_t)a.t_idx[pair * a.S + s] * N
-                        + (size_t)a.slot[pair * a.S + s] * B;
-    const float* xb = xc + row0 * F;
-    const int* yb = yc + row0;
+    // batch row i of this step: a gathered row, or row0 + i
+    const int* ib = a.idx ? a.idx + ((size_t)pair * a.S + s) * B : nullptr;
+    const size_t row0 = ib ? 0
+                           : (size_t)a.t_idx[pair * a.S + s] * N
+                             + (size_t)a.slot[pair * a.S + s] * B;
+    auto row = [&](int i) { return ib ? (size_t)ib[i] : row0 + i; };
 
     // forward, loss and dlogits: threads over rows
     float part = 0.f;
     for (int i = tid; i < B; i += kGeneralThreads) {
-      const float* xr = xb + (size_t)i * F;
+      const float* xr = xc + row(i) * F;
       for (int j = 0; j < H; ++j) {
         float acc = 0.f;
-        for (int f = 0; f < F; ++f) acc = fmaf(xr[f], s_p[f * H + j], acc);
+        for (int f = 0; f < F; ++f)
+          acc = fmaf(xr[f] * s_fm[f], s_p[f * H + j], acc);
         acc += s_p[oB1 + j];
         s_h[i * H + j] = acc > 0.f ? acc : 0.f;
       }
@@ -174,7 +187,7 @@ local_sgd_general_kernel(Args a) {
       }
       float se = 0.f;
       for (int k = 0; k < K; ++k) se += expf(s_z[i * K + k] - zmax);
-      const int yi = yb[i];
+      const int yi = yc[row(i)];
       part += logf(se) - (s_z[i * K + yi] - zmax);
       for (int k = 0; k < K; ++k) {
         const float prob = expf(s_z[i * K + k] - zmax) / se;
@@ -224,7 +237,7 @@ local_sgd_general_kernel(Args a) {
       if (q < F * H) {
         const int f = q / H, j = q % H;
         for (int i = lane; i < B; i += 32)
-          acc = fmaf(xb[(size_t)i * F + f], s_h[i * H + j], acc);
+          acc = fmaf(xc[row(i) * F + f] * s_fm[f], s_h[i * H + j], acc);
       } else {
         const int j = q - F * H;
         for (int i = lane; i < B; i += 32) acc += s_h[i * H + j];
@@ -274,7 +287,7 @@ local_sgd_general_kernel(Args a) {
 // Shared memory one block of the general kernel needs for these sizes.
 long long general_smem_bytes(int F, int H, int K, int B) {
   const long long P = (long long)F * H + H + (long long)H * K + K;
-  return 4 * (5 * P + (long long)B * (H + K) + kGeneralWarps);
+  return 4 * (5 * P + (long long)B * (H + K) + kGeneralWarps + F);
 }
 
 // ---------------------------------------------------------------------------
@@ -331,17 +344,20 @@ __device__ __forceinline__ void copies_arrive(uint64_t* bar) {
 }
 
 // Start the copies of step s's batch into ring stage `st`: x rows [B, F]
-// and labels [B]. Bulk: thread 0 alone, the stage's mbarrier expecting the
-// bytes (its count is 1). Otherwise: thread i copies row i and every thread
-// arrives (the count is the block's size).
+// and labels [B]. Bulk (contiguous batches only): thread 0 alone, the
+// stage's mbarrier expecting the bytes (its count is 1). Otherwise: thread
+// i copies batch row i (row0 + i, or the gathered row idx[i]) and every
+// thread arrives (the count is the block's size).
 template <int F>
 __device__ __forceinline__ void stage_batch(const Args& a, const float* xc,
                                             const int* yc, int pair, int s,
                                             int st, bool bulk, float* s_x,
                                             int* s_y, uint64_t* bars) {
   const int B = a.B;
-  const size_t row0 = (size_t)a.t_idx[pair * a.S + s] * a.N
-                      + (size_t)a.slot[pair * a.S + s] * B;
+  const int* ib = a.idx ? a.idx + ((size_t)pair * a.S + s) * B : nullptr;
+  const size_t row0 = ib ? 0
+                         : (size_t)a.t_idx[pair * a.S + s] * a.N
+                           + (size_t)a.slot[pair * a.S + s] * B;
   float* dx = s_x + (size_t)st * B * F;
   int* dy = s_y + (size_t)st * B;
   if (bulk) {
@@ -355,10 +371,11 @@ __device__ __forceinline__ void stage_batch(const Args& a, const float* xc,
   } else {
     const int i = threadIdx.x;
     if (i < B) {
+      const size_t row = ib ? (size_t)ib[i] : row0 + i;
 #pragma unroll
       for (int f = 0; f < F; ++f)
-        copy4(dx + (size_t)i * F + f, xc + (row0 + i) * F + f);
-      copy4(dy + i, yc + row0 + i);
+        copy4(dx + (size_t)i * F + f, xc + row * F + f);
+      copy4(dy + i, yc + row);
     }
     copies_arrive(bars + st);
   }
@@ -418,6 +435,9 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk) {
     s_p[tid] = w_own;
   }
   int count = a.count[pair];
+  float fm[F];                      // model m's feature mask
+#pragma unroll
+  for (int f = 0; f < F; ++f) fm[f] = a.fmask ? a.fmask[m * F + f] : 1.f;
   __syncthreads();
   for (int s = 0; s < stages; ++s)
     stage_batch<F>(a, xc, yc, pair, s, s, bulk, s_x, s_y, bars);
@@ -437,7 +457,7 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk) {
       const int yi = s_y[(size_t)st * B + tid];
       float xv[F], h[H], z[K], e[K];
 #pragma unroll
-      for (int f = 0; f < F; ++f) xv[f] = xr[f];
+      for (int f = 0; f < F; ++f) xv[f] = xr[f] * fm[f];
 #pragma unroll
       for (int j = 0; j < H; ++j) {
         float acc = 0.f;
@@ -572,9 +592,11 @@ int launch_fused(const Args& a, int pairs, int device, cudaStream_t st) {
   const int threads = rows < 64 ? 64 : rows;  // P + 1 <= 64 threads own the
                                               // parameters and the loss
   const int stages = a.S < kStages ? a.S : kStages;
-  // TMA bulk copies need 16-byte aligned addresses and sizes: every batch
-  // offset t*N + slot*B is a multiple of 4 rows when N and B are
-  const bool bulk = ((reinterpret_cast<uintptr_t>(a.x)
+  // TMA bulk copies need contiguous batches, and 16-byte aligned addresses
+  // and sizes: every batch offset t*N + slot*B is a multiple of 4 rows
+  // when N and B are
+  const bool bulk = a.idx == nullptr
+                    && ((reinterpret_cast<uintptr_t>(a.x)
                       | reinterpret_cast<uintptr_t>(a.y)) & 15) == 0
                     && a.N % 4 == 0 && a.B % 4 == 0;
   const long long smem = 8LL * kStages
@@ -595,16 +617,18 @@ int launch_fused(const Args& a, int pairs, int device, cudaStream_t st) {
 
 // What the wrapper packs for one call (local_sgd.py, _PARAMS).
 struct Params {
-  unsigned long long x, y, params, mu, nu, nu_max, count, t_idx, slot,
-      total_w, out_params, n_out, loss_out;  // device pointers
+  unsigned long long x, y, params, mu, nu, nu_max, count, t_idx, slot, idx,
+      fmask, total_w, out_params, n_out, loss_out;  // device pointers
   int M, C, T1, N, F, H, K, B, S;
   int device;  // CUDA device index of every tensor
   float neg_lr, wd, lr_scale, b1, b2, one_minus_b1, one_minus_b2, eps;
 };
-static_assert(sizeof(Params) == 176, "Params must match the wrapper's pack");
+static_assert(sizeof(Params) == 192, "Params must match the wrapper's pack");
 
 // Plain C entry point bound with ctypes. Every tensor contiguous on device
-// `device`, float32 except y, count, t_idx and slot (int32). `route` is
+// `device`, float32 except y, count, t_idx, slot and idx (int32); either
+// t_idx and slot or idx are given (idx: the others 0), fmask may be 0.
+// Rows of idx must lie in [0, T1*N): the weighted draw clips them. `route` is
 // local_sgd.py's _ROUTES: 0 the general kernel, 1 the fused kernel (only
 // for the (F, H, K) it is built for and B <= 512). `stream` is a stream of
 // that device; the device is made current for the launch only if it is not.
@@ -623,6 +647,8 @@ extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
                reinterpret_cast<int*>(p->count),
                reinterpret_cast<const int*>(p->t_idx),
                reinterpret_cast<const int*>(p->slot),
+               reinterpret_cast<const int*>(p->idx),
+               reinterpret_cast<const float*>(p->fmask),
                reinterpret_cast<const float*>(p->total_w),
                reinterpret_cast<float*>(p->out_params),
                reinterpret_cast<float*>(p->n_out),

@@ -67,8 +67,13 @@ def grid_blocks(B: int, L: int, out: int, cfg: LaunchConfig) -> int:
 
 def dense_rows_ref(x: torch.Tensor, w: torch.Tensor,
                    bias: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain version: ``torch.bmm`` and the bias."""
-    y = torch.bmm(x, w)
+    """The plain version: one ``[L, in] @ [in, out]`` product a row, then
+    the bias. Every row takes a product of the same shape, as every row of
+    the kernel takes the same tiles, so a row's answer is bitwise the same
+    at any B; one ``torch.bmm`` over the batch is not, since the CPU's
+    BLAS may pick another kernel at another batch count."""
+    y = torch.stack([torch.mm(xb, wb) for xb, wb in zip(x, w)]) \
+        if x.shape[0] else x.new_empty((0, x.shape[1], w.shape[2]))
     return y if bias is None else y + bias[:, None, :]
 
 

@@ -11,8 +11,12 @@ one launch.
 Shapes (float32 unless noted): ``x [C, T1, N, F]``, ``y [C, T1, N]`` int32,
 ``params [M, P]`` (the fnn's leaves packed in ``FeedForwardNN.param_specs``
 order, P = F·H + H + H·K + K), the optimizer state ``{"mu", "nu", "nu_max":
-[M, C, P], "count": [M, C] int32}``, the batch draws ``t_idx, slot [M, C,
-S]`` int32 and ``total_w [M, C]``. Returns the client params ``[M, C, P]``
+[M, C, P], "count": [M, C] int32}``, the batch draws and ``total_w [M,
+C]``. A batch is either contiguous, ``t_idx, slot [M, C, S]`` int32 (rows
+``t_idx·N + slot·B + [0, B)``), or gathered, ``idx [M, C, S, B]`` int32
+(rows of the pair's client, from the weighted draw K4, which keeps them in
+``[0, T1·N)``). ``feat_mask [M, F]`` multiplies each model's x (KUE; None:
+ones). Returns the client params ``[M, C, P]``
 (a new buffer), the optimizer state, ``n [M, C]`` (``total_w·N``, 0 for an
 inactive pair) and the mean loss over the S steps ``[M, C]``.
 
@@ -87,17 +91,23 @@ def amsgrad_step(p, grad, mu, nu, nu_max, count, *, lr: float, wd: float,
 
 def local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w, *,
                   hidden: int, batch_size: int, lr: float, wd: float,
-                  lr_scale: float = 1.0):
+                  lr_scale: float = 1.0, idx=None, feat_mask=None):
     """The plain version: the S steps batched over ``[M, C]`` with autograd
     for the gradient; returns a new optimizer state."""
     C, T1, N, F = x.shape
     M, P = params.shape
-    S, B, H = t_idx.shape[-1], batch_size, hidden
+    B, H = batch_size, hidden
     K = (P - F * H - H) // (H + 1)
-    rows = (t_idx.long() * N + slot.long() * B)[..., None] \
-        + torch.arange(B, device=x.device)                    # [M, C, S, B]
+    if idx is None:
+        rows = (t_idx.long() * N + slot.long() * B)[..., None] \
+            + torch.arange(B, device=x.device)                # [M, C, S, B]
+    else:
+        rows = idx.long()
+    S = rows.shape[2]
     cidx = torch.arange(C, device=x.device)[None, :, None, None]
     xb = x.reshape(C, T1 * N, F)[cidx, rows]                  # [M, C, S, B, F]
+    if feat_mask is not None:
+        xb = xb * feat_mask[:, None, None, None, :]
     yb = y.reshape(C, T1 * N)[cidx, rows].long()              # [M, C, S, B]
     p = params[:, None].expand(M, C, P)
     mu, nu, vmax = opt_state["mu"], opt_state["nu"], opt_state["nu_max"]
@@ -125,9 +135,9 @@ def local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w, *,
     return client, new_state, n, torch.stack(losses, -1).mean(-1)
 
 
-# csrc/local_sgd.cu's Params: 13 pointers; M, C, T1, N, F, H, K, B, S,
+# csrc/local_sgd.cu's Params: 15 pointers; M, C, T1, N, F, H, K, B, S,
 # device; -lr, wd, lr_scale, b1, b2, 1 - b1, 1 - b2, eps
-_PARAMS = struct.Struct("=13Q10i8f")
+_PARAMS = struct.Struct("=15Q10i8f")
 
 
 @functools.cache
@@ -152,26 +162,28 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
 
 def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
               batch_size: int, lr: float, wd: float, lr_scale: float = 1.0,
-              route: str | None = None):
+              route: str | None = None, idx=None, feat_mask=None):
     """S local AMSGrad steps of every (model, client) pair: through a CUDA
     kernel for CUDA tensors (optimizer state updated in place), through
     ``local_sgd_ref`` for CPU tensors. ``route`` names the kernel where a
     comparison needs one ("general" takes any shape); by default
-    ``_route`` picks it from the shape."""
+    ``_route`` picks it from the shape. With ``idx`` the batches are
+    gathered rows and ``t_idx``, ``slot`` are not read (pass None)."""
     kw = dict(hidden=hidden, batch_size=batch_size, lr=lr, wd=wd,
-              lr_scale=lr_scale)
+              lr_scale=lr_scale, idx=idx, feat_mask=feat_mask)
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"local_sgd runs on cuda or cpu, not "
                              f"{x.device.type}")
         return local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w,
                              **kw)
-    if x.dim() != 4 or params.dim() != 2 or t_idx.dim() != 3:
+    rows = (t_idx, slot) if idx is None else (idx,)
+    if x.dim() != 4 or params.dim() != 2 or rows[0].dim() != 5 - len(rows):
         raise ValueError("local_sgd takes x [C, T1, N, F], params [M, P] and "
-                         "t_idx [M, C, S]")
+                         "t_idx, slot [M, C, S] or idx [M, C, S, B]")
     C, T1, N, F = x.shape
     M, P = params.shape
-    S, H, B = t_idx.shape[-1], hidden, batch_size
+    S, H, B = rows[0].shape[2], hidden, batch_size
     K, rest = divmod(P - F * H - H, H + 1)
     if K < 1 or rest or not 1 <= B <= N:
         raise ValueError(f"P={P} is not a {F}->{H}->K fnn, or batch {B} is "
@@ -194,8 +206,11 @@ def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
             ("nu", opt_state["nu"], (M, C, P), f32),
             ("nu_max", opt_state["nu_max"], (M, C, P), f32),
             ("count", opt_state["count"], (M, C), i32),
-            ("t_idx", t_idx, (M, C, S), i32), ("slot", slot, (M, C, S), i32),
-            ("total_w", total_w, (M, C), f32)):
+            ("total_w", total_w, (M, C), f32)) + (
+            (("t_idx", t_idx, (M, C, S), i32), ("slot", slot, (M, C, S), i32))
+            if idx is None else (("idx", idx, (M, C, S, B), i32),)) + (
+            (("feat_mask", feat_mask, (M, F), f32),)
+            if feat_mask is not None else ()):
         _check(name, t, shape, dt, index)
     client = torch.empty((M, C, P), dtype=f32, device=x.device)
     n = torch.empty((M, C), dtype=f32, device=x.device)
@@ -204,7 +219,9 @@ def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
         x.data_ptr(), y.data_ptr(), params.data_ptr(),
         opt_state["mu"].data_ptr(), opt_state["nu"].data_ptr(),
         opt_state["nu_max"].data_ptr(), opt_state["count"].data_ptr(),
-        t_idx.data_ptr(), slot.data_ptr(), total_w.data_ptr(),
+        *((t_idx.data_ptr(), slot.data_ptr(), 0) if idx is None
+          else (0, 0, idx.data_ptr())),
+        0 if feat_mask is None else feat_mask.data_ptr(), total_w.data_ptr(),
         client.data_ptr(), n.data_ptr(), loss.data_ptr(),
         M, C, T1, N, F, H, K, B, S, index,
         -lr, wd, lr_scale, B1, B2, 1 - B1, 1 - B2, EPS), _ROUTES[route],

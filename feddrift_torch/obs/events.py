@@ -37,6 +37,7 @@ EVENT_KINDS = frozenset({
     "cluster_split",        # CFL gradient bipartition fired
     "cluster_state",        # per-iteration cluster count summary
     "cluster_assign",       # per-iteration client -> model vector
+    "model_replaced",       # ensemble rotation (AUE window, KUE worst model)
 })
 
 RING_SIZE = 4096

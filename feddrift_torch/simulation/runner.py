@@ -19,11 +19,13 @@ mode (every client on the device axis, float32, no fault injection):
 Both paths sample ``client_num_per_round`` clients a round as the
 reference does (``_client_masks``) and draw the step's batches from one
 generator seeded by (seed, t), so a chunkable algorithm gives the same
-numbers on either path. ``Experiment(cfg, out_dir=None, device="cuda")``
+numbers on either path. An ensemble algorithm (AUE, AUE-PC, KUE) runs on
+the per-round path and is tested by its vote (``TrainStep.ensemble_eval``),
+as the reference does. ``Experiment(cfg, out_dir=None, device="cuda")``
 runs on the card unless the caller passes ``device="cpu"``. Not ported:
-ensembles, the megastep, population cohorts, streamed data,
-fault/byzantine injection, codecs, hierarchy, secure aggregation, the
-divergence guard, and the alert/SLO/incident/ops planes.
+the megastep, population cohorts, streamed data, fault/byzantine
+injection, codecs, hierarchy, secure aggregation, the divergence guard,
+and the alert/SLO/incident/ops planes.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 
 from feddrift_torch import obs
-from feddrift_torch.algorithms import make_algorithm
+from feddrift_torch.algorithms import algorithm_class, make_algorithm
 from feddrift_torch.config import ExperimentConfig
 from feddrift_torch.core.pool import ModelPool
 from feddrift_torch.core.step import TrainStep
@@ -62,8 +64,12 @@ class Experiment:
         self.pool = ModelPool.create(
             self.module, torch.from_numpy(self.ds.x[0, 0, :2]),
             cfg.num_models, seed=cfg.seed + 42, device=self.device)
-        self.step = TrainStep.create(cfg, self.module, self.ds.num_classes,
-                                     device=self.device)
+        # the algorithm's class trait picks the batch draw before it exists:
+        # per-sample weighted (K4) for KUE, contiguous batches otherwise
+        self.step = TrainStep.create(
+            cfg, self.module, self.ds.num_classes, device=self.device,
+            weighted_sampling=algorithm_class(
+                cfg.concept_drift_algo).uses_sample_weights)
         self.x = torch.from_numpy(self.ds.x).to(self.device)
         self.y = torch.from_numpy(self.ds.y).to(self.device)
         self.algo = make_algorithm(cfg, self.ds, self.pool, self.step)
@@ -103,15 +109,32 @@ class Experiment:
     def evaluate(self, t: int, round_idx: int) -> dict:
         """Reference ``test_on_all_clients``: each client's train accuracy
         on step t with its plurality model, and test accuracy on step t+1
-        (temporal holdout), from two fresh ``acc_matrix`` calls."""
-        fetched = [
-            [v.cpu().numpy() for v in self.step.acc_matrix(
-                self.pool.params, self.x[:, s], self.y[:, s])]
-            for s in (t, t + 1)]
-        (correct, loss_sum, total), (corr_te, loss_te, _) = fetched
-        C = self.C_
-        return self._log_eval(t, correct[:, :C], loss_sum[:, :C],
-                              corr_te[:, :C], loss_te[:, :C], total[:C])
+        (temporal holdout), from two fresh ``acc_matrix`` calls; for an
+        ensemble algorithm the test accuracy is its vote's
+        (``ensemble_eval``). Both read the round's feature masks."""
+        fm = self.algo.round_inputs(t, round_idx)[2]
+        spec = self.algo.ensemble_spec(t)
+        params, C = self.pool.params, self.C_
+        correct, loss_sum, total = (v.cpu().numpy() for v in
+                                    self.step.acc_matrix(
+                                        params, self.x[:, t], self.y[:, t],
+                                        fm))
+        xe, ye = self.x[:, t + 1], self.y[:, t + 1]
+        if spec is None:
+            corr_te, loss_te, _ = (v.cpu().numpy() for v in
+                                   self.step.acc_matrix(params, xe, ye, fm))
+            return self._log_eval(t, correct[:, :C], loss_sum[:, :C],
+                                  corr_te[:, :C], loss_te[:, :C], total[:C])
+        tidx = self.algo.train_model_idx(t)
+        cr = np.arange(C)
+        dev = lambda a: None if a is None else torch.as_tensor(
+            np.asarray(a, np.float32), device=self.device)
+        ec, et, el = (v.cpu().numpy() for v in self.step.ensemble_eval(
+            params, xe, ye, dev(spec.weights), spec.mode,
+            dev(spec.model_mask), fm))
+        return self._log_metrics(t, self.algo.test_model_idx(t),
+                                 correct[tidx, cr], loss_sum[tidx, cr],
+                                 total[:C], ec[:C], el[:C], et[:C])
 
     def _log_eval(self, t: int, correct, loss_sum, corr_te, loss_te,
                   total) -> dict:
@@ -160,10 +183,8 @@ class Experiment:
         self._seg_add("drift_decision", time.perf_counter() - d0)
         opt_states = self.step.init_opt_states(
             self.pool.params, self.pool.num_models, self.C_)
-        if self.algo.ensemble_spec(t) is not None:
-            raise NotImplementedError(
-                "ensemble test paths (aue, auepc, kue) are not ported")
-        if cfg.chunk_rounds and self.algo.chunkable(t):
+        if cfg.chunk_rounds and self.algo.chunkable(t) \
+                and self.algo.ensemble_spec(t) is None:
             self._run_iteration_fused(t, opt_states)
         else:
             self._run_rounds(t, opt_states)
@@ -228,24 +249,28 @@ class Experiment:
         """The per-round host loop, for algorithms that steer every round
         (and for ``chunk_rounds`` off). The step's uniforms are drawn up
         front as on the fused path; round r turns its row into batch
-        indices through round r's weights."""
+        indices through round r's weights. With weighted sampling each
+        round draws its own uniforms from the generator, in the order the
+        fused path does."""
         cfg = self.cfg
         R, freq = cfg.comm_round, cfg.frequency_of_the_test
         step = self.step
         step.generator.manual_seed(iteration_seed(cfg.seed, t))
-        u, slot = step.draw_uniforms(R, self.pool.num_models, self.C_,
-                                     self.x.shape[2])
+        if not step.weighted_sampling:
+            u, slot = step.draw_uniforms(R, self.pool.num_models, self.C_,
+                                         self.x.shape[2])
         masks = self._device_masks(R)
         keep_cp = self.algo.needs_client_params
         for r in range(R):
             self.events.set_context(round=self.global_round)
-            tw, _sw, _fm, lr_scale = self.algo.round_inputs(t, r)
+            tw, sw, fm, lr_scale = self.algo.round_inputs(t, r)
             prev_params = self.pool.params
             d0 = time.perf_counter()
             new_params, opt_states, client_params, n, _ = step.train_round(
                 prev_params, opt_states, self.x, self.y, tw, lr_scale,
-                None if masks is None else masks[r],
-                draws=(step.time_index(tw, u[r]), slot[r]))
+                None if masks is None else masks[r], sample_w=sw,
+                feat_mask=fm, draws=None if step.weighted_sampling
+                else (step.time_index(tw, u[r]), slot[r]))
             self._seg_add("dispatch", time.perf_counter() - d0)
             w0 = time.perf_counter()
             self.pool.params = self.algo.after_round(
@@ -265,14 +290,15 @@ class Experiment:
         resumed run draws what a continuous one draws."""
         cfg = self.cfg
         R, freq = cfg.comm_round, cfg.frequency_of_the_test
-        tw, _sw, _fm, lr_scale = self.algo.round_inputs(t, 0)
+        tw, sw, fm, lr_scale = self.algo.round_inputs(t, 0)
         g0 = self.global_round
         self.step.generator.manual_seed(iteration_seed(cfg.seed, t))
         c0 = time.perf_counter()
         new_params, opt_states, n, losses, bufs, total, _stats = \
             self.step.train_iteration_eval(
                 self.pool.params, opt_states, self.x, self.y, tw, lr_scale,
-                R, freq, t, self._device_masks(R))
+                R, freq, t, self._device_masks(R), sample_w=sw,
+                feat_mask=fm)
         self._sync()
         # host enqueue and device work of the R rounds: the loop enqueues
         # faster than the card drains only if the card is the bottleneck
@@ -291,11 +317,13 @@ class Experiment:
         self._seg_add("eval", time.perf_counter() - e0)
         self.global_round = g0 + R
         # the final eval slot holds acc(final params) on steps t and t+1:
-        # the next cluster phase reads them instead of recomputing
-        tot = np.maximum(total[None, :C], 1)
-        self.algo.offer_acc_matrix(new_params,
-                                   {t: corr_tr[-1][:, :C] / tot,
-                                    t + 1: corr_te[-1][:, :C] / tot})
+        # the next cluster phase reads them instead of recomputing (only
+        # when they were taken without feature masks, as acc_matrix_at's)
+        if fm is None:
+            tot = np.maximum(total[None, :C], 1)
+            self.algo.offer_acc_matrix(new_params,
+                                       {t: corr_tr[-1][:, :C] / tot,
+                                        t + 1: corr_te[-1][:, :C] / tot})
 
     # ------------------------------------------------------------------
     def run(self) -> MetricsLogger:

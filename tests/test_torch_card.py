@@ -18,6 +18,9 @@ without one. They import nothing of JAX, so they run on the card with
   and the per-round path alike (the two give the same numbers bitwise). A
   client mask reaches K1 as total weight 0: masked pairs come back as they
   went in, sampled pairs bitwise as in the unmasked call.
+- K1's gather route (explicit rows from the weighted draw, K4, and
+  per-model feature masks) against the plain version through both
+  kernels, and a KUE run through K4 and K1, one launch of each a round.
 - A served row's answer does not depend on its batch: one serving forward
   at b1 and at b32 with the same row agree bitwise, op by op.
 - A serving forward at every bucket goes through the per-row Dense kernel
@@ -184,6 +187,81 @@ def test_per_round_path_goes_through_the_kernel(cuda):
     assert series[0] == series[1]
     for key, v in runs["fused"].pool.params.items():
         assert torch.equal(v, runs["per_round"].pool.params[key])
+
+
+def _gathered(dev, args, kw, seed=0):
+    """Gathered batches for ``_case``'s inputs: rows of each pair's client
+    from K4 (the weighted draw under the case's time weights and Poisson
+    sample weights) and 0/1 feature masks, as KUE trains."""
+    from feddrift_torch.kernels.weighted_draw import weighted_draw
+    x = args[0]
+    C, T1, N, F = x.shape
+    M = args[2].shape[0]
+    rng = np.random.default_rng(seed + 50)
+    tw = (rng.random((M, C, T1)) < 0.5).astype(np.float32)
+    sw = rng.poisson(1.0, (M, C, N)).astype(np.float32)
+    u = rng.random((M, C, 5, kw["batch_size"])).astype(np.float32)
+    fm = (rng.random((M, F)) < 0.6).astype(np.float32)
+    fm[:, 0] = 1.0
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return weighted_draw(t(tw), t(sw), t(u)), t(fm), t(tw.sum(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["fused", "general"])
+def test_local_sgd_gather_route_matches_plain(cuda, route):
+    """K1 on explicit rows ``idx [M, C, S, B]`` with per-model feature
+    masks (the gathered batches of the weighted draw): the per-thread copy
+    branch of either kernel against ``local_sgd_ref`` on the same rows and
+    masks, at the tolerances above; two calls bitwise equal."""
+    args, kw = _case(3)
+    idx, fm, total_w = _gathered(cuda, args, kw)
+    outs = []
+    for _ in range(2):
+        a = _to(cuda, args)
+        outs.append(local_sgd(a[0], a[1], a[2], a[3], None, None, total_w,
+                              **kw, route=route, idx=idx, feat_mask=fm))
+    torch.cuda.synchronize()
+    for x, y in zip((outs[0][0], outs[0][2], outs[0][3],
+                     *outs[0][1].values()),
+                    (outs[1][0], outs[1][2], outs[1][3],
+                     *outs[1][1].values())):
+        assert torch.equal(x, y)
+    r = _to(cuda, args)
+    r_client, r_opt, r_n, r_loss = local_sgd_ref(
+        r[0], r[1], r[2], r[3], None, None, total_w, **kw, idx=idx,
+        feat_mask=fm)
+    client, opt, n, loss = outs[0]
+    torch.testing.assert_close(client, r_client, atol=ATOL, rtol=0)
+    torch.testing.assert_close(loss, r_loss, atol=ATOL, rtol=0)
+    torch.testing.assert_close(opt["mu"], r_opt["mu"], atol=ATOL, rtol=0)
+    for k in ("nu", "nu_max"):
+        torch.testing.assert_close(opt[k], r_opt[k], atol=1e-9, rtol=NU_RTOL)
+    assert torch.equal(n, r_n) and torch.equal(opt["count"], r_opt["count"])
+    # a mask with every feature off: the rows' x do not matter
+    none = torch.zeros_like(fm)
+    a, b = _to(cuda, args), _to(cuda, args)
+    b[0].normal_()
+    first = local_sgd(a[0], a[1], a[2], a[3], None, None, total_w, **kw,
+                      route=route, idx=idx, feat_mask=none)
+    second = local_sgd(b[0], a[1], a[2], b[3], None, None, total_w, **kw,
+                       route=route, idx=idx, feat_mask=none)
+    assert torch.equal(first[0], second[0])
+
+
+@pytest.mark.gpu
+def test_kue_rounds_go_through_the_draw_and_the_kernel(cuda):
+    """A KUE run on the card: one K4 and one K1 launch a round, finite
+    ensemble metrics."""
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.kernels.weighted_draw import weighted_draw
+    from feddrift_torch.simulation.runner import Experiment
+    exp = Experiment(ExperimentConfig(concept_drift_algo="kue",
+                                      train_iterations=2, comm_round=20))
+    k1, k4 = local_sgd.launches, weighted_draw.launches
+    exp.run()
+    assert local_sgd.launches == k1 + 40 and weighted_draw.launches == k4 + 40
+    assert all(0.0 <= r["Test/Acc"] <= 1.0 for r in exp.logger.history)
 
 
 @pytest.mark.gpu

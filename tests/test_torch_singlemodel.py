@@ -68,6 +68,7 @@ def _pair(algo, **kw):
     ("win-1", {}), ("all", {}), ("oblivious", {}), ("window", {}),
     ("window", {"retrain_data": "win-3"}),
     ("window", {"retrain_data": "weight-exp"}),
+    ("window", {"retrain_data": "poisson"}),
     ("win-1", {"retrain_data": "all"}), ("exp", {}), ("lin", {})])
 def test_round_inputs_equal_the_reference(algo, kw):
     jalgo, port = _pair(algo, **kw)
@@ -87,8 +88,17 @@ def test_round_inputs_equal_the_reference(algo, kw):
 
 
 def test_window_refuses_what_it_cannot_train():
-    with pytest.raises(NotImplementedError, match="K4"):
-        _pair("window", retrain_data="poisson-2")
+    """A string outside the retrain grammar is refused; ``poisson*`` is
+    not (since the weighted draw landed): the reference's window trains it
+    as win-1 with unit sample weights."""
+    jalgo, port = _pair("window", retrain_data="poisson-2")
+    for t in range(3):
+        jalgo.begin_iteration(t)
+        port.begin_iteration(t)
+        tw, sw, _, _ = port.round_inputs(t, 0)
+        assert np.array_equal(tw.numpy(), np.asarray(jalgo.round_inputs(t, 0)[0]))
+        assert np.array_equal(tw.numpy()[0], retrain.time_weights("win-1", 6, t, 6))
+        assert sw is None and not port.uses_sample_weights
     with pytest.raises(ValueError, match="not a retrain spec"):
         _pair("window", retrain_data="win-abc")
 

@@ -26,7 +26,9 @@ def test_algorithm_reference_runs_are_the_committed_ones(run):
     rows = [json.loads(ln) for ln in open(metrics)]
     assert rows[-1]["round"] == 1999 and rows[-1]["iteration"] == 9
     assert name == f"sea-fnn-{algo}-{arg}-s0"
-    assert path == ("per_round" if "cfl" in arg else "fused")
+    per_round = "cfl" in arg or algo in ("ada", "clusterfl", "aue", "auepc",
+                                         "kue")
+    assert path == ("per_round" if per_round else "fused")
 
 
 def test_committed_cfl_run_makes_the_pinned_first_split():
@@ -65,9 +67,11 @@ def test_reference_refuses_another_file(tmp_path, monkeypatch, how):
 DIMS = dict(M=2, C=3, S=4, B=500, F=3, H=10, K=2)
 
 
-def _bound(t_idx, total_w):
-    slot = torch.zeros_like(t_idx)
-    return chip_smoke._local_sgd_bound_ms(t_idx, slot, total_w, **DIMS)
+def _bound(t_idx, total_w, N=500):
+    """The bound of contiguous batches: slot 0 of step ``t_idx``."""
+    rows = (t_idx.long() * N)[..., None] + torch.arange(DIMS["B"])
+    return chip_smoke._local_sgd_bound_ms(
+        rows, total_w, **DIMS, index_bytes=2 * 4 * t_idx.numel())
 
 
 def test_local_sgd_bound_reads_each_batch_once():

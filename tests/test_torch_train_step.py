@@ -631,3 +631,179 @@ class TestFusedKernelGradient:
         _close(loss, ref.detach(), atol=1e-6)
         _close(grad, ref_grad, atol=tol)
         assert grad.abs().max() > 1e-3         # a gradient, not all zeros
+
+
+# ----------------------------------------------------------------------
+# Weighted sampling (KUE's Poisson bootstrap): K4's rows, K1's gather
+# route and feature masks, against the reference's weighted _local_sgd.
+
+def _jax_weighted_uniforms(key, num_steps=S, B=B):
+    """The uniforms the reference's ``inverse_cdf_draw`` draws in one round:
+    ``split(key, M·C)`` -> ``split(k, S)`` -> ``split(k)`` into k1, k2 ->
+    ``uniform(k1, (B,))``; ``[M, C, S, B]``."""
+    keys = jax.random.split(key, M * C).reshape(M, C, 2)
+
+    def pair(k):
+        def one(kk):
+            k1, _ = jax.random.split(kk)
+            return jax.random.uniform(k1, (B,))
+        return jax.vmap(one)(jax.random.split(k, num_steps))
+    u = jax.vmap(jax.vmap(pair))(keys)
+    return torch.from_numpy(np.array(u, np.float32))
+
+
+def _weighted_inputs(seed):
+    """Poisson(1) sample weights and 0/1 feature masks (one feature on at
+    least) for every model, as KUE hands them over."""
+    rng = np.random.default_rng(seed + 200)
+    sw = rng.poisson(1.0, (M, C, N)).astype(np.float32)
+    fm = (rng.random((M, 3)) < 0.5).astype(np.float32)
+    fm[np.arange(M), rng.integers(0, 3, M)] = 1.0
+    return sw, fm
+
+
+def _jax_weighted_step(seed):
+    from feddrift_tpu.core.step import TrainStep as JStep
+    from feddrift_tpu.core.step import make_optimizer
+    jm, jp, _ = _jax_setup(seed=seed)
+    jstep = JStep(lambda p, x: jm.apply({"params": p}, x),
+                  make_optimizer("adam", LR, WD), B, S, 2,
+                  weighted_sampling=True)
+    return jm, jp, jstep
+
+
+class TestWeightedRound:
+    """One weighted round with feature masks (and a client mask), the
+    reference's uniforms injected (parity level 2): params, optimizer state
+    and losses at ATOL, nu at NU_RTOL, n exactly. The rows themselves are
+    K4's function of integer weights, so they are the reference's bit for
+    bit (``test_torch_weighted_draw.py``)."""
+
+    @pytest.mark.parametrize("sampled", [None, (0, 1, 3)])
+    def test_round_matches_reference(self, sampled):
+        x, y = _data(8)
+        tw = _time_w(8)
+        sw, fm = _weighted_inputs(8)
+        jm, jp, jstep = _jax_weighted_step(8)
+        key = jax.random.PRNGKey(31)
+        mask = None
+        if sampled is not None:
+            mask = np.zeros(C, np.float32)
+            mask[list(sampled)] = 1.0
+        jout = jstep.train_round(
+            jp, jstep.init_opt_states(jp, M, C), key, jnp.asarray(x),
+            jnp.asarray(y), jnp.asarray(tw), jnp.asarray(sw), jnp.asarray(fm),
+            jnp.float32(1.0), None if mask is None else jnp.asarray(mask),
+            with_agg_stats=True)
+        mod = _module()
+        step = TrainStep(mod, B, S, 2, lr=LR, wd=WD, device="cpu",
+                         weighted_sampling=True)
+        params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                 "cpu")
+        newp, opt, client, n, losses, stats = step.train_round(
+            params, step.init_opt_states(params, M, C), torch.from_numpy(x),
+            torch.from_numpy(y), torch.from_numpy(tw), 1.0,
+            None if mask is None else torch.from_numpy(mask),
+            sample_w=torch.from_numpy(sw), feat_mask=torch.from_numpy(fm),
+            draws=_jax_weighted_uniforms(key), with_agg_stats=True)
+        jnewp, jopt, jclient, jn, jloss, jstats, _ = jout
+        _close(mod.pack(newp), _pack(mod, jnewp))
+        _close(mod.pack(client), _pack(mod, jclient))
+        want = _opt_to_port(mod, jopt)
+        _close(opt["mu"], want["mu"])
+        for k in ("nu", "nu_max"):
+            _close(opt[k], want[k], atol=0, rtol=NU_RTOL)
+        assert torch.equal(opt["count"], want["count"])
+        _close(n, jn, atol=0)
+        _close(losses, jloss)
+        _close(stats, jstats, atol=0)
+
+    def test_feature_mask_reaches_the_eval_matrices(self):
+        """acc_matrix and acc_cells with per-model feature masks against the
+        reference's."""
+        x, y = _data(9)
+        _, fm = _weighted_inputs(9)
+        jm, jp, jstep = _jax_setup(seed=9)
+        mod = _module()
+        step = TrainStep(mod, B, S, 2, device="cpu")
+        params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                 "cpu")
+        got = step.acc_matrix(params, torch.from_numpy(x[:, 1]),
+                              torch.from_numpy(y[:, 1]), torch.from_numpy(fm))
+        want = jstep.acc_matrix(jp, jnp.asarray(x[:, 1]), jnp.asarray(y[:, 1]),
+                                jnp.asarray(fm))
+        assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+        _close(got[1], want[1], atol=1e-4)
+        cells = step.acc_cells(params, torch.from_numpy(x), torch.from_numpy(y),
+                               torch.from_numpy(fm))
+        jcells = jstep.acc_cells(jp, jnp.asarray(x), jnp.asarray(y),
+                                 jnp.asarray(fm))
+        assert np.array_equal(cells.numpy(), np.asarray(jcells))
+        plain = step.acc_matrix(params, torch.from_numpy(x[:, 1]),
+                                torch.from_numpy(y[:, 1]))
+        assert not torch.equal(plain[1], got[1])     # the mask did something
+
+    def test_fused_iteration_matches_reference(self):
+        """R weighted rounds through ``train_iteration_eval``, the
+        reference's fold_in(iter_key, r) uniforms injected."""
+        R, freq, t = 4, 2, 1
+        x, y = _data(10)
+        tw = _time_w(10)
+        sw, fm = _weighted_inputs(10)
+        jm, jp, jstep = _jax_weighted_step(10)
+        jp = jax.tree_util.tree_map(np.asarray, jp)
+        it_key = jax.random.PRNGKey(41)
+        jout = jstep.train_iteration_eval(
+            jax.tree_util.tree_map(jnp.asarray, jp),
+            jstep.init_opt_states(jp, M, C), it_key, jnp.asarray(x),
+            jnp.asarray(y), jnp.asarray(tw), jnp.asarray(sw), jnp.asarray(fm),
+            jnp.float32(1.0), R, freq, jnp.int32(t))
+        u = torch.stack([_jax_weighted_uniforms(jax.random.fold_in(it_key, r))
+                         for r in range(R)])
+        mod = _module()
+        step = TrainStep(mod, B, S, 2, lr=LR, wd=WD, device="cpu",
+                         weighted_sampling=True)
+        params = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+        newp, _, n, losses, bufs, _, _ = step.train_iteration_eval(
+            params, step.init_opt_states(params, M, C), torch.from_numpy(x),
+            torch.from_numpy(y), torch.from_numpy(tw), 1.0, R, freq, t,
+            sample_w=torch.from_numpy(sw), feat_mask=torch.from_numpy(fm),
+            draws=u)
+        jp2, _, jn, jl, jbufs, _ = jout
+        _close(mod.pack(newp), _pack(mod, jp2), atol=1e-5)
+        _close(n, jn, atol=0)
+        _close(losses, jl, atol=1e-5)
+        for got, want in zip(bufs, jbufs):
+            if got.dtype == torch.int32:
+                assert np.abs(got.numpy() - np.asarray(want)).max() <= 1
+            else:
+                _close(got, want, atol=1e-3)
+
+
+def test_kue_fused_and_per_round_paths_are_bitwise_equal():
+    """KUE's round inputs (Poisson sample weights, feature masks) through
+    the fused loop and through R single rounds from one generator seed:
+    each round draws its uniforms in the same order on both paths, so the
+    params, optimizer state, n and losses agree bitwise."""
+    from feddrift_torch.simulation.runner import Experiment
+    cfg = ExperimentConfig(concept_drift_algo="kue", train_iterations=2,
+                           comm_round=4, sample_num=60, batch_size=20)
+    exp = Experiment(cfg, device="cpu")
+    exp.algo.begin_iteration(1)
+    tw, sw, fm, lr_scale = exp.algo.round_inputs(1, 0)
+    assert sw is not None and fm is not None and exp.step.weighted_sampling
+    step, M_, C_ = exp.step, exp.pool.num_models, exp.C_
+    opt0 = step.init_opt_states(exp.pool.params, M_, C_)
+    step.generator.manual_seed(5)
+    fused = step.train_iteration_eval(
+        exp.pool.params, {k: v.clone() for k, v in opt0.items()}, exp.x,
+        exp.y, tw, lr_scale, 4, 2, 1, sample_w=sw, feat_mask=fm)
+    step.generator.manual_seed(5)
+    params, opt = exp.pool.params, {k: v.clone() for k, v in opt0.items()}
+    for _ in range(4):
+        params, opt, _, n, losses = step.train_round(
+            params, opt, exp.x, exp.y, tw, lr_scale, sample_w=sw,
+            feat_mask=fm)
+    assert all(torch.equal(fused[0][k], params[k]) for k in params)
+    assert all(torch.equal(fused[1][k], opt[k]) for k in opt)
+    assert torch.equal(fused[2], n) and torch.equal(fused[3], losses)

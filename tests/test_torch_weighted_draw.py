@@ -1,0 +1,183 @@
+"""K4, the weighted draw (``kernels/weighted_draw.py``), against the JAX
+package's ``weight_cdf`` + ``inverse_cdf_draw`` arithmetic on the CPU, and
+its CUDA kernel against the plain version on the card (``gpu``).
+
+Both packages get the same numpy weights and uniforms. The reference's
+per-pair probabilities are built as ``TrainStep._local_sgd`` builds them
+under ``weighted_sampling`` (``where(active, 1, 0) * w_t[:, None] *
+s_n[None, :]``, uniform where they sum to 0), then ``weight_cdf`` and a
+``searchsorted(side="right")`` clipped to the last row, which is
+``inverse_cdf_draw`` with its uniforms handed over.
+
+Tolerance. Integer weights (0/1 time weights times Poisson counts, KUE's):
+every partial sum is exact in float32 in any order, so the rows are equal
+bit for bit. Other weights: ``torch.cumsum``, XLA's cumsum and the
+kernel's block scan round in other orders, so the cdf is held to 1e-6
+relative, and a row may differ only where its uniform lies within that
+distance of a cdf boundary (the count is printed).
+
+JAX is imported inside the CPU tests, so the ``gpu`` tests run on the card
+with ``python -m pytest --noconftest -m gpu tests/test_torch_weighted_draw.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from feddrift_torch.kernels.weighted_draw import (weighted_cdf_ref,
+                                                  weighted_draw,
+                                                  weighted_draw_ref)
+
+CDF_RTOL = 1e-6
+
+
+def _case(seed, M=3, C=4, T1=5, N=60, D=(3, 40), integer=True):
+    rng = np.random.default_rng(seed)
+    tw = (rng.random((M, C, T1)) < 0.5).astype(np.float32)
+    tw[0, 1] = 0.0                              # an inactive pair
+    sw = rng.poisson(1.0, (M, C, N)).astype(np.float32)
+    sw[1, 2] = 0.0                              # active, all counts 0
+    if not integer:
+        tw *= rng.uniform(0.5, 3.0, tw.shape).astype(np.float32)
+        sw *= rng.uniform(0.5, 2.0, sw.shape).astype(np.float32)
+    u = rng.random((M, C, *D)).astype(np.float32)
+    u[0, 0, 0, :3] = (0.0, np.nextafter(np.float32(1), np.float32(0)), 0.5)
+    return tw, sw, u
+
+
+def _reference(tw, sw, u):
+    """The reference's rows and cdf of every pair, [M, C, *D] and
+    [M, C, T1·N]."""
+    import jax.numpy as jnp
+    from feddrift_tpu.core.step import weight_cdf
+    M, C, T1 = tw.shape
+    rows = np.zeros(u.shape, np.int32)
+    cdfs = np.zeros((M, C, T1 * sw.shape[-1]), np.float32)
+    for m in range(M):
+        for c in range(C):
+            w_t, s_n = jnp.asarray(tw[m, c]), jnp.asarray(sw[m, c])
+            active = w_t.sum() > 0
+            probs = jnp.where(active, 1.0, 0.0) * (w_t[:, None] * s_n[None, :])
+            probs = jnp.where(probs.sum() > 0, probs, jnp.ones_like(probs))
+            cdf = weight_cdf(probs.reshape(-1))
+            idx = jnp.clip(jnp.searchsorted(cdf, jnp.asarray(
+                u[m, c]).reshape(-1), side="right"), 0, cdf.shape[0] - 1)
+            rows[m, c] = np.asarray(idx).reshape(u.shape[2:])
+            cdfs[m, c] = np.asarray(cdf)
+    return rows, cdfs
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_integer_weights_draw_the_references_rows(seed):
+    tw, sw, u = _case(seed)
+    want, want_cdf = _reference(tw, sw, u)
+    t = [torch.from_numpy(a) for a in (tw, sw, u)]
+    got = weighted_draw_ref(*t)
+    assert got.dtype == torch.int32 and got.shape == u.shape
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(weighted_cdf_ref(*t[:2]).numpy(), want_cdf)
+    # a zero-weight row is never drawn
+    p = (tw[..., :, None] * sw[..., None, :]).reshape(*tw.shape[:2], -1)
+    live = p.sum(-1) > 0
+    drawn = np.take_along_axis(p, got.numpy().reshape(*tw.shape[:2], -1),
+                               -1)
+    assert (drawn[live] > 0).all()
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_non_integer_weights_within_the_rounding_rule(seed):
+    tw, sw, u = _case(seed, integer=False, N=300, D=(5, 200))
+    want, want_cdf = _reference(tw, sw, u)
+    t = [torch.from_numpy(a) for a in (tw, sw, u)]
+    cdf = weighted_cdf_ref(*t[:2]).numpy()
+    np.testing.assert_allclose(cdf, want_cdf, rtol=CDF_RTOL, atol=0)
+    got = weighted_draw_ref(*t).numpy()
+    differ = got != want
+    lo = np.minimum(got, want).reshape(*tw.shape[:2], -1)
+    edge = np.take_along_axis(want_cdf, lo, -1).reshape(u.shape)
+    near = np.abs(u - edge) <= CDF_RTOL * np.abs(edge)
+    print(f"seed {seed}: {int(differ.sum())} of {u.size} rows differ, "
+          f"all within {CDF_RTOL} of a boundary: {bool(near[differ].all())}")
+    assert near[differ].all()
+
+
+def test_uniform_fallback_is_the_references():
+    """An inactive pair, and an active pair whose sample weights are all 0,
+    draw uniformly over all ``T1·N`` rows, as the reference does before it
+    masks the pair's result."""
+    tw, sw, u = _case(5, D=(1, 2000))
+    want, _ = _reference(tw, sw, u)
+    got = weighted_draw_ref(*(torch.from_numpy(a) for a in (tw, sw, u)))
+    L = tw.shape[-1] * sw.shape[-1]
+    for m, c in ((0, 1), (1, 2)):
+        assert np.array_equal(got[m, c].numpy(), want[m, c])
+        rows = got[m, c].numpy().reshape(-1)
+        assert rows.min() >= 0 and rows.max() <= L - 1
+        expect = np.minimum((u[m, c].reshape(-1) * L).astype(np.int64), L - 1)
+        assert np.abs(rows - expect).max() <= 1
+
+
+def test_cpu_takes_the_plain_version_and_counts_no_launch():
+    tw, sw, u = (torch.from_numpy(a) for a in _case(6))
+    before = weighted_draw.launches
+    assert torch.equal(weighted_draw(tw, sw, u), weighted_draw_ref(tw, sw, u))
+    assert weighted_draw.launches == before
+
+
+def test_rejects_mismatched_shapes():
+    tw, sw, u = (torch.from_numpy(a) for a in _case(7))
+    with pytest.raises(ValueError, match=r"time_w \[M, C, T1\]"):
+        weighted_draw(tw[:2], sw, u)
+    with pytest.raises(ValueError, match=r"sample_w \[M, C, N\]"):
+        weighted_draw(tw, sw[..., None], u)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("integer,shape", [
+    (True, dict(M=4, C=10, T1=11, N=500, D=(5, 500))),   # KUE's canonical
+    (True, dict(M=2, C=3, T1=3, N=7, D=(2, 9))),
+    (True, dict(M=2, C=3, T1=20, N=2000, D=(5, 500))),   # 160 KB of cdf
+    (False, dict(M=4, C=10, T1=11, N=500, D=(5, 500)))])
+def test_kernel_matches_plain(cuda, integer, shape):
+    """Integer weights: rows and cdf bitwise; other weights: the cdf to
+    1e-6 relative and rows equal except within that distance of a
+    boundary. Two calls agree bitwise, and each launch is counted."""
+    tw, sw, u = (torch.from_numpy(a).to(cuda)
+                 for a in _case(8, integer=integer, **shape))
+    M, C = u.shape[:2]
+    cdf = torch.empty((M, C, tw.shape[-1] * sw.shape[-1]), device=cuda)
+    before = weighted_draw.launches
+    got = weighted_draw(tw, sw, u, cdf_out=cdf)
+    again = weighted_draw(tw, sw, u)
+    torch.cuda.synchronize()
+    assert weighted_draw.launches == before + 2
+    assert torch.equal(got, again)
+    want, want_cdf = weighted_draw_ref(tw, sw, u), weighted_cdf_ref(tw, sw)
+    if integer:
+        assert torch.equal(got, want) and torch.equal(cdf, want_cdf)
+        return
+    assert ((cdf - want_cdf).abs() <= CDF_RTOL * want_cdf.abs()).all()
+    differ = got != want
+    lo = torch.minimum(got, want).reshape(M, C, -1).long()
+    edge = want_cdf.gather(-1, lo).reshape(u.shape)
+    assert ((u - edge).abs() <= CDF_RTOL * edge.abs())[differ].all()
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_what_it_cannot_take(cuda):
+    tw, sw, u = (torch.from_numpy(a).to(cuda) for a in _case(9))
+    with pytest.raises(ValueError, match="contiguous float32"):
+        weighted_draw(tw.double(), sw, u)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        weighted_draw(tw, sw, u.transpose(2, 3))
+    big = torch.ones((1, 1, 60000), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        weighted_draw(torch.ones((1, 1, 1), device=cuda), big,
+                      torch.rand((1, 1, 4), device=cuda))
