@@ -56,16 +56,30 @@ Phases, one or more lines of output each:
    where its uniform lies within that of a cdf boundary; the count is
    printed), timed per call, enqueue and on the device beside the plain
    version, ``torch.searchsorted`` after ``torch.cumsum`` and the bound.
-   Then it times the round's two other device steps, still plain PyTorch
-   (the masked FedAvg and the eval matrices), against their bounds.
+   train_agg, train_eval: K2, the masked FedAvg, against its plain version
+   on one K1 round's client stack at the canonical shape (M 4, C 10, P 62,
+   model 3 with no active client): within 1e-6, that model's params
+   bitwise its previous ones, the stats equal; K3, the eval matrices,
+   through both of its kernels on strided windows of the SEA dataset
+   (T1 11, N 500): an eval's two steps (G = 2), one step (G = 1), every
+   step (G = T1, counts only), with feature masks, the general kernel
+   forced at SEA and at H = 32: counts equal except rows whose top two
+   plain logits lie within 1e-5 (counted), NLL sums within 1e-4
+   relative. Two calls of each agree bitwise; each is timed per call,
+   enqueue and on the device beside its plain version and bound. Then
+   ``train_plain`` lines time K5's functions, still plain PyTorch
+   (``ensemble_eval`` hard and soft, ``mse_matrix``,
+   ``confusion_matrices``), at AUE's and KUE's shapes beside their bounds.
 6. train: the port's training main path at full width, the canonical
    ``python -m feddrift_torch run`` configuration (SEA, change points A,
    fnn, softcluster H_A_C_1_10_0, 10 steps x 200 rounds, checkpoint every
    step): per-step wall, rounds/s, final Test/Acc and models in use, then
-   K1's launches (through the fused kernel) and the device-busy share of
-   one profiled time step.
-   Fails unless every step ran, the checkpoint exists, K1 carried all
-   2000 rounds and Test/Acc tracks the committed reference run
+   the launches of K1 (through the fused kernel), K2 and K3, the plain
+   K2 / K3 calls on the card, and the device-busy share of one profiled
+   time step.
+   Fails unless every step ran, the checkpoint exists, K1 and K2 carried
+   all 2000 rounds, K3 the evals, no plain K2 / K3 ran on the card, and
+   Test/Acc tracks the committed reference run
    ``runs/sea-fnn-softcluster-H_A_C_1_10_0-s0`` (each step within 0.04,
    the 10-step mean within 0.015: across seeds 0-2 of the committed
    ``H_A_F_1_3_0`` runs one step differs by up to 0.025, the mean by 0.003).
@@ -78,14 +92,16 @@ Phases, one or more lines of output each:
    (M = 1), DriftSurf, MultiModel ``mmacc_06`` and ``mmgeni`` (fused),
    Adaptive-FedAvg ``win-1_iter``, the legacy ``clusterfl``, AUE, AUE-PC
    and KUE (per round; KUE through K4 and K1's gather route). One
-   ``train_algo`` line each: the path, wall, rounds/s, K1 launches (and
-   KUE's K4 launches), the plain K2/K3 calls, host syncs a round, models
+   ``train_algo`` line each: the path, wall, rounds/s, K1, K2 and K3
+   launches (and KUE's K4), the plain K2/K3 calls, host syncs a round,
+   models
    in use per step, per-step Test/Acc beside its committed SEA reference
    run, and the card's decisions (each client's model at every step's
    end, and the counts of drift, spawn, split and replacement events)
-   beside the committed run's; then the kernel launches a round and K1's
-   device time in one profiled time step. Fails unless K1 carried all 2000
-   rounds on the expected path (K4 too for KUE, and nowhere else) and
+   beside the committed run's; then the kernel launches a round and K1's,
+   K2's and K3's device time a launch in one profiled time step. Fails
+   unless K1 and K2 carried all 2000 rounds on the expected path (K4 too
+   for KUE, and nowhere else), no plain K2 / K3 ran on the card, and
    every step is within 0.04 (the mean within 0.015) of the committed run,
    whose final Test/Acc are pinned.
 8. train_sampling: 4 of 10 clients a round at full width, T = 2, R = 50,
@@ -94,8 +110,8 @@ Phases, one or more lines of output each:
    round's n is 0 exactly for the clients its mask leaves out.
 9. train_per_round_kinds: ``hard-r`` (per round), ``softcluster
    mmacc_06``, ``softmax_3``, ``geni`` and ``softclusterreset softmax_3``
-   at full width, T = 3, R = 20: each must take its path, launch K1 once a
-   round and give finite metrics.
+   at full width, T = 3, R = 20: each must take its path, launch K1 and K2
+   once a round and give finite metrics.
 
 It then prints the kernels' JSON line, the card line and, last, the result
 line. Any failed phase exits non-zero before the result line. It imports
@@ -347,6 +363,16 @@ def _host_enqueue_ms(fn, iters: int = 200) -> float:
     return ms
 
 
+def _bound(nbytes: float, flops: float,
+           flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    """Least time for a function on the card: the larger of its bytes over
+    the memory rate and its operations over ``flops_per_s`` (float32
+    outside the tensor cores by default), in ms, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops \
+        else (t_ops * 1e3, "operations")
+
+
 def _attention_bound_ms(shape, causal: bool,
                         flops_per_s: float) -> tuple[float, str]:
     """Least time for the function on the card: q, k, v read once and out
@@ -354,11 +380,7 @@ def _attention_bound_ms(shape, causal: bool,
     mask keeps (q.k and p.v, 2 flops each per dim) at ``flops_per_s``."""
     B, H, L, D = shape
     pairs = L * (L + 1) // 2 if causal else L * L
-    t_bytes = 4 * B * H * L * D * 4 / HBM_BYTES_PER_S
-    t_ops = 4 * B * H * pairs * D / flops_per_s
-    if t_bytes >= t_ops:
-        return t_bytes * 1e3, "bytes"
-    return t_ops * 1e3, "operations"
+    return _bound(4 * B * H * L * D * 4, 4 * B * H * pairs * D, flops_per_s)
 
 
 def phase_device() -> str:
@@ -500,9 +522,7 @@ def _dense_bound_ms(B: int, L: int, n_in: int, n_out: int, bias: bool,
     nbytes = 4 * (B * L * n_in + B * n_in * n_out + B * L * n_out
                   + (B * n_out if bias else 0))
     flops = 2 * B * L * n_in * n_out + (B * L * n_out if bias else 0)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
-    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops \
-        else (t_ops * 1e3, "operations")
+    return _bound(nbytes, flops, flops_per_s)
 
 
 def phase_dense() -> dict:
@@ -834,9 +854,7 @@ def _local_sgd_bound_ms(rows, total_w, M: int, C: int, S: int, B: int,
               + index_bytes + M * C * 4)
     flops = active * S * (B * (4 * F * H + 6 * H * K + 6 * K + 2 * H)
                           + 14 * P)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops \
-        else (t_ops * 1e3, "operations")
+    return _bound(nbytes, flops)
 
 
 # K1's cases: (label, dataset, seed, fnn hidden width, forced route,
@@ -1020,9 +1038,7 @@ def _draw_bound_ms(d: dict) -> tuple[float, str]:
     pairs, L, D = d["M"] * d["C"], d["T1"] * d["N"], d["S"] * d["B"]
     nbytes = 4 * pairs * (d["T1"] + d["N"] + 2 * D)
     ops = pairs * (3 * L + D * (math.ceil(math.log2(L)) + 1))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
-    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops \
-        else (t_ops * 1e3, "operations")
+    return _bound(nbytes, ops)
 
 
 def phase_train_draw() -> dict:
@@ -1103,43 +1119,262 @@ def phase_train_draw() -> dict:
     return entry
 
 
-def phase_train_plain() -> None:
-    """The two other device steps of a round, plain PyTorch on the card for
-    now (K2: the masked FedAvg; K3: the eval matrices), at the canonical
-    shapes: per call and device time against the bound of each."""
-    import torch
+# K2 and K3 against their plain versions: K2 within AGG_ATOL (float32, ten
+# weighted terms in another order) with a model that has no active client
+# bitwise its previous params; K3's counts equal except rows whose top two
+# plain logits lie within EVAL_TIE_GAP (the two compute the logits in other
+# orders, ~1 ulp; the count of such rows is printed) and its NLL sums
+# within EVAL_NLL_RTOL relative (sums of 500 rows in another order)
+AGG_ATOL = 1e-6
+EVAL_TIE_GAP = 1e-5
+EVAL_NLL_RTOL = 1e-4
+# K3's cases: (label, fnn hidden width, forced route, window, feature
+# masks); the window of the canonical dataset (T1 = 11): "G2" the train
+# and test steps of an eval (t = 4, 5), "G1" one step (acc_matrix),
+# "T1" every step (acc_cells, counts only)
+K3_CASES = (("eval", 10, None, "G2", False),
+            ("acc_matrix", 10, None, "G1", False),
+            ("acc_cells", 10, None, "T1", False),
+            ("eval_masked", 10, None, "G2", True),
+            ("eval_general", 10, "general", "G2", False),
+            ("h32_masked", 32, None, "G2", True),
+            ("h32_cells", 32, None, "T1", False))
+
+
+def _forward_flops(rows: int, F: int, H: int, K: int) -> int:
+    """Operations of the fnn forward, its argmax and its log-softmax at the
+    label, per row: the two products and biases, the ReLU, and ~6 a
+    class (compare, subtract, exp, add; the log and the label's term)."""
+    return rows * (2 * F * H + 2 * H * K + H + K + 6 * K)
+
+
+def _timed(calls: dict) -> dict:
+    """Per call (in turns), on the device and, for the kernel, the host's
+    enqueue alone: ``{name: {"ms", "device_ms"}}`` plus
+    ``kernel_enqueue_ms``."""
+    ms = _interleaved(_time_ms, calls)
+    out = {name: {"ms": ms[name], "device_ms": _device_ms(fn)}
+           for name, fn in calls.items()}
+    out["kernel_enqueue_ms"] = _host_enqueue_ms(calls["kernel"])
+    return out
+
+
+def _k2_case():
+    """K2's canonical inputs: the client stack and n of one K1 round at the
+    SEA shape (pairs (0, 3), (2, 7) and all of model 3 inactive: model 3 is
+    a cluster with no active client), and the pool as prev."""
     from feddrift_torch.kernels.local_sgd import local_sgd
-    from feddrift_torch.models.mlp import FeedForwardNN
-    from feddrift_torch.resilience.robust_agg import agg_mean
-    from feddrift_torch.core.step import TrainStep
     args, kw, d, _ = _train_case("sea", 0)
-    x, y, params, opt, t_idx, slot, total_w = args
     client, _, n, _ = local_sgd(*args, **kw)
+    return client, n, args[2], d
+
+
+def _k2_phase() -> dict:
+    import torch
+    from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
+    client, n, prev, _ = _k2_case()
     M, C, P = client.shape
-    N = x.shape[2]
-    step = TrainStep(FeedForwardNN((d["F"],), d["K"], d["H"]), d["B"],
-                     d["S"], d["K"])
-    tree = step.module.unpack(params)
-    calls = {
-        "masked_fedavg": (lambda: agg_mean(client, n, params),
-                          4 * (M * C * P + M * C + 2 * M * P + 3 * M), 3 * M
-                          * C * P),
-        "acc_matrix": (lambda: step.acc_matrix(tree, x[:, 0], y[:, 0]),
-                       4 * (C * N * (d["F"] + 1) + M * P + 2 * M * C),
-                       M * C * N * (2 * d["F"] * d["H"] + 2 * d["H"]
-                                    * d["K"] + 6 * d["K"])),
-        "acc_cells": (lambda: step.acc_cells(tree, x, y),
-                      4 * (x.numel() + y.numel() + M * P
-                           + M * C * x.shape[1]),
-                      M * x.numel() // d["F"] * (2 * d["F"] * d["H"]
-                                                 + 2 * d["H"] * d["K"]))}
-    for name, (fn, nbytes, flops) in calls.items():
-        ms = _time_ms(fn)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-        _say("train_plain", name=name, ms=ms, device_ms=_device_ms(fn),
-             launches_per_call=_launches(fn),
-             bound_ms=max(t_bytes, t_ops) * 1e3,
-             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    rows = torch.full((3, M, 3), -1.0, device="cuda")
+    out, stats = fedavg(client, n, prev, stats_out=rows[1])
+    again, again_stats = fedavg(client, n, prev)
+    torch.cuda.synchronize()
+    want, want_stats = fedavg_ref(client, n, prev)
+    err = float((out - want).abs().max())
+    empty = n.sum(1) == 0
+    empty_bitwise = bool(torch.equal(out[empty], prev[empty]))
+    stats_equal = bool(torch.equal(stats, want_stats)
+                       and torch.equal(rows[1], want_stats)
+                       and (rows[[0, 2]] == -1).all())
+    bitwise = bool(torch.equal(out, again)
+                   and torch.equal(stats, again_stats))
+    times = _timed({"kernel": lambda: fedavg(client, n, prev),
+                    "plain": lambda: fedavg_ref(client, n, prev)})
+    # bytes: the stack, n, prev read once; out and stats written once;
+    # operations: the weighted sum (a multiply and an add a term), the
+    # weights' sum and divisions
+    bound_ms, bound_by = _bound(4 * (M * C * P + M * C + 2 * M * P + 3 * M),
+                                2 * M * C * P + 2 * M * C)
+    kernel = times["kernel"]
+    _say("train_agg", name="fedavg", M=M, C=C, P=P,
+         empty_clusters=int(empty.sum()), active_clients=stats[:, 0].tolist(),
+         max_abs_err=err, atol=AGG_ATOL, empty_bitwise_prev=empty_bitwise,
+         stats_equal=stats_equal, two_calls_bitwise=bitwise,
+         kernel_ms=kernel["ms"], kernel_device_ms=kernel["device_ms"],
+         kernel_enqueue_ms=times["kernel_enqueue_ms"],
+         plain_ms=times["plain"]["ms"],
+         plain_device_ms=times["plain"]["device_ms"],
+         plain_launches_per_call=_launches(lambda: fedavg_ref(client, n,
+                                                              prev)),
+         bound_ms=bound_ms, bound_by=bound_by,
+         kernel_vs_bound=(kernel["device_ms"] or kernel["ms"]) / bound_ms)
+    if not (err <= AGG_ATOL and empty_bitwise and stats_equal and bitwise
+            and bool(empty.any())):
+        raise AssertionError(f"fedavg: |kernel - plain| {err} (atol "
+                             f"{AGG_ATOL}), empty clusters bitwise "
+                             f"{empty_bitwise}, stats equal {stats_equal}, "
+                             f"two calls bitwise {bitwise}")
+    return {"name": "fedavg", "route": "cuda",
+            "source": "feddrift_torch/kernels/csrc/fedavg.cu",
+            "replaces": "feddrift_tpu/resilience/robust_agg.py:139",
+            "launches": None, "max_abs_err": err, "ms": kernel["ms"],
+            "plain_ms": times["plain"]["ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "device_ms": kernel["device_ms"]}
+
+
+def _k3_case(hidden: int, window: str, masked: bool, seed: int):
+    """K3's canonical inputs: the SEA dataset on the card, a pool of 4
+    distinct fnn draws at width ``hidden``, the window and, if asked,
+    per-model 0/1 feature masks (at least one feature on per model)."""
+    import numpy as np
+    import torch
+    args, _, d, _ = _train_case("sea", seed, hidden)
+    x, y, flat = args[:3]
+    t = 4
+    xw, yw = {"G1": (x[:, t, None], y[:, t, None]),
+              "G2": (x[:, t:t + 2], y[:, t:t + 2]), "T1": (x, y)}[window]
+    fm = None
+    if masked:
+        rng = np.random.default_rng(seed + 200)
+        f = (rng.random((d["M"], d["F"])) < 0.6).astype(np.float32)
+        f[np.arange(d["M"]), rng.integers(0, d["F"], d["M"])] = 1.0
+        fm = torch.from_numpy(f).cuda()
+    return flat, xw, yw, fm, d
+
+
+def _near_ties(flat, x, fm, F: int, H: int, K: int):
+    """Rows of each cell whose top two plain logits lie within
+    EVAL_TIE_GAP."""
+    from feddrift_torch.kernels.local_sgd import _unpack
+    w0, b0, w1, b1 = (v[:, None, None] for v in _unpack(flat, F, H, K))
+    xin = x[None] if fm is None else x[None] * fm[:, None, None, None, :]
+    z = (xin @ w0 + b0.unsqueeze(-2)).relu() @ w1 + b1.unsqueeze(-2)
+    top = z.topk(2, dim=-1).values
+    return ((top[..., 0] - top[..., 1]) <= EVAL_TIE_GAP).sum(-1)
+
+
+def _k3_phase() -> dict:
+    import torch
+    from feddrift_torch.kernels.eval_cells import (_route, eval_cells,
+                                                   eval_cells_ref)
+    entry = None
+    for seed, (label, hidden, forced, window, masked) in enumerate(K3_CASES):
+        flat, xw, yw, fm, d = _k3_case(hidden, window, masked, seed)
+        F, H, K = d["F"], d["H"], d["K"]
+        route = forced or _route(F, H, K)
+        nll_on = window != "T1"
+        kw = dict(hidden=H, feat_mask=fm, with_nll=nll_on, route=route)
+        correct, nll = eval_cells(flat, xw, yw, **kw)
+        again = eval_cells(flat, xw, yw, **kw)
+        torch.cuda.synchronize()
+        plain = {k: v for k, v in kw.items() if k != "route"}
+        want, want_nll = eval_cells_ref(flat, xw, yw, **plain)
+        ties = _near_ties(flat, xw, fm, F, H, K)
+        diff = (correct - want).abs()
+        counts_ok = bool((diff <= ties).all())
+        nll_rel = float(((nll - want_nll).abs()
+                         / want_nll.abs().clamp_min(1e-30)).max()) \
+            if nll_on else None
+        bitwise = bool(torch.equal(correct, again[0]) and (
+            not nll_on or torch.equal(nll, again[1])))
+        times = _timed({
+            "kernel": lambda: eval_cells(flat, xw, yw, **kw),
+            "plain": lambda: eval_cells_ref(flat, xw, yw, **plain)})
+        M, (C, G, N) = flat.shape[0], xw.shape[:3]
+        P = flat.shape[1]
+        bound_ms, bound_by = _bound(
+            4 * (C * G * N * (F + 1) + M * P + M * C * G * (1 + nll_on)
+                 + (M * F if masked else 0)),
+            _forward_flops(M * C * G * N, F, H, K))
+        kernel = times["kernel"]
+        _say("train_eval", name="eval_cells", case=label, route=route,
+             window=window, M=M, C=C, G=G, N=N, F=F, H=H, K=K,
+             feature_masks=masked, blocks=M * C * G,
+             counts_equal=bool(torch.equal(correct, want)),
+             cells_differing=int((diff > 0).sum()),
+             near_tied_rows=int(ties.sum()), counts_within_ties=counts_ok,
+             nll_max_rel_err=nll_rel, nll_rtol=EVAL_NLL_RTOL,
+             two_calls_bitwise=bitwise, kernel_ms=kernel["ms"],
+             kernel_device_ms=kernel["device_ms"],
+             kernel_enqueue_ms=times["kernel_enqueue_ms"],
+             plain_ms=times["plain"]["ms"],
+             plain_device_ms=times["plain"]["device_ms"],
+             plain_launches_per_call=_launches(
+                 lambda: eval_cells_ref(flat, xw, yw, **plain)),
+             bound_ms=bound_ms, bound_by=bound_by,
+             kernel_vs_bound=(kernel["device_ms"] or kernel["ms"])
+             / bound_ms)
+        if not (counts_ok and bitwise and (
+                not nll_on or nll_rel <= EVAL_NLL_RTOL)):
+            raise AssertionError(f"eval_cells ({label}, {route}): counts "
+                                 f"within near ties {counts_ok}, nll rel "
+                                 f"{nll_rel} (rtol {EVAL_NLL_RTOL}), two "
+                                 f"calls bitwise {bitwise}")
+        if label == "eval":
+            if route != "fused":
+                raise AssertionError(f"the canonical eval took the {route} "
+                                     f"kernel")
+            entry = {"name": "eval_cells", "route": "cuda",
+                     "source": "feddrift_torch/kernels/csrc/eval_cells.cu",
+                     "replaces": "feddrift_tpu/core/step.py:777",
+                     "launches": None,
+                     "max_abs_err": float((correct - want).abs().max()),
+                     "ms": kernel["ms"], "plain_ms": times["plain"]["ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None, "device_ms": kernel["device_ms"]}
+    return entry
+
+
+def _k5_phase() -> None:
+    """K5's functions, still plain PyTorch on the card, at the ensembles'
+    shapes (AUE: M = 3, no masks; KUE: M = 4, feature masks): per call, on
+    the device and their launches, beside the bound of each."""
+    import torch
+    from feddrift_torch.core.step import TrainStep
+    from feddrift_torch.models.mlp import FeedForwardNN
+    for algo, M in (("aue", 3), ("kue", 4)):
+        flat, xw, yw, fm, d = _k3_case(10, "G1", algo == "kue", 7)
+        flat, x, y = flat[:M], xw[:, 0], yw[:, 0]
+        fm = None if fm is None else fm[:M]
+        F, H, K, (C, N) = d["F"], d["H"], d["K"], x.shape[:2]
+        step = TrainStep(FeedForwardNN((F,), K, H), d["B"], d["S"], K)
+        tree = step.module.unpack(flat)
+        w = torch.linspace(0.5, 1.5, M, device="cuda")
+        reads = 4 * (C * N * (F + 1) + flat.numel()
+                     + (fm.numel() if fm is not None else 0))
+        fwd = _forward_flops(M * C * N, F, H, K)
+        calls = {"mse_matrix": (lambda: step.mse_matrix(tree, x, y, fm),
+                                reads + 4 * (M * C + C), fwd)}
+        if algo == "aue":
+            calls["ensemble_eval_hard"] = (
+                lambda: step.ensemble_eval(tree, x, y, w, "hard", None, fm),
+                reads + 4 * (M + 3 * C), fwd + 2 * M * C * N * K)
+        else:
+            calls["ensemble_eval_soft"] = (
+                lambda: step.ensemble_eval(tree, x, y, w, "soft", None, fm),
+                reads + 4 * (M + 3 * C), fwd + 4 * M * C * N * K)
+            calls["confusion_matrices"] = (
+                lambda: step.confusion_matrices(tree, x, y, fm),
+                reads + 4 * M * C * K * K, fwd + M * C * N)
+        for name, (fn, nbytes, flops) in calls.items():
+            bound_ms, bound_by = _bound(nbytes, flops)
+            device_ms = _device_ms(fn)
+            _say("train_plain", name=name, algo=algo, M=M, C=C, N=N,
+                 feature_masks=fm is not None, ms=_time_ms(fn),
+                 device_ms=device_ms, enqueue_ms=_host_enqueue_ms(fn),
+                 launches_per_call=_launches(fn), bound_ms=bound_ms,
+                 bound_by=bound_by, device_vs_bound=device_ms / bound_ms
+                 if device_ms else "not measured")
+
+
+def phase_train_agg_eval() -> tuple[dict, dict]:
+    """K2 (the masked FedAvg) and K3 (the eval matrices) against their
+    plain versions on the card at the canonical shapes, timed beside them
+    and their bounds; then K5's plain functions timed alone. Returns the
+    kernels line's entries of K2 and K3."""
+    agg, ev = _k2_phase(), _k3_phase()
+    _k5_phase()
+    return agg, ev
 
 
 def _launches(fn, reps: int = 5) -> float:
@@ -1170,14 +1405,49 @@ def _reference_accs(path: str | None = None,
     return accs
 
 
-def phase_train(entry: dict) -> None:
-    import collections
+def _reset_counts() -> None:
+    """Every kernel's launch count and the plain K2 / K3 versions' calls on
+    the card, set to 0 just before a run is driven."""
+    from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
+    from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
+    from feddrift_torch.kernels.local_sgd import local_sgd
+    from feddrift_torch.kernels.weighted_draw import weighted_draw
+    local_sgd.launches = weighted_draw.launches = 0
+    fedavg.launches = eval_cells.launches = 0
+    fedavg_ref.cuda_calls = eval_cells_ref.cuda_calls = 0
+
+
+def _read_counts() -> dict:
+    """The counts ``_reset_counts`` zeroed, read just after a run."""
+    from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
+    from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
+    from feddrift_torch.kernels.local_sgd import local_sgd
+    from feddrift_torch.kernels.weighted_draw import weighted_draw
+    return {"k1_launches": local_sgd.launches,
+            "k4_launches": weighted_draw.launches,
+            "k2_launches": fedavg.launches,
+            "k3_launches": eval_cells.launches,
+            "plain_calls": {"fedavg_ref": fedavg_ref.cuda_calls,
+                            "eval_cells_ref": eval_cells_ref.cuda_calls}}
+
+
+def _check_k2_k3(name: str, got: dict, rounds: int) -> None:
+    """K2 carried every round and K3 every eval, and no plain K2 / K3 ran
+    on the card."""
+    if got["k2_launches"] != rounds or got["k3_launches"] < 1 \
+            or any(got["plain_calls"].values()):
+        raise AssertionError(f"{name}: K2 launched {got['k2_launches']} "
+                             f"times for {rounds} rounds, K3 "
+                             f"{got['k3_launches']} times, plain calls on "
+                             f"the card {got['plain_calls']}")
+
+
+def phase_train(entry: dict, agg_entry: dict, eval_entry: dict) -> None:
     import tempfile
 
     import torch
     from feddrift_torch.config import ExperimentConfig
-    from feddrift_torch.core import step as step_mod
-    from feddrift_torch.kernels.local_sgd import _route, local_sgd
+    from feddrift_torch.kernels.local_sgd import _route
     from feddrift_torch.simulation.runner import Experiment
     from feddrift_torch.utils.prng import iteration_seed
     cfg = ExperimentConfig()
@@ -1186,29 +1456,13 @@ def phase_train(entry: dict) -> None:
         t0 = time.perf_counter()
         exp = Experiment(cfg, out_dir=out_dir)
         setup_s = time.perf_counter() - t0
-        # calls of the plain K2 / K3 steps during the run, counted by name
-        counts = collections.Counter()
-
-        def counted(name, fn):
-            def inner(*a, **k):
-                counts[name] += 1
-                return fn(*a, **k)
-            return inner
-        plain = {"agg_mean": step_mod.agg_mean}
-        step_mod.agg_mean = counted("masked_fedavg", plain["agg_mean"])
-        exp.step._acc_matrix_body = counted("acc_matrix",
-                                            exp.step._acc_matrix_body)
-        exp.step.acc_cells = counted("acc_cells", exp.step.acc_cells)
-        local_sgd.launches = 0
-        try:
-            t0 = time.perf_counter()
-            exp.run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            step_mod.agg_mean = plain["agg_mean"]
-            del exp.step._acc_matrix_body, exp.step.acc_cells
-        launches = local_sgd.launches
+        _reset_counts()
+        t0 = time.perf_counter()
+        exp.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        launches = counts["k1_launches"]
         ckpt = os.path.isfile(os.path.join(out_dir, "ckpt", "MANIFEST.json"))
         ends = exp.events.events("iteration_end")
         models = [e["num_models"] for e in exp.events.events("cluster_state")]
@@ -1221,6 +1475,8 @@ def phase_train(entry: dict) -> None:
                  rounds_per_s=e["rounds_per_s"], test_acc=accs[t],
                  reference_test_acc=ref[t], models_in_use=models[t])
         entry["launches"] = launches
+        agg_entry["launches"] = counts["k2_launches"]
+        eval_entry["launches"] = counts["k3_launches"]
         # one more time step under the profiler: where its wall goes
         R, freq = cfg.comm_round, cfg.frequency_of_the_test
         T = cfg.train_iterations
@@ -1244,8 +1500,9 @@ def phase_train(entry: dict) -> None:
              algo=cfg.concept_drift_algo, algo_arg=cfg.concept_drift_algo_arg,
              steps=len(ends), rounds=exp.global_round, setup_s=setup_s,
              wall_s=wall, local_sgd_launches=launches,
-             local_sgd_route=route,
-             plain_calls=dict(counts), checkpoint=ckpt,
+             local_sgd_route=route, fedavg_launches=counts["k2_launches"],
+             eval_cells_launches=counts["k3_launches"],
+             plain_calls=counts["plain_calls"], checkpoint=ckpt,
              test_acc_mean=mean_acc, reference_mean=ref_mean,
              max_step_diff=max(map(abs, diffs)),
              profiled_step_wall_ms=prof_us / 1e3,
@@ -1265,6 +1522,7 @@ def phase_train(entry: dict) -> None:
             raise AssertionError(f"local_sgd launched {launches} times for "
                                  f"{want} rounds, through the {route} "
                                  f"kernel")
+        _check_k2_k3("train", counts, want)
         if max(map(abs, diffs)) > STEP_ACC_TOL \
                 or abs(mean_acc - ref_mean) > MEAN_ACC_TOL:
             raise AssertionError(f"Test/Acc per step {accs} against the "
@@ -1290,26 +1548,17 @@ def _experiment(cfg, out_dir=None, init=None):
 
 def _drive(cfg, out_dir=None, init=None) -> dict:
     """Run one ``Experiment`` of ``cfg`` on the card through its entry point
-    and report what carried it: which path each step took, K1's launches
-    (its count set to 0 just before the run and read just after), the calls
-    of the plain K2 / K3 steps, and the wall. Host syncs are counted in a
-    second run of the same configuration (``_host_syncs_per_round``), so
-    that the count's cost stays out of the timed one."""
-    import collections
+    and report what carried it: which path each step took, the launches of
+    K1, K2, K3 and K4 and the plain K2 / K3 versions' calls on the card
+    (every count set to 0 just before the run and read just after), and the
+    wall. Host syncs are counted in a second run of the same configuration
+    (``_host_syncs_per_round``), so that the count's cost stays out of the
+    timed one."""
     import tempfile
 
     import torch
-    from feddrift_torch.core import step as step_mod
-    from feddrift_torch.kernels.local_sgd import local_sgd
-    from feddrift_torch.kernels.weighted_draw import weighted_draw
     exp = _experiment(cfg, out_dir, init)
-    paths, counts = [], collections.Counter()
-
-    def counted(name, fn):
-        def inner(*a, **k):
-            counts[name] += 1
-            return fn(*a, **k)
-        return inner
+    paths = []
 
     def path(name, fn):
         def inner(t, opt):
@@ -1318,21 +1567,12 @@ def _drive(cfg, out_dir=None, init=None) -> dict:
         return inner
     exp._run_iteration_fused = path("fused", exp._run_iteration_fused)
     exp._run_rounds = path("per_round", exp._run_rounds)
-    plain = step_mod.agg_mean
-    step_mod.agg_mean = counted("masked_fedavg", plain)
-    exp.step._acc_matrix_body = counted("acc_matrix",
-                                        exp.step._acc_matrix_body)
-    exp.step.acc_cells = counted("acc_cells", exp.step.acc_cells)
-    local_sgd.launches = weighted_draw.launches = 0
-    try:
-        t0 = time.perf_counter()
-        exp.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        step_mod.agg_mean = plain
-        del exp.step._acc_matrix_body, exp.step.acc_cells
-    launches, k4_launches = local_sgd.launches, weighted_draw.launches
+    _reset_counts()
+    t0 = time.perf_counter()
+    exp.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
     rounds = cfg.train_iterations * cfg.comm_round
     final = {}
     for rec in exp.logger.history:
@@ -1343,9 +1583,7 @@ def _drive(cfg, out_dir=None, init=None) -> dict:
     else:
         with tempfile.TemporaryDirectory() as sync_dir:
             syncs = _host_syncs_per_round(cfg, sync_dir, init)
-    return {"exp": exp, "wall_s": wall, "paths": list(paths),
-            "k1_launches": launches, "k4_launches": k4_launches,
-            "plain_calls": dict(counts),
+    return {"exp": exp, "wall_s": wall, "paths": list(paths), **counts,
             "host_syncs_per_round": syncs,
             "rounds_per_s": rounds / wall,
             "step_wall_s": [e["wall_s"] for e in
@@ -1395,14 +1633,17 @@ def _profile_step(exp) -> dict:
     kernels, wall_us = _profile(lambda: run(T - 1, {k: v.clone() for k, v
                                                     in opt.items()}), 1)
     busy_us = sum(e.self_device_time_total for e in kernels)
-    k1 = [e for e in kernels if "local_sgd" in e.key]
-    k1_us = sum(e.self_device_time_total for e in k1)
-    return {"launches_per_round": sum(e.count for e in kernels) / R,
-            "device_busy_share": busy_us / wall_us if busy_us
-            else "not measured",
-            "k1_device_ms": k1_us / sum(e.count for e in k1) / 1e3
-            if k1_us else "not measured",
-            "profiled_step_wall_ms": wall_us / 1e3}
+    out = {"launches_per_round": sum(e.count for e in kernels) / R,
+           "device_busy_share": busy_us / wall_us if busy_us
+           else "not measured"}
+    for name, tag in (("k1", "local_sgd"), ("k2", "fedavg_kernel"),
+                      ("k3", "eval_")):
+        ks = [e for e in kernels if tag in e.key]
+        us = sum(e.self_device_time_total for e in ks)
+        out[f"{name}_device_ms"] = us / sum(e.count for e in ks) / 1e3 \
+            if us else "not measured"
+    out["profiled_step_wall_ms"] = wall_us / 1e3
+    return out
 
 
 def _reference_assignment(path: str) -> list[list[int]]:
@@ -1462,6 +1703,7 @@ def phase_train_algos(draw_entry: dict) -> None:
              path=want_path if paths == {want_path} else sorted(paths),
              wall_s=got["wall_s"], rounds_per_s=got["rounds_per_s"],
              step_wall_s=got["step_wall_s"], k1_launches=got["k1_launches"],
+             k2_launches=got["k2_launches"], k3_launches=got["k3_launches"],
              plain_calls=got["plain_calls"],
              host_syncs_per_round=got["host_syncs_per_round"] or
              "not measured", models_in_use=got["models_in_use"],
@@ -1479,6 +1721,7 @@ def phase_train_algos(draw_entry: dict) -> None:
         if got["k4_launches"] != (want if algo == "kue" else 0):
             raise AssertionError(f"{algo}: K4 launched {got['k4_launches']} "
                                  f"times in {want} rounds")
+        _check_k2_k3(f"{algo} {arg}", got, want)
         if algo == "kue":
             draw_entry["launches"] = got["k4_launches"]
         if max(map(abs, diffs)) > STEP_ACC_TOL \
@@ -1518,11 +1761,14 @@ def phase_train_sampling() -> None:
         _say("train_sampling", run=name, k=c.client_num_per_round,
              paths=got["paths"], wall_s=got["wall_s"],
              rounds_per_s=got["rounds_per_s"], k1_launches=got["k1_launches"],
+             k2_launches=got["k2_launches"], k3_launches=got["k3_launches"],
+             plain_calls=got["plain_calls"],
              host_syncs_per_round=got["host_syncs_per_round"] or
              "not measured", test_acc=got["accs"])
         if got["k1_launches"] != c.train_iterations * c.comm_round:
             raise AssertionError(f"{name}: K1 launched {got['k1_launches']}"
                                  f" times")
+        _check_k2_k3(name, got, c.train_iterations * c.comm_round)
     series = {k: [(r["round"], r["Test/Acc"]) for r in
                   v["exp"].logger.history] for k, v in runs.items()}
     pools = {k: v["exp"].pool.params for k, v in runs.items()}
@@ -1567,7 +1813,8 @@ def phase_train_per_round_kinds() -> None:
         _say("train_per_round_kind", algo=algo, arg=arg,
              path=want_path if paths == {want_path} else sorted(paths),
              wall_s=got["wall_s"], rounds_per_s=got["rounds_per_s"],
-             k1_launches=got["k1_launches"], plain_calls=got["plain_calls"],
+             k1_launches=got["k1_launches"], k2_launches=got["k2_launches"],
+             k3_launches=got["k3_launches"], plain_calls=got["plain_calls"],
              host_syncs_per_round=got["host_syncs_per_round"] or
              "not measured", models_in_use=got["models_in_use"],
              test_acc=got["accs"], finite=finite)
@@ -1577,6 +1824,8 @@ def phase_train_per_round_kinds() -> None:
                                  f"{got['k1_launches']} times on paths "
                                  f"{paths} (want {want_path}), finite "
                                  f"{finite}")
+        _check_k2_k3(f"{algo} {arg}", got,
+                     cfg.train_iterations * cfg.comm_round)
 
 
 def main() -> int:
@@ -1603,8 +1852,8 @@ def main() -> int:
         phase_serve(entry, dense_entry)
         train_entry = phase_train_kernel()
         draw_entry = phase_train_draw()
-        phase_train_plain()
-        phase_train(train_entry)
+        agg_entry, eval_entry = phase_train_agg_eval()
+        phase_train(train_entry, agg_entry, eval_entry)
         phase_train_algos(draw_entry)
         phase_train_sampling()
         phase_train_per_round_kinds()
@@ -1613,7 +1862,7 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": [entry, train_entry, dense_entry,
-                                  draw_entry]}))
+                                  draw_entry, agg_entry, eval_entry]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

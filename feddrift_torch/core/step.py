@@ -17,12 +17,12 @@ codec or hierarchy path):
     lr_scale    float           the LR multiplier (Adaptive-FedAvg)
 
 A round is K1 (``kernels/local_sgd.py``: every pair's local steps in one
-launch) followed by the masked sample-weighted FedAvg
-(``resilience/robust_agg.py``). Inside a time step the parameters travel
-packed as one ``[M, P]`` tensor, the kernel's layout; the caller sees the
-usual dict of leaves. Where the reference draws each batch inside its
-program from fold_in keys, the port draws a whole time step's randomness up
-front on the device from the step's own ``generator`` (``draw_uniforms``):
+launch) followed by K2, the masked sample-weighted FedAvg
+(``resilience/robust_agg.py`` -> ``kernels/fedavg.py``: one launch).
+Inside a time step the parameters travel packed as one ``[M, P]`` tensor,
+the kernel's layout; the caller sees the usual dict of leaves. Where the
+reference draws each batch inside its program from fold_in keys, the port
+draws a whole time step's randomness up front on the device from the step's own ``generator`` (``draw_uniforms``):
 ``u ~ U[0, 1)`` and ``slot ~ U[0, nb)``, each ``[R, M, C, S]``. Round r's
 ``u`` becomes its time-step indices through the inverse CDF of round r's
 weights (``time_index``, the reference's ``weight_cdf`` /
@@ -41,9 +41,10 @@ per time step; the draws can also be passed in, which is how the tests
 inject the reference's. A client mask ``[C]`` (the reference's
 ``client_mask``: client sampling) zeroes the unsampled clients' weights
 before K1 sees their total, so K1 leaves those pairs as they were and
-reports n = 0. The eval matrices (K3's function), the ensemble vote, the
-MSE matrix and the confusion matrices (K5's) are plain batched PyTorch for
-now.
+reports n = 0. The eval matrices are K3 (``kernels/eval_cells.py``): one
+launch for a window of time steps, so an eval of the train step t and the
+test step t + 1 is one launch. The ensemble vote, the MSE matrix and the
+confusion matrices (K5's) are plain batched PyTorch for now.
 
 ``ForwardStep`` is the counterpart of ``ForwardStep`` (:905-960): one call
 answers a whole micro-batch whose rows may target different models; each
@@ -63,6 +64,7 @@ from typing import Callable
 import torch
 
 from feddrift_torch.core.functional import confusion_matrix
+from feddrift_torch.kernels.eval_cells import eval_cells
 from feddrift_torch.kernels.local_sgd import init_opt_state, local_sgd
 from feddrift_torch.kernels.weighted_draw import weighted_draw
 from feddrift_torch.models.mlp import FeedForwardNN
@@ -172,13 +174,15 @@ class TrainStep:
 
     # ------------------------------------------------------------------
     def _round_body(self, flat, opt_state, x, y, time_w, total_w, rows,
-                    lr_scale: float, sample_w=None, feat_mask=None):
+                    lr_scale: float, sample_w=None, feat_mask=None,
+                    stats_out=None):
         """One round on packed params ``flat [M, P]``: K4 (weighted
-        sampling only), K1, then the masked FedAvg. ``time_w`` and its sums
-        ``total_w [M, C]`` carry the round's client mask. ``rows``:
+        sampling only), K1, then K2, the masked FedAvg. ``time_w`` and its
+        sums ``total_w [M, C]`` carry the round's client mask. ``rows``:
         ``(t_idx, slot)`` of contiguous batches, or the weighted draw's
-        uniforms ``u [M, C, S, B]``. Returns ``(new_flat, opt_state, client
-        [M, C, P], n, losses, agg_stats [M, 3])``."""
+        uniforms ``u [M, C, S, B]``. ``stats_out``: an ``[M, 3]`` row that
+        receives the aggregation stats. Returns ``(new_flat, opt_state,
+        client [M, C, P], n, losses, agg_stats [M, 3])``."""
         t_idx = slot = idx = None
         if self.weighted_sampling:           # K4: the rows the uniforms draw
             if sample_w is None:
@@ -195,7 +199,7 @@ class TrainStep:
             hidden=self.module.hidden_dim,
             batch_size=min(self.batch_size, x.shape[2]), lr=self.lr,
             wd=self.wd, lr_scale=lr_scale, idx=idx, feat_mask=fm)
-        new_flat, agg_stats = agg_mean(client, n, flat)
+        new_flat, agg_stats = agg_mean(client, n, flat, stats_out=stats_out)
         return new_flat, opt_state, client, n, losses, agg_stats
 
     def _round_rows(self, time_w, N: int):
@@ -249,8 +253,11 @@ class TrainStep:
         """ALL R rounds of time step ``t`` with every scheduled eval.
 
         Eval slot ``r // freq`` holds the eval after round r for ``r %
-        freq == 0``, and the final round takes slot E-1. The ``[E, M, C]``
-        buffers stay on the device; the caller fetches them once.
+        freq == 0``, and the final round takes slot E-1: one K3 launch
+        writes slot e of the ``[E, M, C, 2]`` count and NLL buffers (train
+        step t, test step t + 1), and K2 writes row r of the ``[R, M, 3]``
+        stats. The buffers stay on the device; the caller fetches them
+        once.
         ``client_masks``: ``[R, C]`` 0/1, round r samples row r's clients
         (None: all). ``sample_w``, ``feat_mask``: as ``train_round``.
         ``draws``: ``(t_idx, slot)`` each ``[R, M, C, S]``, else drawn up
@@ -266,12 +273,12 @@ class TrainStep:
         M, C = time_w.shape[:2]
         if draws is None and not self.weighted_sampling:
             draws = self.draw_batches(time_w, R, x.shape[2])
-        xt, yt, xe, ye = x[:, t], y[:, t], x[:, t + 1], y[:, t + 1]
-        bufs = tuple(torch.zeros((E, M, C), dtype=d, device=x.device)
-                     for d in (torch.int32, torch.float32) * 2)
+        xw, yw = x[:, t:t + 2], y[:, t:t + 2]
+        corr = torch.empty((E, M, C, 2), dtype=torch.int32, device=x.device)
+        nll = torch.empty((E, M, C, 2), device=x.device)
+        stats = torch.empty((R, M, 3), device=x.device)
         flat = self.module.pack(params)
         tw, total_w = time_w, self.total_weight(time_w)
-        stats = []
         for r in range(R):
             if client_masks is not None:
                 tw = time_w * client_masks[r][None, :, None]
@@ -282,21 +289,18 @@ class TrainStep:
                 rows = draws[r]
             else:
                 rows = (draws[0][r], draws[1][r])
-            flat, opt_states, _, n, losses, st = self._round_body(
+            flat, opt_states, _, n, losses, _ = self._round_body(
                 flat, opt_states, x, y, tw, total_w, rows, lr_scale,
-                sample_w, feat_mask)
-            stats.append(st)
+                sample_w, feat_mask, stats_out=stats[r])
             if r % freq == 0 or r == R - 1:
                 e = E - 1 if r == R - 1 else r // freq
-                p = self.module.unpack(flat)
-                mats = (*self._acc_matrix_body(p, xt, yt, feat_mask)[:2],
-                        *self._acc_matrix_body(p, xe, ye, feat_mask)[:2])
-                for b, v in zip(bufs, mats):
-                    b[e] = v
+                self._eval_window(flat, xw, yw, feat_mask,
+                                  out=(corr[e], nll[e]))
         total = torch.full((C,), x.shape[2], dtype=torch.int32,
                            device=x.device)
+        bufs = (corr[..., 0], nll[..., 0], corr[..., 1], nll[..., 1])
         return (self.module.unpack(flat), opt_states, n, losses, bufs, total,
-                torch.stack(stats))
+                stats)
 
     # ------------------------------------------------------------------
     def _logits(self, params, x: torch.Tensor,
@@ -314,29 +318,45 @@ class TrainStep:
                 *feat_mask.shape[1:])
         return self.module({k: v[lead] for k, v in params.items()}, xin)
 
-    def _acc_matrix_body(self, params, x, y, feat_mask=None):
-        logits = self._logits(params, x, feat_mask)            # [M, C, N, K]
-        logp = torch.log_softmax(logits, dim=-1)
-        yl = y.long()[None].expand(logits.shape[:-1])
-        nll = -logp.gather(-1, yl[..., None])[..., 0].sum(-1)
-        correct = (logits.argmax(-1) == yl).sum(-1).to(torch.int32)
-        total = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
-                           device=x.device)
-        return correct, nll, total
+    def _eval_window(self, flat, x, y, feat_mask=None, with_nll=True,
+                     out=(None, None)):
+        """K3 on packed params ``flat [M, P]`` over a window ``x [C, G, N,
+        ...]``: ``(correct, nll)`` each ``[M, C, G]`` (nll None unless
+        ``with_nll``), written into ``out`` where it holds tensors."""
+        fm = None if feat_mask is None else \
+            feat_mask.reshape(feat_mask.shape[0], -1).contiguous()
+        return eval_cells(flat, x.flatten(3), y, hidden=self.module.hidden_dim,
+                          feat_mask=fm, with_nll=with_nll,
+                          correct_out=out[0], nll_out=out[1])
 
     @torch.no_grad()
     def acc_matrix(self, params, x, y, feat_mask=None):
-        """Batched ``[M, C]`` eval of every model on every client's data.
-        x: ``[C, N, ...]``; returns (correct [M, C] int32, loss_sum [M, C],
+        """Batched ``[M, C]`` eval of every model on every client's data
+        (the reference's ``acc_matrix`` / ``_acc_matrix_body``). x: ``[C,
+        N, ...]``; returns (correct [M, C] int32, loss_sum [M, C], total
+        [C])."""
+        correct, nll, total = self.acc_window(params, x[:, None], y[:, None],
+                                              feat_mask)
+        return correct[..., 0], nll[..., 0], total
+
+    @torch.no_grad()
+    def acc_window(self, params, x, y, feat_mask=None):
+        """``acc_matrix`` of G consecutive time steps in one launch: x
+        ``[C, G, N, ...]`` (e.g. ``x[:, t:t + 2]``, the train and test steps
+        of an eval); returns (correct [M, C, G] int32, loss_sum [M, C, G],
         total [C])."""
-        return self._acc_matrix_body(params, x, y, feat_mask)
+        correct, nll = self._eval_window(self.module.pack(params), x, y,
+                                         feat_mask)
+        total = torch.full((x.shape[0],), y.shape[2], dtype=torch.int32,
+                           device=x.device)
+        return correct, nll, total
 
     @torch.no_grad()
     def acc_cells(self, params, x, y, feat_mask=None) -> torch.Tensor:
         """Correct-prediction counts per (model, client, time step): x
         ``[C, T1, N, ...]`` -> ``[M, C, T1]`` int32."""
-        logits = self._logits(params, x, feat_mask)        # [M, C, T1, N, K]
-        return (logits.argmax(-1) == y.long()[None]).sum(-1).to(torch.int32)
+        return self._eval_window(self.module.pack(params), x, y, feat_mask,
+                                 with_nll=False)[0]
 
     @torch.no_grad()
     def ensemble_eval(self, params, x, y, ens_weights: torch.Tensor,

@@ -1,0 +1,197 @@
+"""Eval matrices of the fnn pool (K3): the CUDA kernel's wrapper and its
+plain version.
+
+Counterpart of ``feddrift_tpu/core/step.py::TrainStep._acc_matrix_body``
+and ``_acc_cells_jit``: every model of the pool on every client's rows of
+a window of time steps. The kernel is ``csrc/eval_cells.cu``; its source
+notes what bounds it and its design.
+
+Shapes: ``params [M, P]`` (the fnn's leaves packed in
+``FeedForwardNN.param_specs`` order, P = F·H + H + H·K + K), a window ``x
+[C, G, N, F]`` float32 and ``y [C, G, N]`` int32 of the dataset (any view
+whose rows ``[N, F]`` are contiguous: ``x[:, t, None]``, ``x[:, t:t + 2]``
+or the whole ``[C, T1, N, F]``), ``feat_mask [M, F]`` (None: ones).
+Returns ``correct [M, C, G]`` int32, the rows whose first maximal logit is
+the label, and ``nll [M, C, G]`` float32, the sums of ``-log_softmax`` at
+the label (None unless ``with_nll``).
+
+``eval_cells`` launches a kernel for CUDA tensors and takes the plain
+version, ``eval_cells_ref``, for CPU tensors. There is no fallback for a
+CUDA tensor: the kernel launches or the call raises. The source holds two
+kernels of the one function, and ``_route`` picks one by shape alone
+before the launch: the fused kernel for the registry's widths, the general
+one for any other. ``eval_cells_ref.cuda_calls`` counts the plain
+version's calls on CUDA tensors (only a comparison with the kernel makes
+them), so a run can show that none carried its evals.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import struct
+
+import torch
+
+from feddrift_torch.kernels.build import library
+from feddrift_torch.kernels.local_sgd import _unpack
+
+MAX_BLOCKS = 2 ** 31 - 1
+MAX_THREADS = 512
+# csrc/eval_cells.cu's kErrSmem: the general kernel needs more shared
+# memory per block than it may take (the size and limit live in that file)
+_ERR_SMEM = -1
+# the (F, H, K) fnn widths csrc/eval_cells.cu's fused kernel is built for
+FUSED_WIDTHS = ((2, 10, 2), (3, 10, 2))
+_ROUTES = {"general": 0, "fused": 1}      # eval_cells_f32's route argument
+
+
+def _route(F: int, H: int, K: int) -> str:
+    """Which kernel takes a ``F -> H -> K`` fnn: by shape alone."""
+    return "fused" if (F, H, K) in FUSED_WIDTHS else "general"
+
+
+def _threads(N: int) -> int:
+    """A block's threads: one row each, a multiple of 32, at most 512."""
+    return min(MAX_THREADS, max(32, -(-N // 32) * 32))
+
+
+def _classes(F: int, H: int, P: int) -> int:
+    K, rest = divmod(P - F * H - H, H + 1)
+    if K < 1 or rest:
+        raise ValueError(f"P={P} is not a {F}->{H}->K fnn")
+    return K
+
+
+def _shapes(params, x, y, hidden: int):
+    if params.dim() != 2 or x.dim() != 4 or y.dim() != 3 \
+            or tuple(y.shape) != tuple(x.shape[:3]):
+        raise ValueError(f"eval_cells takes params [M, P], x [C, G, N, F] "
+                         f"and y [C, G, N], got {tuple(params.shape)}, "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    F = x.shape[3]
+    return F, hidden, _classes(F, hidden, params.shape[1])
+
+
+def eval_cells_ref(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                   *, hidden: int, feat_mask: torch.Tensor | None = None,
+                   with_nll: bool = True):
+    """The plain version: the batched forward, argmax and log-softmax."""
+    if params.is_cuda:
+        eval_cells_ref.cuda_calls += 1
+    F, H, K = _shapes(params, x, y, hidden)
+    w0, b0, w1, b1 = (v[:, None, None] for v in _unpack(params, F, H, K))
+    xin = x[None]                                           # [1, C, G, N, F]
+    if feat_mask is not None:
+        xin = xin * feat_mask[:, None, None, None, :]
+    h = torch.relu(xin @ w0 + b0.unsqueeze(-2))
+    logits = h @ w1 + b1.unsqueeze(-2)                      # [M, C, G, N, K]
+    yl = y.long()[None].expand(logits.shape[:-1])
+    correct = (logits.argmax(-1) == yl).sum(-1).to(torch.int32)
+    if not with_nll:
+        return correct, None
+    logp = torch.log_softmax(logits, dim=-1)
+    return correct, -logp.gather(-1, yl[..., None])[..., 0].sum(-1)
+
+
+eval_cells_ref.cuda_calls = 0
+
+# csrc/eval_cells.cu's Params: params, fmask, x, y, correct, nll pointers;
+# x's client and step strides, y's; M, C, G, N, F, H, K, threads, device
+_PARAMS = struct.Struct("=6Q4q9i4x")
+
+
+@functools.cache
+def _kernel():
+    """The C entry point, its ctypes signature set once at first load."""
+    fn = library("eval_cells").eval_cells_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def _check_out(name, t, shape, dtype, index):
+    if t is None:
+        return
+    if tuple(t.shape) != shape or t.dtype != dtype or not t.is_cuda \
+            or t.get_device() != index or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous {dtype} {shape} on "
+                         f"cuda:{index}, got {t.dtype} {tuple(t.shape)}")
+
+
+def eval_cells(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
+               hidden: int, feat_mask: torch.Tensor | None = None,
+               with_nll: bool = True, route: str | None = None,
+               correct_out: torch.Tensor | None = None,
+               nll_out: torch.Tensor | None = None):
+    """``(correct [M, C, G], nll [M, C, G] or None)`` of every model on the
+    window: through a CUDA kernel for CUDA tensors, through
+    ``eval_cells_ref`` for CPU tensors. ``correct_out`` and ``nll_out``
+    (contiguous ``[M, C, G]``, e.g. a slot of a caller's buffer) receive
+    the results and are returned. ``route`` names the kernel where a
+    comparison needs one ("general" takes any width); by default ``_route``
+    picks it from the shape."""
+    F, H, K = _shapes(params, x, y, hidden)
+    M, (C, G, N) = params.shape[0], x.shape[:3]
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"eval_cells runs on cuda or cpu, not "
+                             f"{x.device.type}")
+        correct, nll = eval_cells_ref(params, x, y, hidden=hidden,
+                                      feat_mask=feat_mask, with_nll=with_nll)
+        if correct_out is not None:
+            correct = correct_out.copy_(correct)
+        if nll is not None and nll_out is not None:
+            nll = nll_out.copy_(nll)
+        return correct, nll
+    if route is None:
+        route = _route(F, H, K)
+    elif route not in _ROUTES or (route == "fused"
+                                  and _route(F, H, K) != "fused"):
+        raise ValueError(f"route {route!r}: the fused kernel takes (F, H, K) "
+                         f"in {FUSED_WIDTHS}, the general one any width")
+    index = x.get_device()
+    for name, t, dtype in (("params", params, torch.float32),
+                           ("x", x, torch.float32), ("y", y, torch.int32)) + (
+            (("feat_mask", feat_mask, torch.float32),)
+            if feat_mask is not None else ()):
+        if t.dtype != dtype or not t.is_cuda or t.get_device() != index:
+            raise ValueError(f"{name} must be a {dtype} tensor on "
+                             f"cuda:{index}")
+    if not params.is_contiguous() or (feat_mask is not None and (
+            tuple(feat_mask.shape) != (M, F)
+            or not feat_mask.is_contiguous())):
+        raise ValueError(f"params [M, P] and feat_mask [M={M}, F={F}] must "
+                         f"be contiguous")
+    if (x.stride(3) != 1 and F > 1) or (x.stride(2) != F and N > 1) \
+            or (y.stride(2) != 1 and N > 1):
+        raise ValueError("the rows of x [N, F] and of y [N] must be "
+                         "contiguous within each (client, step)")
+    if M * C * G > MAX_BLOCKS or not (M and C and G):
+        raise ValueError(f"M*C*G={M * C * G} blocks: want 1 to {MAX_BLOCKS}")
+    _check_out("correct_out", correct_out, (M, C, G), torch.int32, index)
+    _check_out("nll_out", nll_out, (M, C, G), torch.float32, index)
+    correct = correct_out if correct_out is not None else torch.empty(
+        (M, C, G), dtype=torch.int32, device=x.device)
+    nll = None
+    if with_nll:
+        nll = nll_out if nll_out is not None else torch.empty(
+            (M, C, G), device=x.device)
+    err = _kernel()(_PARAMS.pack(
+        params.data_ptr(), 0 if feat_mask is None else feat_mask.data_ptr(),
+        x.data_ptr(), y.data_ptr(), correct.data_ptr(),
+        0 if nll is None else nll.data_ptr(), x.stride(0), x.stride(1),
+        y.stride(0), y.stride(1), M, C, G, N, F, H, K, _threads(N), index),
+        _ROUTES[route], torch._C._cuda_getCurrentRawStream(index))
+    if err == _ERR_SMEM:
+        raise ValueError(f"F={F}, H={H}, K={K} need more shared memory per "
+                         f"block than the general kernel may take "
+                         f"(csrc/eval_cells.cu states the size and limit)")
+    if err != 0:
+        raise RuntimeError(f"eval_cells_f32 ({route}) launch failed: "
+                           f"cudaError {err}")
+    eval_cells.launches += 1
+    return correct, nll
+
+
+eval_cells.launches = 0

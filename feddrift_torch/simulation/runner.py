@@ -7,8 +7,8 @@ mode (every client on the device axis, float32, no fault injection):
         algo.begin_iteration(t)           # clustering / drift detection
         fresh per-(m, c) optimizer states
         fused (chunkable algorithms, chunk_rounds on):
-            TrainStep.train_iteration_eval  # R rounds: K1 + masked FedAvg,
-                                            # evals every freq rounds + last
+            TrainStep.train_iteration_eval  # R rounds: K1 + K2 (FedAvg),
+                                            # K3 evals every freq rounds + last
             algo.after_round, offer_acc_matrix, eval logging
         per-round (otherwise), for each round r:
             algo.round_inputs(t, r) -> TrainStep.train_round
@@ -109,22 +109,26 @@ class Experiment:
     def evaluate(self, t: int, round_idx: int) -> dict:
         """Reference ``test_on_all_clients``: each client's train accuracy
         on step t with its plurality model, and test accuracy on step t+1
-        (temporal holdout), from two fresh ``acc_matrix`` calls; for an
-        ensemble algorithm the test accuracy is its vote's
-        (``ensemble_eval``). Both read the round's feature masks."""
+        (temporal holdout), from one fresh K3 launch over both steps
+        (``acc_window``); for an ensemble algorithm the test accuracy is
+        its vote's (``ensemble_eval``) beside ``acc_matrix`` on step t.
+        Both read the round's feature masks."""
         fm = self.algo.round_inputs(t, round_idx)[2]
         spec = self.algo.ensemble_spec(t)
         params, C = self.pool.params, self.C_
+        if spec is None:
+            correct, loss_sum, total = (v.cpu().numpy() for v in
+                                        self.step.acc_window(
+                                            params, self.x[:, t:t + 2],
+                                            self.y[:, t:t + 2], fm))
+            return self._log_eval(t, correct[:, :C, 0], loss_sum[:, :C, 0],
+                                  correct[:, :C, 1], loss_sum[:, :C, 1],
+                                  total[:C])
         correct, loss_sum, total = (v.cpu().numpy() for v in
                                     self.step.acc_matrix(
                                         params, self.x[:, t], self.y[:, t],
                                         fm))
         xe, ye = self.x[:, t + 1], self.y[:, t + 1]
-        if spec is None:
-            corr_te, loss_te, _ = (v.cpu().numpy() for v in
-                                   self.step.acc_matrix(params, xe, ye, fm))
-            return self._log_eval(t, correct[:, :C], loss_sum[:, :C],
-                                  corr_te[:, :C], loss_te[:, :C], total[:C])
         tidx = self.algo.train_model_idx(t)
         cr = np.arange(C)
         dev = lambda a: None if a is None else torch.as_tensor(

@@ -120,3 +120,36 @@ def test_dense_bound_is_bytes_at_every_serving_shape(B):
     # a b32 forward's nine launches: 0.0281 ms of bytes (SIMT: 0.0309)
     assert total == pytest.approx(0.0281 * B / 32, rel=0.01)
     assert simt > total
+
+
+@pytest.mark.parametrize("nbytes,flops,by", [(3.35e9, 1.0, "bytes"),
+                                             (1.0, 67e9, "operations")])
+def test_bound_is_the_larger_of_bytes_and_operations(nbytes, flops, by):
+    """1 ms of bytes at 3.35 TB/s or of float32 operations at 67 TFLOP/s."""
+    assert chip_smoke._bound(nbytes, flops) == (pytest.approx(1.0), by)
+
+
+def test_reset_and_read_counts_cover_every_training_kernel():
+    from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
+    from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
+    fedavg.launches = eval_cells.launches = 3
+    fedavg_ref.cuda_calls = eval_cells_ref.cuda_calls = 2
+    chip_smoke._reset_counts()
+    assert chip_smoke._read_counts() == {
+        "k1_launches": 0, "k4_launches": 0, "k2_launches": 0,
+        "k3_launches": 0,
+        "plain_calls": {"fedavg_ref": 0, "eval_cells_ref": 0}}
+
+
+@pytest.mark.parametrize("k2,k3,plain", [(2000, 410, 0), (1999, 410, 0),
+                                         (2000, 0, 0), (2000, 410, 1)])
+def test_check_k2_k3_refuses_a_missed_round_or_a_plain_call(k2, k3, plain):
+    """A driven run fails unless K2 carried every round, K3 ran, and no
+    plain K2 / K3 ran on the card."""
+    got = {"k2_launches": k2, "k3_launches": k3,
+           "plain_calls": {"fedavg_ref": 0, "eval_cells_ref": plain}}
+    if (k2, k3, plain) == (2000, 410, 0):
+        chip_smoke._check_k2_k3("run", got, 2000)
+        return
+    with pytest.raises(AssertionError, match="K2 launched"):
+        chip_smoke._check_k2_k3("run", got, 2000)
