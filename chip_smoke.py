@@ -50,16 +50,27 @@ Phases, one or more lines of output each:
    weights, per-model feature masks: KUE's route); two calls of each must
    agree bitwise. It times each (per call and on the device, and the
    device time per local step) and the plain version in turns.
-   train_draw: K4, the weighted draw, against its plain version at KUE's
-   canonical shape (integer weights: rows and cdf bitwise) and with
-   non-integer weights (the cdf to 1e-6 relative, a row differing only
+   train_draw: K4, the weighted draw, as its two kernels at KUE's
+   canonical shape with clients 1 and 6 left out by a round's mask: K4a
+   (``weighted_cdf``, the step's cdf of the unmasked weights) and K4b
+   (``weighted_search``, a round's rows under the masked total weights)
+   against their plain versions (integer weights: cdf and rows bitwise,
+   and the rows those of the one-call draw of the masked weights;
+   non-integer weights: the cdf to 1e-6 relative, a row differing only
    where its uniform lies within that of a cdf boundary; the count is
-   printed), timed per call, enqueue and on the device beside the plain
-   version, ``torch.searchsorted`` after ``torch.cumsum`` and the bound.
+   printed), each timed per call, enqueue and on the device beside its
+   plain version, one library call (``torch.cumsum``,
+   ``torch.searchsorted``), both together, the one-launch design's
+   recorded device time and its bound.
    train_agg, train_eval: K2, the masked FedAvg, against its plain version
-   on one K1 round's client stack at the canonical shape (M 4, C 10, P 62,
-   model 3 with no active client): within 1e-6, that model's params
-   bitwise its previous ones, the stats equal; K3, the eval matrices,
+   on one K1 round's client stack at H = 32 (the general route's, M 4, C
+   10, P 194) and at the canonical width (P 62), model 3 with no active
+   client: within 1e-6, that model's params
+   bitwise its previous ones, the stats equal; K2 as the epilogue of K1's
+   fused kernel (``local_sgd_fedavg``) at the canonical shape, on gathered
+   rows (KUE's route) and at F = 2: bitwise equal to the K1 launch
+   followed by the ``fedavg.cu`` launch in every output, over 200 calls
+   back to back, timed beside K1 and K2 alone; K3, the eval matrices,
    through both of its kernels on strided windows of the SEA dataset
    (T1 11, N 500): an eval's two steps (G = 2), one step (G = 1), every
    step (G = T1, counts only), with feature masks, the general kernel
@@ -74,11 +85,14 @@ Phases, one or more lines of output each:
    ``python -m feddrift_torch run`` configuration (SEA, change points A,
    fnn, softcluster H_A_C_1_10_0, 10 steps x 200 rounds, checkpoint every
    step): per-step wall, rounds/s, final Test/Acc and models in use, then
-   the launches of K1 (through the fused kernel), K2 and K3, the plain
-   K2 / K3 calls on the card, and the device-busy share of one profiled
-   time step.
-   Fails unless every step ran, the checkpoint exists, K1 and K2 carried
-   all 2000 rounds, K3 the evals, no plain K2 / K3 ran on the card, and
+   the launches of K1 (through the fused kernel), K2 (the aggregations:
+   K1's epilogues and K2's own launches) and K3, the plain K2 / K3 / K4
+   calls on the card, and the launches a round, device-busy share and
+   device time a round of one profiled time step beside the two-launch
+   round's recorded ones.
+   Fails unless every step ran, the checkpoint exists, K1 carried all
+   2000 rounds and aggregated each in its epilogue (no K2 launch of its
+   own), K3 the evals, no K4 and no plain K2 / K3 / K4 ran, and
    Test/Acc tracks the committed reference run
    ``runs/sea-fnn-softcluster-H_A_C_1_10_0-s0`` (each step within 0.04,
    the 10-step mean within 0.015: across seeds 0-2 of the committed
@@ -92,16 +106,19 @@ Phases, one or more lines of output each:
    (M = 1), DriftSurf, MultiModel ``mmacc_06`` and ``mmgeni`` (fused),
    Adaptive-FedAvg ``win-1_iter``, the legacy ``clusterfl``, AUE, AUE-PC
    and KUE (per round; KUE through K4 and K1's gather route). One
-   ``train_algo`` line each: the path, wall, rounds/s, K1, K2 and K3
-   launches (and KUE's K4), the plain K2/K3 calls, host syncs a round,
-   models
+   ``train_algo`` line each: the path, wall, rounds/s, K1 launches, K2's
+   aggregations, K3 launches (and KUE's K4a and K4b), the plain K2 / K3 /
+   K4 calls, host syncs a round, models
    in use per step, per-step Test/Acc beside its committed SEA reference
    run, and the card's decisions (each client's model at every step's
    end, and the counts of drift, spawn, split and replacement events)
-   beside the committed run's; then the kernel launches a round and K1's,
-   K2's and K3's device time a launch in one profiled time step. Fails
-   unless K1 and K2 carried all 2000 rounds on the expected path (K4 too
-   for KUE, and nowhere else), no plain K2 / K3 ran on the card, and
+   beside the committed run's; then the kernel launches a round, busy
+   share and device time a round (beside the two-launch round's) and
+   K1's and K3's device
+   time a launch in one profiled time step. Fails unless K1 carried all
+   2000 rounds on the expected path and aggregated each in its epilogue,
+   KUE launched K4a once a step and K4b once a round (and nothing else
+   launched K4), no plain K2 / K3 / K4 ran on the card, and
    every step is within 0.04 (the mean within 0.015) of the committed run,
    whose final Test/Acc are pinned.
 8. train_sampling: 4 of 10 clients a round at full width, T = 2, R = 50,
@@ -110,11 +127,21 @@ Phases, one or more lines of output each:
    round's n is 0 exactly for the clients its mask leaves out.
 9. train_per_round_kinds: ``hard-r`` (per round), ``softcluster
    mmacc_06``, ``softmax_3``, ``geni`` and ``softclusterreset softmax_3``
-   at full width, T = 3, R = 20: each must take its path, launch K1 and K2
-   once a round and give finite metrics.
+   at full width, T = 3, R = 20: each must take its path, launch K1 and
+   aggregate once a round and give finite metrics.
+10. train_general: the general kernel's route (``fnn_hidden_dim`` 32, T =
+   2, R = 20), which has no epilogue: K1 and ``fedavg.cu`` launch once a
+   round.
 
 It then prints the kernels' JSON line, the card line and, last, the result
-line. Any failed phase exits non-zero before the result line. It imports
+line. Each entry of the kernels line takes its launches from the driven
+run whose path launches it and its error, times and bound from the case
+at that path's shape: the flash kernel and ``dense_rows`` from ``serve``;
+K1 with K2 as its epilogue (``local_sgd_fedavg``) and K3 from ``train``;
+K4a and K4b from KUE's ``train_algo`` run; K1 without an epilogue
+(``local_sgd``, the general kernel) and ``fedavg.cu`` from
+``train_general``, with their cases at H = 32. Every entry also carries
+``device_ms`` beside ``ms``. Any failed phase exits non-zero before the result line. It imports
 nothing of JAX.
 """
 
@@ -202,6 +229,36 @@ ALGO_RUNS = (
     ("kue", "H_A_C_1_10_0", "per_round", "sea-fnn-kue-H_A_C_1_10_0-s0",
      (0.85, 0.8414, 0.8414, 0.8344, 0.8524, 0.8654, 0.8538, 0.8684, 0.8578,
       0.8606)))
+# Each driven run as recorded by this script before K2 became K1's epilogue
+# and K4 two kernels (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W): kernel
+# launches a round and the busy share of a profiled time step; for the
+# canonical run also the device time a round (3.869 ms a 200-round step).
+# Records printed beside this run's numbers, not measurements.
+TWO_LAUNCH_PROFILE = {
+    "softcluster H_A_C_1_10_0": (2.285, 0.189, 0.019345),
+    "softcluster cfl_0.1_win-1": (18.245, 0.054, None),
+    "softclusterwin-1 hard": (2.33, 0.128, None),
+    "win-1 H_A_C_1_10_0": (2.33, 0.144, None),
+    "oblivious H_A_C_1_10_0": (2.33, 0.116, None),
+    "exp H_A_C_1_10_0": (2.33, 0.137, None),
+    "lin H_A_C_1_10_0": (2.33, 0.129, None),
+    "driftsurf H_A_C_1_10_0": (2.33, 0.188, None),
+    "mmacc mmacc_06": (2.33, 0.178, None),
+    "mmgeni H_A_C_1_10_0": (2.33, 0.118, None),
+    "ada win-1_iter": (13.255, 0.071, None),
+    "clusterfl H_A_C_1_10_0": (18.24, 0.048, None),
+    "aue H_A_C_1_10_0": (22.835, 0.059, None),
+    "auepc H_A_C_1_10_0": (23.045, 0.075, None),
+    "kue H_A_C_1_10_0": (16.72, 0.057, None)}
+
+
+def _two_launch(algo: str, arg: str) -> dict:
+    launches, busy, device_ms = TWO_LAUNCH_PROFILE[f"{algo} {arg}"]
+    return {"launches_per_round_two_launch": launches,
+            "device_busy_share_two_launch": busy,
+            "device_ms_per_round_two_launch": device_ms or "not recorded"}
+
+
 # The CFL run starts from the reference's own initial params for seed 0 (the
 # fnn 3 -> 10 -> 2 that feddrift_tpu's ModelPool.create draws with seed 42,
 # in every slot and as the reinit target; biases zero), so that its splits
@@ -832,8 +889,8 @@ def _train_case(dataset: str, seed: int, hidden: int = 10):
 
 
 def _local_sgd_bound_ms(rows, total_w, M: int, C: int, S: int, B: int,
-                        F: int, H: int, K: int, index_bytes: int
-                        ) -> tuple[float, str]:
+                        F: int, H: int, K: int, index_bytes: int,
+                        aggregate: bool = False) -> tuple[float, str]:
     """Least time for one K1 call on the card, counting the active pairs'
     work. Bytes: each distinct row (client, row of its T1·N) that an active
     pair's batches ``rows [M, C, S, B]`` read, read once (x and label), the
@@ -841,7 +898,9 @@ def _local_sgd_bound_ms(rows, total_w, M: int, C: int, S: int, B: int,
     client params, n and loss written, the batch indices (``index_bytes``)
     and the weights read; with a feature mask, that too. Operations: the
     float32 work of the active pairs' forward, backward and AMSGrad
-    steps."""
+    steps. With ``aggregate`` (K2 as the epilogue) also the aggregated
+    params and stats written once and the weighted sum's operations; the
+    client stack it reads is already counted as written."""
     import torch
     P = F * H + H + H * K + K
     act = total_w > 0                                            # [M, C]
@@ -854,6 +913,9 @@ def _local_sgd_bound_ms(rows, total_w, M: int, C: int, S: int, B: int,
               + index_bytes + M * C * 4)
     flops = active * S * (B * (4 * F * H + 6 * H * K + 6 * K + 2 * H)
                           + 14 * P)
+    if aggregate:
+        nbytes += 4 * (M * P + 3 * M)
+        flops += 2 * M * C * P + 2 * M * C
     return _bound(nbytes, flops)
 
 
@@ -895,7 +957,7 @@ def phase_train_kernel() -> dict:
     import torch
     from feddrift_torch.kernels.local_sgd import (_route, local_sgd,
                                                   local_sgd_ref)
-    entry, device_ms = None, {}
+    entry, device_ms, bounds = None, {}, {}
     for label, dataset, seed, hidden, forced, gather in K1_CASES:
         args, kw, dims, tw = _train_case(dataset, seed, hidden)
         x, y, params, opt, t_idx, slot, total_w = args
@@ -972,13 +1034,19 @@ def phase_train_kernel() -> dict:
                                  f"{nu_rel}, inactive untouched {untouched}, "
                                  f"n/count equal {same}, two calls bitwise "
                                  f"{bitwise}")
-        if label == "sea":
-            if route != "fused":
-                raise AssertionError(f"the canonical shape took the {route} "
-                                     f"kernel")
+        bounds[label] = bound_ms
+        if label == "sea" and route != "fused":
+            raise AssertionError(f"the canonical shape took the {route} "
+                                 f"kernel")
+        # K1 without an epilogue runs only on the general route (H = 32,
+        # train_general's); the fused route's K1 is local_sgd_fedavg's
+        if label == "h32":
+            if route != "general":
+                raise AssertionError(f"H = 32 took the {route} kernel")
             entry = {"name": "local_sgd", "route": "cuda",
                      "source": "feddrift_torch/kernels/csrc/local_sgd.cu",
                      "replaces": "feddrift_tpu/core/step.py:225",
+                     "case": "H = 32, the general kernel (no epilogue)",
                      "launches": None, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None,
@@ -989,7 +1057,7 @@ def phase_train_kernel() -> dict:
          fused_vs_general=fused / general if fused and general
          else "not measured",
          first_design_device_ms_recorded=K1_FIRST_DESIGN_DEVICE_MS,
-         bound_ms=entry["bound_ms"],
+         bound_ms=bounds["sea"],
          gather_fused_device_ms=device_ms["sea_gather"],
          gather_general_device_ms=device_ms["sea_gather_general"],
          gather_vs_contiguous_fused=device_ms["sea_gather"] / fused
@@ -999,14 +1067,22 @@ def phase_train_kernel() -> dict:
 
 # K4's cases: (label, time weights, sample weights) at KUE's canonical
 # shape (M = 4, C = 10, T1 = 11, N = 500, S = 5, B = 500): KUE's own
-# (win-1 at step 5 times Poisson(1) counts: integers, so the kernel's rows
-# must equal the plain version's bit for bit), and non-integer weights
-# (linear recency over steps 0..5 times counts scaled by U(0.5, 2)), where
-# the cdf is held to DRAW_CDF_RTOL and a row may differ only where its
-# uniform lies within that distance of a cdf boundary. Client 3 is left
-# out of every model (the uniform fallback) in both.
+# (win-1 at step 5 times Poisson(1) counts: integers, so the kernels' cdf
+# and rows must equal the plain versions' bit for bit), and non-integer
+# weights (linear recency over steps 0..5 times counts scaled by
+# U(0.5, 2)), where the cdf is held to DRAW_CDF_RTOL and a row may differ
+# only where its uniform lies within that distance of a cdf boundary.
+# Client 3 is left out of every model's weights (the uniform fallback) in
+# both, and the round's client mask DRAW_MASK_OFF leaves clients 1 and 6
+# out of its total weights (the search's uniform fallback).
 DRAW_CASES = (("kue", "integer"), ("recency", "non_integer"))
 DRAW_CDF_RTOL = 1e-6
+DRAW_MASK_OFF = (1, 6)
+# K4's first design, one launch a round (cdf and search together), at
+# KUE's canonical shape on the device as recorded by this script (PERF.md,
+# NVIDIA H100 80GB HBM3, 700.00 W); that kernel is gone, so its time is a
+# record here, not a measurement of this run
+K4_ONE_LAUNCH_DEVICE_MS = 0.00806
 
 
 def _draw_case(kind: str):
@@ -1023,42 +1099,60 @@ def _draw_case(kind: str):
         sw = (rng.poisson(1.0, (M, C, N))
               * rng.uniform(0.5, 2.0, (M, C, N))).astype(np.float32)
     tw[:, 3] = 0.0
+    mask = np.ones(C, np.float32)
+    mask[list(DRAW_MASK_OFF)] = 0.0
     gen = torch.Generator(device="cuda").manual_seed(11)
     u = torch.rand((M, C, S, B), generator=gen, device="cuda")
-    return (torch.from_numpy(tw).cuda(), torch.from_numpy(sw).cuda(), u,
-            dict(M=M, C=C, T1=T1, N=N, S=S, B=B))
+    tw, sw = torch.from_numpy(tw).cuda(), torch.from_numpy(sw).cuda()
+    masked = tw * torch.from_numpy(mask).cuda()[None, :, None]
+    return tw, sw, masked, u, dict(M=M, C=C, T1=T1, N=N, S=S, B=B)
 
 
-def _draw_bound_ms(d: dict) -> tuple[float, str]:
-    """Least time for one K4 call: the weights and uniforms read once and
-    the rows written once, against its operations (a multiply, an add and
-    a divide per row of the scan, ceil(log2(T1·N)) + 1 comparisons a
-    uniform)."""
+def _cdf_bound_ms(d: dict) -> tuple[float, str]:
+    """Least time for one K4a call: the weights read once and the cdf
+    written once, against its operations (the time weights' sum, a
+    multiply, an add and a divide a row)."""
+    pairs, L = d["M"] * d["C"], d["T1"] * d["N"]
+    return _bound(4 * pairs * (d["T1"] + d["N"] + L),
+                  pairs * (d["T1"] + 3 * L))
+
+
+def _search_bound_ms(d: dict, weighted_pairs: int) -> tuple[float, str]:
+    """Least time for one K4b call: the cdf rows of the pairs that search
+    them (total weight > 0) read once, the total weights and uniforms read
+    once and the rows written once, against ceil(log2(T1·N)) + 1
+    comparisons a uniform."""
     import math
     pairs, L, D = d["M"] * d["C"], d["T1"] * d["N"], d["S"] * d["B"]
-    nbytes = 4 * pairs * (d["T1"] + d["N"] + 2 * D)
-    ops = pairs * (3 * L + D * (math.ceil(math.log2(L)) + 1))
-    return _bound(nbytes, ops)
+    return _bound(4 * (weighted_pairs * L + pairs * (1 + 2 * D)),
+                  pairs * D * (math.ceil(math.log2(L)) + 1))
 
 
-def phase_train_draw() -> dict:
-    """K4, the weighted draw, against its plain version on the card (rule
-    of ``DRAW_CASES``), with its times beside the plain version's, the
-    bound and ``torch.searchsorted`` after ``torch.cumsum``."""
+def phase_train_draw() -> tuple[dict, dict]:
+    """K4, the weighted draw, as its two kernels against their plain
+    versions on the card (rule of ``DRAW_CASES``): K4a, the step's cdf of
+    the unmasked weights, and K4b, a round's search under the masked total
+    weights, whose rows must also be the one-call draw's of the masked
+    weights. Each is timed beside its plain version, one library call, its
+    bound and the one-launch design's recorded time. Returns the kernels line's K4a and
+    K4b entries."""
     import torch
-    from feddrift_torch.kernels.weighted_draw import (weighted_cdf_ref,
-                                                      weighted_draw,
-                                                      weighted_draw_ref)
-    entry = None
+    from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
+                                                      weighted_cdf_ref,
+                                                      weighted_draw_ref,
+                                                      weighted_search,
+                                                      weighted_search_ref)
+    entries = None
     for label, kind in DRAW_CASES:
-        tw, sw, u, d = _draw_case(kind)
-        L = d["T1"] * d["N"]
-        cdf = torch.empty((d["M"], d["C"], L), device="cuda")
-        idx = weighted_draw(tw, sw, u, cdf_out=cdf)
-        again = weighted_draw(tw, sw, u)
+        tw, sw, masked, u, d = _draw_case(kind)
+        total_w = masked.sum(-1)
+        cdf = weighted_cdf(tw, sw)
+        idx = weighted_search(cdf, total_w, u)
+        again = weighted_search(weighted_cdf(tw, sw), total_w, u)
         torch.cuda.synchronize()
         want_cdf = weighted_cdf_ref(tw, sw)
-        want = weighted_draw_ref(tw, sw, u)
+        want = weighted_search_ref(want_cdf, total_w, u)
+        one_call = weighted_draw_ref(masked, sw, u)
         cdf_rel = float(((cdf - want_cdf).abs()
                          / want_cdf.abs().clamp_min(1e-30)).max())
         differ = idx != want
@@ -1071,52 +1165,84 @@ def phase_train_draw() -> dict:
         near = ((flat_u - edge).abs() <= DRAW_CDF_RTOL * edge.abs()) \
             .reshape(u.shape)
         gap = (idx - want).abs().max().item()
-        ok = bool(torch.equal(idx, again)) and (
+        search_on_plain_cdf = bool(torch.equal(
+            weighted_search(want_cdf, total_w, u), want))
+        ok = bool(torch.equal(idx, again)) and search_on_plain_cdf and bool(
+            torch.equal(want, one_call)) and (
             bool(torch.equal(idx, want)) and bool(torch.equal(cdf, want_cdf))
             if kind == "integer" else cdf_rel <= DRAW_CDF_RTOL
             and bool(near[differ].all()))
-        # the plain version's pieces as the library computes them: cumsum
-        # of the probabilities, then searchsorted of the scaled uniforms
+        # the library's pieces: cumsum of the probabilities, searchsorted
+        # of the uniforms in a normalised cdf, and both (the one-launch
+        # design's yardstick)
         p = (tw[..., :, None] * sw[..., None, :]).reshape(d["M"], d["C"], -1)
         p = torch.where(p.sum(-1, keepdim=True) > 0, p, torch.ones_like(p))
         scaled = (flat_u * p.sum(-1, keepdim=True)).contiguous()
-        calls = {"kernel": lambda: weighted_draw(tw, sw, u),
-                 "plain": lambda: weighted_draw_ref(tw, sw, u),
-                 "library": lambda: torch.searchsorted(
-                     torch.cumsum(p, -1), scaled, right=True)}
-        ms, plain_ms, library_ms = _interleaved(_time_ms, calls).values()
-        device = {name: _device_ms(f) for name, f in calls.items()}
-        enqueue_ms = _host_enqueue_ms(calls["kernel"])
-        bound_ms, bound_by = _draw_bound_ms(d)
-        _say("train_draw", name="weighted_draw", case=label, weights=kind,
-             **d, rows_equal=bool(torch.equal(idx, want)),
-             rows_differing=int(differ.sum()),
-             rows_differing_near_boundary=int(near[differ].sum()),
-             max_row_gap=gap, cdf_bitwise=bool(torch.equal(cdf, want_cdf)),
-             cdf_max_rel_err=cdf_rel, cdf_rtol=DRAW_CDF_RTOL,
-             two_calls_bitwise=bool(torch.equal(idx, again)),
-             kernel_ms=ms, kernel_device_ms=device["kernel"],
-             kernel_enqueue_ms=enqueue_ms, plain_ms=plain_ms,
-             plain_device_ms=device["plain"], library_ms=library_ms,
-             library_device_ms=device["library"], bound_ms=bound_ms,
-             bound_by=bound_by, kernel_vs_bound=(device["kernel"] or ms)
-             / bound_ms)
+        times = {
+            "cdf": _timed({"kernel": lambda: weighted_cdf(tw, sw),
+                           "plain": lambda: weighted_cdf_ref(tw, sw),
+                           "library": lambda: torch.cumsum(p, -1)}),
+            "search": _timed({
+                "kernel": lambda: weighted_search(cdf, total_w, u),
+                "plain": lambda: weighted_search_ref(cdf, total_w, u),
+                "library": lambda: torch.searchsorted(cdf, flat_u,
+                                                      right=True)})}
+        both = _timed({"kernel": lambda: torch.searchsorted(
+            torch.cumsum(p, -1), scaled, right=True)})["kernel"]
+        weighted_pairs = int((total_w > 0).sum())
+        bounds = {"cdf": _cdf_bound_ms(d),
+                  "search": _search_bound_ms(d, weighted_pairs)}
+        for part, t in times.items():
+            k = t["kernel"]
+            _say("train_draw", name=f"weighted_{part}", case=label,
+                 weights=kind, **d, masked_clients=list(DRAW_MASK_OFF),
+                 weighted_pairs=weighted_pairs,
+                 rows_equal=bool(torch.equal(idx, want)),
+                 rows_differing=int(differ.sum()),
+                 rows_differing_near_boundary=int(near[differ].sum()),
+                 max_row_gap=gap,
+                 cdf_bitwise=bool(torch.equal(cdf, want_cdf)),
+                 cdf_max_rel_err=cdf_rel, cdf_rtol=DRAW_CDF_RTOL,
+                 rows_are_the_masked_one_call_draw=bool(
+                     torch.equal(want, one_call)),
+                 search_on_plain_cdf_bitwise=search_on_plain_cdf,
+                 two_calls_bitwise=bool(torch.equal(idx, again)),
+                 kernel_ms=k["ms"], kernel_device_ms=k["device_ms"],
+                 kernel_enqueue_ms=t["kernel_enqueue_ms"],
+                 plain_ms=t["plain"]["ms"],
+                 plain_device_ms=t["plain"]["device_ms"],
+                 library_ms=t["library"]["ms"],
+                 library_device_ms=t["library"]["device_ms"],
+                 cumsum_searchsorted_ms=both["ms"],
+                 cumsum_searchsorted_device_ms=both["device_ms"],
+                 one_launch_device_ms_recorded=K4_ONE_LAUNCH_DEVICE_MS,
+                 bound_ms=bounds[part][0], bound_by=bounds[part][1],
+                 kernel_vs_bound=(k["device_ms"] or k["ms"])
+                 / bounds[part][0])
         if not ok:
-            raise AssertionError(f"weighted_draw ({label}): rows equal "
+            raise AssertionError(f"weighted draw ({label}): rows equal "
                                  f"{bool(torch.equal(idx, want))}, "
                                  f"{int(differ.sum())} differ "
                                  f"({int(near[differ].sum())} near a "
-                                 f"boundary), cdf rel {cdf_rel}")
+                                 f"boundary), cdf rel {cdf_rel}, the masked "
+                                 f"one-call draw's rows "
+                                 f"{bool(torch.equal(want, one_call))}")
         if kind == "integer":
-            entry = {"name": "weighted_draw", "route": "cuda",
-                     "source": "feddrift_torch/kernels/csrc/weighted_draw.cu",
-                     "replaces": "feddrift_tpu/core/step.py:72",
-                     "launches": None, "max_abs_err": float(
-                         (idx - want).abs().max()), "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms,
-                     "device_ms": device["kernel"]}
-    return entry
+            src = "feddrift_torch/kernels/csrc/weighted_draw.cu"
+            err = {"cdf": float((cdf - want_cdf).abs().max()),
+                   "search": float((idx - want).abs().max())}
+            entries = tuple(
+                {"name": f"weighted_{part}", "route": "cuda", "source": src,
+                 "replaces": "feddrift_tpu/core/step.py:"
+                 + ("72" if part == "cdf" else "79"),
+                 "launches": None, "max_abs_err": err[part],
+                 "ms": times[part]["kernel"]["ms"],
+                 "plain_ms": times[part]["plain"]["ms"],
+                 "bound_ms": bounds[part][0], "bound_by": bounds[part][1],
+                 "library_ms": times[part]["library"]["ms"],
+                 "device_ms": times[part]["kernel"]["device_ms"]}
+                for part in ("cdf", "search"))
+    return entries
 
 
 # K2 and K3 against their plain versions: K2 within AGG_ATOL (float32, ten
@@ -1159,67 +1285,88 @@ def _timed(calls: dict) -> dict:
     return out
 
 
-def _k2_case():
-    """K2's canonical inputs: the client stack and n of one K1 round at the
-    SEA shape (pairs (0, 3), (2, 7) and all of model 3 inactive: model 3 is
-    a cluster with no active client), and the pool as prev."""
+# K2's cases: (label, fnn hidden width). K2 runs as its own launch only on
+# K1's general route, which H = 32 takes (P 194): its kernels-line entry is
+# that case's. The canonical width (P 62) is held and timed beside it.
+K2_CASES = (("h32", 32), ("sea", 10))
+
+
+def _k2_case(hidden: int):
+    """K2's inputs: the client stack and n of one K1 round at the SEA shape
+    and fnn width ``hidden`` (pairs (0, 3), (2, 7) and all of model 3
+    inactive: model 3 is a cluster with no active client), and the pool as
+    prev."""
     from feddrift_torch.kernels.local_sgd import local_sgd
-    args, kw, d, _ = _train_case("sea", 0)
+    args, kw, d, _ = _train_case("sea", 0, hidden)
     client, _, n, _ = local_sgd(*args, **kw)
     return client, n, args[2], d
 
 
 def _k2_phase() -> dict:
+    """K2 against its plain version at each of ``K2_CASES``: within
+    ``AGG_ATOL``, the empty cluster bitwise its previous params, the stats
+    row equal and written only where asked, two calls bitwise; timed
+    beside its plain version and bound. Returns the H = 32 case's entry of
+    the kernels line."""
     import torch
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
-    client, n, prev, _ = _k2_case()
-    M, C, P = client.shape
-    rows = torch.full((3, M, 3), -1.0, device="cuda")
-    out, stats = fedavg(client, n, prev, stats_out=rows[1])
-    again, again_stats = fedavg(client, n, prev)
-    torch.cuda.synchronize()
-    want, want_stats = fedavg_ref(client, n, prev)
-    err = float((out - want).abs().max())
-    empty = n.sum(1) == 0
-    empty_bitwise = bool(torch.equal(out[empty], prev[empty]))
-    stats_equal = bool(torch.equal(stats, want_stats)
-                       and torch.equal(rows[1], want_stats)
-                       and (rows[[0, 2]] == -1).all())
-    bitwise = bool(torch.equal(out, again)
-                   and torch.equal(stats, again_stats))
-    times = _timed({"kernel": lambda: fedavg(client, n, prev),
-                    "plain": lambda: fedavg_ref(client, n, prev)})
-    # bytes: the stack, n, prev read once; out and stats written once;
-    # operations: the weighted sum (a multiply and an add a term), the
-    # weights' sum and divisions
-    bound_ms, bound_by = _bound(4 * (M * C * P + M * C + 2 * M * P + 3 * M),
-                                2 * M * C * P + 2 * M * C)
-    kernel = times["kernel"]
-    _say("train_agg", name="fedavg", M=M, C=C, P=P,
-         empty_clusters=int(empty.sum()), active_clients=stats[:, 0].tolist(),
-         max_abs_err=err, atol=AGG_ATOL, empty_bitwise_prev=empty_bitwise,
-         stats_equal=stats_equal, two_calls_bitwise=bitwise,
-         kernel_ms=kernel["ms"], kernel_device_ms=kernel["device_ms"],
-         kernel_enqueue_ms=times["kernel_enqueue_ms"],
-         plain_ms=times["plain"]["ms"],
-         plain_device_ms=times["plain"]["device_ms"],
-         plain_launches_per_call=_launches(lambda: fedavg_ref(client, n,
-                                                              prev)),
-         bound_ms=bound_ms, bound_by=bound_by,
-         kernel_vs_bound=(kernel["device_ms"] or kernel["ms"]) / bound_ms)
-    if not (err <= AGG_ATOL and empty_bitwise and stats_equal and bitwise
-            and bool(empty.any())):
-        raise AssertionError(f"fedavg: |kernel - plain| {err} (atol "
-                             f"{AGG_ATOL}), empty clusters bitwise "
-                             f"{empty_bitwise}, stats equal {stats_equal}, "
-                             f"two calls bitwise {bitwise}")
-    return {"name": "fedavg", "route": "cuda",
-            "source": "feddrift_torch/kernels/csrc/fedavg.cu",
-            "replaces": "feddrift_tpu/resilience/robust_agg.py:139",
-            "launches": None, "max_abs_err": err, "ms": kernel["ms"],
-            "plain_ms": times["plain"]["ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "device_ms": kernel["device_ms"]}
+    entry = None
+    for label, hidden in K2_CASES:
+        client, n, prev, _ = _k2_case(hidden)
+        M, C, P = client.shape
+        rows = torch.full((3, M, 3), -1.0, device="cuda")
+        out, stats = fedavg(client, n, prev, stats_out=rows[1])
+        again, again_stats = fedavg(client, n, prev)
+        torch.cuda.synchronize()
+        want, want_stats = fedavg_ref(client, n, prev)
+        err = float((out - want).abs().max())
+        empty = n.sum(1) == 0
+        empty_bitwise = bool(torch.equal(out[empty], prev[empty]))
+        stats_equal = bool(torch.equal(stats, want_stats)
+                           and torch.equal(rows[1], want_stats)
+                           and (rows[[0, 2]] == -1).all())
+        bitwise = bool(torch.equal(out, again)
+                       and torch.equal(stats, again_stats))
+        times = _timed({"kernel": lambda: fedavg(client, n, prev),
+                        "plain": lambda: fedavg_ref(client, n, prev)})
+        # bytes: the stack, n, prev read once; out and stats written once;
+        # operations: the weighted sum (a multiply and an add a term), the
+        # weights' sum and divisions
+        bound_ms, bound_by = _bound(
+            4 * (M * C * P + M * C + 2 * M * P + 3 * M),
+            2 * M * C * P + 2 * M * C)
+        kernel = times["kernel"]
+        _say("train_agg", name="fedavg", case=label, M=M, C=C, P=P,
+             hidden=hidden, empty_clusters=int(empty.sum()),
+             active_clients=stats[:, 0].tolist(), max_abs_err=err,
+             atol=AGG_ATOL, empty_bitwise_prev=empty_bitwise,
+             stats_equal=stats_equal, two_calls_bitwise=bitwise,
+             kernel_ms=kernel["ms"], kernel_device_ms=kernel["device_ms"],
+             kernel_enqueue_ms=times["kernel_enqueue_ms"],
+             plain_ms=times["plain"]["ms"],
+             plain_device_ms=times["plain"]["device_ms"],
+             plain_launches_per_call=_launches(
+                 lambda: fedavg_ref(client, n, prev)),
+             bound_ms=bound_ms, bound_by=bound_by,
+             kernel_vs_bound=(kernel["device_ms"] or kernel["ms"])
+             / bound_ms)
+        if not (err <= AGG_ATOL and empty_bitwise and stats_equal
+                and bitwise and bool(empty.any())):
+            raise AssertionError(f"fedavg ({label}): |kernel - plain| {err} "
+                                 f"(atol {AGG_ATOL}), empty clusters "
+                                 f"bitwise {empty_bitwise}, stats equal "
+                                 f"{stats_equal}, two calls bitwise "
+                                 f"{bitwise}")
+        if label == "h32":
+            entry = {"name": "fedavg", "route": "cuda",
+                     "source": "feddrift_torch/kernels/csrc/fedavg.cu",
+                     "replaces": "feddrift_tpu/resilience/robust_agg.py:139",
+                     "case": f"M {M}, C {C}, P {P} (H = 32, K1's general "
+                     f"route)", "launches": None, "max_abs_err": err,
+                     "ms": kernel["ms"], "plain_ms": times["plain"]["ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None, "device_ms": kernel["device_ms"]}
+    return entry
 
 
 def _k3_case(hidden: int, window: str, masked: bool, seed: int):
@@ -1367,14 +1514,120 @@ def _k5_phase() -> None:
                  if device_ms else "not measured")
 
 
-def phase_train_agg_eval() -> tuple[dict, dict]:
-    """K2 (the masked FedAvg) and K3 (the eval matrices) against their
-    plain versions on the card at the canonical shapes, timed beside them
-    and their bounds; then K5's plain functions timed alone. Returns the
-    kernels line's entries of K2 and K3."""
-    agg, ev = _k2_phase(), _k3_phase()
+# K1 with K2 as its epilogue: (label, dataset, seed, gathered batches) at
+# the canonical round shape with _train_case's inactive pairs and model 3
+# without an active client; gathered rows as KUE's route; F = 2 (sine)
+K1K2_CASES = (("sea", "sea", 0, False), ("sea_gather", "sea", 3, True),
+              ("sine", "sine", 1, False))
+K1K2_REPEATS = 200
+
+
+def _k1k2_phase() -> dict:
+    """The fused round (``local_sgd_fedavg``: K1 with K2 as its epilogue)
+    against the K1 launch followed by the ``fedavg.cu`` launch: bitwise in
+    the aggregated params, stats, client stack, optimizer state, n and
+    losses; ``K1K2_REPEATS`` calls back to back give the same bits (a
+    ticket race, or a ticket not reset, would not: each call's stats row
+    starts at -1). Its device time is printed beside K1's and K2's alone.
+    Returns the kernels line's entry."""
+    import torch
+    from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
+    from feddrift_torch.kernels.local_sgd import (local_sgd, local_sgd_fedavg,
+                                                  local_sgd_fedavg_ref)
+    entry = None
+    for label, dataset, seed, gather in K1K2_CASES:
+        args, kw, dims, tw = _train_case(dataset, seed)
+        x, y, params, opt, t_idx, slot, total_w = args
+        if gather:
+            idx, fm = _gathered(x, tw, dims["S"], dims["B"], seed)
+            t_idx = slot = None
+            kw = dict(kw, idx=idx, feat_mask=fm)
+            rows = idx
+        else:
+            rows = (t_idx * x.shape[2] + slot * dims["B"])[..., None] \
+                + torch.arange(dims["B"], device="cuda")
+        fresh = lambda: {k: v.clone() for k, v in opt.items()}
+        state = fresh()
+        client, state, n, loss = local_sgd(x, y, params, state, t_idx, slot,
+                                           total_w, **kw)
+        agg, stats = fedavg(client, n, params)
+        states = [fresh() for _ in range(K1K2_REPEATS)]
+        stat_rows = torch.full((K1K2_REPEATS, dims["M"], 3), -1.0,
+                               device="cuda")
+        outs = [local_sgd_fedavg(x, y, params, st, t_idx, slot, total_w,
+                                 **kw, stats_out=stat_rows[i])
+                for i, st in enumerate(states)]
+        torch.cuda.synchronize()
+        differing = sum(not (
+            torch.equal(o[4], agg) and torch.equal(o[5], stats)
+            and torch.equal(o[0], client) and torch.equal(o[2], n)
+            and torch.equal(o[3], loss)
+            and all(torch.equal(o[1][k], state[k]) for k in state))
+            for o in outs)
+        want, want_stats = fedavg_ref(client, n, params)
+        err = float((agg - want).abs().max())
+        empty = n.sum(1) == 0
+        empty_prev = bool(torch.equal(agg[empty], params[empty]))
+        state = fresh()
+        calls = {"kernel": lambda: local_sgd_fedavg(
+                     x, y, params, state, t_idx, slot, total_w, **kw),
+                 "plain": lambda: local_sgd_fedavg_ref(
+                     x, y, params, state, t_idx, slot, total_w, **kw)}
+        times = _timed(calls)
+        k1_dev = _device_ms(lambda: local_sgd(x, y, params, state, t_idx,
+                                              slot, total_w, **kw))
+        k2_dev = _device_ms(lambda: fedavg(client, n, params))
+        bound_ms, bound_by = _local_sgd_bound_ms(
+            rows, total_w, **dims, index_bytes=4 * (
+                rows.numel() + dims["M"] * dims["F"] if gather
+                else 2 * t_idx.numel()), aggregate=True)
+        k = times["kernel"]
+        _say("train_agg", name="local_sgd_fedavg", case=label,
+             dataset=dataset, batches="gathered (K4 rows, feature masks)"
+             if gather else "contiguous", **dims,
+             active_pairs=int((total_w > 0).sum()),
+             empty_models=int(empty.sum()), repeats=K1K2_REPEATS,
+             repeats_differing=differing, max_abs_err_vs_plain=err,
+             stats_equal_plain=bool(torch.equal(stats, want_stats)),
+             empty_model_bitwise_prev=empty_prev,
+             kernel_ms=k["ms"], kernel_device_ms=k["device_ms"],
+             kernel_enqueue_ms=times["kernel_enqueue_ms"],
+             k1_alone_device_ms=k1_dev, k2_alone_device_ms=k2_dev,
+             k1_plus_k2_device_ms=k1_dev + k2_dev if k1_dev and k2_dev
+             else "not measured",
+             plain_ms=times["plain"]["ms"],
+             plain_device_ms=times["plain"]["device_ms"],
+             bound_ms=bound_ms, bound_by=bound_by,
+             kernel_vs_bound=(k["device_ms"] or k["ms"]) / bound_ms)
+        if differing or err > AGG_ATOL or not empty_prev \
+                or not bool(empty.any()) \
+                or not torch.equal(stats, want_stats):
+            raise AssertionError(f"local_sgd_fedavg ({label}): "
+                                 f"{differing} of {K1K2_REPEATS} calls "
+                                 f"differ from K1 then K2, |K2 - plain| "
+                                 f"{err}, empty model bitwise prev "
+                                 f"{empty_prev}")
+        if label == "sea":
+            entry = {"name": "local_sgd_fedavg", "route": "cuda",
+                     "source": "feddrift_torch/kernels/csrc/local_sgd.cu",
+                     "replaces": "feddrift_tpu/core/step.py:225 and "
+                     "feddrift_tpu/resilience/robust_agg.py:139",
+                     "launches": None, "max_abs_err": err, "ms": k["ms"],
+                     "plain_ms": times["plain"]["ms"], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None,
+                     "device_ms": k["device_ms"]}
+    return entry
+
+
+def phase_train_agg_eval() -> tuple[dict, dict, dict]:
+    """K2 (the masked FedAvg) alone and as K1's epilogue, and K3 (the eval
+    matrices), against their plain versions on the card at the canonical
+    shapes, timed beside them and their bounds; then K5's plain functions
+    timed alone. Returns the kernels line's entries of K2, K1 + K2 and
+    K3."""
+    agg, fused, ev = _k2_phase(), _k1k2_phase(), _k3_phase()
     _k5_phase()
-    return agg, ev
+    return agg, fused, ev
 
 
 def _launches(fn, reps: int = 5) -> float:
@@ -1406,43 +1659,67 @@ def _reference_accs(path: str | None = None,
 
 
 def _reset_counts() -> None:
-    """Every kernel's launch count and the plain K2 / K3 versions' calls on
-    the card, set to 0 just before a run is driven."""
+    """Every training kernel's launch count and the plain K2 / K3 / K4
+    versions' calls on the card, set to 0 just before a run is driven."""
     from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
-    from feddrift_torch.kernels.local_sgd import local_sgd
-    from feddrift_torch.kernels.weighted_draw import weighted_draw
-    local_sgd.launches = weighted_draw.launches = 0
+    from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_fedavg
+    from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
+                                                      weighted_cdf_ref,
+                                                      weighted_search,
+                                                      weighted_search_ref)
+    local_sgd.launches = local_sgd_fedavg.launches = 0
+    weighted_cdf.launches = weighted_search.launches = 0
     fedavg.launches = eval_cells.launches = 0
     fedavg_ref.cuda_calls = eval_cells_ref.cuda_calls = 0
+    weighted_cdf_ref.cuda_calls = weighted_search_ref.cuda_calls = 0
 
 
 def _read_counts() -> dict:
-    """The counts ``_reset_counts`` zeroed, read just after a run."""
+    """The counts ``_reset_counts`` zeroed, read just after a run. A round
+    is aggregated by K1's epilogue (``k2_epilogues``, the fused route) or
+    by its own ``fedavg.cu`` launch (``k2_launches``, the general route).
+    ``local_sgd.launches`` counts every K1 launch, with an epilogue or
+    without; ``k1_without_epilogue`` the latter alone."""
     from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
-    from feddrift_torch.kernels.local_sgd import local_sgd
-    from feddrift_torch.kernels.weighted_draw import weighted_draw
+    from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_fedavg
+    from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
+                                                      weighted_cdf_ref,
+                                                      weighted_search,
+                                                      weighted_search_ref)
     return {"k1_launches": local_sgd.launches,
-            "k4_launches": weighted_draw.launches,
+            "k1_without_epilogue":
+            local_sgd.launches - local_sgd_fedavg.launches,
+            "k4a_launches": weighted_cdf.launches,
+            "k4b_launches": weighted_search.launches,
             "k2_launches": fedavg.launches,
+            "k2_epilogues": local_sgd_fedavg.launches,
+            "aggregations": fedavg.launches + local_sgd_fedavg.launches,
             "k3_launches": eval_cells.launches,
             "plain_calls": {"fedavg_ref": fedavg_ref.cuda_calls,
-                            "eval_cells_ref": eval_cells_ref.cuda_calls}}
+                            "eval_cells_ref": eval_cells_ref.cuda_calls,
+                            "weighted_cdf_ref": weighted_cdf_ref.cuda_calls,
+                            "weighted_search_ref":
+                            weighted_search_ref.cuda_calls}}
 
 
-def _check_k2_k3(name: str, got: dict, rounds: int) -> None:
-    """K2 carried every round and K3 every eval, and no plain K2 / K3 ran
-    on the card."""
-    if got["k2_launches"] != rounds or got["k3_launches"] < 1 \
-            or any(got["plain_calls"].values()):
-        raise AssertionError(f"{name}: K2 launched {got['k2_launches']} "
-                             f"times for {rounds} rounds, K3 "
+def _check_k2_k3(name: str, got: dict, rounds: int,
+                 k2_launches: int = 0) -> None:
+    """K2 aggregated every round once (by K1's epilogue, or by
+    ``k2_launches`` launches of its own on the general route), K3 ran, and
+    no plain K2 / K3 / K4 ran on the card."""
+    if got["aggregations"] != rounds or got["k2_launches"] != k2_launches \
+            or got["k3_launches"] < 1 or any(got["plain_calls"].values()):
+        raise AssertionError(f"{name}: K2 aggregated {got['aggregations']} "
+                             f"times for {rounds} rounds ("
+                             f"{got['k2_launches']} launches of its own, "
+                             f"want {k2_launches}), K3 launched "
                              f"{got['k3_launches']} times, plain calls on "
                              f"the card {got['plain_calls']}")
 
 
-def phase_train(entry: dict, agg_entry: dict, eval_entry: dict) -> None:
+def phase_train(fused_entry: dict, eval_entry: dict) -> None:
     import tempfile
 
     import torch
@@ -1474,8 +1751,7 @@ def phase_train(entry: dict, agg_entry: dict, eval_entry: dict) -> None:
             _say("train_step", iteration=t, wall_s=e["wall_s"],
                  rounds_per_s=e["rounds_per_s"], test_acc=accs[t],
                  reference_test_acc=ref[t], models_in_use=models[t])
-        entry["launches"] = launches
-        agg_entry["launches"] = counts["k2_launches"]
+        fused_entry["launches"] = counts["k2_epilogues"]
         eval_entry["launches"] = counts["k3_launches"]
         # one more time step under the profiler: where its wall goes
         R, freq = cfg.comm_round, cfg.frequency_of_the_test
@@ -1500,8 +1776,13 @@ def phase_train(entry: dict, agg_entry: dict, eval_entry: dict) -> None:
              algo=cfg.concept_drift_algo, algo_arg=cfg.concept_drift_algo_arg,
              steps=len(ends), rounds=exp.global_round, setup_s=setup_s,
              wall_s=wall, local_sgd_launches=launches,
-             local_sgd_route=route, fedavg_launches=counts["k2_launches"],
+             k1_without_epilogue=counts["k1_without_epilogue"],
+             local_sgd_route=route, aggregations=counts["aggregations"],
+             k2_epilogues=counts["k2_epilogues"],
+             fedavg_launches=counts["k2_launches"],
              eval_cells_launches=counts["k3_launches"],
+             k4a_launches=counts["k4a_launches"],
+             k4b_launches=counts["k4b_launches"],
              plain_calls=counts["plain_calls"], checkpoint=ckpt,
              test_acc_mean=mean_acc, reference_mean=ref_mean,
              max_step_diff=max(map(abs, diffs)),
@@ -1510,6 +1791,9 @@ def phase_train(entry: dict, agg_entry: dict, eval_entry: dict) -> None:
              device_busy_share=busy_us / prof_us if busy_us
              else "not measured",
              kernel_launches_per_round=sum(e.count for e in kernels) / R,
+             device_ms_per_round=busy_us / R / 1e3 if busy_us
+             else "not measured", **_two_launch(cfg.concept_drift_algo,
+                                                cfg.concept_drift_algo_arg),
              top_kernels_us_per_round={e.key[:60]: e.self_device_time_total / R
                                        for e in top})
         want = cfg.train_iterations * cfg.comm_round
@@ -1523,6 +1807,9 @@ def phase_train(entry: dict, agg_entry: dict, eval_entry: dict) -> None:
                                  f"{want} rounds, through the {route} "
                                  f"kernel")
         _check_k2_k3("train", counts, want)
+        if counts["k4a_launches"] or counts["k4b_launches"]:
+            raise AssertionError(f"K4 launched in a run without weighted "
+                                 f"sampling: {counts}")
         if max(map(abs, diffs)) > STEP_ACC_TOL \
                 or abs(mean_acc - ref_mean) > MEAN_ACC_TOL:
             raise AssertionError(f"Test/Acc per step {accs} against the "
@@ -1549,7 +1836,8 @@ def _experiment(cfg, out_dir=None, init=None):
 def _drive(cfg, out_dir=None, init=None) -> dict:
     """Run one ``Experiment`` of ``cfg`` on the card through its entry point
     and report what carried it: which path each step took, the launches of
-    K1, K2, K3 and K4 and the plain K2 / K3 versions' calls on the card
+    K1, K2 (and its epilogues), K3, K4a and K4b and the plain K2 / K3 / K4
+    versions' calls on the card
     (every count set to 0 just before the run and read just after), and the
     wall. Host syncs are counted in a second run of the same configuration
     (``_host_syncs_per_round``), so that the count's cost stays out of the
@@ -1635,9 +1923,12 @@ def _profile_step(exp) -> dict:
     busy_us = sum(e.self_device_time_total for e in kernels)
     out = {"launches_per_round": sum(e.count for e in kernels) / R,
            "device_busy_share": busy_us / wall_us if busy_us
+           else "not measured",
+           "device_ms_per_round": busy_us / R / 1e3 if busy_us
            else "not measured"}
     for name, tag in (("k1", "local_sgd"), ("k2", "fedavg_kernel"),
-                      ("k3", "eval_")):
+                      ("k3", "eval_"), ("k4a", "weighted_cdf"),
+                      ("k4b", "weighted_search")):
         ks = [e for e in kernels if tag in e.key]
         us = sum(e.self_device_time_total for e in ks)
         out[f"{name}_device_ms"] = us / sum(e.count for e in ks) / 1e3 \
@@ -1657,12 +1948,12 @@ def _reference_assignment(path: str) -> list[list[int]]:
     return [_assignment(final[t]) for t in sorted(final)]
 
 
-def phase_train_algos(draw_entry: dict) -> None:
+def phase_train_algos(cdf_entry: dict, search_entry: dict) -> None:
     """Every algorithm of ``ALGO_RUNS`` at full width against its committed
     SEA run. Besides the numbers, each line prints the card's decisions
     (each client's model at each step's final eval) beside the committed
-    run's, and the run's own decision events; KUE's line counts K4's
-    launches, which the kernels line reports."""
+    run's, and the run's own decision events; KUE's line counts K4a's and
+    K4b's launches, which the kernels line reports."""
     import tempfile
 
     from feddrift_torch.config import ExperimentConfig
@@ -1697,20 +1988,23 @@ def phase_train_algos(draw_entry: dict) -> None:
         if algo == "driftsurf":
             held["driftsurf_state"] = exp.algo.state
         if algo == "kue":
-            held.update(k4_launches=got["k4_launches"],
+            held.update(k4a_launches=got["k4a_launches"],
+                        k4b_launches=got["k4b_launches"],
                         kappas=[float(k) for k in exp.algo.ens_weights])
         _say("train_algo", algo=algo, arg=arg, models=exp.pool.num_models,
              path=want_path if paths == {want_path} else sorted(paths),
              wall_s=got["wall_s"], rounds_per_s=got["rounds_per_s"],
              step_wall_s=got["step_wall_s"], k1_launches=got["k1_launches"],
-             k2_launches=got["k2_launches"], k3_launches=got["k3_launches"],
+             aggregations=got["aggregations"],
+             k2_epilogues=got["k2_epilogues"], k2_launches=got["k2_launches"],
+             k3_launches=got["k3_launches"],
              plain_calls=got["plain_calls"],
              host_syncs_per_round=got["host_syncs_per_round"] or
              "not measured", models_in_use=got["models_in_use"],
              test_acc=accs, reference_test_acc=ref, test_acc_mean=mean,
              reference_mean=ref_mean,
              max_step_diff=max(map(abs, diffs)) if diffs else None,
-             reference_run=run, **held, **prof)
+             reference_run=run, **held, **prof, **_two_launch(algo, arg))
         want = cfg.train_iterations * cfg.comm_round
         if got["k1_launches"] != want or paths != {want_path} \
                 or len(accs) != len(ref):
@@ -1718,12 +2012,17 @@ def phase_train_algos(draw_entry: dict) -> None:
                                  f"{got['k1_launches']} times for {want} "
                                  f"rounds on paths {paths} (want "
                                  f"{want_path}), {len(accs)} steps")
-        if got["k4_launches"] != (want if algo == "kue" else 0):
-            raise AssertionError(f"{algo}: K4 launched {got['k4_launches']} "
-                                 f"times in {want} rounds")
+        kue = algo == "kue"
+        if (got["k4a_launches"], got["k4b_launches"]) != (
+                (cfg.train_iterations, want) if kue else (0, 0)):
+            raise AssertionError(f"{algo}: K4a launched "
+                                 f"{got['k4a_launches']} times in "
+                                 f"{cfg.train_iterations} steps, K4b "
+                                 f"{got['k4b_launches']} in {want} rounds")
         _check_k2_k3(f"{algo} {arg}", got, want)
-        if algo == "kue":
-            draw_entry["launches"] = got["k4_launches"]
+        if kue:
+            cdf_entry["launches"] = got["k4a_launches"]
+            search_entry["launches"] = got["k4b_launches"]
         if max(map(abs, diffs)) > STEP_ACC_TOL \
                 or abs(mean - ref_mean) > MEAN_ACC_TOL:
             raise AssertionError(f"{algo} {arg}: Test/Acc per step {accs} "
@@ -1761,8 +2060,9 @@ def phase_train_sampling() -> None:
         _say("train_sampling", run=name, k=c.client_num_per_round,
              paths=got["paths"], wall_s=got["wall_s"],
              rounds_per_s=got["rounds_per_s"], k1_launches=got["k1_launches"],
-             k2_launches=got["k2_launches"], k3_launches=got["k3_launches"],
-             plain_calls=got["plain_calls"],
+             aggregations=got["aggregations"],
+             k2_epilogues=got["k2_epilogues"], k2_launches=got["k2_launches"],
+             k3_launches=got["k3_launches"], plain_calls=got["plain_calls"],
              host_syncs_per_round=got["host_syncs_per_round"] or
              "not measured", test_acc=got["accs"])
         if got["k1_launches"] != c.train_iterations * c.comm_round:
@@ -1813,7 +2113,8 @@ def phase_train_per_round_kinds() -> None:
         _say("train_per_round_kind", algo=algo, arg=arg,
              path=want_path if paths == {want_path} else sorted(paths),
              wall_s=got["wall_s"], rounds_per_s=got["rounds_per_s"],
-             k1_launches=got["k1_launches"], k2_launches=got["k2_launches"],
+             k1_launches=got["k1_launches"], aggregations=got["aggregations"],
+             k2_epilogues=got["k2_epilogues"], k2_launches=got["k2_launches"],
              k3_launches=got["k3_launches"], plain_calls=got["plain_calls"],
              host_syncs_per_round=got["host_syncs_per_round"] or
              "not measured", models_in_use=got["models_in_use"],
@@ -1826,6 +2127,46 @@ def phase_train_per_round_kinds() -> None:
                                  f"{finite}")
         _check_k2_k3(f"{algo} {arg}", got,
                      cfg.train_iterations * cfg.comm_round)
+
+
+def phase_train_general(k1_entry: dict, agg_entry: dict) -> None:
+    """The general kernel's route, which has no epilogue: the canonical
+    configuration at ``fnn_hidden_dim = 32``, T = 2, R = 20 (the fused
+    loop, K1's general kernel). Fails unless every round launched K1 and
+    ``fedavg.cu`` once each (no epilogue), K3 ran, no plain version ran on
+    the card, and the metrics are finite. K1's launches without an
+    epilogue and ``fedavg.cu``'s launches here are the kernels line's: on
+    the fused route neither runs (K1 launches there with its epilogue,
+    ``local_sgd_fedavg``'s entry)."""
+    import math
+
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.kernels.local_sgd import _route
+    cfg = ExperimentConfig(fnn_hidden_dim=32, train_iterations=2,
+                           comm_round=20)
+    got = _drive(cfg)
+    exp = got["exp"]
+    mod = exp.step.module
+    route = _route(mod.in_dim, mod.hidden_dim, mod.num_classes,
+                   min(cfg.batch_size, exp.x.shape[2]))
+    rounds = cfg.train_iterations * cfg.comm_round
+    finite = all(math.isfinite(v) for rec in exp.logger.history
+                 for k, v in rec.items() if "/" in k)
+    _say("train_general", hidden=cfg.fnn_hidden_dim, route=route,
+         paths=got["paths"], wall_s=got["wall_s"],
+         rounds_per_s=got["rounds_per_s"], k1_launches=got["k1_launches"],
+         k1_without_epilogue=got["k1_without_epilogue"],
+         aggregations=got["aggregations"], k2_epilogues=got["k2_epilogues"],
+         k2_launches=got["k2_launches"], k3_launches=got["k3_launches"],
+         plain_calls=got["plain_calls"], test_acc=got["accs"],
+         finite=finite)
+    if route != "general" or got["k1_launches"] != rounds or not finite:
+        raise AssertionError(f"H = 32: route {route}, K1 launched "
+                             f"{got['k1_launches']} times for {rounds} "
+                             f"rounds, finite {finite}")
+    _check_k2_k3("general route", got, rounds, k2_launches=rounds)
+    k1_entry["launches"] = got["k1_without_epilogue"]
+    agg_entry["launches"] = got["k2_launches"]
 
 
 def main() -> int:
@@ -1851,18 +2192,20 @@ def main() -> int:
         dense_entry = phase_dense()
         phase_serve(entry, dense_entry)
         train_entry = phase_train_kernel()
-        draw_entry = phase_train_draw()
-        agg_entry, eval_entry = phase_train_agg_eval()
-        phase_train(train_entry, agg_entry, eval_entry)
-        phase_train_algos(draw_entry)
+        cdf_entry, search_entry = phase_train_draw()
+        agg_entry, fused_entry, eval_entry = phase_train_agg_eval()
+        phase_train(fused_entry, eval_entry)
+        phase_train_algos(cdf_entry, search_entry)
         phase_train_sampling()
         phase_train_per_round_kinds()
+        phase_train_general(train_entry, agg_entry)
     except Exception:   # noqa: BLE001 — report the phase that failed
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [entry, train_entry, dense_entry,
-                                  draw_entry, agg_entry, eval_entry]}))
+    print(json.dumps({"kernels": [entry, train_entry, fused_entry,
+                                  dense_entry, cdf_entry, search_entry,
+                                  agg_entry, eval_entry]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

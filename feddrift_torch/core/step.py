@@ -16,9 +16,11 @@ codec or hierarchy path):
                                 ones)
     lr_scale    float           the LR multiplier (Adaptive-FedAvg)
 
-A round is K1 (``kernels/local_sgd.py``: every pair's local steps in one
-launch) followed by K2, the masked sample-weighted FedAvg
-(``resilience/robust_agg.py`` -> ``kernels/fedavg.py``: one launch).
+A round is K1 (``kernels/local_sgd.py``: every pair's local steps) and
+K2, the masked sample-weighted FedAvg, in one launch: on the fused
+kernel's route (the registry's fnn widths) K2 is K1's epilogue
+(``local_sgd_fedavg``); on the general route K2 is its own launch
+(``resilience/robust_agg.py`` -> ``kernels/fedavg.py``).
 Inside a time step the parameters travel packed as one ``[M, P]`` tensor,
 the kernel's layout; the caller sees the usual dict of leaves. Where the
 reference draws each batch inside its program from fold_in keys, the port
@@ -34,9 +36,13 @@ algorithm trains on the same batches on both paths. With
 batch is instead B rows drawn with replacement over the pair's ``T1·N``
 rows with probability ``w_t[t]·s_n[n]``: each round draws ``u [M, C, S,
 B]`` from the generator and K4 (``kernels/weighted_draw.py``) turns it into
-rows, which K1 gathers; both paths draw round by round in the same order,
-so they agree bitwise here too (a step's draws up front would be R·M·C·S·B
-floats, 80 MB at KUE's canonical shape). The caller seeds the generator
+rows, which K1 gathers: the cdf of the step's unmasked weights once
+(``weighted_cdf``, held while the caller passes the same, unchanged
+tensors), and one search a round (``weighted_search``) under the round's
+masked total weights, where a pair of total 0 draws uniformly. Both paths
+draw round by round in the same order, so they agree bitwise here too (a
+step's draws up front would be R·M·C·S·B floats, 80 MB at KUE's canonical
+shape). The caller seeds the generator
 per time step; the draws can also be passed in, which is how the tests
 inject the reference's. A client mask ``[C]`` (the reference's
 ``client_mask``: client sampling) zeroes the unsampled clients' weights
@@ -65,8 +71,10 @@ import torch
 
 from feddrift_torch.core.functional import confusion_matrix
 from feddrift_torch.kernels.eval_cells import eval_cells
-from feddrift_torch.kernels.local_sgd import init_opt_state, local_sgd
-from feddrift_torch.kernels.weighted_draw import weighted_draw
+from feddrift_torch.kernels.local_sgd import (_route, init_opt_state,
+                                              local_sgd, local_sgd_fedavg)
+from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
+                                                  weighted_search)
 from feddrift_torch.models.mlp import FeedForwardNN
 from feddrift_torch.resilience.robust_agg import agg_mean
 from feddrift_torch.utils.device import resolve_device
@@ -98,6 +106,9 @@ class TrainStep:
                 f"SGD kernel trains the fnn only (ROADMAP items 8-10)")
         self.device = resolve_device(self.device)
         self.generator = torch.Generator(device=self.device)
+        # the weighted draw's cdf and the tensors (and their versions) it
+        # was computed from
+        self._cdf = self._cdf_key = None
 
     @classmethod
     def create(cls, cfg, module, num_classes: int,
@@ -172,34 +183,57 @@ class TrainStep:
             time_w = time_w * client_mask[None, :, None]
         return time_w.sum(-1)
 
+    def step_cdf(self, time_w: torch.Tensor, sample_w: torch.Tensor | None,
+                 N: int) -> torch.Tensor:
+        """The weighted draw's cdf ``[M, C, T1·N]`` of a time step's
+        UNMASKED ``time_w`` and ``sample_w`` (None: ones), through K4a. It
+        is computed again only for other tensors than the last call's, or
+        after an in-place change of either (``Tensor._version``); the check
+        reads no device value."""
+        versions = (time_w._version,
+                    None if sample_w is None else sample_w._version, N)
+        held = self._cdf_key
+        if held is not None and held[0] is time_w and held[1] is sample_w \
+                and held[2] == versions:
+            return self._cdf
+        self._cdf_key = (time_w, sample_w, versions)
+        if sample_w is None:
+            sample_w = torch.ones((*time_w.shape[:2], N), device=time_w.device)
+        self._cdf = weighted_cdf(time_w.contiguous(), sample_w.contiguous())
+        return self._cdf
+
     # ------------------------------------------------------------------
-    def _round_body(self, flat, opt_state, x, y, time_w, total_w, rows,
-                    lr_scale: float, sample_w=None, feat_mask=None,
+    def _round_body(self, flat, opt_state, x, y, total_w, rows,
+                    lr_scale: float, cdf=None, feat_mask=None,
                     stats_out=None):
-        """One round on packed params ``flat [M, P]``: K4 (weighted
-        sampling only), K1, then K2, the masked FedAvg. ``time_w`` and its
-        sums ``total_w [M, C]`` carry the round's client mask. ``rows``:
-        ``(t_idx, slot)`` of contiguous batches, or the weighted draw's
-        uniforms ``u [M, C, S, B]``. ``stats_out``: an ``[M, 3]`` row that
+        """One round on packed params ``flat [M, P]``: K4b (weighted
+        sampling only), then K1 and K2, the masked FedAvg: one launch on the
+        fused kernel's route (K2 as K1's epilogue), two on the general one.
+        ``total_w [M, C]``: the round's pair weights, 0 for a client its
+        mask leaves out. ``rows``: ``(t_idx, slot)`` of contiguous batches,
+        or the weighted draw's uniforms ``u [M, C, S, B]``, searched in the
+        step's ``cdf`` (``step_cdf``). ``stats_out``: an ``[M, 3]`` row that
         receives the aggregation stats. Returns ``(new_flat, opt_state,
-        client [M, C, P], n, losses, agg_stats [M, 3])``."""
+        client [M, C, P], n, losses, agg_stats [M, 3])`` on every route."""
         t_idx = slot = idx = None
-        if self.weighted_sampling:           # K4: the rows the uniforms draw
-            if sample_w is None:
-                sample_w = torch.ones((*time_w.shape[:2], x.shape[2]),
-                                      device=x.device)
-            idx = weighted_draw(time_w.contiguous(), sample_w.contiguous(),
-                                rows)
+        if self.weighted_sampling:           # K4b: the rows the uniforms draw
+            idx = weighted_search(cdf, total_w, rows)
         else:
             t_idx, slot = rows
         fm = None if feat_mask is None else \
             feat_mask.reshape(feat_mask.shape[0], -1).contiguous()
-        client, opt_state, n, losses = local_sgd(
-            x, y, flat, opt_state, t_idx, slot, total_w,
-            hidden=self.module.hidden_dim,
-            batch_size=min(self.batch_size, x.shape[2]), lr=self.lr,
-            wd=self.wd, lr_scale=lr_scale, idx=idx, feat_mask=fm)
-        new_flat, agg_stats = agg_mean(client, n, flat, stats_out=stats_out)
+        mod, B = self.module, min(self.batch_size, x.shape[2])
+        kw = dict(hidden=mod.hidden_dim, batch_size=B, lr=self.lr, wd=self.wd,
+                  lr_scale=lr_scale, idx=idx, feat_mask=fm)
+        if _route(mod.in_dim, mod.hidden_dim, mod.num_classes, B) == "fused":
+            client, opt_state, n, losses, new_flat, agg_stats = \
+                local_sgd_fedavg(x, y, flat, opt_state, t_idx, slot, total_w,
+                                 stats_out=stats_out, **kw)
+        else:
+            client, opt_state, n, losses = local_sgd(
+                x, y, flat, opt_state, t_idx, slot, total_w, **kw)
+            new_flat, agg_stats = agg_mean(client, n, flat,
+                                           stats_out=stats_out)
         return new_flat, opt_state, client, n, losses, agg_stats
 
     def _round_rows(self, time_w, N: int):
@@ -226,12 +260,12 @@ class TrainStep:
         ``self.generator``."""
         if draws is None:
             draws = self._round_rows(time_w, x.shape[2])
-        if client_mask is not None:
-            time_w = time_w * client_mask[None, :, None]
+        cdf = self.step_cdf(time_w, sample_w, x.shape[2]) \
+            if self.weighted_sampling else None
         flat = self.module.pack(params)
         new_flat, opt, client, n, losses, stats = self._round_body(
-            flat, opt_states, x, y, time_w, time_w.sum(-1), draws, lr_scale,
-            sample_w, feat_mask)
+            flat, opt_states, x, y, self.total_weight(time_w, client_mask),
+            draws, lr_scale, cdf, feat_mask)
         out = (self.module.unpack(new_flat), opt,
                self.module.unpack(client), n, losses)
         return out + (stats,) if with_agg_stats else out
@@ -255,9 +289,10 @@ class TrainStep:
         Eval slot ``r // freq`` holds the eval after round r for ``r %
         freq == 0``, and the final round takes slot E-1: one K3 launch
         writes slot e of the ``[E, M, C, 2]`` count and NLL buffers (train
-        step t, test step t + 1), and K2 writes row r of the ``[R, M, 3]``
-        stats. The buffers stay on the device; the caller fetches them
-        once.
+        step t, test step t + 1), and K2 (K1's epilogue on the fused route)
+        writes row r of the ``[R, M, 3]`` stats. With weighted sampling the
+        step's cdf is computed once, from the unmasked weights. The buffers
+        stay on the device; the caller fetches them once.
         ``client_masks``: ``[R, C]`` 0/1, round r samples row r's clients
         (None: all). ``sample_w``, ``feat_mask``: as ``train_round``.
         ``draws``: ``(t_idx, slot)`` each ``[R, M, C, S]``, else drawn up
@@ -278,11 +313,12 @@ class TrainStep:
         nll = torch.empty((E, M, C, 2), device=x.device)
         stats = torch.empty((R, M, 3), device=x.device)
         flat = self.module.pack(params)
-        tw, total_w = time_w, self.total_weight(time_w)
+        cdf = self.step_cdf(time_w, sample_w, x.shape[2]) \
+            if self.weighted_sampling else None
+        total_w = self.total_weight(time_w)
         for r in range(R):
             if client_masks is not None:
-                tw = time_w * client_masks[r][None, :, None]
-                total_w = tw.sum(-1)
+                total_w = self.total_weight(time_w, client_masks[r])
             if draws is None:
                 rows = self.draw_row_uniforms(M, C, x.shape[2])
             elif self.weighted_sampling:
@@ -290,8 +326,8 @@ class TrainStep:
             else:
                 rows = (draws[0][r], draws[1][r])
             flat, opt_states, _, n, losses, _ = self._round_body(
-                flat, opt_states, x, y, tw, total_w, rows, lr_scale,
-                sample_w, feat_mask, stats_out=stats[r])
+                flat, opt_states, x, y, total_w, rows, lr_scale, cdf,
+                feat_mask, stats_out=stats[r])
             if r % freq == 0 or r == R - 1:
                 e = E - 1 if r == R - 1 else r // freq
                 self._eval_window(flat, xw, yw, feat_mask,

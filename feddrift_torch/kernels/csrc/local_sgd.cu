@@ -68,6 +68,23 @@
 // Shared memory: stages * B * (F + 1) * 4 bytes of batches (40 KB at SEA),
 // warps * V * 4 of partials, P * 4 of parameters, 8 a stage of mbarriers.
 //
+// K2 as the fused kernel's epilogue. Where the caller passes agg_out, the
+// fused kernel also aggregates each model's round, exactly as fedavg.cu
+// computes it (the masked, sample-weighted FedAvg over the C clients'
+// out_params and n_out, prev = params), so a round is one launch. After its
+// pair's last write each block takes a ticket of its model (an
+// acquire-release atomicAdd on ticket[m]); the block that draws C - 1 is the
+// model's last,
+// reads the C clients' params and n through L2 (__ldcg), sums denom and each
+// parameter in client order 0..C-1 with each product rounded before its add
+// and w[c] = n[c] / max(denom, 1e-12) by IEEE division, keeps prev bitwise
+// where denom == 0, writes the stats row (#active, 0, 0) and resets
+// ticket[m] to 0 for the next launch. No block waits for another, so the
+// kernel cannot deadlock at any grid size, and the result is bitwise that of
+// the K1 launch followed by the fedavg.cu launch. The local-step body, its
+// barriers and its reduction order are unchanged. The general kernel has no
+// epilogue: on its route the caller launches fedavg.cu.
+//
 // local_sgd_general_kernel: any other width (e.g. fnn_hidden_dim = 32) or
 // batch. One block of 256 threads per pair; params and moments in shared
 // memory for all S steps; threads over rows for the forward; a warp per
@@ -91,6 +108,7 @@ constexpr int kGeneralThreads = 256;
 constexpr int kGeneralWarps = kGeneralThreads / 32;
 constexpr int kFusedMaxThreads = 512;
 constexpr int kStages = 8;    // batch stages of the fused kernel's ring
+constexpr int kAggBatch = 16;  // loads in flight a thread in the epilogue
 
 struct Args {
   const float* x;        // [C, T1, N, F]
@@ -108,6 +126,9 @@ struct Args {
   float* out_params;     // [M, C, P]
   float* n_out;          // [M, C]
   float* loss_out;       // [M, C]
+  float* agg_out;        // [M, P] the aggregated params, or null (no epilogue)
+  float* stats_out;      // [M, 3] the aggregation stats (with agg_out)
+  int* ticket;           // [M] zeros between launches (with agg_out)
   int C, T1, N, F, H, K, B, S;
   float neg_lr, wd, lr_scale, b1, b2, one_minus_b1, one_minus_b2, eps;
 };
@@ -343,6 +364,15 @@ __device__ __forceinline__ void copies_arrive(uint64_t* bar) {
                :: "r"(smem_addr(bar)) : "memory");
 }
 
+// The epilogue's ticket: atomicAdd(p, 1) with acquire-release semantics at
+// device scope; returns the old value.
+__device__ __forceinline__ int ticket_add(int* p) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+               : "=r"(old) : "l"(p) : "memory");
+  return old;
+}
+
 // Start the copies of step s's batch into ring stage `st`: x rows [B, F]
 // and labels [B]. Bulk (contiguous batches only): thread 0 alone, the
 // stage's mbarrier expecting the bytes (its count is 1). Otherwise: thread
@@ -555,6 +585,69 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk) {
     a.n_out[pair] = active ? tw * (float)a.N : 0.f;
     a.loss_out[pair] = loss_sum / (float)S;
   }
+  if (a.agg_out == nullptr) return;
+
+  // K2, the epilogue: the last block of model m to finish aggregates it.
+  // s_red is free after the loop's last barrier.
+  // After the block's barrier, thread 0 takes the ticket with one
+  // acquire-release atomic at device scope: it releases the block's writes
+  // (ordered before it by the barrier) and, in the last block, acquires the
+  // other blocks' writes, which the next barrier passes to its threads.
+  int* s_last = reinterpret_cast<int*>(s_red);
+  __syncthreads();
+  if (tid == 0) *s_last = ticket_add(a.ticket + m) == a.C - 1;
+  __syncthreads();
+  if (!*s_last || tid >= P) return;
+  // thread p aggregates parameter p. Its loads go in batches of kAggBatch
+  // independent L2 reads (__ldcg: the other blocks' writes are not in this
+  // SM's L1), so a batch costs one L2 latency; the sums stay in client
+  // order 0..C-1.
+  const int C = a.C;
+  const float* nm = a.n_out + (size_t)m * C;
+  float denom = 0.f;
+  int clients = 0;
+  for (int q0 = 0; q0 < C; q0 += kAggBatch) {
+    float nv[kAggBatch];
+#pragma unroll
+    for (int i = 0; i < kAggBatch; ++i)
+      nv[i] = q0 + i < C ? __ldcg(nm + q0 + i) : 0.f;
+#pragma unroll
+    for (int i = 0; i < kAggBatch; ++i) {
+      if (q0 + i < C) {
+        denom = __fadd_rn(denom, nv[i]);
+        clients += nv[i] > 0.f;
+      }
+    }
+  }
+  const size_t mp = (size_t)m * P + tid;
+  if (!(denom > 0.f)) {             // no active client: keep prev
+    a.agg_out[mp] = pm[tid];
+  } else {
+    const float safe = fmaxf(denom, 1e-12f);
+    const float* col = a.out_params + (size_t)m * C * P + tid;
+    float acc = 0.f;
+    for (int q0 = 0; q0 < C; q0 += kAggBatch) {
+      float nv[kAggBatch], cv[kAggBatch];
+#pragma unroll
+      for (int i = 0; i < kAggBatch; ++i) {
+        const bool in = q0 + i < C;
+        nv[i] = in ? __ldcg(nm + q0 + i) : 0.f;
+        cv[i] = in ? __ldcg(col + (size_t)(q0 + i) * P) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kAggBatch; ++i)
+        if (q0 + i < C)
+          acc = __fadd_rn(acc, __fmul_rn(cv[i], __fdiv_rn(nv[i], safe)));
+    }
+    a.agg_out[mp] = acc;
+  }
+  if (tid == 0) {
+    float* st = a.stats_out + (size_t)m * 3;
+    st[0] = (float)clients;
+    st[1] = 0.f;
+    st[2] = 0.f;
+    a.ticket[m] = 0;                // every block of model m has drawn
+  }
 }
 
 // Opt in to more than 48 KB of dynamic shared memory, once per device.
@@ -618,16 +711,20 @@ int launch_fused(const Args& a, int pairs, int device, cudaStream_t st) {
 // What the wrapper packs for one call (local_sgd.py, _PARAMS).
 struct Params {
   unsigned long long x, y, params, mu, nu, nu_max, count, t_idx, slot, idx,
-      fmask, total_w, out_params, n_out, loss_out;  // device pointers
+      fmask, total_w, out_params, n_out, loss_out, agg_out, stats_out,
+      ticket;  // device pointers
   int M, C, T1, N, F, H, K, B, S;
   int device;  // CUDA device index of every tensor
   float neg_lr, wd, lr_scale, b1, b2, one_minus_b1, one_minus_b2, eps;
 };
-static_assert(sizeof(Params) == 192, "Params must match the wrapper's pack");
+static_assert(sizeof(Params) == 216, "Params must match the wrapper's pack");
 
 // Plain C entry point bound with ctypes. Every tensor contiguous on device
 // `device`, float32 except y, count, t_idx, slot and idx (int32); either
 // t_idx and slot or idx are given (idx: the others 0), fmask may be 0.
+// agg_out may be 0 (no epilogue); with it, stats_out and ticket (int32, M
+// zeros, left zero by every launch) are given, and only the fused route
+// takes it.
 // Rows of idx must lie in [0, T1*N): the weighted draw clips them. `route` is
 // local_sgd.py's _ROUTES: 0 the general kernel, 1 the fused kernel (only
 // for the (F, H, K) it is built for and B <= 512). `stream` is a stream of
@@ -636,7 +733,8 @@ static_assert(sizeof(Params) == 192, "Params must match the wrapper's pack");
 // launched) when the general kernel would need more shared memory than a
 // block may take.
 extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
-  if (p->M < 1 || p->C < 1 || p->S < 1 || p->B < 1)
+  if (p->M < 1 || p->C < 1 || p->S < 1 || p->B < 1
+      || (p->agg_out && (route != 1 || !p->stats_out || !p->ticket)))
     return (int)cudaErrorInvalidValue;
   const Args a{reinterpret_cast<const float*>(p->x),
                reinterpret_cast<const int*>(p->y),
@@ -653,6 +751,9 @@ extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
                reinterpret_cast<float*>(p->out_params),
                reinterpret_cast<float*>(p->n_out),
                reinterpret_cast<float*>(p->loss_out),
+               reinterpret_cast<float*>(p->agg_out),
+               reinterpret_cast<float*>(p->stats_out),
+               reinterpret_cast<int*>(p->ticket),
                p->C, p->T1, p->N, p->F, p->H, p->K, p->B, p->S,
                p->neg_lr, p->wd, p->lr_scale, p->b1, p->b2,
                p->one_minus_b1, p->one_minus_b2, p->eps};

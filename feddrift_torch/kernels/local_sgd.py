@@ -28,6 +28,13 @@ source holds two kernels of the one function, and ``_route`` picks one by
 shape alone before the launch: the fused kernel (one batch row a thread,
 two barriers a step) for the widths it is built for, the general kernel
 for any other.
+
+``local_sgd_fedavg`` is a round's K1 and K2 in one launch: the fused
+kernel with the masked FedAvg (``kernels/fedavg.py``'s function, bitwise)
+as its epilogue, so the round path makes one launch where it made two. The
+general kernel has no epilogue; on its route the caller launches K2.
+``local_sgd_fedavg_ref`` (``local_sgd_ref``, then ``fedavg_ref``) is its
+plain version.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import struct
 import torch
 
 from feddrift_torch.kernels.build import library
+from feddrift_torch.kernels.fedavg import fedavg_ref
 
 B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.amsgrad defaults
 MAX_BLOCKS = 2 ** 31 - 1
@@ -135,9 +143,12 @@ def local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w, *,
     return client, new_state, n, torch.stack(losses, -1).mean(-1)
 
 
-# csrc/local_sgd.cu's Params: 15 pointers; M, C, T1, N, F, H, K, B, S,
+# csrc/local_sgd.cu's Params: 18 pointers; M, C, T1, N, F, H, K, B, S,
 # device; -lr, wd, lr_scale, b1, b2, 1 - b1, 1 - b2, eps
-_PARAMS = struct.Struct("=15Q10i8f")
+_PARAMS = struct.Struct("=18Q10i8f")
+# the epilogue's zeroed ticket counters, one buffer per (device, stream):
+# each launch leaves them zero, so they are allocated once and never reset
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
 @functools.cache
@@ -160,23 +171,30 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
-              batch_size: int, lr: float, wd: float, lr_scale: float = 1.0,
-              route: str | None = None, idx=None, feat_mask=None):
-    """S local AMSGrad steps of every (model, client) pair: through a CUDA
-    kernel for CUDA tensors (optimizer state updated in place), through
-    ``local_sgd_ref`` for CPU tensors. ``route`` names the kernel where a
-    comparison needs one ("general" takes any shape); by default
-    ``_route`` picks it from the shape. With ``idx`` the batches are
-    gathered rows and ``t_idx``, ``slot`` are not read (pass None)."""
-    kw = dict(hidden=hidden, batch_size=batch_size, lr=lr, wd=wd,
-              lr_scale=lr_scale, idx=idx, feat_mask=feat_mask)
-    if not x.is_cuda:
-        if x.device.type != "cpu":
-            raise ValueError(f"local_sgd runs on cuda or cpu, not "
-                             f"{x.device.type}")
-        return local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w,
-                             **kw)
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"local_sgd runs on cuda or cpu, not "
+                         f"{x.device.type}")
+    return x.is_cuda
+
+
+def _ticket(device: torch.device, index: int, stream: int,
+            M: int) -> torch.Tensor:
+    t = _tickets.get((index, stream))
+    if t is None or t.numel() < M:
+        t = _tickets[(index, stream)] = torch.zeros(
+            max(M, 64), dtype=torch.int32, device=device)
+    return t
+
+
+def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
+            batch_size: int, lr: float, wd: float, lr_scale: float,
+            route: str | None, idx, feat_mask, stats_out=None,
+            aggregate: bool = False):
+    """Check the inputs and launch the kernel of ``route`` (by default
+    ``_route``'s), with K2 as its epilogue when ``aggregate`` (the fused
+    route only). Returns ``(client, n, loss)``, plus ``(agg, stats)`` when
+    ``aggregate``."""
     rows = (t_idx, slot) if idx is None else (idx,)
     if x.dim() != 4 or params.dim() != 2 or rows[0].dim() != 5 - len(rows):
         raise ValueError("local_sgd takes x [C, T1, N, F], params [M, P] and "
@@ -197,8 +215,13 @@ def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
         raise ValueError(f"route {route!r}: the fused kernel takes (F, H, K) "
                          f"in {FUSED_WIDTHS} and B <= {FUSED_MAX_BATCH}, the "
                          f"general one any shape")
+    if aggregate and route != "fused":
+        raise ValueError(f"the {route} route has no FedAvg epilogue: its "
+                         f"caller launches K2 (kernels/fedavg.py) itself")
     index = x.get_device()
     i32, f32 = torch.int32, torch.float32
+    if aggregate and stats_out is None:
+        stats_out = torch.empty((M, 3), device=x.device)
     for name, t, shape, dt in (
             ("x", x, (C, T1, N, F), f32), ("y", y, (C, T1, N), i32),
             ("params", params, (M, P), f32),
@@ -210,11 +233,15 @@ def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
             (("t_idx", t_idx, (M, C, S), i32), ("slot", slot, (M, C, S), i32))
             if idx is None else (("idx", idx, (M, C, S, B), i32),)) + (
             (("feat_mask", feat_mask, (M, F), f32),)
-            if feat_mask is not None else ()):
+            if feat_mask is not None else ()) + (
+            (("stats_out", stats_out, (M, 3), f32),) if aggregate else ()):
         _check(name, t, shape, dt, index)
     client = torch.empty((M, C, P), dtype=f32, device=x.device)
     n = torch.empty((M, C), dtype=f32, device=x.device)
     loss = torch.empty((M, C), dtype=f32, device=x.device)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    agg = torch.empty((M, P), dtype=f32, device=x.device) if aggregate \
+        else None
     err = _kernel()(_PARAMS.pack(
         x.data_ptr(), y.data_ptr(), params.data_ptr(),
         opt_state["mu"].data_ptr(), opt_state["nu"].data_ptr(),
@@ -223,9 +250,12 @@ def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
           else (0, 0, idx.data_ptr())),
         0 if feat_mask is None else feat_mask.data_ptr(), total_w.data_ptr(),
         client.data_ptr(), n.data_ptr(), loss.data_ptr(),
+        *((agg.data_ptr(), stats_out.data_ptr(),
+           _ticket(x.device, index, stream, M).data_ptr()) if aggregate
+          else (0, 0, 0)),
         M, C, T1, N, F, H, K, B, S, index,
         -lr, wd, lr_scale, B1, B2, 1 - B1, 1 - B2, EPS), _ROUTES[route],
-        torch._C._cuda_getCurrentRawStream(index))
+        stream)
     if err == _ERR_SMEM:
         raise ValueError(f"F={F}, H={H}, K={K}, B={B} need more shared "
                          f"memory per block than the kernel may take "
@@ -234,7 +264,69 @@ def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
         raise RuntimeError(f"local_sgd_f32 ({route}) launch failed: "
                            f"cudaError {err}")
     local_sgd.launches += 1
+    if not aggregate:
+        return client, n, loss
+    local_sgd_fedavg.launches += 1
+    return client, n, loss, agg, stats_out
+
+
+def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
+              batch_size: int, lr: float, wd: float, lr_scale: float = 1.0,
+              route: str | None = None, idx=None, feat_mask=None):
+    """S local AMSGrad steps of every (model, client) pair: through a CUDA
+    kernel for CUDA tensors (optimizer state updated in place), through
+    ``local_sgd_ref`` for CPU tensors. ``route`` names the kernel where a
+    comparison needs one ("general" takes any shape); by default
+    ``_route`` picks it from the shape. With ``idx`` the batches are
+    gathered rows and ``t_idx``, ``slot`` are not read (pass None)."""
+    kw = dict(hidden=hidden, batch_size=batch_size, lr=lr, wd=wd,
+              lr_scale=lr_scale, idx=idx, feat_mask=feat_mask)
+    if not _on_cuda(x):
+        return local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w,
+                             **kw)
+    client, n, loss = _launch(x, y, params, opt_state, t_idx, slot, total_w,
+                              route=route, **kw)
     return client, opt_state, n, loss
 
 
 local_sgd.launches = 0
+
+
+def local_sgd_fedavg_ref(x, y, params, opt_state, t_idx, slot, total_w,
+                         **kw):
+    """The plain version of the fused round: ``local_sgd_ref``, then
+    ``fedavg_ref`` of its client stack with ``params`` as prev."""
+    client, state, n, loss = local_sgd_ref(x, y, params, opt_state, t_idx,
+                                           slot, total_w, **kw)
+    agg, stats = fedavg_ref(client, n, params)
+    return client, state, n, loss, agg, stats
+
+
+def local_sgd_fedavg(x, y, params, opt_state, t_idx, slot, total_w, *,
+                     hidden: int, batch_size: int, lr: float, wd: float,
+                     lr_scale: float = 1.0, idx=None, feat_mask=None,
+                     stats_out: torch.Tensor | None = None):
+    """One round of K1 with K2 as its epilogue: ``local_sgd``, then the
+    masked FedAvg of its client stack with ``params`` as prev
+    (``kernels/fedavg.py``'s function), in ONE launch of the fused kernel
+    for CUDA tensors, through ``local_sgd_fedavg_ref`` for CPU tensors.
+    Only shapes that ``_route`` sends to the fused kernel are taken: the
+    general kernel has no epilogue. ``stats_out``: as ``fedavg``'s.
+    Returns ``(client, opt_state, n, loss, agg [M, P], stats [M, 3])``;
+    the optimizer state is updated in place on the card.
+    ``local_sgd.launches`` counts the launch too, since K1 runs in it."""
+    kw = dict(hidden=hidden, batch_size=batch_size, lr=lr, wd=wd,
+              lr_scale=lr_scale, idx=idx, feat_mask=feat_mask)
+    if not _on_cuda(x):
+        client, state, n, loss, agg, stats = local_sgd_fedavg_ref(
+            x, y, params, opt_state, t_idx, slot, total_w, **kw)
+        if stats_out is not None:
+            stats = stats_out.copy_(stats)
+        return client, state, n, loss, agg, stats
+    client, n, loss, agg, stats = _launch(
+        x, y, params, opt_state, t_idx, slot, total_w, route=None,
+        stats_out=stats_out, aggregate=True, **kw)
+    return client, opt_state, n, loss, agg, stats
+
+
+local_sgd_fedavg.launches = 0

@@ -20,7 +20,8 @@ without one. They import nothing of JAX, so they run on the card with
   went in, sampled pairs bitwise as in the unmasked call.
 - K1's gather route (explicit rows from the weighted draw, K4, and
   per-model feature masks) against the plain version through both
-  kernels, and a KUE run through K4 and K1, one launch of each a round.
+  kernels, and a KUE run through K4 (its cdf once a step, its search once
+  a round) and K1.
 - A served row's answer does not depend on its batch: one serving forward
   at b1 and at b32 with the same row agree bitwise, op by op.
 - A serving forward at every bucket goes through the per-row Dense kernel
@@ -251,16 +252,19 @@ def test_local_sgd_gather_route_matches_plain(cuda, route):
 
 @pytest.mark.gpu
 def test_kue_rounds_go_through_the_draw_and_the_kernel(cuda):
-    """A KUE run on the card: one K4 and one K1 launch a round, finite
-    ensemble metrics."""
+    """A KUE run on the card: K4's cdf once a step, its search and K1 once
+    a round, finite ensemble metrics."""
     from feddrift_torch.config import ExperimentConfig
-    from feddrift_torch.kernels.weighted_draw import weighted_draw
+    from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
+                                                      weighted_search)
     from feddrift_torch.simulation.runner import Experiment
     exp = Experiment(ExperimentConfig(concept_drift_algo="kue",
                                       train_iterations=2, comm_round=20))
-    k1, k4 = local_sgd.launches, weighted_draw.launches
+    k1, k4a, k4b = (local_sgd.launches, weighted_cdf.launches,
+                    weighted_search.launches)
     exp.run()
-    assert local_sgd.launches == k1 + 40 and weighted_draw.launches == k4 + 40
+    assert (local_sgd.launches, weighted_cdf.launches,
+            weighted_search.launches) == (k1 + 40, k4a + 2, k4b + 40)
     assert all(0.0 <= r["Test/Acc"] <= 1.0 for r in exp.logger.history)
 
 

@@ -132,24 +132,97 @@ def test_bound_is_the_larger_of_bytes_and_operations(nbytes, flops, by):
 def test_reset_and_read_counts_cover_every_training_kernel():
     from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
+    from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_fedavg
+    from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
+                                                      weighted_cdf_ref,
+                                                      weighted_search,
+                                                      weighted_search_ref)
     fedavg.launches = eval_cells.launches = 3
+    local_sgd.launches = local_sgd_fedavg.launches = 4
+    weighted_cdf.launches = weighted_search.launches = 5
     fedavg_ref.cuda_calls = eval_cells_ref.cuda_calls = 2
+    weighted_cdf_ref.cuda_calls = weighted_search_ref.cuda_calls = 2
     chip_smoke._reset_counts()
     assert chip_smoke._read_counts() == {
-        "k1_launches": 0, "k4_launches": 0, "k2_launches": 0,
-        "k3_launches": 0,
-        "plain_calls": {"fedavg_ref": 0, "eval_cells_ref": 0}}
+        "k1_launches": 0, "k1_without_epilogue": 0, "k4a_launches": 0,
+        "k4b_launches": 0, "k2_launches": 0, "k2_epilogues": 0,
+        "aggregations": 0, "k3_launches": 0,
+        "plain_calls": {"fedavg_ref": 0, "eval_cells_ref": 0,
+                        "weighted_cdf_ref": 0, "weighted_search_ref": 0}}
 
 
-@pytest.mark.parametrize("k2,k3,plain", [(2000, 410, 0), (1999, 410, 0),
-                                         (2000, 0, 0), (2000, 410, 1)])
-def test_check_k2_k3_refuses_a_missed_round_or_a_plain_call(k2, k3, plain):
-    """A driven run fails unless K2 carried every round, K3 ran, and no
-    plain K2 / K3 ran on the card."""
-    got = {"k2_launches": k2, "k3_launches": k3,
-           "plain_calls": {"fedavg_ref": 0, "eval_cells_ref": plain}}
-    if (k2, k3, plain) == (2000, 410, 0):
+@pytest.mark.parametrize("epilogues,k2,k3,plain", [
+    (2000, 0, 410, 0), (1999, 0, 410, 0), (2000, 0, 0, 0), (2000, 0, 410, 1),
+    (2000, 1, 410, 0), (0, 2000, 410, 0)])
+def test_check_k2_k3_refuses_a_missed_round_or_a_plain_call(epilogues, k2,
+                                                            k3, plain):
+    """A driven run on the fused route fails unless K2 aggregated every
+    round once, in K1's epilogue and with no launch of its own, K3 ran,
+    and no plain K2 / K3 / K4 ran on the card; on the general route every
+    round is a K2 launch of its own."""
+    got = {"k2_launches": k2, "k2_epilogues": epilogues,
+           "aggregations": k2 + epilogues, "k3_launches": k3,
+           "plain_calls": {"fedavg_ref": 0, "eval_cells_ref": 0,
+                           "weighted_cdf_ref": 0,
+                           "weighted_search_ref": plain}}
+    if (epilogues, k2, k3, plain) == (2000, 0, 410, 0):
         chip_smoke._check_k2_k3("run", got, 2000)
         return
-    with pytest.raises(AssertionError, match="K2 launched"):
+    if (epilogues, k2) == (0, 2000):
+        chip_smoke._check_k2_k3("run", got, 2000, k2_launches=2000)
+        with pytest.raises(AssertionError, match="K2 aggregated"):
+            chip_smoke._check_k2_k3("run", got, 2000)
+        return
+    with pytest.raises(AssertionError, match="K2 aggregated"):
         chip_smoke._check_k2_k3("run", got, 2000)
+
+
+def test_draw_bounds_count_the_searched_rows():
+    """K4a moves the weights and the cdf; K4b the uniforms, the rows and
+    the cdf rows of the pairs that search them, so a masked pair costs
+    no cdf bytes; both are bound by bytes at KUE's shape."""
+    d = dict(M=4, C=10, T1=11, N=500, S=5, B=500)
+    cdf_ms, cdf_by = chip_smoke._cdf_bound_ms(d)
+    assert cdf_by == "bytes" and cdf_ms == pytest.approx(
+        4 * 40 * (11 + 500 + 5500) / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    full, by = chip_smoke._search_bound_ms(d, 40)
+    masked, _ = chip_smoke._search_bound_ms(d, 32)
+    assert by == "bytes" and masked < full
+    assert full - masked == pytest.approx(
+        4 * 8 * 5500 / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+def _ab_runs():
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "scripts", "torch_ab_runs.py")
+    spec = importlib.util.spec_from_file_location("torch_ab_runs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["canonical", "cfl", "aue", "kue"])
+def test_ab_runs_drive_the_smoke_runs_configurations(name):
+    """``scripts/torch_ab_runs.py`` compares the runs ``chip_smoke.py``
+    drives: the canonical configuration, or one of ``ALGO_RUNS``."""
+    from feddrift_torch.config import ExperimentConfig
+    algo, arg = _ab_runs().RUNS[name]
+    cfg = ExperimentConfig()
+    if name == "canonical":
+        assert (algo, arg) == (cfg.concept_drift_algo,
+                               cfg.concept_drift_algo_arg)
+    else:
+        assert (algo, arg) in {r[:2] for r in chip_smoke.ALGO_RUNS}
+
+
+def test_ab_runs_refuse_an_unknown_run_and_a_missing_base():
+    import subprocess
+    import sys
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "scripts", "torch_ab_runs.py")
+    for args in (["--base", ".", "--runs", "canonical,nope"], []):
+        proc = subprocess.run([sys.executable, path, *args],
+                              capture_output=True, text=True, timeout=60)
+        assert proc.returncode == 2 and not proc.stdout
+    assert _ab_runs().ORDER == ("base", "this", "this", "base")

@@ -25,7 +25,7 @@ from feddrift_torch.convert import params_from_jax
 from feddrift_torch.core.step import TrainStep
 from feddrift_torch.kernels.local_sgd import (_route, _unpack, amsgrad_step,
                                               init_opt_state, local_sgd,
-                                              local_sgd_ref)
+                                              local_sgd_fedavg, local_sgd_ref)
 from feddrift_torch.models.mlp import FeedForwardNN
 from feddrift_torch.resilience.robust_agg import agg_mean
 
@@ -232,6 +232,25 @@ class TestTrainRound:
         jnewp, _, jclient, jn, jloss, jstats, _ = r["out"]
         _close(mod.pack(newp), _pack(mod, jnewp))
         _close(mod.pack(client), _pack(mod, jclient))
+        _close(n, jn, atol=0)
+        _close(losses, jloss)
+        _close(stats, jstats, atol=0)
+
+    def test_fused_round_plain_version_matches_reference(self, jax_round):
+        """The fused round's plain version (``local_sgd_fedavg`` on the
+        CPU: ``local_sgd_ref``, then ``fedavg_ref`` with the params as
+        prev) against the reference's ``_round_body`` on its own draws."""
+        r = jax_round
+        mod = _module()
+        flat = _pack(mod, r["jp"])
+        tw = torch.from_numpy(r["tw"])
+        client, opt, n, losses, agg, stats = local_sgd_fedavg(
+            torch.from_numpy(r["x"]), torch.from_numpy(r["y"]), flat,
+            init_opt_state(M, C, mod.num_params, "cpu"), *r["draws"],
+            tw.sum(-1), hidden=H, batch_size=B, lr=LR, wd=WD)
+        jnewp, _, jclient, jn, jloss, jstats, _ = r["out"]
+        _close(agg, _pack(mod, jnewp))
+        _close(client, _pack(mod, jclient))
         _close(n, jn, atol=0)
         _close(losses, jloss)
         _close(stats, jstats, atol=0)
@@ -807,3 +826,116 @@ def test_kue_fused_and_per_round_paths_are_bitwise_equal():
     assert all(torch.equal(fused[0][k], params[k]) for k in params)
     assert all(torch.equal(fused[1][k], opt[k]) for k in opt)
     assert torch.equal(fused[2], n) and torch.equal(fused[3], losses)
+
+
+class TestStepCdf:
+    """The weighted draw's cdf is computed once a time step: ``TrainStep``
+    keeps it while the caller passes the same, unchanged ``time_w`` and
+    ``sample_w``, and computes it again for an in-place change or new
+    tensors. A client mask does not reach it."""
+
+    def _step(self, monkeypatch):
+        import feddrift_torch.core.step as step_mod
+        calls, plain = [], step_mod.weighted_cdf
+
+        def counted(tw, sw, **kw):
+            calls.append(1)
+            return plain(tw, sw, **kw)
+        monkeypatch.setattr(step_mod, "weighted_cdf", counted)
+        step = TrainStep(_module(), B, S, 2, lr=LR, wd=WD, device="cpu",
+                         weighted_sampling=True)
+        return step, calls
+
+    def _inputs(self, seed=12):
+        x, y = _data(seed)
+        sw, fm = _weighted_inputs(seed)
+        mod = _module()
+        params = mod.unpack(torch.stack(
+            [mod.pack(mod.init_params(torch.Generator().manual_seed(m), "cpu"))
+             for m in range(M)]))
+        return (params, torch.from_numpy(x), torch.from_numpy(y),
+                torch.from_numpy(_time_w(seed)), torch.from_numpy(sw),
+                torch.from_numpy(fm))
+
+    def test_once_for_the_rounds_of_a_step(self, monkeypatch):
+        step, calls = self._step(monkeypatch)
+        params, x, y, tw, sw, fm = self._inputs()
+        opt = step.init_opt_states(params, M, C)
+        mask = torch.tensor([1.0, 0.0, 1.0, 1.0])
+        step.generator.manual_seed(3)
+        for r in range(5):
+            params, opt, *_ = step.train_round(
+                params, opt, x, y, tw, 1.0, None if r % 2 else mask,
+                sample_w=sw, feat_mask=fm)
+        assert len(calls) == 1
+        sw.mul_(2.0)                         # an in-place change
+        step.train_round(params, opt, x, y, tw, 1.0, sample_w=sw,
+                         feat_mask=fm)
+        assert len(calls) == 2
+        step.train_round(params, opt, x, y, tw.clone(), 1.0, sample_w=sw,
+                         feat_mask=fm)       # a new time_w
+        assert len(calls) == 3
+        step.train_round(params, opt, x, y, tw, 1.0, sample_w=sw.clone(),
+                         feat_mask=fm)       # a new sample_w
+        assert len(calls) == 4
+        step.train_iteration_eval(params, opt, x, y, tw, 1.0, 3, 2, 1,
+                                  sample_w=sw, feat_mask=fm)
+        assert len(calls) == 5               # the step's tensors again: kept
+        step.train_iteration_eval(params, opt, x, y, tw, 1.0, 3, 2, 1,
+                                  sample_w=sw, feat_mask=fm)
+        assert len(calls) == 5
+
+    def test_kept_cdf_draws_what_a_fresh_one_draws(self, monkeypatch):
+        """Rounds on the kept cdf give bitwise what a step whose cdf is
+        computed afresh every round gives, with and without a mask."""
+        params, x, y, tw, sw, fm = self._inputs(13)
+        outs = []
+        for fresh in (False, True):
+            step = TrainStep(_module(), B, S, 2, lr=LR, wd=WD, device="cpu",
+                             weighted_sampling=True)
+            p, opt = params, step.init_opt_states(params, M, C)
+            step.generator.manual_seed(4)
+            for r in range(4):
+                if fresh:
+                    step._cdf_key = None
+                p, opt, _, n, losses = step.train_round(
+                    p, opt, x, y, tw, 1.0,
+                    torch.tensor([0.0, 1.0, 1.0, 1.0]) if r % 2 else None,
+                    sample_w=sw, feat_mask=fm)
+            outs.append((p, opt, n, losses))
+        (p0, o0, n0, l0), (p1, o1, n1, l1) = outs
+        assert all(torch.equal(p0[k], p1[k]) for k in p0)
+        assert all(torch.equal(o0[k], o1[k]) for k in o0)
+        assert torch.equal(n0, n1) and torch.equal(l0, l1)
+
+
+def test_kue_fused_and_per_round_paths_are_bitwise_equal_under_sampling():
+    """KUE's round inputs under 4-of-10 client sampling: the fused loop
+    (one cdf for the step, each round's mask in its total weights) and R
+    single rounds with the same masks agree bitwise, and a left-out client
+    reports n = 0."""
+    from feddrift_torch.simulation.runner import Experiment
+    cfg = ExperimentConfig(concept_drift_algo="kue", train_iterations=2,
+                           comm_round=4, sample_num=60, batch_size=20,
+                           client_num_per_round=4)
+    exp = Experiment(cfg, device="cpu")
+    exp.algo.begin_iteration(1)
+    tw, sw, fm, lr_scale = exp.algo.round_inputs(1, 0)
+    masks = exp._device_masks(4)
+    assert masks is not None and (masks.sum(1) == 4).all()
+    step, M_, C_ = exp.step, exp.pool.num_models, exp.C_
+    opt0 = step.init_opt_states(exp.pool.params, M_, C_)
+    step.generator.manual_seed(6)
+    fused = step.train_iteration_eval(
+        exp.pool.params, {k: v.clone() for k, v in opt0.items()}, exp.x,
+        exp.y, tw, lr_scale, 4, 2, 1, masks, sample_w=sw, feat_mask=fm)
+    step.generator.manual_seed(6)
+    params, opt = exp.pool.params, {k: v.clone() for k, v in opt0.items()}
+    for r in range(4):
+        params, opt, _, n, losses = step.train_round(
+            params, opt, exp.x, exp.y, tw, lr_scale, masks[r], sample_w=sw,
+            feat_mask=fm)
+    assert all(torch.equal(fused[0][k], params[k]) for k in params)
+    assert all(torch.equal(fused[1][k], opt[k]) for k in opt)
+    assert torch.equal(fused[2], n) and torch.equal(fused[3], losses)
+    assert (n[:, masks[3] == 0] == 0).all()
