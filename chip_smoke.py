@@ -60,8 +60,7 @@ Phases, one or more lines of output each:
    where its uniform lies within that of a cdf boundary; the count is
    printed), each timed per call, enqueue and on the device beside its
    plain version, one library call (``torch.cumsum``,
-   ``torch.searchsorted``), both together, the one-launch design's
-   recorded device time and its bound.
+   ``torch.searchsorted``), both together, and its bound.
    train_agg, train_eval: K2, the masked FedAvg, against its plain version
    on one K1 round's client stack at H = 32 (the general route's, M 4, C
    10, P 194) and at the canonical width (P 62), model 3 with no active
@@ -70,7 +69,13 @@ Phases, one or more lines of output each:
    fused kernel (``local_sgd_fedavg``) at the canonical shape, on gathered
    rows (KUE's route) and at F = 2: bitwise equal to the K1 launch
    followed by the ``fedavg.cu`` launch in every output, over 200 calls
-   back to back, timed beside K1 and K2 alone; K3, the eval matrices,
+   back to back, timed beside K1 and K2 alone; the same launch with K3
+   folded in (``local_sgd_fedavg_eval``: the eval of its input params on
+   steps 4 and 5, with the case's feature masks) bitwise equal in every
+   output, counts and NLL sums included, to the K1 + K2 launch followed by
+   the standalone K3 launch, over 200 calls back to back, timed per call,
+   enqueue and on the device beside K1 + K2 alone and K3 alone; K3, the
+   eval matrices,
    through both of its kernels on strided windows of the SEA dataset
    (T1 11, N 500): an eval's two steps (G = 2), one step (G = 1), every
    step (G = T1, counts only), with feature masks, the general kernel
@@ -86,13 +91,15 @@ Phases, one or more lines of output each:
    fnn, softcluster H_A_C_1_10_0, 10 steps x 200 rounds, checkpoint every
    step): per-step wall, rounds/s, final Test/Acc and models in use, then
    the launches of K1 (through the fused kernel), K2 (the aggregations:
-   K1's epilogues and K2's own launches) and K3, the plain K2 / K3 / K4
-   calls on the card, and the launches a round, device-busy share and
-   device time a round of one profiled time step beside the two-launch
-   round's recorded ones.
+   K1's epilogues and K2's own launches), the evals folded into K1's
+   launches and K3's own launches, the plain K2 / K3 / K4 calls on the
+   card, and the launches a round, device-busy share and device time a
+   round of one profiled time step.
    Fails unless every step ran, the checkpoint exists, K1 carried all
    2000 rounds and aggregated each in its epilogue (no K2 launch of its
-   own), K3 the evals, no K4 and no plain K2 / K3 / K4 ran, and
+   own), every step folded its 40 regular evals into K1's launches (400)
+   and launched K3 for its final one, no K4 and no plain K2 / K3 / K4
+   ran, and
    Test/Acc tracks the committed reference run
    ``runs/sea-fnn-softcluster-H_A_C_1_10_0-s0`` (each step within 0.04,
    the 10-step mean within 0.015: across seeds 0-2 of the committed
@@ -107,16 +114,17 @@ Phases, one or more lines of output each:
    Adaptive-FedAvg ``win-1_iter``, the legacy ``clusterfl``, AUE, AUE-PC
    and KUE (per round; KUE through K4 and K1's gather route). One
    ``train_algo`` line each: the path, wall, rounds/s, K1 launches, K2's
-   aggregations, K3 launches (and KUE's K4a and K4b), the plain K2 / K3 /
-   K4 calls, host syncs a round, models
+   aggregations, folded evals and K3 launches (and KUE's K4a and K4b), the
+   plain K2 / K3 / K4 calls, host syncs a round, models
    in use per step, per-step Test/Acc beside its committed SEA reference
    run, and the card's decisions (each client's model at every step's
    end, and the counts of drift, spawn, split and replacement events)
    beside the committed run's; then the kernel launches a round, busy
-   share and device time a round (beside the two-launch round's) and
-   K1's and K3's device
-   time a launch in one profiled time step. Fails unless K1 carried all
-   2000 rounds on the expected path and aggregated each in its epilogue,
+   share and device time a round and K1's and K3's device time a launch
+   in one profiled time step. Fails unless K1 carried all 2000 rounds on
+   the expected path and aggregated each in its epilogue, every fused
+   run folded all but one eval a step into K1 and every per-round run
+   none,
    KUE launched K4a once a step and K4b once a round (and nothing else
    launched K4), no plain K2 / K3 / K4 ran on the card, and
    every step is within 0.04 (the mean within 0.015) of the committed run,
@@ -130,14 +138,15 @@ Phases, one or more lines of output each:
    at full width, T = 3, R = 20: each must take its path, launch K1 and
    aggregate once a round and give finite metrics.
 10. train_general: the general kernel's route (``fnn_hidden_dim`` 32, T =
-   2, R = 20), which has no epilogue: K1 and ``fedavg.cu`` launch once a
-   round.
+   2, R = 20), which has no epilogue and folds no eval: K1 and
+   ``fedavg.cu`` launch once a round, K3 once an eval.
 
 It then prints the kernels' JSON line, the card line and, last, the result
 line. Each entry of the kernels line takes its launches from the driven
 run whose path launches it and its error, times and bound from the case
 at that path's shape: the flash kernel and ``dense_rows`` from ``serve``;
-K1 with K2 as its epilogue (``local_sgd_fedavg``) and K3 from ``train``;
+K1 with K2 as its epilogue (``local_sgd_fedavg``), the folded evals
+(``local_sgd_fedavg_eval``) and K3's own launches from ``train``;
 K4a and K4b from KUE's ``train_algo`` run; K1 without an epilogue
 (``local_sgd``, the general kernel) and ``fedavg.cu`` from
 ``train_general``, with their cases at H = 32. Every entry also carries
@@ -229,36 +238,6 @@ ALGO_RUNS = (
     ("kue", "H_A_C_1_10_0", "per_round", "sea-fnn-kue-H_A_C_1_10_0-s0",
      (0.85, 0.8414, 0.8414, 0.8344, 0.8524, 0.8654, 0.8538, 0.8684, 0.8578,
       0.8606)))
-# Each driven run as recorded by this script before K2 became K1's epilogue
-# and K4 two kernels (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W): kernel
-# launches a round and the busy share of a profiled time step; for the
-# canonical run also the device time a round (3.869 ms a 200-round step).
-# Records printed beside this run's numbers, not measurements.
-TWO_LAUNCH_PROFILE = {
-    "softcluster H_A_C_1_10_0": (2.285, 0.189, 0.019345),
-    "softcluster cfl_0.1_win-1": (18.245, 0.054, None),
-    "softclusterwin-1 hard": (2.33, 0.128, None),
-    "win-1 H_A_C_1_10_0": (2.33, 0.144, None),
-    "oblivious H_A_C_1_10_0": (2.33, 0.116, None),
-    "exp H_A_C_1_10_0": (2.33, 0.137, None),
-    "lin H_A_C_1_10_0": (2.33, 0.129, None),
-    "driftsurf H_A_C_1_10_0": (2.33, 0.188, None),
-    "mmacc mmacc_06": (2.33, 0.178, None),
-    "mmgeni H_A_C_1_10_0": (2.33, 0.118, None),
-    "ada win-1_iter": (13.255, 0.071, None),
-    "clusterfl H_A_C_1_10_0": (18.24, 0.048, None),
-    "aue H_A_C_1_10_0": (22.835, 0.059, None),
-    "auepc H_A_C_1_10_0": (23.045, 0.075, None),
-    "kue H_A_C_1_10_0": (16.72, 0.057, None)}
-
-
-def _two_launch(algo: str, arg: str) -> dict:
-    launches, busy, device_ms = TWO_LAUNCH_PROFILE[f"{algo} {arg}"]
-    return {"launches_per_round_two_launch": launches,
-            "device_busy_share_two_launch": busy,
-            "device_ms_per_round_two_launch": device_ms or "not recorded"}
-
-
 # The CFL run starts from the reference's own initial params for seed 0 (the
 # fnn 3 -> 10 -> 2 that feddrift_tpu's ModelPool.create draws with seed 42,
 # in every slot and as the reinit target; biases zero), so that its splits
@@ -396,14 +375,17 @@ def _device_ms(fn, reps: int = 20):
 
 def _interleaved(measure, calls: dict, rounds: int = 5) -> dict:
     """``measure(fn)`` of each call, in turns for ``rounds`` rounds; the
-    median of each. Host-side times drift within a run on a shared host,
-    so the calls compared are measured side by side."""
+    median of each (of the rounds that measured one; None if none did).
+    Host-side times drift within a run on a shared host, so the calls
+    compared are measured side by side."""
     import statistics
     got = {name: [] for name in calls}
     for _ in range(rounds):
         for name, fn in calls.items():
             got[name].append(measure(fn))
-    return {name: statistics.median(v) for name, v in got.items()}
+    return {name: statistics.median([x for x in v if x is not None])
+            if any(x is not None for x in v) else None
+            for name, v in got.items()}
 
 
 def _host_enqueue_ms(fn, iters: int = 200) -> float:
@@ -1078,11 +1060,6 @@ def phase_train_kernel() -> dict:
 DRAW_CASES = (("kue", "integer"), ("recency", "non_integer"))
 DRAW_CDF_RTOL = 1e-6
 DRAW_MASK_OFF = (1, 6)
-# K4's first design, one launch a round (cdf and search together), at
-# KUE's canonical shape on the device as recorded by this script (PERF.md,
-# NVIDIA H100 80GB HBM3, 700.00 W); that kernel is gone, so its time is a
-# record here, not a measurement of this run
-K4_ONE_LAUNCH_DEVICE_MS = 0.00806
 
 
 def _draw_case(kind: str):
@@ -1133,9 +1110,8 @@ def phase_train_draw() -> tuple[dict, dict]:
     versions on the card (rule of ``DRAW_CASES``): K4a, the step's cdf of
     the unmasked weights, and K4b, a round's search under the masked total
     weights, whose rows must also be the one-call draw's of the masked
-    weights. Each is timed beside its plain version, one library call, its
-    bound and the one-launch design's recorded time. Returns the kernels line's K4a and
-    K4b entries."""
+    weights. Each is timed beside its plain version, one library call and
+    its bound. Returns the kernels line's K4a and K4b entries."""
     import torch
     from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
                                                       weighted_cdf_ref,
@@ -1173,8 +1149,7 @@ def phase_train_draw() -> tuple[dict, dict]:
             if kind == "integer" else cdf_rel <= DRAW_CDF_RTOL
             and bool(near[differ].all()))
         # the library's pieces: cumsum of the probabilities, searchsorted
-        # of the uniforms in a normalised cdf, and both (the one-launch
-        # design's yardstick)
+        # of the uniforms in a normalised cdf, and both
         p = (tw[..., :, None] * sw[..., None, :]).reshape(d["M"], d["C"], -1)
         p = torch.where(p.sum(-1, keepdim=True) > 0, p, torch.ones_like(p))
         scaled = (flat_u * p.sum(-1, keepdim=True)).contiguous()
@@ -1215,7 +1190,6 @@ def phase_train_draw() -> tuple[dict, dict]:
                  library_device_ms=t["library"]["device_ms"],
                  cumsum_searchsorted_ms=both["ms"],
                  cumsum_searchsorted_device_ms=both["device_ms"],
-                 one_launch_device_ms_recorded=K4_ONE_LAUNCH_DEVICE_MS,
                  bound_ms=bounds[part][0], bound_by=bounds[part][1],
                  kernel_vs_bound=(k["device_ms"] or k["ms"])
                  / bounds[part][0])
@@ -1272,6 +1246,17 @@ def _forward_flops(rows: int, F: int, H: int, K: int) -> int:
     label, per row: the two products and biases, the ReLU, and ~6 a
     class (compare, subtract, exp, add; the log and the label's term)."""
     return rows * (2 * F * H + 2 * H * K + H + K + 6 * K)
+
+
+def _eval_bound_ms(flat, xw, F: int, H: int, K: int, nll_on: bool,
+                   masked: bool) -> tuple[float, str]:
+    """Least time for one eval of ``flat [M, P]`` on the window ``xw [C, G,
+    N, F]``: its rows, labels, the params (and masks) read once and the
+    cells written once, against the forward's operations."""
+    M, P, (C, G, N) = flat.shape[0], flat.shape[1], xw.shape[:3]
+    return _bound(4 * (C * G * N * (F + 1) + M * P + M * C * G * (1 + nll_on)
+                       + (M * F if masked else 0)),
+                  _forward_flops(M * C * G * N, F, H, K))
 
 
 def _timed(calls: dict) -> dict:
@@ -1428,11 +1413,7 @@ def _k3_phase() -> dict:
             "kernel": lambda: eval_cells(flat, xw, yw, **kw),
             "plain": lambda: eval_cells_ref(flat, xw, yw, **plain)})
         M, (C, G, N) = flat.shape[0], xw.shape[:3]
-        P = flat.shape[1]
-        bound_ms, bound_by = _bound(
-            4 * (C * G * N * (F + 1) + M * P + M * C * G * (1 + nll_on)
-                 + (M * F if masked else 0)),
-            _forward_flops(M * C * G * N, F, H, K))
+        bound_ms, bound_by = _eval_bound_ms(flat, xw, F, H, K, nll_on, masked)
         kernel = times["kernel"]
         _say("train_eval", name="eval_cells", case=label, route=route,
              window=window, M=M, C=C, G=G, N=N, F=F, H=H, K=K,
@@ -1516,28 +1497,37 @@ def _k5_phase() -> None:
 
 # K1 with K2 as its epilogue: (label, dataset, seed, gathered batches) at
 # the canonical round shape with _train_case's inactive pairs and model 3
-# without an active client; gathered rows as KUE's route; F = 2 (sine)
+# without an active client; gathered rows as KUE's route (with KUE's
+# feature masks); F = 2 (sine). Every case also folds K3 into the launch:
+# the eval of the round's input params on steps FOLD_STEP and FOLD_STEP + 1
 K1K2_CASES = (("sea", "sea", 0, False), ("sea_gather", "sea", 3, True),
               ("sine", "sine", 1, False))
 K1K2_REPEATS = 200
+FOLD_STEP = 4
 
 
-def _k1k2_phase() -> dict:
+def _k1k2_phase() -> tuple[dict, dict]:
     """The fused round (``local_sgd_fedavg``: K1 with K2 as its epilogue)
     against the K1 launch followed by the ``fedavg.cu`` launch: bitwise in
     the aggregated params, stats, client stack, optimizer state, n and
     losses; ``K1K2_REPEATS`` calls back to back give the same bits (a
     ticket race, or a ticket not reset, would not: each call's stats row
-    starts at -1). Its device time is printed beside K1's and K2's alone.
-    Returns the kernels line's entry."""
+    starts at -1). Then the same launch with K3 folded in (the eval of its
+    input params on a two-step window): ``K1K2_REPEATS`` calls bitwise
+    equal, in every output, to the K1 + K2 launch followed by the
+    ``eval_cells`` launch on those params. Device times beside K1's, K2's
+    and K3's alone. Returns the kernels line's entries of K1 + K2 and of
+    K1 + K2 + K3."""
     import torch
+    from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
     from feddrift_torch.kernels.local_sgd import (local_sgd, local_sgd_fedavg,
                                                   local_sgd_fedavg_ref)
-    entry = None
+    entry = fold_entry = None
     for label, dataset, seed, gather in K1K2_CASES:
         args, kw, dims, tw = _train_case(dataset, seed)
         x, y, params, opt, t_idx, slot, total_w = args
+        fm = None
         if gather:
             idx, fm = _gathered(x, tw, dims["S"], dims["B"], seed)
             t_idx = slot = None
@@ -1546,42 +1536,83 @@ def _k1k2_phase() -> dict:
         else:
             rows = (t_idx * x.shape[2] + slot * dims["B"])[..., None] \
                 + torch.arange(dims["B"], device="cuda")
+        M, C, H = dims["M"], dims["C"], dims["H"]
+        window = (x[:, FOLD_STEP:FOLD_STEP + 2], y[:, FOLD_STEP:FOLD_STEP + 2])
         fresh = lambda: {k: v.clone() for k, v in opt.items()}
+        cells = lambda: (torch.full((M, C, 2), -1, dtype=torch.int32,
+                                    device="cuda"),
+                         torch.full((M, C, 2), -1.0, device="cuda"))
         state = fresh()
         client, state, n, loss = local_sgd(x, y, params, state, t_idx, slot,
                                            total_w, **kw)
         agg, stats = fedavg(client, n, params)
-        states = [fresh() for _ in range(K1K2_REPEATS)]
-        stat_rows = torch.full((K1K2_REPEATS, dims["M"], 3), -1.0,
-                               device="cuda")
-        outs = [local_sgd_fedavg(x, y, params, st, t_idx, slot, total_w,
-                                 **kw, stats_out=stat_rows[i])
-                for i, st in enumerate(states)]
-        torch.cuda.synchronize()
-        differing = sum(not (
-            torch.equal(o[4], agg) and torch.equal(o[5], stats)
-            and torch.equal(o[0], client) and torch.equal(o[2], n)
-            and torch.equal(o[3], loss)
-            and all(torch.equal(o[1][k], state[k]) for k in state))
-            for o in outs)
+        k3 = lambda: eval_cells(params, *window, hidden=H, feat_mask=fm)
+        want_c, want_l = k3()
+
+        def same(o):
+            return bool(torch.equal(o[4], agg) and torch.equal(o[5], stats)
+                        and torch.equal(o[0], client) and torch.equal(o[2], n)
+                        and torch.equal(o[3], loss)
+                        and all(torch.equal(o[1][k], state[k])
+                                for k in state))
+
+        def back_to_back(fold):
+            """K1K2_REPEATS calls; how many differ, and the last one's
+            eval cells."""
+            states = [fresh() for _ in range(K1K2_REPEATS)]
+            stat_rows = torch.full((K1K2_REPEATS, M, 3), -1.0,
+                                   device="cuda")
+            outs = [cells() for _ in range(K1K2_REPEATS)]
+            got = [local_sgd_fedavg(
+                x, y, params, st, t_idx, slot, total_w, **kw,
+                stats_out=stat_rows[i],
+                **(dict(eval_window=window, eval_out=outs[i]) if fold
+                   else {})) for i, st in enumerate(states)]
+            torch.cuda.synchronize()
+            return sum(not (same(o) and (not fold or (
+                torch.equal(e[0], want_c) and torch.equal(e[1], want_l))))
+                for o, e in zip(got, outs)), outs[-1]
+        differing, _ = back_to_back(False)
+        fold_differing, (fold_c, fold_l) = back_to_back(True)
         want, want_stats = fedavg_ref(client, n, params)
         err = float((agg - want).abs().max())
         empty = n.sum(1) == 0
         empty_prev = bool(torch.equal(agg[empty], params[empty]))
-        state = fresh()
+        # the folded eval against the plain one: counts equal but on
+        # near-tied rows, NLL sums within EVAL_NLL_RTOL
+        plain_c, plain_l = eval_cells_ref(params, *window, hidden=H,
+                                          feat_mask=fm)
+        ties = _near_ties(params, window[0], fm, dims["F"], H, dims["K"])
+        cells_ok = bool(((fold_c - plain_c).abs() <= ties).all())
+        nll_err = float((fold_l - plain_l).abs().max())
+        nll_rel = float(((fold_l - plain_l).abs()
+                         / plain_l.abs().clamp_min(1e-30)).max())
+        state, eo = fresh(), cells()
         calls = {"kernel": lambda: local_sgd_fedavg(
                      x, y, params, state, t_idx, slot, total_w, **kw),
                  "plain": lambda: local_sgd_fedavg_ref(
-                     x, y, params, state, t_idx, slot, total_w, **kw)}
+                     x, y, params, state, t_idx, slot, total_w, **kw),
+                 "fold": lambda: local_sgd_fedavg(
+                     x, y, params, state, t_idx, slot, total_w, **kw,
+                     eval_window=window, eval_out=eo),
+                 "fold_plain": lambda: local_sgd_fedavg_ref(
+                     x, y, params, state, t_idx, slot, total_w, **kw,
+                     eval_window=window, eval_out=eo)}
         times = _timed(calls)
+        fold_enqueue = _host_enqueue_ms(calls["fold"])
         k1_dev = _device_ms(lambda: local_sgd(x, y, params, state, t_idx,
                                               slot, total_w, **kw))
         k2_dev = _device_ms(lambda: fedavg(client, n, params))
+        k3_dev, k3_enqueue = _device_ms(k3), _host_enqueue_ms(k3)
         bound_ms, bound_by = _local_sgd_bound_ms(
             rows, total_w, **dims, index_bytes=4 * (
-                rows.numel() + dims["M"] * dims["F"] if gather
+                rows.numel() + M * dims["F"] if gather
                 else 2 * t_idx.numel()), aggregate=True)
-        k = times["kernel"]
+        ev_bound, ev_by = _eval_bound_ms(params, window[0], dims["F"], H,
+                                         dims["K"], True, gather)
+        fold_bound = bound_ms + ev_bound
+        fold_by = bound_by if bound_ms >= ev_bound else ev_by
+        k, f = times["kernel"], times["fold"]
         _say("train_agg", name="local_sgd_fedavg", case=label,
              dataset=dataset, batches="gathered (K4 rows, feature masks)"
              if gather else "contiguous", **dims,
@@ -1599,6 +1630,25 @@ def _k1k2_phase() -> dict:
              plain_device_ms=times["plain"]["device_ms"],
              bound_ms=bound_ms, bound_by=bound_by,
              kernel_vs_bound=(k["device_ms"] or k["ms"]) / bound_ms)
+        _say("train_agg", name="local_sgd_fedavg_eval", case=label,
+             dataset=dataset, window_steps=[FOLD_STEP, FOLD_STEP + 1],
+             feature_masks=fm is not None,
+             repeats=K1K2_REPEATS, repeats_differing=fold_differing,
+             counts_within_near_ties_of_plain=cells_ok,
+             near_tied_rows=int(ties.sum()), nll_max_abs_err=nll_err,
+             nll_max_rel_err=nll_rel, nll_rtol=EVAL_NLL_RTOL,
+             fold_ms=f["ms"], fold_device_ms=f["device_ms"],
+             fold_enqueue_ms=fold_enqueue,
+             k1k2_device_ms=k["device_ms"],
+             k1k2_enqueue_ms=times["kernel_enqueue_ms"],
+             k3_alone_device_ms=k3_dev, k3_alone_enqueue_ms=k3_enqueue,
+             k1k2_plus_k3_device_ms=k["device_ms"] + k3_dev
+             if k["device_ms"] and k3_dev else "not measured",
+             k1k2_plus_k3_enqueue_ms=times["kernel_enqueue_ms"] + k3_enqueue,
+             plain_ms=times["fold_plain"]["ms"],
+             plain_device_ms=times["fold_plain"]["device_ms"],
+             bound_ms=fold_bound, bound_by=fold_by,
+             fold_vs_bound=(f["device_ms"] or f["ms"]) / fold_bound)
         if differing or err > AGG_ATOL or not empty_prev \
                 or not bool(empty.any()) \
                 or not torch.equal(stats, want_stats):
@@ -1607,6 +1657,13 @@ def _k1k2_phase() -> dict:
                                  f"differ from K1 then K2, |K2 - plain| "
                                  f"{err}, empty model bitwise prev "
                                  f"{empty_prev}")
+        if fold_differing or not cells_ok or nll_rel > EVAL_NLL_RTOL:
+            raise AssertionError(f"local_sgd_fedavg with the eval "
+                                 f"({label}): {fold_differing} of "
+                                 f"{K1K2_REPEATS} calls differ from K1 + "
+                                 f"K2 then K3; the eval against plain: "
+                                 f"counts within near ties {cells_ok}, "
+                                 f"nll rel {nll_rel}")
         if label == "sea":
             entry = {"name": "local_sgd_fedavg", "route": "cuda",
                      "source": "feddrift_torch/kernels/csrc/local_sgd.cu",
@@ -1616,18 +1673,44 @@ def _k1k2_phase() -> dict:
                      "plain_ms": times["plain"]["ms"], "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None,
                      "device_ms": k["device_ms"]}
-    return entry
+            fold_entry = {
+                "name": "local_sgd_fedavg_eval", "route": "cuda",
+                "source": "feddrift_torch/kernels/csrc/local_sgd.cu "
+                "(feddrift_torch/kernels/csrc/fnn_eval.cuh)",
+                "replaces": "feddrift_tpu/core/step.py:225, "
+                "feddrift_tpu/resilience/robust_agg.py:139 and "
+                "feddrift_tpu/core/step.py:777",
+                # K2's error and the eval's NLL error against plain (its
+                # counts: within near ties, checked above)
+                "launches": None, "max_abs_err": max(err, nll_err),
+                "ms": f["ms"],
+                "plain_ms": times["fold_plain"]["ms"], "bound_ms": fold_bound,
+                "bound_by": fold_by, "library_ms": None,
+                "device_ms": f["device_ms"]}
+    return entry, fold_entry
 
 
-def phase_train_agg_eval() -> tuple[dict, dict, dict]:
-    """K2 (the masked FedAvg) alone and as K1's epilogue, and K3 (the eval
-    matrices), against their plain versions on the card at the canonical
-    shapes, timed beside them and their bounds; then K5's plain functions
-    timed alone. Returns the kernels line's entries of K2, K1 + K2 and
-    K3."""
-    agg, fused, ev = _k2_phase(), _k1k2_phase(), _k3_phase()
+def phase_train_agg_eval() -> tuple[dict, dict, dict, dict]:
+    """K2 (the masked FedAvg) alone and as K1's epilogue, K3 (the eval
+    matrices) folded into that launch and alone, against their plain
+    versions on the card at the canonical shapes, timed beside them and
+    their bounds; then K5's plain functions timed alone. Returns the
+    kernels line's entries of K2, K1 + K2, K1 + K2 + K3 and K3."""
+    agg = _k2_phase()
+    fused, fold = _k1k2_phase()
+    ev = _k3_phase()
     _k5_phase()
-    return agg, fused, ev
+    return agg, fused, fold, ev
+
+
+def _launches_by_kernel(kernels) -> dict:
+    """The launches in a profile by kernel name (its first 60 characters,
+    so kernels of one template family add up under one name), most first:
+    which launches a round counts beside K1's and K3's."""
+    out = {}
+    for e in kernels:
+        out[e.key[:60]] = out.get(e.key[:60], 0) + e.count
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def _launches(fn, reps: int = 5) -> float:
@@ -1669,6 +1752,7 @@ def _reset_counts() -> None:
                                                       weighted_search,
                                                       weighted_search_ref)
     local_sgd.launches = local_sgd_fedavg.launches = 0
+    local_sgd_fedavg.evals = 0
     weighted_cdf.launches = weighted_search.launches = 0
     fedavg.launches = eval_cells.launches = 0
     fedavg_ref.cuda_calls = eval_cells_ref.cuda_calls = 0
@@ -1680,7 +1764,9 @@ def _read_counts() -> dict:
     is aggregated by K1's epilogue (``k2_epilogues``, the fused route) or
     by its own ``fedavg.cu`` launch (``k2_launches``, the general route).
     ``local_sgd.launches`` counts every K1 launch, with an epilogue or
-    without; ``k1_without_epilogue`` the latter alone."""
+    without; ``k1_without_epilogue`` the latter alone. An eval runs in a
+    K1 launch (``folded_evals``) or as its own K3 launch
+    (``k3_launches``)."""
     from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
     from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_fedavg
@@ -1697,6 +1783,7 @@ def _read_counts() -> dict:
             "k2_epilogues": local_sgd_fedavg.launches,
             "aggregations": fedavg.launches + local_sgd_fedavg.launches,
             "k3_launches": eval_cells.launches,
+            "folded_evals": local_sgd_fedavg.evals,
             "plain_calls": {"fedavg_ref": fedavg_ref.cuda_calls,
                             "eval_cells_ref": eval_cells_ref.cuda_calls,
                             "weighted_cdf_ref": weighted_cdf_ref.cuda_calls,
@@ -1719,7 +1806,33 @@ def _check_k2_k3(name: str, got: dict, rounds: int,
                              f"the card {got['plain_calls']}")
 
 
-def phase_train(fused_entry: dict, eval_entry: dict) -> None:
+def _check_evals(name: str, got: dict, cfg, exp, fused_steps: int,
+                 folds: bool) -> None:
+    """``folds``: whether the run's shape must let K1 fold an eval
+    (``_folds_eval``); a shape that does otherwise fails. Where it folds,
+    each of its ``fused_steps`` fused steps folded every eval but its final
+    one into the next round's K1 launch; every other eval (a fused step's
+    last, each of a per-round step's, all of them where the shape does not
+    fold) was a K3 launch of its own."""
+    from feddrift_torch.core.step import TrainStep
+    from feddrift_torch.kernels.local_sgd import _folds_eval
+    mod, N = exp.step.module, exp.x.shape[2]
+    if _folds_eval(mod.in_dim, mod.hidden_dim, mod.num_classes,
+                   min(cfg.batch_size, N), N) != folds:
+        raise AssertionError(f"{name}: _folds_eval is not {folds} at "
+                             f"this run's shape: evals folded wrongly")
+    E = len(TrainStep.eval_rounds(cfg.comm_round, cfg.frequency_of_the_test))
+    folded = fused_steps * (E - 1) if folds else 0
+    standalone = cfg.train_iterations * E - folded
+    if got["folded_evals"] != folded or got["k3_launches"] < standalone:
+        raise AssertionError(f"{name}: {got['folded_evals']} evals folded "
+                             f"into K1 (want {folded}: {fused_steps} fused "
+                             f"steps, fold {folds}), {got['k3_launches']} K3 "
+                             f"launches (want at least {standalone})")
+
+
+def phase_train(fused_entry: dict, fold_entry: dict,
+                eval_entry: dict) -> None:
     import tempfile
 
     import torch
@@ -1751,7 +1864,11 @@ def phase_train(fused_entry: dict, eval_entry: dict) -> None:
             _say("train_step", iteration=t, wall_s=e["wall_s"],
                  rounds_per_s=e["rounds_per_s"], test_acc=accs[t],
                  reference_test_acc=ref[t], models_in_use=models[t])
-        fused_entry["launches"] = counts["k2_epilogues"]
+        # each fused launch stands in one row: with a folded eval in the
+        # fold's, without one in K1 + K2's
+        fused_entry["launches"] = counts["k2_epilogues"] \
+            - counts["folded_evals"]
+        fold_entry["launches"] = counts["folded_evals"]
         eval_entry["launches"] = counts["k3_launches"]
         # one more time step under the profiler: where its wall goes
         R, freq = cfg.comm_round, cfg.frequency_of_the_test
@@ -1760,10 +1877,10 @@ def phase_train(fused_entry: dict, eval_entry: dict) -> None:
         opt = exp.step.init_opt_states(params, exp.pool.num_models, exp.C_)
         tw = exp.algo.round_inputs(T - 1, 0)[0]
         exp.step.generator.manual_seed(iteration_seed(cfg.seed, T - 1))
+        # the step alone: no copy of the state inside the profiled window
         kernels, prof_us = _profile(
             lambda: exp.step.train_iteration_eval(
-                params, {k: v.clone() for k, v in opt.items()}, exp.x, exp.y,
-                tw, 1.0, R, freq, T - 1), 1)
+                params, opt, exp.x, exp.y, tw, 1.0, R, freq, T - 1), 1)
         busy_us = sum(e.self_device_time_total for e in kernels)
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
         mean_acc = sum(accs) / len(accs)
@@ -1781,6 +1898,7 @@ def phase_train(fused_entry: dict, eval_entry: dict) -> None:
              k2_epilogues=counts["k2_epilogues"],
              fedavg_launches=counts["k2_launches"],
              eval_cells_launches=counts["k3_launches"],
+             folded_evals=counts["folded_evals"],
              k4a_launches=counts["k4a_launches"],
              k4b_launches=counts["k4b_launches"],
              plain_calls=counts["plain_calls"], checkpoint=ckpt,
@@ -1792,10 +1910,10 @@ def phase_train(fused_entry: dict, eval_entry: dict) -> None:
              else "not measured",
              kernel_launches_per_round=sum(e.count for e in kernels) / R,
              device_ms_per_round=busy_us / R / 1e3 if busy_us
-             else "not measured", **_two_launch(cfg.concept_drift_algo,
-                                                cfg.concept_drift_algo_arg),
+             else "not measured",
              top_kernels_us_per_round={e.key[:60]: e.self_device_time_total / R
-                                       for e in top})
+                                       for e in top},
+             launches_a_step_by_kernel=_launches_by_kernel(kernels))
         want = cfg.train_iterations * cfg.comm_round
         if len(ends) != cfg.train_iterations or len(accs) != len(ref):
             raise AssertionError(f"{len(ends)} of {cfg.train_iterations} "
@@ -1807,6 +1925,8 @@ def phase_train(fused_entry: dict, eval_entry: dict) -> None:
                                  f"{want} rounds, through the {route} "
                                  f"kernel")
         _check_k2_k3("train", counts, want)
+        _check_evals("train", counts, cfg, exp, cfg.train_iterations,
+                     folds=True)
         if counts["k4a_launches"] or counts["k4b_launches"]:
             raise AssertionError(f"K4 launched in a run without weighted "
                                  f"sampling: {counts}")
@@ -1911,15 +2031,15 @@ def _host_syncs_per_round(cfg, out_dir=None, init=None):
 
 def _profile_step(exp) -> dict:
     """One more time step of a finished run under the profiler, on the path
-    its last step took: kernel launches a round, the device-busy share and
-    K1's device time a launch."""
+    its last step took: kernel launches a round (and each kernel's a
+    step), the device-busy share and K1's device time a launch."""
     T, R = exp.cfg.train_iterations, exp.cfg.comm_round
     opt = exp.step.init_opt_states(exp.pool.params, exp.pool.num_models,
                                    exp.C_)
     fused = exp.cfg.chunk_rounds and exp.algo.chunkable(T - 1)
     run = exp._run_iteration_fused if fused else exp._run_rounds
-    kernels, wall_us = _profile(lambda: run(T - 1, {k: v.clone() for k, v
-                                                    in opt.items()}), 1)
+    # the step alone: no copy of the state inside the profiled window
+    kernels, wall_us = _profile(lambda: run(T - 1, opt), 1)
     busy_us = sum(e.self_device_time_total for e in kernels)
     out = {"launches_per_round": sum(e.count for e in kernels) / R,
            "device_busy_share": busy_us / wall_us if busy_us
@@ -1934,6 +2054,7 @@ def _profile_step(exp) -> dict:
         out[f"{name}_device_ms"] = us / sum(e.count for e in ks) / 1e3 \
             if us else "not measured"
     out["profiled_step_wall_ms"] = wall_us / 1e3
+    out["launches_a_step_by_kernel"] = _launches_by_kernel(kernels)
     return out
 
 
@@ -1997,14 +2118,14 @@ def phase_train_algos(cdf_entry: dict, search_entry: dict) -> None:
              step_wall_s=got["step_wall_s"], k1_launches=got["k1_launches"],
              aggregations=got["aggregations"],
              k2_epilogues=got["k2_epilogues"], k2_launches=got["k2_launches"],
-             k3_launches=got["k3_launches"],
+             k3_launches=got["k3_launches"], folded_evals=got["folded_evals"],
              plain_calls=got["plain_calls"],
              host_syncs_per_round=got["host_syncs_per_round"] or
              "not measured", models_in_use=got["models_in_use"],
              test_acc=accs, reference_test_acc=ref, test_acc_mean=mean,
              reference_mean=ref_mean,
              max_step_diff=max(map(abs, diffs)) if diffs else None,
-             reference_run=run, **held, **prof, **_two_launch(algo, arg))
+             reference_run=run, **held, **prof)
         want = cfg.train_iterations * cfg.comm_round
         if got["k1_launches"] != want or paths != {want_path} \
                 or len(accs) != len(ref):
@@ -2020,6 +2141,8 @@ def phase_train_algos(cdf_entry: dict, search_entry: dict) -> None:
                                  f"{cfg.train_iterations} steps, K4b "
                                  f"{got['k4b_launches']} in {want} rounds")
         _check_k2_k3(f"{algo} {arg}", got, want)
+        _check_evals(f"{algo} {arg}", got, cfg, exp,
+                     got["paths"].count("fused"), folds=True)
         if kue:
             cdf_entry["launches"] = got["k4a_launches"]
             search_entry["launches"] = got["k4b_launches"]
@@ -2062,13 +2185,16 @@ def phase_train_sampling() -> None:
              rounds_per_s=got["rounds_per_s"], k1_launches=got["k1_launches"],
              aggregations=got["aggregations"],
              k2_epilogues=got["k2_epilogues"], k2_launches=got["k2_launches"],
-             k3_launches=got["k3_launches"], plain_calls=got["plain_calls"],
+             k3_launches=got["k3_launches"], folded_evals=got["folded_evals"],
+             plain_calls=got["plain_calls"],
              host_syncs_per_round=got["host_syncs_per_round"] or
              "not measured", test_acc=got["accs"])
         if got["k1_launches"] != c.train_iterations * c.comm_round:
             raise AssertionError(f"{name}: K1 launched {got['k1_launches']}"
                                  f" times")
         _check_k2_k3(name, got, c.train_iterations * c.comm_round)
+        _check_evals(name, got, c, got["exp"], got["paths"].count("fused"),
+                     folds=True)
     series = {k: [(r["round"], r["Test/Acc"]) for r in
                   v["exp"].logger.history] for k, v in runs.items()}
     pools = {k: v["exp"].pool.params for k, v in runs.items()}
@@ -2115,7 +2241,8 @@ def phase_train_per_round_kinds() -> None:
              wall_s=got["wall_s"], rounds_per_s=got["rounds_per_s"],
              k1_launches=got["k1_launches"], aggregations=got["aggregations"],
              k2_epilogues=got["k2_epilogues"], k2_launches=got["k2_launches"],
-             k3_launches=got["k3_launches"], plain_calls=got["plain_calls"],
+             k3_launches=got["k3_launches"], folded_evals=got["folded_evals"],
+             plain_calls=got["plain_calls"],
              host_syncs_per_round=got["host_syncs_per_round"] or
              "not measured", models_in_use=got["models_in_use"],
              test_acc=got["accs"], finite=finite)
@@ -2127,6 +2254,8 @@ def phase_train_per_round_kinds() -> None:
                                  f"{finite}")
         _check_k2_k3(f"{algo} {arg}", got,
                      cfg.train_iterations * cfg.comm_round)
+        _check_evals(f"{algo} {arg}", got, cfg, got["exp"],
+                     got["paths"].count("fused"), folds=True)
 
 
 def phase_train_general(k1_entry: dict, agg_entry: dict) -> None:
@@ -2158,13 +2287,15 @@ def phase_train_general(k1_entry: dict, agg_entry: dict) -> None:
          k1_without_epilogue=got["k1_without_epilogue"],
          aggregations=got["aggregations"], k2_epilogues=got["k2_epilogues"],
          k2_launches=got["k2_launches"], k3_launches=got["k3_launches"],
-         plain_calls=got["plain_calls"], test_acc=got["accs"],
-         finite=finite)
+         folded_evals=got["folded_evals"], plain_calls=got["plain_calls"],
+         test_acc=got["accs"], finite=finite)
     if route != "general" or got["k1_launches"] != rounds or not finite:
         raise AssertionError(f"H = 32: route {route}, K1 launched "
                              f"{got['k1_launches']} times for {rounds} "
                              f"rounds, finite {finite}")
     _check_k2_k3("general route", got, rounds, k2_launches=rounds)
+    _check_evals("general route", got, cfg, exp, got["paths"].count("fused"),
+                 folds=False)
     k1_entry["launches"] = got["k1_without_epilogue"]
     agg_entry["launches"] = got["k2_launches"]
 
@@ -2193,8 +2324,9 @@ def main() -> int:
         phase_serve(entry, dense_entry)
         train_entry = phase_train_kernel()
         cdf_entry, search_entry = phase_train_draw()
-        agg_entry, fused_entry, eval_entry = phase_train_agg_eval()
-        phase_train(fused_entry, eval_entry)
+        agg_entry, fused_entry, fold_entry, eval_entry = \
+            phase_train_agg_eval()
+        phase_train(fused_entry, fold_entry, eval_entry)
         phase_train_algos(cdf_entry, search_entry)
         phase_train_sampling()
         phase_train_per_round_kinds()
@@ -2204,8 +2336,8 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": [entry, train_entry, fused_entry,
-                                  dense_entry, cdf_entry, search_entry,
-                                  agg_entry, eval_entry]}))
+                                  fold_entry, dense_entry, cdf_entry,
+                                  search_entry, agg_entry, eval_entry]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

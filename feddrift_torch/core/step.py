@@ -47,10 +47,15 @@ per time step; the draws can also be passed in, which is how the tests
 inject the reference's. A client mask ``[C]`` (the reference's
 ``client_mask``: client sampling) zeroes the unsampled clients' weights
 before K1 sees their total, so K1 leaves those pairs as they were and
-reports n = 0. The eval matrices are K3 (``kernels/eval_cells.py``): one
-launch for a window of time steps, so an eval of the train step t and the
-test step t + 1 is one launch. The ensemble vote, the MSE matrix and the
-confusion matrices (K5's) are plain batched PyTorch for now.
+reports n = 0. The eval matrices are K3, one pass over a window of time
+steps, so an eval of the train step t and the test step t + 1 is one
+pass. On the fused loop, where ``local_sgd._folds_eval`` allows it (the
+registry's fnn widths at a batch of N rows), the eval after round r runs
+in round r + 1's K1 launch on that launch's input params; the final
+round's eval, the per-round path's evals and ``acc_matrix`` /
+``acc_window`` / ``acc_cells`` are one ``kernels/eval_cells.py`` launch
+each. The ensemble vote, the MSE matrix and the confusion matrices (K5's)
+are plain batched PyTorch for now.
 
 ``ForwardStep`` is the counterpart of ``ForwardStep`` (:905-960): one call
 answers a whole micro-batch whose rows may target different models; each
@@ -71,8 +76,9 @@ import torch
 
 from feddrift_torch.core.functional import confusion_matrix
 from feddrift_torch.kernels.eval_cells import eval_cells
-from feddrift_torch.kernels.local_sgd import (_route, init_opt_state,
-                                              local_sgd, local_sgd_fedavg)
+from feddrift_torch.kernels.local_sgd import (_folds_eval, _route,
+                                              init_opt_state, local_sgd,
+                                              local_sgd_fedavg)
 from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
                                                   weighted_search)
 from feddrift_torch.models.mlp import FeedForwardNN
@@ -205,7 +211,7 @@ class TrainStep:
     # ------------------------------------------------------------------
     def _round_body(self, flat, opt_state, x, y, total_w, rows,
                     lr_scale: float, cdf=None, feat_mask=None,
-                    stats_out=None):
+                    stats_out=None, eval_window=None, eval_out=None):
         """One round on packed params ``flat [M, P]``: K4b (weighted
         sampling only), then K1 and K2, the masked FedAvg: one launch on the
         fused kernel's route (K2 as K1's epilogue), two on the general one.
@@ -213,7 +219,9 @@ class TrainStep:
         mask leaves out. ``rows``: ``(t_idx, slot)`` of contiguous batches,
         or the weighted draw's uniforms ``u [M, C, S, B]``, searched in the
         step's ``cdf`` (``step_cdf``). ``stats_out``: an ``[M, 3]`` row that
-        receives the aggregation stats. Returns ``(new_flat, opt_state,
+        receives the aggregation stats. ``eval_window`` / ``eval_out``: an
+        eval of ``flat`` folded into the launch (``local_sgd_fedavg``; only
+        where ``_folds_eval`` allows it). Returns ``(new_flat, opt_state,
         client [M, C, P], n, losses, agg_stats [M, 3])`` on every route."""
         t_idx = slot = idx = None
         if self.weighted_sampling:           # K4b: the rows the uniforms draw
@@ -228,7 +236,8 @@ class TrainStep:
         if _route(mod.in_dim, mod.hidden_dim, mod.num_classes, B) == "fused":
             client, opt_state, n, losses, new_flat, agg_stats = \
                 local_sgd_fedavg(x, y, flat, opt_state, t_idx, slot, total_w,
-                                 stats_out=stats_out, **kw)
+                                 stats_out=stats_out, eval_window=eval_window,
+                                 eval_out=eval_out, **kw)
         else:
             client, opt_state, n, losses = local_sgd(
                 x, y, flat, opt_state, t_idx, slot, total_w, **kw)
@@ -287,12 +296,16 @@ class TrainStep:
         """ALL R rounds of time step ``t`` with every scheduled eval.
 
         Eval slot ``r // freq`` holds the eval after round r for ``r %
-        freq == 0``, and the final round takes slot E-1: one K3 launch
-        writes slot e of the ``[E, M, C, 2]`` count and NLL buffers (train
-        step t, test step t + 1), and K2 (K1's epilogue on the fused route)
-        writes row r of the ``[R, M, 3]`` stats. With weighted sampling the
-        step's cdf is computed once, from the unmasked weights. The buffers
-        stay on the device; the caller fetches them once.
+        freq == 0``, and the final round takes slot E-1: K3 writes slot e
+        of the ``[E, M, C, 2]`` count and NLL buffers (train step t, test
+        step t + 1), and K2 (K1's epilogue on the fused route) writes row r
+        of the ``[R, M, 3]`` stats. Where ``_folds_eval`` allows it, the
+        eval after round r < R - 1 runs inside round r + 1's launch (whose
+        input params are round r's output); the final round's eval, and
+        every eval on other shapes, is one ``eval_cells`` launch. With
+        weighted sampling the step's cdf is computed once, from the
+        unmasked weights. The buffers stay on the device; the caller
+        fetches them once.
         ``client_masks``: ``[R, C]`` 0/1, round r samples row r's clients
         (None: all). ``sample_w``, ``feat_mask``: as ``train_round``.
         ``draws``: ``(t_idx, slot)`` each ``[R, M, C, S]``, else drawn up
@@ -316,22 +329,34 @@ class TrainStep:
         cdf = self.step_cdf(time_w, sample_w, x.shape[2]) \
             if self.weighted_sampling else None
         total_w = self.total_weight(time_w)
+        mod, N = self.module, x.shape[2]
+        fold = _folds_eval(mod.in_dim, mod.hidden_dim, mod.num_classes,
+                           min(self.batch_size, N), N)
+        window = (xw.flatten(3), yw)
+        pending = None            # the eval slot the next round's launch fills
         for r in range(R):
             if client_masks is not None:
                 total_w = self.total_weight(time_w, client_masks[r])
             if draws is None:
-                rows = self.draw_row_uniforms(M, C, x.shape[2])
+                rows = self.draw_row_uniforms(M, C, N)
             elif self.weighted_sampling:
                 rows = draws[r]
             else:
                 rows = (draws[0][r], draws[1][r])
             flat, opt_states, _, n, losses, _ = self._round_body(
                 flat, opt_states, x, y, total_w, rows, lr_scale, cdf,
-                feat_mask, stats_out=stats[r])
+                feat_mask, stats_out=stats[r],
+                eval_window=None if pending is None else window,
+                eval_out=None if pending is None
+                else (corr[pending], nll[pending]))
+            pending = None
             if r % freq == 0 or r == R - 1:
                 e = E - 1 if r == R - 1 else r // freq
-                self._eval_window(flat, xw, yw, feat_mask,
-                                  out=(corr[e], nll[e]))
+                if fold and r < R - 1:
+                    pending = e
+                else:
+                    self._eval_window(flat, xw, yw, feat_mask,
+                                      out=(corr[e], nll[e]))
         total = torch.full((C,), x.shape[2], dtype=torch.int32,
                            device=x.device)
         bufs = (corr[..., 0], nll[..., 0], corr[..., 1], nll[..., 1])

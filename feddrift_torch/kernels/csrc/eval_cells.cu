@@ -45,17 +45,28 @@
 // and `nll` is bitwise the same call after call, and a block's result does
 // not depend on G or on the strides. No tensor cores: at H = 10 and K = 2
 // an mma tile would be mostly padding.
+//
+// The fused kernel's cell (its row loop, score_row and block_total) lives
+// in fnn_eval.cuh, which K1's fused kernel (local_sgd.cu) shares: the fused
+// round loop evaluates round r's params inside round r + 1's K1 launch, and
+// those cells are bitwise this kernel's. This kernel takes every other
+// eval: the last round's of a time step, the per-round path's, acc_matrix
+// and acc_cells.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
 
+#include "fnn_eval.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using fnn_eval::block_total;
+using fnn_eval::kMaxWarps;
+using fnn_eval::score_row;
+
 constexpr int kMaxThreads = 512;
-constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxSmem = 232448;              // a block's shared memory
 constexpr int kStaticSmem = 2 * 4 * kMaxWarps;  // the warp totals
 constexpr int kErrSmem = -1;                  // eval_cells.py's _ERR_SMEM
@@ -70,60 +81,6 @@ struct Args {
   long long xs_c, xs_g, ys_c, ys_g;
   int C, G, N, F, H, K;
 };
-
-// One row's count and NLL from its logits, read through zk(k): KC classes
-// where the width is a template argument, else K.
-template <int KC, typename Z>
-__device__ __forceinline__ void score_row(Z zk, int K, int label, int* cnt,
-                                          float* nll, bool want_nll) {
-  const int nk = KC > 0 ? KC : K;
-  float best = zk(0), zy = zk(0);
-  int arg = 0;
-#pragma unroll
-  for (int k = 1; k < nk; ++k) {
-    const float v = zk(k);
-    if (v > best) {                 // strictly: the first maximum wins
-      best = v;
-      arg = k;
-    }
-    if (k == label) zy = v;
-  }
-  *cnt += arg == label;
-  if (want_nll) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < nk; ++k) s += expf(zk(k) - best);
-    *nll += logf(s) - (zy - best);
-  }
-}
-
-// The block's totals in a fixed order: a shuffle tree within each warp,
-// then the warps in order. Thread 0 writes them.
-__device__ __forceinline__ void block_total(int cnt, float nll, int* s_cnt,
-                                            float* s_nll, int* correct,
-                                            float* nll_out, size_t out) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    cnt += __shfl_xor_sync(kFull, cnt, o);
-    nll += __shfl_xor_sync(kFull, nll, o);
-  }
-  if (lane == 0) {
-    s_cnt[warp] = cnt;
-    s_nll[warp] = nll;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int c = 0;
-    float l = 0.f;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-      c += s_cnt[w];
-      l += s_nll[w];
-    }
-    correct[out] = c;
-    if (nll_out) nll_out[out] = l;
-  }
-}
 
 // This block's (m, c, g), its output index and its rows and labels.
 struct Cell {
@@ -152,35 +109,8 @@ eval_fused_kernel(const Args a) {
   for (int i = tid; i < P; i += blockDim.x) sp[i] = a.params[cl.m * P + i];
   if (tid < F) sf[tid] = a.fmask ? a.fmask[cl.m * F + tid] : 1.f;
   __syncthreads();
-  const float* W0 = sp;
-  const float* b0 = sp + F * H;
-  const float* W1 = b0 + H;
-  const float* b1 = W1 + H * K;
-  int cnt = 0;
-  float nll = 0.f;
-  for (int i = tid; i < a.N; i += blockDim.x) {
-    float xv[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f)
-      xv[f] = __fmul_rn(cl.x[(size_t)i * F + f], sf[f]);
-    float z[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) z[k] = 0.f;
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int f = 0; f < F; ++f) s = fmaf(xv[f], W0[f * H + j], s);
-      const float h = fmaxf(__fadd_rn(s, b0[j]), 0.f);
-#pragma unroll
-      for (int k = 0; k < K; ++k) z[k] = fmaf(h, W1[j * K + k], z[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) z[k] = __fadd_rn(z[k], b1[k]);
-    score_row<K>([&](int k) { return z[k]; }, K, cl.y[i], &cnt, &nll,
-                 a.nll != nullptr);
-  }
-  block_total(cnt, nll, s_cnt, s_nll, a.correct, a.nll, cl.out);
+  fnn_eval::cell<F, H, K>(sp, sf, cl.x, cl.y, a.N, s_cnt, s_nll, a.correct,
+                          a.nll, cl.out);
 }
 
 __global__ void __launch_bounds__(kMaxThreads)

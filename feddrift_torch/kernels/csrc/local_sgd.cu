@@ -66,7 +66,8 @@
 //   80 % padding. No thread-block clusters: the chain is latency-bound, and
 //   a cluster barrier per step would cost more than the rows it splits.
 // Shared memory: stages * B * (F + 1) * 4 bytes of batches (40 KB at SEA),
-// warps * V * 4 of partials, P * 4 of parameters, 8 a stage of mbarriers.
+// warps * V * 4 of partials, P * 4 of parameters, 8 a stage of mbarriers;
+// with the eval below, 4 * (P + F + 64) more and its window's rows.
 //
 // K2 as the fused kernel's epilogue. Where the caller passes agg_out, the
 // fused kernel also aggregates each model's round, exactly as fedavg.cu
@@ -85,6 +86,20 @@
 // barriers and its reduction order are unchanged. The general kernel has no
 // epilogue: on its route the caller launches fedavg.cu.
 //
+// K3 in the fused kernel. Where the caller also passes eval_correct, block
+// (m, c) writes the eval cells (m, c, 0) and (m, c, 1): model m's INPUT
+// params (kept in shared memory, since s_p changes at step 0) under its
+// feature mask, on client c's rows of a two-step window (x[:, t:t + 2]),
+// through fnn_eval.cuh's cell, with which eval_cells.cu's fused kernel
+// computes its cells. At equal block sizes (local_sgd.py::_folds_eval) the
+// cells are bitwise that kernel's. The fused round loop thus evaluates
+// round r's params in round r + 1's launch. The window's rows (2N(F + 1) * 4
+// bytes, 16 KB at SEA) are staged at entry by TMA bulk copies on an
+// mbarrier of their own (4-byte cp.async where an address or stride is not
+// 16-byte aligned; read from device memory where they would not fit), so
+// they arrive while the S steps run. The eval runs after the S steps and
+// before the ticket (placing it after the ticket measured slower, PERF.md).
+//
 // local_sgd_general_kernel: any other width (e.g. fnn_hidden_dim = 32) or
 // batch. One block of 256 threads per pair; params and moments in shared
 // memory for all S steps; threads over rows for the forward; a warp per
@@ -99,6 +114,8 @@
 #include <atomic>
 #include <climits>
 
+#include "fnn_eval.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -109,6 +126,11 @@ constexpr int kGeneralWarps = kGeneralThreads / 32;
 constexpr int kFusedMaxThreads = 512;
 constexpr int kStages = 8;    // batch stages of the fused kernel's ring
 constexpr int kAggBatch = 16;  // loads in flight a thread in the epilogue
+// the fused kernel's mbarriers (the ring's, then the eval window's), padded
+// to keep the batch stages 16-byte aligned
+constexpr int kBarBytes = 8 * (kStages + 2);
+// how the fused kernel reads the eval window's rows (fused_kernel's emode)
+constexpr int kEvalNone = 0, kEvalBulk = 1, kEvalCopies = 2, kEvalGlobal = 3;
 
 struct Args {
   const float* x;        // [C, T1, N, F]
@@ -129,6 +151,14 @@ struct Args {
   float* agg_out;        // [M, P] the aggregated params, or null (no epilogue)
   float* stats_out;      // [M, 3] the aggregation stats (with agg_out)
   int* ticket;           // [M] zeros between launches (with agg_out)
+  // the eval of the input params (fused kernel with agg_out only): rows
+  // [N, F] at ex + c * exs_c + g * exs_g, labels [N] at ey + c * eys_c +
+  // g * eys_g for the window's steps g = 0, 1; eval_correct null: no eval
+  const float* ex;
+  const int* ey;
+  int* eval_correct;     // [M, C, 2]
+  float* eval_nll;       // [M, C, 2]
+  long long exs_c, exs_g, eys_c, eys_g;
   int C, T1, N, F, H, K, B, S;
   float neg_lr, wd, lr_scale, b1, b2, one_minus_b1, one_minus_b2, eps;
 };
@@ -411,6 +441,38 @@ __device__ __forceinline__ void stage_batch(const Args& a, const float* xc,
   }
 }
 
+// Start the copies of client c's eval window, x rows [2, N, F] and labels
+// [2, N], into s_ex and s_ey. Bulk (16-byte aligned rows and strides): four
+// TMA bulk copies by thread 0, `bar` expecting the bytes (its count is 1).
+// Otherwise every thread copies rows i, i + blockDim.x, ... with 4-byte
+// cp.async and arrives (the count is the block's size).
+template <int F>
+__device__ __forceinline__ void stage_window(const Args& a, int c, bool bulk,
+                                             float* s_ex, int* s_ey,
+                                             uint64_t* bar) {
+  const int N = a.N;
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar, (unsigned)(2 * N * (F + 1) * 4));
+      for (int g = 0; g < 2; ++g) {
+        bulk_copy(s_ex + (size_t)g * N * F, a.ex + c * a.exs_c + g * a.exs_g,
+                  (unsigned)(N * F * 4), bar);
+        bulk_copy(s_ey + (size_t)g * N, a.ey + c * a.eys_c + g * a.eys_g,
+                  (unsigned)(N * 4), bar);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < 2 * N; i += blockDim.x) {
+      const int g = i / N, r = i - g * N;
+      const float* src = a.ex + c * a.exs_c + g * a.exs_g + (size_t)r * F;
+#pragma unroll
+      for (int f = 0; f < F; ++f) copy4(s_ex + (size_t)i * F + f, src + f);
+      copy4(s_ey + i, a.ey + c * a.eys_c + g * a.eys_g + r);
+    }
+    copies_arrive(bar);
+  }
+}
+
 // One butterfly round of the transpose-reduce: lanes with bit O set keep
 // the upper half of their HALF * 2 values, the others the lower half, and
 // each adds its partner's copy of the half it keeps.
@@ -427,19 +489,32 @@ __device__ __forceinline__ void fold(float (&v)[V], int lane) {
 
 template <int F, int H, int K>
 __global__ void __launch_bounds__(kFusedMaxThreads, 1)
-local_sgd_fused_kernel(const Args a, int stages, int bulk) {
+local_sgd_fused_kernel(const Args a, int stages, int bulk, int emode) {
   constexpr int P = F * H + H + H * K + K;
   constexpr int oB1 = F * H, oW2 = oB1 + H, oB2 = oW2 + H * K;
   constexpr int V = (P + 1 + 31) / 32 * 32;  // P gradients and the loss
   constexpr int VL = V / 32;                 // of them a lane keeps
+  constexpr int EW = 2 * fnn_eval::kMaxWarps;  // the eval's warp totals
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);   // [kStages]
-  const int B = a.B, S = a.S;
+  // [kStages] the ring's, then the eval window's
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  const int B = a.B, S = a.S, N = a.N;
   const int warps = blockDim.x >> 5;
-  float* s_x = reinterpret_cast<float*>(smem_raw + 8 * kStages);  // [st, B, F]
+  float* s_x = reinterpret_cast<float*>(smem_raw + kBarBytes);  // [st, B, F]
   int* s_y = reinterpret_cast<int*>(s_x + (size_t)stages * B * F); // [st, B]
   float* s_red = reinterpret_cast<float*>(s_y + (size_t)stages * B); // [w, V]
   float* s_p = s_red + warps * V;                                  // [P]
+  // the eval (emode != kEvalNone): the input params, the mask, the warp
+  // totals of the two cells and, 16-byte aligned, the window's rows
+  float* s_pe = s_p + P;                                           // [P]
+  float* s_fe = s_pe + P;                                          // [F]
+  int* s_ecnt = reinterpret_cast<int*>(s_fe + F);                  // [EW]
+  float* s_enll = reinterpret_cast<float*>(s_ecnt + EW);           // [EW]
+  const size_t ew = ((reinterpret_cast<unsigned char*>(s_enll + EW)
+                      - smem_raw) + 15) & ~(size_t)15;
+  float* s_ex = reinterpret_cast<float*>(smem_raw + ew);           // [2, N, F]
+  int* s_ey = reinterpret_cast<int*>(
+      smem_raw + ew + ((8 * (size_t)N * F + 15) & ~(size_t)15));   // [2, N]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int pair = blockIdx.x;
@@ -452,6 +527,7 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk) {
   if (tid == 0) {
     for (int st = 0; st < stages; ++st)
       mbar_init(bars + st, bulk ? 1u : blockDim.x);
+    mbar_init(bars + kStages, emode == kEvalBulk ? 1u : blockDim.x);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   // thread p owns parameter p: its value and its optimizer state stay in
@@ -463,14 +539,20 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk) {
     nu = a.nu[so + tid];
     vmax = a.nu_max[so + tid];
     s_p[tid] = w_own;
+    if (emode != kEvalNone) s_pe[tid] = w_own;  // s_p changes at step 0
   }
   int count = a.count[pair];
   float fm[F];                      // model m's feature mask
 #pragma unroll
   for (int f = 0; f < F; ++f) fm[f] = a.fmask ? a.fmask[m * F + f] : 1.f;
+  if (emode != kEvalNone && tid < F)
+    s_fe[tid] = a.fmask ? a.fmask[m * F + tid] : 1.f;
   __syncthreads();
   for (int s = 0; s < stages; ++s)
     stage_batch<F>(a, xc, yc, pair, s, s, bulk, s_x, s_y, bars);
+  // the eval window after the first batches: it is read only after step S-1
+  if (emode == kEvalBulk || emode == kEvalCopies)
+    stage_window<F>(a, c, emode == kEvalBulk, s_ex, s_ey, bars + kStages);
 
   const float inv_b = 1.0f / (float)B;
   float loss_sum = 0.f;             // thread P's sum of the S step losses
@@ -585,6 +667,24 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk) {
     a.n_out[pair] = active ? tw * (float)a.N : 0.f;
     a.loss_out[pair] = loss_sum / (float)S;
   }
+  // cells (m, c, 0) and (m, c, 1) of the eval: model m's INPUT params on
+  // client c's rows of the window, exactly as eval_cells.cu's blocks
+  // (m, c, 0) and (m, c, 1) compute them at this block size
+  if (emode != kEvalNone) {
+    if (emode != kEvalGlobal) mbar_wait(bars + kStages, 0);
+    for (int g = 0; g < 2; ++g) {
+      const float* ex = emode == kEvalGlobal
+                            ? a.ex + c * a.exs_c + g * a.exs_g
+                            : s_ex + (size_t)g * N * F;
+      const int* ey = emode == kEvalGlobal ? a.ey + c * a.eys_c + g * a.eys_g
+                                           : s_ey + (size_t)g * N;
+      fnn_eval::cell<F, H, K>(s_pe, s_fe, ex, ey, N,
+                              s_ecnt + g * fnn_eval::kMaxWarps,
+                              s_enll + g * fnn_eval::kMaxWarps,
+                              a.eval_correct, a.eval_nll,
+                              (size_t)pair * 2 + g);
+    }
+  }
   if (a.agg_out == nullptr) return;
 
   // K2, the epilogue: the last block of model m to finish aggregates it.
@@ -692,9 +792,27 @@ int launch_fused(const Args& a, int pairs, int device, cudaStream_t st) {
                     && ((reinterpret_cast<uintptr_t>(a.x)
                       | reinterpret_cast<uintptr_t>(a.y)) & 15) == 0
                     && a.N % 4 == 0 && a.B % 4 == 0;
-  const long long smem = 8LL * kStages
-                         + 4LL * stages * a.B * (F + 1)
-                         + 4LL * (threads / 32) * V + 4LL * P;
+  long long smem = kBarBytes + 4LL * stages * a.B * (F + 1)
+                   + 4LL * (threads / 32) * V + 4LL * P;
+  int emode = kEvalNone;
+  if (a.eval_correct) {
+    // the input params, the mask and the warp totals, then the window's
+    // rows 16-byte aligned: staged where they fit, else read where they lie
+    smem = (smem + 4LL * (P + F + 4 * fnn_eval::kMaxWarps) + 15) & ~15LL;
+    const long long window = ((8LL * a.N * F + 15) & ~15LL)
+                             + ((8LL * a.N + 15) & ~15LL);
+    const bool eval_bulk =
+        ((reinterpret_cast<uintptr_t>(a.ex)
+          | reinterpret_cast<uintptr_t>(a.ey)) & 15) == 0
+        && (a.exs_c % 4 | a.exs_g % 4 | a.eys_c % 4 | a.eys_g % 4) == 0
+        && a.N % 4 == 0;
+    if (smem + window <= kMaxSmem) {
+      smem += window;
+      emode = eval_bulk ? kEvalBulk : kEvalCopies;
+    } else {
+      emode = kEvalGlobal;
+    }
+  }
   if (smem > 48 * 1024) {
     static std::atomic<unsigned long long> ready{0};
     const cudaError_t err = allow_smem(local_sgd_fused_kernel<F, H, K>, ready,
@@ -702,7 +820,7 @@ int launch_fused(const Args& a, int pairs, int device, cudaStream_t st) {
     if (err != cudaSuccess) return (int)err;
   }
   local_sgd_fused_kernel<F, H, K>
-      <<<pairs, threads, (size_t)smem, st>>>(a, stages, bulk ? 1 : 0);
+      <<<pairs, threads, (size_t)smem, st>>>(a, stages, bulk ? 1 : 0, emode);
   return (int)cudaGetLastError();
 }
 
@@ -712,19 +830,21 @@ int launch_fused(const Args& a, int pairs, int device, cudaStream_t st) {
 struct Params {
   unsigned long long x, y, params, mu, nu, nu_max, count, t_idx, slot, idx,
       fmask, total_w, out_params, n_out, loss_out, agg_out, stats_out,
-      ticket;  // device pointers
+      ticket, ex, ey, eval_correct, eval_nll;  // device pointers
+  long long exs_c, exs_g, eys_c, eys_g;        // element strides
   int M, C, T1, N, F, H, K, B, S;
   int device;  // CUDA device index of every tensor
   float neg_lr, wd, lr_scale, b1, b2, one_minus_b1, one_minus_b2, eps;
 };
-static_assert(sizeof(Params) == 216, "Params must match the wrapper's pack");
+static_assert(sizeof(Params) == 280, "Params must match the wrapper's pack");
 
 // Plain C entry point bound with ctypes. Every tensor contiguous on device
 // `device`, float32 except y, count, t_idx, slot and idx (int32); either
 // t_idx and slot or idx are given (idx: the others 0), fmask may be 0.
 // agg_out may be 0 (no epilogue); with it, stats_out and ticket (int32, M
 // zeros, left zero by every launch) are given, and only the fused route
-// takes it.
+// takes it. eval_correct may be 0 (no eval); with it, agg_out, eval_nll,
+// ex and ey are given (the window's rows [N, F] and labels [N] contiguous).
 // Rows of idx must lie in [0, T1*N): the weighted draw clips them. `route` is
 // local_sgd.py's _ROUTES: 0 the general kernel, 1 the fused kernel (only
 // for the (F, H, K) it is built for and B <= 512). `stream` is a stream of
@@ -734,7 +854,9 @@ static_assert(sizeof(Params) == 216, "Params must match the wrapper's pack");
 // block may take.
 extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
   if (p->M < 1 || p->C < 1 || p->S < 1 || p->B < 1
-      || (p->agg_out && (route != 1 || !p->stats_out || !p->ticket)))
+      || (p->agg_out && (route != 1 || !p->stats_out || !p->ticket))
+      || (p->eval_correct
+          && (!p->agg_out || !p->eval_nll || !p->ex || !p->ey)))
     return (int)cudaErrorInvalidValue;
   const Args a{reinterpret_cast<const float*>(p->x),
                reinterpret_cast<const int*>(p->y),
@@ -754,6 +876,11 @@ extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
                reinterpret_cast<float*>(p->agg_out),
                reinterpret_cast<float*>(p->stats_out),
                reinterpret_cast<int*>(p->ticket),
+               reinterpret_cast<const float*>(p->ex),
+               reinterpret_cast<const int*>(p->ey),
+               reinterpret_cast<int*>(p->eval_correct),
+               reinterpret_cast<float*>(p->eval_nll),
+               p->exs_c, p->exs_g, p->eys_c, p->eys_g,
                p->C, p->T1, p->N, p->F, p->H, p->K, p->B, p->S,
                p->neg_lr, p->wd, p->lr_scale, p->b1, p->b2,
                p->one_minus_b1, p->one_minus_b2, p->eps};

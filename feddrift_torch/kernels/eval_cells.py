@@ -23,6 +23,14 @@ before the launch: the fused kernel for the registry's widths, the general
 one for any other. ``eval_cells_ref.cuda_calls`` counts the plain
 version's calls on CUDA tensors (only a comparison with the kernel makes
 them), so a run can show that none carried its evals.
+
+The fused round loop takes its evals elsewhere: K1's fused kernel
+evaluates its input params in the same launch
+(``local_sgd.py::local_sgd_fedavg``'s ``eval_window``), through the cell
+this kernel's fused route computes (``csrc/fnn_eval.cuh``), bitwise equal
+to this kernel's cells at equal block sizes. ``eval_cells`` takes every
+other eval: a time step's last, the per-round path's, ``acc_matrix`` and
+``acc_cells``.
 """
 
 from __future__ import annotations
@@ -34,7 +42,6 @@ import struct
 import torch
 
 from feddrift_torch.kernels.build import library
-from feddrift_torch.kernels.local_sgd import _unpack
 
 MAX_BLOCKS = 2 ** 31 - 1
 MAX_THREADS = 512
@@ -54,6 +61,14 @@ def _route(F: int, H: int, K: int) -> str:
 def _threads(N: int) -> int:
     """A block's threads: one row each, a multiple of 32, at most 512."""
     return min(MAX_THREADS, max(32, -(-N // 32) * 32))
+
+
+def _unpack(p: torch.Tensor, F: int, H: int, K: int):
+    """The fnn's leaves ``(W0 [.., F, H], b0 [.., H], W1 [.., H, K], b1
+    [.., K])`` as views of packed params ``p [.., P]``."""
+    o1, o2, o3 = F * H, F * H + H, F * H + H + H * K
+    return (p[..., :o1].unflatten(-1, (F, H)), p[..., o1:o2],
+            p[..., o2:o3].unflatten(-1, (H, K)), p[..., o3:])
 
 
 def _classes(F: int, H: int, P: int) -> int:

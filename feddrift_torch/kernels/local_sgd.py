@@ -35,6 +35,17 @@ as its epilogue, so the round path makes one launch where it made two. The
 general kernel has no epilogue; on its route the caller launches K2.
 ``local_sgd_fedavg_ref`` (``local_sgd_ref``, then ``fedavg_ref``) is its
 plain version.
+
+``local_sgd_fedavg`` also takes an eval (K3) of its INPUT params: given a
+two-step window ``eval_window = (x[:, t:t + 2], y[:, t:t + 2])`` and
+``eval_out = (correct, nll)`` (``[M, C, 2]``, e.g. slot e of the fused
+loop's buffers), block (m, c) of the same launch writes the cells that
+``kernels/eval_cells.py``'s blocks (m, c, 0) and (m, c, 1) would write,
+bitwise, through the cell code both kernels share
+(``csrc/fnn_eval.cuh``). ``_folds_eval`` says by shape which rounds can
+take it: where it is False the caller launches ``eval_cells`` instead, and
+a request the fold cannot take raises. ``local_sgd_fedavg.evals`` counts
+the evals folded into a launch.
 """
 
 from __future__ import annotations
@@ -46,6 +57,9 @@ import struct
 import torch
 
 from feddrift_torch.kernels.build import library
+from feddrift_torch.kernels.eval_cells import _route as _eval_route
+from feddrift_torch.kernels.eval_cells import _threads as _eval_threads
+from feddrift_torch.kernels.eval_cells import _unpack, eval_cells_ref
 from feddrift_torch.kernels.fedavg import fedavg_ref
 
 B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.amsgrad defaults
@@ -67,6 +81,16 @@ def _route(F: int, H: int, K: int, B: int) -> str:
         else "general"
 
 
+def _folds_eval(F: int, H: int, K: int, B: int, N: int) -> bool:
+    """Whether a round at batch ``B`` can evaluate its input params on
+    ``N``-row steps in its own launch: K1 and K3 both take their fused
+    kernels, and K1's block (one batch row a thread, round_up(B, 32) and at
+    least 64 threads) is K3's (``eval_cells._threads(N)``), so the cells'
+    sums run over the same tree and are bitwise K3's."""
+    return _route(F, H, K, B) == "fused" and _eval_route(F, H, K) == "fused" \
+        and max(64, -(-B // 32) * 32) == _eval_threads(N)
+
+
 def init_opt_state(M: int, C: int, P: int,
                    device: str | torch.device) -> dict[str, torch.Tensor]:
     """Fresh AMSGrad state of every pair (optax's init: zeros, count 0)."""
@@ -74,12 +98,6 @@ def init_opt_state(M: int, C: int, P: int,
             "nu": torch.zeros(M, C, P, device=device),
             "nu_max": torch.zeros(M, C, P, device=device),
             "count": torch.zeros(M, C, dtype=torch.int32, device=device)}
-
-
-def _unpack(p: torch.Tensor, F: int, H: int, K: int):
-    o1, o2, o3 = F * H, F * H + H, F * H + H + H * K
-    return (p[..., :o1].unflatten(-1, (F, H)), p[..., o1:o2],
-            p[..., o2:o3].unflatten(-1, (H, K)), p[..., o3:])
 
 
 def amsgrad_step(p, grad, mu, nu, nu_max, count, *, lr: float, wd: float,
@@ -143,9 +161,10 @@ def local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w, *,
     return client, new_state, n, torch.stack(losses, -1).mean(-1)
 
 
-# csrc/local_sgd.cu's Params: 18 pointers; M, C, T1, N, F, H, K, B, S,
-# device; -lr, wd, lr_scale, b1, b2, 1 - b1, 1 - b2, eps
-_PARAMS = struct.Struct("=18Q10i8f")
+# csrc/local_sgd.cu's Params: 22 pointers; the eval window's x and y client
+# and step strides; M, C, T1, N, F, H, K, B, S, device; -lr, wd,
+# lr_scale, b1, b2, 1 - b1, 1 - b2, eps
+_PARAMS = struct.Struct("=22Q4q10i8f")
 # the epilogue's zeroed ticket counters, one buffer per (device, stream):
 # each launch leaves them zero, so they are allocated once and never reset
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
@@ -187,14 +206,57 @@ def _ticket(device: torch.device, index: int, stream: int,
     return t
 
 
+def _check_fold(x, params, hidden: int, batch_size: int, eval_window,
+                eval_out) -> None:
+    """Refuse, on any device, an eval that the fused kernel cannot fold
+    into the round's launch: a shape ``_folds_eval`` leaves to
+    ``eval_cells``, or a window or outputs of another shape or type."""
+    if eval_out is None or len(eval_window) != 2 or len(eval_out) != 2:
+        raise ValueError("an eval takes eval_window=(x, y) and "
+                         "eval_out=(correct, nll)")
+    (C, _, N, F), (M, P) = x.shape, params.shape
+    H, B = hidden, batch_size
+    K = (P - F * H - H) // (H + 1)
+    if not _folds_eval(F, H, K, B, N):
+        raise ValueError(f"F={F}, H={H}, K={K}, B={B}, N={N}: the eval "
+                         f"folds into K1's fused kernel only where its block "
+                         f"is eval_cells' (local_sgd._folds_eval); launch "
+                         f"eval_cells instead")
+    (xw, yw), (correct, nll) = eval_window, eval_out
+    for name, t, shape, dt in (("eval x", xw, (C, 2, N, F), torch.float32),
+                               ("eval y", yw, (C, 2, N), torch.int32),
+                               ("eval correct", correct, (M, C, 2),
+                                torch.int32),
+                               ("eval nll", nll, (M, C, 2), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dt:
+            raise ValueError(f"{name}: want {dt} {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def _check_eval(eval_window, eval_out, M: int, C: int, N: int, F: int,
+                index: int) -> None:
+    """The card's own conditions on a folded eval: devices and layouts."""
+    (xw, yw), (correct, nll) = eval_window, eval_out
+    for name, t in (("eval x", xw), ("eval y", yw)):
+        if not t.is_cuda or t.get_device() != index:
+            raise ValueError(f"{name} must lie on cuda:{index} with x")
+    if (xw.stride(3) != 1 and F > 1) or (xw.stride(2) != F and N > 1) \
+            or (yw.stride(2) != 1 and N > 1):
+        raise ValueError("the eval window's rows of x [N, F] and of y [N] "
+                         "must be contiguous within each (client, step)")
+    _check("eval correct", correct, (M, C, 2), torch.int32, index)
+    _check("eval nll", nll, (M, C, 2), torch.float32, index)
+
+
 def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
             batch_size: int, lr: float, wd: float, lr_scale: float,
             route: str | None, idx, feat_mask, stats_out=None,
-            aggregate: bool = False):
+            aggregate: bool = False, eval_window=None, eval_out=None):
     """Check the inputs and launch the kernel of ``route`` (by default
     ``_route``'s), with K2 as its epilogue when ``aggregate`` (the fused
-    route only). Returns ``(client, n, loss)``, plus ``(agg, stats)`` when
-    ``aggregate``."""
+    route only) and the eval of ``params`` on ``eval_window`` into
+    ``eval_out`` where they are given (with ``aggregate`` only). Returns
+    ``(client, n, loss)``, plus ``(agg, stats)`` when ``aggregate``."""
     rows = (t_idx, slot) if idx is None else (idx,)
     if x.dim() != 4 or params.dim() != 2 or rows[0].dim() != 5 - len(rows):
         raise ValueError("local_sgd takes x [C, T1, N, F], params [M, P] and "
@@ -236,6 +298,14 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
             if feat_mask is not None else ()) + (
             (("stats_out", stats_out, (M, 3), f32),) if aggregate else ()):
         _check(name, t, shape, dt, index)
+    if eval_window is not None:
+        _check_eval(eval_window, eval_out, M, C, N, F, index)
+        (xw, yw), (ecorrect, enll) = eval_window, eval_out
+        ev = (xw.data_ptr(), yw.data_ptr(), ecorrect.data_ptr(),
+              enll.data_ptr(), xw.stride(0), xw.stride(1), yw.stride(0),
+              yw.stride(1))
+    else:
+        ev = (0,) * 8
     client = torch.empty((M, C, P), dtype=f32, device=x.device)
     n = torch.empty((M, C), dtype=f32, device=x.device)
     loss = torch.empty((M, C), dtype=f32, device=x.device)
@@ -252,7 +322,7 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
         client.data_ptr(), n.data_ptr(), loss.data_ptr(),
         *((agg.data_ptr(), stats_out.data_ptr(),
            _ticket(x.device, index, stream, M).data_ptr()) if aggregate
-          else (0, 0, 0)),
+          else (0, 0, 0)), *ev,
         M, C, T1, N, F, H, K, B, S, index,
         -lr, wd, lr_scale, B1, B2, 1 - B1, 1 - B2, EPS), _ROUTES[route],
         stream)
@@ -267,6 +337,8 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
     if not aggregate:
         return client, n, loss
     local_sgd_fedavg.launches += 1
+    if eval_window is not None:
+        local_sgd_fedavg.evals += 1
     return client, n, loss, agg, stats_out
 
 
@@ -292,41 +364,61 @@ def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
 local_sgd.launches = 0
 
 
-def local_sgd_fedavg_ref(x, y, params, opt_state, t_idx, slot, total_w,
-                         **kw):
+def local_sgd_fedavg_ref(x, y, params, opt_state, t_idx, slot, total_w, *,
+                         eval_window=None, eval_out=None, **kw):
     """The plain version of the fused round: ``local_sgd_ref``, then
-    ``fedavg_ref`` of its client stack with ``params`` as prev."""
+    ``fedavg_ref`` of its client stack with ``params`` as prev; with
+    ``eval_window`` also ``eval_cells_ref`` of ``params`` (the round's
+    input) on it, copied into ``eval_out``."""
     client, state, n, loss = local_sgd_ref(x, y, params, opt_state, t_idx,
                                            slot, total_w, **kw)
     agg, stats = fedavg_ref(client, n, params)
+    if eval_window is not None:
+        correct, nll = eval_cells_ref(params, *eval_window,
+                                      hidden=kw["hidden"],
+                                      feat_mask=kw.get("feat_mask"))
+        eval_out[0].copy_(correct)
+        eval_out[1].copy_(nll)
     return client, state, n, loss, agg, stats
 
 
 def local_sgd_fedavg(x, y, params, opt_state, t_idx, slot, total_w, *,
                      hidden: int, batch_size: int, lr: float, wd: float,
                      lr_scale: float = 1.0, idx=None, feat_mask=None,
-                     stats_out: torch.Tensor | None = None):
+                     stats_out: torch.Tensor | None = None,
+                     eval_window=None, eval_out=None):
     """One round of K1 with K2 as its epilogue: ``local_sgd``, then the
     masked FedAvg of its client stack with ``params`` as prev
     (``kernels/fedavg.py``'s function), in ONE launch of the fused kernel
     for CUDA tensors, through ``local_sgd_fedavg_ref`` for CPU tensors.
     Only shapes that ``_route`` sends to the fused kernel are taken: the
     general kernel has no epilogue. ``stats_out``: as ``fedavg``'s.
+    ``eval_window = (x [C, 2, N, F], y [C, 2, N])`` (a view such as
+    ``x[:, t:t + 2]``) and ``eval_out = (correct, nll)``, each ``[M, C,
+    2]`` and contiguous: the same launch evaluates ``params`` (the round's
+    INPUT) on the window under ``feat_mask``, as ``eval_cells`` would,
+    where ``_folds_eval`` allows it (else ValueError).
     Returns ``(client, opt_state, n, loss, agg [M, P], stats [M, 3])``;
     the optimizer state is updated in place on the card.
-    ``local_sgd.launches`` counts the launch too, since K1 runs in it."""
+    ``local_sgd.launches`` counts the launch too, since K1 runs in it, and
+    ``local_sgd_fedavg.evals`` the evals folded into it."""
     kw = dict(hidden=hidden, batch_size=batch_size, lr=lr, wd=wd,
               lr_scale=lr_scale, idx=idx, feat_mask=feat_mask)
+    if eval_window is not None:
+        _check_fold(x, params, hidden, batch_size, eval_window, eval_out)
     if not _on_cuda(x):
         client, state, n, loss, agg, stats = local_sgd_fedavg_ref(
-            x, y, params, opt_state, t_idx, slot, total_w, **kw)
+            x, y, params, opt_state, t_idx, slot, total_w,
+            eval_window=eval_window, eval_out=eval_out, **kw)
         if stats_out is not None:
             stats = stats_out.copy_(stats)
         return client, state, n, loss, agg, stats
     client, n, loss, agg, stats = _launch(
         x, y, params, opt_state, t_idx, slot, total_w, route=None,
-        stats_out=stats_out, aggregate=True, **kw)
+        stats_out=stats_out, aggregate=True, eval_window=eval_window,
+        eval_out=eval_out, **kw)
     return client, opt_state, n, loss, agg, stats
 
 
 local_sgd_fedavg.launches = 0
+local_sgd_fedavg.evals = 0

@@ -2,7 +2,8 @@
 training runs driven through ``Experiment`` in each, so that a change's
 wall and device time are compared within one call.
 
-    python3 scripts/torch_ab_runs.py --base DIR [--runs canonical,cfl,aue,kue]
+    python3 scripts/torch_ab_runs.py --base DIR
+                                     [--runs canonical,win-1,cfl,aue,kue]
                                      [--repeat K]
 
 ``DIR`` is a second checkout of the repository (for example the parent
@@ -16,7 +17,7 @@ summed over its steps (``round_breakdown`` events: ``dispatch`` is
 ``train_round`` on the per-round path, ``device_compute`` the fused step),
 and one more time step under torch.profiler on the path the run's last
 step took: kernel launches a round, device time a round and the busy
-share. ``--repeat K`` runs the four turns K times. Each child prints one
+share, and each kernel's launches. ``--repeat K`` runs the four turns K times. Each child prints one
 ``ab_run`` JSON line per run; then one ``ab`` line per run gives both
 sides' walls, segments and profiles and whether the two sides' Test/Acc
 series and final pools are bitwise equal. Runs use the
@@ -37,6 +38,7 @@ import time
 
 # run name -> (concept_drift_algo, concept_drift_algo_arg)
 RUNS = {"canonical": ("softcluster", "H_A_C_1_10_0"),
+        "win-1": ("win-1", "H_A_C_1_10_0"),
         "cfl": ("softcluster", "cfl_0.1_win-1"),
         "aue": ("aue", "H_A_C_1_10_0"),
         "kue": ("kue", "H_A_C_1_10_0")}
@@ -45,7 +47,8 @@ ORDER = ("base", "this", "this", "base")
 
 def _profile_step(exp) -> dict:
     """One more time step of a finished run under torch.profiler, on the
-    path its last step took."""
+    path its last step took: the step alone (no copy of the state inside
+    the window), with each kernel's launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     T, R = exp.cfg.train_iterations, exp.cfg.comm_round
@@ -57,20 +60,25 @@ def _profile_step(exp) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(T - 1, {k: v.clone() for k, v in opt.items()})
+        run(T - 1, opt)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
+    by_kernel = {}          # kernels of one template family add up
+    for e in kernels:
+        by_kernel[e.key[:60]] = by_kernel.get(e.key[:60], 0) + e.count
     return {"path": "fused" if fused else "per_round",
             "launches_per_round": sum(e.count for e in kernels) / R,
             "device_ms_per_round": busy_us / R / 1e3 if busy_us
             else "not measured",
             "device_busy_share": busy_us / wall_us if busy_us
             else "not measured",
-            "profiled_step_wall_ms": wall_us / 1e3}
+            "profiled_step_wall_ms": wall_us / 1e3,
+            "launches_a_step_by_kernel": dict(
+                sorted(by_kernel.items(), key=lambda kv: -kv[1]))}
 
 
 def _child(root: str, names: list[str]) -> None:

@@ -369,11 +369,13 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
 
 
 @pytest.mark.gpu
-def test_fused_step_launches_k2_every_round_and_k3_every_eval(cuda):
+def test_fused_step_launches_k1_every_round_and_folds_all_but_the_last_eval(
+        cuda):
     """A fused time step of R rounds: R K1 launches, each aggregating its
-    round in its K2 epilogue (no separate K2 launch), one K3 launch an
-    eval slot, and no plain K2 or K3 call on the card; its buffers equal a
-    fresh eval of its final params."""
+    round in its K2 epilogue (no separate K2 launch), every eval but the
+    final round's folded into the next round's K1 launch (E - 1 folded
+    evals), one K3 launch for the final round, and no plain K2 or K3 call
+    on the card; its buffers equal a fresh eval of its final params."""
     mod = FeedForwardNN((3,), 2, 10)
     step = TrainStep(mod, 500, 5, 2, device=cuda)
     flat, x, y = _card_case(9)
@@ -383,19 +385,19 @@ def test_fused_step_launches_k2_every_round_and_k3_every_eval(cuda):
     tw[3] = 0
     step.generator.manual_seed(1)
     counts = (local_sgd.launches, local_sgd_fedavg.launches,
-              fedavg.launches, eval_cells.launches, fedavg_ref.cuda_calls,
-              eval_cells_ref.cuda_calls)
+              local_sgd_fedavg.evals, fedavg.launches, eval_cells.launches,
+              fedavg_ref.cuda_calls, eval_cells_ref.cuda_calls)
     R, freq, t = 12, 5, 3
     newp, _, _, _, bufs, _, stats = step.train_iteration_eval(
         params, step.init_opt_states(params, 4, 10), x, y, tw, 1.0, R, freq,
         t)
     torch.cuda.synchronize()
     E = len(step.eval_rounds(R, freq))
-    assert (local_sgd.launches, local_sgd_fedavg.launches, fedavg.launches,
-            eval_cells.launches, fedavg_ref.cuda_calls,
-            eval_cells_ref.cuda_calls) == (
-        counts[0] + R, counts[1] + R, counts[2], counts[3] + E, counts[4],
-        counts[5])
+    assert (local_sgd.launches, local_sgd_fedavg.launches,
+            local_sgd_fedavg.evals, fedavg.launches, eval_cells.launches,
+            fedavg_ref.cuda_calls, eval_cells_ref.cuda_calls) == (
+        counts[0] + R, counts[1] + R, counts[2] + E - 1, counts[3],
+        counts[4] + 1, counts[5], counts[6])
     c, l, _ = step.acc_window(newp, x[:, t:t + 2], y[:, t:t + 2])
     assert torch.equal(bufs[0][-1], c[..., 0])
     assert torch.equal(bufs[3][-1], l[..., 1])

@@ -139,6 +139,7 @@ def test_reset_and_read_counts_cover_every_training_kernel():
                                                       weighted_search_ref)
     fedavg.launches = eval_cells.launches = 3
     local_sgd.launches = local_sgd_fedavg.launches = 4
+    local_sgd_fedavg.evals = 6
     weighted_cdf.launches = weighted_search.launches = 5
     fedavg_ref.cuda_calls = eval_cells_ref.cuda_calls = 2
     weighted_cdf_ref.cuda_calls = weighted_search_ref.cuda_calls = 2
@@ -146,7 +147,7 @@ def test_reset_and_read_counts_cover_every_training_kernel():
     assert chip_smoke._read_counts() == {
         "k1_launches": 0, "k1_without_epilogue": 0, "k4a_launches": 0,
         "k4b_launches": 0, "k2_launches": 0, "k2_epilogues": 0,
-        "aggregations": 0, "k3_launches": 0,
+        "aggregations": 0, "k3_launches": 0, "folded_evals": 0,
         "plain_calls": {"fedavg_ref": 0, "eval_cells_ref": 0,
                         "weighted_cdf_ref": 0, "weighted_search_ref": 0}}
 
@@ -177,6 +178,62 @@ def test_check_k2_k3_refuses_a_missed_round_or_a_plain_call(epilogues, k2,
         chip_smoke._check_k2_k3("run", got, 2000)
 
 
+def _eval_run(hidden=10, batch=500, T=10, R=200):
+    """A run's configuration and a stand-in for its ``Experiment``: the
+    module and the dataset's rows a step, which decide the fold."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.models.mlp import FeedForwardNN
+    cfg = ExperimentConfig(fnn_hidden_dim=hidden, batch_size=batch,
+                           train_iterations=T, comm_round=R)
+    exp = SimpleNamespace(step=SimpleNamespace(module=FeedForwardNN(
+        (3,), 2, hidden)), x=torch.zeros(10, T + 1, 500, 3))
+    return cfg, exp
+
+
+@pytest.mark.parametrize("hidden,folds,fused_steps,folded,k3,ok", [
+    (10, True, 10, 400, 10, True), (10, True, 10, 400, 11, True),
+    (10, True, 10, 399, 11, False), (10, True, 10, 400, 9, False),
+    (10, True, 0, 0, 410, True), (10, True, 0, 10, 410, False),
+    (10, True, 4, 160, 250, True), (32, False, 10, 0, 410, True),
+    (32, False, 10, 400, 10, False), (32, True, 10, 0, 410, False),
+    (10, False, 10, 0, 410, False)])
+def test_check_evals_wants_every_regular_eval_folded(hidden, folds,
+                                                     fused_steps, folded,
+                                                     k3, ok):
+    """Where the shape folds, each fused step folds its 40 regular evals
+    into K1 and launches K3 for its final one; a per-round step, or a
+    shape that does not fold (H = 32), launches K3 for every eval. A run
+    whose shape folds other than the caller wants (``folds``) fails, even
+    when its counts agree with what its shape does."""
+    cfg, exp = _eval_run(hidden)
+    got = {"folded_evals": folded, "k3_launches": k3}
+    if ok:
+        chip_smoke._check_evals("run", got, cfg, exp, fused_steps, folds)
+    else:
+        with pytest.raises(AssertionError, match="evals folded"):
+            chip_smoke._check_evals("run", got, cfg, exp, fused_steps,
+                                    folds)
+
+
+def test_launches_by_kernel_adds_up_a_template_family():
+    """Kernels whose names share their first 60 characters (one template
+    family) add their launches under that name, so the names' launches sum
+    to the profile's."""
+    from types import SimpleNamespace
+    family = "void at::native::vectorized_elementwise_kernel<4, at::native"
+    kernels = [SimpleNamespace(key=family + "::FillFunctor", count=3),
+               SimpleNamespace(key="local_sgd_fused_kernel<3, 10, 2>",
+                               count=200),
+               SimpleNamespace(key=family + "::CUDAFunctor_add", count=2)]
+    got = chip_smoke._launches_by_kernel(kernels)
+    assert got == {"local_sgd_fused_kernel<3, 10, 2>": 200, family: 5}
+    assert list(got) == ["local_sgd_fused_kernel<3, 10, 2>", family]
+
+
 def test_draw_bounds_count_the_searched_rows():
     """K4a moves the weights and the cdf; K4b the uniforms, the rows and
     the cdf rows of the pairs that search them, so a masked pair costs
@@ -202,7 +259,8 @@ def _ab_runs():
     return mod
 
 
-@pytest.mark.parametrize("name", ["canonical", "cfl", "aue", "kue"])
+@pytest.mark.parametrize("name", ["canonical", "win-1", "cfl", "aue",
+                                  "kue"])
 def test_ab_runs_drive_the_smoke_runs_configurations(name):
     """``scripts/torch_ab_runs.py`` compares the runs ``chip_smoke.py``
     drives: the canonical configuration, or one of ``ALGO_RUNS``."""
