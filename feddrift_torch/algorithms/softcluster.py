@@ -50,7 +50,7 @@ class SoftCluster(DriftAlgorithm):
                 "softcluster 'gmm' fits sklearn.mixture.GaussianMixture; "
                 "scikit-learn is not installed beside the port and the port "
                 "does not depend on it (a hand-written two-component EM is "
-                "queued in ROADMAP)")
+                "queued in ROADMAP §1 'softcluster gmm')")
         # dense [T1, M, C] replaces the reference's {t -> M x C} dict
         self.weights = np.zeros((self.T1, self.M, self.C), dtype=np.float32)
         self.mmacc_acc = np.zeros(self.C)           # per-client last best acc

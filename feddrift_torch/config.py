@@ -57,6 +57,8 @@ class ExperimentConfig:
     retrain_data: str = "win-1"        # for single-model continual baselines
     report_client: int = 1
     text_seq_len: int = 80             # char-dataset sequence length
+    smooth_sigma: float = 3.0          # basis smoothing (px) of the
+                                       # "<image>-smooth" datasets
 
     # --- reproducibility, execution, output
     seed: int = 0
@@ -70,12 +72,16 @@ class ExperimentConfig:
             raise ValueError("client_num_per_round > client_num_in_total")
         if self.time_stretch < 1:
             raise ValueError("time_stretch must be >= 1")
-        for name, off in (("population_size", 0), ("stream_data", False),
-                          ("megastep_k", 1)):
+        for name, off, item in (
+                ("population_size", 0,
+                 "In-round robustness, population and streaming"),
+                ("stream_data", False,
+                 "In-round robustness, population and streaming"),
+                ("megastep_k", 1, "Megastep")):
             if getattr(self, name) != off:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r}: the port runs the dense "
-                    f"per-iteration path only (ROADMAP items 11-12)")
+                    f"per-iteration path only (ROADMAP §1 '{item}')")
 
     @property
     def device_clients(self) -> int:

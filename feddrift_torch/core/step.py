@@ -4,10 +4,10 @@
 on the main path (dense clients, the ``mean`` aggregator, no byzantine,
 codec or hierarchy path):
 
-    params      [M, ...]        model pool
-    opt_state   [M, C, ...]     per-(model, client) AMSGrad state; persists
-                                across the rounds of a time step, fresh at
-                                each step boundary
+    params      [M, ...]        model pool: the fnn or the lr
+    opt_state   [M, C, ...]     per-(model, client) optimizer state (AMSGrad's;
+                                SGD keeps none); persists across the rounds
+                                of a time step, fresh at each step boundary
     x, y        [C, T1, N, ...] the whole drift dataset, on the device
     time_w      [M, C, T1]      per-(model, client) time-step weights
     sample_w    [M, C, N]       per-sample weights (KUE's Poisson bootstrap;
@@ -18,9 +18,10 @@ codec or hierarchy path):
 
 A round is K1 (``kernels/local_sgd.py``: every pair's local steps) and
 K2, the masked sample-weighted FedAvg, in one launch: on the fused
-kernel's route (the registry's fnn widths) K2 is K1's epilogue
-(``local_sgd_fedavg``); on the general route K2 is its own launch
-(``resilience/robust_agg.py`` -> ``kernels/fedavg.py``).
+kernel's route (the registry's fnn widths under AMSGrad) K2 is K1's
+epilogue (``local_sgd_fedavg``); on the general route (any other width,
+the lr, SGD) K2 is its own launch (``resilience/robust_agg.py`` ->
+``kernels/fedavg.py``).
 Inside a time step the parameters travel packed as one ``[M, P]`` tensor,
 the kernel's layout; the caller sees the usual dict of leaves. Where the
 reference draws each batch inside its program from fold_in keys, the port
@@ -76,12 +77,12 @@ import torch
 
 from feddrift_torch.core.functional import confusion_matrix
 from feddrift_torch.kernels.eval_cells import eval_cells
-from feddrift_torch.kernels.local_sgd import (_folds_eval, _route,
-                                              init_opt_state, local_sgd,
-                                              local_sgd_fedavg)
+from feddrift_torch.kernels.local_sgd import (OPTIMIZERS, _folds_eval,
+                                              _route, init_opt_state,
+                                              local_sgd, local_sgd_fedavg)
 from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
                                                   weighted_search)
-from feddrift_torch.models.mlp import FeedForwardNN
+from feddrift_torch.models.mlp import FeedForwardNN, LogisticRegression
 from feddrift_torch.resilience.robust_agg import agg_mean
 from feddrift_torch.utils.device import resolve_device
 
@@ -90,26 +91,27 @@ from feddrift_torch.utils.device import resolve_device
 class TrainStep:
     """Train and eval steps for one (module, dataset geometry)."""
 
-    module: FeedForwardNN
+    module: FeedForwardNN | LogisticRegression
     batch_size: int
     num_steps: int              # local SGD steps per round (reference `epochs`)
     num_classes: int
     lr: float = 0.01
     wd: float = 0.001
-    optimizer: str = "adam"
+    optimizer: str = "adam"     # make_optimizer's "adam" (AMSGrad) or "sgd"
     device: str | torch.device = "cuda"
     # per-sample weighted batches (KUE's Poisson bootstrap) through K4
     weighted_sampling: bool = False
 
     def __post_init__(self) -> None:
-        if self.optimizer != "adam":
-            raise NotImplementedError(
-                f"client_optimizer {self.optimizer!r}: the port's local SGD "
-                f"kernel steps AMSGrad only (ROADMAP item 4)")
-        if not isinstance(self.module, FeedForwardNN):
+        if self.optimizer not in OPTIMIZERS:
+            raise ValueError(
+                f"client_optimizer {self.optimizer!r}: the reference's "
+                f"make_optimizer steps {OPTIMIZERS}")
+        if not isinstance(self.module, (FeedForwardNN, LogisticRegression)):
             raise NotImplementedError(
                 f"training {type(self.module).__name__}: the port's local "
-                f"SGD kernel trains the fnn only (ROADMAP items 8-10)")
+                f"SGD kernel trains the fnn and the lr only (ROADMAP §1 "
+                f"'The model zoo and transformer training')")
         self.device = resolve_device(self.device)
         self.generator = torch.Generator(device=self.device)
         # the weighted draw's cdf and the tensors (and their versions) it
@@ -129,10 +131,12 @@ class TrainStep:
     # ------------------------------------------------------------------
     def init_opt_states(self, params, num_models: int,
                         num_clients: int) -> dict[str, torch.Tensor]:
-        """[M, C, P] AMSGrad states, fresh at each time-step boundary."""
+        """[M, C, P] AMSGrad states (SGD: none), fresh at each time-step
+        boundary."""
         del params      # optax's init is value-independent (zeros)
         return init_opt_state(num_models, num_clients,
-                              self.module.num_params, self.device)
+                              self.module.num_params, self.device,
+                              self.optimizer)
 
     def draw_uniforms(self, R: int, M: int, C: int, N: int):
         """One time step's raw batch draws ``(u, slot)``, each ``[R, M, C,
@@ -233,14 +237,16 @@ class TrainStep:
         mod, B = self.module, min(self.batch_size, x.shape[2])
         kw = dict(hidden=mod.hidden_dim, batch_size=B, lr=self.lr, wd=self.wd,
                   lr_scale=lr_scale, idx=idx, feat_mask=fm)
-        if _route(mod.in_dim, mod.hidden_dim, mod.num_classes, B) == "fused":
+        if _route(mod.in_dim, mod.hidden_dim, mod.num_classes, B,
+                  self.optimizer) == "fused":
             client, opt_state, n, losses, new_flat, agg_stats = \
                 local_sgd_fedavg(x, y, flat, opt_state, t_idx, slot, total_w,
                                  stats_out=stats_out, eval_window=eval_window,
                                  eval_out=eval_out, **kw)
         else:
             client, opt_state, n, losses = local_sgd(
-                x, y, flat, opt_state, t_idx, slot, total_w, **kw)
+                x, y, flat, opt_state, t_idx, slot, total_w,
+                optimizer=self.optimizer, **kw)
             new_flat, agg_stats = agg_mean(client, n, flat,
                                            stats_out=stats_out)
         return new_flat, opt_state, client, n, losses, agg_stats
@@ -331,7 +337,7 @@ class TrainStep:
         total_w = self.total_weight(time_w)
         mod, N = self.module, x.shape[2]
         fold = _folds_eval(mod.in_dim, mod.hidden_dim, mod.num_classes,
-                           min(self.batch_size, N), N)
+                           min(self.batch_size, N), N, self.optimizer)
         window = (xw.flatten(3), yw)
         pending = None            # the eval slot the next round's launch fills
         for r in range(R):

@@ -2,9 +2,10 @@
 
 Mirrors ``feddrift_tpu/data/registry.py``. Ported so far: the synthetic
 tabular datasets of the training slice (``sea``, ``sine``, ``circle``, their
-numpy path) and the character datasets of the transformer serving slice
-(``shakespeare`` and its alias ``fed_shakespeare``); any other name raises
-``KeyError``.
+numpy path), the synthetic MNIST-4 image data (``MNIST`` and
+``MNIST-smooth``) and the character datasets of the transformer serving
+slice (``shakespeare`` and its alias ``fed_shakespeare``); any other name
+raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 from feddrift_torch.config import ExperimentConfig
 from feddrift_torch.data import changepoints as cp
 from feddrift_torch.data.drift_dataset import DriftDataset
+from feddrift_torch.data.prototype import generate_prototype_drift
 from feddrift_torch.data.synthetic import generate_synthetic
 from feddrift_torch.data.text import generate_text_drift
 
@@ -50,6 +52,20 @@ for _name in ("sea", "sine", "circle"):
         return generate_synthetic(
             _n, change_points, cfg.train_iterations, cfg.client_num_in_total,
             cfg.sample_num, cfg.noise_prob, cfg.time_stretch, cfg.seed)
+
+
+# "MNIST": real files under data_dir are refused (not ported), else the
+# white-noise-basis prototypes; "MNIST-smooth": the Gaussian-smoothed basis,
+# always synthetic (the reference ignores real files there)
+for _suffix, _smooth in (("", False), ("-smooth", True)):
+    @register_dataset("MNIST" + _suffix)
+    def _mk_img(cfg: ExperimentConfig, change_points: np.ndarray,
+                *, _sm=_smooth) -> DriftDataset:
+        return generate_prototype_drift(
+            "MNIST", change_points, cfg.train_iterations,
+            cfg.client_num_in_total, cfg.sample_num, cfg.noise_prob,
+            cfg.time_stretch, cfg.seed, cfg.data_dir,
+            smooth_sigma=cfg.smooth_sigma if _sm else 0.0)
 
 
 @register_dataset("shakespeare", "fed_shakespeare")

@@ -57,8 +57,9 @@ def generate_text_drift(
         path = os.path.join(data_dir, *parts)
         if os.path.exists(path):
             raise NotImplementedError(
-                f"real-corpus text data ({path}) is not ported yet; point "
-                f"data_dir elsewhere for the synthetic Markov data")
+                f"real-corpus text data ({path}) is not ported yet (ROADMAP "
+                f"§1 'The other datasets'); point data_dir elsewhere for the "
+                f"synthetic Markov data")
     rng = np.random.default_rng(seed)
     T = train_iterations
 

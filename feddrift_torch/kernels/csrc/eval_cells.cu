@@ -1,4 +1,4 @@
-// Eval matrices of the fnn pool (K3): correct counts and NLL sums per
+// Eval matrices of the fnn or lr pool (K3): correct counts and NLL sums per
 // (model, client, time step), float32 in, int32 and float32 out.
 //
 // Replaces feddrift_tpu/core/step.py::TrainStep._acc_matrix_body (:777-789)
@@ -33,12 +33,20 @@
 // picks one by shape alone, before the launch:
 // - eval_fused_kernel<F, H, K> for the registry's widths (F in {2, 3},
 //   H = 10, K = 2): x, h and z of a row in registers, fully unrolled.
-// - eval_general_kernel for any other width (fnn_hidden_dim = 32, MNIST's
-//   F = 784): a loop over the hidden units, each accumulated into the
-//   row's K logits kept in shared memory ([K][threads], one column a
+// - eval_general_kernel<false> for any other width (fnn_hidden_dim = 32,
+//   MNIST's F = 784): a loop over the hidden units, each accumulated into
+//   the row's K logits kept in shared memory ([K][threads], one column a
 //   thread). Its shared memory is 4 * (P + F + K * threads) bytes; above
 //   what a block may take the entry point returns kErrSmem without a
 //   launch, and the wrapper raises ValueError.
+// - eval_general_kernel<true>, the lr (LogisticRegression, H = 0 on the
+//   wire: packed W [F, K], b [K]): each output s_k = sigmoid(x.W[:, k] +
+//   b_k), summed over f in order, then the bias, then 1 / (1 + exp(-z)).
+//   The reference takes the sigmoid outputs as its logits: the argmax runs
+//   over s (a large |z| saturates s to exactly 1.0f or 0.0f, and the tie
+//   then goes to the lowest class, jnp.argmax's rule, where an argmax over
+//   z would pick another), and the NLL is log_softmax(s)'s. Its shared
+//   memory is 4 * (P + F + K * threads) bytes with P = F * K + K.
 // Both sum in the same order (f, then the bias; j, then the bias; classes
 // in order). The block's count and NLL sum fold by a warp-shuffle tree,
 // then the warp totals in warp order: a fixed order, so `correct` is exact
@@ -113,12 +121,15 @@ eval_fused_kernel(const Args a) {
                           a.nll, cl.out);
 }
 
+// kLr: the lr (P = F * K + K); else the fnn (P = F * H + H + H * K + K).
+template <bool kLr>
 __global__ void __launch_bounds__(kMaxThreads)
 eval_general_kernel(const Args a) {
   extern __shared__ float smem[];  // params [P], mask [F], logits [K][nt]
   __shared__ int s_cnt[kMaxWarps];
   __shared__ float s_nll[kMaxWarps];
-  const int F = a.F, H = a.H, K = a.K, P = F * H + H + H * K + K;
+  const int F = a.F, H = a.H, K = a.K;
+  const int P = kLr ? F * K + K : F * H + H + H * K + K;
   const int tid = threadIdx.x, nt = blockDim.x;
   float* sp = smem;
   float* sf = sp + P;
@@ -137,6 +148,19 @@ eval_general_kernel(const Args a) {
   float nll = 0.f;
   for (int i = tid; i < a.N; i += nt) {
     const float* xi = cl.x + (size_t)i * F;
+    if constexpr (kLr) {
+      const float* W = sp;          // [F, K]
+      const float* b = sp + F * K;  // [K]
+      for (int k = 0; k < K; ++k) {
+        float s = 0.f;
+        for (int f = 0; f < F; ++f)
+          s = fmaf(__fmul_rn(xi[f], sf[f]), W[f * K + k], s);
+        z[k * nt] = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fadd_rn(s, b[k]))));
+      }
+      score_row<0>([&](int k) { return z[k * nt]; }, K, cl.y[i], &cnt, &nll,
+                   a.nll != nullptr);
+      continue;
+    }
     for (int k = 0; k < K; ++k) z[k * nt] = 0.f;
     for (int j = 0; j < H; ++j) {
       float s = 0.f;
@@ -159,22 +183,26 @@ int launch_fused(const Args& a, long long blocks, int threads,
   return (int)cudaGetLastError();
 }
 
+template <bool kLr>
 int launch_general(const Args& a, long long blocks, int threads, int device,
                    cudaStream_t st) {
-  const long long smem = 4LL * (a.F * a.H + a.H + a.H * a.K + a.K + a.F +
-                                (long long)a.K * threads);
+  const long long P = kLr ? (long long)a.F * a.K + a.K
+                          : (long long)a.F * a.H + a.H + a.H * a.K + a.K;
+  const long long smem = 4LL * (P + a.F + (long long)a.K * threads);
   if (smem > kMaxSmem - kStaticSmem) return kErrSmem;
   // opt in to more than 48 KB of dynamic shared memory, once per device
+  // and kernel
   static std::atomic<unsigned long long> ready{0};
   const unsigned long long bit = device < 64 ? 1ull << device : 0;
   if (smem > 48 * 1024 && !(ready.load() & bit)) {
     const cudaError_t err = cudaFuncSetAttribute(
-        eval_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        eval_general_kernel<kLr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem - kStaticSmem);
     if (err != cudaSuccess) return (int)err;
     ready.fetch_or(bit);
   }
-  eval_general_kernel<<<(unsigned)blocks, threads, (size_t)smem, st>>>(a);
+  eval_general_kernel<kLr>
+      <<<(unsigned)blocks, threads, (size_t)smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -190,7 +218,8 @@ struct Params {
 static_assert(sizeof(Params) == 120, "Params must match the wrapper's pack");
 
 // Plain C entry point bound with ctypes. `route`: 0 the general kernel, 1
-// the fused one (F, H, K must be one of its widths). `stream` is a stream of
+// the fused one (F, H, K must be one of its widths). H = 0 is the lr, which
+// only the general kernel takes. `stream` is a stream of
 // device `device`, which is made current for the launch only if it is not.
 // Returns the cudaError_t of the launch (0 = ok), or kErrSmem (nothing
 // launched) when the general kernel would need more shared memory than a
@@ -198,7 +227,7 @@ static_assert(sizeof(Params) == 120, "Params must match the wrapper's pack");
 extern "C" int eval_cells_f32(const Params* p, int route, void* stream) {
   const long long blocks = (long long)p->M * p->C * p->G;
   if (p->M < 1 || p->C < 1 || p->G < 1 || p->N < 0 || p->F < 1 ||
-      p->H < 1 || p->K < 1 || blocks > 0x7fffffffLL || p->threads < 32 ||
+      p->H < 0 || p->K < 1 || blocks > 0x7fffffffLL || p->threads < 32 ||
       p->threads > kMaxThreads || p->threads % 32)
     return (int)cudaErrorInvalidValue;
   const Args a{reinterpret_cast<const float*>(p->params),
@@ -216,8 +245,10 @@ extern "C" int eval_cells_f32(const Params* p, int route, void* stream) {
     err = cudaSetDevice(p->device);
   if (err != cudaSuccess) return (int)err;
   int ret;
-  if (route == 0)
-    ret = launch_general(a, blocks, p->threads, p->device, st);
+  if (route == 0 && p->H == 0)
+    ret = launch_general<true>(a, blocks, p->threads, p->device, st);
+  else if (route == 0)
+    ret = launch_general<false>(a, blocks, p->threads, p->device, st);
   else if (route == 1 && p->F == 3 && p->H == 10 && p->K == 2)
     ret = launch_fused<3, 10, 2>(a, blocks, p->threads, st);
   else if (route == 1 && p->F == 2 && p->H == 10 && p->K == 2)

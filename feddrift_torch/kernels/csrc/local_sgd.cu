@@ -3,7 +3,8 @@
 // Replaces feddrift_tpu/core/step.py::TrainStep._local_sgd (:225-293) under
 // _round_body's double vmap over (model, client) pairs, together with the
 // optimizer it steps, make_optimizer("adam") (:94-99) =
-// optax.chain(add_decayed_weights(wd), amsgrad(lr)). The reference has no
+// optax.chain(add_decayed_weights(wd), amsgrad(lr)), or make_optimizer("sgd")
+// = optax.sgd(lr) on the general kernel's SGD route. The reference has no
 // Pallas kernel here: XLA fuses the vmapped scan. Eager PyTorch would issue
 // dozens of small ops per local step, so the whole round is one launch.
 //
@@ -100,13 +101,26 @@
 // they arrive while the S steps run. The eval runs after the S steps and
 // before the ticket (placing it after the ticket measured slower, PERF.md).
 //
-// local_sgd_general_kernel: any other width (e.g. fnn_hidden_dim = 32) or
-// batch. One block of 256 threads per pair; params and moments in shared
-// memory for all S steps; threads over rows for the forward; a warp per
-// parameter for the gradient sums (a shuffle tree, fixed order); five
-// barriers a step. Its shared memory is 4 * (5P + B(H + K) + 8 + F) bytes; for
-// shapes above the 227 KB a block may take the entry point returns kErrSmem
-// without a launch, and the wrapper raises ValueError.
+// local_sgd_general_kernel<kLr, kSgd>: any other width (e.g.
+// fnn_hidden_dim = 32, MNIST's F = 784), batch, model or update. One block
+// of 256 threads per pair; params (and moments) in shared memory for all S
+// steps; threads over rows for the forward; a warp per parameter for the
+// gradient sums (a shuffle tree, fixed order); five barriers a step (four
+// for the lr). Two compile-time routes:
+// - the model: the fnn, or (kLr, H = 0 on the wire) the lr of
+//   models/mlp.py::LogisticRegression, packed W [F, K], b [K]: s =
+//   sigmoid(x W + b) in float32 (1 / (1 + exp(-z))), whose outputs the
+//   reference feeds to its cross-entropy as logits, so loss =
+//   logsumexp(s) - s_y and dz = (softmax(s) - onehot(y)) * s * (1 - s) / B;
+//   dW = x^T dz and db = sum dz, each a warp's sum as the fnn's dW1;
+// - the update: AMSGrad after add_decayed_weights as above, or (kSgd)
+//   make_optimizer("sgd") = optax.sgd(lr), p += (-lr * g) * lr_scale with
+//   no weight decay, no moments and no count (mu, nu, nu_max and count
+//   are not read or written; an inactive pair keeps its params).
+// Its shared memory is 4 * (5P + B(H + K) + 8 + F) bytes (2P in place of
+// 5P under SGD; P = F * K + K for the lr); for shapes above the 227 KB a
+// block may take the entry point returns kErrSmem without a launch, and
+// the wrapper raises ValueError.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -170,20 +184,25 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// The general kernel (any width).
+// The general kernel (any width; the fnn or the lr; AMSGrad or SGD).
 
+// Arrays of P floats a pair keeps in shared memory: params, gradient and,
+// under AMSGrad, mu, nu and nu_max.
+__host__ __device__ constexpr int state_arrays(bool sgd) { return sgd ? 2 : 5; }
+
+template <bool kLr, bool kSgd>
 __global__ void __launch_bounds__(kGeneralThreads)
 local_sgd_general_kernel(Args a) {
   extern __shared__ float smem[];
   const int F = a.F, H = a.H, K = a.K, B = a.B, N = a.N;
-  const int P = F * H + H + H * K + K;
+  const int P = kLr ? F * K + K : F * H + H + H * K + K;
   const int oB1 = F * H, oW2 = oB1 + H, oB2 = oW2 + H * K;
   float* s_p = smem;                // [P] params
-  float* s_mu = s_p + P;
+  float* s_g = s_p + P;             // [P] gradient
+  float* s_mu = s_g + P;            // [P] each, AMSGrad only
   float* s_nu = s_mu + P;
   float* s_vmax = s_nu + P;
-  float* s_g = s_vmax + P;          // [P] gradient
-  float* s_h = s_g + P;             // [B, H] activations, then dh
+  float* s_h = s_p + state_arrays(kSgd) * P;  // [B, H] activations, then dh
   float* s_z = s_h + B * H;         // [B, K] logits, then dlogits
   float* s_red = s_z + B * K;       // [kGeneralWarps] loss partials
   float* s_fm = s_red + kGeneralWarps;  // [F] model m's feature mask
@@ -195,16 +214,18 @@ local_sgd_general_kernel(Args a) {
   const size_t so = (size_t)pair * P;
   for (int p = tid; p < P; p += kGeneralThreads) {
     s_p[p] = pm[p];
-    s_mu[p] = a.mu[so + p];
-    s_nu[p] = a.nu[so + p];
-    s_vmax[p] = a.nu_max[so + p];
+    if constexpr (!kSgd) {
+      s_mu[p] = a.mu[so + p];
+      s_nu[p] = a.nu[so + p];
+      s_vmax[p] = a.nu_max[so + p];
+    }
   }
   for (int f = tid; f < F; f += kGeneralThreads)
     s_fm[f] = a.fmask ? a.fmask[(size_t)m * F + f] : 1.f;
   const float* xc = a.x + (size_t)c * a.T1 * N * F;
   const int* yc = a.y + (size_t)c * a.T1 * N;
   const float inv_b = 1.0f / (float)B;
-  int count = a.count[pair];
+  int count = kSgd ? 0 : a.count[pair];
   float loss_sum = 0.f;             // thread 0's sum of the S step losses
   __syncthreads();
 
@@ -220,29 +241,44 @@ local_sgd_general_kernel(Args a) {
     float part = 0.f;
     for (int i = tid; i < B; i += kGeneralThreads) {
       const float* xr = xc + row(i) * F;
-      for (int j = 0; j < H; ++j) {
-        float acc = 0.f;
-        for (int f = 0; f < F; ++f)
-          acc = fmaf(xr[f] * s_fm[f], s_p[f * H + j], acc);
-        acc += s_p[oB1 + j];
-        s_h[i * H + j] = acc > 0.f ? acc : 0.f;
-      }
       float zmax = -INFINITY;
-      for (int k = 0; k < K; ++k) {
-        float z = 0.f;
-        for (int j = 0; j < H; ++j)
-          z = fmaf(s_h[i * H + j], s_p[oW2 + j * K + k], z);
-        z += s_p[oB2 + k];
-        s_z[i * K + k] = z;
-        zmax = fmaxf(zmax, z);
+      if constexpr (kLr) {
+        // s_k = sigmoid(x W[:, k] + b_k): the outputs the loss takes
+        for (int k = 0; k < K; ++k) {
+          float acc = 0.f;
+          for (int f = 0; f < F; ++f)
+            acc = fmaf(xr[f] * s_fm[f], s_p[f * K + k], acc);
+          acc += s_p[F * K + k];
+          const float sk = 1.f / (1.f + expf(-acc));
+          s_z[i * K + k] = sk;
+          zmax = fmaxf(zmax, sk);
+        }
+      } else {
+        for (int j = 0; j < H; ++j) {
+          float acc = 0.f;
+          for (int f = 0; f < F; ++f)
+            acc = fmaf(xr[f] * s_fm[f], s_p[f * H + j], acc);
+          acc += s_p[oB1 + j];
+          s_h[i * H + j] = acc > 0.f ? acc : 0.f;
+        }
+        for (int k = 0; k < K; ++k) {
+          float z = 0.f;
+          for (int j = 0; j < H; ++j)
+            z = fmaf(s_h[i * H + j], s_p[oW2 + j * K + k], z);
+          z += s_p[oB2 + k];
+          s_z[i * K + k] = z;
+          zmax = fmaxf(zmax, z);
+        }
       }
       float se = 0.f;
       for (int k = 0; k < K; ++k) se += expf(s_z[i * K + k] - zmax);
       const int yi = yc[row(i)];
       part += logf(se) - (s_z[i * K + yi] - zmax);
       for (int k = 0; k < K; ++k) {
-        const float prob = expf(s_z[i * K + k] - zmax) / se;
-        s_z[i * K + k] = (prob - (k == yi ? 1.f : 0.f)) * inv_b;
+        const float z = s_z[i * K + k];
+        const float d = (expf(z - zmax) / se - (k == yi ? 1.f : 0.f)) * inv_b;
+        // the lr: through the sigmoid, ds/dz = s (1 - s)
+        s_z[i * K + k] = kLr ? d * (z * (1.f - z)) : d;
       }
     }
     part = warp_sum(part);
@@ -254,65 +290,89 @@ local_sgd_general_kernel(Args a) {
       loss_sum += tot * inv_b;
     }
 
-    // dW2 = h^T dz, db2 = sum dz: a warp per parameter
-    for (int q = warp; q < H * K + K; q += kGeneralWarps) {
-      float acc = 0.f;
-      if (q < H * K) {
-        const int j = q / K, k = q % K;
-        for (int i = lane; i < B; i += 32)
-          acc = fmaf(s_h[i * H + j], s_z[i * K + k], acc);
-      } else {
-        const int k = q - H * K;
-        for (int i = lane; i < B; i += 32) acc += s_z[i * K + k];
+    if constexpr (kLr) {
+      // dW = x^T dz, db = sum dz: a warp per parameter
+      for (int q = warp; q < F * K + K; q += kGeneralWarps) {
+        float acc = 0.f;
+        if (q < F * K) {
+          const int f = q / K, k = q % K;
+          for (int i = lane; i < B; i += 32)
+            acc = fmaf(xc[row(i) * F + f] * s_fm[f], s_z[i * K + k], acc);
+        } else {
+          const int k = q - F * K;
+          for (int i = lane; i < B; i += 32) acc += s_z[i * K + k];
+        }
+        acc = warp_sum(acc);
+        if (lane == 0) s_g[q] = acc;
       }
-      acc = warp_sum(acc);
-      if (lane == 0) s_g[oW2 + q] = acc;
-    }
-    __syncthreads();
-
-    // dh = (dz W2^T) * (h > 0), over the activations
-    for (int i = tid; i < B; i += kGeneralThreads) {
-      for (int j = 0; j < H; ++j) {
-        float d = 0.f;
-        if (s_h[i * H + j] > 0.f)
-          for (int k = 0; k < K; ++k)
-            d = fmaf(s_z[i * K + k], s_p[oW2 + j * K + k], d);
-        s_h[i * H + j] = d;
+      __syncthreads();
+    } else {
+      // dW2 = h^T dz, db2 = sum dz: a warp per parameter
+      for (int q = warp; q < H * K + K; q += kGeneralWarps) {
+        float acc = 0.f;
+        if (q < H * K) {
+          const int j = q / K, k = q % K;
+          for (int i = lane; i < B; i += 32)
+            acc = fmaf(s_h[i * H + j], s_z[i * K + k], acc);
+        } else {
+          const int k = q - H * K;
+          for (int i = lane; i < B; i += 32) acc += s_z[i * K + k];
+        }
+        acc = warp_sum(acc);
+        if (lane == 0) s_g[oW2 + q] = acc;
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // dW1 = x^T dh, db1 = sum dh: a warp per parameter
-    for (int q = warp; q < F * H + H; q += kGeneralWarps) {
-      float acc = 0.f;
-      if (q < F * H) {
-        const int f = q / H, j = q % H;
-        for (int i = lane; i < B; i += 32)
-          acc = fmaf(xc[row(i) * F + f] * s_fm[f], s_h[i * H + j], acc);
-      } else {
-        const int j = q - F * H;
-        for (int i = lane; i < B; i += 32) acc += s_h[i * H + j];
+      // dh = (dz W2^T) * (h > 0), over the activations
+      for (int i = tid; i < B; i += kGeneralThreads) {
+        for (int j = 0; j < H; ++j) {
+          float d = 0.f;
+          if (s_h[i * H + j] > 0.f)
+            for (int k = 0; k < K; ++k)
+              d = fmaf(s_z[i * K + k], s_p[oW2 + j * K + k], d);
+          s_h[i * H + j] = d;
+        }
       }
-      acc = warp_sum(acc);
-      if (lane == 0) s_g[q] = acc;
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // add_decayed_weights, then scale_by_amsgrad, lr and lr_scale
-    count = count < INT_MAX ? count + 1 : count;
-    const float bc1 = 1.f - powf(a.b1, (float)count);
-    const float bc2 = 1.f - powf(a.b2, (float)count);
-    for (int p = tid; p < P; p += kGeneralThreads) {
-      const float w = s_p[p];
-      const float g = s_g[p] + a.wd * w;
-      const float mu = a.one_minus_b1 * g + a.b1 * s_mu[p];
-      const float nu = a.one_minus_b2 * (g * g) + a.b2 * s_nu[p];
-      const float vmax = fmaxf(s_vmax[p], nu / bc2);
-      const float u = (mu / bc1) / (sqrtf(vmax) + a.eps);
-      s_p[p] = w + (a.neg_lr * u) * a.lr_scale;
-      s_mu[p] = mu;
-      s_nu[p] = nu;
-      s_vmax[p] = vmax;
+      // dW1 = x^T dh, db1 = sum dh: a warp per parameter
+      for (int q = warp; q < F * H + H; q += kGeneralWarps) {
+        float acc = 0.f;
+        if (q < F * H) {
+          const int f = q / H, j = q % H;
+          for (int i = lane; i < B; i += 32)
+            acc = fmaf(xc[row(i) * F + f] * s_fm[f], s_h[i * H + j], acc);
+        } else {
+          const int j = q - F * H;
+          for (int i = lane; i < B; i += 32) acc += s_h[i * H + j];
+        }
+        acc = warp_sum(acc);
+        if (lane == 0) s_g[q] = acc;
+      }
+      __syncthreads();
+    }
+
+    if constexpr (kSgd) {
+      // optax.sgd: scale_by_learning_rate, then the reference's lr_scale
+      for (int p = tid; p < P; p += kGeneralThreads)
+        s_p[p] = s_p[p] + (a.neg_lr * s_g[p]) * a.lr_scale;
+    } else {
+      // add_decayed_weights, then scale_by_amsgrad, lr and lr_scale
+      count = count < INT_MAX ? count + 1 : count;
+      const float bc1 = 1.f - powf(a.b1, (float)count);
+      const float bc2 = 1.f - powf(a.b2, (float)count);
+      for (int p = tid; p < P; p += kGeneralThreads) {
+        const float w = s_p[p];
+        const float g = s_g[p] + a.wd * w;
+        const float mu = a.one_minus_b1 * g + a.b1 * s_mu[p];
+        const float nu = a.one_minus_b2 * (g * g) + a.b2 * s_nu[p];
+        const float vmax = fmaxf(s_vmax[p], nu / bc2);
+        const float u = (mu / bc1) / (sqrtf(vmax) + a.eps);
+        s_p[p] = w + (a.neg_lr * u) * a.lr_scale;
+        s_mu[p] = mu;
+        s_nu[p] = nu;
+        s_vmax[p] = vmax;
+      }
     }
     __syncthreads();
   }
@@ -322,23 +382,26 @@ local_sgd_general_kernel(Args a) {
   float* op = a.out_params + so;
   for (int p = tid; p < P; p += kGeneralThreads) {
     op[p] = active ? s_p[p] : pm[p];
-    if (active) {
+    if (!kSgd && active) {
       a.mu[so + p] = s_mu[p];
       a.nu[so + p] = s_nu[p];
       a.nu_max[so + p] = s_vmax[p];
     }
   }
   if (tid == 0) {
-    if (active) a.count[pair] = count;
+    if (!kSgd && active) a.count[pair] = count;
     a.n_out[pair] = active ? tw * (float)N : 0.f;
     a.loss_out[pair] = loss_sum / (float)a.S;
   }
 }
 
-// Shared memory one block of the general kernel needs for these sizes.
-long long general_smem_bytes(int F, int H, int K, int B) {
-  const long long P = (long long)F * H + H + (long long)H * K + K;
-  return 4 * (5 * P + (long long)B * (H + K) + kGeneralWarps + F);
+// Shared memory one block of the general kernel needs for these sizes
+// (H = 0: the lr).
+long long general_smem_bytes(int F, int H, int K, int B, bool sgd) {
+  const long long P = H ? (long long)F * H + H + (long long)H * K + K
+                        : (long long)F * K + K;
+  return 4 * (state_arrays(sgd) * P + (long long)B * (H + K) + kGeneralWarps
+              + F);
 }
 
 // ---------------------------------------------------------------------------
@@ -763,16 +826,18 @@ cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned long long>& ready,
 }
 
 // Both launchers return a cudaError_t, or kErrSmem without a launch.
+template <bool kLr, bool kSgd>
 int launch_general(const Args& a, int pairs, int device, cudaStream_t st) {
-  const long long smem = general_smem_bytes(a.F, a.H, a.K, a.B);
+  const long long smem = general_smem_bytes(a.F, a.H, a.K, a.B, kSgd);
   if (smem > kMaxSmem) return kErrSmem;
   if (smem > 48 * 1024) {
     static std::atomic<unsigned long long> ready{0};
-    const cudaError_t err = allow_smem(local_sgd_general_kernel, ready,
-                                       device);
+    const cudaError_t err = allow_smem(local_sgd_general_kernel<kLr, kSgd>,
+                                       ready, device);
     if (err != cudaSuccess) return (int)err;
   }
-  local_sgd_general_kernel<<<pairs, kGeneralThreads, (size_t)smem, st>>>(a);
+  local_sgd_general_kernel<kLr, kSgd>
+      <<<pairs, kGeneralThreads, (size_t)smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -834,9 +899,10 @@ struct Params {
   long long exs_c, exs_g, eys_c, eys_g;        // element strides
   int M, C, T1, N, F, H, K, B, S;
   int device;  // CUDA device index of every tensor
+  int sgd;     // 1: the SGD update (general route), 0: AMSGrad
   float neg_lr, wd, lr_scale, b1, b2, one_minus_b1, one_minus_b2, eps;
 };
-static_assert(sizeof(Params) == 280, "Params must match the wrapper's pack");
+static_assert(sizeof(Params) == 288, "Params must match the wrapper's pack");
 
 // Plain C entry point bound with ctypes. Every tensor contiguous on device
 // `device`, float32 except y, count, t_idx, slot and idx (int32); either
@@ -847,13 +913,17 @@ static_assert(sizeof(Params) == 280, "Params must match the wrapper's pack");
 // ex and ey are given (the window's rows [N, F] and labels [N] contiguous).
 // Rows of idx must lie in [0, T1*N): the weighted draw clips them. `route` is
 // local_sgd.py's _ROUTES: 0 the general kernel, 1 the fused kernel (only
-// for the (F, H, K) it is built for and B <= 512). `stream` is a stream of
+// for the (F, H, K) it is built for, B <= 512 and AMSGrad). H = 0 is the
+// lr and sgd = 1 the SGD update, both on the general kernel only; under
+// SGD mu, nu, nu_max and count may be 0. `stream` is a stream of
 // that device; the device is made current for the launch only if it is not.
 // Returns the cudaError_t of the launch (0 = ok), or kErrSmem (nothing
 // launched) when the general kernel would need more shared memory than a
 // block may take.
 extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
-  if (p->M < 1 || p->C < 1 || p->S < 1 || p->B < 1
+  if (p->M < 1 || p->C < 1 || p->S < 1 || p->B < 1 || p->H < 0
+      || (p->sgd && route != 0)
+      || (!p->sgd && (!p->mu || !p->nu || !p->nu_max || !p->count))
       || (p->agg_out && (route != 1 || !p->stats_out || !p->ticket))
       || (p->eval_correct
           && (!p->agg_out || !p->eval_nll || !p->ex || !p->ey)))
@@ -892,8 +962,12 @@ extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
   if (err != cudaSuccess) return (int)err;
   const int pairs = p->M * p->C;
   int ret;
-  if (route == 0)
-    ret = launch_general(a, pairs, p->device, st);
+  if (route == 0 && p->H == 0)
+    ret = p->sgd ? launch_general<true, true>(a, pairs, p->device, st)
+                 : launch_general<true, false>(a, pairs, p->device, st);
+  else if (route == 0)
+    ret = p->sgd ? launch_general<false, true>(a, pairs, p->device, st)
+                 : launch_general<false, false>(a, pairs, p->device, st);
   else if (route == 1 && p->F == 3 && p->H == 10 && p->K == 2)
     ret = launch_fused<3, 10, 2>(a, pairs, p->device, st);
   else if (route == 1 && p->F == 2 && p->H == 10 && p->K == 2)

@@ -1,19 +1,22 @@
-"""Eval matrices of the fnn pool (K3): the CUDA kernel's wrapper and its
-plain version.
+"""Eval matrices of the fnn or lr pool (K3): the CUDA kernel's wrapper and
+its plain version.
 
 Counterpart of ``feddrift_tpu/core/step.py::TrainStep._acc_matrix_body``
 and ``_acc_cells_jit``: every model of the pool on every client's rows of
 a window of time steps. The kernel is ``csrc/eval_cells.cu``; its source
 notes what bounds it and its design.
 
-Shapes: ``params [M, P]`` (the fnn's leaves packed in
-``FeedForwardNN.param_specs`` order, P = F·H + H + H·K + K), a window ``x
-[C, G, N, F]`` float32 and ``y [C, G, N]`` int32 of the dataset (any view
-whose rows ``[N, F]`` are contiguous: ``x[:, t, None]``, ``x[:, t:t + 2]``
-or the whole ``[C, T1, N, F]``), ``feat_mask [M, F]`` (None: ones).
-Returns ``correct [M, C, G]`` int32, the rows whose first maximal logit is
-the label, and ``nll [M, C, G]`` float32, the sums of ``-log_softmax`` at
-the label (None unless ``with_nll``).
+Shapes: ``params [M, P]`` (the model's leaves packed in ``param_specs``
+order: the fnn's, P = F·H + H + H·K + K, or with ``hidden = 0`` the lr's,
+``LogisticRegression``, P = F·K + K), a window ``x [C, G, N, F]`` float32
+and ``y [C, G, N]`` int32 of the dataset (any view whose rows ``[N, F]``
+are contiguous: ``x[:, t, None]``, ``x[:, t:t + 2]`` or the whole ``[C,
+T1, N, F]``), ``feat_mask [M, F]`` (None: ones). The model's outputs are
+the logits: the fnn's, or the lr's sigmoid outputs, as the reference
+takes them. Returns ``correct [M, C, G]`` int32, the rows whose first
+maximal output is the label (``jnp.argmax``'s tie rule, which decides rows
+whose sigmoid saturates to 1.0), and ``nll [M, C, G]`` float32, the sums
+of ``-log_softmax`` at the label (None unless ``with_nll``).
 
 ``eval_cells`` launches a kernel for CUDA tensors and takes the plain
 version, ``eval_cells_ref``, for CPU tensors. There is no fallback for a
@@ -54,7 +57,8 @@ _ROUTES = {"general": 0, "fused": 1}      # eval_cells_f32's route argument
 
 
 def _route(F: int, H: int, K: int) -> str:
-    """Which kernel takes a ``F -> H -> K`` fnn: by shape alone."""
+    """Which kernel takes a ``F -> H -> K`` fnn (``H = 0``: the lr): by
+    shape alone."""
     return "fused" if (F, H, K) in FUSED_WIDTHS else "general"
 
 
@@ -64,17 +68,34 @@ def _threads(N: int) -> int:
 
 
 def _unpack(p: torch.Tensor, F: int, H: int, K: int):
-    """The fnn's leaves ``(W0 [.., F, H], b0 [.., H], W1 [.., H, K], b1
-    [.., K])`` as views of packed params ``p [.., P]``."""
+    """The leaves as views of packed params ``p [.., P]``: the fnn's ``(W0
+    [.., F, H], b0 [.., H], W1 [.., H, K], b1 [.., K])``, or with ``H =
+    0`` the lr's ``(W [.., F, K], b [.., K])``."""
+    if H == 0:
+        return p[..., :F * K].unflatten(-1, (F, K)), p[..., F * K:]
     o1, o2, o3 = F * H, F * H + H, F * H + H + H * K
     return (p[..., :o1].unflatten(-1, (F, H)), p[..., o1:o2],
             p[..., o2:o3].unflatten(-1, (H, K)), p[..., o3:])
 
 
+def _apply(leaves, x: torch.Tensor) -> torch.Tensor:
+    """The model's outputs ``[.., N, K]`` for ``_unpack``'s leaves (their
+    leading axes broadcast with x's) and rows ``x [.., N, F]``: the fnn's
+    logits, or the lr's sigmoid outputs."""
+    if len(leaves) == 2:
+        w, b = leaves
+        return torch.sigmoid(x @ w + b.unsqueeze(-2))
+    w0, b0, w1, b1 = leaves
+    return torch.relu(x @ w0 + b0.unsqueeze(-2)) @ w1 + b1.unsqueeze(-2)
+
+
 def _classes(F: int, H: int, P: int) -> int:
-    K, rest = divmod(P - F * H - H, H + 1)
+    """K of packed params of size P: an ``F -> H -> K`` fnn, or with ``H =
+    0`` an ``F -> K`` lr."""
+    K, rest = divmod(P - F * H - H, H + 1) if H else divmod(P, F + 1)
     if K < 1 or rest:
-        raise ValueError(f"P={P} is not a {F}->{H}->K fnn")
+        raise ValueError(f"P={P} is not a {F}->{H}->K fnn" if H
+                         else f"P={P} is not an {F}->K lr")
     return K
 
 
@@ -95,12 +116,11 @@ def eval_cells_ref(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     if params.is_cuda:
         eval_cells_ref.cuda_calls += 1
     F, H, K = _shapes(params, x, y, hidden)
-    w0, b0, w1, b1 = (v[:, None, None] for v in _unpack(params, F, H, K))
+    leaves = [v[:, None, None] for v in _unpack(params, F, H, K)]
     xin = x[None]                                           # [1, C, G, N, F]
     if feat_mask is not None:
         xin = xin * feat_mask[:, None, None, None, :]
-    h = torch.relu(xin @ w0 + b0.unsqueeze(-2))
-    logits = h @ w1 + b1.unsqueeze(-2)                      # [M, C, G, N, K]
+    logits = _apply(leaves, xin)                            # [M, C, G, N, K]
     yl = y.long()[None].expand(logits.shape[:-1])
     correct = (logits.argmax(-1) == yl).sum(-1).to(torch.int32)
     if not with_nll:
@@ -143,9 +163,10 @@ def eval_cells(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
     window: through a CUDA kernel for CUDA tensors, through
     ``eval_cells_ref`` for CPU tensors. ``correct_out`` and ``nll_out``
     (contiguous ``[M, C, G]``, e.g. a slot of a caller's buffer) receive
-    the results and are returned. ``route`` names the kernel where a
-    comparison needs one ("general" takes any width); by default ``_route``
-    picks it from the shape."""
+    the results and are returned. ``hidden``: the fnn's hidden width, 0
+    for the lr. ``route`` names the kernel where a comparison needs one
+    ("general" takes any width and the lr); by default ``_route`` picks it
+    from the shape."""
     F, H, K = _shapes(params, x, y, hidden)
     M, (C, G, N) = params.shape[0], x.shape[:3]
     if not x.is_cuda:

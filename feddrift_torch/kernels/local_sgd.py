@@ -2,21 +2,25 @@
 plain version.
 
 Counterpart of ``feddrift_tpu/core/step.py::TrainStep._local_sgd`` under
-``_round_body``'s double vmap, with ``make_optimizer("adam")``'s
-``add_decayed_weights`` + optax AMSGrad. The kernel is ``csrc/local_sgd.cu``;
-its source notes what bounds it and its design. It trains the fnn
-(dense -> relu -> dense) of every (model, client) pair for S local steps in
-one launch.
+``_round_body``'s double vmap, with ``make_optimizer``'s update:
+``"adam"``, ``add_decayed_weights`` + optax AMSGrad, or ``"sgd"``, plain
+``optax.sgd(lr)``. The kernel is ``csrc/local_sgd.cu``; its source notes
+what bounds it and its design. It trains the model of every (model,
+client) pair for S local steps in one launch: the fnn (dense -> relu ->
+dense), or with ``hidden = 0`` the lr (``LogisticRegression``: sigmoid
+over one dense, whose outputs the loss takes as logits, as the
+reference's does).
 
 Shapes (float32 unless noted): ``x [C, T1, N, F]``, ``y [C, T1, N]`` int32,
-``params [M, P]`` (the fnn's leaves packed in ``FeedForwardNN.param_specs``
-order, P = F·H + H + H·K + K), the optimizer state ``{"mu", "nu", "nu_max":
-[M, C, P], "count": [M, C] int32}``, the batch draws and ``total_w [M,
-C]``. A batch is either contiguous, ``t_idx, slot [M, C, S]`` int32 (rows
-``t_idx·N + slot·B + [0, B)``), or gathered, ``idx [M, C, S, B]`` int32
-(rows of the pair's client, from the weighted draw K4, which keeps them in
-``[0, T1·N)``). ``feat_mask [M, F]`` multiplies each model's x (KUE; None:
-ones). Returns the client params ``[M, C, P]``
+``params [M, P]`` (the model's leaves packed in ``param_specs`` order: the
+fnn's, P = F·H + H + H·K + K, or the lr's, P = F·K + K), the optimizer
+state (AMSGrad: ``{"mu", "nu", "nu_max": [M, C, P], "count": [M, C]
+int32}``; SGD: ``{}``, optax.sgd keeps none), the batch draws and
+``total_w [M, C]``. A batch is either contiguous, ``t_idx, slot [M, C,
+S]`` int32 (rows ``t_idx·N + slot·B + [0, B)``), or gathered, ``idx [M,
+C, S, B]`` int32 (rows of the pair's client, from the weighted draw K4,
+which keeps them in ``[0, T1·N)``). ``feat_mask [M, F]`` multiplies each
+model's x (KUE; None: ones). Returns the client params ``[M, C, P]``
 (a new buffer), the optimizer state, ``n [M, C]`` (``total_w·N``, 0 for an
 inactive pair) and the mean loss over the S steps ``[M, C]``.
 
@@ -25,9 +29,10 @@ state IN PLACE (the dict it returns is the one it was given); for CPU
 tensors it runs ``local_sgd_ref``, which returns a new state. There is no
 fallback for a CUDA tensor: the kernel launches or the call raises. The
 source holds two kernels of the one function, and ``_route`` picks one by
-shape alone before the launch: the fused kernel (one batch row a thread,
-two barriers a step) for the widths it is built for, the general kernel
-for any other.
+shape, model and update alone before the launch: the fused kernel (one
+batch row a thread, two barriers a step) for the fnn widths it is built
+for under AMSGrad, the general kernel for any other width, the lr and
+SGD.
 
 ``local_sgd_fedavg`` is a round's K1 and K2 in one launch: the fused
 kernel with the masked FedAvg (``kernels/fedavg.py``'s function, bitwise)
@@ -59,7 +64,8 @@ import torch
 from feddrift_torch.kernels.build import library
 from feddrift_torch.kernels.eval_cells import _route as _eval_route
 from feddrift_torch.kernels.eval_cells import _threads as _eval_threads
-from feddrift_torch.kernels.eval_cells import _unpack, eval_cells_ref
+from feddrift_torch.kernels.eval_cells import (_apply, _classes, _unpack,
+                                               eval_cells_ref)
 from feddrift_torch.kernels.fedavg import fedavg_ref
 
 B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.amsgrad defaults
@@ -72,28 +78,35 @@ _ERR_SMEM = -1
 FUSED_WIDTHS = ((2, 10, 2), (3, 10, 2))
 FUSED_MAX_BATCH = 512
 _ROUTES = {"general": 0, "fused": 1}      # local_sgd_f32's route argument
+OPTIMIZERS = ("adam", "sgd")              # the reference's make_optimizer
 
 
-def _route(F: int, H: int, K: int, B: int) -> str:
-    """Which kernel takes a ``F -> H -> K`` fnn at batch ``B``: by shape
-    alone, decided before the launch."""
+def _route(F: int, H: int, K: int, B: int, optimizer: str = "adam") -> str:
+    """Which kernel takes a ``F -> H -> K`` fnn (``H = 0``: the lr) at
+    batch ``B`` under ``optimizer``: by shape, model and update alone,
+    decided before the launch."""
     return "fused" if (F, H, K) in FUSED_WIDTHS and B <= FUSED_MAX_BATCH \
-        else "general"
+        and optimizer == "adam" else "general"
 
 
-def _folds_eval(F: int, H: int, K: int, B: int, N: int) -> bool:
+def _folds_eval(F: int, H: int, K: int, B: int, N: int,
+                optimizer: str = "adam") -> bool:
     """Whether a round at batch ``B`` can evaluate its input params on
     ``N``-row steps in its own launch: K1 and K3 both take their fused
     kernels, and K1's block (one batch row a thread, round_up(B, 32) and at
     least 64 threads) is K3's (``eval_cells._threads(N)``), so the cells'
     sums run over the same tree and are bitwise K3's."""
-    return _route(F, H, K, B) == "fused" and _eval_route(F, H, K) == "fused" \
+    return _route(F, H, K, B, optimizer) == "fused" \
+        and _eval_route(F, H, K) == "fused" \
         and max(64, -(-B // 32) * 32) == _eval_threads(N)
 
 
-def init_opt_state(M: int, C: int, P: int,
-                   device: str | torch.device) -> dict[str, torch.Tensor]:
-    """Fresh AMSGrad state of every pair (optax's init: zeros, count 0)."""
+def init_opt_state(M: int, C: int, P: int, device: str | torch.device,
+                   optimizer: str = "adam") -> dict[str, torch.Tensor]:
+    """Fresh optimizer state of every pair: AMSGrad's (optax's init:
+    zeros, count 0), or SGD's, which is empty."""
+    if optimizer == "sgd":
+        return {}
     return {"mu": torch.zeros(M, C, P, device=device),
             "nu": torch.zeros(M, C, P, device=device),
             "nu_max": torch.zeros(M, C, P, device=device),
@@ -115,15 +128,22 @@ def amsgrad_step(p, grad, mu, nu, nu_max, count, *, lr: float, wd: float,
     return p + (-lr * u) * lr_scale, mu, nu, nu_max, count
 
 
+def sgd_step(p, grad, *, lr: float, lr_scale: float = 1.0):
+    """One step of optax.sgd(lr) (no weight decay, no state) and the
+    reference's lr_scale."""
+    return p + (-lr * grad) * lr_scale
+
+
 def local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w, *,
                   hidden: int, batch_size: int, lr: float, wd: float,
-                  lr_scale: float = 1.0, idx=None, feat_mask=None):
+                  lr_scale: float = 1.0, idx=None, feat_mask=None,
+                  optimizer: str = "adam"):
     """The plain version: the S steps batched over ``[M, C]`` with autograd
     for the gradient; returns a new optimizer state."""
     C, T1, N, F = x.shape
     M, P = params.shape
     B, H = batch_size, hidden
-    K = (P - F * H - H) // (H + 1)
+    K = _classes(F, H, P)
     if idx is None:
         rows = (t_idx.long() * N + slot.long() * B)[..., None] \
             + torch.arange(B, device=x.device)                # [M, C, S, B]
@@ -136,35 +156,41 @@ def local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w, *,
         xb = xb * feat_mask[:, None, None, None, :]
     yb = y.reshape(C, T1 * N)[cidx, rows].long()              # [M, C, S, B]
     p = params[:, None].expand(M, C, P)
-    mu, nu, vmax = opt_state["mu"], opt_state["nu"], opt_state["nu_max"]
-    count = opt_state["count"]
+    sgd = optimizer == "sgd"
+    if not sgd:
+        mu, nu, vmax = opt_state["mu"], opt_state["nu"], opt_state["nu_max"]
+        count = opt_state["count"]
     losses = []
     for s in range(S):
         with torch.enable_grad():
             pg = p.detach().requires_grad_(True)
-            w0, b0, w1, b1 = _unpack(pg, F, H, K)
-            h = torch.relu(xb[:, :, s] @ w0 + b0.unsqueeze(-2))
-            logp = torch.log_softmax(h @ w1 + b1.unsqueeze(-2), dim=-1)
+            logp = torch.log_softmax(
+                _apply(_unpack(pg, F, H, K), xb[:, :, s]), dim=-1)
             loss = -logp.gather(-1, yb[:, :, s, :, None])[..., 0].mean(-1)
             grad, = torch.autograd.grad(loss.sum(), pg)
         losses.append(loss.detach())
-        p, mu, nu, vmax, count = amsgrad_step(p, grad, mu, nu, vmax, count,
-                                              lr=lr, wd=wd, lr_scale=lr_scale)
+        if sgd:
+            p = sgd_step(p, grad, lr=lr, lr_scale=lr_scale)
+        else:
+            p, mu, nu, vmax, count = amsgrad_step(
+                p, grad, mu, nu, vmax, count, lr=lr, wd=wd,
+                lr_scale=lr_scale)
     active = total_w > 0
     a = active[..., None]
-    new_state = {"mu": torch.where(a, mu, opt_state["mu"]),
-                 "nu": torch.where(a, nu, opt_state["nu"]),
-                 "nu_max": torch.where(a, vmax, opt_state["nu_max"]),
-                 "count": torch.where(active, count, opt_state["count"])}
+    new_state = {} if sgd else {
+        "mu": torch.where(a, mu, opt_state["mu"]),
+        "nu": torch.where(a, nu, opt_state["nu"]),
+        "nu_max": torch.where(a, vmax, opt_state["nu_max"]),
+        "count": torch.where(active, count, opt_state["count"])}
     client = torch.where(a, p, params[:, None])
     n = torch.where(active, total_w * N, torch.zeros_like(total_w))
     return client, new_state, n, torch.stack(losses, -1).mean(-1)
 
 
 # csrc/local_sgd.cu's Params: 22 pointers; the eval window's x and y client
-# and step strides; M, C, T1, N, F, H, K, B, S, device; -lr, wd,
-# lr_scale, b1, b2, 1 - b1, 1 - b2, eps
-_PARAMS = struct.Struct("=22Q4q10i8f")
+# and step strides; M, C, T1, N, F, H, K, B, S, device, sgd; -lr, wd,
+# lr_scale, b1, b2, 1 - b1, 1 - b2, eps; padding to 8 bytes
+_PARAMS = struct.Struct("=22Q4q11i8f4x")
 # the epilogue's zeroed ticket counters, one buffer per (device, stream):
 # each launch leaves them zero, so they are allocated once and never reset
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
@@ -216,7 +242,7 @@ def _check_fold(x, params, hidden: int, batch_size: int, eval_window,
                          "eval_out=(correct, nll)")
     (C, _, N, F), (M, P) = x.shape, params.shape
     H, B = hidden, batch_size
-    K = (P - F * H - H) // (H + 1)
+    K = _classes(F, H, P)
     if not _folds_eval(F, H, K, B, N):
         raise ValueError(f"F={F}, H={H}, K={K}, B={B}, N={N}: the eval "
                          f"folds into K1's fused kernel only where its block "
@@ -250,8 +276,9 @@ def _check_eval(eval_window, eval_out, M: int, C: int, N: int, F: int,
 
 def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
             batch_size: int, lr: float, wd: float, lr_scale: float,
-            route: str | None, idx, feat_mask, stats_out=None,
-            aggregate: bool = False, eval_window=None, eval_out=None):
+            route: str | None, idx, feat_mask, optimizer: str = "adam",
+            stats_out=None, aggregate: bool = False, eval_window=None,
+            eval_out=None):
     """Check the inputs and launch the kernel of ``route`` (by default
     ``_route``'s), with K2 as its epilogue when ``aggregate`` (the fused
     route only) and the eval of ``params`` on ``eval_window`` into
@@ -261,22 +288,25 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
     if x.dim() != 4 or params.dim() != 2 or rows[0].dim() != 5 - len(rows):
         raise ValueError("local_sgd takes x [C, T1, N, F], params [M, P] and "
                          "t_idx, slot [M, C, S] or idx [M, C, S, B]")
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(f"optimizer {optimizer!r}: the kernel steps "
+                         f"{OPTIMIZERS}")
     C, T1, N, F = x.shape
     M, P = params.shape
     S, H, B = rows[0].shape[2], hidden, batch_size
-    K, rest = divmod(P - F * H - H, H + 1)
-    if K < 1 or rest or not 1 <= B <= N:
-        raise ValueError(f"P={P} is not a {F}->{H}->K fnn, or batch {B} is "
-                         f"outside [1, N={N}]")
+    K = _classes(F, H, P)
+    if not 1 <= B <= N:
+        raise ValueError(f"batch {B} is outside [1, N={N}]")
     if M * C > MAX_BLOCKS:
         raise ValueError(f"M*C={M * C} blocks exceed {MAX_BLOCKS}")
     if route is None:
-        route = _route(F, H, K, B)
-    elif route not in _ROUTES or (route == "fused"
-                                  and _route(F, H, K, B) != "fused"):
+        route = _route(F, H, K, B, optimizer)
+    elif route not in _ROUTES or (
+            route == "fused" and _route(F, H, K, B, optimizer) != "fused"):
         raise ValueError(f"route {route!r}: the fused kernel takes (F, H, K) "
-                         f"in {FUSED_WIDTHS} and B <= {FUSED_MAX_BATCH}, the "
-                         f"general one any shape")
+                         f"in {FUSED_WIDTHS}, B <= {FUSED_MAX_BATCH} and "
+                         f"AMSGrad, the general one any shape, the lr and "
+                         f"SGD")
     if aggregate and route != "fused":
         raise ValueError(f"the {route} route has no FedAvg epilogue: its "
                          f"caller launches K2 (kernels/fedavg.py) itself")
@@ -284,14 +314,16 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
     i32, f32 = torch.int32, torch.float32
     if aggregate and stats_out is None:
         stats_out = torch.empty((M, 3), device=x.device)
+    sgd = optimizer == "sgd"
+    state = () if sgd else (
+        ("mu", opt_state["mu"], (M, C, P), f32),
+        ("nu", opt_state["nu"], (M, C, P), f32),
+        ("nu_max", opt_state["nu_max"], (M, C, P), f32),
+        ("count", opt_state["count"], (M, C), i32))
     for name, t, shape, dt in (
             ("x", x, (C, T1, N, F), f32), ("y", y, (C, T1, N), i32),
-            ("params", params, (M, P), f32),
-            ("mu", opt_state["mu"], (M, C, P), f32),
-            ("nu", opt_state["nu"], (M, C, P), f32),
-            ("nu_max", opt_state["nu_max"], (M, C, P), f32),
-            ("count", opt_state["count"], (M, C), i32),
-            ("total_w", total_w, (M, C), f32)) + (
+            ("params", params, (M, P), f32)) + state + (
+            ("total_w", total_w, (M, C), f32),) + (
             (("t_idx", t_idx, (M, C, S), i32), ("slot", slot, (M, C, S), i32))
             if idx is None else (("idx", idx, (M, C, S, B), i32),)) + (
             (("feat_mask", feat_mask, (M, F), f32),)
@@ -314,8 +346,7 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
         else None
     err = _kernel()(_PARAMS.pack(
         x.data_ptr(), y.data_ptr(), params.data_ptr(),
-        opt_state["mu"].data_ptr(), opt_state["nu"].data_ptr(),
-        opt_state["nu_max"].data_ptr(), opt_state["count"].data_ptr(),
+        *((0,) * 4 if sgd else (t.data_ptr() for _, t, _, _ in state)),
         *((t_idx.data_ptr(), slot.data_ptr(), 0) if idx is None
           else (0, 0, idx.data_ptr())),
         0 if feat_mask is None else feat_mask.data_ptr(), total_w.data_ptr(),
@@ -323,7 +354,7 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
         *((agg.data_ptr(), stats_out.data_ptr(),
            _ticket(x.device, index, stream, M).data_ptr()) if aggregate
           else (0, 0, 0)), *ev,
-        M, C, T1, N, F, H, K, B, S, index,
+        M, C, T1, N, F, H, K, B, S, index, int(sgd),
         -lr, wd, lr_scale, B1, B2, 1 - B1, 1 - B2, EPS), _ROUTES[route],
         stream)
     if err == _ERR_SMEM:
@@ -331,8 +362,8 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
                          f"memory per block than the kernel may take "
                          f"(csrc/local_sgd.cu states the size and limit)")
     if err != 0:
-        raise RuntimeError(f"local_sgd_f32 ({route}) launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"local_sgd_f32 ({route}, {optimizer}) launch "
+                           f"failed: cudaError {err}")
     local_sgd.launches += 1
     if not aggregate:
         return client, n, loss
@@ -344,15 +375,19 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
 
 def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
               batch_size: int, lr: float, wd: float, lr_scale: float = 1.0,
-              route: str | None = None, idx=None, feat_mask=None):
-    """S local AMSGrad steps of every (model, client) pair: through a CUDA
-    kernel for CUDA tensors (optimizer state updated in place), through
-    ``local_sgd_ref`` for CPU tensors. ``route`` names the kernel where a
-    comparison needs one ("general" takes any shape); by default
-    ``_route`` picks it from the shape. With ``idx`` the batches are
-    gathered rows and ``t_idx``, ``slot`` are not read (pass None)."""
+              route: str | None = None, idx=None, feat_mask=None,
+              optimizer: str = "adam"):
+    """S local steps of ``optimizer`` (``"adam"``: AMSGrad after weight
+    decay; ``"sgd"``) of every (model, client) pair: through a CUDA kernel
+    for CUDA tensors (optimizer state updated in place), through
+    ``local_sgd_ref`` for CPU tensors. ``hidden``: the fnn's hidden width,
+    0 for the lr. ``route`` names the kernel where a comparison needs one
+    ("general" takes any shape); by default ``_route`` picks it from the
+    shape, model and update. With ``idx`` the batches are gathered rows and
+    ``t_idx``, ``slot`` are not read (pass None)."""
     kw = dict(hidden=hidden, batch_size=batch_size, lr=lr, wd=wd,
-              lr_scale=lr_scale, idx=idx, feat_mask=feat_mask)
+              lr_scale=lr_scale, idx=idx, feat_mask=feat_mask,
+              optimizer=optimizer)
     if not _on_cuda(x):
         return local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w,
                              **kw)

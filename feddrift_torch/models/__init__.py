@@ -1,8 +1,8 @@
 """Model registry of the port: ``create_model(name, ds, cfg)``.
 
-Mirrors ``feddrift_tpu/models/__init__.py``. The ``fnn`` and ``transformer``
-entries are ported so far, with the registry's exact sizes; any other name
-raises ``KeyError``.
+Mirrors ``feddrift_tpu/models/__init__.py``. The ``lr``, ``fnn`` and
+``transformer`` entries are ported so far, with the registry's exact sizes;
+any other name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -26,6 +26,12 @@ def register_model(*names: str):
 
 def available_models() -> list[str]:
     return sorted(_BUILDERS)
+
+
+@register_model("lr")
+def _lr(ds: DriftDataset, cfg) -> nn.Module:
+    from feddrift_torch.models.mlp import LogisticRegression
+    return LogisticRegression(ds.feature_shape, num_classes=ds.num_classes)
 
 
 @register_model("fnn")

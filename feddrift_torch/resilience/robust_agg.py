@@ -10,7 +10,8 @@ its plain version on the CPU); the plain pieces ``weighted_mean``,
 ``_active_counts`` and ``_stats`` live beside the kernel and are the
 reference's functions of those names. The robust strategies (median,
 trimmed mean, Krum, norm clipping) and the reference's registry that
-selects among them are not ported (ROADMAP item 12).
+selects among them are not ported (ROADMAP §1 'In-round robustness,
+population and streaming').
 
 Parameters are the packed ``[M, C, P]`` client stack and ``[M, P]``
 previous params the round uses.

@@ -47,6 +47,7 @@ def test_port_imports_no_jax():
     "feddrift_torch.convert:params_from_jax",
     "feddrift_torch.models.transformer:TransformerLM.init_params",
     "feddrift_torch.models.mlp:FeedForwardNN.init_params",
+    "feddrift_torch.models.mlp:LogisticRegression.init_params",
     "feddrift_torch.core.step:TrainStep.__init__",
     "feddrift_torch.core.step:TrainStep.create",
     "feddrift_torch.simulation.runner:Experiment.__init__",

@@ -284,3 +284,110 @@ def test_ab_runs_refuse_an_unknown_run_and_a_missing_base():
                               capture_output=True, text=True, timeout=60)
         assert proc.returncode == 2 and not proc.stdout
     assert _ab_runs().ORDER == ("base", "this", "this", "base")
+
+
+@pytest.mark.parametrize("run", chip_smoke.MNIST_RUNS, ids=lambda r: r[4])
+def test_mnist_reference_runs_are_the_committed_ones(run):
+    """train_mnist's committed MNIST-4 runs: R = 200, T = 10, one run a
+    file, named as the CLI names it; each drives its first T steps."""
+    algo, arg, pool, T, name, pinned, step_tol, mean_tol = run
+    metrics = os.path.join(os.path.dirname(chip_smoke.REF_RUN), "..", name,
+                           "metrics.jsonl")
+    assert chip_smoke._reference_accs(metrics, pinned) == list(pinned)
+    rows = [json.loads(ln) for ln in open(metrics)]
+    assert rows[-1]["round"] == 1999 and rows[-1]["iteration"] == 9
+    assert name == f"MNIST-fnn-{algo}-{arg}-s0"
+    # the CLI names a run's directory as the committed one is named
+    from feddrift_torch.cli import run_dir
+    from feddrift_torch.config import ExperimentConfig
+    assert run_dir(ExperimentConfig(
+        dataset="MNIST", concept_drift_algo=algo, concept_drift_algo_arg=arg,
+        concept_num=pool, out_dir="runs")) == os.path.join("runs", name)
+    assert T in (5, 10) and mean_tol >= 0.015
+    # a clustering decision on noise-driven spawns is held to the mean only
+    assert (step_tol is None) == (algo not in ("win-1", "oblivious"))
+    assert pool == (10 if "H_A_F" in arg else 4)
+
+
+def test_mnist_runs_fit_the_time_budget():
+    """Two runs at T = 10 and three at T = 5: 7000 K1 launches (at ~21 ms a
+    launch on the card, ~150 s); the lr runs 4040 more."""
+    assert sum(r[3] for r in chip_smoke.MNIST_RUNS) * 200 == 7000
+    assert [r[3] for r in chip_smoke.MNIST_RUNS] == [10, 10, 5, 5, 5]
+    assert sum(kw.get("train_iterations", 10) * kw.get("comm_round", 200)
+               for _, kw, _, _ in chip_smoke.LR_RUNS) == 4040
+
+
+@pytest.mark.parametrize("run", chip_smoke.LR_RUNS, ids=lambda r: r[0])
+def test_lr_runs_hold_a_value_a_step(run):
+    label, kw, ref, init = run
+    assert kw["model"] == "lr" and len(ref) == kw.get("train_iterations", 10)
+    assert all(0.0 < a < 1.0 for a in ref)
+    if init is not None:
+        assert kw["dataset"] == "sea" and kw["seed"] == 7
+        assert len(init["Dense_0/kernel"]) == 3 and init["Dense_0/bias"] \
+            == (0.0, 0.0)
+
+
+def test_local_sgd_bound_of_the_lr_and_sgd():
+    """The lr's operations (4 F K + 14 K a row) and SGD's update (3 a
+    parameter, no optimizer state in the bytes)."""
+    dims = dict(M=1, C=1, S=1, B=500, F=784, H=0, K=10)
+    rows = torch.arange(500)[None, None, None]
+    total_w = torch.ones(1, 1)
+    P = 784 * 10 + 10
+    for sgd in (False, True):
+        ms, by = chip_smoke._local_sgd_bound_ms(rows, total_w, **dims,
+                                                index_bytes=8, sgd=sgd)
+        flops = 500 * (4 * 784 * 10 + 14 * 10) + (3 if sgd else 14) * P
+        nbytes = (500 * (4 * 784 + 4) + P * 4
+                  + (0 if sgd else 2 * (3 * P * 4 + 4)) + P * 4 + 8 + 8 + 4)
+        want = max(flops / chip_smoke.F32_FLOPS_PER_S,
+                   nbytes / chip_smoke.HBM_BYTES_PER_S) * 1e3
+        assert ms == pytest.approx(want)
+        assert by == ("operations" if flops / chip_smoke.F32_FLOPS_PER_S
+                      > nbytes / chip_smoke.HBM_BYTES_PER_S else "bytes")
+
+
+def test_lr_near_ties_separate_solid_ties():
+    """For the lr: a row whose two top outputs saturate from z >= 20 is a
+    solid tie (not a near tie); one with a class z in [15, 20) is a near
+    tie; a row with a clear winner is neither."""
+    from feddrift_torch.models.mlp import LogisticRegression
+    F, K = 2, 3
+    mod = LogisticRegression((F,), K)
+    # z = x W + b per class; x picks the row's z through two features
+    w = torch.tensor([[1.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
+    flat = mod.pack({"Dense_0/kernel": w,
+                     "Dense_0/bias": torch.zeros(K)})[None]
+    x = torch.tensor([[25.0, 0.0],       # z = (25, 25, 0): solid tie
+                      [25.0, 17.0],      # z = (25, 25, 17): flip band
+                      [3.0, 0.0],        # z = (3, 3, 0): an exact tie, low z
+                      [0.0, 2.0]])       # z = (0, 0, 2): clear winner
+    ties, solid = chip_smoke._near_ties(flat, x[None, None], None, F, 0, K)
+    assert solid.tolist() == [[[1]]]
+    assert ties.tolist() == [[[2]]]
+
+
+def test_mnist_reference_init_is_the_reference_pools():
+    """train_mnist's initial params are what the JAX package's runner puts
+    in every slot of the MNIST-4 fnn pool at seed 0 (ModelPool.create with
+    seed 42), bitwise, packed in param_specs order."""
+    import jax
+    import numpy as np
+
+    from feddrift_torch.convert import params_from_jax
+    from feddrift_torch.models.mlp import FeedForwardNN
+    from feddrift_tpu.config import ExperimentConfig as JaxConfig
+    from feddrift_tpu.simulation.runner import Experiment as JaxExperiment
+    exp = JaxExperiment(JaxConfig(dataset="MNIST", train_iterations=1,
+                                  sample_num=10))
+    mod = FeedForwardNN((784,), 10, 10)
+    want = mod.pack(params_from_jax(jax.tree_util.tree_map(
+        np.asarray, exp.pool.init_params), "cpu"))
+    got = np.load(chip_smoke.MNIST_REFERENCE_INIT)
+    assert got.dtype == np.float32 and got.shape == (mod.num_params,)
+    assert np.array_equal(got, want.numpy())
+    slots = jax.tree_util.tree_map(np.asarray, exp.pool.params)
+    assert np.array_equal(mod.pack(params_from_jax(slots, "cpu"))[-1].numpy(),
+                          got)

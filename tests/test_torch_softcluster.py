@@ -328,38 +328,19 @@ def test_state_from_before_cfl_loads():
     assert np.array_equal(a.weights, b.weights)
 
 
-@pytest.mark.parametrize("what", ["gmm", "gmm_reset", "lr", "sgd",
-                                  "lr_step"])
+@pytest.mark.parametrize("what", ["gmm", "gmm_reset"])
 def test_other_kinds_not_ported(what):
-    """What the port still refuses: softcluster's gmm (scikit-learn), the
-    ``lr`` model and the ``sgd`` client optimizer (ROADMAP 1 item 1), at
-    the algorithm, the model registry and the train step. (Until the
-    weighted draw landed this also held the Poisson bootstrap, KUE,
-    DriftSurf and Ada, which are ported now.)"""
+    """What the port still refuses of softcluster: its gmm kind
+    (scikit-learn), plain and with resets. (The ``lr`` model and the
+    ``sgd`` client optimizer were refused here until they were ported;
+    until the weighted draw landed this also held the Poisson bootstrap,
+    KUE, DriftSurf and Ada.)"""
     from feddrift_torch.core.pool import ModelPool
-    from feddrift_torch.core.step import TrainStep
-    from feddrift_torch.models import create_model
-    algo = {"gmm": "softcluster", "gmm_reset": "softclusterreset"}.get(
-        what, "win-1")
-    arg = "gmm" if what.startswith("gmm") else ""
-    cfg = ExperimentConfig(concept_drift_algo=algo, concept_drift_algo_arg=arg,
-                           sample_num=10, train_iterations=2,
-                           model="lr" if what.startswith("lr") else "fnn",
-                           client_optimizer="sgd" if what == "sgd"
-                           else "adam")
+    algo = {"gmm": "softcluster", "gmm_reset": "softclusterreset"}[what]
+    cfg = ExperimentConfig(concept_drift_algo=algo, concept_drift_algo_arg="gmm",
+                           sample_num=10, train_iterations=2)
     ds = make_dataset(cfg)
-    if what.startswith("gmm"):
-        pool = ModelPool.create(FeedForwardNN((3,), 2, 4), None,
-                                cfg.num_models, device="cpu")
-        with pytest.raises(NotImplementedError, match="scikit-learn"):
-            make_algorithm(cfg, ds, pool,
-                           types.SimpleNamespace(device="cpu"))
-    elif what == "lr":
-        with pytest.raises(KeyError, match="unknown model 'lr'"):
-            create_model(cfg.model, ds, cfg)
-    elif what == "lr_step":
-        with pytest.raises(NotImplementedError, match="fnn only"):
-            TrainStep(types.SimpleNamespace(), 10, 1, 2, device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="AMSGrad only"):
-            TrainStep.create(cfg, FeedForwardNN((3,), 2, 4), 2, device="cpu")
+    pool = ModelPool.create(FeedForwardNN((3,), 2, 4), None,
+                            cfg.num_models, device="cpu")
+    with pytest.raises(NotImplementedError, match="scikit-learn"):
+        make_algorithm(cfg, ds, pool, types.SimpleNamespace(device="cpu"))

@@ -534,8 +534,8 @@ class TestIterationEval:
 
 
 def test_step_refuses_what_the_kernel_does_not_train():
-    with pytest.raises(NotImplementedError):
-        TrainStep(_module(), B, S, 2, optimizer="sgd", device="cpu")
+    with pytest.raises(ValueError):
+        TrainStep(_module(), B, S, 2, optimizer="rmsprop", device="cpu")
     cfg = ExperimentConfig()
     with pytest.raises(NotImplementedError):
         TrainStep.create(cfg, torch.nn.Identity(), 2, device="cpu")
