@@ -47,9 +47,15 @@ Phases, one or more lines of output each:
    inactive and at F=2 (sine), the general one at the SEA shape (forced:
    the kernel of the first design, timed in the same run) and at H=32,
    and both on gathered batches (rows drawn by K4 under Poisson sample
-   weights, per-model feature masks: KUE's route); two calls of each must
-   agree bitwise. It times each (per call and on the device, and the
-   device time per local step) and the plain version in turns.
+   weights, per-model feature masks: KUE's route), the wide one at
+   MNIST-4's width (the fnn under AMSGrad, contiguous and gathered with
+   masks, and under SGD; the lr under both; AMSGrad held to the plain
+   version run in float64 as the float32 plain version is) with the general
+   one forced there beside it, and the general one's lr and SGD routes at
+   SEA; two calls of each must agree bitwise. It times each (per call and
+   on the device, and the device time per local step) and the plain version
+   in turns; a ``mnist_width_by_route`` line sets the wide kernel beside
+   the general one, the plain version, its bound and its clusters at once.
    train_draw: K4, the weighted draw, as its two kernels at KUE's
    canonical shape with clients 1 and 6 left out by a round's mask: K4a
    (``weighted_cdf``, the step's cdf of the unmasked weights) and K4b
@@ -79,7 +85,9 @@ Phases, one or more lines of output each:
    through both of its kernels on strided windows of the SEA dataset
    (T1 11, N 500): an eval's two steps (G = 2), one step (G = 1), every
    step (G = T1, counts only), with feature masks, the general kernel
-   forced at SEA and at H = 32: counts equal except rows whose top two
+   forced at SEA and at H = 32, the wide kernel at MNIST-4's width (the fnn
+   and the lr, the general kernel forced there beside it), the general
+   kernel's lr route at SEA: counts equal except rows whose top two
    plain logits lie within 1e-5 (counted), NLL sums within 1e-4
    relative. Two calls of each agree bitwise; each is timed per call,
    enqueue and on the device beside its plain version and bound. Then
@@ -140,6 +148,16 @@ Phases, one or more lines of output each:
 10. train_general: the general kernel's route (``fnn_hidden_dim`` 32, T =
    2, R = 20), which has no epilogue and folds no eval: K1 and
    ``fedavg.cu`` launch once a round, K3 once an eval.
+11. train_mnist: MNIST-4 (F 784, the fnn 784 -> 10 -> 10, B = N = 500) at
+   full width, the five committed configurations of ``MNIST_RUNS``, all 10
+   steps each, from the reference's init: every round one launch of K1's
+   wide kernel and one of ``fedavg.cu``, every eval one of K3's wide
+   kernel, none of either general kernel, no plain call on the card;
+   Test/Acc against the committed run within the gates fixed there.
+12. train_lr: the lr model and SGD (``LR_RUNS``): MNIST-4's lr under adam
+   and sgd on the wide kernels' lr routes, SEA's lr under sgd and adam on
+   the general kernels', each against the JAX package's own run (SEA's
+   adam at step 0, ``LR_STEP0_RUNS``).
 
 It then prints the kernels' JSON line, the card line and, last, the result
 line. Each entry of the kernels line takes its launches from the driven
@@ -149,7 +167,10 @@ K1 with K2 as its epilogue (``local_sgd_fedavg``), the folded evals
 (``local_sgd_fedavg_eval``) and K3's own launches from ``train``;
 K4a and K4b from KUE's ``train_algo`` run; K1 without an epilogue
 (``local_sgd``, the general kernel) and ``fedavg.cu`` from
-``train_general``, with their cases at H = 32. Every entry also carries
+``train_general``, with their cases at H = 32; K1's and K3's wide kernels
+and ``fedavg.cu`` at MNIST's width from ``train_mnist`` and ``train_lr``,
+the general kernels' lr routes from ``train_lr``'s SEA run. Every entry
+also carries
 ``device_ms`` beside ``ms``. Any failed phase exits non-zero before the result line. It imports
 nothing of JAX.
 """
@@ -289,13 +310,13 @@ PER_ROUND_KINDS = (("softcluster", "hard-r", "per_round"),
                    ("softcluster", "geni", "fused"),
                    ("softclusterreset", "softmax_3", "fused"))
 # train_mnist: MNIST-4 (the paper's fourth dataset, the synthetic prototype
-# images, F = 784, K = 10) at full width with the fnn 784 -> 10 -> 10 (K1's,
-# K2's and K3's general kernels), against its committed runs: (algo, arg,
-# pool size, steps T driven, committed run, that run's final Test/Acc per
-# step as committed, step tolerance or None, tolerance of the mean over the
-# T steps driven). The whole five at T = 10 would take ~215 s of K1 alone
-# (~21 ms a launch on the card), so the first two run all 10 steps and the
-# other three their first five, against the committed run's first five.
+# images, F = 784, K = 10) at full width with the fnn 784 -> 10 -> 10 (K1's
+# and K3's wide kernels, K2's fedavg.cu), against its committed runs: (algo,
+# arg, pool size, steps T driven, committed run, that run's final Test/Acc
+# per step as committed, step tolerance or None, tolerance of the mean over
+# the T steps driven). All five run their 10 steps: K1's wide kernel takes
+# well under a millisecond a launch on the card, where the general kernel
+# took ~21 ms (~215 s of K1 for the five at T = 10).
 # Every run starts from the reference's own initial params for seed 0 (the
 # fnn 784 -> 10 -> 10 that feddrift_tpu's ModelPool.create draws with seed
 # 42, in every slot and as the reinit target; MNIST_REFERENCE_INIT, packed
@@ -315,11 +336,11 @@ MNIST_REFERENCE_INIT = os.path.join(
 #   run of it on a CPU, seed 0, differs from the committed one by up to
 #   0.0198 a step and 0.0036 on the mean);
 # - H_A_F_1_3_0 and mmacc_06 turn on noise-driven spawns: the mean of the
-#   first five steps within the larger of 0.03 and the largest |mean(seed
-#   s) - mean(committed seed 0)| over the JAX package's CPU runs at seeds 1
-#   and 2 (first five steps; H_A_F_1_3_0 at its pool of 10: 0.61956 and
-#   0.5664 against 0.61556, so 0.04916; mmacc_06: 0.48 and 0.3984 against
-#   0.46168, so 0.06328).
+#   10 steps within the larger of 0.03 and the largest |mean(seed s) -
+#   mean(committed seed 0)| over the JAX package's CPU runs at seeds 1 and
+#   2 (scripts/mnist_seed_runs.py; H_A_F_1_3_0 at its pool of 10: 0.71474
+#   and 0.6859 against 0.70822, so 0.02232; mmacc_06: 0.6204 and 0.58262
+#   against 0.6065, so 0.02388; both gates are therefore 0.03).
 MNIST_RUNS = (
     ("softcluster", "H_A_C_1_10_0", 4, 10,
      "MNIST-fnn-softcluster-H_A_C_1_10_0-s0",
@@ -328,16 +349,17 @@ MNIST_RUNS = (
     ("win-1", "H_A_C_1_10_0", 4, 10, "MNIST-fnn-win-1-H_A_C_1_10_0-s0",
      (0.4528, 0.7038, 0.66, 0.6666, 0.6972, 0.6982, 0.6898, 0.684, 0.6734,
       0.6844), STEP_ACC_TOL, MEAN_ACC_TOL),
-    ("oblivious", "H_A_C_1_10_0", 4, 5, "MNIST-fnn-oblivious-H_A_C_1_10_0-s0",
+    ("oblivious", "H_A_C_1_10_0", 4, 10,
+     "MNIST-fnn-oblivious-H_A_C_1_10_0-s0",
      (0.4528, 0.7412, 0.6964, 0.7326, 0.7336, 0.7652, 0.7594, 0.8, 0.7866,
       0.799), STEP_ACC_TOL, MEAN_ACC_TOL),
-    ("softcluster", "H_A_F_1_3_0", 10, 5,
+    ("softcluster", "H_A_F_1_3_0", 10, 10,
      "MNIST-fnn-softcluster-H_A_F_1_3_0-s0",
      (0.254, 0.6718, 0.6782, 0.7346, 0.7392, 0.7706, 0.7682, 0.8114, 0.82,
-      0.8342), None, max(0.03, 0.04916)),
-    ("mmacc", "mmacc_06", 4, 5, "MNIST-fnn-mmacc-mmacc_06-s0",
+      0.8342), None, max(0.03, 0.02232)),
+    ("mmacc", "mmacc_06", 4, 10, "MNIST-fnn-mmacc-mmacc_06-s0",
      (0.4528, 0.296, 0.604, 0.2568, 0.6988, 0.7194, 0.7328, 0.7596, 0.7536,
-      0.7912), None, max(0.03, 0.06328)))
+      0.7912), None, max(0.03, 0.02388)))
 # a clustering run's step further than this from the committed one prints
 # both runs' decisions (models used and each client's model)
 DECISION_GAP = 0.10
@@ -350,12 +372,18 @@ DECISION_GAP = 0.10
 # Test/Acc turns on the init (its sigmoid saturates on SEA's features in
 # [0, 10]: the port's own init reaches ~0.63 where the reference's reaches
 # 0.383), so it starts from the reference's init for that seed. Each step
-# within STEP_ACC_TOL, the mean within MEAN_ACC_TOL.
+# within STEP_ACC_TOL, the mean within MEAN_ACC_TOL, except in a run of
+# LR_STEP0_RUNS. The series come from scripts/lr_reference_runs.py.
 LR_SEA_REFERENCE_INIT = {
     "Dense_0/kernel": ((-0.9309638738632202, 0.44398048520088196),
                        (-0.8102397918701172, -0.28121232986450195),
                        (0.9874085783958435, -1.0198450088500977)),
     "Dense_0/bias": (0.0, 0.0)}
+LR_SEA_BASE = dict(dataset="sea", model="lr", concept_drift_algo="oblivious",
+                   concept_drift_algo_arg="", concept_num=1,
+                   client_num_in_total=8, client_num_per_round=8,
+                   train_iterations=8, comm_round=5, epochs=1, batch_size=50,
+                   sample_num=50, frequency_of_the_test=5, lr=0.05, seed=7)
 LR_RUNS = (
     ("mnist_lr_adam", dict(dataset="MNIST", model="lr",
                            concept_drift_algo="oblivious",
@@ -367,16 +395,20 @@ LR_RUNS = (
                           client_optimizer="sgd"),
      (0.5084, 0.6936, 0.7096, 0.7256, 0.7392, 0.7748, 0.7706, 0.8046, 0.792,
       0.7978), None),
-    ("sea_lr_sgd", dict(dataset="sea", model="lr",
-                        concept_drift_algo="oblivious",
-                        concept_drift_algo_arg="", concept_num=1,
-                        client_num_in_total=8, client_num_per_round=8,
-                        train_iterations=8, comm_round=5, epochs=1,
-                        batch_size=50, sample_num=50,
-                        frequency_of_the_test=5, lr=0.05, seed=7,
-                        client_optimizer="sgd"),
+    ("sea_lr_sgd", dict(LR_SEA_BASE, client_optimizer="sgd"),
      (0.38, 0.375, 0.3675, 0.385, 0.4075, 0.375, 0.375, 0.4),
+     LR_SEA_REFERENCE_INIT),
+    ("sea_lr_adam", dict(LR_SEA_BASE, client_optimizer="adam"),
+     (0.375, 0.385, 0.365, 0.32, 0.41, 0.355, 0.34, 0.37),
      LR_SEA_REFERENCE_INIT))
+# runs held to the reference at step 0 only, whose batches are the whole
+# step in both packages, and finite at every step: SEA's lr under AMSGrad
+# (the megastep base itself, the general kernel's lr and AMSGrad route).
+# From step 1 on, oblivious draws its rows from every earlier step, the
+# packages' draws differ, and AMSGrad's normalised steps carry that further
+# than SGD's: the port's own CPU run leaves STEP_ACC_TOL at step 3
+# (scripts/lr_reference_runs.py --port)
+LR_STEP0_RUNS = ("sea_lr_adam",)
 NUM_REQUESTS = 512
 CONCURRENCY = 8
 # K1's device time at the canonical shape as recorded for its first design
@@ -1001,9 +1033,12 @@ def _local_sgd_bound_ms(rows, total_w, M: int, C: int, S: int, B: int,
 # shape is the first design, timed here too. A gathered case trains on rows
 # drawn by K4 (the weighted draw, Poisson sample weights) with per-model
 # feature masks, as KUE does: the per-thread copy branch of either kernel.
-# MNIST's width (F = 784, K = 10) takes the general kernel: the fnn under
+# MNIST's width (F = 784, K = 10) takes the wide kernel: the fnn under
 # AMSGrad, contiguous and gathered with masks, the lr under AMSGrad and SGD,
-# and the fnn under SGD.
+# and the fnn under SGD; the general kernel forced there is the design the
+# wide one replaced, timed in the same run. At SEA's F = 3 the general
+# kernel keeps its lr route under SGD and AMSGrad and its SGD route of the
+# fnn: each of its four instantiations runs here.
 K1_CASES = (("sea", "sea", 0, "fnn", 10, "adam", None, False),
             ("sine", "sine", 1, "fnn", 10, "adam", None, False),
             ("sea_general", "sea", 0, "fnn", 10, "adam", "general", False),
@@ -1011,7 +1046,12 @@ K1_CASES = (("sea", "sea", 0, "fnn", 10, "adam", None, False),
             ("sea_gather", "sea", 3, "fnn", 10, "adam", None, True),
             ("sea_gather_general", "sea", 3, "fnn", 10, "adam", "general",
              True),
+            ("sea_lr_sgd", "sea", 9, "lr", 10, "sgd", None, False),
+            ("sea_lr", "sea", 10, "lr", 10, "adam", None, False),
+            ("sea_sgd", "sea", 11, "fnn", 10, "sgd", None, False),
             ("mnist", "MNIST", 4, "fnn", 10, "adam", None, False),
+            ("mnist_general", "MNIST", 4, "fnn", 10, "adam", "general",
+             False),
             ("mnist_gather", "MNIST", 5, "fnn", 10, "adam", None, True),
             ("mnist_lr", "MNIST", 6, "lr", 10, "adam", None, False),
             ("mnist_lr_sgd", "MNIST", 7, "lr", 10, "sgd", None, False),
@@ -1039,15 +1079,24 @@ def _gathered(x, tw, S: int, B: int, seed: int):
 
 
 # the kernels line's entries of the MNIST-width and lr routes, in order
-WIDE_ENTRIES = ("local_sgd_general_mnist", "local_sgd_lr", "local_sgd_lr_sgd",
-                "fedavg_mnist", "eval_cells_general_mnist", "eval_cells_lr")
-# the kernels line's entries of K1's new routes, by case
-K1_ENTRIES = {"mnist": ("local_sgd_general_mnist", "MNIST-4's fnn 784 -> 10 "
-                        "-> 10, AMSGrad, the general kernel"),
-              "mnist_lr": ("local_sgd_lr", "MNIST-4's lr 784 -> 10, "
-                           "AMSGrad, the general kernel's lr route"),
-              "mnist_lr_sgd": ("local_sgd_lr_sgd", "MNIST-4's lr 784 -> 10, "
-                               "SGD, the general kernel's lr and SGD routes")}
+WIDE_ENTRIES = ("local_sgd_wide", "local_sgd_wide_lr", "local_sgd_wide_lr_sgd",
+                "local_sgd_general_lr", "local_sgd_general_lr_sgd",
+                "fedavg_mnist", "eval_cells_wide", "eval_cells_wide_lr",
+                "eval_cells_general_lr")
+# the kernels line's entries of K1's wide kernel and of the general
+# kernel's lr and SGD routes, by case: (name, case, the route it must take)
+K1_ENTRIES = {"mnist": ("local_sgd_wide", "MNIST-4's fnn 784 -> 10 -> 10, "
+                        "AMSGrad, the wide kernel", "wide"),
+              "mnist_lr": ("local_sgd_wide_lr", "MNIST-4's lr 784 -> 10, "
+                           "AMSGrad, the wide kernel's lr route", "wide"),
+              "mnist_lr_sgd": ("local_sgd_wide_lr_sgd", "MNIST-4's lr 784 "
+                               "-> 10, SGD, the wide kernel's lr and SGD "
+                               "routes", "wide"),
+              "sea_lr_sgd": ("local_sgd_general_lr_sgd", "SEA's lr 3 -> 2, "
+                             "SGD, the general kernel's lr and SGD routes",
+                             "general"),
+              "sea_lr": ("local_sgd_general_lr", "SEA's lr 3 -> 2, AMSGrad, "
+                         "the general kernel's lr route", "general")}
 # K1 at MNIST's width (F = 784) under AMSGrad. Two float32 orders of a
 # gradient's 500-row sums differ by ~1e-8, and a rounding can flip a
 # hidden unit's ReLU on a row; where a unit is active on few rows its
@@ -1065,7 +1114,8 @@ K1_ENTRIES = {"mnist": ("local_sgd_general_mnist", "MNIST-4's fnn 784 -> 10 "
 # TRAIN_ATOL. Under SGD a step is lr times the gradient itself, and every
 # coordinate is held to TRAIN_ATOL.
 WIDE_ADAM_SLACK = 1e-4
-# the timing of the MNIST cases (~21 ms a K1 call): calls a measure, rounds
+# the timing of the general kernels forced at MNIST's width (~21 ms a K1
+# call): calls a measure, rounds
 WIDE_TIMING = dict(iters=5, rounds=3, reps=5, enqueue=20)
 
 
@@ -1081,7 +1131,7 @@ def phase_train_kernel() -> tuple[dict, dict]:
     import torch
     from feddrift_torch.kernels.local_sgd import (_route, local_sgd,
                                                   local_sgd_ref)
-    entry, entries, device_ms, bounds = None, {}, {}, {}
+    entry, entries, device_ms, bounds, times = None, {}, {}, {}, {}
     for label, dataset, seed, model, hidden, optimizer, forced, gather \
             in K1_CASES:
         args, kw, dims, tw = _train_case(dataset, seed, hidden, model,
@@ -1100,6 +1150,9 @@ def phase_train_kernel() -> tuple[dict, dict]:
             rows = (t_idx * N + slot * B)[..., None] \
                 + torch.arange(B, device="cuda")
         sgd, wide = optimizer == "sgd", dims["F"] > 3
+        want_route = forced or ("wide" if wide else None)
+        if want_route and route != want_route:
+            raise AssertionError(f"{label} took the {route} kernel")
         fresh = lambda: {k: v.clone() for k, v in opt.items()}
         client, k_opt, n, loss = local_sgd(x, y, params, fresh(), t_idx, slot,
                                            total_w, **kw)
@@ -1161,14 +1214,15 @@ def phase_train_kernel() -> tuple[dict, dict]:
                                              total_w, **kw),
                  "plain": lambda: local_sgd_ref(
                      x, y, params, state, t_idx, slot, total_w, **plain_kw)}
-        timing = WIDE_TIMING if wide else dict(iters=50, rounds=5, reps=20,
-                                               enqueue=200)
+        timing = WIDE_TIMING if wide and route == "general" \
+            else dict(iters=50, rounds=5, reps=20, enqueue=200)
         ms, plain_ms = _interleaved(
             lambda f: _time_ms(f, timing["iters"]), calls,
             timing["rounds"]).values()
         device = {name: _device_ms(f, timing["reps"])
                   for name, f in calls.items()}
         device_ms[label] = device["kernel"]
+        times[label] = {"kernel_ms": ms, "plain_ms": plain_ms}
         enqueue_ms = _host_enqueue_ms(calls["kernel"], timing["enqueue"])
         active = int((total_w > 0).sum())
         bound_ms, bound_by = _local_sgd_bound_ms(
@@ -1203,16 +1257,15 @@ def phase_train_kernel() -> tuple[dict, dict]:
         if label == "sea" and route != "fused":
             raise AssertionError(f"the canonical shape took the {route} "
                                  f"kernel")
-        if wide and route != "general":
-            raise AssertionError(f"{label} took the {route} kernel")
-        # K1 without an epilogue runs only on the general route (H = 32,
-        # train_general's; MNIST's width, the lr and SGD); the fused
-        # route's K1 is local_sgd_fedavg's
+        # K1 without an epilogue runs on the general route (H = 32,
+        # train_general's; SEA's lr) and the wide one (MNIST's width); the
+        # fused route's K1 is local_sgd_fedavg's
         if label == "h32" or label in K1_ENTRIES:
-            if route != "general":
+            name, case, want = K1_ENTRIES.get(label, (
+                "local_sgd", "H = 32, the general kernel (no epilogue)",
+                "general"))
+            if route != want:
                 raise AssertionError(f"{label} took the {route} kernel")
-            name, case = K1_ENTRIES.get(label, (
-                "local_sgd", "H = 32, the general kernel (no epilogue)"))
             e = {"name": name, "route": "cuda",
                  "source": "feddrift_torch/kernels/csrc/local_sgd.cu",
                  "replaces": "feddrift_tpu/core/step.py:225",
@@ -1235,11 +1288,20 @@ def phase_train_kernel() -> tuple[dict, dict]:
          gather_general_device_ms=device_ms["sea_gather_general"],
          gather_vs_contiguous_fused=device_ms["sea_gather"] / fused
          if fused and device_ms["sea_gather"] else "not measured")
-    mnist = device_ms["mnist"]
+    from feddrift_torch.kernels.local_sgd import wide_clusters
+    mnist, general = device_ms["mnist"], device_ms["mnist_general"]
+    clusters = wide_clusters(784, 10, 10, 500)
     _say("train_kernel", what="mnist_width_by_route",
-         general_fnn_adam_device_ms=mnist, bound_ms=bounds["mnist"],
-         kernel_vs_bound=mnist / bounds["mnist"] if mnist
+         wide_fnn_adam_device_ms=mnist, general_fnn_adam_device_ms=general,
+         wide_vs_general=mnist / general if mnist and general
          else "not measured",
+         wide_ms=times["mnist"]["kernel_ms"],
+         general_ms=times["mnist_general"]["kernel_ms"],
+         plain_ms=times["mnist"]["plain_ms"],
+         wide_vs_plain=times["mnist"]["kernel_ms"] / times["mnist"]["plain_ms"],
+         bound_ms=bounds["mnist"],
+         wide_vs_bound=mnist / bounds["mnist"] if mnist else "not measured",
+         wide_clusters_at_once=clusters, wide_waves=-(-40 // clusters),
          gathered_masked_device_ms=device_ms["mnist_gather"],
          lr_adam_device_ms=device_ms["mnist_lr"],
          lr_sgd_device_ms=device_ms["mnist_lr_sgd"],
@@ -1434,9 +1496,11 @@ EVAL_NLL_RTOL = 1e-4
 # window, feature masks, scale of the params); the window of the dataset
 # (T1 = 11): "G2" the train and test steps of an eval (t = 4, 5), "G1" one
 # step (acc_matrix), "T1" every step (acc_cells, counts only). MNIST's
-# width takes the general kernel, the lr its lr route; the lr's params
-# scaled by 40 saturate most outputs to exactly 1.0, where the tie rule
-# alone decides the row
+# width takes the wide kernel, the lr its lr route (the general kernel
+# forced there is the design the wide one replaced, timed in the same run);
+# SEA's lr keeps the general kernel's lr route; the lr's params scaled by
+# 40 saturate most outputs to exactly 1.0, where the tie rule alone decides
+# the row
 K3_CASES = (("eval", "sea", "fnn", 10, None, "G2", False, 1.0),
             ("acc_matrix", "sea", "fnn", 10, None, "G1", False, 1.0),
             ("acc_cells", "sea", "fnn", 10, None, "T1", False, 1.0),
@@ -1450,13 +1514,19 @@ K3_CASES = (("eval", "sea", "fnn", 10, None, "G2", False, 1.0),
             ("mnist_lr_eval", "MNIST", "lr", 10, None, "G2", False, 1.0),
             ("mnist_lr_saturated", "MNIST", "lr", 10, None, "G2", True,
              40.0),
-            ("mnist_lr_cells", "MNIST", "lr", 10, None, "T1", False, 40.0))
-# the kernels line's entries of K3's new routes, by case
-K3_ENTRIES = {"mnist_eval": ("eval_cells_general_mnist", "MNIST-4's fnn, "
-                             "G = 2, the general kernel"),
-              "mnist_lr_saturated": ("eval_cells_lr", "MNIST-4's lr, G = 2, "
-                                     "most outputs saturated, the general "
-                                     "kernel's lr route")}
+            ("mnist_lr_cells", "MNIST", "lr", 10, None, "T1", False, 40.0),
+            ("sea_lr_eval", "sea", "lr", 10, None, "G2", False, 1.0),
+            ("mnist_eval_general", "MNIST", "fnn", 10, "general", "G2", False,
+             1.0))
+# the kernels line's entries of K3's wide kernel and of the general
+# kernel's lr route, by case
+K3_ENTRIES = {"mnist_eval": ("eval_cells_wide", "MNIST-4's fnn, G = 2, the "
+                             "wide kernel"),
+              "mnist_lr_saturated": ("eval_cells_wide_lr", "MNIST-4's lr, "
+                                     "G = 2, most outputs saturated, the "
+                                     "wide kernel's lr route"),
+              "sea_lr_eval": ("eval_cells_general_lr", "SEA's lr, G = 2, the "
+                              "general kernel's lr route")}
 # a row of the lr with two outputs or more of z at least LR_SOLID_Z (1 / (1
 # + exp(-z)) rounds to 1.0f from z ~ 17.3 on) and none in [LR_FLIP_Z,
 # LR_SOLID_Z), where the kernel's z (another summation order, ~1e-5 apart
@@ -1673,7 +1743,7 @@ def _k3_phase() -> tuple[dict, dict]:
         times = _timed({
             "kernel": lambda: eval_cells(flat, xw, yw, **kw),
             "plain": lambda: eval_cells_ref(flat, xw, yw, **plain)},
-            **(WIDE_TIMING if wide else {}))
+            **(WIDE_TIMING if wide and route == "general" else {}))
         M, (C, G, N) = flat.shape[0], xw.shape[:3]
         bound_ms, bound_by = _eval_bound_ms(flat, xw, F, H, K, nll_on, masked)
         kernel = times["kernel"]
@@ -1706,7 +1776,7 @@ def _k3_phase() -> tuple[dict, dict]:
         if scale > 1 and not int(solid.sum()):
             raise AssertionError(f"{label}: no row is tied solidly, so the "
                                  f"tie rule was not exercised")
-        if wide and route != "general":
+        if route != (forced or ("wide" if wide else route)):
             raise AssertionError(f"{label} took the {route} kernel")
         if label in K3_ENTRIES:
             name, case = K3_ENTRIES[label]
@@ -2036,6 +2106,7 @@ def _reset_counts() -> None:
                                                       weighted_search,
                                                       weighted_search_ref)
     local_sgd.launches = local_sgd_fedavg.launches = 0
+    local_sgd.wide_launches = eval_cells.wide_launches = 0
     local_sgd_fedavg.evals = 0
     weighted_cdf.launches = weighted_search.launches = 0
     fedavg.launches = eval_cells.launches = 0
@@ -2048,9 +2119,10 @@ def _read_counts() -> dict:
     is aggregated by K1's epilogue (``k2_epilogues``, the fused route) or
     by its own ``fedavg.cu`` launch (``k2_launches``, the general route).
     ``local_sgd.launches`` counts every K1 launch, with an epilogue or
-    without; ``k1_without_epilogue`` the latter alone. An eval runs in a
-    K1 launch (``folded_evals``) or as its own K3 launch
-    (``k3_launches``)."""
+    without; ``k1_without_epilogue`` the latter alone, ``k1_wide_launches``
+    those of the wide kernel. An eval runs in a K1 launch
+    (``folded_evals``) or as its own K3 launch (``k3_launches``; on the
+    wide kernel ``k3_wide_launches``)."""
     from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
     from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_fedavg
@@ -2061,12 +2133,14 @@ def _read_counts() -> dict:
     return {"k1_launches": local_sgd.launches,
             "k1_without_epilogue":
             local_sgd.launches - local_sgd_fedavg.launches,
+            "k1_wide_launches": local_sgd.wide_launches,
             "k4a_launches": weighted_cdf.launches,
             "k4b_launches": weighted_search.launches,
             "k2_launches": fedavg.launches,
             "k2_epilogues": local_sgd_fedavg.launches,
             "aggregations": fedavg.launches + local_sgd_fedavg.launches,
             "k3_launches": eval_cells.launches,
+            "k3_wide_launches": eval_cells.wide_launches,
             "folded_evals": local_sgd_fedavg.evals,
             "plain_calls": {"fedavg_ref": fedavg_ref.cuda_calls,
                             "eval_cells_ref": eval_cells_ref.cuda_calls,
@@ -2549,22 +2623,32 @@ def _run_route(cfg, exp) -> str:
                   min(cfg.batch_size, exp.x.shape[2]), cfg.client_optimizer)
 
 
-def _check_general_run(name: str, got: dict, cfg, exp, rounds: int) -> None:
-    """A run on K1's general route: every round one K1 launch without an
-    epilogue and one ``fedavg.cu`` launch, every eval a K3 launch (none
-    folded), no K4, no plain K2 / K3 / K4 call on the card, every step on
-    the fused path."""
-    route = _run_route(cfg, exp)
-    if route != "general" or got["k1_launches"] != rounds \
+def _check_general_run(name: str, got: dict, cfg, exp, rounds: int,
+                       route: str = "general") -> None:
+    """A run on K1's ``route``, the general or the wide one (no epilogue):
+    every round one K1 launch without an epilogue on that kernel (the wide
+    one: every launch counted as wide; the general one: none) and one
+    ``fedavg.cu`` launch, every eval a K3 launch (none folded; on the wide
+    route every one the wide K3 kernel's, on the general none), no K4, no
+    plain K2 / K3 / K4 call on the card, every step on the fused path."""
+    got_route = _run_route(cfg, exp)
+    wide = rounds if route == "wide" else 0
+    k3_wide = got["k3_launches"] if route == "wide" else 0
+    if got_route != route or got["k1_launches"] != rounds \
             or got["k1_without_epilogue"] != rounds \
+            or got["k1_wide_launches"] != wide \
+            or got["k3_wide_launches"] != k3_wide \
             or set(got["paths"]) != {"fused"} \
             or got["k4a_launches"] or got["k4b_launches"]:
-        raise AssertionError(f"{name}: route {route}, K1 launched "
-                             f"{got['k1_launches']} times "
+        raise AssertionError(f"{name}: route {got_route} (want {route}), K1 "
+                             f"launched {got['k1_launches']} times "
                              f"({got['k1_without_epilogue']} without an "
-                             f"epilogue) for {rounds} rounds on paths "
-                             f"{set(got['paths'])}, K4 "
-                             f"{got['k4a_launches']} / {got['k4b_launches']}")
+                             f"epilogue, {got['k1_wide_launches']} wide) "
+                             f"for {rounds} rounds on paths "
+                             f"{set(got['paths'])}, K3 "
+                             f"{got['k3_launches']} ({got['k3_wide_launches']}"
+                             f" wide), K4 {got['k4a_launches']} / "
+                             f"{got['k4b_launches']}")
     _check_k2_k3(name, got, rounds, k2_launches=rounds)
     _check_evals(name, got, cfg, exp, got["paths"].count("fused"),
                  folds=False)
@@ -2610,9 +2694,12 @@ def phase_train_mnist(entries: dict) -> None:
              rounds_per_s=got["rounds_per_s"], step_wall_s=got["step_wall_s"],
              k1_launches=got["k1_launches"],
              k1_without_epilogue=got["k1_without_epilogue"],
+             k1_wide_launches=got["k1_wide_launches"],
              fedavg_launches=got["k2_launches"],
              k2_epilogues=got["k2_epilogues"],
-             k3_launches=got["k3_launches"], folded_evals=got["folded_evals"],
+             k3_launches=got["k3_launches"],
+             k3_wide_launches=got["k3_wide_launches"],
+             folded_evals=got["folded_evals"],
              plain_calls=got["plain_calls"],
              models_in_use=got["models_in_use"], models_used=used,
              committed_models_used=ref_used, test_acc=accs,
@@ -2628,7 +2715,7 @@ def phase_train_mnist(entries: dict) -> None:
                      assignment=got["assignment"][t],
                      committed_assignment=ref_assign[t])
         name = f"MNIST {algo} {arg}"
-        _check_general_run(name, got, cfg, exp, rounds)
+        _check_general_run(name, got, cfg, exp, rounds, route="wide")
         if len(accs) != T:
             raise AssertionError(f"{name}: {len(accs)} of {T} steps ran")
         launches["k1"] += got["k1_launches"]
@@ -2639,22 +2726,25 @@ def phase_train_mnist(entries: dict) -> None:
             raise AssertionError(f"{name}: Test/Acc per step {accs} against "
                                  f"the committed {ref} (step tolerance "
                                  f"{step_tol}, mean {mean_tol})")
-    entries["local_sgd_general_mnist"]["launches"] = launches["k1"]
+    entries["local_sgd_wide"]["launches"] = launches["k1"]
     entries["fedavg_mnist"]["launches"] = launches["k2"]
-    entries["eval_cells_general_mnist"]["launches"] = launches["k3"]
+    entries["eval_cells_wide"]["launches"] = launches["k3"]
 
 
 def phase_train_lr(entries: dict) -> None:
     """The lr model and the SGD client optimizer through the runner, each
     of ``LR_RUNS`` against the JAX package's own run of it: one
     ``train_lr`` line a run with its launches by kernel (every K1 launch
-    on the general kernel's lr route, a ``fedavg.cu`` launch a round, K3's
-    lr route for every eval, no plain call on the card) and its Test/Acc
-    per step beside the reference's. The kernels line's lr entries take
+    on the wide or the general kernel's lr route, a ``fedavg.cu`` launch a
+    round, K3's lr route for every eval, no plain call on the card) and
+    its Test/Acc per step beside the reference's. The kernels line's lr entries take
     their launches from these runs."""
+    import math
+
     from feddrift_torch.config import ExperimentConfig
-    k1 = {"adam": 0, "sgd": 0}
-    k3 = 0
+    k1 = {"local_sgd_wide_lr": 0, "local_sgd_wide_lr_sgd": 0,
+          "local_sgd_general_lr": 0, "local_sgd_general_lr_sgd": 0}
+    k3 = {"eval_cells_wide_lr": 0, "eval_cells_general_lr": 0}
     for label, kw, ref, init in LR_RUNS:
         cfg = ExperimentConfig(**kw)
         got = _drive(cfg, init=init, syncs=False)
@@ -2669,25 +2759,38 @@ def phase_train_lr(entries: dict) -> None:
              wall_s=got["wall_s"], rounds_per_s=got["rounds_per_s"],
              k1_launches=got["k1_launches"],
              k1_without_epilogue=got["k1_without_epilogue"],
+             k1_wide_launches=got["k1_wide_launches"],
              fedavg_launches=got["k2_launches"],
-             k3_launches=got["k3_launches"], folded_evals=got["folded_evals"],
+             k3_launches=got["k3_launches"],
+             k3_wide_launches=got["k3_wide_launches"],
+             folded_evals=got["folded_evals"],
              plain_calls=got["plain_calls"], test_acc=accs,
              reference_test_acc=list(ref), test_acc_mean=mean,
              reference_mean=ref_mean, max_step_diff=max(map(abs, diffs)),
+             held_steps="step 0" if label in LR_STEP0_RUNS else "all",
              **prof)
-        _check_general_run(label, got, cfg, exp, rounds)
+        route = "wide" if cfg.dataset == "MNIST" else "general"
+        _check_general_run(label, got, cfg, exp, rounds, route=route)
         if exp.step.module.hidden_dim != 0 or len(accs) != len(ref):
             raise AssertionError(f"{label}: not the lr, or {len(accs)} of "
                                  f"{len(ref)} steps")
-        k1[cfg.client_optimizer] += got["k1_launches"]
-        k3 += got["k3_launches"]
-        if max(map(abs, diffs)) > STEP_ACC_TOL \
-                or abs(mean - ref_mean) > MEAN_ACC_TOL:
+        k1["local_sgd_" + route + "_lr"
+           + ("_sgd" if cfg.client_optimizer == "sgd" else "")] \
+            += got["k1_launches"]
+        k3["eval_cells_" + route + "_lr"] += got["k3_launches"]
+        finite = all(math.isfinite(v) for rec in exp.logger.history
+                     for k, v in rec.items() if "/" in k)
+        if label in LR_STEP0_RUNS:
+            held = abs(diffs[0]) <= STEP_ACC_TOL
+        else:
+            held = max(map(abs, diffs)) <= STEP_ACC_TOL \
+                and abs(mean - ref_mean) <= MEAN_ACC_TOL
+        if not (held and finite):
             raise AssertionError(f"{label}: Test/Acc per step {accs} against "
-                                 f"the reference's {list(ref)}")
-    entries["local_sgd_lr"]["launches"] = k1["adam"]
-    entries["local_sgd_lr_sgd"]["launches"] = k1["sgd"]
-    entries["eval_cells_lr"]["launches"] = k3
+                                 f"the reference's {list(ref)}"
+                                 + ("" if finite else ", metrics not finite"))
+    for name, n in (*k1.items(), *k3.items()):
+        entries[name]["launches"] = n
 
 
 def phase_train_general(k1_entry: dict, agg_entry: dict) -> None:

@@ -19,8 +19,9 @@ codec or hierarchy path):
 A round is K1 (``kernels/local_sgd.py``: every pair's local steps) and
 K2, the masked sample-weighted FedAvg, in one launch: on the fused
 kernel's route (the registry's fnn widths under AMSGrad) K2 is K1's
-epilogue (``local_sgd_fedavg``); on the general route (any other width,
-the lr, SGD) K2 is its own launch (``resilience/robust_agg.py`` ->
+epilogue (``local_sgd_fedavg``); on the wide route (wide inputs such as
+MNIST-4's, the fnn or the lr, AMSGrad or SGD) and the general route (any
+other shape) K2 is its own launch (``resilience/robust_agg.py`` ->
 ``kernels/fedavg.py``).
 Inside a time step the parameters travel packed as one ``[M, P]`` tensor,
 the kernel's layout; the caller sees the usual dict of leaves. Where the
@@ -218,7 +219,8 @@ class TrainStep:
                     stats_out=None, eval_window=None, eval_out=None):
         """One round on packed params ``flat [M, P]``: K4b (weighted
         sampling only), then K1 and K2, the masked FedAvg: one launch on the
-        fused kernel's route (K2 as K1's epilogue), two on the general one.
+        fused kernel's route (K2 as K1's epilogue), two on the wide and
+        general ones.
         ``total_w [M, C]``: the round's pair weights, 0 for a client its
         mask leaves out. ``rows``: ``(t_idx, slot)`` of contiguous batches,
         or the weighted draw's uniforms ``u [M, C, S, B]``, searched in the

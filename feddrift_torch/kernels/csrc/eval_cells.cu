@@ -25,16 +25,18 @@
 // under a launch's latency: the kernel exists to replace the plain
 // version's ~18 launches with one.
 //
-// Design: one block per (m, c, g) (80 blocks for an eval, 440 for
-// acc_cells at T1 = 11) of round_up(N, 32) threads, at most 512, one row a
-// thread and a loop over the rest. The model's params and mask are staged
-// once into shared memory, where every thread reads the same address.
-// Two kernels of the one function; the wrapper (eval_cells.py::_route)
-// picks one by shape alone, before the launch:
+// Design of the fused and general kernels: one block per (m, c, g) (80
+// blocks for an eval, 440 for acc_cells at T1 = 11) of round_up(N, 32)
+// threads, at most 512, one row a thread and a loop over the rest. The
+// model's params and mask are staged once into shared memory, where every
+// thread reads the same address. Three kernels of the one function; the
+// wrapper (eval_cells.py::_route) picks one by shape alone, before the
+// launch:
 // - eval_fused_kernel<F, H, K> for the registry's widths (F in {2, 3},
 //   H = 10, K = 2): x, h and z of a row in registers, fully unrolled.
-// - eval_general_kernel<false> for any other width (fnn_hidden_dim = 32,
-//   MNIST's F = 784): a loop over the hidden units, each accumulated into
+// - eval_general_kernel<false> for the widths the others do not take
+//   (fnn_hidden_dim = 32, F % 4 != 0, or inputs too wide for the wide
+//   kernel's shared memory): a loop over the hidden units, each accumulated into
 //   the row's K logits kept in shared memory ([K][threads], one column a
 //   thread). Its shared memory is 4 * (P + F + K * threads) bytes; above
 //   what a block may take the entry point returns kErrSmem without a
@@ -47,12 +49,41 @@
 //   then goes to the lowest class, jnp.argmax's rule, where an argmax over
 //   z would pick another), and the NLL is log_softmax(s)'s. Its shared
 //   memory is 4 * (P + F + K * threads) bytes with P = F * K + K.
-// Both sum in the same order (f, then the bias; j, then the bias; classes
-// in order). The block's count and NLL sum fold by a warp-shuffle tree,
+// The fused and general kernels sum in the same order (f, then the bias;
+// j, then the bias; classes in order). The block's count and NLL sum fold by a warp-shuffle tree,
 // then the warp totals in warp order: a fixed order, so `correct` is exact
 // and `nll` is bitwise the same call after call, and a block's result does
 // not depend on G or on the strides. No tensor cores: at H = 10 and K = 2
 // an mma tile would be mostly padding.
+//
+// - eval_wide_kernel<kLr> for wide inputs, MNIST-4's (F = 784; the fnn
+//   784 -> 10 -> 10 or the lr 784 -> 10): F % 4 == 0 (16-byte rows for
+//   TMA), a first layer at most 64 wide. It computes what
+//   eval_general_kernel computes.
+//   Bound on the H100 SXM at an eval of MNIST-4 (M 4, C 10, G 2, N 500):
+//   x's window is 31 MB, ~0.0094 ms at 3.35 TB/s; the forward is ~0.64
+//   GFLOP, ~0.0095 ms at 67 TFLOP/s float32 (0.0039 in 3xTF32 on the
+//   tensor cores). The general kernel read each row once per model and
+//   once per hidden unit, uncoalesced (one block a (m, c, g), a thread a
+//   row, SIMT).
+//   Design: a cluster of Q = min(16, ceil(N / 32)) CTAs per (c, g) (at
+//   MNIST-4's G = 2, 8 CTAs measured 2.6 % faster and 4 or 2 up to 3.4 x
+//   slower; at G = T1, 2 CTAs 5 % faster: PERF.md); CTA q
+//   stages row tiles q, q + Q, ... (32 rows each) of the step by TMA bulk
+//   copies, once for ALL M models, at a padded stride (no bank conflicts in
+//   the mma fragments). The models' first layers side by side, [F, M * H]
+//   (40 columns at M = 4; groups of at most 64 columns and 8 models, so
+//   M = 10 runs as 6 + 4 on the same staged rows), times x on the tensor
+//   cores in 3xTF32 (mma.sync m16n8k8; W0 read through L2 and scaled by the
+//   model's mask; eight warps over n-tiles, splitting F where the tiles are
+//   few, their partials summed in order). Then warp w takes model g0 + w
+//   and a lane a row for the second layer (the lr: the sigmoid) and the
+//   score, with the general kernel's arithmetic; a warp's shuffle tree
+//   sums its rows, lane 0 the CTA's tiles in order, and CTA 0 the CTAs in
+//   rank order through distributed shared memory: a fixed order, so
+//   `correct` is exact and `nll` bitwise the same call after call. Its
+//   shared memory is eval_wide_smem_bytes (117 KB at MNIST's fnn), one CTA
+//   an SM.
 //
 // The fused kernel's cell (its row loop, score_row and block_total) lives
 // in fnn_eval.cuh, which K1's fused kernel (local_sgd.cu) shares: the fused
@@ -64,9 +95,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include <atomic>
 
+#include "bulk_copy.cuh"
 #include "fnn_eval.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -176,6 +211,252 @@ eval_general_kernel(const Args a) {
   block_total(cnt, nll, s_cnt, s_nll, a.correct, a.nll, cl.out);
 }
 
+// ---------------------------------------------------------------------------
+// The wide kernel (MNIST's widths; the fnn or the lr).
+
+namespace cg = cooperative_groups;
+
+constexpr int kWideRows = 32;        // rows a CTA holds: two m16 tiles
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideMaxCluster = 16;  // CTAs a cell (non-portable above 8)
+constexpr int kWideCols = 64;        // first-layer columns of a model group
+
+// x's row stride in shared memory, in floats: the least multiple of 4 at or
+// above F that is 4 (mod 8), so the eight rows of an A fragment fall in
+// eight different bank quads, and a row stays 16-byte aligned.
+__host__ __device__ constexpr int wide_stride(int F) {
+  return (F + 3) / 4 * 4 % 8 == 4 ? (F + 3) / 4 * 4 : (F + 3) / 4 * 4 + 4;
+}
+
+// Models whose first layers one pass computes side by side: at most 64
+// columns (eight n8 tiles) and eight models, one a warp in the second
+// layer.
+__host__ __device__ constexpr int wide_group(int L1) {
+  return kWideCols / L1 < 1 ? 1
+         : kWideCols / L1 > kWideWarps ? kWideWarps : kWideCols / L1;
+}
+
+// Floats of one model's second layer (b0, W1, b1; the lr: b).
+__host__ __device__ constexpr int wide_tail(int H, int K) {
+  return H ? H + H * K + K : K;
+}
+
+// Shared memory one CTA of the wide kernel needs (H = 0: the lr): the
+// mbarrier, x's rows, the first layer's k-split partials (at most eight
+// [32, 8] tiles), a group's second layers and the warps' totals.
+long long eval_wide_smem_bytes(int F, int H, int K) {
+  return 16 + 4LL * ((long long)kWideRows * wide_stride(F)
+                     + kWideWarps * kWideRows * 8
+                     + (long long)wide_group(H ? H : K) * wide_tail(H, K)
+                     + 2 * kWideWarps);
+}
+
+template <bool kLr>
+__global__ void __launch_bounds__(kWideThreads, 1)
+eval_wide_kernel(const Args a, int M) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int F = a.F, H = a.H, K = a.K, N = a.N;
+  const int L1 = kLr ? K : H;                   // the first layer's width
+  const int P = kLr ? F * K + K : F * H + H + H * K + K;
+  const int XS = wide_stride(F), MG = wide_group(L1), TL = wide_tail(H, K);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  float* s_x = reinterpret_cast<float*>(smem_raw + 16);  // [rows][XS]
+  float* s_zp = s_x + kWideRows * XS;           // [ksplit][rows][W]
+  float* s_l2 = s_zp + kWideWarps * kWideRows * 8;  // [MG][TL]
+  int* s_cnt = reinterpret_cast<int*>(s_l2 + MG * TL);  // [warps]
+  float* s_nll = reinterpret_cast<float*>(s_cnt + kWideWarps);  // [warps]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;      // mma fragment coordinates
+  const int Q = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+  const size_t cell = blockIdx.x / Q;           // (c, g)
+  const size_t g = cell % a.G, c = cell / a.G;
+  const float* xg = a.x + c * a.xs_c + g * a.xs_g;
+  const int* yg = a.y + c * a.ys_c + g * a.ys_g;
+  const int tiles = (N + kWideRows - 1) / kWideRows;
+  const int mine = tiles > q ? (tiles - q + Q - 1) / Q : 0;  // q, q + Q, ..
+  const int KS = (F + 7) / 8;
+  if (tid == 0) {
+    mbar_init(bar, 32);             // warp 0 arrives, a row or none a lane
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  unsigned phase = 0;
+  for (int g0 = 0; g0 < M; g0 += MG) {
+    const int mg = min(MG, M - g0), cols = mg * L1;
+    const int NTg = (cols + 7) / 8, W = NTg * 8;
+    const int ksplit = kWideWarps / NTg;        // jobs: ksplit * NTg <= 8
+    // the group's second layers, model after model (the barrier before
+    // their first read is the tile's)
+    for (int e = tid; e < mg * TL; e += kWideThreads) {
+      const int i = e / TL;
+      s_l2[e] = a.params[(size_t)(g0 + i) * P + F * L1 + (e - i * TL)];
+    }
+    int acc_cnt = 0;                // lane 0 of warp w: model g0 + w
+    float acc_nll = 0.f;
+    for (int i = 0; i < mine; ++i) {
+      const int row0 = (q + i * Q) * kWideRows;
+      const int nrows = min(kWideRows, N - row0);
+      if (mine > 1 || g0 == 0) {    // a lone tile stays for every group
+        if (warp == 0) {
+          if (lane < nrows) {
+            fence_proxy_async();
+            mbar_expect_tx(bar, (unsigned)(F * 4));
+            bulk_copy(s_x + (size_t)lane * XS,
+                      xg + (size_t)(row0 + lane) * F, (unsigned)(F * 4), bar);
+          } else {
+            mbar_arrive(bar);
+          }
+        }
+        mbar_wait(bar, phase & 1u);
+        ++phase;
+      }
+
+      // the group's first layers on the tensor cores in 3xTF32: x [32, F]
+      // times the models' W0 (times their masks) side by side, [F, cols];
+      // warp w takes n-tile w % NTg and k-steps w / NTg + ksplit * i, its
+      // W0 values read through L2 four k-steps ahead; the small cross
+      // products and big * big in accumulators of their own
+      if (warp < ksplit * NTg) {
+        const int nt = warp % NTg, kq = warp / NTg;
+        const int n = nt * 8 + g8;              // this lane's column
+        const bool nin = n < cols;
+        const int mi = g0 + (nin ? n / L1 : 0), j = nin ? n % L1 : 0;
+        const float* wcol = a.params + (size_t)mi * P + j;  // W0[f][j]
+        const float* fmc = a.fmask ? a.fmask + (size_t)mi * F : nullptr;
+        float accs[2][4], accb[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) accs[mt][e] = accb[mt][e] = 0.f;
+        for (int ks0 = kq; ks0 < KS; ks0 += 4 * ksplit) {
+          float bv[4][2];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int f0 = (ks0 + u * ksplit) * 8 + t4, f1 = f0 + 4;
+            bv[u][0] = nin && f0 < F ? __ldg(wcol + (size_t)f0 * L1)
+                                           * (fmc ? __ldg(fmc + f0) : 1.f)
+                                     : 0.f;
+            bv[u][1] = nin && f1 < F ? __ldg(wcol + (size_t)f1 * L1)
+                                           * (fmc ? __ldg(fmc + f1) : 1.f)
+                                     : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int ks = ks0 + u * ksplit;
+            if (ks >= KS) break;
+            const int f0 = ks * 8 + t4, f1 = f0 + 4;
+            const bool in0 = f0 < F, in1 = f1 < F;
+            uint32_t bb0, bs0, bb1, bs1;
+            split<true>(bv[u][0], bb0, bs0);
+            split<true>(bv[u][1], bb1, bs1);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              const float* xr = s_x + (mt * 16 + g8) * XS;
+              const float av[4] = {in0 ? xr[f0] : 0.f,
+                                   in0 ? xr[8 * XS + f0] : 0.f,
+                                   in1 ? xr[f1] : 0.f,
+                                   in1 ? xr[8 * XS + f1] : 0.f};
+              uint32_t ab[4], as[4];
+              split4<true>(av, ab, as);
+              mma_tf32(accs[mt], as, bb0, bb1);
+              mma_tf32(accs[mt], ab, bs0, bs1);
+              mma_tf32(accb[mt], ab, bb0, bb1);
+            }
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          float* o = s_zp + (kq * kWideRows + mt * 16 + g8) * W + nt * 8
+                     + 2 * t4;
+          o[0] = accb[mt][0] + accs[mt][0];
+          o[1] = accb[mt][1] + accs[mt][1];
+          o[8 * W] = accb[mt][2] + accs[mt][2];
+          o[8 * W + 1] = accb[mt][3] + accs[mt][3];
+        }
+      }
+      __syncthreads();
+      if (ksplit > 1) {             // the k-split partials in order
+        for (int e = tid; e < kWideRows * cols; e += kWideThreads) {
+          const int r = e / cols, cc = e - r * cols;
+          float z = 0.f;
+          for (int k = 0; k < ksplit; ++k)
+            z += s_zp[(k * kWideRows + r) * W + cc];
+          s_zp[r * W + cc] = z;
+        }
+        __syncthreads();
+      }
+
+      // the second layer (the lr: the sigmoid) and the score: warp w takes
+      // model g0 + w, lane r row row0 + r; logit k is computed where the
+      // score reads it, with the general kernel's arithmetic after the
+      // first layer's sum (the bias, relu, W1 over j in order, then b1)
+      if (warp < mg) {
+        const int r = lane;
+        int cnt = 0;
+        float nll = 0.f;
+        if (r < nrows) {
+          const float* z1 = s_zp + r * W + warp * L1;
+          const float* tl = s_l2 + warp * TL;
+          if constexpr (kLr) {
+            score_row<0>(
+                [&](int k) {
+                  return __fdiv_rn(
+                      1.f, __fadd_rn(1.f, expf(-__fadd_rn(z1[k], tl[k]))));
+                },
+                K, yg[row0 + r], &cnt, &nll, a.nll != nullptr);
+          } else {
+            const float* b0 = tl;
+            const float* W1 = b0 + H;
+            const float* b1 = W1 + H * K;
+            score_row<0>(
+                [&](int k) {
+                  float z = 0.f;
+                  for (int jj = 0; jj < H; ++jj)
+                    z = fmaf(fmaxf(__fadd_rn(z1[jj], b0[jj]), 0.f),
+                             W1[jj * K + k], z);
+                  return __fadd_rn(z, b1[k]);
+                },
+                K, yg[row0 + r], &cnt, &nll, a.nll != nullptr);
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          cnt += __shfl_xor_sync(fnn_eval::kFull, cnt, o);
+          nll += __shfl_xor_sync(fnn_eval::kFull, nll, o);
+        }
+        if (lane == 0) {            // the CTA's tiles in order
+          acc_cnt += cnt;
+          acc_nll += nll;
+        }
+      }
+      __syncthreads();              // s_x, s_zp and s_l2 are free again
+    }
+
+    // the group's cells: CTA 0 sums the Q CTAs' totals in rank order
+    if (lane == 0 && warp < mg) {
+      s_cnt[warp] = acc_cnt;
+      s_nll[warp] = acc_nll;
+    }
+    cluster.sync();
+    if (q == 0 && tid < mg) {
+      int cn = 0;
+      float l = 0.f;
+      for (int r = 0; r < Q; ++r) {
+        cn += *cluster.map_shared_rank(s_cnt + tid, r);
+        l += *cluster.map_shared_rank(s_nll + tid, r);
+      }
+      const size_t out = ((size_t)(g0 + tid) * a.C + c) * a.G + g;
+      a.correct[out] = cn;
+      if (a.nll) a.nll[out] = l;
+    }
+    cluster.sync();                 // CTA 0 has read every CTA's totals
+  }
+}
+
 template <int F, int H, int K>
 int launch_fused(const Args& a, long long blocks, int threads,
                  cudaStream_t st) {
@@ -206,6 +487,52 @@ int launch_general(const Args& a, long long blocks, int threads, int device,
   return (int)cudaGetLastError();
 }
 
+// The wide kernel: C * G cells of Q = min(16, ceil(N / 32)) CTAs in
+// clusters of Q (above 8 a non-portable size, which the H100 allows).
+template <bool kLr>
+int launch_wide(const Args& a, int M, int device, cudaStream_t st) {
+  const int L1 = kLr ? a.K : a.H;
+  if (a.F % 4 || L1 < 1 || L1 > kWideCols
+      || (reinterpret_cast<uintptr_t>(a.x) & 15)
+      || (a.C > 1 && a.xs_c % 4) || (a.G > 1 && a.xs_g % 4))
+    return (int)cudaErrorInvalidValue;
+  const long long smem = eval_wide_smem_bytes(a.F, a.H, a.K);
+  if (smem > kMaxSmem) return kErrSmem;
+  const int tiles = (a.N + kWideRows - 1) / kWideRows;
+  const int Q = tiles < 1 ? 1 : tiles < kWideMaxCluster ? tiles
+                                                       : kWideMaxCluster;
+  const long long blocks = (long long)a.C * a.G * Q;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> ready{0};
+  const unsigned long long bit = device < 64 ? 1ull << device : 0;
+  if (!(ready.load() & bit)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        eval_wide_kernel<kLr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          eval_wide_kernel<kLr>,
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    ready.fetch_or(bit);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)Q;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, eval_wide_kernel<kLr>, a,
+                                             M);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // What the wrapper packs for one call (eval_cells.py, _PARAMS).
@@ -218,12 +545,13 @@ struct Params {
 static_assert(sizeof(Params) == 120, "Params must match the wrapper's pack");
 
 // Plain C entry point bound with ctypes. `route`: 0 the general kernel, 1
-// the fused one (F, H, K must be one of its widths). H = 0 is the lr, which
-// only the general kernel takes. `stream` is a stream of
-// device `device`, which is made current for the launch only if it is not.
-// Returns the cudaError_t of the launch (0 = ok), or kErrSmem (nothing
-// launched) when the general kernel would need more shared memory than a
-// block may take.
+// the fused one (F, H, K must be one of its widths), 2 the wide one (F % 4
+// == 0, a first layer at most 64 wide, x's rows and strides 16-byte
+// aligned). H = 0 is the lr, which the general and wide kernels take.
+// `stream` is a stream of device `device`, which is made current for the
+// launch only if it is not. Returns the cudaError_t of the launch (0 = ok),
+// or kErrSmem (nothing launched) when the general or wide kernel would need
+// more shared memory than a block may take.
 extern "C" int eval_cells_f32(const Params* p, int route, void* stream) {
   const long long blocks = (long long)p->M * p->C * p->G;
   if (p->M < 1 || p->C < 1 || p->G < 1 || p->N < 0 || p->F < 1 ||
@@ -249,6 +577,9 @@ extern "C" int eval_cells_f32(const Params* p, int route, void* stream) {
     ret = launch_general<true>(a, blocks, p->threads, p->device, st);
   else if (route == 0)
     ret = launch_general<false>(a, blocks, p->threads, p->device, st);
+  else if (route == 2)
+    ret = p->H == 0 ? launch_wide<true>(a, p->M, p->device, st)
+                    : launch_wide<false>(a, p->M, p->device, st);
   else if (route == 1 && p->F == 3 && p->H == 10 && p->K == 2)
     ret = launch_fused<3, 10, 2>(a, blocks, p->threads, st);
   else if (route == 1 && p->F == 2 && p->H == 10 && p->K == 2)
@@ -257,4 +588,10 @@ extern "C" int eval_cells_f32(const Params* p, int route, void* stream) {
     ret = (int)cudaErrorInvalidValue;
   if (current != p->device) cudaSetDevice(current);
   return ret;
+}
+
+// The wide kernel's shared memory a CTA at these widths (H = 0: the lr), in
+// bytes: eval_cells.py's wide_smem_bytes mirrors it.
+extern "C" long long eval_cells_wide_smem(int F, int H, int K) {
+  return eval_wide_smem_bytes(F, H, K);
 }

@@ -31,8 +31,9 @@
 // the bound is set by operations. What a round really waits on is the chain
 // of S dependent steps of one pair: latency, not throughput.
 //
-// Two kernels compute this one function; the wrapper (local_sgd.py::_route)
-// picks one by shape alone, before the launch.
+// Three kernels compute this one function; the wrapper
+// (local_sgd.py::_route) picks one by shape, model and update alone, before
+// the launch.
 //
 // local_sgd_fused_kernel<F, H, K>: the widths the port's registry produces
 // at the default fnn_hidden_dim = 10 (F = 3 for SEA, F = 2 for sine and
@@ -101,8 +102,9 @@
 // they arrive while the S steps run. The eval runs after the S steps and
 // before the ticket (placing it after the ticket measured slower, PERF.md).
 //
-// local_sgd_general_kernel<kLr, kSgd>: any other width (e.g.
-// fnn_hidden_dim = 32, MNIST's F = 784), batch, model or update. One block
+// local_sgd_general_kernel<kLr, kSgd>: the widths, batches, models and
+// updates the other two do not take (e.g. fnn_hidden_dim = 32, the lr and
+// SGD at SEA's F = 3, or a batch the wide kernel's budget refuses). One block
 // of 256 threads per pair; params (and moments) in shared memory for all S
 // steps; threads over rows for the forward; a warp per parameter for the
 // gradient sums (a shuffle tree, fixed order); five barriers a step (four
@@ -121,13 +123,66 @@
 // 5P under SGD; P = F * K + K for the lr); for shapes above the 227 KB a
 // block may take the entry point returns kErrSmem without a launch, and
 // the wrapper raises ValueError.
+//
+// local_sgd_wide_kernel<kLr, kSgd>: wide inputs, MNIST-4's (F = 784; the
+// fnn 784 -> 10 -> 10, P 7960, or the lr 784 -> 10, P 7850), under AMSGrad
+// or SGD, contiguous or gathered batches, with feature masks: F % 4 == 0, a
+// first layer of at most 16 units, at most 32 classes, B <= 512 and its
+// shared memory within a block's. It computes what the general kernel
+// computes, in float32.
+// Bound on the H100 SXM at MNIST's shape (M 4, C 10, S 5, B 500): the
+// distinct batch rows of a round, each read once, and the state move ~0.13
+// GB, 0.039 ms at 3.35 TB/s; the two products below are ~3.1 GFLOP a
+// round, 0.047 ms at 67 TFLOP/s float32. The general kernel read each
+// batch row once per hidden unit, uncoalesced, from one 256-thread block a
+// pair (40 blocks for 132 SMs).
+// - A pair's batch is split over a thread-block cluster of Q = ceil(B / 32)
+//   CTAs (16 at B = 500, a non-portable size the H100 allows): CTA q holds
+//   batch rows [32q, 32q + 32) of the step in shared memory, staged by TMA
+//   bulk copies (one of F * 4 bytes a row, contiguous or gathered, counted
+//   on an mbarrier) at a padded stride. x is read from device memory once a
+//   step, by both products, and never uncoalesced; the next step's rows
+//   land while the cluster sums and steps. A thread reads the next step's
+//   row index and label early in a step, so no load is outstanding at the
+//   stage or the cluster barrier.
+// - The products of a step are two skinny products a pair: Z1 = (x * fm)
+//   W1, [B, F] x [F, H], and dW1 = (x * fm)^T dh, [F, B] x [B, H] (the lr:
+//   W and dW, [F, K]). Both run in float32 FMAs from shared memory, with
+//   W1 kept transposed there so a warp's float4 loads are consecutive: the
+//   forward gives a warp 8 rows and half the inputs, a lane 4 consecutive
+//   inputs of every 256 for 8 rows and every unit (128 sums in
+//   registers), folded over the lanes by a transpose-reduce; dW1 gives a
+//   thread 4 consecutive inputs, the CTA's 32 rows summed in order for
+//   every unit. (3xTF32 on the tensor cores, mma.sync m16n8k8 with H
+//   padded to 16, tracked float64 no better than float32 PyTorch, and its
+//   time, taken in another call than this design's, was not lower:
+//   PERF.md.) The small layers, a warp 4 rows and a lane a unit or class:
+//   h W2, the softmax loss and dz by shuffles, dh.
+// - Every CTA keeps all P params (its forward needs all of W1); CTA q owns
+//   coordinates [q ceil(P / Q), (q + 1) ceil(P / Q)) of the cluster's order
+//   (W1 transposed, then b1, W2, b2) and their moments. After the step's
+//   partials over its rows (dW1, db1, dW2, db2, the loss) a cluster
+//   barrier; CTA q sums its coordinates over the Q CTAs' partials in rank
+//   order through distributed shared memory, four a thread as float4s (a
+//   fixed order, no atomics: bitwise the same call after call), steps them
+//   and writes the new values into every CTA's params; a second cluster
+//   barrier publishes them. Five steps, one launch, no grid-wide sync.
+// - Its shared memory is wide_smem_bytes (175 KB at MNIST's fnn: x 101 KB,
+//   params and partials 31 KB each): one CTA an SM, so the card holds 7
+//   clusters of 16 at once and a round of 40 pairs runs in 6 waves. The
+//   waves, not the products, bound it; two CTAs an SM or a layout that
+//   splits F is the next step (PERF.md). Wider inputs (cifar10's and
+//   fmow's F = 3072) do not fit: the entry point returns kErrSmem.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include <atomic>
 #include <climits>
 
+#include "bulk_copy.cuh"
 #include "fnn_eval.cuh"
 
 namespace {
@@ -404,48 +459,473 @@ long long general_smem_bytes(int F, int H, int K, int B, bool sgd) {
               + F);
 }
 
-// ---------------------------------------------------------------------------
-// The fused kernel's asynchronous copies (sm_90: TMA bulk copies, mbarrier).
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete. A copy of a few KB
-// lands in microseconds; a wait that has not ended after 2^24 tries is a
-// fault, and the trap ends the launch with an error instead of a hang.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done;
-  for (uint32_t tries = 0;; ++tries) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (tries == (1u << 24)) __trap();
+// One butterfly round of the transpose-reduce: lanes with bit O set keep
+// the upper half of their HALF * 2 values, the others the lower half, and
+// each adds its partner's copy of the half it keeps.
+template <int O, int HALF, int V>
+__device__ __forceinline__ void fold(float (&v)[V], int lane) {
+  const bool upper = (lane & O) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = upper ? v[i] : v[i + HALF];
+    const float keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, O);
   }
 }
 
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
+// ---------------------------------------------------------------------------
+// The wide kernel (MNIST's widths; the fnn or the lr; AMSGrad or SGD).
+
+namespace cg = cooperative_groups;
+
+constexpr int kWideRows = 32;        // batch rows a CTA holds: two m16 tiles
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideMaxCluster = 16;  // CTAs a pair (non-portable above 8)
+constexpr int kWideMaxWidth = 16;    // units of the first layer at most
+
+// x's row stride in shared memory, in floats: the least multiple of 4 at or
+// above F that is 4 (mod 8), so the eight rows of an A fragment fall in
+// eight different bank quads, and a row stays 16-byte aligned.
+__host__ __device__ constexpr int wide_stride(int F) {
+  return (F + 3) / 4 * 4 % 8 == 4 ? (F + 3) / 4 * 4 : (F + 3) / 4 * 4 + 4;
 }
+
+// CTAs of a pair's cluster at batch B: one a kWideRows rows.
+__host__ __device__ constexpr int wide_cluster(int B) {
+  return (B + kWideRows - 1) / kWideRows;
+}
+
+// The owned slice of the params: ceil(P / Q) rounded up to whole float4s.
+__host__ __device__ constexpr int wide_chunk(int P, int Q) {
+  return ((P + Q - 1) / Q + 3) / 4 * 4;
+}
+
+// Shared memory one CTA of the wide kernel needs (H = 0: the lr), in floats
+// after the 16-byte mbarrier: x's rows, the params and the gradient
+// partials (also the forward's two partials), each padded to float4s, the
+// owned slice of the three moments, the feature mask, h, dh (the lr: dz),
+// the fnn's dz, the labels and the warps' losses.
+long long wide_smem_bytes(int F, int H, int K, int B, bool sgd) {
+  const long long P = H ? (long long)F * H + H + (long long)H * K + K
+                        : (long long)F * K + K;
+  const long long PP = (P + 3) / 4 * 4;
+  const long long parts = 2LL * kWideRows * kWideMaxWidth;
+  const long long floats =
+      (long long)kWideRows * wide_stride(F) + PP + (PP > parts ? PP : parts)
+      + (sgd ? 0 : 3LL * wide_chunk((int)P, wide_cluster(B))) + F
+      + 2LL * kWideRows * kWideMaxWidth + (H ? kWideRows * K : 0)
+      + kWideRows + kWideWarps + 4;
+  return 16 + 4 * floats;
+}
+
+template <bool kLr, bool kSgd>
+__global__ void __launch_bounds__(kWideThreads, 1)
+local_sgd_wide_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int F = a.F, H = a.H, K = a.K, B = a.B, N = a.N, S = a.S;
+  const int L1 = kLr ? K : H;                   // the first layer's width
+  constexpr int L1P = kWideMaxWidth;            // its row stride in h, dh
+  const int P = kLr ? F * K + K : F * H + H + H * K + K;
+  const int PP = (P + 3) / 4 * 4;
+  const int oB1 = F * L1, oW2 = oB1 + H, oB2 = oW2 + H * K;
+  const int XS = wide_stride(F);
+  const int Q = (int)cluster.num_blocks();
+  const int chunk = wide_chunk(P, Q);
+  const int parts = 2 * kWideRows * kWideMaxWidth;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  float* s_x = reinterpret_cast<float*>(smem_raw + 16);  // [rows][XS]
+  float* s_p = s_x + kWideRows * XS;            // [PP] the params, in the
+                                                // cluster's order
+  float* s_g = s_p + PP;                        // [max(PP, parts)] partials
+  float* s_mu = s_g + (PP > parts ? PP : parts);  // [chunk] each, AMSGrad
+  float* s_nu = s_mu + chunk;
+  float* s_vmax = s_nu + chunk;
+  float* s_fm = s_mu + (kSgd ? 0 : 3 * chunk);  // [F]
+  float* s_h = s_fm + F;                        // [rows][L1P] h (fnn)
+  float* s_d = s_h + kWideRows * L1P;           // [rows][L1P] dh, dz (lr)
+  float* s_z = s_d + kWideRows * L1P;           // [rows][K] dz (fnn)
+  int* s_y = reinterpret_cast<int*>(s_z + (kLr ? 0 : kWideRows * K));
+  float* s_wl = reinterpret_cast<float*>(s_y + kWideRows);  // [warps]
+  float* s_loss = s_wl + kWideWarps;            // [1] this CTA's loss sum
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = (int)cluster.block_rank();
+  const int pair = blockIdx.x / Q;
+  const int m = pair / a.C, c = pair % a.C;
+  const int r0 = q * kWideRows;                 // this CTA's batch rows
+  const int nrows = min(kWideRows, B - r0);
+  const int lo = min(P, q * chunk), hi = min(P, lo + chunk);  // owned coords
+  const float* pm = a.params + (size_t)m * P;
+  const size_t so = (size_t)pair * P;
+  const float* xc = a.x + (size_t)c * a.T1 * N * F;
+  const int* yc = a.y + (size_t)c * a.T1 * N;
+
+  // The cluster's order of the params: W1 transposed first (coordinate
+  // j * F + f is W1[f][j]: unit j's weights contiguous over the inputs),
+  // then the small params as packed. Coordinate i's index in the packed
+  // params:
+  auto param_of = [&](int i) { return i < oB1 ? (i % F) * L1 + i / F : i; };
+
+  for (int p = tid; p < P; p += kWideThreads)
+    s_p[p < oB1 ? (p % L1) * F + p / L1 : p] = pm[p];
+  for (int f = tid; f < F; f += kWideThreads)
+    s_fm[f] = a.fmask ? a.fmask[(size_t)m * F + f] : 1.f;
+  if constexpr (!kSgd) {
+    for (int i = lo + tid; i < hi; i += kWideThreads) {
+      const int p = param_of(i);
+      s_mu[i - lo] = a.mu[so + p];
+      s_nu[i - lo] = a.nu[so + p];
+      s_vmax[i - lo] = a.nu_max[so + p];
+    }
+  }
+  // rows past the batch stay zero (they add nothing to x^T dh), with label 0
+  for (int i = nrows * XS + tid; i < kWideRows * XS; i += kWideThreads)
+    s_x[i] = 0.f;
+  if (tid >= nrows && tid < kWideRows) s_y[tid] = 0;
+  if (tid == 0) {
+    mbar_init(bar, (unsigned)nrows);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Thread i < nrows stages batch row r0 + i of each step: one TMA bulk
+  // copy of F * 4 bytes, arriving on the barrier. The next step's row index
+  // is read at the start of a step and its label after the forward, so the
+  // loads have landed before the stage and the cluster barrier.
+  auto row_of = [&](int s) -> size_t {
+    return a.idx ? (size_t)a.idx[((size_t)pair * S + s) * B + r0 + tid]
+                 : (size_t)a.t_idx[pair * S + s] * N
+                   + (size_t)a.slot[pair * S + s] * B + r0 + tid;
+  };
+  size_t row_next = tid < nrows ? row_of(0) : 0;
+  int y_next = tid < nrows ? yc[row_next] : 0;
+  auto stage = [&]() {
+    if (tid >= nrows) return;
+    fence_proxy_async();
+    mbar_expect_tx(bar, (unsigned)(F * 4));
+    bulk_copy(s_x + (size_t)tid * XS, xc + row_next * F, (unsigned)(F * 4),
+              bar);
+  };
+  stage();
+
+  const float inv_b = 1.0f / (float)B;
+  int count = kSgd ? 0 : a.count[pair];
+  float loss_sum = 0.f;             // rank 0's thread 0: the S step losses
+  for (int s = 0; s < S; ++s) {
+    const bool ahead = tid < nrows && s + 1 < S;
+    if (tid < nrows) s_y[tid] = y_next;
+    if (ahead) row_next = row_of(s + 1);
+    mbar_wait(bar, (unsigned)s & 1u);
+
+    // (1) the first layer, (x * fm) W, in float32 FMAs: warp w takes rows
+    // 8 (w % 4) .. + 7 and half the inputs, a lane the 4 inputs from f =
+    // 128 (w / 4) + 4 lane + 256 k on (float4 loads of x, the mask and W's
+    // transposed rows), summing them in order for 8 rows and every unit
+    // (128 sums in registers); a transpose-reduce folds the lanes (five
+    // butterfly rounds, each lane keeping half its values), and the two
+    // warps of a row block leave their sums in s_g, [half][row][L1P]
+    {
+      float v[8 * L1P];
+#pragma unroll
+      for (int i = 0; i < 8 * L1P; ++i) v[i] = 0.f;
+      const float* xr = s_x + 8 * (warp & 3) * XS;
+      for (int f = 128 * (warp >> 2) + 4 * lane; f < F; f += 256) {
+        const float4 mf = *reinterpret_cast<const float4*>(s_fm + f);
+        float4 xv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 xq = *reinterpret_cast<const float4*>(xr + i * XS + f);
+          xv[i] = make_float4(xq.x * mf.x, xq.y * mf.y, xq.z * mf.z,
+                              xq.w * mf.w);
+        }
+#pragma unroll
+        for (int j = 0; j < L1P; ++j) {
+          if (j >= L1) break;
+          const float4 wq = *reinterpret_cast<const float4*>(s_p + j * F + f);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            float acc = v[i * L1P + j];
+            acc = fmaf(xv[i].x, wq.x, acc);
+            acc = fmaf(xv[i].y, wq.y, acc);
+            acc = fmaf(xv[i].z, wq.z, acc);
+            v[i * L1P + j] = fmaf(xv[i].w, wq.w, acc);
+          }
+        }
+      }
+      fold<16, 4 * L1P>(v, lane);
+      fold<8, 2 * L1P>(v, lane);
+      fold<4, L1P>(v, lane);
+      fold<2, L1P / 2>(v, lane);
+      fold<1, L1P / 4>(v, lane);
+      // lane l holds values [4l, 4l + 4): row l / 4 of the block, units
+      // 4 (l % 4) .. + 3
+      float* o = s_g + ((warp >> 2) * kWideRows + 8 * (warp & 3) + (lane >> 2))
+                       * L1P + 4 * (lane & 3);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[i] = v[i];
+    }
+    if (ahead) y_next = yc[row_next];
+    __syncthreads();
+
+    // (2) a warp four rows (w, w + 8, w + 16, w + 24), side by side so
+    // their shuffles overlap, and a lane a unit or a class: the two halves'
+    // sums in order, the bias and the activation (the lr: the sigmoid, its
+    // logits); the fnn's second layer; the loss and dlogits through
+    // shuffles (the lr's dz through ds/dz = s (1 - s)); the fnn's dh =
+    // (dz W2^T) * (h > 0). Rows past the batch get dlogits 0 and no loss.
+    {
+      constexpr int R = kWideRows / kWideWarps;
+      float hj[R], z[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = warp + i * kWideWarps;
+        hj[i] = 0.f;
+        if (lane < L1) {
+          float v = s_g[r * L1P + lane] + s_g[(kWideRows + r) * L1P + lane];
+          v += s_p[oB1 + lane];
+          hj[i] = kLr ? 1.f / (1.f + expf(-v)) : (v > 0.f ? v : 0.f);
+          if (!kLr) s_h[r * L1P + lane] = hj[i];
+        }
+        z[i] = hj[i];               // the logit of class `lane`
+      }
+      if constexpr (!kLr) {
+        float acc[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) acc[i] = 0.f;
+        for (int j = 0; j < H; ++j) {
+          const float w2 = lane < K ? s_p[oW2 + j * K + lane] : 0.f;
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+            acc[i] = fmaf(__shfl_sync(kFull, hj[i], j), w2, acc[i]);
+        }
+        const float b2 = lane < K ? s_p[oB2 + lane] : 0.f;
+#pragma unroll
+        for (int i = 0; i < R; ++i) z[i] = lane < K ? acc[i] + b2 : 0.f;
+      }
+      float zmax[R], se[R], e[R], d[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) zmax[i] = lane < K ? z[i] : -INFINITY;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          zmax[i] = fmaxf(zmax[i], __shfl_xor_sync(kFull, zmax[i], o));
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        se[i] = e[i] = lane < K ? expf(z[i] - zmax[i]) : 0.f;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < R; ++i) se[i] += __shfl_xor_sync(kFull, se[i], o);
+      float wl = 0.f;               // lane 0: this warp's rows' losses
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = warp + i * kWideWarps;
+        const bool live = r < nrows;
+        const int yi = s_y[r];
+        const float zy = __shfl_sync(kFull, z[i], yi);
+        d[i] = lane < K && live
+                   ? (e[i] / se[i] - (lane == yi ? 1.f : 0.f)) * inv_b : 0.f;
+        if constexpr (kLr) {
+          if (lane < K) s_d[r * L1P + lane] = d[i] * (z[i] * (1.f - z[i]));
+        } else {
+          if (lane < K) s_z[r * K + lane] = d[i];
+        }
+        if (live) wl += logf(se[i]) - (zy - zmax[i]);
+      }
+      if constexpr (!kLr) {
+        float dh[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) dh[i] = 0.f;
+        for (int k = 0; k < K; ++k) {
+          const float w2 = lane < H ? s_p[oW2 + lane * K + k] : 0.f;
+#pragma unroll
+          for (int i = 0; i < R; ++i)
+            dh[i] = fmaf(__shfl_sync(kFull, d[i], k), w2, dh[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          if (lane < H)
+            s_d[(warp + i * kWideWarps) * L1P + lane] =
+                hj[i] > 0.f ? dh[i] : 0.f;
+      }
+      if (lane == 0) s_wl[warp] = wl;
+    }
+    __syncthreads();
+
+    // (3) the small partials over the CTA's rows (the fnn: dW2 = h^T dz,
+    // db2, db1; the lr: db), the loss, and dW1 = (x * fm)^T dh (the lr: dW)
+    // in float32 FMAs: thread t takes inputs 4t .. 4t + 3 (and 1024 on),
+    // summing the CTA's rows in order for every unit, and leaves them in
+    // the cluster's order (unit j's at j * F + f)
+    if (tid == 0) {
+      float l = 0.f;
+      for (int w = 0; w < kWideWarps; ++w) l += s_wl[w];
+      *s_loss = l;
+    }
+    {
+      // from the last thread down: dW1 below leaves the last threads idle
+      const int small = kLr ? K : H * K + K + H;
+      for (int e = kWideThreads - 1 - tid; e < small; e += kWideThreads) {
+        float acc = 0.f;
+        if (kLr || e >= H * K + K) {            // db1 (the lr: db)
+          const int j = kLr ? e : e - H * K - K;
+#pragma unroll 4
+          for (int r = 0; r < nrows; ++r) acc += s_d[r * L1P + j];
+          s_g[oB1 + j] = acc;
+        } else if (e < H * K) {                 // dW2
+          const int j = e / K, k = e - j * K;
+#pragma unroll 4
+          for (int r = 0; r < nrows; ++r)
+            acc = fmaf(s_h[r * L1P + j], s_z[r * K + k], acc);
+          s_g[oW2 + e] = acc;
+        } else {                                // db2
+#pragma unroll 4
+          for (int r = 0; r < nrows; ++r) acc += s_z[r * K + e - H * K];
+          s_g[oW2 + e] = acc;
+        }
+      }
+    }
+    for (int f = 4 * tid; f < F; f += 4 * kWideThreads) {
+      float v[4][L1P];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int j = 0; j < L1P; ++j) v[k][j] = 0.f;
+      const float4 mf = *reinterpret_cast<const float4*>(s_fm + f);
+#pragma unroll 4
+      for (int r = 0; r < nrows; ++r) {
+        const float4 xq = *reinterpret_cast<const float4*>(s_x + r * XS + f);
+        const float xv[4] = {xq.x * mf.x, xq.y * mf.y, xq.z * mf.z,
+                             xq.w * mf.w};
+        const float4* dr = reinterpret_cast<const float4*>(s_d + r * L1P);
+#pragma unroll
+        for (int j4 = 0; j4 < L1P / 4; ++j4) {
+          if (4 * j4 >= L1) break;
+          const float4 dv = dr[j4];
+          const float dj[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              v[k][4 * j4 + jj] = fmaf(xv[k], dj[jj], v[k][4 * j4 + jj]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < L1P; ++j) {
+        if (j >= L1) break;
+        *reinterpret_cast<float4*>(s_g + j * F + f) =
+            make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+      }
+    }
+    __syncthreads();
+    // every read of s_x is done: the next step's rows land while the
+    // cluster sums and steps
+    if (s + 1 < S) stage();
+
+    // (4) the cluster: every CTA's partials are visible after the sync;
+    // CTA q sums coordinates [lo, hi) over the CTAs in rank order, four a
+    // thread as float4s through distributed shared memory, steps them and
+    // writes the new values into every CTA's params
+    cluster.sync();
+    if (q == 0 && tid == 0) {
+      float tot = 0.f;
+      for (int r = 0; r < Q; ++r) tot += *cluster.map_shared_rank(s_loss, r);
+      loss_sum += tot * inv_b;
+    }
+    if constexpr (!kSgd) count = count < INT_MAX ? count + 1 : count;
+    const float bc1 = kSgd ? 1.f : 1.f - powf(a.b1, (float)count);
+    const float bc2 = kSgd ? 1.f : 1.f - powf(a.b2, (float)count);
+    for (int p = lo + 4 * tid; p < hi; p += 4 * kWideThreads) {
+      const int n = min(4, hi - p);
+      float4 part[kWideMaxCluster];
+#pragma unroll
+      for (int r = 0; r < kWideMaxCluster; ++r) {
+        if (r >= Q) break;
+        const float* src = cluster.map_shared_rank(s_g + p, r);
+        if (n == 4) {
+          part[r] = *reinterpret_cast<const float4*>(src);
+        } else {
+          part[r] = make_float4(src[0], n > 1 ? src[1] : 0.f,
+                                n > 2 ? src[2] : 0.f, 0.f);
+        }
+      }
+      float g[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < kWideMaxCluster; ++r) {
+        if (r >= Q) break;
+        g[0] += part[r].x;
+        g[1] += part[r].y;
+        g[2] += part[r].z;
+        g[3] += part[r].w;
+      }
+      float wn[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (i >= n) break;
+        const float w = s_p[p + i];
+        if constexpr (kSgd) {
+          // optax.sgd: scale_by_learning_rate, then the reference's lr_scale
+          wn[i] = w + (a.neg_lr * g[i]) * a.lr_scale;
+        } else {
+          // add_decayed_weights, then scale_by_amsgrad, lr and lr_scale
+          const int o = p - lo + i;
+          const float gd = g[i] + a.wd * w;
+          const float mu = a.one_minus_b1 * gd + a.b1 * s_mu[o];
+          const float nu = a.one_minus_b2 * (gd * gd) + a.b2 * s_nu[o];
+          const float vmax = fmaxf(s_vmax[o], nu / bc2);
+          const float u = (mu / bc1) / (sqrtf(vmax) + a.eps);
+          wn[i] = w + (a.neg_lr * u) * a.lr_scale;
+          s_mu[o] = mu;
+          s_nu[o] = nu;
+          s_vmax[o] = vmax;
+        }
+      }
+      if (s + 1 < S) {
+#pragma unroll
+        for (int r = 0; r < kWideMaxCluster; ++r) {
+          if (r >= Q) break;
+          float* dst = cluster.map_shared_rank(s_p + p, r);
+          if (n == 4) {
+            *reinterpret_cast<float4*>(dst) =
+                make_float4(wn[0], wn[1], wn[2], wn[3]);
+          } else {
+            for (int i = 0; i < n; ++i) dst[i] = wn[i];
+          }
+        }
+      } else {
+        for (int i = 0; i < n; ++i) s_p[p + i] = wn[i];  // written out below
+      }
+    }
+    // the new params are in every CTA, and no CTA reads another's
+    // partials any more
+    cluster.sync();
+  }
+
+  const float tw = a.total_w[pair];
+  const bool active = tw > 0.f;
+  float* op = a.out_params + so;
+  for (int i = lo + tid; i < hi; i += kWideThreads) {
+    const int p = param_of(i);
+    op[p] = active ? s_p[i] : pm[p];
+    if (!kSgd && active) {
+      a.mu[so + p] = s_mu[i - lo];
+      a.nu[so + p] = s_nu[i - lo];
+      a.nu_max[so + p] = s_vmax[i - lo];
+    }
+  }
+  if (q == 0 && tid == 0) {
+    if (!kSgd && active) a.count[pair] = count;
+    a.n_out[pair] = active ? tw * (float)N : 0.f;
+    a.loss_out[pair] = loss_sum / (float)S;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The fused kernel's asynchronous copies (sm_90: TMA bulk copies, mbarrier;
+// the helpers in bulk_copy.cuh).
 
 __device__ __forceinline__ void copy4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
@@ -533,20 +1013,6 @@ __device__ __forceinline__ void stage_window(const Args& a, int c, bool bulk,
       copy4(s_ey + i, a.ey + c * a.eys_c + g * a.eys_g + r);
     }
     copies_arrive(bar);
-  }
-}
-
-// One butterfly round of the transpose-reduce: lanes with bit O set keep
-// the upper half of their HALF * 2 values, the others the lower half, and
-// each adds its partner's copy of the half it keeps.
-template <int O, int HALF, int V>
-__device__ __forceinline__ void fold(float (&v)[V], int lane) {
-  const bool upper = (lane & O) != 0;
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float send = upper ? v[i] : v[i + HALF];
-    const float keep = upper ? v[i + HALF] : v[i];
-    v[i] = keep + __shfl_xor_sync(kFull, send, O);
   }
 }
 
@@ -889,6 +1355,81 @@ int launch_fused(const Args& a, int pairs, int device, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The wide kernel's launch: pairs * Q CTAs in clusters of Q (above 8 a
+// non-portable size, which the H100 allows), each with the dynamic shared
+// memory wide_smem_bytes gives; the attributes are set once per device.
+template <bool kLr, bool kSgd>
+cudaError_t wide_config(const Args& a, int pairs, int device, cudaStream_t st,
+                        cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  static std::atomic<unsigned long long> ready{0};
+  const unsigned long long bit = device < 64 ? 1ull << device : 0;
+  if (!(ready.load() & bit)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        local_sgd_wide_kernel<kLr, kSgd>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          local_sgd_wide_kernel<kLr, kSgd>,
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    ready.fetch_or(bit);
+  }
+  const int Q = wide_cluster(a.B);
+  cfg = {};
+  cfg.gridDim = dim3((unsigned)pairs * (unsigned)Q);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes =
+      (size_t)wide_smem_bytes(a.F, a.H, a.K, a.B, kSgd);
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)Q;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// What the wide kernel takes: F a multiple of 4 (16-byte rows for the bulk
+// copies), a first layer of at most 16 units and at most 32 classes (a
+// lane each), B <= 512 (at most 16 CTAs of 32 rows), x 16-byte aligned,
+// and its shared memory within a block's.
+template <bool kLr>
+int wide_check(const Args& a, bool sgd) {
+  const int L1 = kLr ? a.K : a.H;
+  if (a.F % 4 || L1 < 1 || L1 > kWideMaxWidth || a.K > 32
+      || a.B > kWideRows * kWideMaxCluster
+      || (reinterpret_cast<uintptr_t>(a.x) & 15))
+    return (int)cudaErrorInvalidValue;
+  return wide_smem_bytes(a.F, a.H, a.K, a.B, sgd) > kMaxSmem ? kErrSmem : 0;
+}
+
+template <bool kLr, bool kSgd>
+int launch_wide(const Args& a, int pairs, int device, cudaStream_t st) {
+  const int bad = wide_check<kLr>(a, kSgd);
+  if (bad) return bad;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = wide_config<kLr, kSgd>(a, pairs, device, st, cfg, attr);
+  if (err == cudaSuccess)
+    err = cudaLaunchKernelEx(&cfg, local_sgd_wide_kernel<kLr, kSgd>, a);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// How many of the wide kernel's clusters the device holds at once.
+template <bool kLr, bool kSgd>
+int wide_clusters(const Args& a, int device, int* clusters) {
+  const int bad = wide_check<kLr>(a, kSgd);
+  if (bad) return bad;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = wide_config<kLr, kSgd>(a, 1, device, nullptr, cfg, attr);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(
+        clusters, local_sgd_wide_kernel<kLr, kSgd>, &cfg);
+  return (int)err;
+}
+
 }  // namespace
 
 // What the wrapper packs for one call (local_sgd.py, _PARAMS).
@@ -913,16 +1454,17 @@ static_assert(sizeof(Params) == 288, "Params must match the wrapper's pack");
 // ex and ey are given (the window's rows [N, F] and labels [N] contiguous).
 // Rows of idx must lie in [0, T1*N): the weighted draw clips them. `route` is
 // local_sgd.py's _ROUTES: 0 the general kernel, 1 the fused kernel (only
-// for the (F, H, K) it is built for, B <= 512 and AMSGrad). H = 0 is the
-// lr and sgd = 1 the SGD update, both on the general kernel only; under
-// SGD mu, nu, nu_max and count may be 0. `stream` is a stream of
-// that device; the device is made current for the launch only if it is not.
-// Returns the cudaError_t of the launch (0 = ok), or kErrSmem (nothing
-// launched) when the general kernel would need more shared memory than a
-// block may take.
+// for the (F, H, K) it is built for, B <= 512 and AMSGrad), 2 the wide
+// kernel (F % 4 == 0, a first layer of at most 16 units, at most 32
+// classes, B <= 512, x 16-byte aligned). H = 0 is the lr and sgd = 1 the SGD update, both on the general
+// and wide kernels only; under SGD mu, nu, nu_max and count may be 0.
+// `stream` is a stream of that device; the device is made current for the
+// launch only if it is not. Returns the cudaError_t of the launch (0 = ok),
+// or kErrSmem (nothing launched) when the general or wide kernel would need
+// more shared memory than a block may take.
 extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
   if (p->M < 1 || p->C < 1 || p->S < 1 || p->B < 1 || p->H < 0
-      || (p->sgd && route != 0)
+      || (p->sgd && route == 1)
       || (!p->sgd && (!p->mu || !p->nu || !p->nu_max || !p->count))
       || (p->agg_out && (route != 1 || !p->stats_out || !p->ticket))
       || (p->eval_correct
@@ -968,6 +1510,12 @@ extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
   else if (route == 0)
     ret = p->sgd ? launch_general<false, true>(a, pairs, p->device, st)
                  : launch_general<false, false>(a, pairs, p->device, st);
+  else if (route == 2 && p->H == 0)
+    ret = p->sgd ? launch_wide<true, true>(a, pairs, p->device, st)
+                 : launch_wide<true, false>(a, pairs, p->device, st);
+  else if (route == 2)
+    ret = p->sgd ? launch_wide<false, true>(a, pairs, p->device, st)
+                 : launch_wide<false, false>(a, pairs, p->device, st);
   else if (route == 1 && p->F == 3 && p->H == 10 && p->K == 2)
     ret = launch_fused<3, 10, 2>(a, pairs, p->device, st);
   else if (route == 1 && p->F == 2 && p->H == 10 && p->K == 2)
@@ -975,5 +1523,37 @@ extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
   else
     ret = (int)cudaErrorInvalidValue;
   if (current != p->device) cudaSetDevice(current);
+  return ret;
+}
+
+// The wide kernel's shared memory a CTA at these sizes (H = 0: the lr), in
+// bytes: local_sgd.py's wide_smem_bytes mirrors it.
+extern "C" long long local_sgd_wide_smem(int F, int H, int K, int B,
+                                         int sgd) {
+  return wide_smem_bytes(F, H, K, B, sgd != 0);
+}
+
+// How many clusters of the wide kernel device `device` holds at once at
+// these sizes (H = 0: the lr), into *clusters: the launch's waves are
+// M * C / *clusters. Returns a cudaError_t, or kErrSmem.
+extern "C" int local_sgd_wide_clusters(int F, int H, int K, int B, int sgd,
+                                       int device, int* clusters) {
+  Args a{};
+  a.F = F;
+  a.H = H;
+  a.K = K;
+  a.B = B;
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int ret;
+  if (H == 0)
+    ret = sgd ? wide_clusters<true, true>(a, device, clusters)
+              : wide_clusters<true, false>(a, device, clusters);
+  else
+    ret = sgd ? wide_clusters<false, true>(a, device, clusters)
+              : wide_clusters<false, false>(a, device, clusters);
+  if (current != device) cudaSetDevice(current);
   return ret;
 }

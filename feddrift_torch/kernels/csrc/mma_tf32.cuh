@@ -1,5 +1,5 @@
 // Helpers shared by the port's tensor-core kernels (flash_attn_fwd.cu,
-// dense_rows.cu): float32 products on the TF32 tensor cores at float32
+// dense_rows.cu, eval_cells.cu's wide kernel): float32 products on the TF32 tensor cores at float32
 // accuracy (3xTF32 mma.sync m16n8k8), and cp.async copies into shared
 // memory. kernels/build.py hashes this header into every library's name, so
 // an edit here rebuilds every source.

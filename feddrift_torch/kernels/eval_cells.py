@@ -20,10 +20,15 @@ of ``-log_softmax`` at the label (None unless ``with_nll``).
 
 ``eval_cells`` launches a kernel for CUDA tensors and takes the plain
 version, ``eval_cells_ref``, for CPU tensors. There is no fallback for a
-CUDA tensor: the kernel launches or the call raises. The source holds two
+CUDA tensor: the kernel launches or the call raises. The source holds three
 kernels of the one function, and ``_route`` picks one by shape alone
-before the launch: the fused kernel for the registry's widths, the general
-one for any other. ``eval_cells_ref.cuda_calls`` counts the plain
+before the launch: the fused kernel for the registry's widths; the wide
+kernel (a cluster of CTAs a (client, step), 32 rows each staged by TMA once
+for every model, the models' first layers side by side on the tensor cores
+in 3xTF32) for rows of a multiple of 4 floats, such as MNIST-4's F = 784,
+where ``wide_smem_bytes`` fits; the general one for any other.
+``eval_cells.launches`` counts every launch, ``eval_cells.wide_launches``
+the wide kernel's. ``eval_cells_ref.cuda_calls`` counts the plain
 version's calls on CUDA tensors (only a comparison with the kernel makes
 them), so a run can show that none carried its evals.
 
@@ -53,13 +58,48 @@ MAX_THREADS = 512
 _ERR_SMEM = -1
 # the (F, H, K) fnn widths csrc/eval_cells.cu's fused kernel is built for
 FUSED_WIDTHS = ((2, 10, 2), (3, 10, 2))
-_ROUTES = {"general": 0, "fused": 1}      # eval_cells_f32's route argument
+_ROUTES = {"general": 0, "fused": 1, "wide": 2}  # eval_cells_f32's route
+# The wide kernels of K1 and K3 (csrc/local_sgd.cu, csrc/eval_cells.cu):
+# rows a CTA, CTAs a cluster at most, and a block's shared memory
+WIDE_ROWS, WIDE_MAX_CLUSTER, MAX_SMEM = 32, 16, 232448
+# K3's wide kernel: the widest first layer it takes
+WIDE_MAX_WIDTH = 64
+
+
+def _wide_stride(F: int) -> int:
+    """x's row stride in the wide kernels' shared memory, in floats: the
+    least multiple of 4 at or above F that is 4 (mod 8)."""
+    s = -(-F // 4) * 4
+    return s if s % 8 == 4 else s + 4
+
+
+def wide_smem_bytes(F: int, H: int, K: int) -> int:
+    """Shared memory of one CTA of the wide kernel (``H = 0``: the lr), as
+    ``csrc/eval_cells.cu::eval_wide_smem_bytes`` counts it: the mbarrier, 32
+    rows of x at the padded stride, eight [32, 8] tiles of first-layer
+    partials, the second layers of a group of models (at most 64
+    first-layer columns and 8 models) and the warps' totals."""
+    group = min(8, max(1, WIDE_MAX_WIDTH // (H or K)))
+    tail = H + H * K + K if H else K
+    return 16 + 4 * (WIDE_ROWS * _wide_stride(F) + 8 * WIDE_ROWS * 8
+                     + group * tail + 16)
 
 
 def _route(F: int, H: int, K: int) -> str:
     """Which kernel takes a ``F -> H -> K`` fnn (``H = 0``: the lr): by
     shape alone."""
-    return "fused" if (F, H, K) in FUSED_WIDTHS else "general"
+    if (F, H, K) in FUSED_WIDTHS:
+        return "fused"
+    if _wide_fits(F, H, K):
+        return "wide"
+    return "general"
+
+
+def _wide_fits(F: int, H: int, K: int) -> bool:
+    """Whether the wide kernel takes the shape: 16-byte rows (F % 4 == 0),
+    a first layer of at most 64 and its shared memory within a block's."""
+    return F % 4 == 0 and (H or K) <= WIDE_MAX_WIDTH \
+        and wide_smem_bytes(F, H, K) <= MAX_SMEM
 
 
 def _threads(N: int) -> int:
@@ -183,9 +223,13 @@ def eval_cells(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
     if route is None:
         route = _route(F, H, K)
     elif route not in _ROUTES or (route == "fused"
-                                  and _route(F, H, K) != "fused"):
+                                  and _route(F, H, K) != "fused") or (
+            route == "wide" and not _wide_fits(F, H, K)):
         raise ValueError(f"route {route!r}: the fused kernel takes (F, H, K) "
-                         f"in {FUSED_WIDTHS}, the general one any width")
+                         f"in {FUSED_WIDTHS}, the wide one F % 4 == 0 and a "
+                         f"first layer of at most {WIDE_MAX_WIDTH} within "
+                         f"{MAX_SMEM} bytes (wide_smem_bytes), the general "
+                         f"one any width")
     index = x.get_device()
     for name, t, dtype in (("params", params, torch.float32),
                            ("x", x, torch.float32), ("y", y, torch.int32)) + (
@@ -203,8 +247,14 @@ def eval_cells(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
             or (y.stride(2) != 1 and N > 1):
         raise ValueError("the rows of x [N, F] and of y [N] must be "
                          "contiguous within each (client, step)")
-    if M * C * G > MAX_BLOCKS or not (M and C and G):
-        raise ValueError(f"M*C*G={M * C * G} blocks: want 1 to {MAX_BLOCKS}")
+    blocks = M * C * G
+    if blocks > MAX_BLOCKS or not (M and C and G):
+        raise ValueError(f"M={M}, C={C}, G={G}: {blocks} blocks, want 1 to "
+                         f"{MAX_BLOCKS}")
+    if route == "wide" and (x.data_ptr() % 16 or (C > 1 and x.stride(0) % 4)
+                            or (G > 1 and x.stride(1) % 4)):
+        raise ValueError("the wide route copies x's rows with TMA: x and its "
+                         "client and step strides must be 16-byte aligned")
     _check_out("correct_out", correct_out, (M, C, G), torch.int32, index)
     _check_out("nll_out", nll_out, (M, C, G), torch.float32, index)
     correct = correct_out if correct_out is not None else torch.empty(
@@ -218,7 +268,8 @@ def eval_cells(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
         x.data_ptr(), y.data_ptr(), correct.data_ptr(),
         0 if nll is None else nll.data_ptr(), x.stride(0), x.stride(1),
         y.stride(0), y.stride(1), M, C, G, N, F, H, K, _threads(N), index),
-        _ROUTES[route], torch._C._cuda_getCurrentRawStream(index))
+        _ROUTES[route],
+        torch._C._cuda_getCurrentRawStream(index))
     if err == _ERR_SMEM:
         raise ValueError(f"F={F}, H={H}, K={K} need more shared memory per "
                          f"block than the general kernel may take "
@@ -227,7 +278,10 @@ def eval_cells(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
         raise RuntimeError(f"eval_cells_f32 ({route}) launch failed: "
                            f"cudaError {err}")
     eval_cells.launches += 1
+    if route == "wide":
+        eval_cells.wide_launches += 1
     return correct, nll
 
 
 eval_cells.launches = 0
+eval_cells.wide_launches = 0

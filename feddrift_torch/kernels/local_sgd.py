@@ -28,11 +28,15 @@ inactive pair) and the mean loss over the S steps ``[M, C]``.
 state IN PLACE (the dict it returns is the one it was given); for CPU
 tensors it runs ``local_sgd_ref``, which returns a new state. There is no
 fallback for a CUDA tensor: the kernel launches or the call raises. The
-source holds two kernels of the one function, and ``_route`` picks one by
-shape, model and update alone before the launch: the fused kernel (one
+source holds three kernels of the one function, and ``_route`` picks one
+by shape, model and update alone before the launch: the fused kernel (one
 batch row a thread, two barriers a step) for the fnn widths it is built
-for under AMSGrad, the general kernel for any other width, the lr and
-SGD.
+for under AMSGrad; the wide kernel (a cluster of CTAs a pair, 32 batch rows
+each staged by TMA, both products in float32 FMAs) for rows of a multiple
+of 4 floats, such as MNIST-4's F = 784, the fnn or the lr, AMSGrad or SGD,
+where ``wide_smem_bytes`` fits; the general kernel for the rest (e.g.
+``fnn_hidden_dim = 32`` and the lr at SEA's F = 3). ``local_sgd.launches``
+counts every launch, ``local_sgd.wide_launches`` the wide kernel's.
 
 ``local_sgd_fedavg`` is a round's K1 and K2 in one launch: the fused
 kernel with the masked FedAvg (``kernels/fedavg.py``'s function, bitwise)
@@ -64,7 +68,9 @@ import torch
 from feddrift_torch.kernels.build import library
 from feddrift_torch.kernels.eval_cells import _route as _eval_route
 from feddrift_torch.kernels.eval_cells import _threads as _eval_threads
-from feddrift_torch.kernels.eval_cells import (_apply, _classes, _unpack,
+from feddrift_torch.kernels.eval_cells import (MAX_SMEM, WIDE_MAX_CLUSTER,
+                                               WIDE_ROWS, _apply, _classes,
+                                               _unpack, _wide_stride,
                                                eval_cells_ref)
 from feddrift_torch.kernels.fedavg import fedavg_ref
 
@@ -77,16 +83,54 @@ _ERR_SMEM = -1
 # (sine and circle, SEA at fnn_hidden_dim = 10) and its most rows (a block)
 FUSED_WIDTHS = ((2, 10, 2), (3, 10, 2))
 FUSED_MAX_BATCH = 512
-_ROUTES = {"general": 0, "fused": 1}      # local_sgd_f32's route argument
+_ROUTES = {"general": 0, "fused": 1, "wide": 2}  # local_sgd_f32's route
 OPTIMIZERS = ("adam", "sgd")              # the reference's make_optimizer
+# csrc/local_sgd.cu's wide kernel: the units of its first layer at most
+# (its other sizes are K3's: eval_cells.WIDE_ROWS, ...)
+WIDE_MAX_WIDTH = 16
+
+
+def wide_smem_bytes(F: int, H: int, K: int, B: int,
+                    optimizer: str = "adam") -> int:
+    """Shared memory of one CTA of the wide kernel (``H = 0``: the lr), as
+    ``csrc/local_sgd.cu::wide_smem_bytes`` counts it: the mbarrier, 32 rows
+    of x at the padded stride, the params and the gradient partials (each
+    padded to float4s), the CTA's slice of the AMSGrad moments (a Q-th of
+    P in float4s), the mask, h and dh (16 wide), the fnn's dz, the labels
+    and the warps' losses."""
+    P = F * H + H + H * K + K if H else F * K + K
+    PP = -(-P // 4) * 4
+    Q = -(-B // WIDE_ROWS)
+    chunk = -(-P // Q)                 # the owned slice, in float4s
+    chunk = -(-chunk // 4) * 4
+    parts = 2 * WIDE_ROWS * WIDE_MAX_WIDTH
+    floats = (WIDE_ROWS * _wide_stride(F) + PP + max(PP, parts)
+              + (0 if optimizer == "sgd" else 3 * chunk) + F
+              + 2 * WIDE_ROWS * WIDE_MAX_WIDTH + (WIDE_ROWS * K if H else 0)
+              + WIDE_ROWS + 8 + 4)
+    return 16 + 4 * floats
+
+
+def _wide_fits(F: int, H: int, K: int, B: int, optimizer: str) -> bool:
+    """Whether the wide kernel takes the shape: 16-byte rows (F % 4 ==
+    0), a first layer of at most 16 units and at most 32 classes (a lane
+    each), at most 16 CTAs of 32 rows, and its shared memory within a
+    block's."""
+    return F % 4 == 0 and 1 <= (H or K) <= WIDE_MAX_WIDTH and K <= 32 \
+        and 1 <= B <= WIDE_ROWS * WIDE_MAX_CLUSTER \
+        and wide_smem_bytes(F, H, K, B, optimizer) <= MAX_SMEM
 
 
 def _route(F: int, H: int, K: int, B: int, optimizer: str = "adam") -> str:
     """Which kernel takes a ``F -> H -> K`` fnn (``H = 0``: the lr) at
     batch ``B`` under ``optimizer``: by shape, model and update alone,
     decided before the launch."""
-    return "fused" if (F, H, K) in FUSED_WIDTHS and B <= FUSED_MAX_BATCH \
-        and optimizer == "adam" else "general"
+    if (F, H, K) in FUSED_WIDTHS and B <= FUSED_MAX_BATCH \
+            and optimizer == "adam":
+        return "fused"
+    if _wide_fits(F, H, K, B, optimizer):
+        return "wide"
+    return "general"
 
 
 def _folds_eval(F: int, H: int, K: int, B: int, N: int,
@@ -297,20 +341,29 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
     K = _classes(F, H, P)
     if not 1 <= B <= N:
         raise ValueError(f"batch {B} is outside [1, N={N}]")
-    if M * C > MAX_BLOCKS:
-        raise ValueError(f"M*C={M * C} blocks exceed {MAX_BLOCKS}")
     if route is None:
         route = _route(F, H, K, B, optimizer)
     elif route not in _ROUTES or (
-            route == "fused" and _route(F, H, K, B, optimizer) != "fused"):
+            route == "fused" and _route(F, H, K, B, optimizer) != "fused") \
+            or (route == "wide" and not _wide_fits(F, H, K, B, optimizer)):
         raise ValueError(f"route {route!r}: the fused kernel takes (F, H, K) "
                          f"in {FUSED_WIDTHS}, B <= {FUSED_MAX_BATCH} and "
-                         f"AMSGrad, the general one any shape, the lr and "
-                         f"SGD")
+                         f"AMSGrad, the wide one F % 4 == 0, a first layer "
+                         f"of at most {WIDE_MAX_WIDTH}, B <= "
+                         f"{WIDE_ROWS * WIDE_MAX_CLUSTER} within "
+                         f"{MAX_SMEM} bytes (wide_smem_bytes), the general "
+                         f"one any shape, the lr and SGD")
+    ctas = -(-B // WIDE_ROWS) if route == "wide" else 1
+    if M * C * ctas > MAX_BLOCKS:
+        raise ValueError(f"M*C={M * C} pairs of {ctas} blocks exceed "
+                         f"{MAX_BLOCKS}")
     if aggregate and route != "fused":
         raise ValueError(f"the {route} route has no FedAvg epilogue: its "
                          f"caller launches K2 (kernels/fedavg.py) itself")
     index = x.get_device()
+    if route == "wide" and x.data_ptr() % 16:
+        raise ValueError("the wide route copies x's rows with TMA: x must "
+                         "be 16-byte aligned")
     i32, f32 = torch.int32, torch.float32
     if aggregate and stats_out is None:
         stats_out = torch.empty((M, 3), device=x.device)
@@ -365,6 +418,8 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
         raise RuntimeError(f"local_sgd_f32 ({route}, {optimizer}) launch "
                            f"failed: cudaError {err}")
     local_sgd.launches += 1
+    if route == "wide":
+        local_sgd.wide_launches += 1
     if not aggregate:
         return client, n, loss
     local_sgd_fedavg.launches += 1
@@ -397,6 +452,22 @@ def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
 
 
 local_sgd.launches = 0
+local_sgd.wide_launches = 0
+
+
+def wide_clusters(F: int, H: int, K: int, B: int, optimizer: str = "adam",
+                  device: int = 0) -> int:
+    """How many clusters of the wide kernel the card holds at once at this
+    shape (``cudaOccupancyMaxActiveClusters``): a launch of P pairs runs in
+    ceil(P / that) waves."""
+    fn = library("local_sgd").local_sgd_wide_clusters
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    out = ctypes.c_int(0)
+    err = fn(F, H, K, B, int(optimizer == "sgd"), device, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"local_sgd_wide_clusters: error {err}")
+    return out.value
 
 
 def local_sgd_fedavg_ref(x, y, params, opt_state, t_idx, slot, total_w, *,

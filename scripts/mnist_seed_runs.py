@@ -1,0 +1,68 @@
+"""Final Test/Acc per time step of MNIST-4 runs of the JAX package at other
+seeds, and their means against a committed run's: the spread by which
+``chip_smoke.py``'s ``MNIST_RUNS`` gates the port's clustering runs.
+
+    JAX_PLATFORMS=cpu python scripts/mnist_seed_runs.py softcluster \\
+        H_A_F_1_3_0 --pool 10 --seeds 1 2 --steps 10 \\
+        --committed runs/MNIST-fnn-softcluster-H_A_F_1_3_0-s0/metrics.jsonl
+
+One JSON line a seed (its Test/Acc at each step's final eval, its mean,
+seconds), then one line with the committed run's mean over the same steps
+and the largest |mean(seed) - mean(committed)|. A 10-step run of the fnn at
+MNIST-4's width takes ~9 minutes at a pool of 4 and ~15 at 10 on one CPU
+process.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def final_accs(history) -> list[float]:
+    final = {}
+    for rec in history:
+        if "Test/Acc" in rec:
+            final[rec["iteration"]] = rec["Test/Acc"]
+    return [final[t] for t in sorted(final)]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("algo")
+    ap.add_argument("arg")
+    ap.add_argument("--pool", type=int, default=4)
+    ap.add_argument("--seeds", type=int, nargs="+", default=[1, 2])
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--committed", required=True,
+                    help="metrics.jsonl of the committed seed-0 run")
+    args = ap.parse_args()
+    from feddrift_tpu.config import ExperimentConfig
+    from feddrift_tpu.simulation.runner import Experiment
+    means = []
+    for seed in args.seeds:
+        cfg = ExperimentConfig(dataset="MNIST", concept_drift_algo=args.algo,
+                               concept_drift_algo_arg=args.arg,
+                               concept_num=args.pool,
+                               train_iterations=args.steps, seed=seed)
+        t0 = time.time()
+        exp = Experiment(cfg)
+        exp.run()
+        accs = final_accs(exp.logger.history)
+        means.append(sum(accs) / len(accs))
+        print(json.dumps({"seed": seed, "test_acc": accs, "mean": means[-1],
+                          "seconds": time.time() - t0}), flush=True)
+    with open(args.committed) as f:
+        ref = final_accs(json.loads(line) for line in f)[:args.steps]
+    ref_mean = sum(ref) / len(ref)
+    print(json.dumps({"committed_mean": ref_mean,
+                      "largest_mean_gap": max(abs(m - ref_mean)
+                                              for m in means)}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,145 @@
+"""How far rounding alone moves MNIST-4's Test/Acc on the card: the win-1
+and oblivious runs of ``chip_smoke.py``'s ``MNIST_RUNS`` (10 steps, the
+reference's init) through K1's wide kernel, the same kernel with its
+cluster sum taken in reverse rank order (a copy of ``csrc/local_sgd.cu``
+built beside the package's), the general kernel, and the plain version
+(``local_sgd_ref`` on the card, on the batch rows as drawn and permuted
+within each batch). Each changes only the order of float32 sums.
+
+    python3 scripts/torch_rounding_spread.py [--runs win-1,oblivious]
+
+One JSON line a (variant, run): its Test/Acc per step, mean, and the
+committed run's mean; then one line with the spread of each run's means.
+Needs a CUDA card (exits 1 without one); takes ~2 minutes (the general
+kernel and the plain version take ~40 s and ~20 s a run).
+"""
+
+import argparse
+import ctypes
+import importlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+def reversed_sum_kernel(build, tmp: str):
+    """local_sgd_f32 from a copy of the source whose cluster sum runs from
+    rank Q - 1 down to 0."""
+    src_dir = os.path.join(ROOT, "feddrift_torch", "kernels", "csrc")
+    dst = os.path.join(tmp, "csrc")
+    shutil.copytree(src_dir, dst)
+    path = os.path.join(dst, "local_sgd.cu")
+    src = open(path).read()
+    loop = ("      for (int r = 0; r < kWideMaxCluster; ++r) {\n"
+            "        if (r >= Q) break;\n        g[0] += part[r].x;\n"
+            "        g[1] += part[r].y;\n        g[2] += part[r].z;\n"
+            "        g[3] += part[r].w;\n      }\n")
+    if src.count(loop) != 1:
+        raise RuntimeError("the cluster sum's loop is not where it was")
+    src = src.replace(loop, (
+        "      for (int rr = 0; rr < kWideMaxCluster; ++rr) {\n"
+        "        if (rr >= Q) break;\n        const int r = Q - 1 - rr;\n"
+        "        g[0] += part[r].x;\n        g[1] += part[r].y;\n"
+        "        g[2] += part[r].z;\n        g[3] += part[r].w;\n"
+        "      }\n"))
+    open(path, "w").write(src)
+    lib = os.path.join(tmp, "local_sgd_reversed.so")
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib, path],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(proc.stdout + proc.stderr)
+    fn = ctypes.CDLL(lib).local_sgd_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--runs", default="win-1,oblivious")
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_rounding_spread: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    import feddrift_torch.core.step as step_mod
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.kernels import build
+    from feddrift_torch.models.mlp import FeedForwardNN
+    k1 = importlib.import_module("feddrift_torch.kernels.local_sgd")
+    card = cs.phase_device()
+    build.build_all()
+    init = FeedForwardNN((784,), 10, 10).unpack(
+        torch.from_numpy(np.load(cs.MNIST_REFERENCE_INIT)))
+    runs = {r[0]: r for r in cs.MNIST_RUNS if r[0] in args.runs.split(",")}
+    kernel, route, k1_fn = k1._kernel, k1._route, step_mod.local_sgd
+
+    def plain_on(perm):
+        def plain(x, y, flat, opt, t_idx, slot, tw, *, batch_size,
+                  optimizer="adam", idx=None, **kw):
+            N = x.shape[2]
+            rows = (t_idx.long() * N + slot.long() * batch_size)[..., None] \
+                + perm
+            return k1.local_sgd_ref(x, y, flat, opt, None, None, tw,
+                                    batch_size=batch_size, idx=rows.int(),
+                                    optimizer=optimizer, **kw)
+        return plain
+
+    means = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        reversed_fn = reversed_sum_kernel(build, tmp)
+        variants = (
+            ("wide", lambda: None),
+            ("wide_sum_reversed",
+             lambda: setattr(k1, "_kernel", lambda: reversed_fn)),
+            ("general", lambda: setattr(
+                k1, "_route", lambda F, H, K, B, o="adam": "general")),
+            ("plain", lambda: setattr(step_mod, "local_sgd", plain_on(
+                torch.arange(500, device="cuda")))),
+            ("plain_rows_permuted_1", lambda: setattr(
+                step_mod, "local_sgd", plain_on(torch.from_numpy(
+                    np.random.default_rng(1).permutation(500)).cuda()))),
+            ("plain_rows_permuted_2", lambda: setattr(
+                step_mod, "local_sgd", plain_on(torch.from_numpy(
+                    np.random.default_rng(2).permutation(500)).cuda()))))
+        for name, setup in variants:
+            for algo, (_, arg, pool, T, run, pinned, _, mean_tol) \
+                    in runs.items():
+                k1._kernel, k1._route = kernel, route
+                step_mod.local_sgd = k1_fn
+                setup()
+                cfg = ExperimentConfig(dataset="MNIST",
+                                       concept_drift_algo=algo,
+                                       concept_drift_algo_arg=arg,
+                                       concept_num=pool, train_iterations=T)
+                t0 = time.time()
+                got = cs._drive(cfg, init=init, syncs=False)
+                accs = got["accs"]
+                mean = sum(accs) / len(accs)
+                ref = sum(pinned[:T]) / T
+                means.setdefault(algo, {})[name] = mean
+                print(json.dumps({"variant": name, "run": algo,
+                                  "test_acc": accs, "mean": mean,
+                                  "committed_mean": ref,
+                                  "mean_minus_committed": mean - ref,
+                                  "mean_tol": mean_tol,
+                                  "wide_launches": got["k1_wide_launches"],
+                                  "seconds": time.time() - t0}), flush=True)
+        k1._kernel, k1._route = kernel, route
+        step_mod.local_sgd = k1_fn
+    print(json.dumps({"card": card, "spread_of_means": {
+        algo: {"min": min(v.values()), "max": max(v.values())}
+        for algo, v in means.items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

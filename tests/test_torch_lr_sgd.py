@@ -222,9 +222,9 @@ def test_sgd_step_matches_optax_over_20_steps():
 
 
 @pytest.mark.parametrize("F_,H_,K_,B_,opt,want", [
-    (784, 10, 10, 500, "adam", "general"),     # MNIST's fnn
-    (784, 0, 10, 500, "adam", "general"),      # MNIST's lr
-    (784, 0, 10, 500, "sgd", "general"),
+    (784, 10, 10, 500, "adam", "wide"),        # MNIST's fnn
+    (784, 0, 10, 500, "adam", "wide"),         # MNIST's lr
+    (784, 0, 10, 500, "sgd", "wide"),
     (3, 10, 2, 500, "sgd", "general"),         # SEA's fnn under SGD
     (3, 0, 2, 500, "adam", "general"),         # SEA's lr
     (3, 10, 2, 500, "adam", "fused")])
@@ -232,6 +232,7 @@ def test_routes_by_shape_model_and_update(F_, H_, K_, B_, opt, want):
     assert _route(F_, H_, K_, B_, opt) == want
     assert _folds_eval(F_, H_, K_, B_, B_, opt) == (want == "fused")
     assert eval_route(F_, H_, K_) == ("fused" if H_ == 10 and K_ == 2
+                                      else "wide" if F_ == 784
                                       else "general")
 
 
@@ -515,7 +516,9 @@ def _card_round(model, seed, gather=False, masked=False):
     ("fnn", "sgd", True, False)])
 def test_general_kernel_matches_plain_at_mnist_width(cuda, model, optimizer,
                                                      gather, masked):
-    """K1's general kernel on its new routes against ``local_sgd_ref``:
+    """K1's general kernel, forced (MNIST's width takes the wide kernel
+    by default: tests/test_torch_wide_kernels.py), on its lr and SGD routes
+    against ``local_sgd_ref``:
     under SGD the params and losses at atol 1e-5; under AMSGrad as far
     from the plain version in float64 as the float32 plain version (see
     CARD_ADAM_SLACK; the losses within twice its distance plus 1e-5) and
@@ -526,9 +529,9 @@ def test_general_kernel_matches_plain_at_mnist_width(cuda, model, optimizer,
     fresh = lambda: init_opt_state(4, 10, mod.num_params, "cuda", optimizer)
     launches = local_sgd.launches
     got = local_sgd(x, y, flat, fresh(), t_idx, slot, total_w,
-                    optimizer=optimizer, **kw)
+                    optimizer=optimizer, route="general", **kw)
     again = local_sgd(x, y, flat, fresh(), t_idx, slot, total_w,
-                      optimizer=optimizer, **kw)
+                      optimizer=optimizer, route="general", **kw)
     torch.cuda.synchronize()
     assert local_sgd.launches == launches + 2
     want = local_sgd_ref(x, y, flat, fresh(), t_idx, slot, total_w,
@@ -578,7 +581,8 @@ def _lr_near_ties(flat, x, fm, K_):
 @pytest.mark.parametrize("scale", [1.0, 40.0])
 @pytest.mark.parametrize("window", ["G2", "T1"])
 def test_lr_eval_kernel_matches_plain(cuda, scale, window):
-    """K3's lr route on saturating and ordinary outputs: counts equal but
+    """K3's general kernel's lr route on saturating and ordinary outputs
+    (the wide kernel's: tests/test_torch_wide_kernels.py): counts equal but
     for near-tied (not exactly tied) rows, NLL to 1e-4 relative, two calls
     bitwise."""
     rng = np.random.default_rng(11)
@@ -589,8 +593,10 @@ def test_lr_eval_kernel_matches_plain(cuda, scale, window):
                                                       t1=11))
     xw, yw = (x[:, 4:6], y[:, 4:6]) if window == "G2" else (x, y)
     nll_on = window == "G2"
-    got = eval_cells(flat, xw, yw, hidden=0, with_nll=nll_on)
-    again = eval_cells(flat, xw, yw, hidden=0, with_nll=nll_on)
+    got = eval_cells(flat, xw, yw, hidden=0, with_nll=nll_on,
+                     route="general")
+    again = eval_cells(flat, xw, yw, hidden=0, with_nll=nll_on,
+                       route="general")
     want = eval_cells_ref(flat, xw, yw, hidden=0, with_nll=nll_on)
     assert torch.equal(got[0], again[0])
     ties = _lr_near_ties(flat, xw, None, K)
@@ -603,10 +609,10 @@ def test_lr_eval_kernel_matches_plain(cuda, scale, window):
 @pytest.mark.gpu
 @pytest.mark.parametrize("window", ["G2", "T1"])
 def test_fnn_eval_kernel_matches_plain_at_mnist_width(cuda, window):
-    """K3's general kernel on MNIST's fnn (F 784, H 10, K 10; its shared
-    memory above 48 KB at 512 threads): counts equal but for rows whose
-    top two plain logits lie within 1e-5, NLL to 1e-4 relative, two calls
-    bitwise."""
+    """K3's general kernel, forced, on MNIST's fnn (F 784, H 10, K 10;
+    its shared memory above 48 KB at 512 threads): counts equal but for
+    rows whose top two plain logits lie within 1e-5, NLL to 1e-4
+    relative, two calls bitwise."""
     rng = np.random.default_rng(13)
     mod = FeedForwardNN((F,), K, H)
     flat = torch.from_numpy((rng.standard_normal((4, mod.num_params))
@@ -615,8 +621,10 @@ def test_fnn_eval_kernel_matches_plain_at_mnist_width(cuda, window):
                                                       t1=11))
     xw, yw = (x[:, 4:6], y[:, 4:6]) if window == "G2" else (x, y)
     nll_on = window == "G2"
-    got = eval_cells(flat, xw, yw, hidden=H, with_nll=nll_on)
-    again = eval_cells(flat, xw, yw, hidden=H, with_nll=nll_on)
+    got = eval_cells(flat, xw, yw, hidden=H, with_nll=nll_on,
+                     route="general")
+    again = eval_cells(flat, xw, yw, hidden=H, with_nll=nll_on,
+                       route="general")
     want = eval_cells_ref(flat, xw, yw, hidden=H, with_nll=nll_on)
     assert torch.equal(got[0], again[0])
     leaves = [v[:, None, None] for v in _unpack(flat, F, H, K)]

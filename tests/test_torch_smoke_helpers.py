@@ -139,15 +139,17 @@ def test_reset_and_read_counts_cover_every_training_kernel():
                                                       weighted_search_ref)
     fedavg.launches = eval_cells.launches = 3
     local_sgd.launches = local_sgd_fedavg.launches = 4
+    local_sgd.wide_launches = eval_cells.wide_launches = 7
     local_sgd_fedavg.evals = 6
     weighted_cdf.launches = weighted_search.launches = 5
     fedavg_ref.cuda_calls = eval_cells_ref.cuda_calls = 2
     weighted_cdf_ref.cuda_calls = weighted_search_ref.cuda_calls = 2
     chip_smoke._reset_counts()
     assert chip_smoke._read_counts() == {
-        "k1_launches": 0, "k1_without_epilogue": 0, "k4a_launches": 0,
-        "k4b_launches": 0, "k2_launches": 0, "k2_epilogues": 0,
-        "aggregations": 0, "k3_launches": 0, "folded_evals": 0,
+        "k1_launches": 0, "k1_without_epilogue": 0, "k1_wide_launches": 0,
+        "k4a_launches": 0, "k4b_launches": 0, "k2_launches": 0,
+        "k2_epilogues": 0, "aggregations": 0, "k3_launches": 0,
+        "k3_wide_launches": 0, "folded_evals": 0,
         "plain_calls": {"fedavg_ref": 0, "eval_cells_ref": 0,
                         "weighted_cdf_ref": 0, "weighted_search_ref": 0}}
 
@@ -310,12 +312,34 @@ def test_mnist_reference_runs_are_the_committed_ones(run):
 
 
 def test_mnist_runs_fit_the_time_budget():
-    """Two runs at T = 10 and three at T = 5: 7000 K1 launches (at ~21 ms a
-    launch on the card, ~150 s); the lr runs 4040 more."""
-    assert sum(r[3] for r in chip_smoke.MNIST_RUNS) * 200 == 7000
-    assert [r[3] for r in chip_smoke.MNIST_RUNS] == [10, 10, 5, 5, 5]
+    """All five runs at T = 10: 10000 K1 launches (on the wide kernel, well
+    under a millisecond a launch on the card); the lr runs 4080 more."""
+    assert sum(r[3] for r in chip_smoke.MNIST_RUNS) * 200 == 10000
+    assert [r[3] for r in chip_smoke.MNIST_RUNS] == [10, 10, 10, 10, 10]
     assert sum(kw.get("train_iterations", 10) * kw.get("comm_round", 200)
-               for _, kw, _, _ in chip_smoke.LR_RUNS) == 4040
+               for _, kw, _, _ in chip_smoke.LR_RUNS) == 4080
+
+
+def test_k1_cases_run_every_instantiation_of_both_kernels():
+    """``K1_CASES`` hold each of the general and the wide kernel's four
+    instantiations (the lr or the fnn, AMSGrad or SGD) to the plain
+    version, each kernels-line entry of K1 names a case, and the runs held
+    at step 0 only are lr runs."""
+    from feddrift_torch.kernels.local_sgd import _route
+    widths = {"sea": (3, 2), "sine": (2, 2), "MNIST": (784, 10)}
+    routes = set()
+    for label, dataset, _, model, hidden, optimizer, forced, _ \
+            in chip_smoke.K1_CASES:
+        F, K = widths[dataset]
+        H = 0 if model == "lr" else hidden
+        routes.add((forced or _route(F, H, K, 500, optimizer), model,
+                    optimizer))
+    assert {(r, m, o) for r in ("general", "wide") for m in ("lr", "fnn")
+            for o in ("adam", "sgd")} <= routes
+    assert set(chip_smoke.K1_ENTRIES) <= {c[0] for c in chip_smoke.K1_CASES}
+    assert {e[0] for e in chip_smoke.K1_ENTRIES.values()} \
+        <= set(chip_smoke.WIDE_ENTRIES)
+    assert set(chip_smoke.LR_STEP0_RUNS) <= {r[0] for r in chip_smoke.LR_RUNS}
 
 
 @pytest.mark.parametrize("run", chip_smoke.LR_RUNS, ids=lambda r: r[0])
