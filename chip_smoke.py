@@ -158,6 +158,30 @@ Phases, one or more lines of output each:
    and sgd on the wide kernels' lr routes, SEA's lr under sgd and adam on
    the general kernels', each against the JAX package's own run (SEA's
    adam at step 0, ``LR_STEP0_RUNS``).
+13. nan_semantics: a poisoned pool (model 0 a NaN in Dense_0/kernel,
+   model 1 an Inf in its last bias) through K1 (fused with its epilogue,
+   general, wide, the lr routes) and K3 (folded into K1, fused, general,
+   wide, lr): every output finite in exactly the plain version's cells,
+   K3's counts equal (the first NaN is the argmax) and its NLL sums equal
+   where finite; the MNIST cases on the wide kernels.
+14. train_gmm: ``softcluster gmm`` at the canonical full width, fused,
+   from the reference's init, against the JAX package's CPU run
+   (``GMM_RUN``): K1 carries every round, no plain call, Test/Acc within
+   the SEA gates; gmm's mean weight on model 0 per step is printed beside
+   the reference's.
+15. train_guard: the canonical run and CFL with the divergence guard on
+   and off (Test/Acc bitwise equal; walls and host syncs a round of
+   both); win-1 poisoned at step 1, fused and per round (every
+   divergence non-finite, each rollback bitwise the pool its step or
+   round started from, ``DivergenceError`` after 3, an incident bundle
+   that ``python -m feddrift_torch incident`` renders naming it); and
+   ``BLOWUP_RUN``, a learning rate at which the JAX package's CPU run goes
+   non-finite (the guard fires non-finite and the run aborts).
+16. train_preempt: ``python -m feddrift_torch run`` (T = 4, R = 20) in a
+   subprocess stopped by SIGTERM after its first checkpoint: exit 0 with
+   ``"preempted": true``; ``run --auto_resume`` and ``resume --out_dir``
+   each finish a copy, with every metrics row equal to an uninterrupted
+   run's.
 
 It then prints the kernels' JSON line, the card line and, last, the result
 line. Each entry of the kernels line takes its launches from the driven
@@ -409,6 +433,23 @@ LR_RUNS = (
 # than SGD's: the port's own CPU run leaves STEP_ACC_TOL at step 3
 # (scripts/lr_reference_runs.py --port)
 LR_STEP0_RUNS = ("sea_lr_adam",)
+# softcluster gmm at the canonical full width (SEA, change points A, 10
+# clients, 10 steps x 200 rounds, M = 4), fused: the JAX package's own CPU
+# run of it (scripts/gmm_reference_runs.py), its final Test/Acc per step and
+# the mean over clients of gmm's weight on model 0 per step
+GMM_RUN = {"kw": dict(concept_drift_algo="softcluster",
+                      concept_drift_algo_arg="gmm"),
+           "test_acc": (0.859, 0.8516, 0.8694, 0.8588, 0.858, 0.88, 0.8686,
+                        0.8798, 0.875, 0.8864),
+           "model0_weight": (1.0, 0.3984745740890503, 0.700034499168396,
+                             0.5, 0.4000000059604645, 0.6051939725875854,
+                             0.6000401377677917, 0.6000000238418579,
+                             0.4999971389770508, 0.6000000238418579)}
+
+# a real blow-up: the canonical configuration, shortened, at a learning
+# rate whose JAX CPU run goes non-finite (scripts/blowup_lr_search.py)
+BLOWUP_RUN = dict(train_iterations=4, comm_round=20, lr=1e20)
+
 NUM_REQUESTS = 512
 CONCURRENCY = 8
 # K1's device time at the canonical shape as recorded for its first design
@@ -2828,6 +2869,390 @@ def phase_train_general(k1_entry: dict, agg_entry: dict) -> None:
     agg_entry["launches"] = got["k2_launches"]
 
 
+# ---------------------------------------------------------------------------
+# NaN semantics: K1 and K3 on a poisoned pool (model 0 a NaN in
+# Dense_0/kernel, model 1 an Inf in Dense_1/bias, the lr's in Dense_0/bias)
+# against their plain versions: (label, kernel, dataset, model, optimizer,
+# forced route); "k1f" is K1 with its K2 epilogue, "fold" the eval folded
+# into that launch
+NAN_CASES = (("k1_fused_epilogue", "k1f", "sea", "fnn", "adam", None),
+             ("k1_general", "k1", "sea", "fnn", "adam", "general"),
+             ("k1_wide", "k1", "MNIST", "fnn", "adam", None),
+             ("k1_general_lr_sgd", "k1", "sea", "lr", "sgd", None),
+             ("k1_general_lr", "k1", "sea", "lr", "adam", None),
+             ("k1_wide_lr", "k1", "MNIST", "lr", "adam", None),
+             ("k1_wide_lr_sgd", "k1", "MNIST", "lr", "sgd", None),
+             ("k3_folded", "fold", "sea", "fnn", "adam", None),
+             ("k3_fused", "k3", "sea", "fnn", "adam", None),
+             ("k3_general", "k3", "sea", "fnn", "adam", "general"),
+             ("k3_wide", "k3", "MNIST", "fnn", "adam", None),
+             ("k3_general_lr", "k3", "sea", "lr", "adam", None),
+             ("k3_wide_lr", "k3", "MNIST", "lr", "adam", None))
+
+
+def _poison(params, d: dict):
+    """A copy of the packed pool with a NaN in model 0's Dense_0/kernel
+    [1, 2] and an Inf in model 1's last bias (Dense_1/bias[0], the lr's
+    Dense_0/bias[0])."""
+    p = params.clone()
+    F, H, K = d["F"], d["H"], d["K"]
+    width = H or K
+    p[0, width + min(2, width - 1)] = float("nan")
+    p[1, F * H + H + H * K if H else F * K] = float("inf")
+    return p
+
+
+def _same_finite(got, want) -> tuple[bool, int]:
+    """Whether two outputs are finite in the same cells, and the count of
+    non-finite cells of the plain one."""
+    import torch
+    if not got.is_floating_point():
+        return bool(torch.equal(got, want)), 0
+    a, b = torch.isfinite(got), torch.isfinite(want)
+    return bool(torch.equal(a, b)), int((~b).sum())
+
+
+def phase_nan_semantics() -> None:
+    """Each of ``NAN_CASES`` on a poisoned pool: every output of the kernel
+    finite in exactly the cells where its plain version's is; K3's counts
+    equal (on the poisoned models exactly: the first NaN is the argmax)
+    and its NLL sums equal within EVAL_NLL_RTOL where finite."""
+    import torch
+    from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
+    from feddrift_torch.kernels.local_sgd import (local_sgd,
+                                                  local_sgd_fedavg,
+                                                  local_sgd_fedavg_ref,
+                                                  local_sgd_ref)
+    failed = []
+    for seed, (label, kind, dataset, model, optimizer, route) in \
+            enumerate(NAN_CASES):
+        args, kw, d, _ = _train_case(dataset, 30 + seed, 10, model,
+                                     optimizer)
+        x, y, params, opt, t_idx, slot, total_w = args
+        bad = _poison(params, d)
+        fresh = lambda: {k: v.clone() for k, v in opt.items()}
+        pats, eval_ok = {}, True
+        wide0 = local_sgd.wide_launches + eval_cells.wide_launches
+        if kind in ("k1", "k1f"):
+            if kind == "k1f":
+                got = local_sgd_fedavg(x, y, bad, fresh(), t_idx, slot,
+                                       total_w, **kw)
+                want = local_sgd_fedavg_ref(x, y, bad, fresh(), t_idx, slot,
+                                            total_w, **kw)
+                names = ("client", "opt", "n", "loss", "params", "stats")
+            else:
+                got = local_sgd(x, y, bad, fresh(), t_idx, slot, total_w,
+                                route=route, optimizer=optimizer, **kw)
+                want = local_sgd_ref(x, y, bad, fresh(), t_idx, slot,
+                                     total_w, optimizer=optimizer, **kw)
+                names = ("client", "opt", "n", "loss")
+            for name, g, w in zip(names, got, want):
+                for sub, gg in (g.items() if name == "opt" else
+                                ((name, g),)):
+                    ww = w[sub] if name == "opt" else w
+                    pats[sub] = _same_finite(gg, ww)
+        else:
+            xw, yw = x[:, 4:6].contiguous(), y[:, 4:6].contiguous()
+            if kind == "fold":
+                M, C = bad.shape[0], x.shape[0]
+                corr = torch.empty((M, C, 2), dtype=torch.int32,
+                                   device="cuda")
+                nll = torch.empty((M, C, 2), device="cuda")
+                local_sgd_fedavg(x, y, bad, fresh(), t_idx, slot, total_w,
+                                 eval_window=(xw.flatten(3), yw),
+                                 eval_out=(corr, nll), **kw)
+            else:
+                corr, nll = eval_cells(bad, xw, yw, hidden=d["H"],
+                                       route=route)
+            want_c, want_n = eval_cells_ref(bad, xw, yw, hidden=d["H"])
+            ties, _ = _near_ties(bad, xw, None, d["F"], d["H"], d["K"])
+            ties[:2] = 0                      # the poisoned models: exact
+            pats["correct"] = (bool(((corr - want_c).abs() <= ties).all()),
+                               0)
+            pats["nll"] = _same_finite(nll, want_n)
+            both = torch.isfinite(nll) & torch.isfinite(want_n)
+            eval_ok = bool(((nll - want_n).abs()[both]
+                            <= EVAL_NLL_RTOL * want_n.abs()[both]).all())
+        torch.cuda.synchronize()
+        # MNIST's width must have taken the wide kernels
+        wide = local_sgd.wide_launches + eval_cells.wide_launches - wide0
+        ok = all(v[0] for v in pats.values()) and eval_ok \
+            and wide == (dataset == "MNIST")
+        _say("nan_semantics", case=label, dataset=dataset, model=model,
+             optimizer=optimizer, route=route or "by shape",
+             wide_launches=wide,
+             patterns_equal=ok, finite_nll_equal=eval_ok,
+             plain_nonfinite_cells={k: v[1] for k, v in pats.items()},
+             mismatched=[k for k, v in pats.items() if not v[0]])
+        if not ok:
+            failed.append(label)
+    if failed:
+        raise AssertionError(f"nan_semantics: the kernels' finiteness "
+                             f"differs from the plain versions' in "
+                             f"{failed}")
+
+
+def _weights0(exp) -> list[float]:
+    """The mean over clients of each step's weight on model 0."""
+    w = exp.algo.weights
+    return [float(w[t, 0].mean()) for t in range(exp.cfg.train_iterations)]
+
+
+def phase_train_gmm() -> None:
+    """softcluster gmm at the canonical full width on the card, fused, from
+    the reference's initial params (``CFL_REFERENCE_INIT``, the same SEA fnn
+    pool), held to the JAX package's own CPU run of it (``GMM_RUN``): K1
+    carries every
+    round with K2 as its epilogue, every step folds its evals, no plain call
+    runs on the card, and Test/Acc per step within STEP_ACC_TOL of the
+    reference's (the mean within MEAN_ACC_TOL)."""
+    from feddrift_torch.config import ExperimentConfig
+    cfg = ExperimentConfig(**GMM_RUN["kw"])
+    got = _drive(cfg, init=CFL_REFERENCE_INIT)
+    exp, accs = got.pop("exp"), got["accs"]
+    prof = _profile_step(exp)
+    ref = GMM_RUN["test_acc"]
+    rounds = cfg.train_iterations * cfg.comm_round
+    diffs = [a - b for a, b in zip(accs, ref)]
+    mean, ref_mean = sum(accs) / len(accs), sum(ref) / len(ref)
+    _say("train_gmm", algo=cfg.concept_drift_algo,
+         arg=cfg.concept_drift_algo_arg, paths=sorted(set(got["paths"])),
+         wall_s=got["wall_s"], rounds_per_s=got["rounds_per_s"],
+         k1_launches=got["k1_launches"], k2_epilogues=got["k2_epilogues"],
+         folded_evals=got["folded_evals"], k3_launches=got["k3_launches"],
+         plain_calls=got["plain_calls"],
+         host_syncs_per_round=got["host_syncs_per_round"],
+         test_acc=accs, reference_test_acc=list(ref),
+         test_acc_mean=mean, reference_mean=ref_mean,
+         max_step_diff=max(map(abs, diffs)),
+         model0_weight=_weights0(exp),
+         reference_model0_weight=list(GMM_RUN["model0_weight"]), **prof)
+    if got["k1_launches"] != rounds or set(got["paths"]) != {"fused"}:
+        raise AssertionError(f"gmm: K1 launched {got['k1_launches']} times "
+                             f"for {rounds} rounds on {set(got['paths'])}")
+    _check_k2_k3("gmm", got, rounds)
+    _check_evals("gmm", got, cfg, exp, cfg.train_iterations, folds=True)
+    if len(accs) != len(ref) or max(map(abs, diffs)) > STEP_ACC_TOL \
+            or abs(mean - ref_mean) > MEAN_ACC_TOL:
+        raise AssertionError(f"gmm: Test/Acc per step {accs} against the "
+                             f"reference's {list(ref)}")
+
+
+def _poisoned_run(cfg, out_dir: str) -> dict:
+    """A run of ``cfg`` on the card whose pool gets a NaN in every model's
+    Dense_0/kernel and an Inf in its Dense_1/bias at step 1's start: the
+    guard's events, the params each diverged step (or round) started from
+    beside the pool after its rollback, and the error it ended in."""
+    import torch
+    from feddrift_torch.resilience.divergence import DivergenceError
+    from feddrift_torch.simulation.runner import Experiment
+    exp = Experiment(cfg, out_dir=out_dir)
+    orig, inputs = exp.run_iteration, []
+
+    def hooked(t):
+        if t == 1:
+            p = {k: v.clone() for k, v in exp.pool.params.items()}
+            p["Dense_0/kernel"][:, 1, 2] = float("nan")
+            p["Dense_1/bias"][:, 0] = float("inf")
+            exp.pool.params = p
+        return orig(t)
+    exp.run_iteration = hooked
+    name = "train_iteration_eval" if cfg.chunk_rounds else "train_round"
+    call = getattr(exp.step, name)
+
+    def record(params, *a, **k):
+        inputs.append({k2: v.clone() for k2, v in params.items()})
+        return call(params, *a, **k)
+    setattr(exp.step, name, record)
+    err = None
+    try:
+        exp.run()
+    except DivergenceError as e:
+        err = e
+    bits = lambda t: t.contiguous().view(torch.int32)
+    restored = bool(inputs) and all(
+        torch.equal(bits(exp.pool.params[k]), bits(v))
+        for k, v in inputs[-1].items())
+    return {"exp": exp, "error": err, "restored": restored,
+            "events": exp.events.events("divergence_detected")}
+
+
+def phase_train_guard() -> None:
+    """The divergence guard on the card. Healthy: the canonical run (fused)
+    and CFL (per round), each with the guard on and off: Test/Acc bitwise
+    equal; walls and host syncs a round of both. Poisoned at step 1 (win-1,
+    whose one model every client trains), fused and per round: every
+    divergence non-finite, the pool after each
+    rollback bitwise the one its step (round) started from,
+    DivergenceError after divergence_max_rollbacks, an incident bundle that
+    ``python -m feddrift_torch incident`` renders naming it. A real
+    blow-up (``BLOWUP_RUN``'s lr, where the JAX package's CPU run goes
+    non-finite): the guard fires non-finite and the run ends in
+    DivergenceError, as the reference's does."""
+    import tempfile
+
+    from feddrift_torch.config import ExperimentConfig
+    for name, kw in (("canonical", {}),
+                     ("cfl", dict(concept_drift_algo_arg="cfl_0.1_win-1"))):
+        runs = {}
+        for guard in (True, False):
+            cfg = ExperimentConfig(divergence_guard=guard, **kw)
+            got = _drive(cfg)
+            runs[guard] = got
+        on, off = runs[True], runs[False]
+        same = on["accs"] == off["accs"]
+        _say("train_guard", run=name, paths=sorted(set(on["paths"])),
+             guard_on_wall_s=on["wall_s"], guard_off_wall_s=off["wall_s"],
+             guard_on_host_syncs_per_round=on["host_syncs_per_round"],
+             guard_off_host_syncs_per_round=off["host_syncs_per_round"],
+             test_acc_bitwise_equal=same,
+             divergences=len(on["exp"].events.events(
+                 "divergence_detected")))
+        if not same or on["exp"].events.events("divergence_detected"):
+            raise AssertionError(f"{name}: the guard changed a healthy run "
+                                 f"({on['accs']} against {off['accs']})")
+    for chunk in (True, False):
+        cfg = ExperimentConfig(concept_drift_algo="win-1",
+                               chunk_rounds=chunk, train_iterations=4)
+        with tempfile.TemporaryDirectory() as out_dir:
+            got = _poisoned_run(cfg, out_dir)
+            bundles = sorted(os.listdir(os.path.join(out_dir, "incidents"))) \
+                if os.path.isdir(os.path.join(out_dir, "incidents")) else []
+            shown = subprocess.run(
+                [sys.executable, "-m", "feddrift_torch", "incident",
+                 out_dir], capture_output=True, text=True, timeout=120,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        reasons = [e["reason"] for e in got["events"]]
+        named = shown.returncode == 0 and "DivergenceError" in shown.stdout
+        _say("train_guard", run="poisoned", path="fused" if chunk
+             else "per_round", divergences=len(reasons),
+             reasons=sorted(set(reasons)),
+             restored_bitwise=got["restored"],
+             divergence_error=repr(got["error"]), bundles=bundles,
+             incident_names_divergence=named)
+        if reasons != ["nonfinite"] * cfg.divergence_max_rollbacks \
+                or not got["restored"] or got["error"] is None \
+                or not bundles or not named:
+            raise AssertionError(f"poisoned run (chunk {chunk}): {reasons}, "
+                                 f"restored {got['restored']}, "
+                                 f"{got['error']!r}, {bundles}, {named}")
+    from feddrift_torch.resilience.divergence import DivergenceError
+    from feddrift_torch.simulation.runner import Experiment
+    exp = Experiment(ExperimentConfig(**BLOWUP_RUN))
+    err = None
+    try:
+        exp.run()
+    except DivergenceError as e:
+        err = e
+    evs = exp.events.events("divergence_detected")
+    _say("train_guard", run="blowup", lr=BLOWUP_RUN["lr"],
+         divergences=len(evs), reasons=sorted({e["reason"] for e in evs}),
+         first_iteration=evs[0].get("iteration") if evs else None,
+         divergence_error=repr(err))
+    if not evs or {e["reason"] for e in evs} != {"nonfinite"} or err is None:
+        raise AssertionError(f"blow-up at lr {BLOWUP_RUN['lr']}: the guard "
+                             f"fired {len(evs)} times, {err!r}")
+
+
+PREEMPT_ARGS = ("--train_iterations", "4", "--comm_round", "20",
+                "--flat_out_dir")
+
+
+def _cli(*args, out_dir: str, wait: bool = True):
+    """``python -m feddrift_torch ARGS --out_dir OUT_DIR`` from the repo
+    root: its (exit code, stdout, stderr), or the process itself."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "feddrift_torch", "--log_level", "warning",
+         *args, "--out_dir", out_dir],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    if not wait:
+        return proc
+    out, err = proc.communicate(timeout=300)
+    return proc.returncode, out, err
+
+
+def _preempted_run(out_dir: str, tries: int = 3) -> dict:
+    """``python -m feddrift_torch run`` (canonical, T = 4, R = 20) in a
+    subprocess on the card, SIGTERM right after its first checkpoint_save:
+    its exit code and final JSON line. The run is retried (up to
+    ``tries``) if it finished before the signal arrived."""
+    import shutil
+    import signal
+    events = os.path.join(out_dir, "events.jsonl")
+    for attempt in range(1, tries + 1):
+        shutil.rmtree(out_dir, ignore_errors=True)
+        proc = _cli("run", *PREEMPT_ARGS, out_dir=out_dir, wait=False)
+        deadline = time.time() + 240
+        while time.time() < deadline and proc.poll() is None:
+            if os.path.isfile(events):
+                with open(events) as f:
+                    if '"checkpoint_save"' in f.read():
+                        proc.send_signal(signal.SIGTERM)
+                        break
+            time.sleep(0.001)
+        out, err = proc.communicate(timeout=300)
+        last = json.loads(out.strip().splitlines()[-1]) if out.strip() \
+            else {}
+        if last.get("preempted") or proc.returncode != 0:
+            return {"rc": proc.returncode, "last": last, "attempts": attempt,
+                    "stderr": err[-2000:]}
+    return {"rc": proc.returncode, "last": last, "attempts": tries,
+            "stderr": err[-2000:]}
+
+
+def phase_train_preempt() -> None:
+    """Preemption through the CLI on the card: a run stopped by SIGTERM
+    after its first checkpoint exits 0 with ``"preempted": true``; ``run
+    --auto_resume`` and ``resume --out_dir`` each finish a copy of it, and
+    each one's metrics.jsonl is the uninterrupted run's row for row, every
+    value bitwise (the rows' ``_ts`` wall-clock stamps aside)."""
+    import shutil
+    import tempfile
+
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.simulation.runner import Experiment
+    with tempfile.TemporaryDirectory() as root:
+        full_dir = os.path.join(root, "full")
+        cfg = ExperimentConfig(train_iterations=4, comm_round=20)
+        Experiment(cfg, out_dir=full_dir).run()
+
+        def rows(d):
+            with open(os.path.join(d, "metrics.jsonl")) as f:
+                return [{k: v for k, v in json.loads(line).items()
+                         if k != "_ts"} for line in f]
+        full = rows(full_dir)
+        part = os.path.join(root, "part")
+        t0 = time.perf_counter()
+        stop = _preempted_run(part)
+        stop_s = time.perf_counter() - t0
+        copy = os.path.join(root, "copy")
+        shutil.copytree(part, copy)
+        with open(os.path.join(part, "ckpt", "MANIFEST.json")) as f:
+            done = json.load(f)["iteration"]
+        rc_a, out_a, err_a = _cli("run", *PREEMPT_ARGS, "--auto_resume",
+                                  out_dir=part)
+        rc_r, out_r, err_r = _cli("resume", out_dir=copy)
+        same = {}
+        for name, d in (("auto_resume", part), ("resume", copy)):
+            same[name] = rows(d) == full
+        last_a = json.loads(out_a.strip().splitlines()[-1]) if rc_a == 0 \
+            else {}
+        _say("train_preempt", preempted=stop["last"].get("preempted"),
+             rc=stop["rc"], attempts=stop["attempts"],
+             checkpointed_through_iteration=done, run_wall_s=stop_s,
+             auto_resume_rc=rc_a, resume_rc=rc_r,
+             auto_resume_preempted=last_a.get("preempted"),
+             metrics_bitwise_equal=same)
+        if stop["rc"] != 0 or stop["last"].get("preempted") is not True:
+            raise AssertionError(f"preempt: rc {stop['rc']}, "
+                                 f"{stop['last']}: {stop['stderr']}")
+        if rc_a or rc_r or not all(same.values()):
+            raise AssertionError(f"resume: rc {rc_a} / {rc_r}, metrics "
+                                 f"equal {same}: {err_a[-1500:]} "
+                                 f"{err_r[-1500:]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2862,6 +3287,10 @@ def main() -> int:
         phase_train_general(train_entry, agg_entry)
         phase_train_mnist(wide)
         phase_train_lr(wide)
+        phase_nan_semantics()
+        phase_train_gmm()
+        phase_train_guard()
+        phase_train_preempt()
     except Exception:   # noqa: BLE001 — report the phase that failed
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

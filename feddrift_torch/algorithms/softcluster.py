@@ -15,13 +15,15 @@ events. Kinds, from ``concept_drift_algo_arg``:
   'mmacc_*'          FedDrift-Eager: drift detection, one spawn a step
   'hard' / 'hard-r'  IFCA; '-r' re-clusters after every round
   'softmax_{alpha}'  softmax weights over the accuracies
+  'gmm'              a two-component Gaussian mixture over the clients'
+                     accuracy rows (``algorithms/gmm.py``: scikit-learn's
+                     GaussianMixture, computed without it)
   'geni'             the change-point oracle (the dataset's concepts)
   'cfl_{gamma}_{rt}' clustered FL: bipartition from client updates
 
 ``softclusterwin-1`` zeroes the weights of past steps; ``softclusterreset``
 deletes non-competitive models. Every client counts as live (the port has
-no failure detector, so no accuracy is stale). ``gmm`` is refused: it fits
-scikit-learn's GaussianMixture, which the port does not depend on.
+no failure detector, so no accuracy is stale).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from scipy.special import softmax as sp_softmax
 
 from feddrift_torch import obs
 from feddrift_torch.algorithms.base import DriftAlgorithm, register_algorithm
+from feddrift_torch.algorithms.gmm import GaussianMixture
 
 
 @register_algorithm("softcluster", "softclusterwin-1", "softclusterreset")
@@ -45,12 +48,6 @@ class SoftCluster(DriftAlgorithm):
         p = cfg.algo_params()
         self.kind = p["kind"]
         self.p = p
-        if self.kind == "gmm":
-            raise NotImplementedError(
-                "softcluster 'gmm' fits sklearn.mixture.GaussianMixture; "
-                "scikit-learn is not installed beside the port and the port "
-                "does not depend on it (a hand-written two-component EM is "
-                "queued in ROADMAP §1 'softcluster gmm')")
         # dense [T1, M, C] replaces the reference's {t -> M x C} dict
         self.weights = np.zeros((self.T1, self.M, self.C), dtype=np.float32)
         self.mmacc_acc = np.zeros(self.C)           # per-client last best acc
@@ -177,6 +174,8 @@ class SoftCluster(DriftAlgorithm):
         elif self.kind == "softmax":
             alpha = self.p.get("softmax_alpha", 0)
             self.weights[t] = sp_softmax(acc * (2**alpha), axis=0)
+        elif self.kind == "gmm":
+            self._cluster_gmm(acc, t)
         elif self.kind == "geni":
             if round_idx == 0:
                 self.weights[t] = 0.0
@@ -184,6 +183,19 @@ class SoftCluster(DriftAlgorithm):
                 self.weights[t, best, np.arange(self.C)] = 1.0
         else:
             raise NameError(self.kind)
+
+    def _cluster_gmm(self, acc: np.ndarray, t: int) -> None:
+        """Models 0 and 1 share each client by a two-component mixture over
+        the clients' accuracy rows ``acc.T [C, M]``; the component whose
+        mean puts model 0 above model 1 goes to model 0 (the reference's
+        swap on ``means_[0][0] > means_[0][1]``, as written)."""
+        self.weights[t] = 0.0
+        gm = GaussianMixture().fit(acc.T)
+        probs = gm.predict_proba(acc.T).T
+        if gm.means_[0][0] > gm.means_[0][1]:
+            self.weights[t, 0], self.weights[t, 1] = probs[0], probs[1]
+        else:
+            self.weights[t, 0], self.weights[t, 1] = probs[1], probs[0]
 
     # ------------------------------------------------------------------
     def _cluster_mmacc2(self, t: int) -> None:

@@ -1,6 +1,7 @@
-"""Command-line entry point of the port: ``python -m feddrift_torch run``.
+"""Command-line entry point of the port: ``python -m feddrift_torch``.
 
-Counterpart of ``feddrift_tpu/cli.py``'s ``run`` command. Its flags are the
+Counterpart of ``feddrift_tpu/cli.py``'s ``run``, ``resume``, ``list`` and
+``incident`` commands. ``run``'s flags are the
 fields of the port's ``ExperimentConfig`` (the reference's flag names), so
 a reference launch command runs here unchanged as far as the port goes:
 
@@ -10,9 +11,15 @@ a reference launch command runs here unchanged as far as the port goes:
 
 Metrics and checkpoints go to ``<out_dir>/<dataset>-<model>-<algo>-<arg>-s
 <seed>/`` (``--flat_out_dir``: ``<out_dir>`` itself); ``--auto_resume``
-continues from a checkpoint found there. It runs on the card;
+continues from a checkpoint found there. It prints one JSON line at the
+end, with ``"preempted": true`` when a SIGTERM/SIGINT stopped it at an
+iteration boundary after checkpointing. ``resume --out_dir DIR`` continues
+the run whose checkpoint is in ``DIR/ckpt`` with the config recorded there;
+``list`` prints the port's algorithms, datasets and models; ``incident
+TARGET`` renders an incident bundle (or the newest under
+``TARGET/incidents/``). ``run`` and ``resume`` run on the card;
 ``--platform cpu`` runs the plain PyTorch path on the CPU instead. Without
-a card and without ``--platform cpu`` it exits non-zero.
+a card and without ``--platform cpu`` they exit non-zero.
 """
 
 from __future__ import annotations
@@ -64,35 +71,91 @@ def run_dir(cfg, flat: bool = False) -> str:
                         f"-{cfg.concept_drift_algo_arg}-s{cfg.seed}")
 
 
+def _arm_faulthandler(out_dir: str):
+    """All-thread stacks of a hard hang, a native crash or ``kill -QUIT``
+    to ``<out_dir>/faulthandler.log``; the file stays open for the
+    process's life (faulthandler holds its descriptor)."""
+    import faulthandler
+    os.makedirs(out_dir, exist_ok=True)
+    fh = open(os.path.join(out_dir, "faulthandler.log"), "a")
+    try:
+        faulthandler.enable(file=fh, all_threads=True)
+    except (ValueError, OSError, AttributeError):
+        pass
+    return fh
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="feddrift_torch")
     parser.add_argument("--log_level", type=str, default="info")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_run_args(sub.add_parser("run", help="run a drift-FL experiment"))
+    res_p = sub.add_parser("resume", help="resume from a checkpoint")
+    res_p.add_argument("--out_dir", type=str, required=True,
+                       help="the run directory holding ckpt/")
+    res_p.add_argument("--platform", choices=("cuda", "cpu"),
+                       default="cuda",
+                       help="the device to run on (default: the CUDA card)")
+    sub.add_parser("list", help="list algorithms / datasets / models")
+    inc_p = sub.add_parser(
+        "incident", help="render the triage story of an incident bundle "
+                         "(or of the newest under <run_dir>/incidents/)")
+    inc_p.add_argument("target", help="incident bundle directory, or a run "
+                                      "dir holding <run_dir>/incidents/")
+    inc_p.add_argument("--json", action="store_true")
     args = parser.parse_args(argv)
     logging.basicConfig(level=getattr(logging, args.log_level.upper(),
                                       logging.INFO),
                         format="%(asctime)s %(name)s %(levelname)s "
                                "%(message)s")
 
+    if args.cmd == "incident":
+        # host-side only: reading and rendering a bundle needs no device
+        from feddrift_torch.obs.incident import incident_main
+        return incident_main([args.target]
+                             + (["--json"] if args.json else []))
+    if args.cmd == "list":
+        from feddrift_torch.algorithms import available_algorithms
+        from feddrift_torch.data.registry import available_datasets
+        from feddrift_torch.models import available_models
+        print(json.dumps({"algorithms": available_algorithms(),
+                          "datasets": available_datasets(),
+                          "models": available_models()}, indent=2))
+        return 0
+
     import torch
     if args.platform == "cuda" and not torch.cuda.is_available():
         print("feddrift_torch: no CUDA device is visible; pass --platform "
               "cpu to run on the CPU", file=sys.stderr)
         return 2
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.obs import incident
     from feddrift_torch.simulation.runner import Experiment
-    cfg = _cfg_from_args(args)
-    out_dir = run_dir(cfg, args.flat_out_dir)
-    ckpt = os.path.join(out_dir, "ckpt")
-    if args.auto_resume and (os.path.isdir(ckpt)
-                             or os.path.isdir(ckpt + ".old")):
+    if args.cmd == "resume":
+        out_dir = args.out_dir
+        with open(os.path.join(out_dir, "ckpt", "MANIFEST.json")) as f:
+            cfg = ExperimentConfig.from_json(json.dumps(json.load(f)["config"]))
+        fh = _arm_faulthandler(out_dir)
         exp = Experiment.resume(cfg, out_dir, device=args.platform)
     else:
-        exp = Experiment(cfg, out_dir=out_dir, device=args.platform)
+        cfg = _cfg_from_args(args)
+        out_dir = run_dir(cfg, args.flat_out_dir)
+        ckpt = os.path.join(out_dir, "ckpt")
+        fh = _arm_faulthandler(out_dir)
+        if args.auto_resume and (os.path.isdir(ckpt)
+                                 or os.path.isdir(ckpt + ".old")):
+            exp = Experiment.resume(cfg, out_dir, device=args.platform)
+        else:
+            exp = Experiment(cfg, out_dir=out_dir, device=args.platform)
+    if exp.incidents is not None:
+        # kill -QUIT dumps every thread's stack to faulthandler.log and
+        # captures a bundle; an uncaught exception in any thread too
+        incident.install_process_hooks(exp.incidents, faulthandler_file=fh)
     exp.run()
     print(json.dumps({"Test/Acc": exp.logger.last("Test/Acc"),
                       "Train/Acc": exp.logger.last("Train/Acc"),
-                      "rounds": exp.global_round, "out_dir": out_dir}))
+                      "rounds": exp.global_round, "out_dir": out_dir,
+                      "preempted": exp.preempted}))
     return 0
 
 

@@ -67,11 +67,59 @@ class ExperimentConfig:
     out_dir: str = "./runs"
     checkpoint_every_iteration: bool = True
 
+    # --- resilience (resilience/preempt.py, resilience/divergence.py)
+    # SIGTERM/SIGINT -> checkpoint at the next iteration boundary + clean
+    # exit. Main-thread only; harmless elsewhere.
+    preempt_signals: bool = True
+    # Numeric divergence guard: NaN/Inf or loss-spike detection on the
+    # fetched round losses, rollback to pre-round params, abort after
+    # divergence_max_rollbacks CONSECUTIVE rollbacks. The guard never
+    # alters a healthy trajectory.
+    divergence_guard: bool = True
+    divergence_spike_factor: float = 10.0  # x window-peak loss that counts as a spike
+    divergence_max_rollbacks: int = 3      # consecutive rollbacks before abort
+    divergence_warmup_rounds: int = 5      # healthy rounds before spike arms
+
+    # --- run-health alerts (obs/alerts.py): rules over the event stream
+    # -> alert_raised events + <run_dir>/alerts.jsonl
+    alerts: bool = True
+    alert_window: int = 3           # churn window (iterations)
+    alert_churn_threshold: int = 4  # structural cluster events per window
+    # Size cap (MiB) on events.jsonl / alerts.jsonl before rotation to
+    # <file>.1 with a loud obs_rotated event; 0 = unbounded (default).
+    obs_max_file_mb: float = 0.0
+
+    # --- incident plane (obs/blackbox.py, obs/incident.py): flight
+    # recorder over recent events + incident bundles under
+    # <run_dir>/incidents/ on crit alerts, preemption, unhandled exceptions
+    # (divergence aborts included) and SIGQUIT. Triage:
+    # python -m feddrift_torch incident <run_dir>
+    incident_capture: bool = True
+    incident_ring: int = 512            # flight-recorder capacity (records)
+    incident_debounce_s: float = 30.0   # min seconds between bundles
+    incident_max_bundles: int = 8       # oldest bundles pruned past this
+
     def __post_init__(self) -> None:
         if self.client_num_per_round > self.client_num_in_total:
             raise ValueError("client_num_per_round > client_num_in_total")
         if self.time_stretch < 1:
             raise ValueError("time_stretch must be >= 1")
+        if self.divergence_spike_factor <= 1.0:
+            raise ValueError("divergence_spike_factor must be > 1")
+        if self.divergence_max_rollbacks < 1:
+            raise ValueError("divergence_max_rollbacks must be >= 1")
+        if self.alert_window < 1:
+            raise ValueError("alert_window must be >= 1")
+        if self.alert_churn_threshold < 1:
+            raise ValueError("alert_churn_threshold must be >= 1")
+        if self.obs_max_file_mb < 0:
+            raise ValueError("obs_max_file_mb must be >= 0")
+        if self.incident_ring < 8:
+            raise ValueError("incident_ring must be >= 8 records")
+        if self.incident_debounce_s < 0:
+            raise ValueError("incident_debounce_s must be >= 0")
+        if self.incident_max_bundles < 1:
+            raise ValueError("incident_max_bundles must be >= 1")
         for name, off, item in (
                 ("population_size", 0,
                  "In-round robustness, population and streaming"),
@@ -165,3 +213,11 @@ class ExperimentConfig:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ExperimentConfig":
+        """The config ``to_json`` wrote (keys it does not know dropped, as
+        the reference's ``from_json`` drops them)."""
+        d = json.loads(s)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})

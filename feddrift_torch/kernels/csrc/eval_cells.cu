@@ -201,7 +201,7 @@ eval_general_kernel(const Args a) {
       float s = 0.f;
       for (int f = 0; f < F; ++f)
         s = fmaf(__fmul_rn(xi[f], sf[f]), W0[f * H + j], s);
-      const float h = fmaxf(__fadd_rn(s, b0[j]), 0.f);
+      const float h = fnn_eval::relu(__fadd_rn(s, b0[j]));
       for (int k = 0; k < K; ++k) z[k * nt] = fmaf(h, W1[j * K + k], z[k * nt]);
     }
     for (int k = 0; k < K; ++k) z[k * nt] = __fadd_rn(z[k * nt], b1[k]);
@@ -416,7 +416,7 @@ eval_wide_kernel(const Args a, int M) {
                 [&](int k) {
                   float z = 0.f;
                   for (int jj = 0; jj < H; ++jj)
-                    z = fmaf(fmaxf(__fadd_rn(z1[jj], b0[jj]), 0.f),
+                    z = fmaf(fnn_eval::relu(__fadd_rn(z1[jj], b0[jj])),
                              W1[jj * K + k], z);
                   return __fadd_rn(z, b1[k]);
                 },

@@ -12,6 +12,11 @@
 // log(sum_k exp(z_k - max z)) - (z_y - max z), log_softmax's arithmetic.
 // Row i goes to thread i % blockDim.x; the block's count and NLL sum fold by
 // a warp-shuffle tree, then the warp totals in warp order.
+//
+// NaN goes where the reference sends it: relu(NaN) and max(NaN, v) are NaN
+// (jax.nn.relu, jnp.maximum, torch.relu, torch.maximum), and the argmax
+// picks the first NaN (jnp.argmax, torch.argmax). On finite values the
+// helpers below give what fmaxf and a strict `>` gave, bit for bit.
 
 #pragma once
 
@@ -21,6 +26,21 @@ namespace fnn_eval {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWarps = 512 / 32;  // the largest block either kernel uses
+
+// relu that keeps NaN (fmaxf(NaN, 0) would give 0)
+__device__ __forceinline__ float relu(float v) {
+  return v != v ? v : fmaxf(v, 0.f);
+}
+
+// K1's relu, a select (-0 -> +0), that keeps NaN
+__device__ __forceinline__ float relu_select(float v) {
+  return v > 0.f || v != v ? v : 0.f;
+}
+
+// max that returns NaN when either side is NaN (fmaxf returns the other)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
 
 // One row's count and NLL from its logits, read through zk(k): KC classes
 // where the width is a template argument, else K.
@@ -33,7 +53,8 @@ __device__ __forceinline__ void score_row(Z zk, int K, int label, int* cnt,
 #pragma unroll
   for (int k = 1; k < nk; ++k) {
     const float v = zk(k);
-    if (v > best) {                 // strictly: the first maximum wins
+    // strictly: the first maximum wins; the first NaN beats everything
+    if (v > best || (v != v && best == best)) {
       best = v;
       arg = k;
     }
@@ -106,7 +127,7 @@ __device__ __forceinline__ void cell(const float* sp, const float* sf,
       float s = 0.f;
 #pragma unroll
       for (int f = 0; f < F; ++f) s = fmaf(xv[f], W0[f * H + j], s);
-      const float h = fmaxf(__fadd_rn(s, b0[j]), 0.f);
+      const float h = relu(__fadd_rn(s, b0[j]));
 #pragma unroll
       for (int k = 0; k < K; ++k) z[k] = fmaf(h, W1[j * K + k], z[k]);
     }

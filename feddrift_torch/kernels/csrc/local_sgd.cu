@@ -24,6 +24,10 @@
 // total_w == 0 run like every other pair, as the reference's static-shape
 // program runs them, but their params, optimizer state and count are
 // masked back and their n is 0; their mean loss is still reported.
+// NaN and Inf propagate as in the reference: relu and nu_max's max keep a
+// NaN, the logsumexp's max takes a NaN logit, and relu's gradient is
+// jax.nn.relu's, dh * (pre-activation > 0), so 0 where h is NaN
+// (fnn_eval.cuh's helpers; finite values are bitwise what fmaxf gave).
 //
 // Bound on the H100 SXM at the canonical SEA shape (M=4, C=10, S=5, B=500,
 // F=3, H=10, K=2): each distinct batch read once is ~0.6 MB, ~0.2 us at
@@ -306,7 +310,7 @@ local_sgd_general_kernel(Args a) {
           acc += s_p[F * K + k];
           const float sk = 1.f / (1.f + expf(-acc));
           s_z[i * K + k] = sk;
-          zmax = fmaxf(zmax, sk);
+          zmax = fnn_eval::max_nan(zmax, sk);
         }
       } else {
         for (int j = 0; j < H; ++j) {
@@ -314,7 +318,7 @@ local_sgd_general_kernel(Args a) {
           for (int f = 0; f < F; ++f)
             acc = fmaf(xr[f] * s_fm[f], s_p[f * H + j], acc);
           acc += s_p[oB1 + j];
-          s_h[i * H + j] = acc > 0.f ? acc : 0.f;
+          s_h[i * H + j] = fnn_eval::relu_select(acc);
         }
         for (int k = 0; k < K; ++k) {
           float z = 0.f;
@@ -322,7 +326,7 @@ local_sgd_general_kernel(Args a) {
             z = fmaf(s_h[i * H + j], s_p[oW2 + j * K + k], z);
           z += s_p[oB2 + k];
           s_z[i * K + k] = z;
-          zmax = fmaxf(zmax, z);
+          zmax = fnn_eval::max_nan(zmax, z);
         }
       }
       float se = 0.f;
@@ -421,7 +425,7 @@ local_sgd_general_kernel(Args a) {
         const float g = s_g[p] + a.wd * w;
         const float mu = a.one_minus_b1 * g + a.b1 * s_mu[p];
         const float nu = a.one_minus_b2 * (g * g) + a.b2 * s_nu[p];
-        const float vmax = fmaxf(s_vmax[p], nu / bc2);
+        const float vmax = fnn_eval::max_nan(s_vmax[p], nu / bc2);
         const float u = (mu / bc1) / (sqrtf(vmax) + a.eps);
         s_p[p] = w + (a.neg_lr * u) * a.lr_scale;
         s_mu[p] = mu;
@@ -685,7 +689,7 @@ local_sgd_wide_kernel(const Args a) {
         if (lane < L1) {
           float v = s_g[r * L1P + lane] + s_g[(kWideRows + r) * L1P + lane];
           v += s_p[oB1 + lane];
-          hj[i] = kLr ? 1.f / (1.f + expf(-v)) : (v > 0.f ? v : 0.f);
+          hj[i] = kLr ? 1.f / (1.f + expf(-v)) : fnn_eval::relu_select(v);
           if (!kLr) s_h[r * L1P + lane] = hj[i];
         }
         z[i] = hj[i];               // the logit of class `lane`
@@ -711,7 +715,8 @@ local_sgd_wide_kernel(const Args a) {
       for (int o = 16; o > 0; o >>= 1)
 #pragma unroll
         for (int i = 0; i < R; ++i)
-          zmax[i] = fmaxf(zmax[i], __shfl_xor_sync(kFull, zmax[i], o));
+          zmax[i] = fnn_eval::max_nan(zmax[i],
+                                      __shfl_xor_sync(kFull, zmax[i], o));
 #pragma unroll
       for (int i = 0; i < R; ++i)
         se[i] = e[i] = lane < K ? expf(z[i] - zmax[i]) : 0.f;
@@ -875,7 +880,7 @@ local_sgd_wide_kernel(const Args a) {
           const float gd = g[i] + a.wd * w;
           const float mu = a.one_minus_b1 * gd + a.b1 * s_mu[o];
           const float nu = a.one_minus_b2 * (gd * gd) + a.b2 * s_nu[o];
-          const float vmax = fmaxf(s_vmax[o], nu / bc2);
+          const float vmax = fnn_eval::max_nan(s_vmax[o], nu / bc2);
           const float u = (mu / bc1) / (sqrtf(vmax) + a.eps);
           wn[i] = w + (a.neg_lr * u) * a.lr_scale;
           s_mu[o] = mu;
@@ -1105,7 +1110,7 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk, int emode) {
 #pragma unroll
         for (int f = 0; f < F; ++f) acc = fmaf(xv[f], s_p[f * H + j], acc);
         acc += s_p[oB1 + j];
-        h[j] = acc > 0.f ? acc : 0.f;
+        h[j] = fnn_eval::relu_select(acc);
       }
       float zmax = -INFINITY;
 #pragma unroll
@@ -1115,7 +1120,7 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk, int emode) {
         for (int j = 0; j < H; ++j)
           acc = fmaf(h[j], s_p[oW2 + j * K + k], acc);
         z[k] = acc + s_p[oB2 + k];
-        zmax = fmaxf(zmax, z[k]);
+        zmax = fnn_eval::max_nan(zmax, z[k]);
       }
       float se = 0.f, zy = 0.f;
 #pragma unroll
@@ -1170,7 +1175,7 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk, int emode) {
       const float bc2 = 1.f - powf(a.b2, (float)count);
       mu = a.one_minus_b1 * g + a.b1 * mu;
       nu = a.one_minus_b2 * (g * g) + a.b2 * nu;
-      vmax = fmaxf(vmax, nu / bc2);
+      vmax = fnn_eval::max_nan(vmax, nu / bc2);
       const float u = (mu / bc1) / (sqrtf(vmax) + a.eps);
       w_own = w_own + (a.neg_lr * u) * a.lr_scale;
       s_p[tid] = w_own;

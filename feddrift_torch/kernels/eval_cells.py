@@ -118,6 +118,23 @@ def _unpack(p: torch.Tensor, F: int, H: int, K: int):
             p[..., o2:o3].unflatten(-1, (H, K)), p[..., o3:])
 
 
+class _Relu(torch.autograd.Function):
+    """``jax.nn.relu``: torch.relu forward (NaN stays NaN) with the
+    reference's gradient, ``g * (x > 0)``, which is 0 where x is NaN
+    (torch.relu's own gradient passes a NaN's gradient through). On finite
+    inputs both gradients are the same values."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.relu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x > 0, g, torch.zeros_like(g))
+
+
 def _apply(leaves, x: torch.Tensor) -> torch.Tensor:
     """The model's outputs ``[.., N, K]`` for ``_unpack``'s leaves (their
     leading axes broadcast with x's) and rows ``x [.., N, F]``: the fnn's
@@ -126,7 +143,7 @@ def _apply(leaves, x: torch.Tensor) -> torch.Tensor:
         w, b = leaves
         return torch.sigmoid(x @ w + b.unsqueeze(-2))
     w0, b0, w1, b1 = leaves
-    return torch.relu(x @ w0 + b0.unsqueeze(-2)) @ w1 + b1.unsqueeze(-2)
+    return _Relu.apply(x @ w0 + b0.unsqueeze(-2)) @ w1 + b1.unsqueeze(-2)
 
 
 def _classes(F: int, H: int, P: int) -> int:

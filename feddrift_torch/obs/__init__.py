@@ -3,7 +3,9 @@
 ``registry()`` (counters, gauges, P² quantile sketches), ``emit()`` on the
 structured event bus, trace contexts + spans, and the oracle agreement
 scores of ``lineage``. Copies of the matching parts of ``feddrift_tpu/obs``;
-the fleet, incident and live planes are not ported yet.
+the run-health alerts (``obs.alerts``), the flight recorder
+(``obs.blackbox``) and incident bundles (``obs.incident``) are modules of
+their own. The fleet, live and host-profiler planes are not ported yet.
 """
 
 from __future__ import annotations

@@ -5,7 +5,12 @@ with ``_ts``, a ``kind`` from a closed set and the ambient context
 (``set_context(iteration=..., round=...)``), appended to a bounded
 in-memory ring and, once ``configure(path)`` gave it a file, to a JSONL
 sink. Unknown kinds raise. Only the kinds the ported layers emit are in
-the set; they keep the reference's names and fields.
+the set; they keep the reference's names and fields. Taps (``add_tap``:
+the alert monitor, the flight recorder, the incident manager) see every
+record after the bus lock is released; a failing tap never raises into the
+emitter. ``max_bytes`` size-caps the sink: a write past the cap rotates
+the file to ``<path>.1`` (one generation kept) with an ``obs_rotated``
+event in the fresh file.
 """
 
 from __future__ import annotations
@@ -38,17 +43,27 @@ EVENT_KINDS = frozenset({
     "cluster_state",        # per-iteration cluster count summary
     "cluster_assign",       # per-iteration client -> model vector
     "model_replaced",       # ensemble rotation (AUE window, KUE worst model)
+    "divergence_detected",  # NaN/Inf or loss spike -> params rolled back
+    "preempt_checkpoint",   # SIGTERM/SIGINT -> checkpointed at a boundary
+    "alert_raised",         # a run-health rule fired (obs/alerts.py)
+    "incident_captured",    # a trigger debounced into an incident bundle
+    "flight_dump",          # flight-recorder rings serialized into a bundle
+    "obs_rotated",          # a size-capped JSONL sink rotated a generation
 })
 
 RING_SIZE = 4096
 
 
 class EventBus:
-    def __init__(self, path: str | None = None) -> None:
+    def __init__(self, path: str | None = None, max_bytes: int = 0) -> None:
         self._lock = threading.Lock()
         self.ring: collections.deque = collections.deque(maxlen=RING_SIZE)
         self._fh = None
         self._context: dict[str, Any] = {}
+        self._taps: list = []
+        self.path = path
+        self.max_bytes = int(max_bytes)
+        self.rotations = 0
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             self._fh = open(path, "a")
@@ -56,13 +71,52 @@ class EventBus:
     def emit(self, kind: str, **fields: Any) -> dict:
         if kind not in EVENT_KINDS:
             raise ValueError(f"unknown event kind {kind!r}")
-        rec = {"_ts": time.time(), "kind": kind, **self._context, **fields}
+        rotated_bytes = 0
         with self._lock:
+            rec = {"_ts": time.time(), "kind": kind, **self._context,
+                   **fields}
             self.ring.append(rec)
             if self._fh is not None:
-                self._fh.write(json.dumps(rec, default=str) + "\n")
+                self._fh.write(json.dumps(rec, default=_json_default) + "\n")
                 self._fh.flush()
+                if self.max_bytes and self._fh.tell() >= self.max_bytes:
+                    rotated_bytes = self._rotate_locked()
+            taps = tuple(self._taps)
+        if rotated_bytes:
+            # after the lock is released; the fresh file is far below the
+            # cap, so this cannot recurse
+            self.emit("obs_rotated", file=os.path.basename(self.path),
+                      rotated_bytes=rotated_bytes, generation=self.rotations)
+        for tap in taps:
+            try:
+                tap(rec)
+            except Exception:   # noqa: BLE001 — observability stays passive
+                pass
         return rec
+
+    def _rotate_locked(self) -> int:
+        """Swap the sink to a fresh file (caller holds the lock); returns
+        the size of the rotated-out generation."""
+        size = self._fh.tell()
+        self._fh.close()
+        try:
+            os.replace(self.path, self.path + ".1")
+        except OSError:
+            pass
+        self._fh = open(self.path, "a")
+        self.rotations += 1
+        return size
+
+    def add_tap(self, fn) -> None:
+        """Register a callable observing every emitted record (called on
+        the emitting thread, after the record is persisted)."""
+        with self._lock:
+            self._taps.append(fn)
+
+    def remove_tap(self, fn) -> None:
+        with self._lock:
+            if fn in self._taps:
+                self._taps.remove(fn)
 
     def set_context(self, **ctx: Any) -> None:
         """Merge ambient fields (iteration=..., round=...) into every
@@ -92,6 +146,12 @@ class EventBus:
         self.close()
 
 
+def _json_default(o):
+    """numpy scalars and arrays in event fields: store plain JSON."""
+    tolist = getattr(o, "tolist", None)
+    return tolist() if tolist is not None else str(o)
+
+
 _bus = EventBus(None)
 _bus_lock = threading.Lock()
 
@@ -100,11 +160,11 @@ def get_bus() -> EventBus:
     return _bus
 
 
-def configure(path: str | None) -> EventBus:
+def configure(path: str | None, max_bytes: int = 0) -> EventBus:
     """Install a fresh default bus writing to ``path`` (None = memory-only)."""
     global _bus
     with _bus_lock:
-        old, _bus = _bus, EventBus(path)
+        old, _bus = _bus, EventBus(path, max_bytes=max_bytes)
         old.close()
     return _bus
 

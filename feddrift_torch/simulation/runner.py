@@ -16,6 +16,17 @@ mode (every client on the device axis, float32, no fault injection):
             evaluate(t, r) every freq rounds + last
         algo.end_iteration(t), checkpoint
 
+The planes the reference's default run turns on are on here by default:
+the divergence guard (``resilience/divergence.py``: every round's losses
+on the per-round path, in one ``[2, M, C]`` fetch; the final round's on the
+fused path, in the same single fetch as the eval buffers; a diverged round
+is rolled back to its pre-round params with fresh optimizer state and no
+eval, a diverged fused step to the pool it started from), SIGTERM/SIGINT
+preemption at the iteration boundary (``resilience/preempt.py``), the
+run-health alerts (``obs/alerts.py``, ``alerts.jsonl``) and incident
+capture (``obs/blackbox.py``, ``obs/incident.py``: ``incidents/``, from
+crit alerts, preemption and the exception guard in ``run``).
+
 Both paths sample ``client_num_per_round`` clients a round as the
 reference does (``_client_masks``) and draw the step's batches from one
 generator seeded by (seed, t), so a chunkable algorithm gives the same
@@ -24,8 +35,8 @@ the per-round path and is tested by its vote (``TrainStep.ensemble_eval``),
 as the reference does. ``Experiment(cfg, out_dir=None, device="cuda")``
 runs on the card unless the caller passes ``device="cpu"``. Not ported:
 the megastep, population cohorts, streamed data, fault/byzantine
-injection, codecs, hierarchy, secure aggregation, the divergence guard,
-and the alert/SLO/incident/ops planes.
+injection, codecs, hierarchy, secure aggregation, the host profiler and
+the SLO/ops plane.
 """
 
 from __future__ import annotations
@@ -45,11 +56,31 @@ from feddrift_torch.core.pool import ModelPool
 from feddrift_torch.core.step import TrainStep
 from feddrift_torch.data.registry import make_dataset
 from feddrift_torch.models import create_model
+from feddrift_torch.obs import alerts as obs_alerts
+from feddrift_torch.obs import blackbox, incident
+from feddrift_torch.resilience.divergence import DivergenceGuard
+from feddrift_torch.resilience.preempt import PreemptionHandler
 from feddrift_torch.utils.device import resolve_device
 from feddrift_torch.utils.metrics import MetricsLogger
 from feddrift_torch.utils.prng import iteration_seed
 
 log = logging.getLogger("feddrift_torch")
+
+
+def _fetch(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """Device tensors of 4-byte types (float32, int32) to host arrays in
+    ONE device-to-host copy: their bits packed as int32, split on the
+    host."""
+    if not tensors[0].is_cuda:
+        return [t.numpy() for t in tensors]
+    flat = torch.cat([t.reshape(-1).view(torch.int32) for t in tensors])
+    host, out, off = flat.cpu().numpy(), [], 0
+    for t in tensors:
+        part = host[off:off + t.numel()].reshape(tuple(t.shape))
+        out.append(part.view(np.float32) if t.dtype == torch.float32
+                   else part)
+        off += t.numel()
+    return out
 
 
 class Experiment:
@@ -74,8 +105,39 @@ class Experiment:
         self.y = torch.from_numpy(self.ds.y).to(self.device)
         self.algo = make_algorithm(cfg, self.ds, self.pool, self.step)
         self.logger = MetricsLogger(out_dir)
+        obs_cap = int(cfg.obs_max_file_mb * (1 << 20))   # 0 = unbounded
         self.events = obs.configure(
-            os.path.join(out_dir, "events.jsonl") if out_dir else None)
+            os.path.join(out_dir, "events.jsonl") if out_dir else None,
+            max_bytes=obs_cap)
+        # run-health rules on every emitted event: alert_raised events and
+        # alerts.jsonl (open-append-close, so a crashed run keeps them)
+        self.alerts = None
+        if cfg.alerts:
+            self.alerts = obs_alerts.AlertMonitor(
+                rules=obs_alerts.default_rules(
+                    churn_threshold=cfg.alert_churn_threshold,
+                    churn_window=cfg.alert_window),
+                path=os.path.join(out_dir, "alerts.jsonl") if out_dir
+                else None, max_bytes=obs_cap).attach(self.events)
+        # the flight recorder over the event stream, and bundles under
+        # incidents/ on its triggers and on run()'s exception guard
+        self.flight = self.incidents = None
+        if cfg.incident_capture:
+            self.flight = blackbox.configure(
+                capacity=cfg.incident_ring).attach(self.events)
+            self.incidents = incident.IncidentManager(
+                run_dir=out_dir, recorder=self.flight,
+                debounce_s=cfg.incident_debounce_s,
+                max_bundles=cfg.incident_max_bundles,
+                config_json=cfg.to_json(),
+                ckpt_path=os.path.join(out_dir, "ckpt") if out_dir
+                else None).attach(self.events)
+        self.preempted = False
+        self.divergence_guard = DivergenceGuard(
+            spike_factor=cfg.divergence_spike_factor,
+            max_rollbacks=cfg.divergence_max_rollbacks,
+            warmup=cfg.divergence_warmup_rounds) \
+            if cfg.divergence_guard else None
         self.algo.bind(self.x, self.y, self.logger)
         self.global_round = 0
         self.start_iteration = 0
@@ -182,6 +244,10 @@ class Experiment:
         self._segs = {}
         self.events.set_context(iteration=t, round=self.global_round)
         self.events.emit("iteration_start")
+        if self.divergence_guard is not None:
+            # a new time step re-spikes the loss legitimately: a fresh
+            # spike baseline
+            self.divergence_guard.new_window()
         d0 = time.perf_counter()
         self.algo.begin_iteration(t)
         self._seg_add("drift_decision", time.perf_counter() - d0)
@@ -227,6 +293,30 @@ class Experiment:
         self.events.emit("round_breakdown", **self.last_round_breakdown)
         obs.registry().quantile_sketch("round_wall_seconds_q").observe(
             wall / max(cfg.comm_round, 1))
+        if self.flight is not None:
+            # the black box keeps recent metric state, not just events
+            self.flight.snapshot_instruments()
+
+    def _check_divergence(self, losses: np.ndarray, n: np.ndarray) -> bool:
+        """Guard one round's host-side ``[M, C]`` losses and counts; True
+        means diverged (the caller rolls back)."""
+        if self.divergence_guard is None:
+            return False
+        g = self.divergence_guard
+        diverged, reason, observed = g.check(losses, n)
+        if not diverged:
+            return False
+        self.events.emit(
+            "divergence_detected", reason=reason,
+            observed_loss=(round(observed, 6) if np.isfinite(observed)
+                           else None),
+            baseline=(round(g.baseline, 6) if g.baseline is not None
+                      else None),
+            consecutive=g.consecutive_rollbacks + 1)
+        obs.registry().counter("divergence_rollbacks").inc()
+        log.warning("divergence (%s) at round %d: rolling back pool params",
+                    reason, self.global_round)
+        return True
 
     def _client_masks(self, rounds) -> "np.ndarray | None":
         """``[len(rounds), C]`` float32 0/1 participation masks, or None
@@ -270,12 +360,25 @@ class Experiment:
             tw, sw, fm, lr_scale = self.algo.round_inputs(t, r)
             prev_params = self.pool.params
             d0 = time.perf_counter()
-            new_params, opt_states, client_params, n, _ = step.train_round(
+            new_params, opt_states, client_params, n, losses = \
+                step.train_round(
                 prev_params, opt_states, self.x, self.y, tw, lr_scale,
                 None if masks is None else masks[r], sample_w=sw,
                 feat_mask=fm, draws=None if step.weighted_sampling
                 else (step.time_index(tw, u[r]), slot[r]))
             self._seg_add("dispatch", time.perf_counter() - d0)
+            if self.divergence_guard is not None:
+                ln = torch.stack((losses, n)).cpu().numpy()   # one fetch
+                if self._check_divergence(ln[0], ln[1]):
+                    # rollback: pre-round params, fresh optimizer state (the
+                    # diverged step contaminated both), no after_round and
+                    # no eval this round
+                    self.pool.params = prev_params
+                    opt_states = step.init_opt_states(
+                        prev_params, self.pool.num_models, self.C_)
+                    self.divergence_guard.record_rollback()
+                    self.global_round += 1
+                    continue
             w0 = time.perf_counter()
             self.pool.params = self.algo.after_round(
                 t, r, prev_params, new_params,
@@ -297,22 +400,35 @@ class Experiment:
         tw, sw, fm, lr_scale = self.algo.round_inputs(t, 0)
         g0 = self.global_round
         self.step.generator.manual_seed(iteration_seed(cfg.seed, t))
+        # the rollback target: train_iteration_eval packs the pool into new
+        # buffers and never writes the tensors it was given
+        start = self.pool.params
         c0 = time.perf_counter()
         new_params, opt_states, n, losses, bufs, total, _stats = \
             self.step.train_iteration_eval(
-                self.pool.params, opt_states, self.x, self.y, tw, lr_scale,
+                start, opt_states, self.x, self.y, tw, lr_scale,
                 R, freq, t, self._device_masks(R), sample_w=sw,
                 feat_mask=fm)
         self._sync()
         # host enqueue and device work of the R rounds: the loop enqueues
         # faster than the card drains only if the card is the bottleneck
         self._seg_add("device_compute", time.perf_counter() - c0)
+        e0 = time.perf_counter()
+        corr_tr, loss_tr, corr_te, loss_te, total, n_h, losses_h = _fetch(
+            *bufs, total, n, losses)
+        self._seg_add("eval", time.perf_counter() - e0)
+        if self._check_divergence(losses_h, n_h):
+            # a fused step rolls back whole: the pool it started from, no
+            # after_round and no eval logging (the buffers hold diverged
+            # numbers)
+            self.pool.params = start
+            self.divergence_guard.record_rollback()
+            self.global_round = g0 + R
+            return
         self.pool.params = self.algo.after_round(t, R - 1, None, new_params,
                                                  None, n)
         e0 = time.perf_counter()
         C = self.C_
-        corr_tr, loss_tr, corr_te, loss_te = (b.cpu().numpy() for b in bufs)
-        total = total.cpu().numpy()
         for slot, r in enumerate(self.step.eval_rounds(R, freq)):
             self.global_round = g0 + r
             self._log_eval(t, corr_tr[slot][:, :C], loss_tr[slot][:, :C],
@@ -331,13 +447,43 @@ class Experiment:
 
     # ------------------------------------------------------------------
     def run(self) -> MetricsLogger:
+        # context managers, so a raising iteration cannot leak the JSONL
+        # handles; the in-memory history and ring stay readable
         with self.logger, self.events:
-            for t in range(self.start_iteration, self.cfg.train_iterations):
-                self.run_iteration(t)
+            with PreemptionHandler(enabled=self.cfg.preempt_signals) as pre:
+                try:
+                    for t in range(self.start_iteration,
+                                   self.cfg.train_iterations):
+                        self.run_iteration(t)
+                        if pre.requested:
+                            # step t is complete: persist it and stop;
+                            # --auto_resume continues after it
+                            self._preempt_stop(t, pre.signal_name)
+                            break
+                except Exception as err:
+                    # divergence aborts included: capture the black box
+                    # while the sinks are open, then propagate unchanged
+                    if self.incidents is not None:
+                        self.incidents.on_exception(err)
+                    raise
             self.events.emit("run_end", global_round=self.global_round,
                              test_acc=self.logger.last("Test/Acc"),
-                             preempted=False)
+                             preempted=self.preempted)
         return self.logger
+
+    def _preempt_stop(self, completed_iteration: int, signal_name) -> None:
+        """Checkpoint at the iteration boundary after a SIGTERM/SIGINT."""
+        if self.out_dir and not self.cfg.checkpoint_every_iteration:
+            # not already checkpointed by run_iteration: write one now
+            self.save_checkpoint(completed_iteration)
+        self.preempted = True
+        self.events.emit(
+            "preempt_checkpoint", iteration=completed_iteration,
+            signal=signal_name,
+            path=self.ckpt_path() if self.out_dir else None)
+        log.warning("preempted by %s: checkpointed through iteration %d, "
+                    "exiting cleanly (resume with --auto_resume)",
+                    signal_name, completed_iteration)
 
     def ckpt_path(self) -> str:
         return os.path.join(self.out_dir or self.cfg.out_dir, "ckpt")

@@ -1,5 +1,6 @@
-"""The port stands alone: importing it loads no JAX, no flax and nothing of
-``feddrift_tpu``; its entry points default to the CUDA device; and
+"""The port stands alone: importing it loads no JAX, no flax, nothing of
+``feddrift_tpu`` and no scikit-learn (softcluster ``gmm`` is the port's
+own EM); its entry points default to the CUDA device; and
 ``chip_smoke.py`` refuses to run without a card or outside the repo."""
 
 import inspect
@@ -21,7 +22,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "feddrift_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "feddrift_tpu",
+                                    "sklearn"))
 print(len(names), bad)
 """
 

@@ -6,7 +6,6 @@ still holds an item of that name."""
 
 import os
 import re
-import types
 
 import numpy as np
 import pytest
@@ -32,19 +31,6 @@ def _megastep():
 def _model_zoo():
     from feddrift_torch.core.step import TrainStep
     TrainStep(torch.nn.Identity(), 10, 1, 2, device="cpu")
-
-
-def _gmm():
-    from feddrift_torch.algorithms import make_algorithm
-    from feddrift_torch.core.pool import ModelPool
-    from feddrift_torch.data.registry import make_dataset
-    from feddrift_torch.models.mlp import FeedForwardNN
-    cfg = ExperimentConfig(concept_drift_algo_arg="gmm", sample_num=10,
-                           train_iterations=2)
-    pool = ModelPool.create(FeedForwardNN((3,), 2, 4), None, cfg.num_models,
-                            device="cpu")
-    make_algorithm(cfg, make_dataset(cfg), pool,
-                   types.SimpleNamespace(device="cpu"))
 
 
 def _mnist_files(tmp_path):
@@ -76,7 +62,6 @@ REFUSALS = (
     ("megastep", _megastep, NotImplementedError, "Megastep"),
     ("model_zoo", _model_zoo, NotImplementedError,
      "The model zoo and transformer training"),
-    ("gmm", _gmm, NotImplementedError, "softcluster gmm"),
     ("mnist_files", _mnist_files, NotImplementedError, "The other datasets"),
     ("other_image_data", _other_image_data, KeyError, "The other datasets"),
     ("text_corpus", _text_corpus, NotImplementedError, "The other datasets"),

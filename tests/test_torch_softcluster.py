@@ -326,21 +326,3 @@ def test_state_from_before_cfl_loads():
     b.load_state_dict(state)
     assert (b.cfl_norm, b.cfl_eps1, b.cfl_eps2) == (0.0, 0.0, 1e4)
     assert np.array_equal(a.weights, b.weights)
-
-
-@pytest.mark.parametrize("what", ["gmm", "gmm_reset"])
-def test_other_kinds_not_ported(what):
-    """What the port still refuses of softcluster: its gmm kind
-    (scikit-learn), plain and with resets. (The ``lr`` model and the
-    ``sgd`` client optimizer were refused here until they were ported;
-    until the weighted draw landed this also held the Poisson bootstrap,
-    KUE, DriftSurf and Ada.)"""
-    from feddrift_torch.core.pool import ModelPool
-    algo = {"gmm": "softcluster", "gmm_reset": "softclusterreset"}[what]
-    cfg = ExperimentConfig(concept_drift_algo=algo, concept_drift_algo_arg="gmm",
-                           sample_num=10, train_iterations=2)
-    ds = make_dataset(cfg)
-    pool = ModelPool.create(FeedForwardNN((3,), 2, 4), None,
-                            cfg.num_models, device="cpu")
-    with pytest.raises(NotImplementedError, match="scikit-learn"):
-        make_algorithm(cfg, ds, pool, types.SimpleNamespace(device="cpu"))
