@@ -32,6 +32,7 @@ class ExperimentConfig:
     client_num_per_round: int = 10
     batch_size: int = 500
     fnn_hidden_dim: int = 10
+    fmow_image_size: int = 32          # fmow partition image resolution
     chunk_rounds: bool = True          # all rounds of a step in one loop
     megastep_k: int = 1                # > 1 not ported
 

@@ -236,6 +236,7 @@ class TrainStep:
             t_idx, slot = rows
         fm = None if feat_mask is None else \
             feat_mask.reshape(feat_mask.shape[0], -1).contiguous()
+        x = x.flatten(3)                     # image rows [.., H, W, C] -> F
         mod, B = self.module, min(self.batch_size, x.shape[2])
         kw = dict(hidden=mod.hidden_dim, batch_size=B, lr=self.lr, wd=self.wd,
                   lr_scale=lr_scale, idx=idx, feat_mask=fm)

@@ -3,9 +3,11 @@
 Mirrors ``feddrift_tpu/data/registry.py``. Ported so far: the synthetic
 tabular datasets of the training slice (``sea``, ``sine``, ``circle``, their
 numpy path), the synthetic MNIST-4 image data (``MNIST`` and
-``MNIST-smooth``) and the character datasets of the transformer serving
-slice (``shakespeare`` and its alias ``fed_shakespeare``); any other name
-raises ``KeyError``.
+``MNIST-smooth``), FMoW (``fmow`` and ``fmow-smooth``: 62 classes of
+``fmow_image_size`` x ``fmow_image_size`` x 3 images, real ``.npz``
+partitions read where they are present) and the character datasets of the
+transformer serving slice (``shakespeare`` and its alias
+``fed_shakespeare``); any other name raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 from feddrift_torch.config import ExperimentConfig
 from feddrift_torch.data import changepoints as cp
 from feddrift_torch.data.drift_dataset import DriftDataset
+from feddrift_torch.data.fmow import generate_fmow_drift
 from feddrift_torch.data.prototype import generate_prototype_drift
 from feddrift_torch.data.synthetic import generate_synthetic
 from feddrift_torch.data.text import generate_text_drift
@@ -65,6 +68,17 @@ for _suffix, _smooth in (("", False), ("-smooth", True)):
             "MNIST", change_points, cfg.train_iterations,
             cfg.client_num_in_total, cfg.sample_num, cfg.noise_prob,
             cfg.time_stretch, cfg.seed, cfg.data_dir,
+            smooth_sigma=cfg.smooth_sigma if _sm else 0.0)
+
+
+for _suffix, _smooth in (("", False), ("-smooth", True)):
+    @register_dataset("fmow" + _suffix)
+    def _mk_fmow(cfg: ExperimentConfig, change_points: np.ndarray,
+                 *, _sm=_smooth) -> DriftDataset:
+        return generate_fmow_drift(
+            change_points, cfg.train_iterations, cfg.client_num_in_total,
+            cfg.sample_num, cfg.noise_prob, cfg.time_stretch, cfg.seed,
+            cfg.data_dir, cfg.fmow_image_size, cfg.change_points,
             smooth_sigma=cfg.smooth_sigma if _sm else 0.0)
 
 

@@ -56,10 +56,12 @@
 // not depend on G or on the strides. No tensor cores: at H = 10 and K = 2
 // an mma tile would be mostly padding.
 //
-// - eval_wide_kernel<kLr> for wide inputs, MNIST-4's (F = 784; the fnn
-//   784 -> 10 -> 10 or the lr 784 -> 10): F % 4 == 0 (16-byte rows for
-//   TMA), a first layer at most 64 wide. It computes what
-//   eval_general_kernel computes.
+// - eval_wide_kernel<kLr, kRows> for wide inputs, MNIST-4's (F = 784; the
+//   fnn 784 -> 10 -> 10 or the lr 784 -> 10) in tiles of kRows = 32 rows,
+//   fmow's (F = 3072; the fnn 3072 -> 10 -> 62) in tiles of 16: F % 4 == 0
+//   (16-byte rows for TMA), a first layer at most 64 wide, the tile chosen
+//   by shape alone (eval_wide_rows: 32 where its shared memory fits, else
+//   16). It computes what eval_general_kernel computes.
 //   Bound on the H100 SXM at an eval of MNIST-4 (M 4, C 10, G 2, N 500):
 //   x's window is 31 MB, ~0.0094 ms at 3.35 TB/s; the forward is ~0.64
 //   GFLOP, ~0.0095 ms at 67 TFLOP/s float32 (0.0039 in 3xTF32 on the
@@ -84,6 +86,17 @@
 //   `correct` is exact and `nll` bitwise the same call after call. Its
 //   shared memory is eval_wide_smem_bytes (117 KB at MNIST's fnn), one CTA
 //   an SM.
+//   At fmow's width 32 rows of x alone are 394 KB, so the tile is 16 rows
+//   (one m16 tile; 217,648 bytes a CTA: x 197 KB, the partials 4 KB, six
+//   models' second layers 17 KB) and each of the cell's 16 CTAs loops over
+//   its two tiles. Streaming F in chunks through a smaller tile was the
+//   other option; 16-row tiles keep the whole row in shared memory, so the
+//   k loop, its 3xTF32 split, the second layer and the rank-order sums are
+//   MNIST's code at another tile height (bitwise call after call as
+//   before), and MNIST's 32-row instantiation is unchanged. Bound on the
+//   H100 SXM at an eval of fmow (M 4, C 10, G 2, N 500): x's window is 123
+//   MB, ~0.037 ms at 3.35 TB/s; the forward is ~2.5 GFLOP, 0.037 ms at 67
+//   TFLOP/s float32: bytes and operations alike.
 //
 // The fused kernel's cell (its row loop, score_row and block_total) lives
 // in fnn_eval.cuh, which K1's fused kernel (local_sgd.cu) shares: the fused
@@ -216,7 +229,6 @@ eval_general_kernel(const Args a) {
 
 namespace cg = cooperative_groups;
 
-constexpr int kWideRows = 32;        // rows a CTA holds: two m16 tiles
 constexpr int kWideThreads = 256;
 constexpr int kWideWarps = kWideThreads / 32;
 constexpr int kWideMaxCluster = 16;  // CTAs a cell (non-portable above 8)
@@ -242,19 +254,30 @@ __host__ __device__ constexpr int wide_tail(int H, int K) {
   return H ? H + H * K + K : K;
 }
 
-// Shared memory one CTA of the wide kernel needs (H = 0: the lr): the
-// mbarrier, x's rows, the first layer's k-split partials (at most eight
-// [32, 8] tiles), a group's second layers and the warps' totals.
-long long eval_wide_smem_bytes(int F, int H, int K) {
-  return 16 + 4LL * ((long long)kWideRows * wide_stride(F)
-                     + kWideWarps * kWideRows * 8
+// Shared memory one CTA of the wide kernel needs (H = 0: the lr) with row
+// tiles of `rows`: the mbarrier, x's rows, the first layer's k-split
+// partials (at most eight [rows, 8] tiles), a group's second layers and the
+// warps' totals.
+long long eval_wide_smem_bytes(int F, int H, int K, int rows) {
+  return 16 + 4LL * ((long long)rows * wide_stride(F)
+                     + kWideWarps * rows * 8
                      + (long long)wide_group(H ? H : K) * wide_tail(H, K)
                      + 2 * kWideWarps);
 }
 
-template <bool kLr>
+// The wide kernel's row tile at these widths: 32 rows (two m16 tiles)
+// where they fit a block, else 16 (fmow's F = 3072: 32 rows of x alone
+// are 394 KB), else 0 (the wide kernel does not take the shape).
+int eval_wide_rows(int F, int H, int K) {
+  return eval_wide_smem_bytes(F, H, K, 32) <= kMaxSmem   ? 32
+         : eval_wide_smem_bytes(F, H, K, 16) <= kMaxSmem ? 16
+                                                         : 0;
+}
+
+template <bool kLr, int kRows>
 __global__ void __launch_bounds__(kWideThreads, 1)
 eval_wide_kernel(const Args a, int M) {
+  constexpr int kMTiles = kRows / 16;           // m16 tiles a row tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int F = a.F, H = a.H, K = a.K, N = a.N;
@@ -263,8 +286,8 @@ eval_wide_kernel(const Args a, int M) {
   const int XS = wide_stride(F), MG = wide_group(L1), TL = wide_tail(H, K);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
   float* s_x = reinterpret_cast<float*>(smem_raw + 16);  // [rows][XS]
-  float* s_zp = s_x + kWideRows * XS;           // [ksplit][rows][W]
-  float* s_l2 = s_zp + kWideWarps * kWideRows * 8;  // [MG][TL]
+  float* s_zp = s_x + kRows * XS;               // [ksplit][rows][W]
+  float* s_l2 = s_zp + kWideWarps * kRows * 8;  // [MG][TL]
   int* s_cnt = reinterpret_cast<int*>(s_l2 + MG * TL);  // [warps]
   float* s_nll = reinterpret_cast<float*>(s_cnt + kWideWarps);  // [warps]
 
@@ -275,7 +298,7 @@ eval_wide_kernel(const Args a, int M) {
   const size_t g = cell % a.G, c = cell / a.G;
   const float* xg = a.x + c * a.xs_c + g * a.xs_g;
   const int* yg = a.y + c * a.ys_c + g * a.ys_g;
-  const int tiles = (N + kWideRows - 1) / kWideRows;
+  const int tiles = (N + kRows - 1) / kRows;
   const int mine = tiles > q ? (tiles - q + Q - 1) / Q : 0;  // q, q + Q, ..
   const int KS = (F + 7) / 8;
   if (tid == 0) {
@@ -298,8 +321,8 @@ eval_wide_kernel(const Args a, int M) {
     int acc_cnt = 0;                // lane 0 of warp w: model g0 + w
     float acc_nll = 0.f;
     for (int i = 0; i < mine; ++i) {
-      const int row0 = (q + i * Q) * kWideRows;
-      const int nrows = min(kWideRows, N - row0);
+      const int row0 = (q + i * Q) * kRows;
+      const int nrows = min(kRows, N - row0);
       if (mine > 1 || g0 == 0) {    // a lone tile stays for every group
         if (warp == 0) {
           if (lane < nrows) {
@@ -327,9 +350,9 @@ eval_wide_kernel(const Args a, int M) {
         const int mi = g0 + (nin ? n / L1 : 0), j = nin ? n % L1 : 0;
         const float* wcol = a.params + (size_t)mi * P + j;  // W0[f][j]
         const float* fmc = a.fmask ? a.fmask + (size_t)mi * F : nullptr;
-        float accs[2][4], accb[2][4];
+        float accs[kMTiles][4], accb[kMTiles][4];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+        for (int mt = 0; mt < kMTiles; ++mt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) accs[mt][e] = accb[mt][e] = 0.f;
         for (int ks0 = kq; ks0 < KS; ks0 += 4 * ksplit) {
@@ -354,7 +377,7 @@ eval_wide_kernel(const Args a, int M) {
             split<true>(bv[u][0], bb0, bs0);
             split<true>(bv[u][1], bb1, bs1);
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
+            for (int mt = 0; mt < kMTiles; ++mt) {
               const float* xr = s_x + (mt * 16 + g8) * XS;
               const float av[4] = {in0 ? xr[f0] : 0.f,
                                    in0 ? xr[8 * XS + f0] : 0.f,
@@ -369,8 +392,8 @@ eval_wide_kernel(const Args a, int M) {
           }
         }
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          float* o = s_zp + (kq * kWideRows + mt * 16 + g8) * W + nt * 8
+        for (int mt = 0; mt < kMTiles; ++mt) {
+          float* o = s_zp + (kq * kRows + mt * 16 + g8) * W + nt * 8
                      + 2 * t4;
           o[0] = accb[mt][0] + accs[mt][0];
           o[1] = accb[mt][1] + accs[mt][1];
@@ -380,11 +403,11 @@ eval_wide_kernel(const Args a, int M) {
       }
       __syncthreads();
       if (ksplit > 1) {             // the k-split partials in order
-        for (int e = tid; e < kWideRows * cols; e += kWideThreads) {
+        for (int e = tid; e < kRows * cols; e += kWideThreads) {
           const int r = e / cols, cc = e - r * cols;
           float z = 0.f;
           for (int k = 0; k < ksplit; ++k)
-            z += s_zp[(k * kWideRows + r) * W + cc];
+            z += s_zp[(k * kRows + r) * W + cc];
           s_zp[r * W + cc] = z;
         }
         __syncthreads();
@@ -487,18 +510,13 @@ int launch_general(const Args& a, long long blocks, int threads, int device,
   return (int)cudaGetLastError();
 }
 
-// The wide kernel: C * G cells of Q = min(16, ceil(N / 32)) CTAs in
+// The wide kernel: C * G cells of Q = min(16, ceil(N / kRows)) CTAs in
 // clusters of Q (above 8 a non-portable size, which the H100 allows).
-template <bool kLr>
+template <bool kLr, int kRows>
 int launch_wide(const Args& a, int M, int device, cudaStream_t st) {
-  const int L1 = kLr ? a.K : a.H;
-  if (a.F % 4 || L1 < 1 || L1 > kWideCols
-      || (reinterpret_cast<uintptr_t>(a.x) & 15)
-      || (a.C > 1 && a.xs_c % 4) || (a.G > 1 && a.xs_g % 4))
-    return (int)cudaErrorInvalidValue;
-  const long long smem = eval_wide_smem_bytes(a.F, a.H, a.K);
+  const long long smem = eval_wide_smem_bytes(a.F, a.H, a.K, kRows);
   if (smem > kMaxSmem) return kErrSmem;
-  const int tiles = (a.N + kWideRows - 1) / kWideRows;
+  const int tiles = (a.N + kRows - 1) / kRows;
   const int Q = tiles < 1 ? 1 : tiles < kWideMaxCluster ? tiles
                                                        : kWideMaxCluster;
   const long long blocks = (long long)a.C * a.G * Q;
@@ -507,11 +525,11 @@ int launch_wide(const Args& a, int M, int device, cudaStream_t st) {
   const unsigned long long bit = device < 64 ? 1ull << device : 0;
   if (!(ready.load() & bit)) {
     cudaError_t err = cudaFuncSetAttribute(
-        eval_wide_kernel<kLr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
+        eval_wide_kernel<kLr, kRows>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
-          eval_wide_kernel<kLr>,
+          eval_wide_kernel<kLr, kRows>,
           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
     ready.fetch_or(bit);
@@ -528,9 +546,30 @@ int launch_wide(const Args& a, int M, int device, cudaStream_t st) {
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, eval_wide_kernel<kLr>, a,
+  const cudaError_t err = cudaLaunchKernelEx(&cfg,
+                                             eval_wide_kernel<kLr, kRows>, a,
                                              M);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The wide route: its checks, then the row tile the widths take (32 rows
+// at MNIST's, 16 at fmow's) and the model.
+int launch_wide_any(const Args& a, int M, int device, cudaStream_t st) {
+  const int L1 = a.H ? a.H : a.K;
+  if (a.F % 4 || L1 < 1 || L1 > kWideCols
+      || (reinterpret_cast<uintptr_t>(a.x) & 15)
+      || (a.C > 1 && a.xs_c % 4) || (a.G > 1 && a.xs_g % 4))
+    return (int)cudaErrorInvalidValue;
+  switch (eval_wide_rows(a.F, a.H, a.K)) {
+    case 32:
+      return a.H ? launch_wide<false, 32>(a, M, device, st)
+                 : launch_wide<true, 32>(a, M, device, st);
+    case 16:
+      return a.H ? launch_wide<false, 16>(a, M, device, st)
+                 : launch_wide<true, 16>(a, M, device, st);
+    default:
+      return kErrSmem;
+  }
 }
 
 }  // namespace
@@ -578,8 +617,7 @@ extern "C" int eval_cells_f32(const Params* p, int route, void* stream) {
   else if (route == 0)
     ret = launch_general<false>(a, blocks, p->threads, p->device, st);
   else if (route == 2)
-    ret = p->H == 0 ? launch_wide<true>(a, p->M, p->device, st)
-                    : launch_wide<false>(a, p->M, p->device, st);
+    ret = launch_wide_any(a, p->M, p->device, st);
   else if (route == 1 && p->F == 3 && p->H == 10 && p->K == 2)
     ret = launch_fused<3, 10, 2>(a, blocks, p->threads, st);
   else if (route == 1 && p->F == 2 && p->H == 10 && p->K == 2)
@@ -590,8 +628,13 @@ extern "C" int eval_cells_f32(const Params* p, int route, void* stream) {
   return ret;
 }
 
-// The wide kernel's shared memory a CTA at these widths (H = 0: the lr), in
-// bytes: eval_cells.py's wide_smem_bytes mirrors it.
-extern "C" long long eval_cells_wide_smem(int F, int H, int K) {
-  return eval_wide_smem_bytes(F, H, K);
+// The wide kernel's shared memory a CTA at these widths (H = 0: the lr)
+// with row tiles of `rows`, in bytes, and the row tile it takes (0: none):
+// eval_cells.py's wide_smem_bytes and wide_rows mirror them.
+extern "C" long long eval_cells_wide_smem(int F, int H, int K, int rows) {
+  return eval_wide_smem_bytes(F, H, K, rows);
+}
+
+extern "C" int eval_cells_wide_rows(int F, int H, int K) {
+  return eval_wide_rows(F, H, K);
 }

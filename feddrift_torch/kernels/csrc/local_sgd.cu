@@ -35,7 +35,7 @@
 // the bound is set by operations. What a round really waits on is the chain
 // of S dependent steps of one pair: latency, not throughput.
 //
-// Three kernels compute this one function; the wrapper
+// Four kernels compute this one function; the wrapper
 // (local_sgd.py::_route) picks one by shape, model and update alone, before
 // the launch.
 //
@@ -128,12 +128,13 @@
 // block may take the entry point returns kErrSmem without a launch, and
 // the wrapper raises ValueError.
 //
-// local_sgd_wide_kernel<kLr, kSgd>: wide inputs, MNIST-4's (F = 784; the
-// fnn 784 -> 10 -> 10, P 7960, or the lr 784 -> 10, P 7850), under AMSGrad
-// or SGD, contiguous or gathered batches, with feature masks: F % 4 == 0, a
-// first layer of at most 16 units, at most 32 classes, B <= 512 and its
-// shared memory within a block's. It computes what the general kernel
-// computes, in float32.
+// local_sgd_wide_kernel<kLr, kSgd, kK64>: wide inputs, MNIST-4's (F = 784;
+// the fnn 784 -> 10 -> 10, P 7960, or the lr 784 -> 10, P 7850), under
+// AMSGrad or SGD, contiguous or gathered batches, with feature masks: F % 4
+// == 0, a first layer of at most 16 units, at most 32 classes a lane each,
+// or (kK64, the fnn) up to 64 two a lane (femnist's 784 -> 10 -> 62), B <=
+// 512 and its shared memory within a block's. It computes what the general
+// kernel computes, in float32.
 // Bound on the H100 SXM at MNIST's shape (M 4, C 10, S 5, B 500): the
 // distinct batch rows of a round, each read once, and the state move ~0.13
 // GB, 0.039 ms at 3.35 TB/s; the two products below are ~3.1 GFLOP a
@@ -161,7 +162,9 @@
 //   padded to 16, tracked float64 no better than float32 PyTorch, and its
 //   time, taken in another call than this design's, was not lower:
 //   PERF.md.) The small layers, a warp 4 rows and a lane a unit or class:
-//   h W2, the softmax loss and dz by shuffles, dh.
+//   h W2, the softmax loss and dz by shuffles, dh. Under kK64 a lane takes
+//   classes lane and lane + 32: its two exponentials are summed before the
+//   warp's shuffle tree, the max and the label's logit likewise.
 // - Every CTA keeps all P params (its forward needs all of W1); CTA q owns
 //   coordinates [q ceil(P / Q), (q + 1) ceil(P / Q)) of the cluster's order
 //   (W1 transposed, then b1, W2, b2) and their moments. After the step's
@@ -176,7 +179,62 @@
 //   clusters of 16 at once and a round of 40 pairs runs in 6 waves. The
 //   waves, not the products, bound it; two CTAs an SM or a layout that
 //   splits F is the next step (PERF.md). Wider inputs (cifar10's and
-//   fmow's F = 3072) do not fit: the entry point returns kErrSmem.
+//   fmow's F = 3072: 32 rows of x are 394 KB) take the split kernel.
+//
+// local_sgd_split_kernel<kSgd>: the fnn at inputs too wide for the wide
+// kernel, fmow's (F = 3072 = 32 x 32 x 3, 3072 -> 10 -> 62, P 31,412), under
+// AMSGrad or SGD, contiguous or gathered batches, with feature masks: F % 64
+// == 0, at most 1024 inputs a CTA, 16 hidden units and 64 classes, B <= 512
+// and its shared memory within a block's. It computes what the general
+// kernel computes, in float32.
+// Bound on the H100 SXM at fmow's shape (M 4, C 10, S 5, B 500): the two
+// [500, 3072] x [3072, 10] products of every step are ~12.3 GFLOP a round,
+// 0.18 ms at 67 TFLOP/s float32; the distinct rows of a round (~61 MB)
+// and the state take ~0.03 ms at 3.35 TB/s: operations bound it.
+// - x cannot stay resident: a pair's step batch is 500 x 3072 x 4 B = 6.1
+//   MB, more than a whole 16-CTA cluster's 3.6 MB of shared memory. So F
+//   is split and x streams. A cluster of 16 CTAs a pair; CTA q owns inputs
+//   [192q, 192q + 192) (F / 16) with their W1 slice and its moments (1920
+//   coordinates at fmow), and streams its column block of the step's batch
+//   through a ring of 4 tiles of 32 rows at a stride of 4 mod 8 floats: all
+//   256 threads issue a tile's 16-byte cp.async copies (6 each at fmow) and
+//   arrive on the stage's mbarrier as they land, from the step's row
+//   indices staged in shared memory (contiguous or gathered rows alike).
+//   Every row of every step is known at entry, so the ring runs ahead
+//   across passes and steps, but never past the steps whose indices are
+//   staged: two steps' are held, and step s + 1's are staged at the start
+//   of step s (at B <= 32 a step has 2 tiles, fewer than the ring's 4
+//   stages, and a tile of step s + 2 waits for that). (A first design
+//   issued one 768-byte TMA bulk copy a row from warp 0: the 32 issues a
+//   tile sat on every tile's critical path, and a step took ~105 us, pass
+//   1 50 and pass 2 38, with ~1 us of waiting for data:
+//   scripts/torch_wide_breakdown.py --kernel split, PERF.md.)
+// - Each step reads x twice. Pass 1: Z1's partials over the CTA's inputs
+//   for every batch row ([B, H]; a warp an eighth of the inputs, a lane a
+//   row, W1 and the mask broadcast; the warps' partials summed in warp
+//   order). A cluster barrier; then CTA q takes rows [32q, 32q + 32): Z1
+//   summed over the 16 CTAs in rank order through distributed shared
+//   memory, b1 and relu, the 62 logits two classes a lane, the loss and
+//   dlogits by shuffles, dh; its partials of the small params (db1, dW2,
+//   db2) over its rows. A second cluster barrier; every CTA gathers the
+//   other CTAs' dh rows, sums the small partials in rank order and steps
+//   the small params itself (the same values in every CTA: no broadcast, no
+//   third barrier). Pass 2, in reverse tile order (the latest tiles are
+//   likelier still in L2): dW1's slice = (x * fm)^T dh, a thread one input
+//   quad and a row group, the row groups summed in order; the slice steps
+//   in place. Its dW1 needs no cluster sum: the CTA holds every row of its
+//   inputs. Two cluster barriers a step, fixed orders, no atomics: bitwise
+//   the same call after call.
+// - L2 (50 MB) holds a pair's 6.1 MB between the two passes only while few
+//   clusters run at once (8 clusters of 6.1 MB are 49 MB); the pairs of one
+//   client are scheduled side by side, so with B = N the models that drew
+//   the same step read the same rows.
+// - Its shared memory is split_smem_bytes: 223,584 bytes at fmow under
+//   AMSGrad (x ring 100 KB, the forward's partials 20 KB, W1's slice and
+//   moments 30 KB, dh and Z1's partials of every row 44 KB, the small
+//   params, partials and moments 14 KB, own rows' h and dz 9 KB, two
+//   steps' row indices 4 KB): one CTA an SM, so the card holds 7 clusters
+//   of 16 at once (cudaOccupancyMaxActiveClusters).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -240,6 +298,27 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
+}
+
+// One coordinate's update from its gradient g: optax.sgd (scale by the
+// learning rate, then the reference's lr_scale), or add_decayed_weights,
+// scale_by_amsgrad (bias corrections bc1, bc2 of this step's count), the
+// learning rate and lr_scale; the moments in place. Every kernel here
+// steps its coordinates through it.
+template <bool kSgd>
+__device__ __forceinline__ float step_coord(const Args& a, float w, float g,
+                                            float& mu, float& nu, float& vmax,
+                                            float bc1, float bc2) {
+  if constexpr (kSgd) {
+    return w + (a.neg_lr * g) * a.lr_scale;
+  } else {
+    const float gd = g + a.wd * w;
+    mu = a.one_minus_b1 * gd + a.b1 * mu;
+    nu = a.one_minus_b2 * (gd * gd) + a.b2 * nu;
+    vmax = fnn_eval::max_nan(vmax, nu / bc2);
+    const float u = (mu / bc1) / (sqrtf(vmax) + a.eps);
+    return w + (a.neg_lr * u) * a.lr_scale;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -411,27 +490,14 @@ local_sgd_general_kernel(Args a) {
       __syncthreads();
     }
 
-    if constexpr (kSgd) {
-      // optax.sgd: scale_by_learning_rate, then the reference's lr_scale
-      for (int p = tid; p < P; p += kGeneralThreads)
-        s_p[p] = s_p[p] + (a.neg_lr * s_g[p]) * a.lr_scale;
-    } else {
-      // add_decayed_weights, then scale_by_amsgrad, lr and lr_scale
-      count = count < INT_MAX ? count + 1 : count;
-      const float bc1 = 1.f - powf(a.b1, (float)count);
-      const float bc2 = 1.f - powf(a.b2, (float)count);
-      for (int p = tid; p < P; p += kGeneralThreads) {
-        const float w = s_p[p];
-        const float g = s_g[p] + a.wd * w;
-        const float mu = a.one_minus_b1 * g + a.b1 * s_mu[p];
-        const float nu = a.one_minus_b2 * (g * g) + a.b2 * s_nu[p];
-        const float vmax = fnn_eval::max_nan(s_vmax[p], nu / bc2);
-        const float u = (mu / bc1) / (sqrtf(vmax) + a.eps);
-        s_p[p] = w + (a.neg_lr * u) * a.lr_scale;
-        s_mu[p] = mu;
-        s_nu[p] = nu;
-        s_vmax[p] = vmax;
-      }
+    if constexpr (!kSgd) count = count < INT_MAX ? count + 1 : count;
+    const float bc1 = kSgd ? 1.f : 1.f - powf(a.b1, (float)count);
+    const float bc2 = kSgd ? 1.f : 1.f - powf(a.b2, (float)count);
+    for (int p = tid; p < P; p += kGeneralThreads) {
+      float mu = 0.f, nu = 0.f, vmax = 0.f;
+      if constexpr (!kSgd) mu = s_mu[p], nu = s_nu[p], vmax = s_vmax[p];
+      s_p[p] = step_coord<kSgd>(a, s_p[p], s_g[p], mu, nu, vmax, bc1, bc2);
+      if constexpr (!kSgd) s_mu[p] = mu, s_nu[p] = nu, s_vmax[p] = vmax;
     }
     __syncthreads();
   }
@@ -523,7 +589,7 @@ long long wide_smem_bytes(int F, int H, int K, int B, bool sgd) {
   return 16 + 4 * floats;
 }
 
-template <bool kLr, bool kSgd>
+template <bool kLr, bool kSgd, bool kK64>
 __global__ void __launch_bounds__(kWideThreads, 1)
 local_sgd_wide_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -694,23 +760,41 @@ local_sgd_wide_kernel(const Args a) {
         }
         z[i] = hj[i];               // the logit of class `lane`
       }
+      // kK64: a lane's second class, lane + 32 (z2, e2, d2)
+      const int c2 = lane + 32;
+      float z2[R];
       if constexpr (!kLr) {
-        float acc[R];
+        float acc[R], acc2[R];
 #pragma unroll
-        for (int i = 0; i < R; ++i) acc[i] = 0.f;
+        for (int i = 0; i < R; ++i) acc[i] = acc2[i] = 0.f;
         for (int j = 0; j < H; ++j) {
           const float w2 = lane < K ? s_p[oW2 + j * K + lane] : 0.f;
+          float w22 = 0.f;
+          if constexpr (kK64) w22 = c2 < K ? s_p[oW2 + j * K + c2] : 0.f;
 #pragma unroll
-          for (int i = 0; i < R; ++i)
-            acc[i] = fmaf(__shfl_sync(kFull, hj[i], j), w2, acc[i]);
+          for (int i = 0; i < R; ++i) {
+            const float hb = __shfl_sync(kFull, hj[i], j);
+            acc[i] = fmaf(hb, w2, acc[i]);
+            if constexpr (kK64) acc2[i] = fmaf(hb, w22, acc2[i]);
+          }
         }
         const float b2 = lane < K ? s_p[oB2 + lane] : 0.f;
 #pragma unroll
         for (int i = 0; i < R; ++i) z[i] = lane < K ? acc[i] + b2 : 0.f;
+        if constexpr (kK64) {
+          const float b22 = c2 < K ? s_p[oB2 + c2] : 0.f;
+#pragma unroll
+          for (int i = 0; i < R; ++i) z2[i] = c2 < K ? acc2[i] + b22 : 0.f;
+        }
       }
-      float zmax[R], se[R], e[R], d[R];
+      float zmax[R], se[R], e[R], d[R], e2[R], d2[R];
 #pragma unroll
       for (int i = 0; i < R; ++i) zmax[i] = lane < K ? z[i] : -INFINITY;
+      if constexpr (kK64) {
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          if (c2 < K) zmax[i] = fnn_eval::max_nan(zmax[i], z2[i]);
+      }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
 #pragma unroll
@@ -720,6 +804,13 @@ local_sgd_wide_kernel(const Args a) {
 #pragma unroll
       for (int i = 0; i < R; ++i)
         se[i] = e[i] = lane < K ? expf(z[i] - zmax[i]) : 0.f;
+      if constexpr (kK64) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          e2[i] = c2 < K ? expf(z2[i] - zmax[i]) : 0.f;
+          se[i] += e2[i];
+        }
+      }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
 #pragma unroll
@@ -730,13 +821,23 @@ local_sgd_wide_kernel(const Args a) {
         const int r = warp + i * kWideWarps;
         const bool live = r < nrows;
         const int yi = s_y[r];
-        const float zy = __shfl_sync(kFull, z[i], yi);
+        float zy;
+        if constexpr (kK64)
+          zy = __shfl_sync(kFull, yi < 32 ? z[i] : z2[i], yi & 31);
+        else
+          zy = __shfl_sync(kFull, z[i], yi);
         d[i] = lane < K && live
                    ? (e[i] / se[i] - (lane == yi ? 1.f : 0.f)) * inv_b : 0.f;
         if constexpr (kLr) {
           if (lane < K) s_d[r * L1P + lane] = d[i] * (z[i] * (1.f - z[i]));
         } else {
           if (lane < K) s_z[r * K + lane] = d[i];
+        }
+        if constexpr (kK64) {
+          d2[i] = c2 < K && live
+                      ? (e2[i] / se[i] - (c2 == yi ? 1.f : 0.f)) * inv_b
+                      : 0.f;
+          if (c2 < K) s_z[r * K + c2] = d2[i];
         }
         if (live) wl += logf(se[i]) - (zy - zmax[i]);
       }
@@ -747,8 +848,14 @@ local_sgd_wide_kernel(const Args a) {
         for (int k = 0; k < K; ++k) {
           const float w2 = lane < H ? s_p[oW2 + lane * K + k] : 0.f;
 #pragma unroll
-          for (int i = 0; i < R; ++i)
-            dh[i] = fmaf(__shfl_sync(kFull, d[i], k), w2, dh[i]);
+          for (int i = 0; i < R; ++i) {
+            float dk;
+            if constexpr (kK64)
+              dk = __shfl_sync(kFull, k < 32 ? d[i] : d2[i], k & 31);
+            else
+              dk = __shfl_sync(kFull, d[i], k);
+            dh[i] = fmaf(dk, w2, dh[i]);
+          }
         }
 #pragma unroll
         for (int i = 0; i < R; ++i)
@@ -870,23 +977,11 @@ local_sgd_wide_kernel(const Args a) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         if (i >= n) break;
-        const float w = s_p[p + i];
-        if constexpr (kSgd) {
-          // optax.sgd: scale_by_learning_rate, then the reference's lr_scale
-          wn[i] = w + (a.neg_lr * g[i]) * a.lr_scale;
-        } else {
-          // add_decayed_weights, then scale_by_amsgrad, lr and lr_scale
-          const int o = p - lo + i;
-          const float gd = g[i] + a.wd * w;
-          const float mu = a.one_minus_b1 * gd + a.b1 * s_mu[o];
-          const float nu = a.one_minus_b2 * (gd * gd) + a.b2 * s_nu[o];
-          const float vmax = fnn_eval::max_nan(s_vmax[o], nu / bc2);
-          const float u = (mu / bc1) / (sqrtf(vmax) + a.eps);
-          wn[i] = w + (a.neg_lr * u) * a.lr_scale;
-          s_mu[o] = mu;
-          s_nu[o] = nu;
-          s_vmax[o] = vmax;
-        }
+        const int o = p - lo + i;
+        float mu = 0.f, nu = 0.f, vmax = 0.f;
+        if constexpr (!kSgd) mu = s_mu[o], nu = s_nu[o], vmax = s_vmax[o];
+        wn[i] = step_coord<kSgd>(a, s_p[p + i], g[i], mu, nu, vmax, bc1, bc2);
+        if constexpr (!kSgd) s_mu[o] = mu, s_nu[o] = nu, s_vmax[o] = vmax;
       }
       if (s + 1 < S) {
 #pragma unroll
@@ -934,6 +1029,11 @@ local_sgd_wide_kernel(const Args a) {
 
 __device__ __forceinline__ void copy4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
                :: "r"(smem_addr(dst)), "l"(src) : "memory");
 }
 
@@ -1170,14 +1270,9 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk, int emode) {
     if (tid < P) {
       float g = 0.f;
       for (int w = 0; w < warps; ++w) g += s_red[w * V + tid];
-      g = g + a.wd * w_own;
       const float bc1 = 1.f - powf(a.b1, (float)count);
       const float bc2 = 1.f - powf(a.b2, (float)count);
-      mu = a.one_minus_b1 * g + a.b1 * mu;
-      nu = a.one_minus_b2 * (g * g) + a.b2 * nu;
-      vmax = fnn_eval::max_nan(vmax, nu / bc2);
-      const float u = (mu / bc1) / (sqrtf(vmax) + a.eps);
-      w_own = w_own + (a.neg_lr * u) * a.lr_scale;
+      w_own = step_coord<false>(a, w_own, g, mu, nu, vmax, bc1, bc2);
       s_p[tid] = w_own;
     } else if (tid == P) {
       float tot = 0.f;
@@ -1284,6 +1379,505 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk, int emode) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The split kernel (fmow's widths: the fnn, AMSGrad or SGD).
+
+constexpr int kSplitCluster = 16;  // CTAs a pair, each a sixteenth of F
+constexpr int kSplitRows = 32;     // batch rows a tile, and a CTA's rows in
+                                   // the row phase
+constexpr int kSplitStages = 4;    // x tiles in flight a CTA
+constexpr int kSplitMaxH = 16;     // hidden units at most
+constexpr int kSplitMaxK = 64;     // classes at most: two a lane
+constexpr int kSplitMaxFq = 1024;  // inputs a CTA at most (NQ <= 256)
+
+// dh's row stride in shared memory: H rounded up to float4s.
+__host__ __device__ constexpr int split_dh_stride(int H) {
+  return (H + 3) / 4 * 4;
+}
+
+// Shared memory one CTA of the split kernel needs, in bytes: the stages'
+// mbarriers, then in floats the x ring (kSplitStages tiles of 32 rows of
+// F / 16 inputs at a padded stride), the forward's warp partials (double
+// buffered) or dW1's slice, W1's slice (transposed) and its three moments,
+// the mask's slice, dh of every batch row, the Z1 partials of every row, the
+// small params (b1, W2, b2), their partials and moments, h and dz of the
+// CTA's own rows, their labels, the warps' losses and the loss, and the
+// batch's row indices of two steps.
+long long split_smem_bytes(int F, int H, int K, int B, bool sgd) {
+  const long long FQ = F / kSplitCluster, W = (long long)H * FQ;
+  const long long SP = H + (long long)H * K + K;
+  const long long red = 2LL * kWideWarps * kSplitRows * H;
+  const long long floats =
+      (long long)kSplitStages * kSplitRows * wide_stride((int)FQ)
+      + (red > W ? red : W) + (sgd ? 1 : 4) * W + FQ
+      + (long long)B * split_dh_stride(H) + (long long)B * H
+      + (sgd ? 2 : 5) * SP + (long long)kSplitRows * (H + K) + kSplitRows
+      + kWideWarps + 4 + 2LL * B;
+  return 8LL * kSplitStages + 4 * floats;
+}
+
+template <bool kSgd>
+__global__ void __launch_bounds__(kWideThreads, 1)
+local_sgd_split_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int Q = kSplitCluster, T = kWideThreads;
+  const int F = a.F, H = a.H, K = a.K, B = a.B, N = a.N, S = a.S;
+  const int FQ = F / Q, NQ = FQ / 4, XS = wide_stride(FQ);
+  const int W = H * FQ, HD = split_dh_stride(H);
+  const int SP = H + H * K + K, oSm = F * H, P = oSm + SP;
+  const int NT = (B + kSplitRows - 1) / kSplitRows;  // row tiles a pass
+  const int TT = 2 * S * NT;                         // tiles a launch
+  const int red = 2 * kWideWarps * kSplitRows * H;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);  // [stages]
+  float* s_x = reinterpret_cast<float*>(smem_raw + 8 * kSplitStages);
+  float* s_red = s_x + kSplitStages * kSplitRows * XS;  // [2][warps][rows][H]
+                                                        // or dW1 [H][FQ]
+  float* s_w = s_red + (red > W ? red : W);     // [H][FQ] W1[f0 + f][j]
+  float* s_mw = s_w + W;                        // [H][FQ] each, AMSGrad
+  float* s_vw = s_mw + W;
+  float* s_xw = s_vw + W;
+  float* s_fm = s_w + (kSgd ? 1 : 4) * W;       // [FQ]
+  float* s_dh = s_fm + FQ;                      // [B][HD] every row's dh
+  float* s_zp = s_dh + B * HD;                  // [B][H] Z1's partials
+  float* s_sp = s_zp + B * H;                   // [SP] b1, W2, b2
+  float* s_sg = s_sp + SP;                      // [SP] their partials
+  float* s_smu = s_sg + SP;                     // [SP] each, AMSGrad
+  float* s_snu = s_smu + SP;
+  float* s_sxm = s_snu + SP;
+  float* s_h = s_sg + (kSgd ? 1 : 4) * SP;      // [rows][H] own rows' h
+  float* s_z = s_h + kSplitRows * H;            // [rows][K] their dz
+  int* s_y = reinterpret_cast<int*>(s_z + kSplitRows * K);  // their labels
+  float* s_wl = reinterpret_cast<float*>(s_y + kSplitRows);  // [warps]
+  float* s_loss = s_wl + kWideWarps;            // [1] own rows' loss sum
+  int* s_rows = reinterpret_cast<int*>(s_loss + 4);  // [2][B] batch rows
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = (int)cluster.block_rank();
+  // the pairs of one client side by side: with B = N they read the same
+  // rows wherever their models drew the same step
+  const int M = (int)(gridDim.x / Q) / a.C;
+  const int cl = (int)blockIdx.x / Q, m = cl % M, c = cl / M;
+  const int pair = m * a.C + c;
+  const int f0 = q * FQ;                        // inputs [f0, f0 + FQ)
+  const int o0 = q * kSplitRows;                // own rows in the row phase
+  const int nown = max(0, min(kSplitRows, B - o0));
+  const float* pm = a.params + (size_t)m * P;
+  const size_t so = (size_t)pair * P;
+  const float* xc = a.x + (size_t)c * a.T1 * N * F + f0;
+  const int* yc = a.y + (size_t)c * a.T1 * N;
+
+  for (int e = tid; e < W; e += T) {           // packed W1[f0 + f][j]
+    const int f = e / H, i = (e - f * H) * FQ + f;
+    const size_t p = (size_t)f0 * H + e;
+    s_w[i] = pm[p];
+    if constexpr (!kSgd) {
+      s_mw[i] = a.mu[so + p];
+      s_vw[i] = a.nu[so + p];
+      s_xw[i] = a.nu_max[so + p];
+    }
+  }
+  for (int e = tid; e < SP; e += T) {
+    s_sp[e] = pm[oSm + e];
+    if constexpr (!kSgd) {
+      s_smu[e] = a.mu[so + oSm + e];
+      s_snu[e] = a.nu[so + oSm + e];
+      s_sxm[e] = a.nu_max[so + oSm + e];
+    }
+  }
+  for (int f = tid; f < FQ; f += T)
+    s_fm[f] = a.fmask ? a.fmask[(size_t)m * F + f0 + f] : 1.f;
+  // the batch's rows of steps 0 and 1 (client c's rows of its T1 * N);
+  // step s + 1's replace step s - 1's at the start of step s
+  auto load_rows = [&](int s) {
+    for (int b = tid; b < B; b += T)
+      s_rows[(s & 1) * B + b] =
+          a.idx ? a.idx[((size_t)pair * S + s) * B + b]
+                : a.t_idx[pair * S + s] * N + a.slot[pair * S + s] * B + b;
+  };
+  load_rows(0);
+  if (S > 1) load_rows(1);
+  int loaded = S > 1 ? 1 : 0;       // the last step whose rows are staged
+  if (tid == 0) {
+    for (int st = 0; st < kSplitStages; ++st) mbar_init(bar + st, T);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // The stream of x tiles: for each step, pass 1's tiles 0 .. NT - 1, then
+  // pass 2's NT - 1 .. 0 (the latest read first, likelier in L2). Every
+  // thread issues its share of tile v into stage v % kSplitStages, in
+  // order: 16-byte cp.async copies (the tile's 32 * NQ float4s, a thread
+  // every 256th), then an arrival on the stage's mbarrier when they land.
+  // A tile is issued once its stage is free and its step's rows are
+  // staged: with B <= 32 (2 tiles a step) the ring would otherwise reach
+  // step s + 2 while its buffer still holds step s's rows.
+  int iu = 0;                       // the next tile to issue
+  int u = 0;                        // the next tile of the stream
+  auto issue = [&]() {
+    const int s = iu / (2 * NT), k = iu - s * 2 * NT;
+    const int r0 = (k < NT ? k : 2 * NT - 1 - k) * kSplitRows;
+    const int nr = min(kSplitRows, B - r0), st = iu % kSplitStages;
+    const int* rows = s_rows + (s & 1) * B + r0;
+    float* dst = s_x + (size_t)st * kSplitRows * XS;
+    for (int e = tid; e < nr * NQ; e += T) {
+      const int r = e / NQ, q4 = e - r * NQ;
+      copy16(dst + r * XS + 4 * q4, xc + (size_t)rows[r] * F + 4 * q4);
+    }
+    copies_arrive(bar + st);
+    ++iu;
+  };
+  auto top_up = [&]() {
+    while (iu < min(u + kSplitStages, TT) && iu / (2 * NT) <= loaded)
+      issue();
+  };
+  top_up();
+  auto wait_tile = [&]() -> const float* {
+    const int st = u % kSplitStages;
+    mbar_wait(bar + st, (unsigned)(u / kSplitStages) & 1u);
+    return s_x + (size_t)st * kSplitRows * XS;
+  };
+  // every thread is done with tile u: its stage takes tile u + stages
+  auto release = [&]() {
+    __syncthreads();
+    ++u;
+    top_up();
+  };
+
+  const float inv_b = 1.0f / (float)B;
+  int count = kSgd ? 0 : a.count[pair];
+  float loss_sum = 0.f;             // rank 0's thread 0: the S step losses
+  for (int s = 0; s < S; ++s) {
+    // own rows' labels, read now and stored after pass 1; step s + 1's
+    // rows (step s - 1's tiles are all issued), then the tiles they free
+    const int ylab = tid < nown ? yc[s_rows[(s & 1) * B + o0 + tid]] : 0;
+    if (s >= 1 && s + 1 < S) {
+      load_rows(s + 1);
+      __syncthreads();
+      loaded = s + 1;
+      top_up();
+    }
+
+    // (1) Z1's partials over this CTA's inputs for every batch row, in
+    // float32 FMAs: warp w takes the input quads w, w + 8, ..., lane r row
+    // r of the tile (x at a stride of 4 mod 8 floats: a quarter warp's
+    // float4 loads hit distinct banks; W1's and the mask's float4s are
+    // broadcast); the warps' partials are summed in warp order
+    for (int i = 0; i < NT; ++i) {
+      const float* xt = wait_tile();
+      const int r0 = i * kSplitRows, nr = min(kSplitRows, B - r0);
+      float* rb = s_red + (i & 1) * kWideWarps * kSplitRows * H;
+      {
+        float acc[kSplitMaxH];
+#pragma unroll
+        for (int j = 0; j < kSplitMaxH; ++j) acc[j] = 0.f;
+        if (lane < nr) {
+          const float* xr = xt + lane * XS;
+          for (int f = 4 * warp; f < FQ; f += 4 * kWideWarps) {
+            const float4 xq = *reinterpret_cast<const float4*>(xr + f);
+            const float4 mf = *reinterpret_cast<const float4*>(s_fm + f);
+            const float xv[4] = {xq.x * mf.x, xq.y * mf.y, xq.z * mf.z,
+                                 xq.w * mf.w};
+#pragma unroll
+            for (int j = 0; j < kSplitMaxH; ++j) {
+              if (j >= H) break;
+              const float4 wq =
+                  *reinterpret_cast<const float4*>(s_w + j * FQ + f);
+              float v = fmaf(xv[0], wq.x, acc[j]);
+              v = fmaf(xv[1], wq.y, v);
+              v = fmaf(xv[2], wq.z, v);
+              acc[j] = fmaf(xv[3], wq.w, v);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kSplitMaxH; ++j) {
+          if (j >= H) break;
+          rb[(warp * kSplitRows + lane) * H + j] = acc[j];
+        }
+      }
+      release();
+      for (int e = tid; e < nr * H; e += T) {
+        float z = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWideWarps; ++w) z += rb[w * kSplitRows * H + e];
+        s_zp[r0 * H + e] = z;
+      }
+    }
+    if (tid < nown) s_y[tid] = ylab;
+    cluster.sync();                 // every CTA's Z1 partials are visible
+
+    // (2) the row phase, this CTA's rows o0 .. o0 + nown, a warp 4 rows
+    // side by side and a lane a hidden unit, then two classes (lane and
+    // lane + 32): Z1 summed over the cluster in rank order through
+    // distributed shared memory, b1 and relu; the logits; the loss and
+    // dlogits through shuffles; dh = (dz W2^T) * (h > 0) into this CTA's
+    // rows of s_dh. Rows past the batch get no loss and no dh.
+    {
+      constexpr int R = kSplitRows / kWideWarps;
+      const int c2 = lane + 32;
+      float hj[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = warp + i * kWideWarps;
+        hj[i] = 0.f;
+        if (lane < H && r < nown) {
+          float v = 0.f;
+          for (int rk = 0; rk < Q; ++rk)
+            v += cluster.map_shared_rank(s_zp, rk)[(o0 + r) * H + lane];
+          v += s_sp[lane];
+          hj[i] = fnn_eval::relu_select(v);
+          s_h[r * H + lane] = hj[i];
+        }
+      }
+      float z1[R], z2[R];
+      {
+        float acc1[R], acc2[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) acc1[i] = acc2[i] = 0.f;
+        for (int j = 0; j < H; ++j) {
+          const float w1 = lane < K ? s_sp[H + j * K + lane] : 0.f;
+          const float w2 = c2 < K ? s_sp[H + j * K + c2] : 0.f;
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const float hb = __shfl_sync(kFull, hj[i], j);
+            acc1[i] = fmaf(hb, w1, acc1[i]);
+            acc2[i] = fmaf(hb, w2, acc2[i]);
+          }
+        }
+        const float b1 = lane < K ? s_sp[H + H * K + lane] : 0.f;
+        const float b2 = c2 < K ? s_sp[H + H * K + c2] : 0.f;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          z1[i] = lane < K ? acc1[i] + b1 : 0.f;
+          z2[i] = c2 < K ? acc2[i] + b2 : 0.f;
+        }
+      }
+      float zmax[R], se[R], e1[R], e2[R], d1[R], d2[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        zmax[i] = fnn_eval::max_nan(lane < K ? z1[i] : -INFINITY,
+                                    c2 < K ? z2[i] : -INFINITY);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          zmax[i] = fnn_eval::max_nan(zmax[i],
+                                      __shfl_xor_sync(kFull, zmax[i], o));
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        e1[i] = lane < K ? expf(z1[i] - zmax[i]) : 0.f;
+        e2[i] = c2 < K ? expf(z2[i] - zmax[i]) : 0.f;
+        se[i] = e1[i] + e2[i];
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int i = 0; i < R; ++i) se[i] += __shfl_xor_sync(kFull, se[i], o);
+      float wl = 0.f;               // lane 0: this warp's rows' losses
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = warp + i * kWideWarps;
+        const bool live = r < nown;
+        const int yi = live ? s_y[r] : 0;
+        const float zy = __shfl_sync(kFull, yi < 32 ? z1[i] : z2[i], yi & 31);
+        d1[i] = lane < K && live
+                    ? (e1[i] / se[i] - (lane == yi ? 1.f : 0.f)) * inv_b
+                    : 0.f;
+        d2[i] = c2 < K && live
+                    ? (e2[i] / se[i] - (c2 == yi ? 1.f : 0.f)) * inv_b : 0.f;
+        if (live) {
+          if (lane < K) s_z[r * K + lane] = d1[i];
+          if (c2 < K) s_z[r * K + c2] = d2[i];
+          wl += logf(se[i]) - (zy - zmax[i]);
+        }
+      }
+      float dh[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) dh[i] = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const float w2 = lane < H ? s_sp[H + lane * K + k] : 0.f;
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          dh[i] = fmaf(__shfl_sync(kFull, k < 32 ? d1[i] : d2[i], k & 31),
+                       w2, dh[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = warp + i * kWideWarps;
+        if (lane < H && r < nown)
+          s_dh[(o0 + r) * HD + lane] = hj[i] > 0.f ? dh[i] : 0.f;
+      }
+      if (lane == 0) s_wl[warp] = wl;
+    }
+    __syncthreads();
+
+    // (3) the small params' partials over the own rows, in order (db1,
+    // dW2 = h^T dz, db2, as packed), and the loss
+    if (tid == 0) {
+      float l = 0.f;
+      for (int w = 0; w < kWideWarps; ++w) l += s_wl[w];
+      *s_loss = l;
+    }
+    for (int e = tid; e < SP; e += T) {
+      float acc = 0.f;
+      if (e < H) {
+        for (int r = 0; r < nown; ++r) acc += s_dh[(o0 + r) * HD + e];
+      } else if (e < H + H * K) {
+        const int j = (e - H) / K, k = e - H - j * K;
+        for (int r = 0; r < nown; ++r)
+          acc = fmaf(s_h[r * H + j], s_z[r * K + k], acc);
+      } else {
+        const int k = e - H - H * K;
+        for (int r = 0; r < nown; ++r) acc += s_z[r * K + k];
+      }
+      s_sg[e] = acc;
+    }
+    cluster.sync();                 // dh rows, partials and losses visible
+
+    // (4) every CTA gathers the other CTAs' dh rows, sums the small
+    // partials over the cluster in rank order and steps the small params
+    // (the same values in every CTA, so no broadcast); rank 0 the loss
+    for (int e = tid; e < B * H; e += T) {
+      const int r = e / H, j = e - r * H, rk = r / kSplitRows;
+      if (rk != q)
+        s_dh[r * HD + j] = cluster.map_shared_rank(s_dh, rk)[r * HD + j];
+    }
+    if (q == 0 && tid == 0) {
+      float tot = 0.f;
+      for (int rk = 0; rk < Q; ++rk)
+        tot += *cluster.map_shared_rank(s_loss, rk);
+      loss_sum += tot * inv_b;
+    }
+    if constexpr (!kSgd) count = count < INT_MAX ? count + 1 : count;
+    const float bc1 = kSgd ? 1.f : 1.f - powf(a.b1, (float)count);
+    const float bc2 = kSgd ? 1.f : 1.f - powf(a.b2, (float)count);
+    for (int e = tid; e < SP; e += T) {
+      float g = 0.f;
+      for (int rk = 0; rk < Q; ++rk) g += cluster.map_shared_rank(s_sg, rk)[e];
+      float mu = 0.f, nu = 0.f, vmax = 0.f;
+      if constexpr (!kSgd) {
+        mu = s_smu[e];
+        nu = s_snu[e];
+        vmax = s_sxm[e];
+      }
+      s_sp[e] = step_coord<kSgd>(a, s_sp[e], g, mu, nu, vmax, bc1, bc2);
+      if constexpr (!kSgd) {
+        s_smu[e] = mu;
+        s_snu[e] = nu;
+        s_sxm[e] = vmax;
+      }
+    }
+    __syncthreads();                // every row's dh is here
+
+    // (5) dW1 = (x * fm)^T dh over every row, float32 FMAs: thread t takes
+    // input quad t % NQ and the rows t / NQ, + RG, ... of each tile, then
+    // the RG row groups' sums in group order into s_red ([H][FQ])
+    {
+      const int RG = T / NQ, fq = tid % NQ, rg = tid / NQ;
+      const bool on = rg < RG;
+      float acc[4][kSplitMaxH];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int j = 0; j < kSplitMaxH; ++j) acc[k][j] = 0.f;
+      const float4 mf = on ? *reinterpret_cast<const float4*>(s_fm + 4 * fq)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = NT - 1; i >= 0; --i) {
+        const float* xt = wait_tile();
+        const int r0 = i * kSplitRows, nr = min(kSplitRows, B - r0);
+        if (on) {
+          for (int r = rg; r < nr; r += RG) {
+            const float4 xq =
+                *reinterpret_cast<const float4*>(xt + r * XS + 4 * fq);
+            const float xv[4] = {xq.x * mf.x, xq.y * mf.y, xq.z * mf.z,
+                                 xq.w * mf.w};
+            const float4* dr =
+                reinterpret_cast<const float4*>(s_dh + (r0 + r) * HD);
+#pragma unroll
+            for (int j4 = 0; j4 < kSplitMaxH / 4; ++j4) {
+              if (4 * j4 >= H) break;
+              const float4 dv = dr[j4];
+              const float dj[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+                  acc[k][4 * j4 + jj] =
+                      fmaf(xv[k], dj[jj], acc[k][4 * j4 + jj]);
+            }
+          }
+        }
+        release();
+      }
+      for (int g = 0; g < RG; ++g) {
+        if (rg == g) {
+#pragma unroll
+          for (int j = 0; j < kSplitMaxH; ++j) {
+            if (j >= H) break;
+            float4* o = reinterpret_cast<float4*>(s_red + j * FQ + 4 * fq);
+            float4 v = make_float4(acc[0][j], acc[1][j], acc[2][j],
+                                   acc[3][j]);
+            if (g > 0) {
+              const float4 p = *o;
+              v = make_float4(p.x + v.x, p.y + v.y, p.z + v.z, p.w + v.w);
+            }
+            *o = v;
+          }
+        }
+        __syncthreads();
+      }
+    }
+
+    // (6) W1's slice steps here, with its own moments
+    for (int i = tid; i < W; i += T) {
+      float mu = 0.f, nu = 0.f, vmax = 0.f;
+      if constexpr (!kSgd) {
+        mu = s_mw[i];
+        nu = s_vw[i];
+        vmax = s_xw[i];
+      }
+      s_w[i] = step_coord<kSgd>(a, s_w[i], s_red[i], mu, nu, vmax, bc1, bc2);
+      if constexpr (!kSgd) {
+        s_mw[i] = mu;
+        s_vw[i] = nu;
+        s_xw[i] = vmax;
+      }
+    }
+    __syncthreads();
+  }
+  cluster.sync();                   // no CTA leaves while another reads it
+
+  const bool active = a.total_w[pair] > 0.f;
+  float* op = a.out_params + so;
+  for (int e = tid; e < W; e += T) {
+    const int f = e / H, i = (e - f * H) * FQ + f;
+    const size_t p = (size_t)f0 * H + e;
+    op[p] = active ? s_w[i] : pm[p];
+    if (!kSgd && active) {
+      a.mu[so + p] = s_mw[i];
+      a.nu[so + p] = s_vw[i];
+      a.nu_max[so + p] = s_xw[i];
+    }
+  }
+  if (q == 0) {
+    for (int e = tid; e < SP; e += T) {
+      const size_t p = (size_t)oSm + e;
+      op[p] = active ? s_sp[e] : pm[p];
+      if (!kSgd && active) {
+        a.mu[so + p] = s_smu[e];
+        a.nu[so + p] = s_snu[e];
+        a.nu_max[so + p] = s_sxm[e];
+      }
+    }
+    if (tid == 0) {
+      if (!kSgd && active) a.count[pair] = count;
+      a.n_out[pair] = active ? a.total_w[pair] * (float)N : 0.f;
+      a.loss_out[pair] = loss_sum / (float)S;
+    }
+  }
+}
+
 // Opt in to more than 48 KB of dynamic shared memory, once per device.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, std::atomic<unsigned long long>& ready,
@@ -1360,34 +1954,33 @@ int launch_fused(const Args& a, int pairs, int device, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// The wide kernel's launch: pairs * Q CTAs in clusters of Q (above 8 a
-// non-portable size, which the H100 allows), each with the dynamic shared
-// memory wide_smem_bytes gives; the attributes are set once per device.
-template <bool kLr, bool kSgd>
-cudaError_t wide_config(const Args& a, int pairs, int device, cudaStream_t st,
-                        cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
-  static std::atomic<unsigned long long> ready{0};
+// A cluster kernel's launch configuration: `ctas` CTAs of kWideThreads in
+// clusters of Q (above 8 a non-portable size, which the H100 allows), each
+// with `smem` bytes of dynamic shared memory; the kernel's attributes are set
+// once per device (`ready`, one per kernel).
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel,
+                           std::atomic<unsigned long long>& ready, int device,
+                           unsigned ctas, unsigned Q, long long smem,
+                           cudaStream_t st, cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute& attr) {
   const unsigned long long bit = device < 64 ? 1ull << device : 0;
   if (!(ready.load() & bit)) {
     cudaError_t err = cudaFuncSetAttribute(
-        local_sgd_wide_kernel<kLr, kSgd>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
-          local_sgd_wide_kernel<kLr, kSgd>,
-          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     ready.fetch_or(bit);
   }
-  const int Q = wide_cluster(a.B);
   cfg = {};
-  cfg.gridDim = dim3((unsigned)pairs * (unsigned)Q);
+  cfg.gridDim = dim3(ctas);
   cfg.blockDim = dim3(kWideThreads);
-  cfg.dynamicSmemBytes =
-      (size_t)wide_smem_bytes(a.F, a.H, a.K, a.B, kSgd);
+  cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = st;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = (unsigned)Q;
+  attr.val.clusterDim.x = Q;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
@@ -1395,44 +1988,83 @@ cudaError_t wide_config(const Args& a, int pairs, int device, cudaStream_t st,
   return cudaSuccess;
 }
 
-// What the wide kernel takes: F a multiple of 4 (16-byte rows for the bulk
-// copies), a first layer of at most 16 units and at most 32 classes (a
-// lane each), B <= 512 (at most 16 CTAs of 32 rows), x 16-byte aligned,
-// and its shared memory within a block's.
-template <bool kLr>
-int wide_check(const Args& a, bool sgd) {
-  const int L1 = kLr ? a.K : a.H;
-  if (a.F % 4 || L1 < 1 || L1 > kWideMaxWidth || a.K > 32
-      || a.B > kWideRows * kWideMaxCluster
-      || (reinterpret_cast<uintptr_t>(a.x) & 15))
-    return (int)cudaErrorInvalidValue;
-  return wide_smem_bytes(a.F, a.H, a.K, a.B, sgd) > kMaxSmem ? kErrSmem : 0;
-}
-
-template <bool kLr, bool kSgd>
-int launch_wide(const Args& a, int pairs, int device, cudaStream_t st) {
-  const int bad = wide_check<kLr>(a, kSgd);
-  if (bad) return bad;
+// Launch `kernel` (clusters == null), or write how many of its clusters the
+// device holds at once into *clusters.
+template <typename Kernel>
+int cluster_launch(Kernel kernel, std::atomic<unsigned long long>& ready,
+                   const Args& a, int pairs, int Q, long long smem,
+                   int device, cudaStream_t st, int* clusters) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = wide_config<kLr, kSgd>(a, pairs, device, st, cfg, attr);
-  if (err == cudaSuccess)
-    err = cudaLaunchKernelEx(&cfg, local_sgd_wide_kernel<kLr, kSgd>, a);
+  cudaError_t err = cluster_config(kernel, ready, device,
+                                   (unsigned)pairs * (unsigned)Q,
+                                   (unsigned)Q, smem, st, cfg, attr);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters)
+    return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// How many of the wide kernel's clusters the device holds at once.
+// What the wide kernel takes: F a multiple of 4 (16-byte rows for the bulk
+// copies), a first layer of at most 16 units and at most 32 classes (a
+// lane each; the fnn up to 64, two a lane), B <= 512 (at most 16 CTAs of
+// 32 rows), x 16-byte aligned, and its shared memory within a block's.
 template <bool kLr, bool kSgd>
-int wide_clusters(const Args& a, int device, int* clusters) {
-  const int bad = wide_check<kLr>(a, kSgd);
-  if (bad) return bad;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = wide_config<kLr, kSgd>(a, 1, device, nullptr, cfg, attr);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(
-        clusters, local_sgd_wide_kernel<kLr, kSgd>, &cfg);
-  return (int)err;
+int launch_wide(const Args& a, int pairs, int device, cudaStream_t st,
+                int* clusters) {
+  const int L1 = kLr ? a.K : a.H;
+  if (a.F % 4 || L1 < 1 || L1 > kWideMaxWidth
+      || a.K > (kLr ? 32 : 2 * 32) || a.B > kWideRows * kWideMaxCluster
+      || (reinterpret_cast<uintptr_t>(a.x) & 15))
+    return (int)cudaErrorInvalidValue;
+  const long long smem = wide_smem_bytes(a.F, a.H, a.K, a.B, kSgd);
+  if (smem > kMaxSmem) return kErrSmem;
+  const int Q = wide_cluster(a.B);
+  if constexpr (!kLr) {
+    if (a.K > 32) {
+      static std::atomic<unsigned long long> ready64{0};
+      return cluster_launch(local_sgd_wide_kernel<false, kSgd, true>, ready64,
+                            a, pairs, Q, smem, device, st, clusters);
+    }
+  }
+  static std::atomic<unsigned long long> ready{0};
+  return cluster_launch(local_sgd_wide_kernel<kLr, kSgd, false>, ready, a,
+                        pairs, Q, smem, device, st, clusters);
+}
+
+// What the split kernel takes: the fnn, F a multiple of 64 (each of the 16
+// CTAs whole float4s of every row) with at most 1024 inputs a CTA, at most
+// 16 hidden units and 64 classes, B <= 512, x 16-byte aligned, and its
+// shared memory within a block's.
+template <bool kSgd>
+int launch_split(const Args& a, int pairs, int device, cudaStream_t st,
+                 int* clusters) {
+  if (a.F % (4 * kSplitCluster) || a.F / kSplitCluster > kSplitMaxFq
+      || a.H < 1 || a.H > kSplitMaxH || a.K < 1 || a.K > kSplitMaxK
+      || a.B > kSplitRows * kSplitCluster
+      || (reinterpret_cast<uintptr_t>(a.x) & 15))
+    return (int)cudaErrorInvalidValue;
+  const long long smem = split_smem_bytes(a.F, a.H, a.K, a.B, kSgd);
+  if (smem > kMaxSmem) return kErrSmem;
+  static std::atomic<unsigned long long> ready{0};
+  return cluster_launch(local_sgd_split_kernel<kSgd>, ready, a, pairs,
+                        kSplitCluster, smem, device, st, clusters);
+}
+
+// The cluster routes by model and update: 2 the wide kernel, 3 the split
+// one (the fnn only).
+int launch_cluster_route(const Args& a, int route, bool sgd, int pairs,
+                         int device, cudaStream_t st, int* clusters) {
+  if (route == 3)
+    return a.H == 0 ? (int)cudaErrorInvalidValue
+           : sgd    ? launch_split<true>(a, pairs, device, st, clusters)
+                    : launch_split<false>(a, pairs, device, st, clusters);
+  if (a.H == 0)
+    return sgd ? launch_wide<true, true>(a, pairs, device, st, clusters)
+               : launch_wide<true, false>(a, pairs, device, st, clusters);
+  return sgd ? launch_wide<false, true>(a, pairs, device, st, clusters)
+             : launch_wide<false, false>(a, pairs, device, st, clusters);
 }
 
 }  // namespace
@@ -1515,12 +2147,9 @@ extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
   else if (route == 0)
     ret = p->sgd ? launch_general<false, true>(a, pairs, p->device, st)
                  : launch_general<false, false>(a, pairs, p->device, st);
-  else if (route == 2 && p->H == 0)
-    ret = p->sgd ? launch_wide<true, true>(a, pairs, p->device, st)
-                 : launch_wide<true, false>(a, pairs, p->device, st);
-  else if (route == 2)
-    ret = p->sgd ? launch_wide<false, true>(a, pairs, p->device, st)
-                 : launch_wide<false, false>(a, pairs, p->device, st);
+  else if (route == 2 || route == 3)
+    ret = launch_cluster_route(a, route, p->sgd != 0, pairs, p->device, st,
+                               nullptr);
   else if (route == 1 && p->F == 3 && p->H == 10 && p->K == 2)
     ret = launch_fused<3, 10, 2>(a, pairs, p->device, st);
   else if (route == 1 && p->F == 2 && p->H == 10 && p->K == 2)
@@ -1538,11 +2167,20 @@ extern "C" long long local_sgd_wide_smem(int F, int H, int K, int B,
   return wide_smem_bytes(F, H, K, B, sgd != 0);
 }
 
-// How many clusters of the wide kernel device `device` holds at once at
-// these sizes (H = 0: the lr), into *clusters: the launch's waves are
-// M * C / *clusters. Returns a cudaError_t, or kErrSmem.
-extern "C" int local_sgd_wide_clusters(int F, int H, int K, int B, int sgd,
-                                       int device, int* clusters) {
+// The split kernel's shared memory a CTA at these sizes, in bytes:
+// local_sgd.py's split_smem_bytes mirrors it.
+extern "C" long long local_sgd_split_smem(int F, int H, int K, int B,
+                                          int sgd) {
+  return split_smem_bytes(F, H, K, B, sgd != 0);
+}
+
+// How many clusters of the wide (route 2) or split (route 3) kernel device
+// `device` holds at once at these sizes (H = 0: the lr), into *clusters:
+// the launch's waves are M * C / *clusters. Returns a cudaError_t, or
+// kErrSmem.
+extern "C" int local_sgd_clusters(int route, int F, int H, int K, int B,
+                                  int sgd, int device, int* clusters) {
+  if (route != 2 && route != 3) return (int)cudaErrorInvalidValue;
   Args a{};
   a.F = F;
   a.H = H;
@@ -1552,13 +2190,8 @@ extern "C" int local_sgd_wide_clusters(int F, int H, int K, int B, int sgd,
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int ret;
-  if (H == 0)
-    ret = sgd ? wide_clusters<true, true>(a, device, clusters)
-              : wide_clusters<true, false>(a, device, clusters);
-  else
-    ret = sgd ? wide_clusters<false, true>(a, device, clusters)
-              : wide_clusters<false, false>(a, device, clusters);
+  const int ret = launch_cluster_route(a, route, sgd != 0, 1, device, nullptr,
+                                       clusters);
   if (current != device) cudaSetDevice(current);
   return ret;
 }

@@ -23,12 +23,14 @@ version, ``eval_cells_ref``, for CPU tensors. There is no fallback for a
 CUDA tensor: the kernel launches or the call raises. The source holds three
 kernels of the one function, and ``_route`` picks one by shape alone
 before the launch: the fused kernel for the registry's widths; the wide
-kernel (a cluster of CTAs a (client, step), 32 rows each staged by TMA once
+kernel (a cluster of CTAs a (client, step), row tiles staged by TMA once
 for every model, the models' first layers side by side on the tensor cores
-in 3xTF32) for rows of a multiple of 4 floats, such as MNIST-4's F = 784,
-where ``wide_smem_bytes`` fits; the general one for any other.
-``eval_cells.launches`` counts every launch, ``eval_cells.wide_launches``
-the wide kernel's. ``eval_cells_ref.cuda_calls`` counts the plain
+in 3xTF32) for rows of a multiple of 4 floats where ``wide_smem_bytes``
+fits, with tiles of 32 rows (MNIST-4's F = 784) or, where 32 rows of x do
+not fit a block, 16 (fmow's F = 3072; ``wide_rows``); the general one for
+any other. ``eval_cells.launches`` counts every launch,
+``eval_cells.wide_launches`` the wide kernel's and
+``eval_cells.wide16_launches`` those of its 16-row tiles. ``eval_cells_ref.cuda_calls`` counts the plain
 version's calls on CUDA tensors (only a comparison with the kernel makes
 them), so a run can show that none carried its evals.
 
@@ -73,16 +75,26 @@ def _wide_stride(F: int) -> int:
     return s if s % 8 == 4 else s + 4
 
 
-def wide_smem_bytes(F: int, H: int, K: int) -> int:
-    """Shared memory of one CTA of the wide kernel (``H = 0``: the lr), as
-    ``csrc/eval_cells.cu::eval_wide_smem_bytes`` counts it: the mbarrier, 32
-    rows of x at the padded stride, eight [32, 8] tiles of first-layer
-    partials, the second layers of a group of models (at most 64
-    first-layer columns and 8 models) and the warps' totals."""
+def wide_smem_bytes(F: int, H: int, K: int, rows: int = WIDE_ROWS) -> int:
+    """Shared memory of one CTA of the wide kernel (``H = 0``: the lr) with
+    tiles of ``rows``, as ``csrc/eval_cells.cu::eval_wide_smem_bytes``
+    counts it: the mbarrier, the rows of x at the padded stride, eight
+    [rows, 8] tiles of first-layer partials, the second layers of a group
+    of models (at most 64 first-layer columns and 8 models) and the warps'
+    totals."""
     group = min(8, max(1, WIDE_MAX_WIDTH // (H or K)))
     tail = H + H * K + K if H else K
-    return 16 + 4 * (WIDE_ROWS * _wide_stride(F) + 8 * WIDE_ROWS * 8
+    return 16 + 4 * (rows * _wide_stride(F) + 8 * rows * 8
                      + group * tail + 16)
+
+
+def wide_rows(F: int, H: int, K: int) -> int:
+    """The wide kernel's row tile (``csrc/eval_cells.cu::eval_wide_rows``):
+    32 where its shared memory fits a block, else 16, else 0 (none)."""
+    for rows in (WIDE_ROWS, WIDE_ROWS // 2):
+        if wide_smem_bytes(F, H, K, rows) <= MAX_SMEM:
+            return rows
+    return 0
 
 
 def _route(F: int, H: int, K: int) -> str:
@@ -97,9 +109,10 @@ def _route(F: int, H: int, K: int) -> str:
 
 def _wide_fits(F: int, H: int, K: int) -> bool:
     """Whether the wide kernel takes the shape: 16-byte rows (F % 4 == 0),
-    a first layer of at most 64 and its shared memory within a block's."""
+    a first layer of at most 64 and its shared memory within a block's at
+    32 or 16 rows a tile."""
     return F % 4 == 0 and (H or K) <= WIDE_MAX_WIDTH \
-        and wide_smem_bytes(F, H, K) <= MAX_SMEM
+        and wide_rows(F, H, K) > 0
 
 
 def _threads(N: int) -> int:
@@ -245,8 +258,8 @@ def eval_cells(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
         raise ValueError(f"route {route!r}: the fused kernel takes (F, H, K) "
                          f"in {FUSED_WIDTHS}, the wide one F % 4 == 0 and a "
                          f"first layer of at most {WIDE_MAX_WIDTH} within "
-                         f"{MAX_SMEM} bytes (wide_smem_bytes), the general "
-                         f"one any width")
+                         f"{MAX_SMEM} bytes at 32 or 16 rows a tile "
+                         f"(wide_smem_bytes), the general one any width")
     index = x.get_device()
     for name, t, dtype in (("params", params, torch.float32),
                            ("x", x, torch.float32), ("y", y, torch.int32)) + (
@@ -297,8 +310,11 @@ def eval_cells(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
     eval_cells.launches += 1
     if route == "wide":
         eval_cells.wide_launches += 1
+        if wide_rows(F, H, K) == WIDE_ROWS // 2:
+            eval_cells.wide16_launches += 1
     return correct, nll
 
 
 eval_cells.launches = 0
 eval_cells.wide_launches = 0
+eval_cells.wide16_launches = 0

@@ -33,10 +33,15 @@ by shape, model and update alone before the launch: the fused kernel (one
 batch row a thread, two barriers a step) for the fnn widths it is built
 for under AMSGrad; the wide kernel (a cluster of CTAs a pair, 32 batch rows
 each staged by TMA, both products in float32 FMAs) for rows of a multiple
-of 4 floats, such as MNIST-4's F = 784, the fnn or the lr, AMSGrad or SGD,
-where ``wide_smem_bytes`` fits; the general kernel for the rest (e.g.
+of 4 floats, such as MNIST-4's F = 784 (and femnist's fnn, 62 classes, two
+a lane), the fnn or the lr, AMSGrad or SGD, where ``wide_smem_bytes``
+fits; the split kernel (a cluster of 16 CTAs a pair, each a sixteenth of
+the inputs, x streamed through shared memory twice a step) for the fnn at
+inputs the wide kernel's budget refuses, such as fmow's F = 3072, where
+``split_smem_bytes`` fits; the general kernel for the rest (e.g.
 ``fnn_hidden_dim = 32`` and the lr at SEA's F = 3). ``local_sgd.launches``
-counts every launch, ``local_sgd.wide_launches`` the wide kernel's.
+counts every launch, ``local_sgd.wide_launches`` the wide kernel's and
+``local_sgd.split_launches`` the split kernel's.
 
 ``local_sgd_fedavg`` is a round's K1 and K2 in one launch: the fused
 kernel with the masked FedAvg (``kernels/fedavg.py``'s function, bitwise)
@@ -83,11 +88,18 @@ _ERR_SMEM = -1
 # (sine and circle, SEA at fnn_hidden_dim = 10) and its most rows (a block)
 FUSED_WIDTHS = ((2, 10, 2), (3, 10, 2))
 FUSED_MAX_BATCH = 512
-_ROUTES = {"general": 0, "fused": 1, "wide": 2}  # local_sgd_f32's route
+# local_sgd_f32's route
+_ROUTES = {"general": 0, "fused": 1, "wide": 2, "split": 3}
 OPTIMIZERS = ("adam", "sgd")              # the reference's make_optimizer
-# csrc/local_sgd.cu's wide kernel: the units of its first layer at most
-# (its other sizes are K3's: eval_cells.WIDE_ROWS, ...)
-WIDE_MAX_WIDTH = 16
+# csrc/local_sgd.cu's wide kernel: the units of its first layer and the
+# fnn's classes (two a lane) at most (its other sizes are K3's:
+# eval_cells.WIDE_ROWS, ...)
+WIDE_MAX_WIDTH, WIDE_MAX_CLASSES = 16, 64
+# csrc/local_sgd.cu's split kernel: CTAs a pair, rows a tile (and a CTA's
+# rows in the row phase), tiles in flight, hidden units and classes at
+# most, inputs a CTA at most
+SPLIT_CLUSTER, SPLIT_ROWS, SPLIT_STAGES = 16, 32, 4
+SPLIT_MAX_H, SPLIT_MAX_K, SPLIT_MAX_FQ = 16, 64, 1024
 
 
 def wide_smem_bytes(F: int, H: int, K: int, B: int,
@@ -113,12 +125,46 @@ def wide_smem_bytes(F: int, H: int, K: int, B: int,
 
 def _wide_fits(F: int, H: int, K: int, B: int, optimizer: str) -> bool:
     """Whether the wide kernel takes the shape: 16-byte rows (F % 4 ==
-    0), a first layer of at most 16 units and at most 32 classes (a lane
-    each), at most 16 CTAs of 32 rows, and its shared memory within a
-    block's."""
-    return F % 4 == 0 and 1 <= (H or K) <= WIDE_MAX_WIDTH and K <= 32 \
+    0), a first layer of at most 16 units and at most 64 classes (one or
+    two a lane), at most 16 CTAs of 32 rows, and its shared memory within
+    a block's."""
+    return F % 4 == 0 and 1 <= (H or K) <= WIDE_MAX_WIDTH \
+        and K <= WIDE_MAX_CLASSES \
         and 1 <= B <= WIDE_ROWS * WIDE_MAX_CLUSTER \
         and wide_smem_bytes(F, H, K, B, optimizer) <= MAX_SMEM
+
+
+def split_smem_bytes(F: int, H: int, K: int, B: int,
+                     optimizer: str = "adam") -> int:
+    """Shared memory of one CTA of the split kernel, as
+    ``csrc/local_sgd.cu::split_smem_bytes`` counts it: the stages'
+    mbarriers, then the x ring (4 tiles of 32 rows of F / 16 inputs at the
+    padded stride), the forward's warp partials (two buffers) or dW1's
+    slice, W1's slice and (AMSGrad) its three moments, the mask's slice, dh
+    (rows padded to float4s) and Z1's partials of every batch row, the
+    small params (b1, W2, b2), their partials and moments, h and dz of the
+    CTA's 32 rows, their labels, the warps' losses and the loss, and the
+    batch's row indices of two steps."""
+    FQ = F // SPLIT_CLUSTER
+    W, SP = H * FQ, H + H * K + K
+    red = 2 * 8 * SPLIT_ROWS * H
+    sgd = optimizer == "sgd"
+    floats = (SPLIT_STAGES * SPLIT_ROWS * _wide_stride(FQ) + max(red, W)
+              + (1 if sgd else 4) * W + FQ + B * (-(-H // 4) * 4) + B * H
+              + (2 if sgd else 5) * SP + SPLIT_ROWS * (H + K) + SPLIT_ROWS
+              + 8 + 4 + 2 * B)
+    return 8 * SPLIT_STAGES + 4 * floats
+
+
+def _split_fits(F: int, H: int, K: int, B: int, optimizer: str) -> bool:
+    """Whether the split kernel takes the shape: the fnn, whole float4s
+    of every row in each of its 16 CTAs (F % 64 == 0) and at most 1024
+    inputs a CTA, at most 16 hidden units and 64 classes, B <= 512, and
+    its shared memory within a block's."""
+    return H >= 1 and F % (4 * SPLIT_CLUSTER) == 0 \
+        and F // SPLIT_CLUSTER <= SPLIT_MAX_FQ and H <= SPLIT_MAX_H \
+        and 1 <= K <= SPLIT_MAX_K and 1 <= B <= SPLIT_ROWS * SPLIT_CLUSTER \
+        and split_smem_bytes(F, H, K, B, optimizer) <= MAX_SMEM
 
 
 def _route(F: int, H: int, K: int, B: int, optimizer: str = "adam") -> str:
@@ -130,6 +176,8 @@ def _route(F: int, H: int, K: int, B: int, optimizer: str = "adam") -> str:
         return "fused"
     if _wide_fits(F, H, K, B, optimizer):
         return "wide"
+    if _split_fits(F, H, K, B, optimizer):
+        return "split"
     return "general"
 
 
@@ -345,15 +393,19 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
         route = _route(F, H, K, B, optimizer)
     elif route not in _ROUTES or (
             route == "fused" and _route(F, H, K, B, optimizer) != "fused") \
-            or (route == "wide" and not _wide_fits(F, H, K, B, optimizer)):
+            or (route == "wide" and not _wide_fits(F, H, K, B, optimizer)) \
+            or (route == "split" and not _split_fits(F, H, K, B, optimizer)):
         raise ValueError(f"route {route!r}: the fused kernel takes (F, H, K) "
                          f"in {FUSED_WIDTHS}, B <= {FUSED_MAX_BATCH} and "
                          f"AMSGrad, the wide one F % 4 == 0, a first layer "
                          f"of at most {WIDE_MAX_WIDTH}, B <= "
                          f"{WIDE_ROWS * WIDE_MAX_CLUSTER} within "
-                         f"{MAX_SMEM} bytes (wide_smem_bytes), the general "
-                         f"one any shape, the lr and SGD")
-    ctas = -(-B // WIDE_ROWS) if route == "wide" else 1
+                         f"{MAX_SMEM} bytes (wide_smem_bytes), the split one "
+                         f"the fnn at F % 64 == 0 within its budget "
+                         f"(split_smem_bytes), the general one any shape, "
+                         f"the lr and SGD")
+    ctas = -(-B // WIDE_ROWS) if route == "wide" \
+        else SPLIT_CLUSTER if route == "split" else 1
     if M * C * ctas > MAX_BLOCKS:
         raise ValueError(f"M*C={M * C} pairs of {ctas} blocks exceed "
                          f"{MAX_BLOCKS}")
@@ -361,9 +413,9 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
         raise ValueError(f"the {route} route has no FedAvg epilogue: its "
                          f"caller launches K2 (kernels/fedavg.py) itself")
     index = x.get_device()
-    if route == "wide" and x.data_ptr() % 16:
-        raise ValueError("the wide route copies x's rows with TMA: x must "
-                         "be 16-byte aligned")
+    if route in ("wide", "split") and x.data_ptr() % 16:
+        raise ValueError(f"the {route} route copies x's rows with TMA: x "
+                         f"must be 16-byte aligned")
     i32, f32 = torch.int32, torch.float32
     if aggregate and stats_out is None:
         stats_out = torch.empty((M, 3), device=x.device)
@@ -420,6 +472,8 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
     local_sgd.launches += 1
     if route == "wide":
         local_sgd.wide_launches += 1
+    elif route == "split":
+        local_sgd.split_launches += 1
     if not aggregate:
         return client, n, loss
     local_sgd_fedavg.launches += 1
@@ -453,20 +507,23 @@ def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
 
 local_sgd.launches = 0
 local_sgd.wide_launches = 0
+local_sgd.split_launches = 0
 
 
 def wide_clusters(F: int, H: int, K: int, B: int, optimizer: str = "adam",
-                  device: int = 0) -> int:
-    """How many clusters of the wide kernel the card holds at once at this
-    shape (``cudaOccupancyMaxActiveClusters``): a launch of P pairs runs in
+                  device: int = 0, route: str = "wide") -> int:
+    """How many clusters of the wide (or ``route="split"``: the split)
+    kernel the card holds at once at this shape
+    (``cudaOccupancyMaxActiveClusters``): a launch of P pairs runs in
     ceil(P / that) waves."""
-    fn = library("local_sgd").local_sgd_wide_clusters
+    fn = library("local_sgd").local_sgd_clusters
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     out = ctypes.c_int(0)
-    err = fn(F, H, K, B, int(optimizer == "sgd"), device, ctypes.byref(out))
+    err = fn(_ROUTES[route], F, H, K, B, int(optimizer == "sgd"), device,
+             ctypes.byref(out))
     if err != 0:
-        raise RuntimeError(f"local_sgd_wide_clusters: error {err}")
+        raise RuntimeError(f"local_sgd_clusters ({route}): error {err}")
     return out.value
 
 

@@ -11,7 +11,9 @@ times). Each imports ``feddrift_torch`` and ``chip_smoke`` from its side's
 checkout, builds that side's kernels there, and for each case, on
 ``chip_smoke``'s inputs: K1's fused kernel with its K2 epilogue
 (``local_sgd_fedavg``, SEA), the same launch with the folded eval, K1's
-general kernel forced at SEA and its wide kernel at MNIST-4's width; K3's
+general kernel forced at SEA (the fnn under AMSGrad and SGD, the lr under
+AMSGrad), its wide kernel at MNIST-4's width (the same three) and its split
+kernel at fmow's (the fnn under AMSGrad and SGD); K3's
 fused and general kernels at SEA (G = 2) and its wide kernel at MNIST-4's
 width. It prints one ``ab_kernel`` JSON line a side and case: ms a call
 (CUDA events), device ms (torch.profiler), and a sha256 of every output
@@ -32,8 +34,9 @@ import subprocess
 import sys
 
 ORDER = ("base", "this", "this", "base")
-CASES = ("k1_fused", "k1_fused_eval", "k1_general", "k1_wide", "k3_fused",
-         "k3_general", "k3_wide")
+CASES = ("k1_fused", "k1_fused_eval", "k1_general", "k1_general_sgd",
+         "k1_general_lr", "k1_wide", "k1_wide_sgd", "k1_wide_lr", "k1_split",
+         "k1_split_sgd", "k3_fused", "k3_general", "k3_wide")
 
 
 def _digest(tensors) -> str:
@@ -55,8 +58,9 @@ def child() -> None:
         {src: cs._ptxas_per_kernel(build.build_log.get(src, ""))
          for src in ("local_sgd.cu", "eval_cells.cu")}), flush=True)
 
-    def k1(label, dataset, route=None, fused=False, fold=False):
-        args, kw, _, _ = cs._train_case(dataset, 0)
+    def k1(label, dataset, route=None, fused=False, fold=False,
+           model="fnn", optimizer="adam"):
+        args, kw, _, _ = cs._train_case(dataset, 0, 10, model, optimizer)
         x, y, params, opt, t_idx, slot, total_w = args
         fresh = lambda: {k: v.clone() for k, v in opt.items()}
         extra = {}
@@ -74,7 +78,7 @@ def child() -> None:
                 return [out[0], *out[1].values(), *out[2:5]] \
                     + (list(extra["eval_out"]) if fold else [])
             out = local_sgd(x, y, params, state, t_idx, slot, total_w,
-                            route=route, **kw)
+                            route=route, optimizer=optimizer, **kw)
             return [out[0], *out[1].values(), out[2], out[3]]
         digest = _digest(call(fresh()))
         state = fresh()
@@ -89,10 +93,16 @@ def child() -> None:
             k1("k1_fused", "sea", fused=True),
             k1("k1_fused_eval", "sea", fused=True, fold=True),
             k1("k1_general", "sea", route="general"),
+            k1("k1_general_sgd", "sea", route="general", optimizer="sgd"),
+            k1("k1_general_lr", "sea", route="general", model="lr"),
             k1("k1_wide", "MNIST"),
+            k1("k1_wide_sgd", "MNIST", optimizer="sgd"),
+            k1("k1_wide_lr", "MNIST", model="lr"),
+            k1("k1_split", "fmow"), k1("k1_split_sgd", "fmow",
+                                       optimizer="sgd"),
             k3("k3_fused", "sea"), k3("k3_general", "sea", route="general"),
             k3("k3_wide", "MNIST")):
-        wide = label.endswith("wide")
+        wide = "wide" in label or "split" in label
         print("ab_kernel: " + json.dumps({
             "case": label, "sha256": digest,
             "ms": cs._time_ms(fn, iters=20 if wide else 100),

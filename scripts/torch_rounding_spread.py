@@ -1,17 +1,26 @@
-"""How far rounding alone moves MNIST-4's Test/Acc on the card: the win-1
-and oblivious runs of ``chip_smoke.py``'s ``MNIST_RUNS`` (10 steps, the
-reference's init) through K1's wide kernel, the same kernel with its
+"""How far rounding alone moves MNIST-4's (or fmow's) Test/Acc on the card:
+the win-1 and oblivious runs of ``chip_smoke.py``'s ``MNIST_RUNS`` (or
+``FMOW_RUNS``; 10 steps, the reference's init) through K1's kernel of that
+width (the wide one; fmow's: the split one), the same kernel with its
 cluster sum taken in reverse rank order (a copy of ``csrc/local_sgd.cu``
-built beside the package's), the general kernel, and the plain version
-(``local_sgd_ref`` on the card, on the batch rows as drawn and permuted
-within each batch). Each changes only the order of float32 sums.
+built beside the package's: the wide kernel's gradient sum, the split
+kernel's sum of Z1's partials), at MNIST's width the general kernel, and
+the plain version (``local_sgd_ref`` on the card, on the batch rows as drawn
+and permuted within each batch). Each changes only the order of float32
+sums.
 
     python3 scripts/torch_rounding_spread.py [--runs win-1,oblivious]
+        [--dataset MNIST|fmow] [--permutations 2]
 
 One JSON line a (variant, run): its Test/Acc per step, mean, and the
-committed run's mean; then one line with the spread of each run's means.
-Needs a CUDA card (exits 1 without one); takes ~2 minutes (the general
-kernel and the plain version take ~40 s and ~20 s a run).
+committed run's mean (at fmow also its largest distance a step and on the
+mean from the JAX package's CPU run from the same init,
+``chip_smoke.FMOW_REFERENCE_ACCS``); then one line with the spread of each
+run's means and, at fmow, the plain variants' envelope: the largest of
+those distances over the plain version's runs, from which
+``chip_smoke.FMOW_RUNS`` takes its gates.
+Needs a CUDA card (exits 1 without one); takes ~2 minutes at MNIST's width
+(the general kernel and the plain version take ~40 s and ~20 s a run).
 """
 
 import argparse
@@ -28,26 +37,38 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-def reversed_sum_kernel(build, tmp: str):
-    """local_sgd_f32 from a copy of the source whose cluster sum runs from
-    rank Q - 1 down to 0."""
+# the cluster sums the reversed variant turns around, by K1's kernel: the
+# wide kernel's gradient partials, the split kernel's Z1 partials
+REVERSED_SUMS = {
+    "wide": (("      for (int r = 0; r < kWideMaxCluster; ++r) {\n"
+              "        if (r >= Q) break;\n        g[0] += part[r].x;\n"
+              "        g[1] += part[r].y;\n        g[2] += part[r].z;\n"
+              "        g[3] += part[r].w;\n      }\n"),
+             ("      for (int rr = 0; rr < kWideMaxCluster; ++rr) {\n"
+              "        if (rr >= Q) break;\n        const int r = Q - 1 - rr;\n"
+              "        g[0] += part[r].x;\n        g[1] += part[r].y;\n"
+              "        g[2] += part[r].z;\n        g[3] += part[r].w;\n"
+              "      }\n")),
+    "split": (("          for (int rk = 0; rk < Q; ++rk)\n"
+               "            v += cluster.map_shared_rank(s_zp, rk)"
+               "[(o0 + r) * H + lane];\n"),
+              ("          for (int rk = Q - 1; rk >= 0; --rk)\n"
+               "            v += cluster.map_shared_rank(s_zp, rk)"
+               "[(o0 + r) * H + lane];\n"))}
+
+
+def reversed_sum_kernel(build, tmp: str, route: str = "wide"):
+    """local_sgd_f32 from a copy of the source whose cluster sum (of the
+    ``route`` kernel) runs from rank Q - 1 down to 0."""
     src_dir = os.path.join(ROOT, "feddrift_torch", "kernels", "csrc")
     dst = os.path.join(tmp, "csrc")
     shutil.copytree(src_dir, dst)
     path = os.path.join(dst, "local_sgd.cu")
     src = open(path).read()
-    loop = ("      for (int r = 0; r < kWideMaxCluster; ++r) {\n"
-            "        if (r >= Q) break;\n        g[0] += part[r].x;\n"
-            "        g[1] += part[r].y;\n        g[2] += part[r].z;\n"
-            "        g[3] += part[r].w;\n      }\n")
+    loop, turned = REVERSED_SUMS[route]
     if src.count(loop) != 1:
         raise RuntimeError("the cluster sum's loop is not where it was")
-    src = src.replace(loop, (
-        "      for (int rr = 0; rr < kWideMaxCluster; ++rr) {\n"
-        "        if (rr >= Q) break;\n        const int r = Q - 1 - rr;\n"
-        "        g[0] += part[r].x;\n        g[1] += part[r].y;\n"
-        "        g[2] += part[r].z;\n        g[3] += part[r].w;\n"
-        "      }\n"))
+    src = src.replace(loop, turned)
     open(path, "w").write(src)
     lib = os.path.join(tmp, "local_sgd_reversed.so")
     proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib, path],
@@ -63,6 +84,9 @@ def reversed_sum_kernel(build, tmp: str):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", default="win-1,oblivious")
+    ap.add_argument("--dataset", default="MNIST", choices=("MNIST", "fmow"))
+    ap.add_argument("--permutations", type=int, default=2,
+                    help="plain runs on batch rows permuted within a batch")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -77,10 +101,16 @@ def main() -> int:
     k1 = importlib.import_module("feddrift_torch.kernels.local_sgd")
     card = cs.phase_device()
     build.build_all()
-    init = FeedForwardNN((784,), 10, 10).unpack(
-        torch.from_numpy(np.load(cs.MNIST_REFERENCE_INIT)))
-    runs = {r[0]: r for r in cs.MNIST_RUNS if r[0] in args.runs.split(",")}
+    fmow = args.dataset == "fmow"
+    init = FeedForwardNN(*(((32, 32, 3), 62) if fmow else ((784,), 10)),
+                         10).unpack(torch.from_numpy(np.load(
+                             cs.FMOW_REFERENCE_INIT if fmow
+                             else cs.MNIST_REFERENCE_INIT)))
+    table = cs.FMOW_RUNS if fmow else cs.MNIST_RUNS
+    reference = cs.FMOW_REFERENCE_ACCS if fmow else {}
+    runs = {r[0]: r for r in table if r[0] in args.runs.split(",")}
     kernel, route, k1_fn = k1._kernel, k1._route, step_mod.local_sgd
+    width = "split" if fmow else "wide"
 
     def plain_on(perm):
         def plain(x, y, flat, opt, t_idx, slot, tw, *, batch_size,
@@ -93,30 +123,32 @@ def main() -> int:
                                     optimizer=optimizer, **kw)
         return plain
 
-    means = {}
+    means, envelope = {}, {}
+    def permuted(seed):
+        return lambda: setattr(step_mod, "local_sgd", plain_on(
+            torch.from_numpy(np.random.default_rng(seed).permutation(500))
+            .cuda()))
+
     with tempfile.TemporaryDirectory() as tmp:
-        reversed_fn = reversed_sum_kernel(build, tmp)
+        reversed_fn = reversed_sum_kernel(build, tmp, width)
         variants = (
-            ("wide", lambda: None),
-            ("wide_sum_reversed",
+            (width, lambda: None),
+            (width + "_sum_reversed",
              lambda: setattr(k1, "_kernel", lambda: reversed_fn)),
-            ("general", lambda: setattr(
-                k1, "_route", lambda F, H, K, B, o="adam": "general")),
+            # fmow's width: the general kernel refuses it (shared memory)
+            *(() if fmow else (("general", lambda: setattr(
+                k1, "_route", lambda F, H, K, B, o="adam": "general")),)),
             ("plain", lambda: setattr(step_mod, "local_sgd", plain_on(
                 torch.arange(500, device="cuda")))),
-            ("plain_rows_permuted_1", lambda: setattr(
-                step_mod, "local_sgd", plain_on(torch.from_numpy(
-                    np.random.default_rng(1).permutation(500)).cuda()))),
-            ("plain_rows_permuted_2", lambda: setattr(
-                step_mod, "local_sgd", plain_on(torch.from_numpy(
-                    np.random.default_rng(2).permutation(500)).cuda()))))
+            *((f"plain_rows_permuted_{i}", permuted(i))
+              for i in range(1, args.permutations + 1)))
         for name, setup in variants:
             for algo, (_, arg, pool, T, run, pinned, _, mean_tol) \
                     in runs.items():
                 k1._kernel, k1._route = kernel, route
                 step_mod.local_sgd = k1_fn
                 setup()
-                cfg = ExperimentConfig(dataset="MNIST",
+                cfg = ExperimentConfig(dataset=args.dataset,
                                        concept_drift_algo=algo,
                                        concept_drift_algo_arg=arg,
                                        concept_num=pool, train_iterations=T)
@@ -126,18 +158,34 @@ def main() -> int:
                 mean = sum(accs) / len(accs)
                 ref = sum(pinned[:T]) / T
                 means.setdefault(algo, {})[name] = mean
+                dist = {}
+                if algo in reference:
+                    want = reference[algo][:T]
+                    dist = {"reference_test_acc": want,
+                            "max_step_from_reference": max(
+                                abs(a - b) for a, b in zip(accs, want)),
+                            "mean_from_reference": abs(mean - sum(want) / T)}
+                    if name.startswith("plain"):
+                        env = envelope.setdefault(algo, {"step": 0.0,
+                                                         "mean": 0.0})
+                        env["step"] = max(env["step"],
+                                          dist["max_step_from_reference"])
+                        env["mean"] = max(env["mean"],
+                                          dist["mean_from_reference"])
                 print(json.dumps({"variant": name, "run": algo,
-                                  "test_acc": accs, "mean": mean,
+                                  "test_acc": accs, "mean": mean, **dist,
                                   "committed_mean": ref,
                                   "mean_minus_committed": mean - ref,
                                   "mean_tol": mean_tol,
                                   "wide_launches": got["k1_wide_launches"],
+                                  "split_launches":
+                                  got["k1_split_launches"],
                                   "seconds": time.time() - t0}), flush=True)
         k1._kernel, k1._route = kernel, route
         step_mod.local_sgd = k1_fn
     print(json.dumps({"card": card, "spread_of_means": {
         algo: {"min": min(v.values()), "max": max(v.values())}
-        for algo, v in means.items()}}))
+        for algo, v in means.items()}, "plain_envelope": envelope}))
     return 0
 
 

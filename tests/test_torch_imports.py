@@ -44,6 +44,23 @@ def test_port_imports_no_jax():
     assert bad == "[]", bad
 
 
+def test_fmow_data_imports_no_jax():
+    """``data/fmow.py`` is the port's own copy: importing it (and building a
+    small fmow dataset) loads nothing of the JAX package."""
+    code = ("import sys\nfrom feddrift_torch.data import fmow\n"
+            "from feddrift_torch.config import ExperimentConfig\n"
+            "from feddrift_torch.data.registry import make_dataset\n"
+            "ds = make_dataset(ExperimentConfig(dataset='fmow', "
+            "fmow_image_size=4, train_iterations=1, sample_num=4))\n"
+            "print(ds.x.shape, sorted(m for m in sys.modules if m.split('.')"
+            "[0] in ('jax', 'jaxlib', 'flax', 'feddrift_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "(10, 2, 4, 4, 4, 3) []"
+
+
 @pytest.mark.parametrize("target", [
     "feddrift_torch.core.pool:ModelPool.create",
     "feddrift_torch.convert:params_from_jax",

@@ -140,6 +140,7 @@ def test_reset_and_read_counts_cover_every_training_kernel():
     fedavg.launches = eval_cells.launches = 3
     local_sgd.launches = local_sgd_fedavg.launches = 4
     local_sgd.wide_launches = eval_cells.wide_launches = 7
+    local_sgd.split_launches = eval_cells.wide16_launches = 8
     local_sgd_fedavg.evals = 6
     weighted_cdf.launches = weighted_search.launches = 5
     fedavg_ref.cuda_calls = eval_cells_ref.cuda_calls = 2
@@ -147,9 +148,10 @@ def test_reset_and_read_counts_cover_every_training_kernel():
     chip_smoke._reset_counts()
     assert chip_smoke._read_counts() == {
         "k1_launches": 0, "k1_without_epilogue": 0, "k1_wide_launches": 0,
+        "k1_split_launches": 0,
         "k4a_launches": 0, "k4b_launches": 0, "k2_launches": 0,
         "k2_epilogues": 0, "aggregations": 0, "k3_launches": 0,
-        "k3_wide_launches": 0, "folded_evals": 0,
+        "k3_wide_launches": 0, "k3_wide16_launches": 0, "folded_evals": 0,
         "plain_calls": {"fedavg_ref": 0, "eval_cells_ref": 0,
                         "weighted_cdf_ref": 0, "weighted_search_ref": 0}}
 
@@ -322,11 +324,13 @@ def test_mnist_runs_fit_the_time_budget():
 
 def test_k1_cases_run_every_instantiation_of_both_kernels():
     """``K1_CASES`` hold each of the general and the wide kernel's four
-    instantiations (the lr or the fnn, AMSGrad or SGD) to the plain
-    version, each kernels-line entry of K1 names a case, and the runs held
-    at step 0 only are lr runs."""
+    instantiations (the lr or the fnn, AMSGrad or SGD) and the split
+    kernel's two (the fnn, AMSGrad or SGD) to the plain version, each
+    kernels-line entry of K1 names a case, and the runs held at step 0 only
+    are lr runs."""
     from feddrift_torch.kernels.local_sgd import _route
-    widths = {"sea": (3, 2), "sine": (2, 2), "MNIST": (784, 10)}
+    widths = {"sea": (3, 2), "sine": (2, 2), "MNIST": (784, 10),
+              "fmow": (3072, 62), "femnist": (784, 62)}
     routes = set()
     for label, dataset, _, model, hidden, optimizer, forced, _ \
             in chip_smoke.K1_CASES:
@@ -336,6 +340,7 @@ def test_k1_cases_run_every_instantiation_of_both_kernels():
                     optimizer))
     assert {(r, m, o) for r in ("general", "wide") for m in ("lr", "fnn")
             for o in ("adam", "sgd")} <= routes
+    assert {("split", "fnn", "adam"), ("split", "fnn", "sgd")} <= routes
     assert set(chip_smoke.K1_ENTRIES) <= {c[0] for c in chip_smoke.K1_CASES}
     assert {e[0] for e in chip_smoke.K1_ENTRIES.values()} \
         <= set(chip_smoke.WIDE_ENTRIES)

@@ -1,7 +1,9 @@
-"""K1's and K3's wide kernels (``csrc/local_sgd.cu::local_sgd_wide_kernel``,
-``csrc/eval_cells.cu::eval_wide_kernel``): their routes and shared-memory
-budgets on the CPU, and the kernels themselves against their plain
-versions on the card (``gpu``). The plain versions, ``local_sgd_ref`` and
+"""K1's wide and split kernels (``csrc/local_sgd.cu::local_sgd_wide_kernel``,
+``local_sgd_split_kernel``) and K3's wide kernel
+(``csrc/eval_cells.cu::eval_wide_kernel``, 32- and 16-row tiles): their
+routes and shared-memory budgets on the CPU, and the kernels themselves
+against their plain versions on the card (``gpu``), at MNIST-4's width and
+at fmow's (F 3072, K 62). The plain versions, ``local_sgd_ref`` and
 ``eval_cells_ref``, are held to the JAX package in
 ``tests/test_torch_lr_sgd.py``, ``tests/test_torch_train_step.py`` and
 ``tests/test_torch_eval_cells.py``.
@@ -82,23 +84,64 @@ def test_wide_budget_takes_mnist(shape, optimizer):
 
 @pytest.mark.parametrize("optimizer", ["adam", "sgd"])
 def test_femnist_fnn_takes_the_wide_eval_but_not_the_wide_step(optimizer):
-    """784 -> 10 -> 62 fits K1's wide budget, but its 62 classes are more
-    than a warp's lanes: K1 keeps the general kernel (which refuses it for
-    shared memory), K3 takes its wide one."""
+    """784 -> 10 -> 62 fits K1's wide budget (190,912 bytes under
+    AMSGrad), and its 62 classes, more than a warp's lanes, take the row
+    phase's two classes a lane: K1 takes the wide kernel now, where it
+    kept the general one, and K3 its wide one on 32-row tiles."""
     assert k1_wrapper.wide_smem_bytes(*FEMNIST_FNN, 500, optimizer) \
         <= k1_wrapper.MAX_SMEM
-    assert k1_wrapper._route(*FEMNIST_FNN, 500, optimizer) == "general"
+    assert k1_wrapper.wide_smem_bytes(*FEMNIST_FNN, 500) == 190912
+    assert k1_wrapper._route(*FEMNIST_FNN, 500, optimizer) == "wide"
+    assert k1_wrapper._route(784, 10, 65, 500, optimizer) == "general"
     assert k3._route(*FEMNIST_FNN) == "wide"
+    assert k3.wide_rows(*FEMNIST_FNN) == 32
 
 
 @pytest.mark.parametrize("optimizer", ["adam", "sgd"])
 @pytest.mark.parametrize("shape", [CIFAR10_FNN, FMOW_FNN])
 def test_wide_budget_refuses_cifar10_and_fmow(shape, optimizer):
+    """32 rows of x at F = 3072 are 394 KB: K1's wide budget and K3's at
+    32-row tiles refuse cifar10's and fmow's fnn. K1 takes the split kernel
+    (a sixteenth of F a CTA, x streamed) within its budget, K3 its wide
+    kernel on 16-row tiles."""
     assert k1_wrapper.wide_smem_bytes(*shape, 500, optimizer) \
         > k1_wrapper.MAX_SMEM
-    assert k1_wrapper._route(*shape, 500, optimizer) == "general"
+    assert k1_wrapper.split_smem_bytes(*shape, 500, optimizer) \
+        <= k1_wrapper.MAX_SMEM
+    assert k1_wrapper._route(*shape, 500, optimizer) == "split"
     assert k3.wide_smem_bytes(*shape) > k3.MAX_SMEM
-    assert k3._route(*shape) == "general"
+    assert k3.wide_smem_bytes(*shape, 16) <= k3.MAX_SMEM
+    assert k3.wide_rows(*shape) == 16
+    assert k3._route(*shape) == "wide"
+
+
+def test_split_budget_counts_the_layout():
+    """fmow's fnn under AMSGrad: 4 stages' mbarriers, then 4 tiles of 32
+    rows of 192 inputs at stride 196, the forward's two buffers of eight
+    warps' [32, 10] partials, W1's slice (1920) and its three moments, the
+    mask's slice, dh at stride 12 and Z1's partials of 500 rows, the small
+    params (692), their partials and three moments, h and dz of 32 rows,
+    the labels, the warps' losses and the loss, and two steps' 500 row
+    indices: 223,584 bytes."""
+    FQ, W, SP = 192, 1920, 10 + 620 + 62
+    floats = 4 * 32 * 196 + 2 * 8 * 32 * 10 + 4 * W + FQ + 500 * 12 \
+        + 500 * 10 + 5 * SP + 32 * (10 + 62) + 32 + 8 + 4 + 2 * 500
+    assert k1_wrapper.split_smem_bytes(*FMOW_FNN, 500) == 32 + 4 * floats \
+        == 223584
+    assert k1_wrapper._wide_stride(192) == 196
+    assert k3.wide_smem_bytes(*FMOW_FNN, 16) == 16 + 4 * (
+        16 * 3076 + 8 * 16 * 8 + 6 * (10 + 620 + 62) + 16) == 217648
+
+
+@pytest.mark.parametrize("shape,batch,optimizer", [
+    ((3072, 0, 10), 500, "adam"),   # the lr at fmow's width: not split
+    ((3072, 10, 65), 500, "adam"),  # more than 64 classes
+    ((3072, 17, 62), 500, "sgd"),   # more than 16 hidden units
+    ((3104, 10, 62), 500, "adam"),  # F % 64 != 0
+    ((3072, 10, 62), 513, "adam"),  # more than 16 x 32 rows
+    ((16384, 10, 62), 500, "adam")])  # 1024 inputs a CTA: over budget
+def test_split_refuses_what_it_cannot_take(shape, batch, optimizer):
+    assert k1_wrapper._route(*shape, batch, optimizer) == "general"
 
 
 def test_wide_budget_counts_the_layout():
@@ -140,17 +183,19 @@ def cuda():
     return "cuda"
 
 
-def _mnist_round(model, optimizer, seed, gather=False, masked=False):
-    """One MNIST-4 round's inputs on the card: 4 models, 10 clients, 11
-    steps of 500 rows, batch 500, 5 steps, pair (1, 3) and model 3
-    inactive."""
+def _mnist_round(model, optimizer, seed, gather=False, masked=False,
+                 F=784, K=10, Bb=500):
+    """One MNIST-4 round's inputs on the card (or, with ``F`` and ``K``,
+    another width's): 4 models, 10 clients, 11 steps of 500 rows, batch
+    ``Bb`` (500; a smaller one draws its slot in each step), 5 steps, pair
+    (1, 3) and model 3 inactive."""
     rng = np.random.default_rng(seed)
-    Mc, Cc, T1, Nn, Bb, Ss = 4, 10, 11, 500, 500, 5
-    mod = LogisticRegression((784,), 10) if model == "lr" \
-        else FeedForwardNN((784,), 10, 10)
+    Mc, Cc, T1, Nn, Ss = 4, 10, 11, 500, 5
+    mod = LogisticRegression((F,), K) if model == "lr" \
+        else FeedForwardNN((F,), K, 10)
     dev = lambda a: torch.from_numpy(a).cuda()
-    x = rng.normal(0.3, 0.5, (Cc, T1, Nn, 784)).astype(np.float32)
-    y = rng.integers(0, 10, (Cc, T1, Nn)).astype(np.int32)
+    x = rng.normal(0.3, 0.5, (Cc, T1, Nn, F)).astype(np.float32)
+    y = rng.integers(0, K, (Cc, T1, Nn)).astype(np.int32)
     flat = (rng.standard_normal((Mc, mod.num_params)) * 0.05) \
         .astype(np.float32)
     tw = (rng.random((Mc, Cc, T1)) < 0.5).astype(np.float32)
@@ -163,9 +208,11 @@ def _mnist_round(model, optimizer, seed, gather=False, masked=False):
                         .astype(np.int32))
     else:
         t_idx = dev(rng.integers(0, T1 - 1, (Mc, Cc, Ss)).astype(np.int32))
-        slot = dev(np.zeros((Mc, Cc, Ss), np.int32))
+        slot = dev(np.zeros((Mc, Cc, Ss), np.int32) if Bb == Nn
+                   else rng.integers(0, Nn // Bb, (Mc, Cc, Ss))
+                   .astype(np.int32))
     if masked:
-        fm = (rng.random((Mc, 784)) < 0.7).astype(np.float32)
+        fm = (rng.random((Mc, F)) < 0.7).astype(np.float32)
         kw["feat_mask"] = dev(fm)
     state = lambda: init_opt_state(Mc, Cc, mod.num_params, "cuda", optimizer)
     return (dev(x), dev(y), dev(flat), t_idx, slot, dev(tw.sum(-1))), kw, \
@@ -185,13 +232,54 @@ def test_wide_k1_matches_plain_at_mnist_width(cuda, model, optimizer, gather,
     distance plus 1e-5) and no param further than S steps of lr; n and
     count equal, inactive pairs untouched, two calls bitwise, each one
     launch of the wide kernel."""
-    (x, y, flat, t_idx, slot, total_w), kw, state = _mnist_round(
-        model, optimizer, 50, gather, masked)
-    wide = local_sgd.wide_launches
+    _hold_k1(_mnist_round(model, optimizer, 50, gather, masked), optimizer,
+             "wide_launches")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer,gather,masked,K_,counter", [
+    ("adam", False, False, 62, "split_launches"),
+    ("adam", True, True, 62, "split_launches"),
+    ("sgd", False, True, 62, "split_launches"),
+    ("adam", False, False, 10, "split_launches")])
+def test_split_k1_matches_plain_at_fmow_width(cuda, optimizer, gather, masked,
+                                              K_, counter):
+    """K1's split kernel at fmow's width (F 3072, H 10, K 62; and
+    cifar10's K 10), held as the wide kernel is at MNIST's."""
+    _hold_k1(_mnist_round("fnn", optimizer, 51, gather, masked, F=3072,
+                          K=K_), optimizer, counter)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer,gather,masked,batch", [
+    ("adam", False, False, 32), ("adam", True, True, 32),
+    ("sgd", False, False, 20), ("adam", False, True, 64)])
+def test_split_k1_small_batches_match_plain(cuda, optimizer, gather, masked,
+                                            batch):
+    """The split kernel where a step has as few x tiles as its ring has
+    stages or fewer (B <= 64: 2 or 4 tiles a step), so the ring would run
+    past the steps whose rows are staged: held as at B = 500."""
+    assert k1_wrapper._route(3072, 10, 62, batch, optimizer) == "split"
+    _hold_k1(_mnist_round("fnn", optimizer, 53, gather, masked, F=3072,
+                          K=62, Bb=batch), optimizer, "split_launches")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+def test_wide_k1_takes_femnist_fnn(cuda, optimizer):
+    """The wide kernel's row phase at two classes a lane: femnist-fnn's
+    784 -> 10 -> 62."""
+    _hold_k1(_mnist_round("fnn", optimizer, 52, K=62), optimizer,
+             "wide_launches")
+
+
+def _hold_k1(case, optimizer, counter):
+    (x, y, flat, t_idx, slot, total_w), kw, state = case
+    launched = getattr(local_sgd, counter)
     got = local_sgd(x, y, flat, state(), t_idx, slot, total_w, **kw)
     again = local_sgd(x, y, flat, state(), t_idx, slot, total_w, **kw)
     torch.cuda.synchronize()
-    assert local_sgd.wide_launches == wide + 2
+    assert getattr(local_sgd, counter) == launched + 2
     want = local_sgd_ref(x, y, flat, state(), t_idx, slot, total_w, **kw)
     assert torch.equal(got[0], again[0]) and torch.equal(got[3], again[3])
     assert torch.equal(got[2], want[2])
@@ -233,30 +321,47 @@ def test_wide_k3_matches_plain_at_mnist_width(cuda, model, window, masked,
     1e-5, NLL to 1e-4 relative, two calls bitwise, one wide launch each;
     M = 10 runs as two groups on the same staged rows; 40 rows a step take
     a cluster of two CTAs, the second with 8 rows."""
+    _hold_k3(model, window, masked, models, rows, 784, 10, "wide_launches")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,masked,models,rows", [
+    ("G2", False, 4, 500), ("T1", False, 4, 500), ("G2", True, 4, 500),
+    ("G2", False, 10, 500), ("G2", False, 4, 40)])
+def test_wide16_k3_matches_plain_at_fmow_width(cuda, window, masked, models,
+                                               rows):
+    """K3's wide kernel on 16-row tiles at fmow's width (F 3072, H 10, K
+    62), held as at MNIST's: M = 10 in two groups; 40 rows a step a cluster
+    of three CTAs, the last with 8 rows."""
+    _hold_k3("fnn", window, masked, models, rows, 3072, 62,
+             "wide16_launches")
+
+
+def _hold_k3(model, window, masked, models, rows, F, K, counter):
     rng = np.random.default_rng(60 + models)
-    mod = LogisticRegression((784,), 10) if model == "lr" \
-        else FeedForwardNN((784,), 10, 10)
+    mod = LogisticRegression((F,), K) if model == "lr" \
+        else FeedForwardNN((F,), K, 10)
     flat = torch.from_numpy((rng.standard_normal((models, mod.num_params))
                              * 0.05).astype(np.float32)).cuda()
-    x = torch.from_numpy(rng.normal(0.3, 0.5, (10, 11, 500, 784))
+    x = torch.from_numpy(rng.normal(0.3, 0.5, (10, 11, 500, F))
                          .astype(np.float32)).cuda()
-    y = torch.from_numpy(rng.integers(0, 10, (10, 11, 500))
+    y = torch.from_numpy(rng.integers(0, K, (10, 11, 500))
                          .astype(np.int32)).cuda()
     xw, yw = (x[:, 4:6], y[:, 4:6]) if window == "G2" else (x, y)
     xw, yw = xw[:, :, :rows], yw[:, :, :rows]
-    fm = torch.from_numpy((rng.random((models, 784)) < 0.7)
+    fm = torch.from_numpy((rng.random((models, F)) < 0.7)
                           .astype(np.float32)).cuda() if masked else None
     nll_on = window == "G2"
     kw = dict(hidden=mod.hidden_dim, feat_mask=fm, with_nll=nll_on)
-    wide = eval_cells.wide_launches
+    launched = getattr(eval_cells, counter)
     got = eval_cells(flat, xw, yw, **kw)
     again = eval_cells(flat, xw, yw, **kw)
     torch.cuda.synchronize()
-    assert eval_cells.wide_launches == wide + 2
+    assert getattr(eval_cells, counter) == launched + 2
     want = eval_cells_ref(flat, xw, yw, **kw)
     assert torch.equal(got[0], again[0])
-    leaves = [v[:, None, None] for v in _unpack(flat, 784, mod.hidden_dim,
-                                                10)]
+    leaves = [v[:, None, None] for v in _unpack(flat, F, mod.hidden_dim,
+                                                K)]
     xin = xw[None] if fm is None else xw[None] * fm[:, None, None, None, :]
     if mod.hidden_dim:
         w0, b0, w1, b1 = leaves
@@ -274,18 +379,28 @@ def test_wide_k3_matches_plain_at_mnist_width(cuda, model, window, masked,
 
 @pytest.mark.gpu
 def test_budget_mirrors_equal_the_kernels_own(cuda):
-    """``wide_smem_bytes`` in both wrappers counts as the sources do."""
+    """``wide_smem_bytes``, ``split_smem_bytes`` and ``wide_rows`` in the
+    wrappers count as the sources do."""
     import ctypes
 
     from feddrift_torch.kernels.build import library
     fn1 = library("local_sgd").local_sgd_wide_smem
     fn1.restype = ctypes.c_longlong
+    fn2 = library("local_sgd").local_sgd_split_smem
+    fn2.restype = ctypes.c_longlong
     fn3 = library("eval_cells").eval_cells_wide_smem
     fn3.restype = ctypes.c_longlong
+    rows = library("eval_cells").eval_cells_wide_rows
+    rows.restype = ctypes.c_int
     for F_, H_, K_ in (MNIST_FNN, MNIST_LR, FEMNIST_FNN, CIFAR10_FNN,
-                       (64, 10, 10), (788, 32, 2)):
+                       FMOW_FNN, (64, 10, 10), (788, 32, 2)):
         for B_ in (40, 500, 512):
             for opt in ("adam", "sgd"):
                 assert fn1(F_, H_, K_, B_, int(opt == "sgd")) \
                     == k1_wrapper.wide_smem_bytes(F_, H_, K_, B_, opt)
-        assert fn3(F_, H_, K_) == k3.wide_smem_bytes(F_, H_, K_)
+                if H_ and F_ % 64 == 0:
+                    assert fn2(F_, H_, K_, B_, int(opt == "sgd")) \
+                        == k1_wrapper.split_smem_bytes(F_, H_, K_, B_, opt)
+        for r in (32, 16):
+            assert fn3(F_, H_, K_, r) == k3.wide_smem_bytes(F_, H_, K_, r)
+        assert rows(F_, H_, K_) == k3.wide_rows(F_, H_, K_)
