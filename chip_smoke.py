@@ -53,7 +53,8 @@ Phases, one or more lines of output each:
    version run in float64 as the float32 plain version is) with the general
    one forced there beside it, and the general one's lr and SGD routes at
    SEA; the split kernel at fmow's width (F 3072, the fnn 3072 -> 10 -> 62:
-   AMSGrad contiguous, gathered with masks, and SGD) and the wide kernel at
+   AMSGrad contiguous, gathered with masks, at B 32 and with one model, and
+   SGD) and the wide kernel at
    femnist-fnn's shape (784 -> 10 -> 62, two classes a lane); two calls of
    each must agree bitwise. It times each (per call and on the device, and
    the device time per local step) and the plain version in turns; a
@@ -92,8 +93,9 @@ Phases, one or more lines of output each:
    (T1 11, N 500): an eval's two steps (G = 2), one step (G = 1), every
    step (G = T1, counts only), with feature masks, the general kernel
    forced at SEA and at H = 32, the wide kernel at MNIST-4's width (the fnn
-   and the lr, the general kernel forced there beside it) and on 16-row
-   tiles at fmow's (G = 2, T1, masks), the general
+   and the lr, the general kernel forced there beside it) and its
+   streamed kernel at fmow's (G = 2, T1, masks; G = 2 and T1 with one
+   model), the general
    kernel's lr route at SEA: counts equal except rows whose top two
    plain logits lie within 1e-5 (counted), NLL sums within 1e-4
    relative. Two calls of each agree bitwise; each is timed per call,
@@ -171,7 +173,7 @@ Phases, one or more lines of output each:
    wide, lr): every output finite in exactly the plain version's cells,
    K3's counts equal (the first NaN is the argmax) and its NLL sums equal
    where finite; the MNIST cases on the wide kernels, the fmow cases on
-   K1's split kernel and K3's 16-row tiles.
+   K1's split kernel and K3's streamed kernel.
 14. train_gmm: ``softcluster gmm`` at the canonical full width, fused,
    from the reference's init, against the JAX package's CPU run
    (``GMM_RUN``): K1 carries every round, no plain call, Test/Acc within
@@ -194,7 +196,7 @@ Phases, one or more lines of output each:
    62, B = N = 500) at full width, the four committed configurations of
    ``FMOW_RUNS``, 10 steps each, from the reference's init: every round
    one launch of K1's split kernel and one of ``fedavg.cu``, every eval one
-   of K3's wide kernel on 16-row tiles, none of the other K1 kernels, no
+   of K3's streamed kernel, none of the other K1 kernels, no
    plain call on the card; Test/Acc a step and on the mean within the
    gates of ``FMOW_RUNS`` of the JAX package's run from the same init
    (``FMOW_REFERENCE_ACCS``; the committed run is printed beside it). It
@@ -212,7 +214,7 @@ K4a and K4b from KUE's ``train_algo`` run; K1 without an epilogue
 ``train_general``, with their cases at H = 32; K1's and K3's wide kernels
 and ``fedavg.cu`` at MNIST's width from ``train_mnist`` and ``train_lr``,
 the general kernels' lr routes from ``train_lr``'s SEA run; K1's split
-kernel, K3's 16-row tiles and ``fedavg.cu`` at fmow's width from
+kernel, K3's streamed kernel and ``fedavg.cu`` at fmow's width from
 ``train_fmow``. Every entry
 also carries
 ``device_ms`` beside ``ms``. Any failed phase exits non-zero before the result line. It imports
@@ -1078,7 +1080,8 @@ def _train_case(dataset: str, seed: int, hidden: int = 10,
     """One canonical round's K1 inputs on the card: the dataset at its
     registry defaults (the fnn's hidden width ``hidden``, or the lr), a
     pool of ``models`` distinct draws, fresh optimizer state, seeded time
-    weights with pairs (0, 3), (2, 7) and all of model 3 inactive, and
+    weights with pair (0, 3) inactive and, with four models or more, pair
+    (2, 7) and all of model 3 too, and
     seeded batch indices (of ``batch`` rows where given, else the
     registry's batch size). x is laid out ``[C, T1, N, F]`` (images
     flattened over H, W, C, as the fnn flattens them). ``"femnist"``:
@@ -1109,7 +1112,9 @@ def _train_case(dataset: str, seed: int, hidden: int = 10,
     rng = np.random.default_rng(seed)
     tw = (rng.random((M, C, T1)) < 0.5).astype(np.float32)
     tw[:, :, -1] = 0
-    tw[0, 3] = tw[2, 7] = tw[3] = 0
+    tw[0, 3] = 0
+    if M > 3:
+        tw[2, 7] = tw[3] = 0
     S, B = cfg.epochs, min(batch or cfg.batch_size, N)
     t_idx = rng.integers(0, T1 - 1, (M, C, S)).astype(np.int32)
     slot = rng.integers(0, N // B, (M, C, S)).astype(np.int32)
@@ -1169,8 +1174,9 @@ def _local_sgd_bound_ms(rows, total_w, M: int, C: int, S: int, B: int,
 # kernel keeps its lr route under SGD and AMSGrad and its SGD route of the
 # fnn: each of its four instantiations runs here. fmow's width (F = 3072, K =
 # 62) takes the split kernel: AMSGrad contiguous and gathered with masks,
-# and SGD, and AMSGrad at a batch of 32 (K1_BATCH: 2 x tiles a step, fewer
-# than its ring's stages); femnist-fnn's shape (784 -> 10 -> 62) the wide
+# and SGD, AMSGrad at a batch of 32 (K1_BATCH: 2 x tiles a step, fewer
+# than its ring's stages) and with one model (K1_MODELS: win-1's and
+# oblivious' pool, one pair a client); femnist-fnn's shape (784 -> 10 -> 62) the wide
 # kernel's two-classes-a-lane row phase.
 K1_CASES = (("sea", "sea", 0, "fnn", 10, "adam", None, False),
             ("sine", "sine", 1, "fnn", 10, "adam", None, False),
@@ -1193,9 +1199,12 @@ K1_CASES = (("sea", "sea", 0, "fnn", 10, "adam", None, False),
             ("fmow_gather", "fmow", 13, "fnn", 10, "adam", None, True),
             ("fmow_sgd", "fmow", 14, "fnn", 10, "sgd", None, False),
             ("fmow_b32", "fmow", 16, "fnn", 10, "adam", None, False),
+            ("fmow_m1", "fmow", 17, "fnn", 10, "adam", None, False),
             ("femnist", "femnist", 15, "fnn", 10, "adam", None, False))
 # the batch size of a case, where it is not its dataset's registry default
 K1_BATCH = {"fmow_b32": 32}
+# the pool size of a case, where it is not 4
+K1_MODELS = {"fmow_m1": 1}
 # the route each dataset's width must take, where it is not the wide one
 K1_WIDTH_ROUTE = {"fmow": "split"}
 
@@ -1282,6 +1291,7 @@ def phase_train_kernel() -> tuple[dict, dict]:
             in K1_CASES:
         args, kw, dims, tw = _train_case(dataset, seed, hidden, model,
                                          optimizer,
+                                         models=K1_MODELS.get(label, 4),
                                          batch=K1_BATCH.get(label))
         x, y, params, opt, t_idx, slot, total_w = args
         route = forced or _route(dims["F"], dims["H"], dims["K"], dims["B"],
@@ -1670,7 +1680,9 @@ EVAL_NLL_RTOL = 1e-4
 # forced there is the design the wide one replaced, timed in the same run);
 # SEA's lr keeps the general kernel's lr route; the lr's params scaled by
 # 40 saturate most outputs to exactly 1.0, where the tie rule alone decides
-# the row
+# the row. fmow's width takes the wide route's streamed kernel, with the
+# pool of 4 and, as win-1 and oblivious run it, of one model (K3_MODELS:
+# one 10-column group a CTA)
 K3_CASES = (("eval", "sea", "fnn", 10, None, "G2", False, 1.0),
             ("acc_matrix", "sea", "fnn", 10, None, "G1", False, 1.0),
             ("acc_cells", "sea", "fnn", 10, None, "T1", False, 1.0),
@@ -1690,7 +1702,11 @@ K3_CASES = (("eval", "sea", "fnn", 10, None, "G2", False, 1.0),
              1.0),
             ("fmow_eval", "fmow", "fnn", 10, None, "G2", False, 1.0),
             ("fmow_cells", "fmow", "fnn", 10, None, "T1", False, 1.0),
-            ("fmow_masked", "fmow", "fnn", 10, None, "G2", True, 1.0))
+            ("fmow_masked", "fmow", "fnn", 10, None, "G2", True, 1.0),
+            ("fmow_eval_m1", "fmow", "fnn", 10, None, "G2", False, 1.0),
+            ("fmow_cells_m1", "fmow", "fnn", 10, None, "T1", False, 1.0))
+# the pool size of a case, where it is not 4
+K3_MODELS = {"fmow_eval_m1": 1, "fmow_cells_m1": 1}
 # the kernels line's entries of K3's wide kernel and of the general
 # kernel's lr route, by case
 K3_ENTRIES = {"mnist_eval": ("eval_cells_wide", "MNIST-4's fnn, G = 2, the "
@@ -1701,7 +1717,7 @@ K3_ENTRIES = {"mnist_eval": ("eval_cells_wide", "MNIST-4's fnn, G = 2, the "
               "sea_lr_eval": ("eval_cells_general_lr", "SEA's lr, G = 2, the "
                               "general kernel's lr route"),
               "fmow_eval": ("eval_cells_wide16", "fmow's fnn 3072 -> 10 -> "
-                            "62, G = 2, the wide kernel's 16-row tiles")}
+                            "62, G = 2, the wide route's streamed kernel")}
 # a row of the lr with two outputs or more of z at least LR_SOLID_Z (1 / (1
 # + exp(-z)) rounds to 1.0f from z ~ 17.3 on) and none in [LR_FLIP_Z,
 # LR_SOLID_Z), where the kernel's z (another summation order, ~1e-5 apart
@@ -1840,14 +1856,14 @@ def _k2_phase() -> dict:
 
 
 def _k3_case(dataset: str, model: str, hidden: int, window: str,
-             masked: bool, seed: int, scale: float = 1.0):
-    """K3's canonical inputs: the dataset on the card, a pool of 4
-    distinct draws of the model (the fnn at width ``hidden``, or the lr)
+             masked: bool, seed: int, scale: float = 1.0, models: int = 4):
+    """K3's canonical inputs: the dataset on the card, a pool of
+    ``models`` distinct draws of the model (the fnn at width ``hidden``, or the lr)
     scaled by ``scale``, the window and, if asked, per-model 0/1 feature
     masks (at least one feature on per model)."""
     import numpy as np
     import torch
-    args, _, d, _ = _train_case(dataset, seed, hidden, model)
+    args, _, d, _ = _train_case(dataset, seed, hidden, model, models=models)
     x, y, flat = args[:3]
     flat = flat * scale
     t = 4
@@ -1890,13 +1906,15 @@ def _k3_phase() -> tuple[dict, dict]:
     kernels line's entry of the canonical eval and those of K3's
     MNIST-width and lr routes (``K3_ENTRIES``)."""
     import torch
-    from feddrift_torch.kernels.eval_cells import (_route, eval_cells,
-                                                   eval_cells_ref, wide_rows)
+    from feddrift_torch.kernels.eval_cells import (STREAM_ROWS, _route,
+                                                   eval_cells, eval_cells_ref,
+                                                   wide_rows)
     entry, entries = None, {}
     for seed, (label, dataset, model, hidden, forced, window, masked,
                scale) in enumerate(K3_CASES):
         flat, xw, yw, fm, d = _k3_case(dataset, model, hidden, window,
-                                       masked, seed, scale)
+                                       masked, seed, scale,
+                                       K3_MODELS.get(label, 4))
         F, H, K = d["F"], d["H"], d["K"]
         route = forced or _route(F, H, K)
         nll_on = window != "T1"
@@ -1954,7 +1972,7 @@ def _k3_phase() -> tuple[dict, dict]:
             raise AssertionError(f"{label}: no row is tied solidly, so the "
                                  f"tie rule was not exercised")
         if route != (forced or ("wide" if wide else route)) or (
-                dataset == "fmow" and wide_rows(F, H, K) != 16):
+                dataset == "fmow" and wide_rows(F, H, K) != STREAM_ROWS):
             raise AssertionError(f"{label} took the {route} kernel")
         if label in K3_ENTRIES:
             name, case = K3_ENTRIES[label]
@@ -2302,7 +2320,8 @@ def _read_counts() -> dict:
     those of the wide kernel, ``k1_split_launches`` the split kernel's. An
     eval runs in a K1 launch (``folded_evals``) or as its own K3 launch
     (``k3_launches``; on the wide kernel ``k3_wide_launches``, of which
-    ``k3_wide16_launches`` on its 16-row tiles)."""
+    ``k3_wide16_launches`` on its streamed kernel, the name kept from the
+    16-row tiles it replaced)."""
     from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
     from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_fedavg
@@ -2812,7 +2831,7 @@ def _check_general_run(name: str, got: dict, cfg, exp, rounds: int,
     (the wide one: every launch counted as wide, the split one as split;
     the general one: neither) and one ``fedavg.cu`` launch, every eval a K3
     launch (none folded; on the wide and split routes every one the wide K3
-    kernel's, on the split one all on its 16-row tiles, on the general
+    kernel's, on the split one all on its streamed kernel, on the general
     none), no K4, no plain K2 / K3 / K4 call on the card, every step on the
     fused path."""
     got_route = _run_route(cfg, exp)
@@ -2836,8 +2855,8 @@ def _check_general_run(name: str, got: dict, cfg, exp, rounds: int,
                              f"for {rounds} rounds on paths "
                              f"{set(got['paths'])}, K3 "
                              f"{got['k3_launches']} ({got['k3_wide_launches']}"
-                             f" wide, {got['k3_wide16_launches']} on 16-row "
-                             f"tiles), K4 {got['k4a_launches']} / "
+                             f" wide, {got['k3_wide16_launches']} "
+                             f"streamed), K4 {got['k4a_launches']} / "
                              f"{got['k4b_launches']}")
     _check_k2_k3(name, got, rounds, k2_launches=rounds)
     _check_evals(name, got, cfg, exp, got["paths"].count("fused"),
@@ -2953,8 +2972,8 @@ def phase_train_mnist(entries: dict) -> None:
 
 def phase_train_fmow(entries: dict) -> None:
     """FMoW at full width (images 32 x 32 x 3, F 3072, H 10, K 62) for each
-    of ``FMOW_RUNS``: K1's split kernel on every round, K3's wide kernel on
-    its 16-row tiles at every eval (K1 2000 launches a 10-step run,
+    of ``FMOW_RUNS``: K1's split kernel on every round, K3's streamed
+    kernel at every eval (K1 2000 launches a 10-step run,
     ``fedavg.cu`` as many, K3 41 a step)."""
     _image_runs("train_fmow", "fmow", FMOW_RUNS, FMOW_REFERENCE_INIT,
                 (32, 32, 3), 62, "split", entries,

@@ -56,12 +56,11 @@
 // not depend on G or on the strides. No tensor cores: at H = 10 and K = 2
 // an mma tile would be mostly padding.
 //
-// - eval_wide_kernel<kLr, kRows> for wide inputs, MNIST-4's (F = 784; the
-//   fnn 784 -> 10 -> 10 or the lr 784 -> 10) in tiles of kRows = 32 rows,
-//   fmow's (F = 3072; the fnn 3072 -> 10 -> 62) in tiles of 16: F % 4 == 0
-//   (16-byte rows for TMA), a first layer at most 64 wide, the tile chosen
-//   by shape alone (eval_wide_rows: 32 where its shared memory fits, else
-//   16). It computes what eval_general_kernel computes.
+// - eval_wide_kernel<kLr> for wide inputs, MNIST-4's (F = 784; the fnn
+//   784 -> 10 -> 10 or the lr 784 -> 10), in resident tiles of 32 rows: F % 4
+//   == 0 (16-byte rows for TMA), a first layer at most 64 wide, 32 rows of
+//   x within a block's shared memory (eval_wide_rows). It computes what
+//   eval_general_kernel computes.
 //   Bound on the H100 SXM at an eval of MNIST-4 (M 4, C 10, G 2, N 500):
 //   x's window is 31 MB, ~0.0094 ms at 3.35 TB/s; the forward is ~0.64
 //   GFLOP, ~0.0095 ms at 67 TFLOP/s float32 (0.0039 in 3xTF32 on the
@@ -86,17 +85,33 @@
 //   `correct` is exact and `nll` bitwise the same call after call. Its
 //   shared memory is eval_wide_smem_bytes (117 KB at MNIST's fnn), one CTA
 //   an SM.
-//   At fmow's width 32 rows of x alone are 394 KB, so the tile is 16 rows
-//   (one m16 tile; 217,648 bytes a CTA: x 197 KB, the partials 4 KB, six
-//   models' second layers 17 KB) and each of the cell's 16 CTAs loops over
-//   its two tiles. Streaming F in chunks through a smaller tile was the
-//   other option; 16-row tiles keep the whole row in shared memory, so the
-//   k loop, its 3xTF32 split, the second layer and the rank-order sums are
-//   MNIST's code at another tile height (bitwise call after call as
-//   before), and MNIST's 32-row instantiation is unchanged. Bound on the
-//   H100 SXM at an eval of fmow (M 4, C 10, G 2, N 500): x's window is 123
-//   MB, ~0.037 ms at 3.35 TB/s; the forward is ~2.5 GFLOP, 0.037 ms at 67
-//   TFLOP/s float32: bytes and operations alike.
+// - eval_stream_kernel<kLr> where 32 rows of x do not fit a block, fmow's
+//   (F = 3072; the fnn 3072 -> 10 -> 62; 32 rows of x are 394 KB): the same
+//   function, F streamed in chunks. Bound on the H100 SXM at an eval of
+//   fmow (M 4, C 10, G 2, N 500): x's window is 123 MB, ~0.037 ms at 3.35
+//   TB/s; the forward is ~2.5 GFLOP, 0.037 ms at 67 TFLOP/s float32: bytes
+//   and operations alike. (Its first design, the resident kernel on 16-row
+//   tiles, lost to the plain version, 1.37 ms against 0.79: each of its
+//   working warps, five of eight, walked all of F alone, and read W0 by
+//   scalar loads through L2 once for every 16 rows; PERF.md.)
+//   Design: a cluster of Q = min(16, ceil(N / 64)) CTAs per (c, g), CTA q
+//   taking row tiles q, q + Q, ... of 64 rows (four m16 tiles). For each
+//   tile and model group (as above) the CTA streams F in chunks of 32
+//   inputs through a ring of kStreamStages stages filled by cp.async (one
+//   commit group a chunk, so chunk k + 2 lands while chunk k multiplies):
+//   the tile's x rows at a padded stride, the group's W0 rows [32, cols]
+//   and, with masks, each column's mask values laid out as W0's. So each
+//   W0 value is read once per 64 rows, from shared memory. Warp w takes
+//   m16 tiles 2 (w & 1) and 2 (w & 1) + 1 and k-step w >> 1 of every
+//   chunk, all of the group's n-tiles, its accumulators in registers
+//   across the chunks (3xTF32 as above: the two small cross terms, then
+//   big * big, into one accumulator); the four k-steps' partials are
+//   summed in order after the last chunk. Then the second layer, the score
+//   and the sums as in the resident kernel, a warp's lanes over the tile's
+//   two halves in order: a fixed order, bitwise the same call after call.
+//   Its shared memory is eval_stream_smem_bytes (97 KB at fmow's fnn), so
+//   two CTAs share an SM and an eval of G = 2 (20 clusters of 8) is one
+//   wave.
 //
 // The fused kernel's cell (its row loop, score_row and block_total) lives
 // in fnn_eval.cuh, which K1's fused kernel (local_sgd.cu) shares: the fused
@@ -233,6 +248,10 @@ constexpr int kWideThreads = 256;
 constexpr int kWideWarps = kWideThreads / 32;
 constexpr int kWideMaxCluster = 16;  // CTAs a cell (non-portable above 8)
 constexpr int kWideCols = 64;        // first-layer columns of a model group
+constexpr int kWideRows = 32;        // the resident kernel's row tile
+constexpr int kStreamRows = 64;      // the streamed kernel's: four m16 tiles
+constexpr int kStreamChunk = 32;     // inputs a chunk: four k-steps
+constexpr int kStreamStages = 3;     // chunks in flight a CTA
 
 // x's row stride in shared memory, in floats: the least multiple of 4 at or
 // above F that is 4 (mod 8), so the eight rows of an A fragment fall in
@@ -254,30 +273,127 @@ __host__ __device__ constexpr int wide_tail(int H, int K) {
   return H ? H + H * K + K : K;
 }
 
-// Shared memory one CTA of the wide kernel needs (H = 0: the lr) with row
-// tiles of `rows`: the mbarrier, x's rows, the first layer's k-split
-// partials (at most eight [rows, 8] tiles), a group's second layers and the
-// warps' totals.
-long long eval_wide_smem_bytes(int F, int H, int K, int rows) {
-  return 16 + 4LL * ((long long)rows * wide_stride(F)
-                     + kWideWarps * rows * 8
+// Shared memory one CTA of the resident kernel needs (H = 0: the lr): the
+// mbarrier, x's 32 rows, the first layer's k-split partials (at most eight
+// [32, 8] tiles), a group's second layers and the warps' totals.
+long long eval_wide_smem_bytes(int F, int H, int K) {
+  return 16 + 4LL * ((long long)kWideRows * wide_stride(F)
+                     + kWideWarps * kWideRows * 8
                      + (long long)wide_group(H ? H : K) * wide_tail(H, K)
                      + 2 * kWideWarps);
 }
 
-// The wide kernel's row tile at these widths: 32 rows (two m16 tiles)
-// where they fit a block, else 16 (fmow's F = 3072: 32 rows of x alone
-// are 394 KB), else 0 (the wide kernel does not take the shape).
-int eval_wide_rows(int F, int H, int K) {
-  return eval_wide_smem_bytes(F, H, K, 32) <= kMaxSmem   ? 32
-         : eval_wide_smem_bytes(F, H, K, 16) <= kMaxSmem ? 16
-                                                         : 0;
+// The streamed kernel's row stride of a W0 chunk in shared memory, in
+// floats: a group of `cols` columns rounded up to n8 tiles, and to 8 (mod
+// 16), so the four k rows a B fragment reads fall in four bank octets.
+__host__ __device__ constexpr int stream_ns(int cols) {
+  return (cols + 7) / 8 * 8 % 16 ? (cols + 7) / 8 * 8 : (cols + 7) / 8 * 8 + 8;
 }
 
-template <bool kLr, int kRows>
+// Floats of one stage of the streamed kernel's ring at first-layer width
+// L1: a chunk of the tile's 64 rows at stride wide_stride(32) = 36, then
+// the widest group's W0 rows of the chunk and their mask values, [32][NS]
+// each.
+__host__ __device__ constexpr int stream_stage(int L1) {
+  return kStreamRows * wide_stride(kStreamChunk)
+         + 2 * kStreamChunk * stream_ns(wide_group(L1) * L1);
+}
+
+// Floats of the ring: its stages, or the four k-steps' [64][n-tiles * 8]
+// partials, which take its place after a tile's last chunk.
+__host__ __device__ constexpr int stream_ring(int L1) {
+  return kStreamStages * stream_stage(L1)
+                 > 4 * kStreamRows * ((wide_group(L1) * L1 + 7) / 8 * 8)
+             ? kStreamStages * stream_stage(L1)
+             : 4 * kStreamRows * ((wide_group(L1) * L1 + 7) / 8 * 8);
+}
+
+// Shared memory one CTA of the streamed kernel needs (H = 0: the lr),
+// whatever F: the ring, a group's second layers and the warps' totals.
+long long eval_stream_smem_bytes(int H, int K) {
+  const int L1 = H ? H : K;
+  return 4LL * (stream_ring(L1) + (long long)wide_group(L1) * wide_tail(H, K)
+                + 2 * kWideWarps);
+}
+
+// The wide route's row tile at these widths: 32 rows resident (the
+// resident kernel) where they fit a block, else 64 rows with F streamed in
+// chunks (the streamed kernel; fmow's F = 3072: 32 rows of x alone are 394
+// KB), else 0 (the wide route does not take the shape).
+int eval_wide_rows(int F, int H, int K) {
+  return eval_wide_smem_bytes(F, H, K) <= kMaxSmem ? kWideRows
+         : eval_stream_smem_bytes(H, K) <= kMaxSmem ? kStreamRows
+                                                    : 0;
+}
+
+// Row `label`'s count and NLL from its first-layer sums z1 [L1] and its
+// model's second layer tl (b0, W1, b1; the lr: b), with the general
+// kernel's arithmetic after the first layer's sum: the bias, relu, W1 over
+// j in order, then b1 (the lr: the sigmoid). Logit k is computed where the
+// score reads it. The streamed kernel calls this and group_totals; the
+// resident kernel keeps its own copy of both, which measured 35 % faster
+// at MNIST-4's width than calling them (the same outputs bitwise; PERF.md).
+template <bool kLr>
+__device__ __forceinline__ void wide_score(const float* z1, const float* tl,
+                                           int H, int K, int label, int* cnt,
+                                           float* nll, bool want_nll) {
+  if constexpr (kLr) {
+    score_row<0>(
+        [&](int k) {
+          return __fdiv_rn(1.f,
+                           __fadd_rn(1.f, expf(-__fadd_rn(z1[k], tl[k]))));
+        },
+        K, label, cnt, nll, want_nll);
+  } else {
+    const float* b0 = tl;
+    const float* W1 = b0 + H;
+    const float* b1 = W1 + H * K;
+    score_row<0>(
+        [&](int k) {
+          float z = 0.f;
+          for (int jj = 0; jj < H; ++jj)
+            z = fmaf(fnn_eval::relu(__fadd_rn(z1[jj], b0[jj])),
+                     W1[jj * K + k], z);
+          return __fadd_rn(z, b1[k]);
+        },
+        K, label, cnt, nll, want_nll);
+  }
+}
+
+// A group's cells: lane 0 of warp w < mg holds model g0 + w's totals over
+// the CTA's tiles; CTA 0 sums the cluster's CTAs in rank order through
+// distributed shared memory and writes cells (g0 + w, c, g). Every thread of
+// the cluster calls it.
+__device__ __forceinline__ void group_totals(cg::cluster_group& cluster,
+                                             const Args& a, int acc_cnt,
+                                             float acc_nll, int* s_cnt,
+                                             float* s_nll, int g0, int mg,
+                                             size_t c, size_t g) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (lane == 0 && warp < mg) {
+    s_cnt[warp] = acc_cnt;
+    s_nll[warp] = acc_nll;
+  }
+  cluster.sync();
+  if (cluster.block_rank() == 0 && tid < mg) {
+    const int Q = (int)cluster.num_blocks();
+    int cn = 0;
+    float l = 0.f;
+    for (int r = 0; r < Q; ++r) {
+      cn += *cluster.map_shared_rank(s_cnt + tid, r);
+      l += *cluster.map_shared_rank(s_nll + tid, r);
+    }
+    const size_t out = ((size_t)(g0 + tid) * a.C + c) * a.G + g;
+    a.correct[out] = cn;
+    if (a.nll) a.nll[out] = l;
+  }
+  cluster.sync();                   // CTA 0 has read every CTA's totals
+}
+
+template <bool kLr>
 __global__ void __launch_bounds__(kWideThreads, 1)
 eval_wide_kernel(const Args a, int M) {
-  constexpr int kMTiles = kRows / 16;           // m16 tiles a row tile
+  constexpr int kMTiles = kWideRows / 16;       // m16 tiles a row tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int F = a.F, H = a.H, K = a.K, N = a.N;
@@ -286,8 +402,8 @@ eval_wide_kernel(const Args a, int M) {
   const int XS = wide_stride(F), MG = wide_group(L1), TL = wide_tail(H, K);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
   float* s_x = reinterpret_cast<float*>(smem_raw + 16);  // [rows][XS]
-  float* s_zp = s_x + kRows * XS;               // [ksplit][rows][W]
-  float* s_l2 = s_zp + kWideWarps * kRows * 8;  // [MG][TL]
+  float* s_zp = s_x + kWideRows * XS;           // [ksplit][rows][W]
+  float* s_l2 = s_zp + kWideWarps * kWideRows * 8;  // [MG][TL]
   int* s_cnt = reinterpret_cast<int*>(s_l2 + MG * TL);  // [warps]
   float* s_nll = reinterpret_cast<float*>(s_cnt + kWideWarps);  // [warps]
 
@@ -298,7 +414,7 @@ eval_wide_kernel(const Args a, int M) {
   const size_t g = cell % a.G, c = cell / a.G;
   const float* xg = a.x + c * a.xs_c + g * a.xs_g;
   const int* yg = a.y + c * a.ys_c + g * a.ys_g;
-  const int tiles = (N + kRows - 1) / kRows;
+  const int tiles = (N + kWideRows - 1) / kWideRows;
   const int mine = tiles > q ? (tiles - q + Q - 1) / Q : 0;  // q, q + Q, ..
   const int KS = (F + 7) / 8;
   if (tid == 0) {
@@ -321,8 +437,8 @@ eval_wide_kernel(const Args a, int M) {
     int acc_cnt = 0;                // lane 0 of warp w: model g0 + w
     float acc_nll = 0.f;
     for (int i = 0; i < mine; ++i) {
-      const int row0 = (q + i * Q) * kRows;
-      const int nrows = min(kRows, N - row0);
+      const int row0 = (q + i * Q) * kWideRows;
+      const int nrows = min(kWideRows, N - row0);
       if (mine > 1 || g0 == 0) {    // a lone tile stays for every group
         if (warp == 0) {
           if (lane < nrows) {
@@ -393,7 +509,7 @@ eval_wide_kernel(const Args a, int M) {
         }
 #pragma unroll
         for (int mt = 0; mt < kMTiles; ++mt) {
-          float* o = s_zp + (kq * kRows + mt * 16 + g8) * W + nt * 8
+          float* o = s_zp + (kq * kWideRows + mt * 16 + g8) * W + nt * 8
                      + 2 * t4;
           o[0] = accb[mt][0] + accs[mt][0];
           o[1] = accb[mt][1] + accs[mt][1];
@@ -403,11 +519,11 @@ eval_wide_kernel(const Args a, int M) {
       }
       __syncthreads();
       if (ksplit > 1) {             // the k-split partials in order
-        for (int e = tid; e < kRows * cols; e += kWideThreads) {
+        for (int e = tid; e < kWideRows * cols; e += kWideThreads) {
           const int r = e / cols, cc = e - r * cols;
           float z = 0.f;
           for (int k = 0; k < ksplit; ++k)
-            z += s_zp[(k * kRows + r) * W + cc];
+            z += s_zp[(k * kWideRows + r) * W + cc];
           s_zp[r * W + cc] = z;
         }
         __syncthreads();
@@ -480,6 +596,192 @@ eval_wide_kernel(const Args a, int M) {
   }
 }
 
+template <bool kLr>
+__global__ void __launch_bounds__(kWideThreads, 2)
+eval_stream_kernel(const Args a, int M) {
+  constexpr int KC = kStreamChunk, XS = wide_stride(kStreamChunk);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int F = a.F, H = a.H, K = a.K, N = a.N;
+  const int L1 = kLr ? K : H;                   // the first layer's width
+  const int P = kLr ? F * K + K : F * H + H + H * K + K;
+  const int MG = wide_group(L1), TL = wide_tail(H, K);
+  const int NS = stream_ns(MG * L1), SS = stream_stage(L1);
+  float* ring = reinterpret_cast<float*>(smem_raw);  // [stages][SS]: x
+                                                // [64][XS], W0 and mask
+                                                // [KC][NS] each
+  float* s_l2 = ring + stream_ring(L1);         // [MG][TL]
+  int* s_cnt = reinterpret_cast<int*>(s_l2 + MG * TL);  // [warps]
+  float* s_nll = reinterpret_cast<float*>(s_cnt + kWideWarps);  // [warps]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;      // mma fragment coordinates
+  const int Q = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+  const size_t cell = blockIdx.x / Q;           // (c, g)
+  const size_t g = cell % a.G, c = cell / a.G;
+  const float* xg = a.x + c * a.xs_c + g * a.xs_g;
+  const int* yg = a.y + c * a.ys_c + g * a.ys_g;
+  const int tiles = (N + kStreamRows - 1) / kStreamRows;
+  const int mine = tiles > q ? (tiles - q + Q - 1) / Q : 0;  // q, q + Q, ..
+  const int chunks = (F + KC - 1) / KC;
+  // warp w: m16 tiles 2 mp and 2 mp + 1, k-step kq of every chunk
+  const int mp = warp & 1, kq = warp >> 1;
+  // this thread's float4 of x in a chunk: column quad xc4 of rows xr and
+  // xr + 32
+  const int xr = tid >> 3, xc4 = tid & 7;
+
+  for (int g0 = 0; g0 < M; g0 += MG) {
+    const int mg = min(MG, M - g0), cols = mg * L1;
+    const int NT = (cols + 7) / 8, NZ = NT * 8;
+    // this thread's column wn of the group's W0 chunk (and mask), rows wk,
+    // wk + KR, ..: 4-byte copies, KR rows of the chunk at once
+    const int KR = kWideThreads / cols, wn = tid % cols, wk = tid / cols;
+    const int wi = wn / L1;
+    const float* wsrc = a.params + (size_t)(g0 + wi) * P + (wn - wi * L1);
+    const float* msrc = a.fmask ? a.fmask + (size_t)(g0 + wi) * F : nullptr;
+    // the group's second layers, model after model (the barrier before
+    // their first read is the first chunk's)
+    for (int e = tid; e < mg * TL; e += kWideThreads) {
+      const int i = e / TL;
+      s_l2[e] = a.params[(size_t)(g0 + i) * P + F * L1 + (e - i * TL)];
+    }
+    int acc_cnt = 0;                // lane 0 of warp w: model g0 + w
+    float acc_nll = 0.f;
+    for (int i = 0; i < mine; ++i) {
+      const int row0 = (q + i * Q) * kStreamRows;
+      const int nrows = min(kStreamRows, N - row0);
+      // chunk ch into stage ch % stages: x's rows (zero past F), W0's rows
+      // [k0, k0 + 32) of the group's columns and their mask values (zero
+      // past F); one commit group a chunk, empty past the last. Rows past
+      // N and columns past the group's are not copied: they reach only
+      // outputs nobody reads.
+      auto issue = [&](int ch) {
+        if (ch < chunks) {
+          float* st = ring + (ch % kStreamStages) * SS;
+          const int k0 = ch * KC;
+          const bool xin = k0 + 4 * xc4 < F;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = xr + 32 * h;
+            if (r < nrows)
+              cp_async16(st + r * XS + 4 * xc4,
+                         xg + (size_t)(row0 + r) * F
+                             + (xin ? k0 + 4 * xc4 : 0),
+                         xin ? 16 : 0);
+          }
+          if (wk < KR) {
+            float* sw = st + kStreamRows * XS;
+            for (int k = wk; k < KC; k += KR) {
+              const bool in = k0 + k < F;
+              const int f = in ? k0 + k : 0;
+              cp_async4(sw + k * NS + wn, wsrc + (size_t)f * L1, in);
+              if (msrc) cp_async4(sw + (KC + k) * NS + wn, msrc + f, in);
+            }
+          }
+        }
+        cp_async_commit();
+      };
+      for (int ch = 0; ch < kStreamStages - 1; ++ch) issue(ch);
+
+      // the group's first layers on the tensor cores in 3xTF32: x [64, F]
+      // times the models' W0 (times their masks) side by side, [F, cols],
+      // the sums over the chunks in registers
+      float acc[2][kWideCols / 8][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kWideCols / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+      for (int ch = 0; ch < chunks; ++ch) {
+        cp_async_wait<kStreamStages - 2>();
+        __syncthreads();            // chunk ch is here; ch - 1's stage free
+        issue(ch + kStreamStages - 1);
+        const float* st = ring + (ch % kStreamStages) * SS;
+        const float* sw = st + kStreamRows * XS + (kq * 8 + t4) * NS + g8;
+        uint32_t ab[2][4], as[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* xp = st + ((2 * mp + mt) * 16 + g8) * XS + kq * 8 + t4;
+          const float av[4] = {xp[0], xp[8 * XS], xp[4], xp[8 * XS + 4]};
+          split4<true>(av, ab[mt], as[mt]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < kWideCols / 8; ++nt) {
+          if (nt >= NT) break;
+          float b0 = sw[nt * 8], b1 = sw[4 * NS + nt * 8];
+          if (msrc) {
+            b0 *= sw[KC * NS + nt * 8];
+            b1 *= sw[(KC + 4) * NS + nt * 8];
+          }
+          uint32_t bb0, bs0, bb1, bs1;
+          split<true>(b0, bb0, bs0);
+          split<true>(b1, bb1, bs1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_tf32(acc[mt][nt], as[mt], bb0, bb1);
+            mma_tf32(acc[mt][nt], ab[mt], bs0, bs1);
+            mma_tf32(acc[mt][nt], ab[mt], bb0, bb1);
+          }
+        }
+      }
+      cp_async_wait<0>();
+      __syncthreads();              // every warp is done with the ring
+
+      // the four k-steps' partials [kq][64][NZ] over the ring, summed in
+      // order into [64][NZ]
+      float* s_zp = ring;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kWideCols / 8; ++nt) {
+          if (nt >= NT) break;
+          float* o = s_zp + (kq * kStreamRows + (2 * mp + mt) * 16 + g8) * NZ
+                     + nt * 8 + 2 * t4;
+          o[0] = acc[mt][nt][0];
+          o[1] = acc[mt][nt][1];
+          o[8 * NZ] = acc[mt][nt][2];
+          o[8 * NZ + 1] = acc[mt][nt][3];
+        }
+      __syncthreads();
+      for (int e = tid; e < kStreamRows * cols; e += kWideThreads) {
+        const int r = e / cols, cc = e - r * cols;
+        float z = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) z += s_zp[(k * kStreamRows + r) * NZ + cc];
+        s_zp[r * NZ + cc] = z;
+      }
+      __syncthreads();
+
+      // the second layer (the lr: the sigmoid) and the score: warp w takes
+      // model g0 + w, lane r rows row0 + r and row0 + 32 + r in turn
+      if (warp < mg) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = lane + 32 * h;
+          int cnt = 0;
+          float nll = 0.f;
+          if (r < nrows)
+            wide_score<kLr>(s_zp + r * NZ + warp * L1, s_l2 + warp * TL, H,
+                            K, yg[row0 + r], &cnt, &nll, a.nll != nullptr);
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            cnt += __shfl_xor_sync(fnn_eval::kFull, cnt, o);
+            nll += __shfl_xor_sync(fnn_eval::kFull, nll, o);
+          }
+          if (lane == 0) {          // the CTA's half tiles in order
+            acc_cnt += cnt;
+            acc_nll += nll;
+          }
+        }
+      }
+      __syncthreads();              // the ring and s_l2 are free again
+    }
+
+    group_totals(cluster, a, acc_cnt, acc_nll, s_cnt, s_nll, g0, mg, c, g);
+  }
+}
+
 template <int F, int H, int K>
 int launch_fused(const Args& a, long long blocks, int threads,
                  cudaStream_t st) {
@@ -510,27 +812,27 @@ int launch_general(const Args& a, long long blocks, int threads, int device,
   return (int)cudaGetLastError();
 }
 
-// The wide kernel: C * G cells of Q = min(16, ceil(N / kRows)) CTAs in
-// clusters of Q (above 8 a non-portable size, which the H100 allows).
-template <bool kLr, int kRows>
-int launch_wide(const Args& a, int M, int device, cudaStream_t st) {
-  const long long smem = eval_wide_smem_bytes(a.F, a.H, a.K, kRows);
+// A cell kernel of the wide route: C * G cells of Q = min(16, ceil(N /
+// rows)) CTAs in clusters of Q (above 8 a non-portable size, which the H100
+// allows), `smem` bytes each; the kernel's attributes are set once per
+// device (`ready`, one per kernel).
+template <typename Kernel>
+int launch_cells(Kernel kernel, std::atomic<unsigned long long>& ready,
+                 const Args& a, int M, int rows, long long smem, int device,
+                 cudaStream_t st) {
   if (smem > kMaxSmem) return kErrSmem;
-  const int tiles = (a.N + kRows - 1) / kRows;
+  const int tiles = (a.N + rows - 1) / rows;
   const int Q = tiles < 1 ? 1 : tiles < kWideMaxCluster ? tiles
                                                        : kWideMaxCluster;
   const long long blocks = (long long)a.C * a.G * Q;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  static std::atomic<unsigned long long> ready{0};
   const unsigned long long bit = device < 64 ? 1ull << device : 0;
   if (!(ready.load() & bit)) {
     cudaError_t err = cudaFuncSetAttribute(
-        eval_wide_kernel<kLr, kRows>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(
-          eval_wide_kernel<kLr, kRows>,
-          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
     ready.fetch_or(bit);
   }
@@ -546,27 +848,34 @@ int launch_wide(const Args& a, int M, int device, cudaStream_t st) {
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg,
-                                             eval_wide_kernel<kLr, kRows>, a,
-                                             M);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a, M);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// The wide route: its checks, then the row tile the widths take (32 rows
-// at MNIST's, 16 at fmow's) and the model.
+// The wide route: its checks, then the kernel the widths take (the
+// resident one at MNIST's, the streamed one at fmow's) and the model.
 int launch_wide_any(const Args& a, int M, int device, cudaStream_t st) {
   const int L1 = a.H ? a.H : a.K;
   if (a.F % 4 || L1 < 1 || L1 > kWideCols
       || (reinterpret_cast<uintptr_t>(a.x) & 15)
       || (a.C > 1 && a.xs_c % 4) || (a.G > 1 && a.xs_g % 4))
     return (int)cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> ready[4];
   switch (eval_wide_rows(a.F, a.H, a.K)) {
-    case 32:
-      return a.H ? launch_wide<false, 32>(a, M, device, st)
-                 : launch_wide<true, 32>(a, M, device, st);
-    case 16:
-      return a.H ? launch_wide<false, 16>(a, M, device, st)
-                 : launch_wide<true, 16>(a, M, device, st);
+    case kWideRows: {
+      const long long smem = eval_wide_smem_bytes(a.F, a.H, a.K);
+      return a.H ? launch_cells(eval_wide_kernel<false>, ready[0],
+                                a, M, kWideRows, smem, device, st)
+                 : launch_cells(eval_wide_kernel<true>, ready[1],
+                                a, M, kWideRows, smem, device, st);
+    }
+    case kStreamRows: {
+      const long long smem = eval_stream_smem_bytes(a.H, a.K);
+      return a.H ? launch_cells(eval_stream_kernel<false>, ready[2], a, M,
+                                kStreamRows, smem, device, st)
+                 : launch_cells(eval_stream_kernel<true>, ready[3], a, M,
+                                kStreamRows, smem, device, st);
+    }
     default:
       return kErrSmem;
   }
@@ -584,9 +893,10 @@ struct Params {
 static_assert(sizeof(Params) == 120, "Params must match the wrapper's pack");
 
 // Plain C entry point bound with ctypes. `route`: 0 the general kernel, 1
-// the fused one (F, H, K must be one of its widths), 2 the wide one (F % 4
-// == 0, a first layer at most 64 wide, x's rows and strides 16-byte
-// aligned). H = 0 is the lr, which the general and wide kernels take.
+// the fused one (F, H, K must be one of its widths), 2 the wide route (its
+// resident or streamed kernel by eval_wide_rows; F % 4 == 0, a first layer
+// at most 64 wide, x's rows and strides 16-byte aligned). H = 0 is the lr,
+// which the general and wide kernels take.
 // `stream` is a stream of device `device`, which is made current for the
 // launch only if it is not. Returns the cudaError_t of the launch (0 = ok),
 // or kErrSmem (nothing launched) when the general or wide kernel would need
@@ -628,11 +938,16 @@ extern "C" int eval_cells_f32(const Params* p, int route, void* stream) {
   return ret;
 }
 
-// The wide kernel's shared memory a CTA at these widths (H = 0: the lr)
-// with row tiles of `rows`, in bytes, and the row tile it takes (0: none):
-// eval_cells.py's wide_smem_bytes and wide_rows mirror them.
-extern "C" long long eval_cells_wide_smem(int F, int H, int K, int rows) {
-  return eval_wide_smem_bytes(F, H, K, rows);
+// The resident and streamed kernels' shared memory a CTA at these widths
+// (H = 0: the lr), in bytes, and the wide route's row tile (32 resident, 64
+// streamed, 0: none): eval_cells.py's wide_smem_bytes, stream_smem_bytes
+// and wide_rows mirror them.
+extern "C" long long eval_cells_wide_smem(int F, int H, int K) {
+  return eval_wide_smem_bytes(F, H, K);
+}
+
+extern "C" long long eval_cells_stream_smem(int H, int K) {
+  return eval_stream_smem_bytes(H, K);
 }
 
 extern "C" int eval_cells_wide_rows(int F, int H, int K) {

@@ -197,9 +197,10 @@
 //   [192q, 192q + 192) (F / 16) with their W1 slice and its moments (1920
 //   coordinates at fmow), and streams its column block of the step's batch
 //   through a ring of 4 tiles of 32 rows at a stride of 4 mod 8 floats: all
-//   256 threads issue a tile's 16-byte cp.async copies (6 each at fmow) and
-//   arrive on the stage's mbarrier as they land, from the step's row
-//   indices staged in shared memory (contiguous or gathered rows alike).
+//   256 threads issue a tile's 16-byte cp.async copies (8 threads a row, 6
+//   copies each at fmow, one row index read a tile) and arrive on the
+//   stage's mbarrier as they land, from the step's row indices staged in
+//   shared memory (contiguous or gathered rows alike).
 //   Every row of every step is known at entry, so the ring runs ahead
 //   across passes and steps, but never past the steps whose indices are
 //   staged: two steps' are held, and step s + 1's are staged at the start
@@ -209,32 +210,39 @@
 //   tile sat on every tile's critical path, and a step took ~105 us, pass
 //   1 50 and pass 2 38, with ~1 us of waiting for data:
 //   scripts/torch_wide_breakdown.py --kernel split, PERF.md.)
-// - Each step reads x twice. Pass 1: Z1's partials over the CTA's inputs
-//   for every batch row ([B, H]; a warp an eighth of the inputs, a lane a
-//   row, W1 and the mask broadcast; the warps' partials summed in warp
-//   order). A cluster barrier; then CTA q takes rows [32q, 32q + 32): Z1
+// - Each step reads x twice. Pass 1, two tiles a barrier: Z1's partials
+//   over the CTA's inputs for every batch row ([B, H]; a warp an eighth of
+//   the inputs, a lane a row of both tiles, W1's and the mask's broadcast
+//   loads each serving both; the warps' partials summed in warp order).
+//   A cluster barrier; then CTA q takes rows [32q, 32q + 32): Z1
 //   summed over the 16 CTAs in rank order through distributed shared
 //   memory, b1 and relu, the 62 logits two classes a lane, the loss and
-//   dlogits by shuffles, dh; its partials of the small params (db1, dW2,
-//   db2) over its rows. A second cluster barrier; every CTA gathers the
-//   other CTAs' dh rows, sums the small partials in rank order and steps
-//   the small params itself (the same values in every CTA: no broadcast, no
-//   third barrier). Pass 2, in reverse tile order (the latest tiles are
-//   likelier still in L2): dW1's slice = (x * fm)^T dh, a thread one input
-//   quad and a row group, the row groups summed in order; the slice steps
-//   in place. Its dW1 needs no cluster sum: the CTA holds every row of its
-//   inputs. Two cluster barriers a step, fixed orders, no atomics: bitwise
-//   the same call after call.
+//   dlogits by shuffles, dh, pushed into every CTA's dh rows; its partials
+//   of the small params (db1, dW2, db2) over its rows. A second cluster
+//   barrier; CTA q sums a sixteenth of the small partials over the cluster
+//   in rank order, steps them with the moments it keeps and pushes the new
+//   values into every CTA (read after the next step's first barrier; the
+//   first design had every CTA gather all 500 dh rows and step all 692
+//   small params, the same values in each). Pass 2, in reverse tile order
+//   (the latest tiles are likelier still in L2): dW1's slice = (x * fm)^T
+//   dh, a thread one input quad and a row group, the row groups summed in
+//   order; the slice steps in place. Its dW1 needs no cluster sum: the CTA
+//   holds every row of its inputs. Two cluster barriers a step, fixed
+//   orders, no atomics: bitwise the same call after call, and bitwise the
+//   first design (the sums in the same orders).
+//   (A design with both products on the tensor cores in 3xTF32 took 2.50
+//   ms a round against 2.88 and sat nearer float64 than this one, but its
+//   rounding moved two of fmow's four runs out of their gates: PERF.md.)
 // - L2 (50 MB) holds a pair's 6.1 MB between the two passes only while few
 //   clusters run at once (8 clusters of 6.1 MB are 49 MB); the pairs of one
 //   client are scheduled side by side, so with B = N the models that drew
 //   the same step read the same rows.
-// - Its shared memory is split_smem_bytes: 223,584 bytes at fmow under
+// - Its shared memory is split_smem_bytes: 215,808 bytes at fmow under
 //   AMSGrad (x ring 100 KB, the forward's partials 20 KB, W1's slice and
 //   moments 30 KB, dh and Z1's partials of every row 44 KB, the small
-//   params, partials and moments 14 KB, own rows' h and dz 9 KB, two
-//   steps' row indices 4 KB): one CTA an SM, so the card holds 7 clusters
-//   of 16 at once (cudaOccupancyMaxActiveClusters).
+//   params and partials and the moments of a sixteenth of them 6 KB, own
+//   rows' h and dz 9 KB, two steps' row indices 4 KB): one CTA an SM, so
+//   the card holds 7 clusters of 16 at once (cudaOccupancyMaxActiveClusters).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1395,14 +1403,20 @@ __host__ __device__ constexpr int split_dh_stride(int H) {
   return (H + 3) / 4 * 4;
 }
 
+// The small params' coordinates (b1, W2, b2) one CTA sums, steps and keeps
+// the moments of: a sixteenth of them, rounded up.
+__host__ __device__ constexpr int split_small_chunk(int SP) {
+  return (SP + kSplitCluster - 1) / kSplitCluster;
+}
+
 // Shared memory one CTA of the split kernel needs, in bytes: the stages'
 // mbarriers, then in floats the x ring (kSplitStages tiles of 32 rows of
-// F / 16 inputs at a padded stride), the forward's warp partials (double
-// buffered) or dW1's slice, W1's slice (transposed) and its three moments,
+// F / 16 inputs at a padded stride), the forward's warp partials of two
+// tiles or dW1's slice, W1's slice (transposed) and its three moments,
 // the mask's slice, dh of every batch row, the Z1 partials of every row, the
-// small params (b1, W2, b2), their partials and moments, h and dz of the
-// CTA's own rows, their labels, the warps' losses and the loss, and the
-// batch's row indices of two steps.
+// small params (b1, W2, b2) and their partials, the moments of the CTA's
+// sixteenth of them, h and dz of the CTA's own rows, their labels, the
+// warps' losses and the loss, and the batch's row indices of two steps.
 long long split_smem_bytes(int F, int H, int K, int B, bool sgd) {
   const long long FQ = F / kSplitCluster, W = (long long)H * FQ;
   const long long SP = H + (long long)H * K + K;
@@ -1410,9 +1424,10 @@ long long split_smem_bytes(int F, int H, int K, int B, bool sgd) {
   const long long floats =
       (long long)kSplitStages * kSplitRows * wide_stride((int)FQ)
       + (red > W ? red : W) + (sgd ? 1 : 4) * W + FQ
-      + (long long)B * split_dh_stride(H) + (long long)B * H
-      + (sgd ? 2 : 5) * SP + (long long)kSplitRows * (H + K) + kSplitRows
-      + kWideWarps + 4 + 2LL * B;
+      + (long long)B * split_dh_stride(H) + (long long)B * H + 2 * SP
+      + (sgd ? 0 : 3LL * split_small_chunk((int)SP))
+      + (long long)kSplitRows * (H + K) + kSplitRows + kWideWarps + 4
+      + 2LL * B;
   return 8LL * kSplitStages + 4 * floats;
 }
 
@@ -1425,7 +1440,8 @@ local_sgd_split_kernel(const Args a) {
   const int F = a.F, H = a.H, K = a.K, B = a.B, N = a.N, S = a.S;
   const int FQ = F / Q, NQ = FQ / 4, XS = wide_stride(FQ);
   const int W = H * FQ, HD = split_dh_stride(H);
-  const int SP = H + H * K + K, oSm = F * H, P = oSm + SP;
+  const int SP = H + H * K + K, SPC = split_small_chunk(SP);
+  const int oSm = F * H, P = oSm + SP;
   const int NT = (B + kSplitRows - 1) / kSplitRows;  // row tiles a pass
   const int TT = 2 * S * NT;                         // tiles a launch
   const int red = 2 * kWideWarps * kSplitRows * H;
@@ -1442,10 +1458,10 @@ local_sgd_split_kernel(const Args a) {
   float* s_zp = s_dh + B * HD;                  // [B][H] Z1's partials
   float* s_sp = s_zp + B * H;                   // [SP] b1, W2, b2
   float* s_sg = s_sp + SP;                      // [SP] their partials
-  float* s_smu = s_sg + SP;                     // [SP] each, AMSGrad
-  float* s_snu = s_smu + SP;
-  float* s_sxm = s_snu + SP;
-  float* s_h = s_sg + (kSgd ? 1 : 4) * SP;      // [rows][H] own rows' h
+  float* s_smu = s_sg + SP;                     // [SPC] each, AMSGrad: the
+  float* s_snu = s_smu + SPC;                   // owned coordinates'
+  float* s_sxm = s_snu + SPC;                   // moments
+  float* s_h = s_sg + SP + (kSgd ? 0 : 3 * SPC);  // [rows][H] own rows' h
   float* s_z = s_h + kSplitRows * H;            // [rows][K] their dz
   int* s_y = reinterpret_cast<int*>(s_z + kSplitRows * K);  // their labels
   float* s_wl = reinterpret_cast<float*>(s_y + kSplitRows);  // [warps]
@@ -1462,6 +1478,8 @@ local_sgd_split_kernel(const Args a) {
   const int f0 = q * FQ;                        // inputs [f0, f0 + FQ)
   const int o0 = q * kSplitRows;                // own rows in the row phase
   const int nown = max(0, min(kSplitRows, B - o0));
+  const int e0 = q * SPC, ne = max(0, min(SPC, SP - e0));  // owned small
+                                                // coordinates
   const float* pm = a.params + (size_t)m * P;
   const size_t so = (size_t)pair * P;
   const float* xc = a.x + (size_t)c * a.T1 * N * F + f0;
@@ -1477,12 +1495,13 @@ local_sgd_split_kernel(const Args a) {
       s_xw[i] = a.nu_max[so + p];
     }
   }
-  for (int e = tid; e < SP; e += T) {
-    s_sp[e] = pm[oSm + e];
-    if constexpr (!kSgd) {
-      s_smu[e] = a.mu[so + oSm + e];
-      s_snu[e] = a.nu[so + oSm + e];
-      s_sxm[e] = a.nu_max[so + oSm + e];
+  for (int e = tid; e < SP; e += T) s_sp[e] = pm[oSm + e];
+  if constexpr (!kSgd) {
+    for (int e = tid; e < ne; e += T) {
+      const size_t p = so + oSm + e0 + e;
+      s_smu[e] = a.mu[p];
+      s_snu[e] = a.nu[p];
+      s_sxm[e] = a.nu_max[p];
     }
   }
   for (int f = tid; f < FQ; f += T)
@@ -1507,22 +1526,25 @@ local_sgd_split_kernel(const Args a) {
   // The stream of x tiles: for each step, pass 1's tiles 0 .. NT - 1, then
   // pass 2's NT - 1 .. 0 (the latest read first, likelier in L2). Every
   // thread issues its share of tile v into stage v % kSplitStages, in
-  // order: 16-byte cp.async copies (the tile's 32 * NQ float4s, a thread
-  // every 256th), then an arrival on the stage's mbarrier when they land.
+  // order: 16-byte cp.async copies (8 threads a row, a thread every eighth
+  // float4 of it), then an arrival on the stage's mbarrier when they land.
   // A tile is issued once its stage is free and its step's rows are
   // staged: with B <= 32 (2 tiles a step) the ring would otherwise reach
   // step s + 2 while its buffer still holds step s's rows.
   int iu = 0;                       // the next tile to issue
   int u = 0;                        // the next tile of the stream
+  // this thread's row of a tile and its float4s cq, cq + 8, .. (a warp
+  // copies 4 rows, 128 contiguous bytes of each at a time)
+  const int cr = tid >> 3, cq = tid & 7;
   auto issue = [&]() {
     const int s = iu / (2 * NT), k = iu - s * 2 * NT;
     const int r0 = (k < NT ? k : 2 * NT - 1 - k) * kSplitRows;
     const int nr = min(kSplitRows, B - r0), st = iu % kSplitStages;
-    const int* rows = s_rows + (s & 1) * B + r0;
-    float* dst = s_x + (size_t)st * kSplitRows * XS;
-    for (int e = tid; e < nr * NQ; e += T) {
-      const int r = e / NQ, q4 = e - r * NQ;
-      copy16(dst + r * XS + 4 * q4, xc + (size_t)rows[r] * F + 4 * q4);
+    if (cr < nr) {
+      const float* src = xc + (size_t)s_rows[(s & 1) * B + r0 + cr] * F;
+      float* dst = s_x + ((size_t)st * kSplitRows + cr) * XS;
+#pragma unroll 4
+      for (int q4 = cq; q4 < NQ; q4 += 8) copy16(dst + 4 * q4, src + 4 * q4);
     }
     copies_arrive(bar + st);
     ++iu;
@@ -1532,15 +1554,17 @@ local_sgd_split_kernel(const Args a) {
       issue();
   };
   top_up();
-  auto wait_tile = [&]() -> const float* {
-    const int st = u % kSplitStages;
-    mbar_wait(bar + st, (unsigned)(u / kSplitStages) & 1u);
+  // tile u + d of the stream, once it has landed
+  auto wait_tile = [&](int d) -> const float* {
+    const int st = (u + d) % kSplitStages;
+    mbar_wait(bar + st, (unsigned)((u + d) / kSplitStages) & 1u);
     return s_x + (size_t)st * kSplitRows * XS;
   };
-  // every thread is done with tile u: its stage takes tile u + stages
-  auto release = [&]() {
+  // every thread is done with tiles u .. u + n - 1: their stages take the
+  // tiles kSplitStages on
+  auto release = [&](int n) {
     __syncthreads();
-    ++u;
+    u += n;
     top_up();
   };
 
@@ -1560,49 +1584,70 @@ local_sgd_split_kernel(const Args a) {
 
     // (1) Z1's partials over this CTA's inputs for every batch row, in
     // float32 FMAs: warp w takes the input quads w, w + 8, ..., lane r row
-    // r of the tile (x at a stride of 4 mod 8 floats: a quarter warp's
-    // float4 loads hit distinct banks; W1's and the mask's float4s are
-    // broadcast); the warps' partials are summed in warp order
-    for (int i = 0; i < NT; ++i) {
-      const float* xt = wait_tile();
-      const int r0 = i * kSplitRows, nr = min(kSplitRows, B - r0);
-      float* rb = s_red + (i & 1) * kWideWarps * kSplitRows * H;
+    // r of two tiles at a time (x at a stride of 4 mod 8 floats: a quarter
+    // warp's float4 loads hit distinct banks; W1's and the mask's float4s
+    // are broadcast, each load serving both tiles); the warps' partials
+    // are summed in warp order
+    for (int i = 0; i < NT; i += 2) {
+      const int n2 = min(2, NT - i);
+      const int nra = min(kSplitRows, B - i * kSplitRows);
+      const int nrb = n2 > 1 ? min(kSplitRows, B - (i + 1) * kSplitRows) : 0;
+      const float* xa = wait_tile(0) + lane * XS;
+      const float* xb = n2 > 1 ? wait_tile(1) + lane * XS : xa;
       {
-        float acc[kSplitMaxH];
+        float acc[2][kSplitMaxH];
 #pragma unroll
-        for (int j = 0; j < kSplitMaxH; ++j) acc[j] = 0.f;
-        if (lane < nr) {
-          const float* xr = xt + lane * XS;
+        for (int j = 0; j < kSplitMaxH; ++j) acc[0][j] = acc[1][j] = 0.f;
+        if (lane < nra) {           // the second tile's rows are as many or
+          const bool inb = lane < nrb;  // fewer
           for (int f = 4 * warp; f < FQ; f += 4 * kWideWarps) {
-            const float4 xq = *reinterpret_cast<const float4*>(xr + f);
             const float4 mf = *reinterpret_cast<const float4*>(s_fm + f);
-            const float xv[4] = {xq.x * mf.x, xq.y * mf.y, xq.z * mf.z,
-                                 xq.w * mf.w};
+            const float4 qa = *reinterpret_cast<const float4*>(xa + f);
+            const float4 qb = inb ? *reinterpret_cast<const float4*>(xb + f)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float va[4] = {qa.x * mf.x, qa.y * mf.y, qa.z * mf.z,
+                                 qa.w * mf.w};
+            const float vb[4] = {qb.x * mf.x, qb.y * mf.y, qb.z * mf.z,
+                                 qb.w * mf.w};
 #pragma unroll
             for (int j = 0; j < kSplitMaxH; ++j) {
               if (j >= H) break;
               const float4 wq =
                   *reinterpret_cast<const float4*>(s_w + j * FQ + f);
-              float v = fmaf(xv[0], wq.x, acc[j]);
-              v = fmaf(xv[1], wq.y, v);
-              v = fmaf(xv[2], wq.z, v);
-              acc[j] = fmaf(xv[3], wq.w, v);
+              float v = fmaf(va[0], wq.x, acc[0][j]);
+              v = fmaf(va[1], wq.y, v);
+              v = fmaf(va[2], wq.z, v);
+              acc[0][j] = fmaf(va[3], wq.w, v);
+              float w = fmaf(vb[0], wq.x, acc[1][j]);
+              w = fmaf(vb[1], wq.y, w);
+              w = fmaf(vb[2], wq.z, w);
+              acc[1][j] = fmaf(vb[3], wq.w, w);
             }
           }
         }
+        // s_red [tile][warp][rows][H]
 #pragma unroll
-        for (int j = 0; j < kSplitMaxH; ++j) {
-          if (j >= H) break;
-          rb[(warp * kSplitRows + lane) * H + j] = acc[j];
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int j = 0; j < kSplitMaxH; ++j) {
+            if (j >= H || t >= n2) break;
+            s_red[((t * kWideWarps + warp) * kSplitRows + lane) * H + j] =
+                acc[t][j];
+          }
+      }
+      release(n2);
+      for (int t = 0; t < n2; ++t) {
+        const int r0 = (i + t) * kSplitRows, nr = t ? nrb : nra;
+        const float* rb = s_red + t * kWideWarps * kSplitRows * H;
+        for (int e = tid; e < nr * H; e += T) {
+          float z = 0.f;
+#pragma unroll
+          for (int w = 0; w < kWideWarps; ++w)
+            z += rb[w * kSplitRows * H + e];
+          s_zp[r0 * H + e] = z;
         }
       }
-      release();
-      for (int e = tid; e < nr * H; e += T) {
-        float z = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWideWarps; ++w) z += rb[w * kSplitRows * H + e];
-        s_zp[r0 * H + e] = z;
-      }
+      __syncthreads();              // s_red is free again
     }
     if (tid < nown) s_y[tid] = ylab;
     cluster.sync();                 // every CTA's Z1 partials are visible
@@ -1705,8 +1750,12 @@ local_sgd_split_kernel(const Args a) {
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         const int r = warp + i * kWideWarps;
-        if (lane < H && r < nown)
-          s_dh[(o0 + r) * HD + lane] = hj[i] > 0.f ? dh[i] : 0.f;
+        if (lane < H && r < nown) {
+          const float d = hj[i] > 0.f ? dh[i] : 0.f;
+#pragma unroll
+          for (int rk = 0; rk < Q; ++rk)
+            cluster.map_shared_rank(s_dh, rk)[(o0 + r) * HD + lane] = d;
+        }
       }
       if (lane == 0) s_wl[warp] = wl;
     }
@@ -1735,14 +1784,10 @@ local_sgd_split_kernel(const Args a) {
     }
     cluster.sync();                 // dh rows, partials and losses visible
 
-    // (4) every CTA gathers the other CTAs' dh rows, sums the small
-    // partials over the cluster in rank order and steps the small params
-    // (the same values in every CTA, so no broadcast); rank 0 the loss
-    for (int e = tid; e < B * H; e += T) {
-      const int r = e / H, j = e - r * H, rk = r / kSplitRows;
-      if (rk != q)
-        s_dh[r * HD + j] = cluster.map_shared_rank(s_dh, rk)[r * HD + j];
-    }
+    // (4) CTA q sums its sixteenth of the small params' partials over the
+    // cluster in rank order, steps them with the moments it keeps and
+    // pushes the new values into every CTA (read after the next step's
+    // first cluster barrier); rank 0 the loss. Every row's dh is here.
     if (q == 0 && tid == 0) {
       float tot = 0.f;
       for (int rk = 0; rk < Q; ++rk)
@@ -1752,23 +1797,25 @@ local_sgd_split_kernel(const Args a) {
     if constexpr (!kSgd) count = count < INT_MAX ? count + 1 : count;
     const float bc1 = kSgd ? 1.f : 1.f - powf(a.b1, (float)count);
     const float bc2 = kSgd ? 1.f : 1.f - powf(a.b2, (float)count);
-    for (int e = tid; e < SP; e += T) {
+    for (int e = tid; e < ne; e += T) {
+      const int p = e0 + e;
       float g = 0.f;
-      for (int rk = 0; rk < Q; ++rk) g += cluster.map_shared_rank(s_sg, rk)[e];
+      for (int rk = 0; rk < Q; ++rk) g += cluster.map_shared_rank(s_sg, rk)[p];
       float mu = 0.f, nu = 0.f, vmax = 0.f;
       if constexpr (!kSgd) {
         mu = s_smu[e];
         nu = s_snu[e];
         vmax = s_sxm[e];
       }
-      s_sp[e] = step_coord<kSgd>(a, s_sp[e], g, mu, nu, vmax, bc1, bc2);
+      const float v = step_coord<kSgd>(a, s_sp[p], g, mu, nu, vmax, bc1, bc2);
       if constexpr (!kSgd) {
         s_smu[e] = mu;
         s_snu[e] = nu;
         s_sxm[e] = vmax;
       }
+#pragma unroll
+      for (int rk = 0; rk < Q; ++rk) cluster.map_shared_rank(s_sp, rk)[p] = v;
     }
-    __syncthreads();                // every row's dh is here
 
     // (5) dW1 = (x * fm)^T dh over every row, float32 FMAs: thread t takes
     // input quad t % NQ and the rows t / NQ, + RG, ... of each tile, then
@@ -1784,7 +1831,7 @@ local_sgd_split_kernel(const Args a) {
       const float4 mf = on ? *reinterpret_cast<const float4*>(s_fm + 4 * fq)
                            : make_float4(0.f, 0.f, 0.f, 0.f);
       for (int i = NT - 1; i >= 0; --i) {
-        const float* xt = wait_tile();
+        const float* xt = wait_tile(0);
         const int r0 = i * kSplitRows, nr = min(kSplitRows, B - r0);
         if (on) {
           for (int r = rg; r < nr; r += RG) {
@@ -1808,7 +1855,7 @@ local_sgd_split_kernel(const Args a) {
             }
           }
         }
-        release();
+        release(1);
       }
       for (int g = 0; g < RG; ++g) {
         if (rg == g) {
@@ -1846,7 +1893,8 @@ local_sgd_split_kernel(const Args a) {
     }
     __syncthreads();
   }
-  cluster.sync();                   // no CTA leaves while another reads it
+  cluster.sync();                   // no CTA leaves while another reads it,
+                                    // and every push has landed
 
   const bool active = a.total_w[pair] > 0.f;
   float* op = a.out_params + so;
@@ -1860,15 +1908,18 @@ local_sgd_split_kernel(const Args a) {
       a.nu_max[so + p] = s_xw[i];
     }
   }
+  if (!kSgd && active) {
+    for (int e = tid; e < ne; e += T) {
+      const size_t p = so + oSm + e0 + e;
+      a.mu[p] = s_smu[e];
+      a.nu[p] = s_snu[e];
+      a.nu_max[p] = s_sxm[e];
+    }
+  }
   if (q == 0) {
     for (int e = tid; e < SP; e += T) {
       const size_t p = (size_t)oSm + e;
       op[p] = active ? s_sp[e] : pm[p];
-      if (!kSgd && active) {
-        a.mu[so + p] = s_smu[e];
-        a.nu[so + p] = s_snu[e];
-        a.nu_max[so + p] = s_sxm[e];
-      }
     }
     if (tid == 0) {
       if (!kSgd && active) a.count[pair] = count;

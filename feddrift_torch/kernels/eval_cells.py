@@ -23,16 +23,19 @@ version, ``eval_cells_ref``, for CPU tensors. There is no fallback for a
 CUDA tensor: the kernel launches or the call raises. The source holds three
 kernels of the one function, and ``_route`` picks one by shape alone
 before the launch: the fused kernel for the registry's widths; the wide
-kernel (a cluster of CTAs a (client, step), row tiles staged by TMA once
-for every model, the models' first layers side by side on the tensor cores
-in 3xTF32) for rows of a multiple of 4 floats where ``wide_smem_bytes``
-fits, with tiles of 32 rows (MNIST-4's F = 784) or, where 32 rows of x do
-not fit a block, 16 (fmow's F = 3072; ``wide_rows``); the general one for
-any other. ``eval_cells.launches`` counts every launch,
-``eval_cells.wide_launches`` the wide kernel's and
-``eval_cells.wide16_launches`` those of its 16-row tiles. ``eval_cells_ref.cuda_calls`` counts the plain
-version's calls on CUDA tensors (only a comparison with the kernel makes
-them), so a run can show that none carried its evals.
+route (a cluster of CTAs a (client, step), the models' first layers side by
+side on the tensor cores in 3xTF32) for rows of a multiple of 4 floats:
+its resident kernel (32-row tiles staged by TMA once for every model)
+where ``wide_smem_bytes`` fits, as at MNIST-4's F = 784, else its
+streamed kernel (64-row tiles, F streamed in chunks of 32 with the group's
+W0 rows; ``stream_smem_bytes``), as at fmow's F = 3072 (``wide_rows``
+says which: 32 or 64); the general one for any other.
+``eval_cells.launches`` counts every launch, ``eval_cells.wide_launches``
+the wide route's and ``eval_cells.wide16_launches`` those of its streamed
+kernel (named for the 16-row tiles that route took before it).
+``eval_cells_ref.cuda_calls`` counts the plain version's calls on CUDA
+tensors (only a comparison with the kernel makes them), so a run can show
+that none carried its evals.
 
 The fused round loop takes its evals elsewhere: K1's fused kernel
 evaluates its input params in the same launch
@@ -64,8 +67,11 @@ _ROUTES = {"general": 0, "fused": 1, "wide": 2}  # eval_cells_f32's route
 # The wide kernels of K1 and K3 (csrc/local_sgd.cu, csrc/eval_cells.cu):
 # rows a CTA, CTAs a cluster at most, and a block's shared memory
 WIDE_ROWS, WIDE_MAX_CLUSTER, MAX_SMEM = 32, 16, 232448
-# K3's wide kernel: the widest first layer it takes
+# K3's wide route: the widest first layer it takes (a group's columns at
+# most); its streamed kernel's rows a tile, inputs a chunk and chunks in
+# flight
 WIDE_MAX_WIDTH = 64
+STREAM_ROWS, STREAM_CHUNK, STREAM_STAGES = 64, 32, 3
 
 
 def _wide_stride(F: int) -> int:
@@ -75,26 +81,54 @@ def _wide_stride(F: int) -> int:
     return s if s % 8 == 4 else s + 4
 
 
-def wide_smem_bytes(F: int, H: int, K: int, rows: int = WIDE_ROWS) -> int:
-    """Shared memory of one CTA of the wide kernel (``H = 0``: the lr) with
-    tiles of ``rows``, as ``csrc/eval_cells.cu::eval_wide_smem_bytes``
-    counts it: the mbarrier, the rows of x at the padded stride, eight
-    [rows, 8] tiles of first-layer partials, the second layers of a group
-    of models (at most 64 first-layer columns and 8 models) and the warps'
-    totals."""
-    group = min(8, max(1, WIDE_MAX_WIDTH // (H or K)))
+def _group(L1: int) -> int:
+    """Models whose first layers (``L1`` wide) one pass of K3's wide route
+    computes side by side: at most 64 columns and 8 models."""
+    return min(8, max(1, WIDE_MAX_WIDTH // L1))
+
+
+def wide_smem_bytes(F: int, H: int, K: int) -> int:
+    """Shared memory of one CTA of the wide route's resident kernel (``H =
+    0``: the lr), as ``csrc/eval_cells.cu::eval_wide_smem_bytes`` counts
+    it: the mbarrier, 32 rows of x at the padded stride, eight [32, 8]
+    tiles of first-layer partials, the second layers of a group of models
+    and the warps' totals."""
     tail = H + H * K + K if H else K
-    return 16 + 4 * (rows * _wide_stride(F) + 8 * rows * 8
-                     + group * tail + 16)
+    return 16 + 4 * (WIDE_ROWS * _wide_stride(F) + 8 * WIDE_ROWS * 8
+                     + _group(H or K) * tail + 16)
+
+
+def _stream_ns(cols: int) -> int:
+    """The streamed kernel's row stride of a W0 chunk, in floats: ``cols``
+    rounded up to 8, then to 8 (mod 16)."""
+    w = -(-cols // 8) * 8
+    return w if w % 16 else w + 8
+
+
+def stream_smem_bytes(H: int, K: int) -> int:
+    """Shared memory of one CTA of the wide route's streamed kernel (``H =
+    0``: the lr), whatever F, as ``csrc/eval_cells.cu::
+    eval_stream_smem_bytes`` counts it: a ring of 3 stages (64 rows of a
+    32-input chunk at stride 36, the widest group's W0 rows of the chunk
+    and their mask values at ``_stream_ns``), or the four k-steps' [64,
+    columns] partials where they are larger; a group's second layers and
+    the warps' totals."""
+    L1 = H or K
+    cols = _group(L1) * L1
+    stage = STREAM_ROWS * _wide_stride(STREAM_CHUNK) \
+        + 2 * STREAM_CHUNK * _stream_ns(cols)
+    ring = max(STREAM_STAGES * stage, 4 * STREAM_ROWS * (-(-cols // 8) * 8))
+    tail = H + H * K + K if H else K
+    return 4 * (ring + _group(L1) * tail + 16)
 
 
 def wide_rows(F: int, H: int, K: int) -> int:
-    """The wide kernel's row tile (``csrc/eval_cells.cu::eval_wide_rows``):
-    32 where its shared memory fits a block, else 16, else 0 (none)."""
-    for rows in (WIDE_ROWS, WIDE_ROWS // 2):
-        if wide_smem_bytes(F, H, K, rows) <= MAX_SMEM:
-            return rows
-    return 0
+    """The wide route's row tile (``csrc/eval_cells.cu::eval_wide_rows``):
+    32 (the resident kernel) where its shared memory fits a block, else 64
+    (the streamed kernel) where its does, else 0 (none)."""
+    if wide_smem_bytes(F, H, K) <= MAX_SMEM:
+        return WIDE_ROWS
+    return STREAM_ROWS if stream_smem_bytes(H, K) <= MAX_SMEM else 0
 
 
 def _route(F: int, H: int, K: int) -> str:
@@ -108,9 +142,9 @@ def _route(F: int, H: int, K: int) -> str:
 
 
 def _wide_fits(F: int, H: int, K: int) -> bool:
-    """Whether the wide kernel takes the shape: 16-byte rows (F % 4 == 0),
-    a first layer of at most 64 and its shared memory within a block's at
-    32 or 16 rows a tile."""
+    """Whether the wide route takes the shape: 16-byte rows (F % 4 == 0),
+    a first layer of at most 64 and one of its kernels' shared memory
+    within a block's."""
     return F % 4 == 0 and (H or K) <= WIDE_MAX_WIDTH \
         and wide_rows(F, H, K) > 0
 
@@ -258,8 +292,8 @@ def eval_cells(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
         raise ValueError(f"route {route!r}: the fused kernel takes (F, H, K) "
                          f"in {FUSED_WIDTHS}, the wide one F % 4 == 0 and a "
                          f"first layer of at most {WIDE_MAX_WIDTH} within "
-                         f"{MAX_SMEM} bytes at 32 or 16 rows a tile "
-                         f"(wide_smem_bytes), the general one any width")
+                         f"{MAX_SMEM} bytes (wide_smem_bytes or "
+                         f"stream_smem_bytes), the general one any width")
     index = x.get_device()
     for name, t, dtype in (("params", params, torch.float32),
                            ("x", x, torch.float32), ("y", y, torch.int32)) + (
@@ -310,7 +344,7 @@ def eval_cells(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
     eval_cells.launches += 1
     if route == "wide":
         eval_cells.wide_launches += 1
-        if wide_rows(F, H, K) == WIDE_ROWS // 2:
+        if wide_rows(F, H, K) == STREAM_ROWS:
             eval_cells.wide16_launches += 1
     return correct, nll
 

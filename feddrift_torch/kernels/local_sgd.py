@@ -139,19 +139,21 @@ def split_smem_bytes(F: int, H: int, K: int, B: int,
     """Shared memory of one CTA of the split kernel, as
     ``csrc/local_sgd.cu::split_smem_bytes`` counts it: the stages'
     mbarriers, then the x ring (4 tiles of 32 rows of F / 16 inputs at the
-    padded stride), the forward's warp partials (two buffers) or dW1's
+    padded stride), the forward's warp partials of two tiles or dW1's
     slice, W1's slice and (AMSGrad) its three moments, the mask's slice, dh
     (rows padded to float4s) and Z1's partials of every batch row, the
-    small params (b1, W2, b2), their partials and moments, h and dz of the
-    CTA's 32 rows, their labels, the warps' losses and the loss, and the
-    batch's row indices of two steps."""
+    small params (b1, W2, b2) and their partials, (AMSGrad) the moments of
+    the sixteenth of them the CTA steps, h and dz of the CTA's 32 rows,
+    their labels, the warps' losses and the loss, and the batch's row
+    indices of two steps."""
     FQ = F // SPLIT_CLUSTER
     W, SP = H * FQ, H + H * K + K
     red = 2 * 8 * SPLIT_ROWS * H
     sgd = optimizer == "sgd"
     floats = (SPLIT_STAGES * SPLIT_ROWS * _wide_stride(FQ) + max(red, W)
               + (1 if sgd else 4) * W + FQ + B * (-(-H // 4) * 4) + B * H
-              + (2 if sgd else 5) * SP + SPLIT_ROWS * (H + K) + SPLIT_ROWS
+              + 2 * SP + (0 if sgd else 3 * -(-SP // SPLIT_CLUSTER))
+              + SPLIT_ROWS * (H + K) + SPLIT_ROWS
               + 8 + 4 + 2 * B)
     return 8 * SPLIT_STAGES + 4 * floats
 

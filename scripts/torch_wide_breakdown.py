@@ -70,17 +70,16 @@ KERNELS = {
              3),
             ("", "    cluster.sync();                 // dh rows, partials "
                  "and losses visible\n", 4),
-            ("", "    // (4) every CTA gathers the other CTAs' dh rows", 5),
+            ("", "    // (4) CTA q sums its sixteenth of the small params'", 5),
             ("", "    // (5) dW1 = (x * fm)^T dh over every row", 6),
             ("", "    // (6) W1's slice steps here", 7),
             ("", "  }\n  cluster.sync();                   // no CTA leaves",
              8)),
         phases=("pass_1", "cluster_sync_1", "rows", "small_partials",
-                "cluster_sync_2", "gather_and_small_step", "pass_2",
-                "w1_step"),
+                "cluster_sync_2", "small_step", "pass_2", "w1_step"),
         lead=None,
-        tile_wait=("    mbar_wait(bar + st, (unsigned)(u / kSplitStages) & "
-                   "1u);\n",
+        tile_wait=("    mbar_wait(bar + st, (unsigned)((u + d) / kSplitStages) "
+                   "& 1u);\n",
                    "  int u = 0;                        // the next tile of "
                    "the stream\n"),
         cases=(("fmow", 12, "fnn"),)),

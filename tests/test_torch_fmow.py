@@ -393,8 +393,9 @@ def test_fmow_reference_runs_are_the_committed_ones(run):
 
 
 def test_fmow_runs_take_the_split_and_wide16_routes():
-    """Every fmow run's shape takes K1's split kernel and K3's wide kernel
-    on 16-row tiles: the routes train_fmow holds the card to."""
+    """Every fmow run's shape takes K1's split kernel and K3's wide route
+    on its streamed kernel (64-row tiles; the route took 16-row tiles
+    before): the routes train_fmow holds the card to."""
     import importlib
     k1 = importlib.import_module("feddrift_torch.kernels.local_sgd")
     k3 = importlib.import_module("feddrift_torch.kernels.eval_cells")
@@ -405,4 +406,4 @@ def test_fmow_runs_take_the_split_and_wide16_routes():
                          min(cfg.batch_size, cfg.sample_num),
                          cfg.client_optimizer) == "split"
     assert k3._route(3072, 10, 62) == "wide"
-    assert k3.wide_rows(3072, 10, 62) == 16
+    assert k3.wide_rows(3072, 10, 62) == k3.STREAM_ROWS

@@ -1,9 +1,10 @@
 """K1's wide and split kernels (``csrc/local_sgd.cu::local_sgd_wide_kernel``,
-``local_sgd_split_kernel``) and K3's wide kernel
-(``csrc/eval_cells.cu::eval_wide_kernel``, 32- and 16-row tiles): their
-routes and shared-memory budgets on the CPU, and the kernels themselves
-against their plain versions on the card (``gpu``), at MNIST-4's width and
-at fmow's (F 3072, K 62). The plain versions, ``local_sgd_ref`` and
+``local_sgd_split_kernel``) and K3's wide route
+(``csrc/eval_cells.cu::eval_wide_kernel``, 32-row tiles resident, and
+``eval_stream_kernel``, 64-row tiles with F streamed): their routes,
+shared-memory budgets and bank layouts on the CPU, and the kernels
+themselves against their plain versions on the card (``gpu``), at MNIST-4's
+width and at fmow's (F 3072, K 62). The plain versions, ``local_sgd_ref`` and
 ``eval_cells_ref``, are held to the JAX package in
 ``tests/test_torch_lr_sgd.py``, ``tests/test_torch_train_step.py`` and
 ``tests/test_torch_eval_cells.py``.
@@ -100,37 +101,63 @@ def test_femnist_fnn_takes_the_wide_eval_but_not_the_wide_step(optimizer):
 @pytest.mark.parametrize("optimizer", ["adam", "sgd"])
 @pytest.mark.parametrize("shape", [CIFAR10_FNN, FMOW_FNN])
 def test_wide_budget_refuses_cifar10_and_fmow(shape, optimizer):
-    """32 rows of x at F = 3072 are 394 KB: K1's wide budget and K3's at
-    32-row tiles refuse cifar10's and fmow's fnn. K1 takes the split kernel
-    (a sixteenth of F a CTA, x streamed) within its budget, K3 its wide
-    kernel on 16-row tiles."""
+    """32 rows of x at F = 3072 are 394 KB: K1's wide budget and K3's
+    resident kernel's refuse cifar10's and fmow's fnn. K1 takes the split
+    kernel (a sixteenth of F a CTA, x streamed) within its budget, K3 its
+    streamed kernel (64-row tiles, F in chunks), two CTAs an SM."""
     assert k1_wrapper.wide_smem_bytes(*shape, 500, optimizer) \
         > k1_wrapper.MAX_SMEM
     assert k1_wrapper.split_smem_bytes(*shape, 500, optimizer) \
         <= k1_wrapper.MAX_SMEM
     assert k1_wrapper._route(*shape, 500, optimizer) == "split"
     assert k3.wide_smem_bytes(*shape) > k3.MAX_SMEM
-    assert k3.wide_smem_bytes(*shape, 16) <= k3.MAX_SMEM
-    assert k3.wide_rows(*shape) == 16
+    assert 2 * (k3.stream_smem_bytes(*shape[1:]) + 1024) <= 233472
+    assert k3.wide_rows(*shape) == k3.STREAM_ROWS == 64
     assert k3._route(*shape) == "wide"
 
 
 def test_split_budget_counts_the_layout():
     """fmow's fnn under AMSGrad: 4 stages' mbarriers, then 4 tiles of 32
-    rows of 192 inputs at stride 196, the forward's two buffers of eight
-    warps' [32, 10] partials, W1's slice (1920) and its three moments, the
+    rows of 192 inputs at stride 196, the forward's eight warps' [32, 10]
+    partials of two tiles, W1's slice (1920) and its three moments, the
     mask's slice, dh at stride 12 and Z1's partials of 500 rows, the small
-    params (692), their partials and three moments, h and dz of 32 rows,
-    the labels, the warps' losses and the loss, and two steps' 500 row
-    indices: 223,584 bytes."""
+    params (692) and their partials, three moments of the sixteenth of them
+    the CTA steps (44), h and dz of 32 rows, the labels, the warps' losses
+    and the loss, and two steps' 500 row indices: 215,808 bytes."""
     FQ, W, SP = 192, 1920, 10 + 620 + 62
     floats = 4 * 32 * 196 + 2 * 8 * 32 * 10 + 4 * W + FQ + 500 * 12 \
-        + 500 * 10 + 5 * SP + 32 * (10 + 62) + 32 + 8 + 4 + 2 * 500
+        + 500 * 10 + 2 * SP + 3 * 44 + 32 * (10 + 62) + 32 + 8 + 4 + 2 * 500
     assert k1_wrapper.split_smem_bytes(*FMOW_FNN, 500) == 32 + 4 * floats \
-        == 223584
+        == 215808
     assert k1_wrapper._wide_stride(192) == 196
-    assert k3.wide_smem_bytes(*FMOW_FNN, 16) == 16 + 4 * (
-        16 * 3076 + 8 * 16 * 8 + 6 * (10 + 620 + 62) + 16) == 217648
+
+
+def test_stream_budget_counts_the_layout():
+    """K3's streamed kernel at fmow's fnn: a ring of 3 stages, each 64 rows
+    of a 32-input chunk at stride 36 and the widest group's (6 models, 60
+    columns) W0 rows and mask values of the chunk at stride 72, which also
+    holds the four k-steps' [64, 64] partials; six models' second layers
+    and the warps' totals: 99,616 bytes whatever F, so two CTAs share an
+    SM."""
+    stage = 64 * 36 + 2 * 32 * 72
+    assert 4 * 64 * 64 <= 3 * stage
+    assert k3.stream_smem_bytes(10, 62) == 4 * (
+        3 * stage + 6 * (10 + 620 + 62) + 16) == 99616
+    assert k3._wide_stride(32) == 36
+    # the lr at fmow's width: one model of 62 columns a group
+    assert k3.stream_smem_bytes(0, 62) == 4 * (
+        3 * (64 * 36 + 2 * 32 * 72) + 62 + 16)
+
+
+@pytest.mark.parametrize("cols", range(1, 65))
+def test_stream_w0_stride_spreads_b_fragments_over_the_banks(cols):
+    """A B fragment of the streamed kernel reads W0[k0 + t4][n0 + g8] of a
+    chunk at row stride ``_stream_ns(cols)``: the 32 lanes hit 32 banks,
+    and the stride holds the group's columns in whole n8 tiles."""
+    ns = k3._stream_ns(cols)
+    assert ns >= -(-cols // 8) * 8 and ns % 8 == 0
+    banks = {(t4 * ns + g8) % 32 for t4 in range(4) for g8 in range(8)}
+    assert len(banks) == 32
 
 
 @pytest.mark.parametrize("shape,batch,optimizer", [
@@ -184,13 +211,13 @@ def cuda():
 
 
 def _mnist_round(model, optimizer, seed, gather=False, masked=False,
-                 F=784, K=10, Bb=500):
+                 F=784, K=10, Bb=500, Mc=4):
     """One MNIST-4 round's inputs on the card (or, with ``F`` and ``K``,
-    another width's): 4 models, 10 clients, 11 steps of 500 rows, batch
-    ``Bb`` (500; a smaller one draws its slot in each step), 5 steps, pair
-    (1, 3) and model 3 inactive."""
+    another width's): ``Mc`` models (4), 10 clients, 11 steps of 500 rows,
+    batch ``Bb`` (500; a smaller one draws its slot in each step), 5
+    steps, pair (1, 3) and model 3 inactive (one model: pair (0, 3))."""
     rng = np.random.default_rng(seed)
-    Mc, Cc, T1, Nn, Ss = 4, 10, 11, 500, 5
+    Cc, T1, Nn, Ss = 10, 11, 500, 5
     mod = LogisticRegression((F,), K) if model == "lr" \
         else FeedForwardNN((F,), K, 10)
     dev = lambda a: torch.from_numpy(a).cuda()
@@ -199,7 +226,8 @@ def _mnist_round(model, optimizer, seed, gather=False, masked=False,
     flat = (rng.standard_normal((Mc, mod.num_params)) * 0.05) \
         .astype(np.float32)
     tw = (rng.random((Mc, Cc, T1)) < 0.5).astype(np.float32)
-    tw[1, 3] = tw[3] = 0
+    tw[min(1, Mc - 1), 3] = 0
+    tw[3:] = 0
     kw = dict(hidden=mod.hidden_dim, batch_size=Bb, lr=0.01, wd=0.001,
               optimizer=optimizer)
     t_idx = slot = None
@@ -265,6 +293,19 @@ def test_split_k1_small_batches_match_plain(cuda, optimizer, gather, masked,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("optimizer,gather,masked,batch", [
+    ("adam", False, False, 500), ("adam", True, True, 500),
+    ("sgd", True, True, 500), ("adam", False, False, 64),
+    ("sgd", False, False, 32), ("adam", True, True, 20)])
+def test_split_k1_matches_plain_with_one_model(cuda, optimizer, gather,
+                                               masked, batch):
+    """The split kernel at fmow's width with one model (win-1's and
+    oblivious's pool: 10 clusters, a wave of two), held as with four."""
+    _hold_k1(_mnist_round("fnn", optimizer, 54, gather, masked, F=3072,
+                          K=62, Bb=batch, Mc=1), optimizer, "split_launches")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("optimizer", ["adam", "sgd"])
 def test_wide_k1_takes_femnist_fnn(cuda, optimizer):
     """The wide kernel's row phase at two classes a lane: femnist-fnn's
@@ -327,12 +368,14 @@ def test_wide_k3_matches_plain_at_mnist_width(cuda, model, window, masked,
 @pytest.mark.gpu
 @pytest.mark.parametrize("window,masked,models,rows", [
     ("G2", False, 4, 500), ("T1", False, 4, 500), ("G2", True, 4, 500),
-    ("G2", False, 10, 500), ("G2", False, 4, 40)])
+    ("G2", False, 10, 500), ("G2", False, 4, 40), ("G2", False, 1, 500),
+    ("T1", True, 1, 500), ("G2", True, 4, 20), ("T1", False, 4, 20)])
 def test_wide16_k3_matches_plain_at_fmow_width(cuda, window, masked, models,
                                                rows):
-    """K3's wide kernel on 16-row tiles at fmow's width (F 3072, H 10, K
-    62), held as at MNIST's: M = 10 in two groups; 40 rows a step a cluster
-    of three CTAs, the last with 8 rows."""
+    """K3's streamed kernel at fmow's width (F 3072, H 10, K 62), held as
+    the resident one is at MNIST's: 500 rows a step are 8 tiles of 64, the
+    last with 52; M = 10 in two groups, M = 1 in one of 10 columns; 40 or
+    20 rows a step one CTA with a partly full tile."""
     _hold_k3("fnn", window, masked, models, rows, 3072, 62,
              "wide16_launches")
 
@@ -379,8 +422,8 @@ def _hold_k3(model, window, masked, models, rows, F, K, counter):
 
 @pytest.mark.gpu
 def test_budget_mirrors_equal_the_kernels_own(cuda):
-    """``wide_smem_bytes``, ``split_smem_bytes`` and ``wide_rows`` in the
-    wrappers count as the sources do."""
+    """``wide_smem_bytes``, ``split_smem_bytes``, ``stream_smem_bytes`` and
+    ``wide_rows`` in the wrappers count as the sources do."""
     import ctypes
 
     from feddrift_torch.kernels.build import library
@@ -390,6 +433,8 @@ def test_budget_mirrors_equal_the_kernels_own(cuda):
     fn2.restype = ctypes.c_longlong
     fn3 = library("eval_cells").eval_cells_wide_smem
     fn3.restype = ctypes.c_longlong
+    fn4 = library("eval_cells").eval_cells_stream_smem
+    fn4.restype = ctypes.c_longlong
     rows = library("eval_cells").eval_cells_wide_rows
     rows.restype = ctypes.c_int
     for F_, H_, K_ in (MNIST_FNN, MNIST_LR, FEMNIST_FNN, CIFAR10_FNN,
@@ -401,6 +446,6 @@ def test_budget_mirrors_equal_the_kernels_own(cuda):
                 if H_ and F_ % 64 == 0:
                     assert fn2(F_, H_, K_, B_, int(opt == "sgd")) \
                         == k1_wrapper.split_smem_bytes(F_, H_, K_, B_, opt)
-        for r in (32, 16):
-            assert fn3(F_, H_, K_, r) == k3.wide_smem_bytes(F_, H_, K_, r)
+        assert fn3(F_, H_, K_) == k3.wide_smem_bytes(F_, H_, K_)
+        assert fn4(H_, K_) == k3.stream_smem_bytes(H_, K_)
         assert rows(F_, H_, K_) == k3.wide_rows(F_, H_, K_)
