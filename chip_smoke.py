@@ -192,7 +192,21 @@ Phases, one or more lines of output each:
    ``"preempted": true``; ``run --auto_resume`` and ``resume --out_dir``
    each finish a copy, with every metrics row equal to an uninterrupted
    run's.
-17. train_fmow: FMoW (images 32 x 32 x 3, F 3072, the fnn 3072 -> 10 ->
+17. trace_plane: the training run's trace plane. The canonical run, fused,
+   with ``out_dir``, ``hostprof_hz`` 100 and ``debug_checks`` on: its
+   Test/Acc series bitwise that of the run with every plane off, K1
+   carrying its 2000 rounds; ``python -m feddrift_torch report --trace``,
+   ``critical_path --flame`` and ``lineage --dot`` exit 0 on its run
+   directory; every iteration's segments cover its wall within [0.95,
+   1.05] and hold ``dispatch`` and ``device_compute``; ``hostprof.folded``
+   is not empty; ``host_overhead_frac``'s mean is printed beside the
+   profiler's busy share of one more fused step. CFL per round at
+   ``profile_rounds`` 10 (20 profiled rounds and a ``host_overhead_frac``
+   every step) against 10^9, bitwise, both walls printed (in turns: 10,
+   10^9, 10^9, 10). ``device_trace`` around one fused step: a trace file
+   naming K1's kernel and a ``profile_captured`` event. ``debug_checks``
+   on ``BLOWUP_RUN``: the run raises ``FloatingPointError`` naming K1.
+18. train_fmow: FMoW (images 32 x 32 x 3, F 3072, the fnn 3072 -> 10 ->
    62, B = N = 500) at full width, the four committed configurations of
    ``FMOW_RUNS``, 10 steps each, from the reference's init: every round
    one launch of K1's split kernel and one of ``fedavg.cu``, every eval one
@@ -1234,7 +1248,7 @@ WIDE_ENTRIES = ("local_sgd_wide", "local_sgd_wide_lr", "local_sgd_wide_lr_sgd",
                 "local_sgd_general_lr", "local_sgd_general_lr_sgd",
                 "fedavg_mnist", "eval_cells_wide", "eval_cells_wide_lr",
                 "eval_cells_general_lr", "local_sgd_split", "fedavg_fmow",
-                "eval_cells_wide16")
+                "eval_cells_stream")
 # the kernels line's entries of K1's wide kernel and of the general
 # kernel's lr and SGD routes, by case: (name, case, the route it must take)
 K1_ENTRIES = {"mnist": ("local_sgd_wide", "MNIST-4's fnn 784 -> 10 -> 10, "
@@ -1716,7 +1730,7 @@ K3_ENTRIES = {"mnist_eval": ("eval_cells_wide", "MNIST-4's fnn, G = 2, the "
                                      "wide kernel's lr route"),
               "sea_lr_eval": ("eval_cells_general_lr", "SEA's lr, G = 2, the "
                               "general kernel's lr route"),
-              "fmow_eval": ("eval_cells_wide16", "fmow's fnn 3072 -> 10 -> "
+              "fmow_eval": ("eval_cells_stream", "fmow's fnn 3072 -> 10 -> "
                             "62, G = 2, the wide route's streamed kernel")}
 # a row of the lr with two outputs or more of z at least LR_SOLID_Z (1 / (1
 # + exp(-z)) rounds to 1.0f from z ~ 17.3 on) and none in [LR_FLIP_Z,
@@ -2303,7 +2317,7 @@ def _reset_counts() -> None:
                                                       weighted_search_ref)
     local_sgd.launches = local_sgd_fedavg.launches = 0
     local_sgd.wide_launches = eval_cells.wide_launches = 0
-    local_sgd.split_launches = eval_cells.wide16_launches = 0
+    local_sgd.split_launches = eval_cells.stream_launches = 0
     local_sgd_fedavg.evals = 0
     weighted_cdf.launches = weighted_search.launches = 0
     fedavg.launches = eval_cells.launches = 0
@@ -2320,8 +2334,7 @@ def _read_counts() -> dict:
     those of the wide kernel, ``k1_split_launches`` the split kernel's. An
     eval runs in a K1 launch (``folded_evals``) or as its own K3 launch
     (``k3_launches``; on the wide kernel ``k3_wide_launches``, of which
-    ``k3_wide16_launches`` on its streamed kernel, the name kept from the
-    16-row tiles it replaced)."""
+    ``k3_stream_launches`` on its streamed kernel)."""
     from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
     from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_fedavg
@@ -2341,7 +2354,7 @@ def _read_counts() -> dict:
             "aggregations": fedavg.launches + local_sgd_fedavg.launches,
             "k3_launches": eval_cells.launches,
             "k3_wide_launches": eval_cells.wide_launches,
-            "k3_wide16_launches": eval_cells.wide16_launches,
+            "k3_stream_launches": eval_cells.stream_launches,
             "folded_evals": local_sgd_fedavg.evals,
             "plain_calls": {"fedavg_ref": fedavg_ref.cuda_calls,
                             "eval_cells_ref": eval_cells_ref.cuda_calls,
@@ -2838,13 +2851,13 @@ def _check_general_run(name: str, got: dict, cfg, exp, rounds: int,
     wide = rounds if route == "wide" else 0
     split = rounds if route == "split" else 0
     k3_wide = got["k3_launches"] if route in ("wide", "split") else 0
-    k3_wide16 = got["k3_launches"] if route == "split" else 0
+    k3_stream = got["k3_launches"] if route == "split" else 0
     if got_route != route or got["k1_launches"] != rounds \
             or got["k1_without_epilogue"] != rounds \
             or got["k1_wide_launches"] != wide \
             or got["k1_split_launches"] != split \
             or got["k3_wide_launches"] != k3_wide \
-            or got["k3_wide16_launches"] != k3_wide16 \
+            or got["k3_stream_launches"] != k3_stream \
             or set(got["paths"]) != {"fused"} \
             or got["k4a_launches"] or got["k4b_launches"]:
         raise AssertionError(f"{name}: route {got_route} (want {route}), K1 "
@@ -2855,7 +2868,7 @@ def _check_general_run(name: str, got: dict, cfg, exp, rounds: int,
                              f"for {rounds} rounds on paths "
                              f"{set(got['paths'])}, K3 "
                              f"{got['k3_launches']} ({got['k3_wide_launches']}"
-                             f" wide, {got['k3_wide16_launches']} "
+                             f" wide, {got['k3_stream_launches']} "
                              f"streamed), K4 {got['k4a_launches']} / "
                              f"{got['k4b_launches']}")
     _check_k2_k3(name, got, rounds, k2_launches=rounds)
@@ -2922,7 +2935,7 @@ def _image_runs(phase: str, dataset: str, runs, init_path: str,
              k2_epilogues=got["k2_epilogues"],
              k3_launches=got["k3_launches"],
              k3_wide_launches=got["k3_wide_launches"],
-             k3_wide16_launches=got["k3_wide16_launches"],
+             k3_stream_launches=got["k3_stream_launches"],
              folded_evals=got["folded_evals"],
              plain_calls=got["plain_calls"],
              models_in_use=got["models_in_use"], models_used=used,
@@ -2977,7 +2990,7 @@ def phase_train_fmow(entries: dict) -> None:
     ``fedavg.cu`` as many, K3 41 a step)."""
     _image_runs("train_fmow", "fmow", FMOW_RUNS, FMOW_REFERENCE_INIT,
                 (32, 32, 3), 62, "split", entries,
-                ("local_sgd_split", "fedavg_fmow", "eval_cells_wide16"),
+                ("local_sgd_split", "fedavg_fmow", "eval_cells_stream"),
                 reference=FMOW_REFERENCE_ACCS)
 
 
@@ -3098,7 +3111,7 @@ NAN_CASES = (("k1_fused_epilogue", "k1f", "sea", "fnn", "adam", None),
              ("k3_general_lr", "k3", "sea", "lr", "adam", None),
              ("k3_wide_lr", "k3", "MNIST", "lr", "adam", None),
              ("k1_split", "k1", "fmow", "fnn", "adam", None),
-             ("k3_wide16", "k3", "fmow", "fnn", "adam", None))
+             ("k3_stream", "k3", "fmow", "fnn", "adam", None))
 # the datasets whose width takes a cluster kernel (K1's wide or split one,
 # K3's wide one): each nan_semantics case there launches one
 CLUSTER_DATASETS = ("MNIST", "fmow")
@@ -3469,6 +3482,147 @@ def phase_train_preempt() -> None:
                                  f"{err_r[-1500:]}")
 
 
+def _series(exp) -> list:
+    return [(r["round"], r["Test/Acc"], r["Train/Loss"])
+            for r in exp.logger.history]
+
+
+def phase_trace_plane() -> None:
+    """The trace plane on the card (module docstring, phase 17)."""
+    import tempfile
+
+    import torch
+    from feddrift_torch import obs
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.obs import critical_path, hostprof
+    from feddrift_torch.simulation.runner import Experiment
+    from feddrift_torch.utils.prng import iteration_seed
+    from feddrift_torch.utils.tracing import device_trace
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        run_dir = os.path.join(root, "sea")
+        exp = Experiment(ExperimentConfig(hostprof_hz=100.0,
+                                          debug_checks=True), out_dir=run_dir)
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            exp.run()
+        finally:
+            hostprof.configure_profiler(0.0)
+        torch.cuda.synchronize()
+        on_wall = time.perf_counter() - t0
+        counts = _read_counts()
+        off = Experiment(ExperimentConfig(profile_rounds=10 ** 9))
+        t0 = time.perf_counter()
+        off.run()
+        torch.cuda.synchronize()
+        off_wall = time.perf_counter() - t0
+        bitwise = _series(exp) == _series(off)
+        rcs = {}
+        for verb in (("report", "--trace"), ("critical_path", "--flame"),
+                     ("lineage", "--dot", os.path.join(root, "l.dot"))):
+            got = subprocess.run(
+                [sys.executable, "-m", "feddrift_torch", "--log_level",
+                 "warning", verb[0], run_dir, *verb[1:]],
+                capture_output=True, text=True, timeout=120,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            rcs[verb[0]] = got.returncode
+            if got.returncode:
+                print(got.stderr[-2000:], file=sys.stderr)
+        cp = critical_path.analyze(run_dir)
+        rows = cp["iterations"]
+        coverage = [r["coverage"] for r in rows]
+        both = all({"dispatch", "device_compute"} <= set(r["segments"])
+                   for r in rows)
+        folded = os.path.getsize(os.path.join(run_dir, "hostprof.folded")) \
+            if os.path.isfile(os.path.join(run_dir, "hostprof.folded")) \
+            else 0
+        # the profiler's busy share of one more fused step of the run
+        cfg, T = exp.cfg, exp.cfg.train_iterations
+        opt = exp.step.init_opt_states(exp.pool.params, exp.pool.num_models,
+                                       exp.C_)
+        tw = exp.algo.round_inputs(T - 1, 0)[0]
+        one_step = lambda: exp.step.train_iteration_eval(  # noqa: E731
+            exp.pool.params, opt, exp.x, exp.y, tw, 1.0, cfg.comm_round,
+            cfg.frequency_of_the_test, T - 1)
+        exp.step.generator.manual_seed(iteration_seed(cfg.seed, T - 1))
+        kernels, prof_us = _profile(one_step, 1)
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        # device_trace around one fused step
+        bus = obs.configure(None)
+        trace_dir = os.path.join(root, "trace")
+        with device_trace(trace_dir):
+            one_step()
+        files = os.listdir(trace_dir) if os.path.isdir(trace_dir) else []
+        names = set()
+        for name in files:
+            with open(os.path.join(trace_dir, name)) as f:
+                names |= {e.get("name", "") for e in
+                          json.load(f).get("traceEvents", ())}
+        k1_named = any("local_sgd_fused_kernel" in n for n in names)
+        captured = [e["trace_dir"] for e in bus.events("profile_captured")]
+    _say("trace_plane", run="canonical", planes_on_wall_s=on_wall,
+         planes_off_wall_s=off_wall, test_acc_bitwise_equal=bitwise,
+         k1_launches=counts["k1_launches"], verbs_rc=rcs,
+         coverage=coverage, dispatch_and_device_compute=both,
+         hostprof_folded_bytes=folded,
+         segments_s=cp["totals"], dominant_segment=cp["dominant_segment"],
+         host_overhead_frac_mean=cp["host_overhead_frac_mean"],
+         profiler_busy_share=busy_us / prof_us if busy_us
+         else "not measured",
+         profiler_host_share=1 - busy_us / prof_us if busy_us
+         else "not measured")
+    if not bitwise or counts["k1_launches"] != 2000 or any(rcs.values()) \
+            or not all(0.95 <= c <= 1.05 for c in coverage) \
+            or len(coverage) != cfg.train_iterations or not both \
+            or not folded:
+        raise AssertionError(f"trace plane, canonical run: bitwise "
+                             f"{bitwise}, K1 {counts['k1_launches']}, verbs "
+                             f"{rcs}, coverage {coverage}, segments {both}, "
+                             f"hostprof.folded {folded} bytes")
+    _say("trace_plane", run="device_trace", files=files,
+         names_k1_kernel=k1_named, profile_captured=captured)
+    if len(files) != 1 or not k1_named or captured != [trace_dir]:
+        raise AssertionError(f"device_trace: {files}, K1 named {k1_named}, "
+                             f"profile_captured {captured}")
+    # CFL per round: the default sample against none, in turns
+    walls = {10: [], 10 ** 9: []}
+    runs = {}
+    for pr in (10, 10 ** 9, 10 ** 9, 10):
+        e = Experiment(ExperimentConfig(
+            concept_drift_algo_arg="cfl_0.1_win-1", profile_rounds=pr,
+            checkpoint_every_iteration=False))
+        t0 = time.perf_counter()
+        e.run()
+        torch.cuda.synchronize()
+        walls[pr].append(time.perf_counter() - t0)
+        runs[pr] = e
+    bds = runs[10].events.events("round_breakdown")
+    profiled = [b["profiled_rounds"] for b in bds]
+    fracs = [b["host_overhead_frac"] for b in bds]
+    same = _series(runs[10]) == _series(runs[10 ** 9])
+    _say("trace_plane", run="cfl", profile_rounds_10_walls_s=walls[10],
+         profile_rounds_1e9_walls_s=walls[10 ** 9],
+         profiled_rounds=profiled, host_overhead_frac=fracs,
+         test_acc_bitwise_equal=same)
+    if not same or profiled != [20] * len(bds) \
+            or len(bds) != runs[10].cfg.train_iterations \
+            or any(f is None for f in fracs):
+        raise AssertionError(f"CFL: bitwise {same}, profiled {profiled}, "
+                             f"host_overhead_frac {fracs}")
+    # debug_checks on a real blow-up: the K1 program's NaN raises
+    err = None
+    try:
+        Experiment(ExperimentConfig(**BLOWUP_RUN, debug_checks=True)).run()
+    except FloatingPointError as e:
+        err = e
+    _say("trace_plane", run="blowup_debug_checks", lr=BLOWUP_RUN["lr"],
+         error=repr(err))
+    if err is None or "K1" not in str(err):
+        raise AssertionError(f"debug_checks on the blow-up: {err!r}")
+    _say("trace_plane", phase_wall_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     try:
         import torch
@@ -3507,6 +3661,7 @@ def main() -> int:
         phase_train_gmm()
         phase_train_guard()
         phase_train_preempt()
+        phase_trace_plane()
         phase_train_fmow(wide)
     except Exception:   # noqa: BLE001 — report the phase that failed
         traceback.print_exc()

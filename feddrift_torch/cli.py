@@ -1,7 +1,8 @@
 """Command-line entry point of the port: ``python -m feddrift_torch``.
 
-Counterpart of ``feddrift_tpu/cli.py``'s ``run``, ``resume``, ``list`` and
-``incident`` commands. ``run``'s flags are the
+Counterpart of ``feddrift_tpu/cli.py``'s ``run``, ``resume``, ``list``,
+``incident``, ``report``, ``lineage`` and ``critical_path`` commands.
+``run``'s flags are the
 fields of the port's ``ExperimentConfig`` (the reference's flag names), so
 a reference launch command runs here unchanged as far as the port goes:
 
@@ -17,7 +18,15 @@ iteration boundary after checkpointing. ``resume --out_dir DIR`` continues
 the run whose checkpoint is in ``DIR/ckpt`` with the config recorded there;
 ``list`` prints the port's algorithms, datasets and models; ``incident
 TARGET`` renders an incident bundle (or the newest under
-``TARGET/incidents/``). ``run`` and ``resume`` run on the card;
+``TARGET/incidents/``). ``report RUN_DIR.. [--json] [--trace] [--follow]``
+renders a run report (``--trace`` also writes ``trace.json``, the spans,
+events and host-profiler slices as one Perfetto timeline; ``--follow``
+tails ``events.jsonl`` and evaluates the alert rules offline),
+``critical_path RUN_DIR [--json] [--flame]`` splits each iteration's wall
+into its segments, and ``lineage RUN_DIR [--dot PATH] [--json]`` replays
+the cluster genealogy with oracle ARI; these four are host-only (no
+device, no kernel build) and read either package's run directories.
+``run`` and ``resume`` run on the card;
 ``--platform cpu`` runs the plain PyTorch path on the CPU instead. Without
 a card and without ``--platform cpu`` they exit non-zero.
 """
@@ -103,12 +112,78 @@ def main(argv: list[str] | None = None) -> int:
     inc_p.add_argument("target", help="incident bundle directory, or a run "
                                       "dir holding <run_dir>/incidents/")
     inc_p.add_argument("--json", action="store_true")
+
+    rep_p = sub.add_parser(
+        "report", help="render a run report from events.jsonl + metrics.jsonl")
+    rep_p.add_argument("run_dirs", nargs="+")
+    rep_p.add_argument("--json", action="store_true")
+    rep_p.add_argument("--trace", action="store_true",
+                       help="also export <run_dir>/trace.json — a "
+                            "Perfetto/chrome://tracing-loadable timeline "
+                            "built from spans.jsonl + events.jsonl")
+    rep_p.add_argument("--follow", action="store_true",
+                       help="bounded tail mode: stream events + health "
+                            "alerts (obs/alerts.py, evaluated offline) "
+                            "until run_end or --follow-timeout, then "
+                            "render the report")
+    rep_p.add_argument("--follow-timeout", type=float, default=30.0)
+    rep_p.add_argument("--poll", type=float, default=0.5)
+
+    lin_p = sub.add_parser(
+        "lineage", help="reconstruct the cluster genealogy DAG from a "
+                        "run's events.jsonl, with per-iteration oracle "
+                        "ARI/purity for synthetic ground truth "
+                        "(obs/lineage.py)")
+    lin_p.add_argument("run_dir")
+    lin_p.add_argument("--dot", type=str, default=None,
+                       help="also write a Graphviz DOT export here")
+    lin_p.add_argument("--json", action="store_true")
+
+    cp_p = sub.add_parser(
+        "critical_path",
+        help="per-round segment breakdown + dominant-segment attribution "
+             "from a run dir's spans.jsonl + events.jsonl "
+             "(obs/critical_path.py)")
+    cp_p.add_argument("run_dir")
+    cp_p.add_argument("--json", action="store_true")
+    cp_p.add_argument("--flame", action="store_true",
+                      help="also print top folded host stacks from the "
+                           "run's sampling profiler (hostprof.folded)")
+    cp_p.add_argument("--flame-top", type=int, default=10, metavar="N")
+
+    # --log_level is also accepted after the subcommand (SUPPRESS default:
+    # an absent post-subcommand flag must not clobber a pre-subcommand one)
+    for p in (rep_p, lin_p, cp_p):
+        p.add_argument("--log_level", type=str, default=argparse.SUPPRESS,
+                       help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     logging.basicConfig(level=getattr(logging, args.log_level.upper(),
                                       logging.INFO),
                         format="%(asctime)s %(name)s %(levelname)s "
                                "%(message)s")
 
+    # host-side only below until `run` / `resume`: no torch import, no
+    # device, no kernel build
+    if args.cmd == "report":
+        from feddrift_torch.obs.report import main as report_main
+        return report_main(args.run_dirs
+                           + (["--json"] if args.json else [])
+                           + (["--trace"] if args.trace else [])
+                           + (["--follow",
+                               "--follow-timeout", str(args.follow_timeout),
+                               "--poll", str(args.poll)]
+                              if args.follow else []))
+    if args.cmd == "lineage":
+        from feddrift_torch.obs.lineage import main as lineage_main
+        return lineage_main([args.run_dir]
+                            + (["--dot", args.dot] if args.dot else [])
+                            + (["--json"] if args.json else []))
+    if args.cmd == "critical_path":
+        from feddrift_torch.obs.critical_path import main as cp_main
+        return cp_main([args.run_dir]
+                       + (["--json"] if args.json else [])
+                       + (["--flame", "--flame-top", str(args.flame_top)]
+                          if args.flame else []))
     if args.cmd == "incident":
         # host-side only: reading and rendering a bundle needs no device
         from feddrift_torch.obs.incident import incident_main

@@ -35,6 +35,9 @@ class ExperimentConfig:
     fmow_image_size: int = 32          # fmow partition image resolution
     chunk_rounds: bool = True          # all rounds of a step in one loop
     megastep_k: int = 1                # > 1 not ported
+    trace_sync: bool = False           # wait for the device after every
+                                       # per-round round (exact attribution;
+                                       # off: every profile_rounds-th)
 
     # --- optimization (`epochs` = local SGD steps per round)
     client_optimizer: str = "adam"     # optax amsgrad after weight decay
@@ -86,9 +89,24 @@ class ExperimentConfig:
     alerts: bool = True
     alert_window: int = 3           # churn window (iterations)
     alert_churn_threshold: int = 4  # structural cluster events per window
-    # Size cap (MiB) on events.jsonl / alerts.jsonl before rotation to
-    # <file>.1 with a loud obs_rotated event; 0 = unbounded (default).
+    # Size cap (MiB) on events.jsonl / spans.jsonl / alerts.jsonl before
+    # rotation to <file>.1 with a loud obs_rotated event; 0 = unbounded.
     obs_max_file_mb: float = 0.0
+    # Debug mode (utils/invariants.py): validate each iteration's round
+    # inputs and check every device program's outputs of a round for NaN,
+    # raising FloatingPointError naming the program (a sync a program).
+    debug_checks: bool = False
+    # Round critical path (obs/spans.py, simulation/runner.py): every Nth
+    # global round of the per-round path additionally waits for the device
+    # to split host dispatch from device compute (the round_breakdown
+    # event's device_compute segment and host_overhead_frac); the fused
+    # path waits once a step. 1 = every round.
+    profile_rounds: int = 10
+    # Host-plane sampling profiler (obs/hostprof.py): stack samples per
+    # second over sys._current_frames(); 0 = off. When on, the run dir
+    # gets hostprof.jsonl (merged into report --trace) and
+    # hostprof.folded. The per-subsystem HostLedger runs regardless.
+    hostprof_hz: float = 0.0
 
     # --- incident plane (obs/blackbox.py, obs/incident.py): flight
     # recorder over recent events + incident bundles under
@@ -115,6 +133,11 @@ class ExperimentConfig:
             raise ValueError("alert_churn_threshold must be >= 1")
         if self.obs_max_file_mb < 0:
             raise ValueError("obs_max_file_mb must be >= 0")
+        if self.hostprof_hz < 0:
+            raise ValueError(
+                "hostprof_hz must be >= 0 (0 disables the sampling profiler)")
+        if self.profile_rounds < 1:
+            raise ValueError("profile_rounds must be >= 1")
         if self.incident_ring < 8:
             raise ValueError("incident_ring must be >= 8 records")
         if self.incident_debounce_s < 0:

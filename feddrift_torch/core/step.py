@@ -80,12 +80,14 @@ from feddrift_torch.core.functional import confusion_matrix
 from feddrift_torch.kernels.eval_cells import eval_cells
 from feddrift_torch.kernels.local_sgd import (OPTIMIZERS, _folds_eval,
                                               _route, init_opt_state,
-                                              local_sgd, local_sgd_fedavg)
+                                              layout_refusal, local_sgd,
+                                              local_sgd_fedavg)
 from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
                                                   weighted_search)
 from feddrift_torch.models.mlp import FeedForwardNN, LogisticRegression
 from feddrift_torch.resilience.robust_agg import agg_mean
 from feddrift_torch.utils.device import resolve_device
+from feddrift_torch.utils.invariants import check_no_nan
 
 
 @dataclass(eq=False)
@@ -102,6 +104,9 @@ class TrainStep:
     device: str | torch.device = "cuda"
     # per-sample weighted batches (KUE's Poisson bootstrap) through K4
     weighted_sampling: bool = False
+    # check every device program's outputs for NaN after it runs (the
+    # config's debug_checks; utils/invariants.py::check_no_nan)
+    debug_nans: bool = False
 
     def __post_init__(self) -> None:
         if self.optimizer not in OPTIMIZERS:
@@ -123,11 +128,29 @@ class TrainStep:
     def create(cls, cfg, module, num_classes: int,
                device: str | torch.device = "cuda",
                weighted_sampling: bool = False) -> "TrainStep":
-        """The step an ``ExperimentConfig`` describes."""
-        return cls(module=module, batch_size=cfg.batch_size,
+        """The step an ``ExperimentConfig`` describes. On the card a
+        shape that no K1 layout takes (``local_sgd.layout_refusal``) is
+        refused here, before the run puts its data on the device; the CPU
+        trains every shape on the plain version."""
+        step = cls(module=module, batch_size=cfg.batch_size,
                    num_steps=cfg.epochs, num_classes=num_classes, lr=cfg.lr,
                    wd=cfg.wd, optimizer=cfg.client_optimizer, device=device,
-                   weighted_sampling=weighted_sampling)
+                   weighted_sampling=weighted_sampling,
+                   debug_nans=cfg.debug_checks)
+        if step.device.type == "cuda":
+            why = layout_refusal(module.in_dim, module.hidden_dim,
+                                 module.num_classes,
+                                 min(cfg.batch_size, cfg.sample_num),
+                                 cfg.client_optimizer)
+            if why is not None:
+                raise ValueError(why)
+        return step
+
+    def _check(self, program: str, **outputs) -> None:
+        """``debug_nans``: raise ``FloatingPointError`` naming ``program``
+        if one of its floating outputs holds a NaN (one host sync)."""
+        if self.debug_nans:
+            check_no_nan(program, **outputs)
 
     # ------------------------------------------------------------------
     def init_opt_states(self, params, num_models: int,
@@ -211,6 +234,7 @@ class TrainStep:
         if sample_w is None:
             sample_w = torch.ones((*time_w.shape[:2], N), device=time_w.device)
         self._cdf = weighted_cdf(time_w.contiguous(), sample_w.contiguous())
+        self._check("K4a (weighted_cdf)", cdf=self._cdf)
         return self._cdf
 
     # ------------------------------------------------------------------
@@ -246,12 +270,19 @@ class TrainStep:
                 local_sgd_fedavg(x, y, flat, opt_state, t_idx, slot, total_w,
                                  stats_out=stats_out, eval_window=eval_window,
                                  eval_out=eval_out, **kw)
+            self._check("K1 (local_sgd_fedavg)", client=client,
+                        opt_state=opt_state, losses=losses, params=new_flat,
+                        agg_stats=agg_stats,
+                        eval_nll=None if eval_out is None else eval_out[1])
         else:
             client, opt_state, n, losses = local_sgd(
                 x, y, flat, opt_state, t_idx, slot, total_w,
                 optimizer=self.optimizer, **kw)
+            self._check("K1 (local_sgd)", client=client, opt_state=opt_state,
+                        losses=losses)
             new_flat, agg_stats = agg_mean(client, n, flat,
                                            stats_out=stats_out)
+            self._check("K2 (fedavg)", params=new_flat, agg_stats=agg_stats)
         return new_flat, opt_state, client, n, losses, agg_stats
 
     def _round_rows(self, time_w, N: int):
@@ -395,9 +426,12 @@ class TrainStep:
         ``with_nll``), written into ``out`` where it holds tensors."""
         fm = None if feat_mask is None else \
             feat_mask.reshape(feat_mask.shape[0], -1).contiguous()
-        return eval_cells(flat, x.flatten(3), y, hidden=self.module.hidden_dim,
-                          feat_mask=fm, with_nll=with_nll,
-                          correct_out=out[0], nll_out=out[1])
+        correct, nll = eval_cells(flat, x.flatten(3), y,
+                                  hidden=self.module.hidden_dim, feat_mask=fm,
+                                  with_nll=with_nll, correct_out=out[0],
+                                  nll_out=out[1])
+        self._check("K3 (eval_cells)", nll=nll)
+        return correct, nll
 
     @torch.no_grad()
     def acc_matrix(self, params, x, y, feat_mask=None):

@@ -2218,6 +2218,13 @@ extern "C" long long local_sgd_wide_smem(int F, int H, int K, int B,
   return wide_smem_bytes(F, H, K, B, sgd != 0);
 }
 
+// The general kernel's shared memory a block at these sizes, in bytes:
+// local_sgd.py's general_smem_bytes mirrors it.
+extern "C" long long local_sgd_general_smem(int F, int H, int K, int B,
+                                            int sgd) {
+  return general_smem_bytes(F, H, K, B, sgd != 0);
+}
+
 // The split kernel's shared memory a CTA at these sizes, in bytes:
 // local_sgd.py's split_smem_bytes mirrors it.
 extern "C" long long local_sgd_split_smem(int F, int H, int K, int B,

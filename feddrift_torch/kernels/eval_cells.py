@@ -31,8 +31,8 @@ streamed kernel (64-row tiles, F streamed in chunks of 32 with the group's
 W0 rows; ``stream_smem_bytes``), as at fmow's F = 3072 (``wide_rows``
 says which: 32 or 64); the general one for any other.
 ``eval_cells.launches`` counts every launch, ``eval_cells.wide_launches``
-the wide route's and ``eval_cells.wide16_launches`` those of its streamed
-kernel (named for the 16-row tiles that route took before it).
+the wide route's and ``eval_cells.stream_launches`` those of its streamed
+kernel.
 ``eval_cells_ref.cuda_calls`` counts the plain version's calls on CUDA
 tensors (only a comparison with the kernel makes them), so a run can show
 that none carried its evals.
@@ -345,10 +345,10 @@ def eval_cells(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
     if route == "wide":
         eval_cells.wide_launches += 1
         if wide_rows(F, H, K) == STREAM_ROWS:
-            eval_cells.wide16_launches += 1
+            eval_cells.stream_launches += 1
     return correct, nll
 
 
 eval_cells.launches = 0
 eval_cells.wide_launches = 0
-eval_cells.wide16_launches = 0
+eval_cells.stream_launches = 0

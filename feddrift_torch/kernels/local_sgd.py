@@ -100,6 +100,11 @@ WIDE_MAX_WIDTH, WIDE_MAX_CLASSES = 16, 64
 # most, inputs a CTA at most
 SPLIT_CLUSTER, SPLIT_ROWS, SPLIT_STAGES = 16, 32, 4
 SPLIT_MAX_H, SPLIT_MAX_K, SPLIT_MAX_FQ = 16, 64, 1024
+# csrc/local_sgd.cu's general kernel: warps a block
+GENERAL_WARPS = 8
+# the ROADMAP item that queues the shapes no K1 layout takes yet
+LAYOUT_ITEM = ("ROADMAP §2 'K1 and K3 at wide inputs: what PRs 12, 14 and "
+               "15 left' (shapes no layout takes yet)")
 
 
 def wide_smem_bytes(F: int, H: int, K: int, B: int,
@@ -132,6 +137,17 @@ def _wide_fits(F: int, H: int, K: int, B: int, optimizer: str) -> bool:
         and K <= WIDE_MAX_CLASSES \
         and 1 <= B <= WIDE_ROWS * WIDE_MAX_CLUSTER \
         and wide_smem_bytes(F, H, K, B, optimizer) <= MAX_SMEM
+
+
+def general_smem_bytes(F: int, H: int, K: int, B: int,
+                       optimizer: str = "adam") -> int:
+    """Shared memory of one block of the general kernel (``H = 0``: the
+    lr), as ``csrc/local_sgd.cu::general_smem_bytes`` counts it: the
+    params and their optimizer state (5 arrays of P under AMSGrad, 2 under
+    SGD), the batch's activations, the warps' losses and the mask."""
+    P = F * H + H + H * K + K if H else F * K + K
+    arrays = 2 if optimizer == "sgd" else 5
+    return 4 * (arrays * P + B * (H + K) + GENERAL_WARPS + F)
 
 
 def split_smem_bytes(F: int, H: int, K: int, B: int,
@@ -181,6 +197,24 @@ def _route(F: int, H: int, K: int, B: int, optimizer: str = "adam") -> str:
     if _split_fits(F, H, K, B, optimizer):
         return "split"
     return "general"
+
+
+def layout_refusal(F: int, H: int, K: int, B: int,
+                   optimizer: str = "adam") -> "str | None":
+    """Why the card cannot train a ``F -> H -> K`` fnn (``H = 0``: the lr)
+    at batch ``B`` under ``optimizer``, or None where a K1 layout takes
+    it: every other route refuses the shape and the general kernel's
+    shared memory (``general_smem_bytes``) exceeds a block's. The CPU's
+    plain version takes every shape."""
+    if _route(F, H, K, B, optimizer) != "general" \
+            or general_smem_bytes(F, H, K, B, optimizer) <= MAX_SMEM:
+        return None
+    model = f"the fnn {F} -> {H} -> {K}" if H else f"the lr {F} -> {K}"
+    return (f"{model} at batch {B} under {optimizer!r}: no K1 layout takes "
+            f"it on the card (the fused, wide and split kernels refuse the "
+            f"shape, and the general kernel needs "
+            f"{general_smem_bytes(F, H, K, B, optimizer)} bytes of shared "
+            f"memory a block, above {MAX_SMEM}); {LAYOUT_ITEM}")
 
 
 def _folds_eval(F: int, H: int, K: int, B: int, N: int,

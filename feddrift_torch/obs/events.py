@@ -49,6 +49,9 @@ EVENT_KINDS = frozenset({
     "incident_captured",    # a trigger debounced into an incident bundle
     "flight_dump",          # flight-recorder rings serialized into a bundle
     "obs_rotated",          # a size-capped JSONL sink rotated a generation
+    "host_ledger",          # per-iteration host-seconds/bytes ledger + RSS
+    "hbm_watermark",        # live torch.cuda.memory_stats() snapshot
+    "profile_captured",     # a torch.profiler trace was written (device_trace)
 })
 
 RING_SIZE = 4096

@@ -1,8 +1,8 @@
 """Incident plane: trigger → debounce → self-contained forensic bundle.
 
-A copy of ``feddrift_tpu/obs/incident.py`` without its host-profiler
-sections: an :class:`IncidentManager` taps the event bus, debounces, and
-writes a bundle directory holding what a post-mortem needs:
+A copy of ``feddrift_tpu/obs/incident.py``: an :class:`IncidentManager`
+taps the event bus, debounces, and writes a bundle directory holding what
+a post-mortem needs:
 
     <run_dir>/incidents/incident-NNN-<reason>/
         meta.json           trigger, evidence, pid/host/git/env,
@@ -11,14 +11,13 @@ writes a bundle directory holding what a post-mortem needs:
         trace.json          Perfetto-loadable trailing trace built from
                             the in-memory span + event rings
         alerts_tail.jsonl   tail of alerts.jsonl (rotated gen folded)
+        host_ledger.json    last host_ledger event + live RSS/top-bytes
+        hostprof.folded     folded stacks, when the sampler is armed
         config.json         the run's ExperimentConfig
         MANIFEST.json       checkpoint manifest copy, when one exists
 
-The reference's ``host_ledger.json`` and ``hostprof.folded`` come from its
-host-plane observatory (``obs/hostprof.py``), which the port does not have
-yet (ROADMAP §1): a port bundle leaves those two files out and keeps the
-reference's names for every other file. Nor does the port merge
-per-replica fleet snapshots (``fleet/``): it has no serving frontend.
+The port does not merge per-replica fleet snapshots (``fleet/``): it has
+no serving frontend.
 
 Triggers (``TRIGGERS``, the reference's set): crit ``alert_raised``, any
 ``slo_burn``, ``replica_failed``/``replica_drained``, ``secure_degraded``,
@@ -196,6 +195,8 @@ class IncidentManager:
 
         _write_json(os.path.join(bdir, "trace.json"), trailing_trace(dump))
         self._write_alerts_tail(bdir)
+        self._write_host(bdir, dump)
+        self._write_hostprof(bdir)
         if self.config_json:
             with open(os.path.join(bdir, "config.json"), "w") as f:
                 f.write(self.config_json)
@@ -243,6 +244,35 @@ class IncidentManager:
         if rows:
             with open(os.path.join(bdir, "alerts_tail.jsonl"), "w") as f:
                 f.writelines(rows[-_ALERTS_TAIL:])
+
+    def _write_host(self, bdir: str, dump: dict) -> None:
+        from feddrift_torch.obs import hostprof
+        last_ledger = None
+        for rec in reversed(dump.get("events", ())):
+            if rec.get("kind") == "host_ledger":
+                last_ledger = rec
+                break
+        try:
+            top = hostprof.ledger().top_bytes(5)
+        except Exception:   # noqa: BLE001
+            top = []
+        _write_json(os.path.join(bdir, "host_ledger.json"),
+                    {"rss_bytes": hostprof.rss_bytes(),
+                     "top_bytes": top,
+                     "last_host_ledger": last_ledger})
+
+    def _write_hostprof(self, bdir: str) -> None:
+        from feddrift_torch.obs import hostprof
+        prof = hostprof.get_profiler()
+        if prof is None:
+            return
+        try:
+            text = prof.folded_text()
+        except Exception:   # noqa: BLE001
+            return
+        if text:
+            with open(os.path.join(bdir, "hostprof.folded"), "w") as f:
+                f.write(text)
 
     def _copy_manifest(self, bdir: str) -> None:
         ckpt = self.ckpt_path

@@ -27,6 +27,22 @@ run-health alerts (``obs/alerts.py``, ``alerts.jsonl``) and incident
 capture (``obs/blackbox.py``, ``obs/incident.py``: ``incidents/``, from
 crit alerts, preemption and the exception guard in ``run``).
 
+The trace plane is the reference's: a span recorder (``spans.jsonl``
+beside ``events.jsonl``), the ``PhaseTracer`` (phases ``cluster``,
+``train_round`` and ``eval``; ``iteration_end``'s ``phases``), the
+host ledger and the optional sampling profiler (``hostprof_hz``:
+``hostprof.jsonl`` and, at run end, ``hostprof.folded``), a live memory
+watermark a step on the card, and the ``round_breakdown`` event a step:
+its wall split into ``dispatch`` (the host's calls into the step),
+``device_compute`` (the waits for the device: once a fused step, and
+every ``profile_rounds``-th global round on the per-round path, every
+round under ``trace_sync``; ``profiled_rounds`` counts the rounds they
+cover), ``writeback``, ``eval``, ``drift_decision`` and the residual
+``dispatch_gap``, with ``host_overhead_frac`` = 1 − device_compute / wall.
+``debug_checks`` validates each step's round inputs and checks each device
+program's outputs for NaN (``TrainStep.debug_nans``). None of this changes
+a number the run computes.
+
 Both paths sample ``client_num_per_round`` clients a round as the
 reference does (``_client_masks``) and draw the step's batches from one
 generator seeded by (seed, t), so a chunkable algorithm gives the same
@@ -35,8 +51,7 @@ the per-round path and is tested by its vote (``TrainStep.ensemble_eval``),
 as the reference does. ``Experiment(cfg, out_dir=None, device="cuda")``
 runs on the card unless the caller passes ``device="cpu"``. Not ported:
 the megastep, population cohorts, streamed data, fault/byzantine
-injection, codecs, hierarchy, secure aggregation, the host profiler and
-the SLO/ops plane.
+injection, codecs, hierarchy, secure aggregation and the SLO/ops plane.
 """
 
 from __future__ import annotations
@@ -57,12 +72,14 @@ from feddrift_torch.core.step import TrainStep
 from feddrift_torch.data.registry import make_dataset
 from feddrift_torch.models import create_model
 from feddrift_torch.obs import alerts as obs_alerts
-from feddrift_torch.obs import blackbox, incident
+from feddrift_torch.obs import blackbox, costmodel, hostprof, incident
 from feddrift_torch.resilience.divergence import DivergenceGuard
 from feddrift_torch.resilience.preempt import PreemptionHandler
 from feddrift_torch.utils.device import resolve_device
+from feddrift_torch.utils.invariants import check_round_inputs
 from feddrift_torch.utils.metrics import MetricsLogger
 from feddrift_torch.utils.prng import iteration_seed
+from feddrift_torch.utils.tracing import PhaseTracer
 
 log = logging.getLogger("feddrift_torch")
 
@@ -109,6 +126,23 @@ class Experiment:
         self.events = obs.configure(
             os.path.join(out_dir, "events.jsonl") if out_dir else None,
             max_bytes=obs_cap)
+        # wall-clock spans (phases, iterations, the device waits) beside
+        # the event stream; `report <run_dir> --trace` folds both into one
+        # Perfetto-loadable trace.json
+        self.spans = obs.spans.configure(
+            os.path.join(out_dir, "spans.jsonl") if out_dir else None,
+            max_bytes=obs_cap)
+        # the per-subsystem host-seconds/bytes ledger, finalized at each
+        # iteration's tail, and the optional sampling stack profiler
+        # (hostprof_hz > 0), whose slices land in hostprof.jsonl and whose
+        # folded stacks are written at run() exit; configure_profiler stops
+        # a sampler left by an earlier Experiment in this process
+        self._ledger = hostprof.ledger()
+        self._ledger.reset()
+        self.hostprof = hostprof.configure_profiler(
+            cfg.hostprof_hz,
+            path=os.path.join(out_dir, "hostprof.jsonl") if out_dir
+            else None)
         # run-health rules on every emitted event: alert_raised events and
         # alerts.jsonl (open-append-close, so a crashed run keeps them)
         self.alerts = None
@@ -142,9 +176,13 @@ class Experiment:
         self.global_round = 0
         self.start_iteration = 0
         self.out_dir = out_dir
-        # per-iteration wall segments (device_compute, eval, drift_decision,
-        # writeback); the rest of the wall is the dispatch gap
+        self.tracer = PhaseTracer(registry=obs.registry(), spans=self.spans)
+        self.last_phase_summary: dict = {}
+        # per-iteration wall segments (dispatch, device_compute, eval,
+        # drift_decision, writeback); the rest of the wall is the dispatch
+        # gap. _profiled_rounds: the rounds the device_compute waits cover
         self._segs: dict[str, float] = {}
+        self._profiled_rounds = 0
         self.last_round_breakdown: "dict | None" = None
         concepts = self.ds.concepts
         self.events.emit(
@@ -160,12 +198,35 @@ class Experiment:
     def C_(self) -> int:
         return self.cfg.device_clients
 
+    # round_breakdown segments that are host control-plane work double-book
+    # into the host ledger (dispatch, device_compute and eval do not)
+    _LEDGER_SEGS = {"writeback": "registry_writeback",
+                    "drift_decision": "drift_decision"}
+
     def _seg_add(self, name: str, dt: float) -> None:
         self._segs[name] = self._segs.get(name, 0.0) + dt
+        sub = self._LEDGER_SEGS.get(name)
+        if sub is not None:
+            self._ledger.add_seconds(sub, dt)
 
-    def _sync(self) -> None:
+    def _seg(self, name: str, **args):
+        """Sub-span of the iteration (cat="round") that also accumulates
+        into the iteration's round_breakdown segments."""
+        return self.spans.span(
+            name, cat="round",
+            on_close=lambda _w, dt, _n=name: self._seg_add(_n, dt), **args)
+
+    def _device_wait(self, t: int, g: int) -> None:
+        """Wait for the device's queued work (nothing to wait for on the
+        CPU) and record the wait as a ``device_compute`` span and
+        segment."""
+        blk_w, blk0 = time.time(), time.perf_counter()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        blk_dt = time.perf_counter() - blk0
+        self.spans.record("device_compute", blk_w, blk_dt, cat="round",
+                          iteration=t, round=g)
+        self._seg_add("device_compute", blk_dt)
 
     # ------------------------------------------------------------------
     def evaluate(self, t: int, round_idx: int) -> dict:
@@ -242,15 +303,18 @@ class Experiment:
         cfg = self.cfg
         t0 = time.time()
         self._segs = {}
+        self._profiled_rounds = 0
         self.events.set_context(iteration=t, round=self.global_round)
         self.events.emit("iteration_start")
         if self.divergence_guard is not None:
             # a new time step re-spikes the loss legitimately: a fresh
             # spike baseline
             self.divergence_guard.new_window()
-        d0 = time.perf_counter()
-        self.algo.begin_iteration(t)
-        self._seg_add("drift_decision", time.perf_counter() - d0)
+        with self.tracer.phase("cluster"), \
+                self._seg("drift_decision", iteration=t):
+            self.algo.begin_iteration(t)
+        if cfg.debug_checks:
+            self._check_inputs(t)
         opt_states = self.step.init_opt_states(
             self.pool.params, self.pool.num_models, self.C_)
         if cfg.chunk_rounds and self.algo.chunkable(t) \
@@ -258,17 +322,19 @@ class Experiment:
             self._run_iteration_fused(t, opt_states)
         else:
             self._run_rounds(t, opt_states)
-        d0 = time.perf_counter()
-        self.algo.end_iteration(t)
-        self._seg_add("drift_decision", time.perf_counter() - d0)
+        with self.tracer.phase("cluster"), \
+                self._seg("drift_decision", iteration=t):
+            self.algo.end_iteration(t)
         if cfg.checkpoint_every_iteration and self.out_dir:
-            w0 = time.perf_counter()
-            self.save_checkpoint(t)
-            self._seg_add("writeback", time.perf_counter() - w0)
+            with self._seg("writeback", iteration=t):
+                self.save_checkpoint(t)
             self.events.emit("checkpoint_save", path=self.ckpt_path())
         wall = time.time() - t0
         log.info("iteration %d done in %.1fs (Test/Acc=%.4f)", t, wall,
                  self.logger.last("Test/Acc", -1))
+        self.tracer.log_summary(prefix=f"iter {t}: ")
+        self.last_phase_summary = self.tracer.summary()
+        self.tracer.reset()   # per-iteration deltas, not cumulative totals
         B = min(cfg.batch_size, self.ds.samples_per_step)
         participants = min(cfg.client_num_per_round, self.C_)
         examples = cfg.comm_round * cfg.epochs * B * participants
@@ -277,25 +343,53 @@ class Experiment:
             examples=examples,
             examples_per_s=round(examples / max(wall, 1e-9), 1),
             rounds_per_s=round(cfg.comm_round / max(wall, 1e-9), 3),
-            test_acc=self.logger.last("Test/Acc"))
+            test_acc=self.logger.last("Test/Acc"),
+            phases={k: {"total_s": round(v["total_s"], 4),
+                        "count": v["count"]}
+                    for k, v in self.last_phase_summary.items()})
+        self.spans.record("iteration", t0, wall, cat="runner", iteration=t)
+        # the measured segments partition the wall; the residual is the
+        # dispatch gap. host_overhead_frac = 1 - device_compute / wall is
+        # the share of the wall the host did not spend waiting for the card
         gap = max(wall - sum(self._segs.values()), 0.0)
         dev = self._segs.get("device_compute", 0.0)
+        host_frac = min(max(1.0 - dev / max(wall, 1e-9), 0.0), 1.0)
         segments = {k: round(v, 6) for k, v in sorted(self._segs.items())}
         segments["dispatch_gap"] = round(gap, 6)
-        # the per-round path does not wait for the device each round, so it
-        # has no device_compute segment and no host share to report
-        host_frac = None if "device_compute" not in self._segs else round(
-            min(max(1.0 - dev / max(wall, 1e-9), 0.0), 1.0), 6)
         self.last_round_breakdown = {
             "iteration": t, "wall_s": round(wall, 6),
-            "rounds": cfg.comm_round, "segments": segments,
-            "dispatch_gap_s": round(gap, 6), "host_overhead_frac": host_frac}
+            "rounds": cfg.comm_round,
+            "profiled_rounds": self._profiled_rounds,
+            "segments": segments, "dispatch_gap_s": round(gap, 6),
+            "host_overhead_frac": round(host_frac, 6)}
         self.events.emit("round_breakdown", **self.last_round_breakdown)
-        obs.registry().quantile_sketch("round_wall_seconds_q").observe(
+        reg = obs.registry()
+        reg.gauge("host_overhead_frac").set(round(host_frac, 6))
+        reg.histogram("round_wall_seconds").observe(
             wall / max(cfg.comm_round, 1))
+        reg.quantile_sketch("round_wall_seconds_q").observe(
+            wall / max(cfg.comm_round, 1))
+        self._ledger.finalize(iteration=t, rounds=cfg.comm_round)
         if self.flight is not None:
             # the black box keeps recent metric state, not just events
             self.flight.snapshot_instruments()
+        costmodel.record_hbm_watermark(self.device, iteration=t)
+
+    def _check_inputs(self, t: int) -> None:
+        """``debug_checks``: the reference's ``check_round_inputs`` on the
+        step's round inputs (None sample weights and feature masks are
+        ones)."""
+        tw, sw, fm, _ = self.algo.round_inputs(t, 0)
+        M, C, N = self.pool.num_models, self.C_, self.ds.samples_per_step
+        host = lambda a: a.detach().cpu().numpy() if torch.is_tensor(a) \
+            else np.asarray(a)
+        check_round_inputs(
+            host(tw), np.ones((M, C, N), np.float32) if sw is None
+            else host(sw),
+            np.ones((M, *self.ds.feature_shape), np.float32) if fm is None
+            else host(fm),
+            num_models=M, num_clients=C, num_steps_p1=self.ds.num_steps + 1,
+            sample_num=N)
 
     def _check_divergence(self, losses: np.ndarray, n: np.ndarray) -> bool:
         """Guard one round's host-side ``[M, C]`` losses and counts; True
@@ -359,34 +453,44 @@ class Experiment:
             self.events.set_context(round=self.global_round)
             tw, sw, fm, lr_scale = self.algo.round_inputs(t, r)
             prev_params = self.pool.params
-            d0 = time.perf_counter()
-            new_params, opt_states, client_params, n, losses = \
-                step.train_round(
-                prev_params, opt_states, self.x, self.y, tw, lr_scale,
-                None if masks is None else masks[r], sample_w=sw,
-                feat_mask=fm, draws=None if step.weighted_sampling
-                else (step.time_index(tw, u[r]), slot[r]))
-            self._seg_add("dispatch", time.perf_counter() - d0)
-            if self.divergence_guard is not None:
-                ln = torch.stack((losses, n)).cpu().numpy()   # one fetch
-                if self._check_divergence(ln[0], ln[1]):
-                    # rollback: pre-round params, fresh optimizer state (the
-                    # diverged step contaminated both), no after_round and
-                    # no eval this round
-                    self.pool.params = prev_params
-                    opt_states = step.init_opt_states(
-                        prev_params, self.pool.num_models, self.C_)
-                    self.divergence_guard.record_rollback()
-                    self.global_round += 1
-                    continue
-            w0 = time.perf_counter()
-            self.pool.params = self.algo.after_round(
-                t, r, prev_params, new_params,
-                client_params if keep_cp else None, n)
-            self._seg_add("writeback", time.perf_counter() - w0)
+            # every profile_rounds-th global round (every round under
+            # trace_sync) waits for the device: the wait is the round's
+            # device_compute segment
+            profiled = (cfg.trace_sync
+                        or self.global_round % cfg.profile_rounds == 0)
+            with self.tracer.phase("train_round"):
+                d0 = time.perf_counter()
+                new_params, opt_states, client_params, n, losses = \
+                    step.train_round(
+                    prev_params, opt_states, self.x, self.y, tw, lr_scale,
+                    None if masks is None else masks[r], sample_w=sw,
+                    feat_mask=fm, draws=None if step.weighted_sampling
+                    else (step.time_index(tw, u[r]), slot[r]))
+                self._seg_add("dispatch", time.perf_counter() - d0)
+                if profiled:
+                    self._device_wait(t, self.global_round)
+                    self._profiled_rounds += 1
+                if self.divergence_guard is not None:
+                    ln = torch.stack((losses, n)).cpu().numpy()  # one fetch
+                    if self._check_divergence(ln[0], ln[1]):
+                        # rollback: pre-round params, fresh optimizer state
+                        # (the diverged step contaminated both), no
+                        # after_round and no eval this round
+                        self.pool.params = prev_params
+                        opt_states = step.init_opt_states(
+                            prev_params, self.pool.num_models, self.C_)
+                        self.divergence_guard.record_rollback()
+                        self.global_round += 1
+                        continue
+                w0 = time.perf_counter()
+                self.pool.params = self.algo.after_round(
+                    t, r, prev_params, new_params,
+                    client_params if keep_cp else None, n)
+                self._seg_add("writeback", time.perf_counter() - w0)
             if r % freq == 0 or r == R - 1:
                 e0 = time.perf_counter()
-                self.evaluate(t, r)
+                with self.tracer.phase("eval"):
+                    self.evaluate(t, r)
                 self._seg_add("eval", time.perf_counter() - e0)
             self.global_round += 1
 
@@ -403,37 +507,42 @@ class Experiment:
         # the rollback target: train_iteration_eval packs the pool into new
         # buffers and never writes the tensors it was given
         start = self.pool.params
-        c0 = time.perf_counter()
-        new_params, opt_states, n, losses, bufs, total, _stats = \
-            self.step.train_iteration_eval(
-                start, opt_states, self.x, self.y, tw, lr_scale,
-                R, freq, t, self._device_masks(R), sample_w=sw,
-                feat_mask=fm)
-        self._sync()
-        # host enqueue and device work of the R rounds: the loop enqueues
-        # faster than the card drains only if the card is the bottleneck
-        self._seg_add("device_compute", time.perf_counter() - c0)
-        e0 = time.perf_counter()
-        corr_tr, loss_tr, corr_te, loss_te, total, n_h, losses_h = _fetch(
-            *bufs, total, n, losses)
-        self._seg_add("eval", time.perf_counter() - e0)
-        if self._check_divergence(losses_h, n_h):
-            # a fused step rolls back whole: the pool it started from, no
-            # after_round and no eval logging (the buffers hold diverged
-            # numbers)
-            self.pool.params = start
-            self.divergence_guard.record_rollback()
-            self.global_round = g0 + R
-            return
-        self.pool.params = self.algo.after_round(t, R - 1, None, new_params,
-                                                 None, n)
+        with self.tracer.phase("train_round"):
+            d0 = time.perf_counter()
+            new_params, opt_states, n, losses, bufs, total, _stats = \
+                self.step.train_iteration_eval(
+                    start, opt_states, self.x, self.y, tw, lr_scale,
+                    R, freq, t, self._device_masks(R), sample_w=sw,
+                    feat_mask=fm)
+            # the host's enqueue of the R rounds, then the wait for the
+            # card to drain them: one wait covers all R rounds
+            self._seg_add("dispatch", time.perf_counter() - d0)
+            self._device_wait(t, g0)
+            self._profiled_rounds += R
+            e0 = time.perf_counter()
+            corr_tr, loss_tr, corr_te, loss_te, total, n_h, losses_h = \
+                _fetch(*bufs, total, n, losses)
+            self._seg_add("eval", time.perf_counter() - e0)
+            if self._check_divergence(losses_h, n_h):
+                # a fused step rolls back whole: the pool it started from,
+                # no after_round and no eval logging (the buffers hold
+                # diverged numbers)
+                self.pool.params = start
+                self.divergence_guard.record_rollback()
+                self.global_round = g0 + R
+                return
+            w0 = time.perf_counter()
+            self.pool.params = self.algo.after_round(t, R - 1, None,
+                                                     new_params, None, n)
+            self._seg_add("writeback", time.perf_counter() - w0)
         e0 = time.perf_counter()
         C = self.C_
-        for slot, r in enumerate(self.step.eval_rounds(R, freq)):
-            self.global_round = g0 + r
-            self._log_eval(t, corr_tr[slot][:, :C], loss_tr[slot][:, :C],
-                           corr_te[slot][:, :C], loss_te[slot][:, :C],
-                           total[:C])
+        with self.tracer.phase("eval"):
+            for slot, r in enumerate(self.step.eval_rounds(R, freq)):
+                self.global_round = g0 + r
+                self._log_eval(t, corr_tr[slot][:, :C], loss_tr[slot][:, :C],
+                               corr_te[slot][:, :C], loss_te[slot][:, :C],
+                               total[:C])
         self._seg_add("eval", time.perf_counter() - e0)
         self.global_round = g0 + R
         # the final eval slot holds acc(final params) on steps t and t+1:
@@ -469,6 +578,11 @@ class Experiment:
             self.events.emit("run_end", global_round=self.global_round,
                              test_acc=self.logger.last("Test/Acc"),
                              preempted=self.preempted)
+        if self.hostprof is not None:
+            self.hostprof.stop()
+            if self.out_dir:
+                self.hostprof.write_folded(
+                    os.path.join(self.out_dir, "hostprof.folded"))
         return self.logger
 
     def _preempt_stop(self, completed_iteration: int, signal_name) -> None:

@@ -13,8 +13,10 @@ Each imports ``feddrift_torch`` from its side's checkout (and builds that
 side's kernels there) and, for every run named, makes one untimed warm-up
 run, one timed run (the host clock around ``Experiment.run`` and a
 synchronise), with the host seconds of the runner's round segments
-summed over its steps (``round_breakdown`` events: ``dispatch`` is
-``train_round`` on the per-round path, ``device_compute`` the fused step),
+summed over its steps (``round_breakdown`` events: ``dispatch`` is the
+host's calls into ``train_round`` / ``train_iteration_eval``,
+``device_compute`` the waits for the card: a fused step's one, the
+per-round path's every ``profile_rounds``-th round),
 and one more time step under torch.profiler on the path the run's last
 step took: kernel launches a round, device time a round and the busy
 share, and each kernel's launches. ``--repeat K`` runs the four turns K times. Each child prints one

@@ -392,7 +392,7 @@ def test_fmow_reference_runs_are_the_committed_ones(run):
         r[0] for r in chip_smoke.FMOW_RUNS}
 
 
-def test_fmow_runs_take_the_split_and_wide16_routes():
+def test_fmow_runs_take_the_split_and_stream_routes():
     """Every fmow run's shape takes K1's split kernel and K3's wide route
     on its streamed kernel (64-row tiles; the route took 16-row tiles
     before): the routes train_fmow holds the card to."""

@@ -4,6 +4,7 @@ own EM); its entry points default to the CUDA device; and
 ``chip_smoke.py`` refuses to run without a card or outside the repo."""
 
 import inspect
+import json
 import os
 import shutil
 import subprocess
@@ -59,6 +60,69 @@ def test_fmow_data_imports_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "(10, 2, 4, 4, 4, 3) []"
+
+
+# the trace plane's modules (each imported alone in a fresh process)
+TRACE_PLANE_MODULES = ("feddrift_torch.obs.spans",
+                       "feddrift_torch.obs.hostprof",
+                       "feddrift_torch.obs.costmodel",
+                       "feddrift_torch.obs.report",
+                       "feddrift_torch.obs.critical_path",
+                       "feddrift_torch.obs.lineage",
+                       "feddrift_torch.obs.instruments",
+                       "feddrift_torch.utils.tracing",
+                       "feddrift_torch.utils.invariants")
+_BAD = ("jax", "jaxlib", "flax", "feddrift_tpu")
+
+
+@pytest.mark.parametrize("module", TRACE_PLANE_MODULES)
+def test_trace_plane_module_imports_no_jax(module):
+    code = (f"import sys, importlib\nimportlib.import_module({module!r})\n"
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{_BAD!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_verbs_are_host_only(tmp_path):
+    """``report``, ``critical_path`` and ``lineage`` read a run directory
+    without importing torch (so no CUDA state and no kernel build), JAX
+    or the JAX package."""
+    run = tmp_path / "run"
+    run.mkdir()
+    events = [{"_ts": 1.0, "kind": "run_start", "dataset": "sea",
+               "concept_matrix": [[0, 1]], "clients": 2, "num_models": 2},
+              {"_ts": 2.0, "kind": "cluster_assign", "iteration": 0,
+               "assignment": [0, 1]},
+              {"_ts": 3.0, "kind": "iteration_end", "iteration": 0,
+               "wall_s": 1.0, "rounds": 2, "examples": 4,
+               "phases": {"train_round": {"total_s": 0.5, "count": 1}}},
+              {"_ts": 3.0, "kind": "round_breakdown", "iteration": 0,
+               "wall_s": 1.0, "rounds": 2, "profiled_rounds": 2,
+               "segments": {"dispatch": 0.4, "device_compute": 0.5,
+                            "dispatch_gap": 0.1},
+               "host_overhead_frac": 0.5},
+              {"_ts": 4.0, "kind": "run_end"}]
+    (run / "events.jsonl").write_text(
+        "".join(json.dumps(e) + "\n" for e in events))
+    (run / "spans.jsonl").write_text(json.dumps(
+        {"name": "iteration", "cat": "runner", "ts": 2e6, "dur": 1e6,
+         "pid": 0, "tid": 1, "args": {"iteration": 0}}) + "\n")
+    code = ("import sys\nfrom feddrift_torch.cli import main\n"
+            f"d = {str(run)!r}\n"
+            "rcs = [main(['report', d, '--trace']), main(['critical_path', d]),"
+            " main(['lineage', d])]\n"
+            "print(rcs, sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{_BAD + ('torch', 'triton')!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[0, 0, 0] []"
+    assert (run / "trace.json").is_file()
 
 
 @pytest.mark.parametrize("target", [

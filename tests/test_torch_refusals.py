@@ -94,3 +94,53 @@ def test_no_refusal_cites_an_item_number():
                         if re.search(r"ROADMAP (§\d+ )?items? \d", line):
                             hits.append(f"{name}:{i}")
     assert hits == []
+
+
+# the shapes no K1 layout takes on the card (ROADMAP §2's item below):
+# (case, F, H, K, B, optimizer); H = 0 is the lr
+UNLAID = (("fmow_lr_adam", 3072, 0, 62, 500, "adam"),
+          ("fmow_lr_sgd", 3072, 0, 62, 500, "sgd"),
+          ("stackoverflow_lr_fnn_adam", 1000, 10, 50, 500, "adam"))
+LAYOUT_ITEM = "K1 and K3 at wide inputs: what PRs 12, 14 and 15 left"
+
+
+@pytest.mark.parametrize("case,F,H,K,B,opt", UNLAID,
+                         ids=[u[0] for u in UNLAID])
+def test_unlaid_k1_shapes_are_refused_naming_the_item(case, F, H, K, B,
+                                                      opt):
+    """``TrainStep.create`` refuses these on the card before the run puts
+    its data there; the route function says why, naming ROADMAP §2's item
+    by its name, and the CPU's plain version still takes the shape."""
+    from feddrift_torch.core.step import TrainStep
+    from feddrift_torch.kernels.local_sgd import (MAX_SMEM,
+                                                  general_smem_bytes,
+                                                  layout_refusal)
+    from feddrift_torch.models.mlp import FeedForwardNN, LogisticRegression
+    message = layout_refusal(F, H, K, B, opt)
+    model = f"the fnn {F} -> {H} -> {K}" if H else f"the lr {F} -> {K}"
+    assert message == (
+        f"{model} at batch {B} under {opt!r}: no K1 layout takes it on the "
+        f"card (the fused, wide and split kernels refuse the shape, and the "
+        f"general kernel needs {general_smem_bytes(F, H, K, B, opt)} bytes "
+        f"of shared memory a block, above {MAX_SMEM}); ROADMAP §2 "
+        f"'{LAYOUT_ITEM}' (shapes no layout takes yet)")
+    assert not re.search(r"ROADMAP items? \d", message)
+    with open(os.path.join(REPO, "ROADMAP.md")) as f:
+        roadmap = f.read().replace("`", "")
+    assert re.search(r"^\s*\d+\. \*\*" + re.escape(LAYOUT_ITEM) + r"\.?\*\*",
+                     roadmap, re.M)
+    mod = FeedForwardNN((F,), K, H) if H else LogisticRegression((F,), K)
+    cfg = ExperimentConfig(batch_size=B, sample_num=B, client_optimizer=opt)
+    assert TrainStep.create(cfg, mod, K, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("shape", [(3, 10, 2, 500, "adam"),
+                                   (784, 10, 10, 500, "adam"),
+                                   (3072, 10, 62, 500, "sgd"),
+                                   (3, 0, 2, 500, "adam"),
+                                   (1000, 10, 50, 500, "sgd")])
+def test_laid_k1_shapes_are_not_refused(shape):
+    """Shapes a K1 layout takes (SEA's fnn, MNIST-4's, fmow's under SGD,
+    SEA's lr, stackoverflow_lr's fnn under SGD on the general kernel)."""
+    from feddrift_torch.kernels.local_sgd import layout_refusal
+    assert layout_refusal(*shape) is None

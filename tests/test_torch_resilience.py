@@ -280,10 +280,12 @@ def test_incident_bundle_has_the_reference_file_names(tmp_path):
         assert len(mgr.captured) == 1
         names[tag] = set(os.listdir(mgr.captured[0]))
         mgr.detach()
-    assert names["port"] == names["ref"] - {"host_ledger.json",
-                                            "hostprof.folded"}
+    # since the port has the host-plane observatory, its bundles carry
+    # host_ledger.json (and hostprof.folded with a sampler armed) too
+    assert names["port"] == names["ref"]
     assert {"meta.json", "flight.json", "trace.json", "alerts_tail.jsonl",
-            "config.json", "MANIFEST.json"} <= names["port"]
+            "host_ledger.json", "config.json",
+            "MANIFEST.json"} <= names["port"]
 
 
 def test_planes_are_on_by_default_as_in_the_reference():

@@ -140,7 +140,7 @@ def test_reset_and_read_counts_cover_every_training_kernel():
     fedavg.launches = eval_cells.launches = 3
     local_sgd.launches = local_sgd_fedavg.launches = 4
     local_sgd.wide_launches = eval_cells.wide_launches = 7
-    local_sgd.split_launches = eval_cells.wide16_launches = 8
+    local_sgd.split_launches = eval_cells.stream_launches = 8
     local_sgd_fedavg.evals = 6
     weighted_cdf.launches = weighted_search.launches = 5
     fedavg_ref.cuda_calls = eval_cells_ref.cuda_calls = 2
@@ -151,7 +151,7 @@ def test_reset_and_read_counts_cover_every_training_kernel():
         "k1_split_launches": 0,
         "k4a_launches": 0, "k4b_launches": 0, "k2_launches": 0,
         "k2_epilogues": 0, "aggregations": 0, "k3_launches": 0,
-        "k3_wide_launches": 0, "k3_wide16_launches": 0, "folded_evals": 0,
+        "k3_wide_launches": 0, "k3_stream_launches": 0, "folded_evals": 0,
         "plain_calls": {"fedavg_ref": 0, "eval_cells_ref": 0,
                         "weighted_cdf_ref": 0, "weighted_search_ref": 0}}
 

@@ -370,14 +370,14 @@ def test_wide_k3_matches_plain_at_mnist_width(cuda, model, window, masked,
     ("G2", False, 4, 500), ("T1", False, 4, 500), ("G2", True, 4, 500),
     ("G2", False, 10, 500), ("G2", False, 4, 40), ("G2", False, 1, 500),
     ("T1", True, 1, 500), ("G2", True, 4, 20), ("T1", False, 4, 20)])
-def test_wide16_k3_matches_plain_at_fmow_width(cuda, window, masked, models,
+def test_stream_k3_matches_plain_at_fmow_width(cuda, window, masked, models,
                                                rows):
     """K3's streamed kernel at fmow's width (F 3072, H 10, K 62), held as
     the resident one is at MNIST's: 500 rows a step are 8 tiles of 64, the
     last with 52; M = 10 in two groups, M = 1 in one of 10 columns; 40 or
     20 rows a step one CTA with a partly full tile."""
     _hold_k3("fnn", window, masked, models, rows, 3072, 62,
-             "wide16_launches")
+             "stream_launches")
 
 
 def _hold_k3(model, window, masked, models, rows, F, K, counter):
@@ -449,3 +449,26 @@ def test_budget_mirrors_equal_the_kernels_own(cuda):
         assert fn3(F_, H_, K_) == k3.wide_smem_bytes(F_, H_, K_)
         assert fn4(H_, K_) == k3.stream_smem_bytes(H_, K_)
         assert rows(F_, H_, K_) == k3.wide_rows(F_, H_, K_)
+
+
+@pytest.mark.gpu
+def test_general_budget_mirror_and_early_refusal(cuda):
+    """``general_smem_bytes`` counts as the source does, and on the card
+    ``TrainStep.create`` refuses a shape no K1 layout takes (fmow's lr)
+    before any launch."""
+    import ctypes
+
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.core.step import TrainStep
+    from feddrift_torch.kernels.build import library
+    fn = library("local_sgd").local_sgd_general_smem
+    fn.restype = ctypes.c_longlong
+    for F_, H_, K_ in (MNIST_FNN, MNIST_LR, FMOW_FNN, (3, 10, 2), (3, 0, 2),
+                       (1000, 10, 50), (3072, 0, 62)):
+        for B_ in (40, 500):
+            for opt in ("adam", "sgd"):
+                assert fn(F_, H_, K_, B_, int(opt == "sgd")) \
+                    == k1_wrapper.general_smem_bytes(F_, H_, K_, B_, opt)
+    with pytest.raises(ValueError, match="no K1 layout takes it"):
+        TrainStep.create(ExperimentConfig(), LogisticRegression((3072,), 62),
+                         62, device=cuda)
