@@ -60,6 +60,10 @@ class ExperimentConfig:
     ensemble_window: int = 3           # AUE window (sets num_models for aue)
     retrain_data: str = "win-1"        # for single-model continual baselines
     report_client: int = 1
+    # stackoverflow_lr scale (reference: vocab 10000 / 500 tags; defaults are
+    # scaled down so the dense [C, T, N, F] array stays small — data/tabular.py)
+    so_vocab_size: int = 1000
+    so_tag_size: int = 50
     text_seq_len: int = 80             # char-dataset sequence length
     smooth_sigma: float = 3.0          # basis smoothing (px) of the
                                        # "<image>-smooth" datasets

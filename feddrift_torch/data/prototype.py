@@ -1,4 +1,4 @@
-"""Class-prototype image datasets with label-swap concept drift: MNIST-4.
+"""Class-prototype image datasets with label-swap concept drift.
 
 A copy of the synthetic path of ``feddrift_tpu/data/prototype.py``
 (:42-146, :286-354): the same seed gives bitwise-equal ``x``, ``y`` and
@@ -9,12 +9,15 @@ low-rank prototype model (``PrototypeSampler``) drawn from numpy
 ``default_rng``: the basis from ``proto_seed``, then per (step, client) the
 labels, the noise and the ``noise_prob`` flip, in that order.
 
-Ported: ``MNIST`` and its ``-smooth`` family (the basis Gaussian-smoothed
-over the 28x28 grid, always synthetic). The reference reads real files
-under ``data_dir`` when they exist (LEAF JSON for MNIST); the port refuses
-them with ``NotImplementedError`` (ROADMAP §1 "The other datasets"), as
-it refuses the other image datasets (``femnist``, ``cifar*``,
-``cinic10``, ``fed_cifar100``).
+Ported: ``MNIST`` (784, 10 classes), ``femnist`` (784, 62), ``cifar10``
+and ``cinic10`` (32x32x3, 10), ``cifar100`` and ``fed_cifar100`` (32x32x3,
+100), each with its ``-smooth`` family (the basis Gaussian-smoothed over the
+image grid, always synthetic, as in the reference). The reference reads
+real files under ``data_dir`` where they exist (``_REAL_FILES``: LEAF JSON
+for MNIST, TFF h5 for femnist and fed_cifar100, the CIFAR python pickle
+batches, cinic10's PNG folder); those readers are not ported, so the port
+refuses such files with ``NotImplementedError`` (ROADMAP §1 "The other
+datasets") rather than make synthetic data in their place.
 """
 
 from __future__ import annotations
@@ -30,8 +33,25 @@ from feddrift_torch.data.drift_dataset import DriftDataset
 _LABEL_SWAPS = {1: (1, 2), 2: (3, 4), 3: (5, 6)}
 
 SPECS = {
-    # name: (feature_shape, num_classes); only MNIST is ported
+    # name: (feature_shape, num_classes)
     "MNIST": ((784,), 10),
+    "femnist": ((784,), 62),
+    "cifar10": ((32, 32, 3), 10),
+    "cifar100": ((32, 32, 3), 100),
+    "cinic10": ((32, 32, 3), 10),
+    "fed_cifar100": ((32, 32, 3), 100),
+}
+
+# the real files the reference reads under data_dir, by dataset: (path
+# parts, a directory or not); fed_cifar100 is cifar100 with the TFF
+# per-client partition, so the two share the sampler
+_REAL_FILES = {
+    "MNIST": (("MNIST", "train"), True),
+    "femnist": (("FederatedEMNIST", "emnist_train.h5"), False),
+    "fed_cifar100": (("fed_cifar100", "cifar100_train.h5"), False),
+    "cifar10": (("cifar-10-batches-py",), True),
+    "cifar100": (("cifar-100-python",), True),
+    "cinic10": (("cinic10", "train"), True),
 }
 
 
@@ -118,15 +138,14 @@ def generate_prototype_drift(
 ) -> DriftDataset:
     """A full ``[C, T+1, N, *feature_shape]`` drifting image dataset; step T
     is the held-out test step of training step T-1."""
-    if name not in SPECS:
-        raise KeyError(f"image dataset {name!r} is not ported (ROADMAP §1 "
-                       f"'The other datasets'); ported: {sorted(SPECS)}")
     feature_shape, num_classes = SPECS[name]
     # the -smooth family is always the synthetic sampler, as the reference's
-    leaf = os.path.join(data_dir, "MNIST", "train")
-    if smooth_sigma <= 0 and os.path.isdir(leaf):
+    parts, is_dir = _REAL_FILES[name]
+    real = os.path.join(data_dir, *parts)
+    if smooth_sigma <= 0 and (os.path.isdir(real) if is_dir
+                              else os.path.isfile(real)):
         raise NotImplementedError(
-            f"real MNIST files ({leaf}) are not ported yet (ROADMAP §1 'The "
+            f"real {name} files ({real}) are not ported yet (ROADMAP §1 'The "
             f"other datasets'); point data_dir elsewhere for the synthetic "
             f"prototype data")
     rng = np.random.default_rng(seed)

@@ -2,12 +2,16 @@
 
 Mirrors ``feddrift_tpu/data/registry.py``. Ported so far: the synthetic
 tabular datasets of the training slice (``sea``, ``sine``, ``circle``, their
-numpy path), the synthetic MNIST-4 image data (``MNIST`` and
-``MNIST-smooth``), FMoW (``fmow`` and ``fmow-smooth``: 62 classes of
+numpy path), the synthetic prototype image data (``MNIST``, ``femnist``,
+``cifar10``, ``cifar100``, ``cinic10`` and ``fed_cifar100``, each with its
+``-smooth`` name), FMoW (``fmow`` and ``fmow-smooth``: 62 classes of
 ``fmow_image_size`` x ``fmow_image_size`` x 3 images, real ``.npz``
-partitions read where they are present) and the character datasets of the
-transformer serving slice (``shakespeare`` and its alias
-``fed_shakespeare``); any other name raises ``KeyError``.
+partitions read where they are present), the UCI streams ``susy`` and
+``ro`` (synthetic, or their CSV where it is present), ``stackoverflow_lr``
+(synthetic bag-of-words) and the character datasets of the transformer
+serving slice (``shakespeare`` and its alias ``fed_shakespeare``); any
+other name (``stackoverflow`` and ``stackoverflow_nwp`` among them) raises
+``KeyError``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from feddrift_torch.data.drift_dataset import DriftDataset
 from feddrift_torch.data.fmow import generate_fmow_drift
 from feddrift_torch.data.prototype import generate_prototype_drift
 from feddrift_torch.data.synthetic import generate_synthetic
+from feddrift_torch.data.tabular import (generate_stackoverflow_lr_drift,
+                                         generate_uci_drift)
 from feddrift_torch.data.text import generate_text_drift
 
 _REGISTRY: dict[str, Callable[..., DriftDataset]] = {}
@@ -57,18 +63,20 @@ for _name in ("sea", "sine", "circle"):
             cfg.sample_num, cfg.noise_prob, cfg.time_stretch, cfg.seed)
 
 
-# "MNIST": real files under data_dir are refused (not ported), else the
-# white-noise-basis prototypes; "MNIST-smooth": the Gaussian-smoothed basis,
+# "<name>": real files under data_dir are refused (not ported), else the
+# white-noise-basis prototypes; "<name>-smooth": the Gaussian-smoothed basis,
 # always synthetic (the reference ignores real files there)
-for _suffix, _smooth in (("", False), ("-smooth", True)):
-    @register_dataset("MNIST" + _suffix)
-    def _mk_img(cfg: ExperimentConfig, change_points: np.ndarray,
-                *, _sm=_smooth) -> DriftDataset:
-        return generate_prototype_drift(
-            "MNIST", change_points, cfg.train_iterations,
-            cfg.client_num_in_total, cfg.sample_num, cfg.noise_prob,
-            cfg.time_stretch, cfg.seed, cfg.data_dir,
-            smooth_sigma=cfg.smooth_sigma if _sm else 0.0)
+for _name in ("MNIST", "femnist", "cifar10", "cifar100", "cinic10",
+              "fed_cifar100"):
+    for _suffix, _smooth in (("", False), ("-smooth", True)):
+        @register_dataset(_name + _suffix)
+        def _mk_img(cfg: ExperimentConfig, change_points: np.ndarray,
+                    *, _n=_name, _sm=_smooth) -> DriftDataset:
+            return generate_prototype_drift(
+                _n, change_points, cfg.train_iterations,
+                cfg.client_num_in_total, cfg.sample_num, cfg.noise_prob,
+                cfg.time_stretch, cfg.seed, cfg.data_dir,
+                smooth_sigma=cfg.smooth_sigma if _sm else 0.0)
 
 
 for _suffix, _smooth in (("", False), ("-smooth", True)):
@@ -88,6 +96,23 @@ def _mk_text(cfg: ExperimentConfig, change_points: np.ndarray) -> DriftDataset:
         change_points, cfg.train_iterations, cfg.client_num_in_total,
         cfg.sample_num, cfg.noise_prob, cfg.time_stretch, cfg.seed,
         seq_len=cfg.text_seq_len, data_dir=cfg.data_dir)
+
+
+@register_dataset("susy", "ro")
+def _mk_uci(cfg: ExperimentConfig, change_points: np.ndarray) -> DriftDataset:
+    return generate_uci_drift(
+        cfg.dataset, change_points, cfg.train_iterations,
+        cfg.client_num_in_total, cfg.sample_num, cfg.noise_prob,
+        cfg.time_stretch, cfg.seed, cfg.data_dir)
+
+
+@register_dataset("stackoverflow_lr")
+def _mk_so_lr(cfg: ExperimentConfig, change_points: np.ndarray) -> DriftDataset:
+    return generate_stackoverflow_lr_drift(
+        change_points, cfg.train_iterations, cfg.client_num_in_total,
+        cfg.sample_num, cfg.noise_prob, cfg.time_stretch, cfg.seed,
+        vocab_size=cfg.so_vocab_size, tag_size=cfg.so_tag_size,
+        data_dir=cfg.data_dir)
 
 
 def make_dataset(cfg: ExperimentConfig) -> DriftDataset:

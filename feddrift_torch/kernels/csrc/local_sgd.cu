@@ -182,11 +182,20 @@
 //   fmow's F = 3072: 32 rows of x are 394 KB) take the split kernel.
 //
 // local_sgd_split_kernel<kSgd>: the fnn at inputs too wide for the wide
-// kernel, fmow's (F = 3072 = 32 x 32 x 3, 3072 -> 10 -> 62, P 31,412), under
-// AMSGrad or SGD, contiguous or gathered batches, with feature masks: F % 64
-// == 0, at most 1024 inputs a CTA, 16 hidden units and 64 classes, B <= 512
-// and its shared memory within a block's. It computes what the general
-// kernel computes, in float32.
+// kernel, fmow's (F = 3072 = 32 x 32 x 3, 3072 -> 10 -> 62, P 31,412), or
+// whose shared memory the wide kernel's budget refuses, stackoverflow_lr's
+// under AMSGrad (1000 -> 10 -> 50: 235,600 bytes a wide CTA), under AMSGrad
+// or SGD, contiguous or gathered batches, with feature masks: F % 4 == 0,
+// at most 1024 inputs a CTA, 16 hidden units and 64 classes, B <= 512 and
+// its shared memory within a block's. It computes what the general kernel
+// computes, in float32.
+// - Where F % 64 != 0 each CTA takes split_fq(F) inputs, a sixteenth of F
+//   rounded up to float4s (64 at F = 1000), and the last CTA's slots past F
+//   (24 there) are padding: W1's and the mask's slots there hold zeros, no
+//   copy fills them, no product reads them and no step moves them, so the
+//   sums over the real inputs run in the order they run where F % 64 == 0,
+//   and at such an F every CTA holds F / 16 real inputs and the kernel is
+//   the one it was before the padding existed.
 // Bound on the H100 SXM at fmow's shape (M 4, C 10, S 5, B 500): the two
 // [500, 3072] x [3072, 10] products of every step are ~12.3 GFLOP a round,
 // 0.18 ms at 67 TFLOP/s float32; the distinct rows of a round (~61 MB)
@@ -1398,6 +1407,14 @@ constexpr int kSplitMaxH = 16;     // hidden units at most
 constexpr int kSplitMaxK = 64;     // classes at most: two a lane
 constexpr int kSplitMaxFq = 1024;  // inputs a CTA at most (NQ <= 256)
 
+// The inputs a CTA of the split kernel takes: a sixteenth of F rounded up
+// to whole float4s (F / 16 where F % 64 == 0). CTA q takes inputs
+// [q FQ, q FQ + FQ); where 16 FQ > F the last CTAs hold fewer real inputs,
+// and the slots past F are never copied, read or stepped.
+__host__ __device__ constexpr int split_fq(int F) {
+  return (F + 4 * kSplitCluster - 1) / (4 * kSplitCluster) * 4;
+}
+
 // dh's row stride in shared memory: H rounded up to float4s.
 __host__ __device__ constexpr int split_dh_stride(int H) {
   return (H + 3) / 4 * 4;
@@ -1411,14 +1428,14 @@ __host__ __device__ constexpr int split_small_chunk(int SP) {
 
 // Shared memory one CTA of the split kernel needs, in bytes: the stages'
 // mbarriers, then in floats the x ring (kSplitStages tiles of 32 rows of
-// F / 16 inputs at a padded stride), the forward's warp partials of two
+// split_fq(F) inputs at a padded stride), the forward's warp partials of two
 // tiles or dW1's slice, W1's slice (transposed) and its three moments,
 // the mask's slice, dh of every batch row, the Z1 partials of every row, the
 // small params (b1, W2, b2) and their partials, the moments of the CTA's
 // sixteenth of them, h and dz of the CTA's own rows, their labels, the
 // warps' losses and the loss, and the batch's row indices of two steps.
 long long split_smem_bytes(int F, int H, int K, int B, bool sgd) {
-  const long long FQ = F / kSplitCluster, W = (long long)H * FQ;
+  const long long FQ = split_fq(F), W = (long long)H * FQ;
   const long long SP = H + (long long)H * K + K;
   const long long red = 2LL * kWideWarps * kSplitRows * H;
   const long long floats =
@@ -1438,7 +1455,7 @@ local_sgd_split_kernel(const Args a) {
   cg::cluster_group cluster = cg::this_cluster();
   constexpr int Q = kSplitCluster, T = kWideThreads;
   const int F = a.F, H = a.H, K = a.K, B = a.B, N = a.N, S = a.S;
-  const int FQ = F / Q, NQ = FQ / 4, XS = wide_stride(FQ);
+  const int FQ = split_fq(F), NQ = FQ / 4, XS = wide_stride(FQ);
   const int W = H * FQ, HD = split_dh_stride(H);
   const int SP = H + H * K + K, SPC = split_small_chunk(SP);
   const int oSm = F * H, P = oSm + SP;
@@ -1476,6 +1493,8 @@ local_sgd_split_kernel(const Args a) {
   const int cl = (int)blockIdx.x / Q, m = cl % M, c = cl / M;
   const int pair = m * a.C + c;
   const int f0 = q * FQ;                        // inputs [f0, f0 + FQ)
+  const int FV = max(0, min(FQ, F - f0));       // of which real: [0, FV)
+  const int NV = FV / 4;                        // their float4s
   const int o0 = q * kSplitRows;                // own rows in the row phase
   const int nown = max(0, min(kSplitRows, B - o0));
   const int e0 = q * SPC, ne = max(0, min(SPC, SP - e0));  // owned small
@@ -1488,11 +1507,12 @@ local_sgd_split_kernel(const Args a) {
   for (int e = tid; e < W; e += T) {           // packed W1[f0 + f][j]
     const int f = e / H, i = (e - f * H) * FQ + f;
     const size_t p = (size_t)f0 * H + e;
-    s_w[i] = pm[p];
+    const bool real = f < FV;                   // slots past F hold zeros
+    s_w[i] = real ? pm[p] : 0.f;
     if constexpr (!kSgd) {
-      s_mw[i] = a.mu[so + p];
-      s_vw[i] = a.nu[so + p];
-      s_xw[i] = a.nu_max[so + p];
+      s_mw[i] = real ? a.mu[so + p] : 0.f;
+      s_vw[i] = real ? a.nu[so + p] : 0.f;
+      s_xw[i] = real ? a.nu_max[so + p] : 0.f;
     }
   }
   for (int e = tid; e < SP; e += T) s_sp[e] = pm[oSm + e];
@@ -1505,7 +1525,7 @@ local_sgd_split_kernel(const Args a) {
     }
   }
   for (int f = tid; f < FQ; f += T)
-    s_fm[f] = a.fmask ? a.fmask[(size_t)m * F + f0 + f] : 1.f;
+    s_fm[f] = f >= FV ? 0.f : a.fmask ? a.fmask[(size_t)m * F + f0 + f] : 1.f;
   // the batch's rows of steps 0 and 1 (client c's rows of its T1 * N);
   // step s + 1's replace step s - 1's at the start of step s
   auto load_rows = [&](int s) {
@@ -1544,7 +1564,7 @@ local_sgd_split_kernel(const Args a) {
       const float* src = xc + (size_t)s_rows[(s & 1) * B + r0 + cr] * F;
       float* dst = s_x + ((size_t)st * kSplitRows + cr) * XS;
 #pragma unroll 4
-      for (int q4 = cq; q4 < NQ; q4 += 8) copy16(dst + 4 * q4, src + 4 * q4);
+      for (int q4 = cq; q4 < NV; q4 += 8) copy16(dst + 4 * q4, src + 4 * q4);
     }
     copies_arrive(bar + st);
     ++iu;
@@ -1600,7 +1620,7 @@ local_sgd_split_kernel(const Args a) {
         for (int j = 0; j < kSplitMaxH; ++j) acc[0][j] = acc[1][j] = 0.f;
         if (lane < nra) {           // the second tile's rows are as many or
           const bool inb = lane < nrb;  // fewer
-          for (int f = 4 * warp; f < FQ; f += 4 * kWideWarps) {
+          for (int f = 4 * warp; f < FV; f += 4 * kWideWarps) {
             const float4 mf = *reinterpret_cast<const float4*>(s_fm + f);
             const float4 qa = *reinterpret_cast<const float4*>(xa + f);
             const float4 qb = inb ? *reinterpret_cast<const float4*>(xb + f)
@@ -1822,7 +1842,7 @@ local_sgd_split_kernel(const Args a) {
     // the RG row groups' sums in group order into s_red ([H][FQ])
     {
       const int RG = T / NQ, fq = tid % NQ, rg = tid / NQ;
-      const bool on = rg < RG;
+      const bool on = rg < RG && fq < NV;     // a real input quad
       float acc[4][kSplitMaxH];
 #pragma unroll
       for (int k = 0; k < 4; ++k)
@@ -1876,8 +1896,10 @@ local_sgd_split_kernel(const Args a) {
       }
     }
 
-    // (6) W1's slice steps here, with its own moments
+    // (6) W1's slice steps here, with its own moments (its slots past F
+    // stay zero)
     for (int i = tid; i < W; i += T) {
+      if (FV < FQ && i % FQ >= FV) continue;
       float mu = 0.f, nu = 0.f, vmax = 0.f;
       if constexpr (!kSgd) {
         mu = s_mw[i];
@@ -1901,6 +1923,7 @@ local_sgd_split_kernel(const Args a) {
   for (int e = tid; e < W; e += T) {
     const int f = e / H, i = (e - f * H) * FQ + f;
     const size_t p = (size_t)f0 * H + e;
+    if (f >= FV) break;             // e rises with f: the rest are past F
     op[p] = active ? s_w[i] : pm[p];
     if (!kSgd && active) {
       a.mu[so + p] = s_mw[i];
@@ -2084,14 +2107,14 @@ int launch_wide(const Args& a, int pairs, int device, cudaStream_t st,
                         pairs, Q, smem, device, st, clusters);
 }
 
-// What the split kernel takes: the fnn, F a multiple of 64 (each of the 16
-// CTAs whole float4s of every row) with at most 1024 inputs a CTA, at most
-// 16 hidden units and 64 classes, B <= 512, x 16-byte aligned, and its
-// shared memory within a block's.
+// What the split kernel takes: the fnn, F a multiple of 4 (16-byte rows;
+// each of the 16 CTAs whole float4s of every row, split_fq(F) of them) with
+// at most 1024 inputs a CTA, at most 16 hidden units and 64 classes, B <=
+// 512, x 16-byte aligned, and its shared memory within a block's.
 template <bool kSgd>
 int launch_split(const Args& a, int pairs, int device, cudaStream_t st,
                  int* clusters) {
-  if (a.F % (4 * kSplitCluster) || a.F / kSplitCluster > kSplitMaxFq
+  if (a.F % 4 || split_fq(a.F) > kSplitMaxFq
       || a.H < 1 || a.H > kSplitMaxH || a.K < 1 || a.K > kSplitMaxK
       || a.B > kSplitRows * kSplitCluster
       || (reinterpret_cast<uintptr_t>(a.x) & 15))

@@ -37,7 +37,9 @@ of 4 floats, such as MNIST-4's F = 784 (and femnist's fnn, 62 classes, two
 a lane), the fnn or the lr, AMSGrad or SGD, where ``wide_smem_bytes``
 fits; the split kernel (a cluster of 16 CTAs a pair, each a sixteenth of
 the inputs, x streamed through shared memory twice a step) for the fnn at
-inputs the wide kernel's budget refuses, such as fmow's F = 3072, where
+inputs the wide kernel's budget refuses, such as fmow's F = 3072 or
+stackoverflow_lr's F = 1000 under AMSGrad (a sixteenth rounded up to
+float4s, ``split_fq``, the last CTA padded past F), where
 ``split_smem_bytes`` fits; the general kernel for the rest (e.g.
 ``fnn_hidden_dim = 32`` and the lr at SEA's F = 3). ``local_sgd.launches``
 counts every launch, ``local_sgd.wide_launches`` the wide kernel's and
@@ -150,19 +152,26 @@ def general_smem_bytes(F: int, H: int, K: int, B: int,
     return 4 * (arrays * P + B * (H + K) + GENERAL_WARPS + F)
 
 
+def split_fq(F: int) -> int:
+    """Inputs a CTA of the split kernel takes (``csrc/local_sgd.cu::
+    split_fq``): a sixteenth of F rounded up to whole float4s, F / 16 where
+    F % 64 == 0; the last CTAs' slots past F are padding."""
+    return -(-F // (4 * SPLIT_CLUSTER)) * 4
+
+
 def split_smem_bytes(F: int, H: int, K: int, B: int,
                      optimizer: str = "adam") -> int:
     """Shared memory of one CTA of the split kernel, as
     ``csrc/local_sgd.cu::split_smem_bytes`` counts it: the stages'
-    mbarriers, then the x ring (4 tiles of 32 rows of F / 16 inputs at the
-    padded stride), the forward's warp partials of two tiles or dW1's
+    mbarriers, then the x ring (4 tiles of 32 rows of ``split_fq(F)``
+    inputs at the padded stride), the forward's warp partials of two tiles or dW1's
     slice, W1's slice and (AMSGrad) its three moments, the mask's slice, dh
     (rows padded to float4s) and Z1's partials of every batch row, the
     small params (b1, W2, b2) and their partials, (AMSGrad) the moments of
     the sixteenth of them the CTA steps, h and dz of the CTA's 32 rows,
     their labels, the warps' losses and the loss, and the batch's row
     indices of two steps."""
-    FQ = F // SPLIT_CLUSTER
+    FQ = split_fq(F)
     W, SP = H * FQ, H + H * K + K
     red = 2 * 8 * SPLIT_ROWS * H
     sgd = optimizer == "sgd"
@@ -175,12 +184,13 @@ def split_smem_bytes(F: int, H: int, K: int, B: int,
 
 
 def _split_fits(F: int, H: int, K: int, B: int, optimizer: str) -> bool:
-    """Whether the split kernel takes the shape: the fnn, whole float4s
-    of every row in each of its 16 CTAs (F % 64 == 0) and at most 1024
-    inputs a CTA, at most 16 hidden units and 64 classes, B <= 512, and
-    its shared memory within a block's."""
-    return H >= 1 and F % (4 * SPLIT_CLUSTER) == 0 \
-        and F // SPLIT_CLUSTER <= SPLIT_MAX_FQ and H <= SPLIT_MAX_H \
+    """Whether the split kernel takes the shape: the fnn, 16-byte rows (F
+    % 4 == 0: whole float4s of every row in each of its 16 CTAs, the last
+    ones padded past F where F % 64 != 0) and at most 1024 inputs a CTA,
+    at most 16 hidden units and 64 classes, B <= 512, and its shared
+    memory within a block's."""
+    return H >= 1 and F % 4 == 0 \
+        and split_fq(F) <= SPLIT_MAX_FQ and H <= SPLIT_MAX_H \
         and 1 <= K <= SPLIT_MAX_K and 1 <= B <= SPLIT_ROWS * SPLIT_CLUSTER \
         and split_smem_bytes(F, H, K, B, optimizer) <= MAX_SMEM
 
@@ -194,7 +204,12 @@ def _route(F: int, H: int, K: int, B: int, optimizer: str = "adam") -> str:
         return "fused"
     if _wide_fits(F, H, K, B, optimizer):
         return "wide"
-    if _split_fits(F, H, K, B, optimizer):
+    # the split kernel pads its last CTAs where F % 64 != 0; there it takes
+    # only what the general kernel's shared memory refuses, so every shape
+    # the general kernel took before the padding existed keeps it
+    if _split_fits(F, H, K, B, optimizer) and (
+            F % (4 * SPLIT_CLUSTER) == 0
+            or general_smem_bytes(F, H, K, B, optimizer) > MAX_SMEM):
         return "split"
     return "general"
 
@@ -437,7 +452,7 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
                          f"of at most {WIDE_MAX_WIDTH}, B <= "
                          f"{WIDE_ROWS * WIDE_MAX_CLUSTER} within "
                          f"{MAX_SMEM} bytes (wide_smem_bytes), the split one "
-                         f"the fnn at F % 64 == 0 within its budget "
+                         f"the fnn at F % 4 == 0 within its budget "
                          f"(split_smem_bytes), the general one any shape, "
                          f"the lr and SGD")
     ctas = -(-B // WIDE_ROWS) if route == "wide" \

@@ -62,12 +62,16 @@ def main() -> None:
     ap.add_argument("algo")
     ap.add_argument("arg")
     ap.add_argument("--dataset", default="MNIST",
-                    help="MNIST or fmow (at its 32x32x3 default)")
+                    choices=("MNIST", "fmow", "susy", "ro",
+                             "stackoverflow_lr", "femnist", "cifar10"),
+                    help="the dataset, at its registry defaults (fmow at "
+                         "32x32x3)")
     ap.add_argument("--pool", type=int, default=4)
     ap.add_argument("--seeds", type=int, nargs="+", default=[1, 2])
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--committed", required=True,
-                    help="metrics.jsonl of the committed seed-0 run")
+    ap.add_argument("--committed",
+                    help="metrics.jsonl of the committed seed-0 run, where "
+                         "there is one")
     ap.add_argument("--port", action="store_true",
                     help="run the port on the CPU from the reference's init")
     args = ap.parse_args()
@@ -87,6 +91,8 @@ def main() -> None:
         means.append(sum(accs) / len(accs))
         print(json.dumps({"seed": seed, "test_acc": accs, "mean": means[-1],
                           "seconds": time.time() - t0}), flush=True)
+    if not args.committed:
+        return
     with open(args.committed) as f:
         ref = final_accs(json.loads(line) for line in f)[:args.steps]
     ref_mean = sum(ref) / len(ref)

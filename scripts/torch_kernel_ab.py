@@ -13,8 +13,9 @@ checkout, builds that side's kernels there, and for each case, on
 ``chip_smoke``'s inputs: K1's fused kernel with its K2 epilogue
 (``local_sgd_fedavg``, SEA), the same launch with the folded eval, K1's
 general kernel forced at SEA (the fnn under AMSGrad and SGD, the lr under
-AMSGrad), its wide kernel at MNIST-4's width (the same three) and its split
-kernel at fmow's (the fnn under AMSGrad and SGD); K3's
+AMSGrad), its wide kernel at MNIST-4's width (the same three) and at
+femnist-fnn's (784 -> 10 -> 62, two classes a lane) and its split kernel at
+fmow's (the fnn under AMSGrad and SGD); K3's
 fused and general kernels at SEA (G = 2), its wide route at MNIST-4's
 width (G = 2) and at fmow's (G = 2 and every step, T1). It prints one
 ``ab_kernel`` JSON line a side and case: ms a call (CUDA events), device
@@ -45,7 +46,8 @@ import sys
 
 ORDER = ("base", "this", "this", "base")
 CASES = ("k1_fused", "k1_fused_eval", "k1_general", "k1_general_sgd",
-         "k1_general_lr", "k1_wide", "k1_wide_sgd", "k1_wide_lr", "k1_split",
+         "k1_general_lr", "k1_wide", "k1_wide_sgd", "k1_wide_lr",
+         "k1_wide_femnist", "k1_split",
          "k1_split_sgd", "k3_fused", "k3_general", "k3_wide", "k3_fmow",
          "k3_fmow_cells")
 
@@ -113,6 +115,7 @@ def child(cases) -> None:
         "k1_wide": lambda: k1("MNIST"),
         "k1_wide_sgd": lambda: k1("MNIST", optimizer="sgd"),
         "k1_wide_lr": lambda: k1("MNIST", model="lr"),
+        "k1_wide_femnist": lambda: k1("femnist"),
         "k1_split": lambda: k1("fmow"),
         "k1_split_sgd": lambda: k1("fmow", optimizer="sgd"),
         "k3_fused": lambda: k3("sea"),

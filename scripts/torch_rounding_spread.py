@@ -1,24 +1,29 @@
-"""How far rounding alone moves MNIST-4's (or fmow's) Test/Acc on the card:
-the win-1 and oblivious runs of ``chip_smoke.py``'s ``MNIST_RUNS`` (or
-``FMOW_RUNS``; 10 steps, the reference's init) through K1's kernel of that
+"""How far rounding alone moves MNIST-4's (or another dataset's) Test/Acc
+on the card: the win-1 and oblivious runs of ``chip_smoke.py``'s
+``MNIST_RUNS`` (or ``FMOW_RUNS``, ``TABULAR_RUNS``' or ``IMAGE_RUNS``' runs
+of the dataset; 10 steps, the reference's init) through K1's kernel of that
 width (the wide one; fmow's: the split one), the same kernel with its
 cluster sum taken in reverse rank order (a copy of ``csrc/local_sgd.cu``
 built beside the package's: the wide kernel's gradient sum, the split
 kernel's sum of Z1's partials), at MNIST's width the general kernel, and
 the plain version (``local_sgd_ref`` on the card, on the batch rows as drawn
 and permuted within each batch). Each changes only the order of float32
-sums.
+sums. ``--plain_only`` runs the plain variants alone: the envelope from
+which a gate is fixed before any kernel's run of the dataset is read.
 
     python3 scripts/torch_rounding_spread.py [--runs win-1,oblivious]
-        [--dataset MNIST|fmow] [--permutations 2]
+        [--dataset MNIST|fmow|susy|ro|stackoverflow_lr|femnist|cifar10]
+        [--permutations 2] [--plain_only]
 
 One JSON line a (variant, run): its Test/Acc per step, mean, and the
-committed run's mean (at fmow also its largest distance a step and on the
-mean from the JAX package's CPU run from the same init,
-``chip_smoke.FMOW_REFERENCE_ACCS``); then one line with the spread of each
-run's means and, at fmow, the plain variants' envelope: the largest of
-those distances over the plain version's runs, from which
-``chip_smoke.FMOW_RUNS`` takes its gates.
+committed run's mean where there is one (beyond MNIST also its largest
+distance a step and on the mean from the series its gate holds it to: the
+JAX package's CPU run from the same init, ``chip_smoke.FMOW_REFERENCE_ACCS``
+or ``NEW_REFERENCE_ACCS``, else the committed run); then one line with the
+spread of each run's means and, beyond MNIST, the plain variants'
+envelope: the largest of those distances over the plain version's runs,
+from which ``chip_smoke.FMOW_RUNS`` and ``NEW_PLAIN_ENVELOPE`` take their
+gates.
 Needs a CUDA card (exits 1 without one); takes ~2 minutes at MNIST's width
 (the general kernel and the plain version take ~40 s and ~20 s a run).
 """
@@ -84,9 +89,13 @@ def reversed_sum_kernel(build, tmp: str, route: str = "wide"):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", default="win-1,oblivious")
-    ap.add_argument("--dataset", default="MNIST", choices=("MNIST", "fmow"))
+    ap.add_argument("--dataset", default="MNIST",
+                    choices=("MNIST", "fmow", "susy", "ro",
+                             "stackoverflow_lr", "femnist", "cifar10"))
     ap.add_argument("--permutations", type=int, default=2,
                     help="plain runs on batch rows permuted within a batch")
+    ap.add_argument("--plain_only", action="store_true",
+                    help="the plain variants only (no kernel's run)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -101,16 +110,26 @@ def main() -> int:
     k1 = importlib.import_module("feddrift_torch.kernels.local_sgd")
     card = cs.phase_device()
     build.build_all()
-    fmow = args.dataset == "fmow"
-    init = FeedForwardNN(*(((32, 32, 3), 62) if fmow else ((784,), 10)),
-                         10).unpack(torch.from_numpy(np.load(
-                             cs.FMOW_REFERENCE_INIT if fmow
-                             else cs.MNIST_REFERENCE_INIT)))
-    table = cs.FMOW_RUNS if fmow else cs.MNIST_RUNS
-    reference = cs.FMOW_REFERENCE_ACCS if fmow else {}
+    fmow, new = args.dataset == "fmow", args.dataset in cs.NEW_DATASETS
+    if new:
+        shape, classes, width, _ = cs.NEW_DATASETS[args.dataset]
+        path = cs._reference_init(args.dataset)
+        table = {**cs.TABULAR_RUNS, **cs.IMAGE_RUNS}[args.dataset]
+        # the series each run's gate holds it to: the JAX package's run,
+        # else the committed one
+        reference = {r[0]: cs.NEW_REFERENCE_ACCS.get(args.dataset, {})
+                     .get(r[0], r[5]) for r in table}
+        reference = {k: v for k, v in reference.items() if v is not None}
+    else:
+        shape, classes = ((32, 32, 3), 62) if fmow else ((784,), 10)
+        path = cs.FMOW_REFERENCE_INIT if fmow else cs.MNIST_REFERENCE_INIT
+        table = cs.FMOW_RUNS if fmow else cs.MNIST_RUNS
+        reference = cs.FMOW_REFERENCE_ACCS if fmow else {}
+        width = "split" if fmow else "wide"
+    init = FeedForwardNN(shape, classes, 10).unpack(
+        torch.from_numpy(np.load(path)))
     runs = {r[0]: r for r in table if r[0] in args.runs.split(",")}
     kernel, route, k1_fn = k1._kernel, k1._route, step_mod.local_sgd
-    width = "split" if fmow else "wide"
 
     def plain_on(perm):
         def plain(x, y, flat, opt, t_idx, slot, tw, *, batch_size,
@@ -130,14 +149,18 @@ def main() -> int:
             .cuda()))
 
     with tempfile.TemporaryDirectory() as tmp:
-        reversed_fn = reversed_sum_kernel(build, tmp, width)
-        variants = (
+        reversed_fn = None if args.plain_only or width == "general" \
+            else reversed_sum_kernel(build, tmp, width)
+        variants = () if args.plain_only else (
             (width, lambda: None),
-            (width + "_sum_reversed",
-             lambda: setattr(k1, "_kernel", lambda: reversed_fn)),
-            # fmow's width: the general kernel refuses it (shared memory)
-            *(() if fmow else (("general", lambda: setattr(
-                k1, "_route", lambda F, H, K, B, o="adam": "general")),)),
+            *(() if reversed_fn is None else (
+                (width + "_sum_reversed",
+                 lambda: setattr(k1, "_kernel", lambda: reversed_fn)),)),
+            # MNIST's width only: the general kernel refuses fmow's (shared
+            # memory), and the new datasets' kernels are their own
+            *(() if fmow or new else (("general", lambda: setattr(
+                k1, "_route", lambda F, H, K, B, o="adam": "general")),)),)
+        variants += (
             ("plain", lambda: setattr(step_mod, "local_sgd", plain_on(
                 torch.arange(500, device="cuda")))),
             *((f"plain_rows_permuted_{i}", permuted(i))
@@ -156,7 +179,7 @@ def main() -> int:
                 got = cs._drive(cfg, init=init, syncs=False)
                 accs = got["accs"]
                 mean = sum(accs) / len(accs)
-                ref = sum(pinned[:T]) / T
+                ref = None if pinned is None else sum(pinned[:T]) / T
                 means.setdefault(algo, {})[name] = mean
                 dist = {}
                 if algo in reference:
@@ -175,7 +198,8 @@ def main() -> int:
                 print(json.dumps({"variant": name, "run": algo,
                                   "test_acc": accs, "mean": mean, **dist,
                                   "committed_mean": ref,
-                                  "mean_minus_committed": mean - ref,
+                                  "mean_minus_committed": None if ref is None
+                                  else mean - ref,
                                   "mean_tol": mean_tol,
                                   "wide_launches": got["k1_wide_launches"],
                                   "split_launches":

@@ -40,10 +40,11 @@ def _mnist_files(tmp_path):
                                   train_iterations=1, sample_num=10))
 
 
-def _other_image_data():
+def _other_image_data(tmp_path):
     from feddrift_torch.data.prototype import generate_prototype_drift
-    generate_prototype_drift("femnist", np.zeros((1, 10), np.int64), 1, 10,
-                             5)
+    (tmp_path / "cifar-10-batches-py").mkdir()
+    generate_prototype_drift("cifar10", np.zeros((1, 10), np.int64), 1, 10,
+                             5, data_dir=str(tmp_path))
 
 
 def _text_corpus(tmp_path):
@@ -63,7 +64,8 @@ REFUSALS = (
     ("model_zoo", _model_zoo, NotImplementedError,
      "The model zoo and transformer training"),
     ("mnist_files", _mnist_files, NotImplementedError, "The other datasets"),
-    ("other_image_data", _other_image_data, KeyError, "The other datasets"),
+    ("other_image_data", _other_image_data, NotImplementedError,
+     "The other datasets"),
     ("text_corpus", _text_corpus, NotImplementedError, "The other datasets"),
 )
 
@@ -100,7 +102,11 @@ def test_no_refusal_cites_an_item_number():
 # (case, F, H, K, B, optimizer); H = 0 is the lr
 UNLAID = (("fmow_lr_adam", 3072, 0, 62, 500, "adam"),
           ("fmow_lr_sgd", 3072, 0, 62, 500, "sgd"),
-          ("stackoverflow_lr_fnn_adam", 1000, 10, 50, 500, "adam"))
+          ("cifar100_fnn_adam", 3072, 10, 100, 500, "adam"),
+          ("cifar100_fnn_sgd", 3072, 10, 100, 500, "sgd"),
+          ("femnist_lr_adam", 784, 0, 62, 500, "adam"),
+          ("cifar10_lr_sgd", 3072, 0, 10, 500, "sgd"),
+          ("stackoverflow_lr_full_scale_fnn", 10000, 10, 500, 500, "adam"))
 LAYOUT_ITEM = "K1 and K3 at wide inputs: what PRs 12, 14 and 15 left"
 
 
@@ -138,9 +144,16 @@ def test_unlaid_k1_shapes_are_refused_naming_the_item(case, F, H, K, B,
                                    (784, 10, 10, 500, "adam"),
                                    (3072, 10, 62, 500, "sgd"),
                                    (3, 0, 2, 500, "adam"),
-                                   (1000, 10, 50, 500, "sgd")])
+                                   (1000, 10, 50, 500, "sgd"),
+                                   (1000, 10, 50, 500, "adam"),
+                                   (18, 10, 2, 500, "adam"),
+                                   (5, 10, 2, 500, "adam"),
+                                   (784, 10, 62, 500, "adam"),
+                                   (3072, 10, 10, 500, "adam")])
 def test_laid_k1_shapes_are_not_refused(shape):
     """Shapes a K1 layout takes (SEA's fnn, MNIST-4's, fmow's under SGD,
-    SEA's lr, stackoverflow_lr's fnn under SGD on the general kernel)."""
+    SEA's lr, stackoverflow_lr's fnn under SGD on the wide kernel and under
+    AMSGrad on the split kernel padded past F, susy's and ro's on the
+    general kernel, femnist's and cifar10's)."""
     from feddrift_torch.kernels.local_sgd import layout_refusal
     assert layout_refusal(*shape) is None

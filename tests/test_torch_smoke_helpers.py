@@ -330,7 +330,9 @@ def test_k1_cases_run_every_instantiation_of_both_kernels():
     are lr runs."""
     from feddrift_torch.kernels.local_sgd import _route
     widths = {"sea": (3, 2), "sine": (2, 2), "MNIST": (784, 10),
-              "fmow": (3072, 62), "femnist": (784, 62)}
+              "fmow": (3072, 62), "femnist": (784, 62),
+              "stackoverflow_lr": (1000, 50), "susy": (18, 2),
+              "cifar10": (3072, 10)}
     routes = set()
     for label, dataset, _, model, hidden, optimizer, forced, _ \
             in chip_smoke.K1_CASES:

@@ -4,7 +4,8 @@
 ``eval_stream_kernel``, 64-row tiles with F streamed): their routes,
 shared-memory budgets and bank layouts on the CPU, and the kernels
 themselves against their plain versions on the card (``gpu``), at MNIST-4's
-width and at fmow's (F 3072, K 62). The plain versions, ``local_sgd_ref`` and
+width, at fmow's (F 3072, K 62) and at stackoverflow_lr's (F 1000, K 50,
+the split kernel with its last CTA padded past F). The plain versions, ``local_sgd_ref`` and
 ``eval_cells_ref``, are held to the JAX package in
 ``tests/test_torch_lr_sgd.py``, ``tests/test_torch_train_step.py`` and
 ``tests/test_torch_eval_cells.py``.
@@ -40,6 +41,7 @@ LR, WD = 0.05, 0.001
 MNIST_FNN, MNIST_LR = (784, 10, 10), (784, 0, 10)
 FEMNIST_FNN, CIFAR10_FNN, FMOW_FNN = (784, 10, 62), (3072, 10, 10), \
     (3072, 10, 62)
+SO_FNN = (1000, 10, 50)       # stackoverflow_lr's fnn at its defaults
 
 
 # --------------------------------------------------------------------------
@@ -164,11 +166,48 @@ def test_stream_w0_stride_spreads_b_fragments_over_the_banks(cols):
     ((3072, 0, 10), 500, "adam"),   # the lr at fmow's width: not split
     ((3072, 10, 65), 500, "adam"),  # more than 64 classes
     ((3072, 17, 62), 500, "sgd"),   # more than 16 hidden units
-    ((3104, 10, 62), 500, "adam"),  # F % 64 != 0
+    ((3074, 10, 62), 500, "adam"),  # F % 4 != 0
     ((3072, 10, 62), 513, "adam"),  # more than 16 x 32 rows
     ((16384, 10, 62), 500, "adam")])  # 1024 inputs a CTA: over budget
 def test_split_refuses_what_it_cannot_take(shape, batch, optimizer):
     assert k1_wrapper._route(*shape, batch, optimizer) == "general"
+
+
+def test_stackoverflow_lr_fnn_takes_the_split_kernel_under_amsgrad():
+    """1000 -> 10 -> 50 at B 500: AMSGrad misses the wide kernel's budget
+    by 3,152 bytes and takes the split kernel, each CTA 64 inputs (a
+    sixteenth of 1000 rounded up to float4s), the last 40 and 24 slots of
+    padding; SGD keeps the wide kernel; K3 takes its resident 32-row
+    tiles."""
+    assert k1_wrapper.wide_smem_bytes(*SO_FNN, 500) \
+        == k1_wrapper.MAX_SMEM + 3152
+    assert k1_wrapper._route(*SO_FNN, 500, "adam") == "split"
+    assert k1_wrapper._route(*SO_FNN, 500, "sgd") == "wide"
+    assert k1_wrapper.split_fq(1000) == 64
+    assert 15 * 64 + 40 == 1000
+    assert k3._route(*SO_FNN) == "wide" and k3.wide_rows(*SO_FNN) == 32
+
+
+@pytest.mark.parametrize("F", [3072, 192, 1024, 64])
+def test_split_inputs_a_cta_are_a_sixteenth_where_f_divides(F):
+    """Where F % 64 == 0 a CTA's inputs are F / 16, as they were before the
+    padding existed: the split kernel's existing shapes keep their
+    layout."""
+    assert k1_wrapper.split_fq(F) == F // 16
+
+
+def test_split_budget_counts_the_padded_layout():
+    """stackoverflow_lr's fnn under AMSGrad: tiles of 32 rows of 64 inputs
+    at stride 68, the forward's partials of two tiles (5,120 floats, more
+    than W1's slice of 640), W1's slice and its three moments, the mask's
+    slice, dh at stride 12 and Z1's partials of 500 rows, the small params
+    (560) and their partials, three moments of 35, h and dz of 32 rows,
+    the labels, the losses and two steps' rows: 126,580 bytes."""
+    FQ, W, SP = 64, 640, 10 + 500 + 50
+    floats = 4 * 32 * 68 + 2 * 8 * 32 * 10 + 4 * W + FQ + 500 * 12 \
+        + 500 * 10 + 2 * SP + 3 * 35 + 32 * (10 + 50) + 32 + 8 + 4 + 2 * 500
+    assert k1_wrapper.split_smem_bytes(*SO_FNN, 500) == 32 + 4 * floats \
+        == 126580
 
 
 def test_wide_budget_counts_the_layout():
@@ -306,6 +345,97 @@ def test_split_k1_matches_plain_with_one_model(cuda, optimizer, gather,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("optimizer,gather,masked,batch,models", [
+    ("adam", False, False, 500, 4), ("adam", True, True, 500, 4),
+    ("sgd", False, True, 500, 4), ("adam", False, False, 32, 4),
+    ("adam", True, True, 500, 1)])
+def test_split_k1_matches_plain_at_stackoverflow_lr_width(
+        cuda, optimizer, gather, masked, batch, models):
+    """The split kernel at stackoverflow_lr's fnn (1000 -> 10 -> 50), its
+    last CTA padded past F (forced: SGD's route is the wide kernel, B
+    32's the general one), on the dataset's own bag-of-words rows
+    (``_so_round``), held as at fmow's width."""
+    _hold_k1(_so_round(optimizer, 55, gather, masked, batch, models),
+             optimizer, "split_launches")
+
+
+def _so_round(optimizer, seed, gather, masked, batch, models):
+    """One round of stackoverflow_lr's fnn on the card on the dataset's own
+    rows at its defaults, as ``chip_smoke.py``'s K1 cases draw them (its
+    ``_train_case``; gathered rows and 0/1 feature masks from its
+    ``_gathered``, or masks alone), the split route forced. The
+    dense N(0.3, 0.5) rows of ``_mnist_round`` at 1000 inputs and 50
+    random labels make a pair's five AMSGrad steps rounding-chaotic: on
+    them the kernel and the plain version each left float64 on one whole
+    pair (the kernel on model 2, the plain version on model 1)."""
+    import chip_smoke
+    args, kw, dims, tw = chip_smoke._train_case(
+        "stackoverflow_lr", seed, optimizer=optimizer, models=models,
+        batch=batch)
+    x, y, flat, opt, t_idx, slot, total_w = args
+    kw = dict(kw, optimizer=optimizer, route="split")
+    if gather:
+        idx, fm = chip_smoke._gathered(x, tw, dims["S"], dims["B"], seed)
+        t_idx = slot = None
+        kw.update(idx=idx, feat_mask=fm if masked else None)
+    elif masked:
+        rng = np.random.default_rng(seed)
+        kw["feat_mask"] = torch.from_numpy(
+            (rng.random((models, dims["F"])) < 0.7).astype(np.float32)).cuda()
+    state = lambda: {k: v.clone() for k, v in opt.items()}
+    return (x, y, flat, t_idx, slot, total_w), kw, state
+
+
+def _pad_inputs(case, F, FP, H):
+    """The same round at FP > F inputs: x, W1's rows and the masks padded
+    with zeros, the optimizer state at the padded P."""
+    (x, y, flat, t_idx, slot, total_w), kw, _ = case
+    pad = torch.zeros(flat.shape[0], (FP - F) * H, device=flat.device)
+    flatp = torch.cat([flat[:, :F * H], pad, flat[:, F * H:]], 1)
+    kw = dict(kw)
+    if kw.get("feat_mask") is not None:
+        kw["feat_mask"] = torch.nn.functional.pad(kw["feat_mask"],
+                                                  (0, FP - F))
+    xp = torch.nn.functional.pad(x, (0, FP - F)).contiguous()
+    return (xp, y, flatp, t_idx, slot, total_w), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("optimizer,gather,masked", [
+    ("adam", False, False), ("adam", True, True), ("sgd", True, True)])
+def test_split_k1_padding_is_the_unpadded_kernel(cuda, optimizer, gather,
+                                                 masked):
+    """At F = 1000 (64 inputs a CTA, the last CTA 40 real and 24 padded)
+    the split kernel is bitwise the same kernel at F = 1024 (F % 64 == 0:
+    no padding) on the inputs zero-padded to 1024 (x, W1's rows, the
+    masks), whose rows past 1000 stay zero: the padding adds no term to
+    any sum and moves no parameter."""
+    F, FP, H = 1000, 1024, 10
+    case = _mnist_round("fnn", optimizer, 56, gather, masked, F=F, K=50)
+    (x, y, flat, t_idx, slot, total_w), kw, state = case
+    kw = dict(kw, route="split")
+    got = local_sgd(x, y, flat, state(), t_idx, slot, total_w, **kw)
+    args, kwp = _pad_inputs(case, F, FP, H)
+    kwp["route"] = "split"
+    P = flat.shape[1] + (FP - F) * H
+    statep = init_opt_state(flat.shape[0], x.shape[0], P, "cuda", optimizer)
+    xp, _, flatp, *draws = args
+    padded = local_sgd(xp, y, flatp, statep, *draws, **kwp)
+    torch.cuda.synchronize()
+    cut = lambda t: torch.cat([t[..., :F * H], t[..., FP * H:]], -1)
+    tail = lambda t: t[..., F * H:FP * H]
+    assert torch.equal(got[0], cut(padded[0]))
+    assert not tail(padded[0]).any()
+    assert torch.equal(got[2], padded[2]) and torch.equal(got[3], padded[3])
+    for k in got[1]:
+        if k == "count":
+            assert torch.equal(got[1][k], padded[1][k])
+        else:
+            assert torch.equal(got[1][k], cut(padded[1][k]))
+            assert not tail(padded[1][k]).any()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("optimizer", ["adam", "sgd"])
 def test_wide_k1_takes_femnist_fnn(cuda, optimizer):
     """The wide kernel's row phase at two classes a lane: femnist-fnn's
@@ -321,7 +451,8 @@ def _hold_k1(case, optimizer, counter):
     again = local_sgd(x, y, flat, state(), t_idx, slot, total_w, **kw)
     torch.cuda.synchronize()
     assert getattr(local_sgd, counter) == launched + 2
-    want = local_sgd_ref(x, y, flat, state(), t_idx, slot, total_w, **kw)
+    plain = {k: v for k, v in kw.items() if k != "route"}
+    want = local_sgd_ref(x, y, flat, state(), t_idx, slot, total_w, **plain)
     assert torch.equal(got[0], again[0]) and torch.equal(got[3], again[3])
     assert torch.equal(got[2], want[2])
     over = lambda a, b, atol=0.0, rtol=0.0: int(
@@ -334,7 +465,7 @@ def _hold_k1(case, optimizer, counter):
         exact = local_sgd_ref(
             x.double(), y, flat.double(),
             {k: v.double() if v.is_floating_point() else v
-             for k, v in state().items()}, t_idx, slot, total_w, **kw)
+             for k, v in state().items()}, t_idx, slot, total_w, **plain)
         off = [over(c.double(), exact[0], 1e-5)
                + over(o["mu"].double(), exact[1]["mu"], 1e-5)
                + sum(over(o[k].double(), exact[1][k], rtol=1e-4)
@@ -438,12 +569,12 @@ def test_budget_mirrors_equal_the_kernels_own(cuda):
     rows = library("eval_cells").eval_cells_wide_rows
     rows.restype = ctypes.c_int
     for F_, H_, K_ in (MNIST_FNN, MNIST_LR, FEMNIST_FNN, CIFAR10_FNN,
-                       FMOW_FNN, (64, 10, 10), (788, 32, 2)):
+                       FMOW_FNN, SO_FNN, (64, 10, 10), (788, 32, 2)):
         for B_ in (40, 500, 512):
             for opt in ("adam", "sgd"):
                 assert fn1(F_, H_, K_, B_, int(opt == "sgd")) \
                     == k1_wrapper.wide_smem_bytes(F_, H_, K_, B_, opt)
-                if H_ and F_ % 64 == 0:
+                if H_ and F_ % 4 == 0:
                     assert fn2(F_, H_, K_, B_, int(opt == "sgd")) \
                         == k1_wrapper.split_smem_bytes(F_, H_, K_, B_, opt)
         assert fn3(F_, H_, K_) == k3.wide_smem_bytes(F_, H_, K_)
