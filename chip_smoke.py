@@ -64,8 +64,13 @@ Phases, one or more lines of output each:
    its bound, its clusters at once and the rate at which it streams x;
    the split kernel padded past F at stackoverflow_lr's fnn (1000 -> 10 ->
    50, AMSGrad, contiguous and gathered with masks) and at cifar10's (K
-   10), the general kernel at susy's (18 -> 10 -> 2), each with ptxas'
-   registers and spills in the build line.
+   10), each with ptxas' registers and spills in the build line; the fused
+   kernel at susy's (18 -> 10 -> 2) and ro's (5 -> 10 -> 2) widths, where
+   it folds a row's values 32 at a time (contiguous, and gathered with
+   masks; ptxas' registers and spills of each instance on its lines),
+   held to the plain version as SEA's fused case is, the general kernel
+   forced on the same inputs timed beside it (``susy_width_by_route``,
+   ``ro_width_by_route``).
    train_draw: K4, the weighted draw, as its two kernels at KUE's
    canonical shape with clients 1 and 6 left out by a round's mask: K4a
    (``weighted_cdf``, the step's cdf of the unmasked weights) and K4b
@@ -86,7 +91,9 @@ Phases, one or more lines of output each:
    fused kernel (``local_sgd_fedavg``) at the canonical shape, on gathered
    rows (KUE's route) and at F = 2: bitwise equal to the K1 launch
    followed by the ``fedavg.cu`` launch in every output, over 200 calls
-   back to back, timed beside K1 and K2 alone; the same launch with K3
+   back to back, timed beside K1 and K2 alone (and the same at susy's and
+   ro's widths, contiguous, and at susy's gathered with masks); the same
+   launch with K3
    folded in (``local_sgd_fedavg_eval``: the eval of its input params on
    steps 4 and 5, with the case's feature masks) bitwise equal in every
    output, counts and NLL sums included, to the K1 + K2 launch followed by
@@ -100,7 +107,9 @@ Phases, one or more lines of output each:
    and the lr, the general kernel forced there beside it) and its
    streamed kernel at fmow's (G = 2, T1, masks; G = 2 and T1 with one
    model), the general
-   kernel's lr route at SEA: counts equal except rows whose top two
+   kernel's lr route at SEA, the fused kernel at susy's width with the
+   general one forced on its inputs beside it (counts equal and NLL sums
+   bitwise between the two): counts equal except rows whose top two
    plain logits lie within 1e-5 (counted), NLL sums within 1e-4
    relative. Two calls of each agree bitwise; each is timed per call,
    enqueue and on the device beside its plain version and bound. Then
@@ -220,9 +229,11 @@ Phases, one or more lines of output each:
    (``FMOW_REFERENCE_ACCS``; the committed run is printed beside it). It
    runs last, so a run outside its gate leaves every other phase checked;
    it drives all four runs before it fails.
-   Before it, train_tabular: susy (F 18) and ro (F 5) on K1's and K3's
-   general kernels, stackoverflow_lr (the fnn 1000 -> 10 -> 50, AMSGrad) on
-   K1's split kernel padded past F and K3's resident wide tiles, at full
+   Before it, train_tabular: susy (F 18) and ro (F 5) on K1's fused
+   kernel with K2 as its epilogue and the evals folded in (K3's fused
+   kernel for a step's last eval), stackoverflow_lr (the fnn 1000 -> 10
+   -> 50, AMSGrad) on K1's split kernel padded past F and K3's resident
+   wide tiles, at full
    width (``TABULAR_RUNS``: susy's and stackoverflow_lr's softcluster,
    win-1 and oblivious, ro's softcluster), each from its reference init;
    and train_images: femnist (784 -> 10 -> 62, K1's and K3's wide kernels)
@@ -230,8 +241,11 @@ Phases, one or more lines of output each:
    softcluster (``IMAGE_RUNS``), and cifar100's fnn refused by
    ``TrainStep.create`` on the card under either optimizer, naming ROADMAP
    §2's item. Each run: every round one K1 launch on its route and one
-   ``fedavg.cu`` launch, every eval one K3 launch on its route, no plain
-   call; Test/Acc a step and on the mean against its committed run where
+   ``fedavg.cu`` launch, every eval one K3 launch on its route (susy and
+   ro: every round one fused K1 launch with its epilogue, 400 folded
+   evals and 10 fused K3 launches, no ``fedavg.cu``, general K1 or other
+   K3 launch), no plain call; Test/Acc a step and on the mean against its
+   committed run where
    the JAX package reproduces it (susy's three, stackoverflow_lr's
    softcluster), else against the JAX package's CPU run from the same init
    (``NEW_REFERENCE_ACCS``), within the larger of SEA's tolerances and the
@@ -250,8 +264,10 @@ K4a and K4b from KUE's ``train_algo`` run; K1 without an epilogue
 and ``fedavg.cu`` at MNIST's width from ``train_mnist`` and ``train_lr``,
 the general kernels' lr routes from ``train_lr``'s SEA run; K1's split
 kernel, K3's streamed kernel and ``fedavg.cu`` at fmow's width from
-``train_fmow``; K1's general kernel, K3's general kernel and ``fedavg.cu``
-at susy's width from susy's ``train_tabular`` runs, the split K1 padded
+``train_fmow``; K1 + K2, K1 + K2 + K3 and K3's fused kernel at susy's
+width (``local_sgd_fedavg_susy``, ``local_sgd_fedavg_eval_susy``,
+``eval_cells_fused_susy``) from susy's ``train_tabular`` runs with their
+cases from ``train_agg`` / ``train_eval``, the split K1 padded
 past F and K3's resident wide tiles at stackoverflow_lr's from its runs,
 the wide K1 at two classes a lane and the split K1 at K 10 from
 ``train_images``' femnist and cifar10 runs. Every entry
@@ -513,10 +529,12 @@ FMOW_RUNS = (
 # order; tests/test_torch_tabular.py and tests/test_torch_prototype.py
 # check each file against the reference's pool). By dataset: the file, the
 # input shape, the classes, K1's route and K3's (the wide route's resident
-# 32-row tiles, "wide", or its streamed kernel, "stream").
+# 32-row tiles, "wide", or its streamed kernel, "stream"; "fused" for both:
+# K1's fused kernel with K2 as its epilogue and the evals folded in, K3's
+# fused kernel for a step's last eval).
 NEW_DATASETS = {
-    "susy": ((18,), 2, "general", "general"),
-    "ro": ((5,), 2, "general", "general"),
+    "susy": ((18,), 2, "fused", "fused"),
+    "ro": ((5,), 2, "fused", "fused"),
     "stackoverflow_lr": ((1000,), 50, "split", "wide"),
     "femnist": ((784,), 62, "wide", "wide"),
     "cifar10": ((32, 32, 3), 10, "split", "stream")}
@@ -1330,7 +1348,11 @@ def _local_sgd_bound_ms(rows, total_w, M: int, C: int, S: int, B: int,
 # kernel's two-classes-a-lane row phase. stackoverflow_lr's fnn (1000 -> 10
 # -> 50) under AMSGrad takes the split kernel with its last CTA padded past
 # F (contiguous, and gathered with masks), cifar10's (3072 -> 10 -> 10) the
-# split kernel at 10 classes, susy's (18 -> 10 -> 2) the general kernel.
+# split kernel at 10 classes. susy's (18 -> 10 -> 2, P 212) and ro's (5 ->
+# 10 -> 2, P 82) widths take the fused kernel folding a row's values in
+# chunks (contiguous, and gathered with masks), held to the plain version
+# as SEA's fused case is; the general kernel forced at each (the design
+# the fused route replaced there) is timed in the same run.
 K1_CASES = (("sea", "sea", 0, "fnn", 10, "adam", None, False),
             ("sine", "sine", 1, "fnn", 10, "adam", None, False),
             ("sea_general", "sea", 0, "fnn", 10, "adam", "general", False),
@@ -1358,6 +1380,11 @@ K1_CASES = (("sea", "sea", 0, "fnn", 10, "adam", None, False),
             ("so_gather", "stackoverflow_lr", 19, "fnn", 10, "adam", None,
              True),
             ("susy", "susy", 20, "fnn", 10, "adam", None, False),
+            ("susy_gather", "susy", 22, "fnn", 10, "adam", None, True),
+            ("susy_general", "susy", 20, "fnn", 10, "adam", "general", False),
+            ("ro", "ro", 23, "fnn", 10, "adam", None, False),
+            ("ro_gather", "ro", 24, "fnn", 10, "adam", None, True),
+            ("ro_general", "ro", 23, "fnn", 10, "adam", "general", False),
             ("cifar10", "cifar10", 21, "fnn", 10, "adam", None, False))
 # the batch size of a case, where it is not its dataset's registry default
 K1_BATCH = {"fmow_b32": 32}
@@ -1365,7 +1392,11 @@ K1_BATCH = {"fmow_b32": 32}
 K1_MODELS = {"fmow_m1": 1}
 # the route each dataset's width must take, where it is not the wide one
 K1_WIDTH_ROUTE = {"fmow": "split", "cifar10": "split",
-                  "stackoverflow_lr": "split", "susy": "general"}
+                  "stackoverflow_lr": "split", "susy": "fused", "ro": "fused"}
+# the fused kernel's instances that fold a row's values in chunks, by
+# dataset: ptxas' registers and spills of each go on its cases' lines
+FUSED_CHUNKED = {"susy": "local_sgd_fused_kernel<18,10,2>",
+                 "ro": "local_sgd_fused_kernel<5,10,2>"}
 
 
 def _gathered(x, tw, S: int, B: int, seed: int):
@@ -1394,9 +1425,9 @@ WIDE_ENTRIES = ("local_sgd_wide", "local_sgd_wide_lr", "local_sgd_wide_lr_sgd",
                 "fedavg_mnist", "eval_cells_wide", "eval_cells_wide_lr",
                 "eval_cells_general_lr", "local_sgd_split", "fedavg_fmow",
                 "eval_cells_stream", "local_sgd_split_padded",
-                "eval_cells_wide_so", "local_sgd_general_susy", "fedavg_susy",
-                "eval_cells_general_susy", "local_sgd_wide_k64",
-                "local_sgd_split_k10")
+                "eval_cells_wide_so", "local_sgd_fedavg_susy",
+                "local_sgd_fedavg_eval_susy", "eval_cells_fused_susy",
+                "local_sgd_wide_k64", "local_sgd_split_k10")
 # the kernels line's entries of K1's wide kernel and of the general
 # kernel's lr and SGD routes, by case: (name, case, the route it must take)
 K1_ENTRIES = {"mnist": ("local_sgd_wide", "MNIST-4's fnn 784 -> 10 -> 10, "
@@ -1416,8 +1447,6 @@ K1_ENTRIES = {"mnist": ("local_sgd_wide", "MNIST-4's fnn 784 -> 10 -> 10, "
               "so": ("local_sgd_split_padded", "stackoverflow_lr's fnn 1000 "
                      "-> 10 -> 50, AMSGrad, the split kernel, its last CTA "
                      "padded past F", "split"),
-              "susy": ("local_sgd_general_susy", "susy's fnn 18 -> 10 -> 2, "
-                       "AMSGrad, the general kernel", "general"),
               "femnist": ("local_sgd_wide_k64", "femnist's fnn 784 -> 10 -> "
                           "62, AMSGrad, the wide kernel at two classes a "
                           "lane", "wide"),
@@ -1444,6 +1473,10 @@ WIDE_ADAM_SLACK = 1e-4
 # call), and of K1 at fmow's width (its plain version gathers 1.2 GB of
 # batch rows a call): calls a measure, rounds
 WIDE_TIMING = dict(iters=5, rounds=3, reps=5, enqueue=20)
+# the timing of the fused kernel's cases at susy's and ro's widths, whose
+# plain version (~13 ms a call, hundreds of launches under the profiler)
+# sets the cost of a case
+TABULAR_TIMING = dict(iters=20, rounds=3, reps=5, enqueue=100)
 
 
 def _over(got, want, atol: float = 0.0, rtol: float = 0.0) -> int:
@@ -1456,6 +1489,7 @@ def phase_train_kernel() -> tuple[dict, dict]:
     kernels line's entry of K1 without an epilogue at H = 32 and those of
     its MNIST-width routes (``K1_ENTRIES``)."""
     import torch
+    from feddrift_torch.kernels import build
     from feddrift_torch.kernels.local_sgd import (_route, local_sgd,
                                                   local_sgd_ref)
     entry, entries, device_ms, bounds, times = None, {}, {}, {}, {}
@@ -1478,7 +1512,8 @@ def phase_train_kernel() -> tuple[dict, dict]:
         else:
             rows = (t_idx * N + slot * B)[..., None] \
                 + torch.arange(B, device="cuda")
-        sgd, wide = optimizer == "sgd", dims["F"] > 3
+        # the fused route at susy's and ro's widths is held as SEA's is
+        sgd, wide = optimizer == "sgd", dims["F"] > 3 and route != "fused"
         want_route = forced or K1_WIDTH_ROUTE.get(
             dataset, "wide" if wide else None)
         if want_route and route != want_route:
@@ -1545,6 +1580,7 @@ def phase_train_kernel() -> tuple[dict, dict]:
                  "plain": lambda: local_sgd_ref(
                      x, y, params, state, t_idx, slot, total_w, **plain_kw)}
         timing = WIDE_TIMING if wide and route in ("general", "split") \
+            else TABULAR_TIMING if dataset in FUSED_CHUNKED \
             else dict(iters=50, rounds=5, reps=20, enqueue=200)
         ms, plain_ms = _interleaved(
             lambda f: _time_ms(f, timing["iters"]), calls,
@@ -1559,8 +1595,11 @@ def phase_train_kernel() -> tuple[dict, dict]:
             rows, total_w, **dims, index_bytes=4 * (
                 rows.numel() + dims["M"] * dims["F"] if gather
                 else 2 * t_idx.numel()), sgd=sgd)
+        ptxas = _ptxas_per_kernel(build.build_log.get("local_sgd.cu", "")) \
+            .get(FUSED_CHUNKED.get(dataset), "not built in this process") \
+            if route == "fused" and dataset in FUSED_CHUNKED else None
         _say("train_kernel", name="local_sgd", case=label, dataset=dataset,
-             model=model, optimizer=optimizer, route=route,
+             model=model, optimizer=optimizer, route=route, ptxas=ptxas,
              batches="gathered (K4 rows, feature masks)"
              if gather else "contiguous", **dims, active_pairs=active,
              max_abs_err=err,
@@ -1675,12 +1714,26 @@ def phase_train_kernel() -> tuple[dict, dict]:
          step_us=so * 1e3 / 5, split_clusters_at_once=clusters,
          split_waves=-(-40 // clusters),
          gathered_masked_device_ms=device_ms["so_gather"],
-         susy_general_device_ms=device_ms["susy"],
-         susy_general_ms=times["susy"]["kernel_ms"],
-         susy_general_vs_bound=(device_ms["susy"]
-                                or times["susy"]["kernel_ms"])
-         / bounds["susy"],
          cifar10_split_device_ms=device_ms["cifar10"])
+    # susy's and ro's widths: the fused kernel (a row's values folded 32 at
+    # a time) beside the general kernel forced on the same inputs, the
+    # plain version and the bound
+    for d in ("susy", "ro"):
+        fused = device_ms[d] or times[d]["kernel_ms"]
+        general = device_ms[f"{d}_general"] \
+            or times[f"{d}_general"]["kernel_ms"]
+        _say("train_kernel", what=f"{d}_width_by_route",
+             fused_ms=times[d]["kernel_ms"], fused_device_ms=device_ms[d],
+             general_ms=times[f"{d}_general"]["kernel_ms"],
+             general_device_ms=device_ms[f"{d}_general"],
+             fused_vs_general=fused / general,
+             plain_ms=times[d]["plain_ms"],
+             fused_vs_plain=times[d]["kernel_ms"] / times[d]["plain_ms"],
+             bound_ms=bounds[d], fused_vs_bound=fused / bounds[d],
+             general_vs_bound=general / bounds[f"{d}_general"],
+             step_us=fused * 1e3 / 5,
+             gathered_masked_device_ms=device_ms[f"{d}_gather"],
+             gathered_masked_ms=times[f"{d}_gather"]["kernel_ms"])
     return entry, entries
 
 
@@ -1900,11 +1953,17 @@ K3_CASES = (("eval", "sea", "fnn", 10, None, "G2", False, 1.0),
             ("fmow_cells_m1", "fmow", "fnn", 10, None, "T1", False, 1.0),
             ("susy_eval", "susy", "fnn", 10, None, "G2", False, 1.0),
             ("so_eval", "stackoverflow_lr", "fnn", 10, None, "G2", False,
+             1.0),
+            ("susy_eval_general", "susy", "fnn", 10, "general", "G2", False,
              1.0))
 # the pool size of a case, where it is not 4
 K3_MODELS = {"fmow_eval_m1": 1, "fmow_cells_m1": 1}
 # the route a dataset's width must take, where it is not the wide one
-K3_WIDTH_ROUTE = {"susy": "general"}
+K3_WIDTH_ROUTE = {"susy": "fused"}
+# a case that runs on another case's inputs, the general kernel forced
+# beside that case's fused one: their counts must be equal and their NLL
+# sums bitwise (both kernels sum a row in one order)
+K3_BESIDE = {"susy_eval_general": "susy_eval"}
 # the kernels line's entries of K3's wide kernel and of the general
 # kernel's lr route, by case
 K3_ENTRIES = {"mnist_eval": ("eval_cells_wide", "MNIST-4's fnn, G = 2, the "
@@ -1916,8 +1975,8 @@ K3_ENTRIES = {"mnist_eval": ("eval_cells_wide", "MNIST-4's fnn, G = 2, the "
                               "general kernel's lr route"),
               "fmow_eval": ("eval_cells_stream", "fmow's fnn 3072 -> 10 -> "
                             "62, G = 2, the wide route's streamed kernel"),
-              "susy_eval": ("eval_cells_general_susy", "susy's fnn 18 -> 10 "
-                            "-> 2, G = 2, the general kernel"),
+              "susy_eval": ("eval_cells_fused_susy", "susy's fnn 18 -> 10 "
+                            "-> 2, G = 2, the fused kernel"),
               "so_eval": ("eval_cells_wide_so", "stackoverflow_lr's fnn 1000 "
                           "-> 10 -> 50, G = 2, the wide kernel's resident "
                           "32-row tiles")}
@@ -1973,9 +2032,9 @@ def _timed(calls: dict, iters: int = 50, rounds: int = 5, reps: int = 20,
 # fmow's fnn (P 31,412) likewise (the kernels line's fedavg_fmow).
 K2_CASES = (("h32", 32, "sea", 4), ("sea", 10, "sea", 4),
             ("mnist", 10, "MNIST", 4), ("mnist_m10", 10, "MNIST", 10),
-            ("fmow", 10, "fmow", 4), ("susy", 10, "susy", 4))
+            ("fmow", 10, "fmow", 4))
 K2_ENTRIES = {"h32": "fedavg", "mnist": "fedavg_mnist",
-              "fmow": "fedavg_fmow", "susy": "fedavg_susy"}
+              "fmow": "fedavg_fmow"}
 
 
 def _k2_case(hidden: int, dataset: str = "sea", models: int = 4):
@@ -2112,12 +2171,14 @@ def _k3_phase() -> tuple[dict, dict]:
     from feddrift_torch.kernels.eval_cells import (STREAM_ROWS, _route,
                                                    eval_cells, eval_cells_ref,
                                                    wide_rows)
-    entry, entries = None, {}
-    for seed, (label, dataset, model, hidden, forced, window, masked,
-               scale) in enumerate(K3_CASES):
+    entry, entries, outs = None, {}, {}
+    seeds = {c[0]: i for i, c in enumerate(K3_CASES)}
+    for label, dataset, model, hidden, forced, window, masked, scale \
+            in K3_CASES:
         flat, xw, yw, fm, d = _k3_case(dataset, model, hidden, window,
-                                       masked, seed, scale,
-                                       K3_MODELS.get(label, 4))
+                                       masked,
+                                       seeds[K3_BESIDE.get(label, label)],
+                                       scale, K3_MODELS.get(label, 4))
         F, H, K = d["F"], d["H"], d["K"]
         route = forced or _route(F, H, K)
         nll_on = window != "T1"
@@ -2174,6 +2235,22 @@ def _k3_phase() -> tuple[dict, dict]:
         if scale > 1 and not int(solid.sum()):
             raise AssertionError(f"{label}: no row is tied solidly, so the "
                                  f"tie rule was not exercised")
+        outs[label] = (correct, nll, kernel)
+        if label in K3_BESIDE:
+            f_c, f_l, f_t = outs[K3_BESIDE[label]]
+            same = bool(torch.equal(f_c, correct) and torch.equal(f_l, nll))
+            _say("train_eval", what=f"{K3_BESIDE[label]}_fused_vs_general",
+                 counts_equal=bool(torch.equal(f_c, correct)),
+                 nll_bitwise=bool(torch.equal(f_l, nll)),
+                 nll_max_abs_diff=float((f_l - nll).abs().max()),
+                 fused_ms=f_t["ms"], fused_device_ms=f_t["device_ms"],
+                 general_ms=kernel["ms"],
+                 general_device_ms=kernel["device_ms"],
+                 fused_vs_general=f_t["ms"] / kernel["ms"])
+            if not same:
+                raise AssertionError(f"{label}: the fused and general "
+                                     f"kernels' cells differ at the same "
+                                     f"inputs")
         if route != (forced or K3_WIDTH_ROUTE.get(
                 dataset, "wide" if wide else route)) or (
                 dataset == "fmow" and wide_rows(F, H, K) != STREAM_ROWS):
@@ -2253,12 +2330,18 @@ def _k5_phase() -> None:
 # feature masks); F = 2 (sine). Every case also folds K3 into the launch:
 # the eval of the round's input params on steps FOLD_STEP and FOLD_STEP + 1
 K1K2_CASES = (("sea", "sea", 0, False), ("sea_gather", "sea", 3, True),
-              ("sine", "sine", 1, False))
+              ("sine", "sine", 1, False), ("susy", "susy", 20, False),
+              ("susy_gather", "susy", 22, True), ("ro", "ro", 23, False))
+# the kernels line's K1 + K2 and K1 + K2 + K3 entries of the fused kernel's
+# chunked instances, by case (the canonical SEA case's are
+# local_sgd_fedavg and local_sgd_fedavg_eval)
+K1K2_ENTRIES = {"susy": ("local_sgd_fedavg_susy",
+                         "local_sgd_fedavg_eval_susy")}
 K1K2_REPEATS = 200
 FOLD_STEP = 4
 
 
-def _k1k2_phase() -> tuple[dict, dict]:
+def _k1k2_phase() -> tuple[dict, dict, dict]:
     """The fused round (``local_sgd_fedavg``: K1 with K2 as its epilogue)
     against the K1 launch followed by the ``fedavg.cu`` launch: bitwise in
     the aggregated params, stats, client stack, optimizer state, n and
@@ -2268,14 +2351,17 @@ def _k1k2_phase() -> tuple[dict, dict]:
     input params on a two-step window): ``K1K2_REPEATS`` calls bitwise
     equal, in every output, to the K1 + K2 launch followed by the
     ``eval_cells`` launch on those params. Device times beside K1's, K2's
-    and K3's alone. Returns the kernels line's entries of K1 + K2 and of
-    K1 + K2 + K3."""
+    and K3's alone; at SEA's and sine's widths and at susy's and ro's,
+    where the kernel folds a row's values in chunks. Returns the kernels
+    line's entries of K1 + K2 and of K1 + K2 + K3, and those of
+    ``K1K2_ENTRIES`` by name."""
     import torch
     from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
     from feddrift_torch.kernels.local_sgd import (local_sgd, local_sgd_fedavg,
                                                   local_sgd_fedavg_ref)
     entry = fold_entry = None
+    entries = {}
     for label, dataset, seed, gather in K1K2_CASES:
         args, kw, dims, tw = _train_case(dataset, seed)
         x, y, params, opt, t_idx, slot, total_w = args
@@ -2350,7 +2436,8 @@ def _k1k2_phase() -> tuple[dict, dict]:
                  "fold_plain": lambda: local_sgd_fedavg_ref(
                      x, y, params, state, t_idx, slot, total_w, **kw,
                      eval_window=window, eval_out=eo)}
-        times = _timed(calls)
+        times = _timed(calls, **(TABULAR_TIMING if dataset in FUSED_CHUNKED
+                                 else {}))
         fold_enqueue = _host_enqueue_ms(calls["fold"])
         k1_dev = _device_ms(lambda: local_sgd(x, y, params, state, t_idx,
                                               slot, total_w, **kw))
@@ -2416,17 +2503,19 @@ def _k1k2_phase() -> tuple[dict, dict]:
                                  f"K2 then K3; the eval against plain: "
                                  f"counts within near ties {cells_ok}, "
                                  f"nll rel {nll_rel}")
-        if label == "sea":
-            entry = {"name": "local_sgd_fedavg", "route": "cuda",
-                     "source": "feddrift_torch/kernels/csrc/local_sgd.cu",
-                     "replaces": "feddrift_tpu/core/step.py:225 and "
-                     "feddrift_tpu/resilience/robust_agg.py:139",
-                     "launches": None, "max_abs_err": err, "ms": k["ms"],
-                     "plain_ms": times["plain"]["ms"], "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None,
-                     "device_ms": k["device_ms"]}
-            fold_entry = {
-                "name": "local_sgd_fedavg_eval", "route": "cuda",
+        if label == "sea" or label in K1K2_ENTRIES:
+            name, fold_name = K1K2_ENTRIES.get(
+                label, ("local_sgd_fedavg", "local_sgd_fedavg_eval"))
+            e = {"name": name, "route": "cuda",
+                 "source": "feddrift_torch/kernels/csrc/local_sgd.cu",
+                 "replaces": "feddrift_tpu/core/step.py:225 and "
+                 "feddrift_tpu/resilience/robust_agg.py:139",
+                 "launches": None, "max_abs_err": err, "ms": k["ms"],
+                 "plain_ms": times["plain"]["ms"], "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None,
+                 "device_ms": k["device_ms"]}
+            fe = {
+                "name": fold_name, "route": "cuda",
                 "source": "feddrift_torch/kernels/csrc/local_sgd.cu "
                 "(feddrift_torch/kernels/csrc/fnn_eval.cuh)",
                 "replaces": "feddrift_tpu/core/step.py:225, "
@@ -2439,7 +2528,11 @@ def _k1k2_phase() -> tuple[dict, dict]:
                 "plain_ms": times["fold_plain"]["ms"], "bound_ms": fold_bound,
                 "bound_by": fold_by, "library_ms": None,
                 "device_ms": f["device_ms"]}
-    return entry, fold_entry
+            if label == "sea":
+                entry, fold_entry = e, fe
+            else:
+                entries.update({name: e, fold_name: fe})
+    return entry, fold_entry, entries
 
 
 def phase_train_agg_eval() -> tuple[dict, dict, dict, dict, dict]:
@@ -2451,10 +2544,11 @@ def phase_train_agg_eval() -> tuple[dict, dict, dict, dict, dict]:
     and K3, and those of K2 and K3 at MNIST's and fmow's widths and K3's lr
     route by name."""
     agg = _k2_phase()
-    fused, fold = _k1k2_phase()
+    fused, fold, more = _k1k2_phase()
     ev, ev_entries = _k3_phase()
     _k5_phase()
-    return agg.pop("fedavg"), fused, fold, ev, dict(ev_entries, **agg)
+    return agg.pop("fedavg"), fused, fold, ev, dict(ev_entries, **agg,
+                                                    **more)
 
 
 def _launches_by_kernel(kernels) -> dict:
@@ -2506,6 +2600,7 @@ def _reset_counts() -> None:
                                                       weighted_search,
                                                       weighted_search_ref)
     local_sgd.launches = local_sgd_fedavg.launches = 0
+    local_sgd.fused_launches = eval_cells.fused_launches = 0
     local_sgd.wide_launches = eval_cells.wide_launches = 0
     local_sgd.split_launches = eval_cells.stream_launches = 0
     local_sgd_fedavg.evals = 0
@@ -2520,11 +2615,13 @@ def _read_counts() -> dict:
     is aggregated by K1's epilogue (``k2_epilogues``, the fused route) or
     by its own ``fedavg.cu`` launch (``k2_launches``, the general route).
     ``local_sgd.launches`` counts every K1 launch, with an epilogue or
-    without; ``k1_without_epilogue`` the latter alone, ``k1_wide_launches``
-    those of the wide kernel, ``k1_split_launches`` the split kernel's. An
-    eval runs in a K1 launch (``folded_evals``) or as its own K3 launch
-    (``k3_launches``; on the wide kernel ``k3_wide_launches``, of which
-    ``k3_stream_launches`` on its streamed kernel)."""
+    without; ``k1_without_epilogue`` the latter alone; ``k1_fused_launches``
+    those of the fused kernel, ``k1_wide_launches`` the wide kernel's,
+    ``k1_split_launches`` the split kernel's and ``k1_general_launches`` the
+    rest. An eval runs in a K1 launch (``folded_evals``) or as its own K3
+    launch (``k3_launches``; on the fused kernel ``k3_fused_launches``, on
+    the wide one ``k3_wide_launches``, of which ``k3_stream_launches`` on
+    its streamed kernel)."""
     from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
     from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_fedavg
@@ -2535,14 +2632,19 @@ def _read_counts() -> dict:
     return {"k1_launches": local_sgd.launches,
             "k1_without_epilogue":
             local_sgd.launches - local_sgd_fedavg.launches,
+            "k1_fused_launches": local_sgd.fused_launches,
             "k1_wide_launches": local_sgd.wide_launches,
             "k1_split_launches": local_sgd.split_launches,
+            "k1_general_launches": local_sgd.launches
+            - local_sgd.fused_launches - local_sgd.wide_launches
+            - local_sgd.split_launches,
             "k4a_launches": weighted_cdf.launches,
             "k4b_launches": weighted_search.launches,
             "k2_launches": fedavg.launches,
             "k2_epilogues": local_sgd_fedavg.launches,
             "aggregations": fedavg.launches + local_sgd_fedavg.launches,
             "k3_launches": eval_cells.launches,
+            "k3_fused_launches": eval_cells.fused_launches,
             "k3_wide_launches": eval_cells.wide_launches,
             "k3_stream_launches": eval_cells.stream_launches,
             "folded_evals": local_sgd_fedavg.evals,
@@ -3068,6 +3170,40 @@ def _check_general_run(name: str, got: dict, cfg, exp, rounds: int,
                  folds=False)
 
 
+def _check_fused_tabular_run(name: str, got: dict, cfg, exp,
+                             rounds: int) -> None:
+    """A run on the fused route at a width where K1's fused kernel folds a
+    row's values in chunks (susy's, ro's), checked as ``phase_train``
+    checks SEA's: every round one launch of K1's fused kernel with K2 as
+    its epilogue (no ``fedavg.cu`` launch, no general, wide or split K1
+    launch), each fused step's evals but its last folded into K1's
+    launches and that last one a launch of K3's fused kernel (no other K3
+    kernel), no K4, no plain K2 / K3 / K4 call on the card."""
+    got_route = _run_route(cfg, exp)
+    if got_route != "fused" or got["k1_launches"] != rounds \
+            or got["k1_fused_launches"] != rounds \
+            or got["k2_epilogues"] != rounds \
+            or got["k1_general_launches"] or got["k1_wide_launches"] \
+            or got["k1_split_launches"] \
+            or got["k3_fused_launches"] != got["k3_launches"] \
+            or set(got["paths"]) != {"fused"} \
+            or got["k4a_launches"] or got["k4b_launches"]:
+        raise AssertionError(f"{name}: route {got_route} (want fused), K1 "
+                             f"launched {got['k1_launches']} times "
+                             f"({got['k1_fused_launches']} fused, "
+                             f"{got['k2_epilogues']} with the epilogue, "
+                             f"{got['k1_general_launches']} general) for "
+                             f"{rounds} rounds on paths "
+                             f"{set(got['paths'])}, K3 "
+                             f"{got['k3_launches']} "
+                             f"({got['k3_fused_launches']} fused), K4 "
+                             f"{got['k4a_launches']} / "
+                             f"{got['k4b_launches']}")
+    _check_k2_k3(name, got, rounds)
+    _check_evals(name, got, cfg, exp, got["paths"].count("fused"),
+                 folds=True)
+
+
 def _image_runs(phase: str, dataset: str, runs, init_path: str,
                 feature_shape: tuple, classes: int, route: str,
                 entries: dict, names: tuple | None,
@@ -3080,7 +3216,10 @@ def _image_runs(phase: str, dataset: str, runs, init_path: str,
     init), the committed run printed beside where there is one: K1 on
     ``route`` every round, one ``fedavg.cu`` launch a round, one K3 launch
     an eval on K3's route ``k3`` (``_check_general_run``), no folded eval,
-    no plain call. One ``phase`` line a run: the wall, the launches,
+    no plain call; on the fused route (susy's and ro's widths) every round
+    one K1 launch with K2 as its epilogue and every eval but a step's last
+    folded into it (``_check_fused_tabular_run``). One ``phase`` line a
+    run: the wall, the launches,
     launches and device ms a round of one profiled step, and each step's
     Test/Acc and models used beside the gate's. A clustering run's step
     more than DECISION_GAP from the committed one prints both runs'
@@ -3133,11 +3272,14 @@ def _image_runs(phase: str, dataset: str, runs, init_path: str,
              rounds_per_s=got["rounds_per_s"], step_wall_s=got["step_wall_s"],
              k1_launches=got["k1_launches"],
              k1_without_epilogue=got["k1_without_epilogue"],
+             k1_fused_launches=got["k1_fused_launches"],
              k1_wide_launches=got["k1_wide_launches"],
              k1_split_launches=got["k1_split_launches"],
+             k1_general_launches=got["k1_general_launches"],
              fedavg_launches=got["k2_launches"],
              k2_epilogues=got["k2_epilogues"],
              k3_launches=got["k3_launches"],
+             k3_fused_launches=got["k3_fused_launches"],
              k3_wide_launches=got["k3_wide_launches"],
              k3_stream_launches=got["k3_stream_launches"],
              folded_evals=got["folded_evals"],
@@ -3158,11 +3300,19 @@ def _image_runs(phase: str, dataset: str, runs, init_path: str,
                      assignment=got["assignment"][t],
                      committed_assignment=ref_assign[t])
         name = f"{dataset} {algo} {arg}"
-        _check_general_run(name, got, cfg, exp, rounds, route=route, k3=k3)
+        if route == "fused":
+            _check_fused_tabular_run(name, got, cfg, exp, rounds)
+        else:
+            _check_general_run(name, got, cfg, exp, rounds, route=route,
+                               k3=k3)
         if len(accs) != T:
             raise AssertionError(f"{name}: {len(accs)} of {T} steps ran")
-        launches["k1"] += got["k1_launches"]
-        launches["k2"] += got["k2_launches"]
+        if route == "fused":      # K1 + K2 alone, with the eval, K3
+            launches["k1"] += got["k2_epilogues"] - got["folded_evals"]
+            launches["k2"] += got["folded_evals"]
+        else:                     # K1, fedavg.cu, K3
+            launches["k1"] += got["k1_launches"]
+            launches["k2"] += got["k2_launches"]
         launches["k3"] += got["k3_launches"]
         if not within:
             missed.append(f"{name}: Test/Acc per step {accs} against "
@@ -3201,9 +3351,12 @@ def phase_train_fmow(entries: dict) -> None:
 
 
 # the kernels line's K1, K2 and K3 entries that take their launches from a
-# dataset's runs in train_tabular and train_images (None: no entry)
+# dataset's runs in train_tabular and train_images (None: no entry); on the
+# fused route K1 + K2 (launches without an eval), K1 + K2 + K3 (those with
+# the eval folded in) and K3's own launches
 NEW_DATASET_ENTRIES = {
-    "susy": ("local_sgd_general_susy", "fedavg_susy", "eval_cells_general_susy"),
+    "susy": ("local_sgd_fedavg_susy", "local_sgd_fedavg_eval_susy",
+             "eval_cells_fused_susy"),
     "ro": None,
     "stackoverflow_lr": ("local_sgd_split_padded", None, "eval_cells_wide_so"),
     "femnist": ("local_sgd_wide_k64", None, None),
@@ -3229,11 +3382,13 @@ def _new_dataset_runs(phase: str, table: dict, entries: dict) -> None:
 
 
 def phase_train_tabular(entries: dict) -> None:
-    """susy (F 18, the fnn 18 -> 10 -> 2) and ro (F 5) on K1's and K3's
-    general kernels, stackoverflow_lr (F 1000, the fnn 1000 -> 10 -> 50,
-    AMSGrad) on K1's split kernel padded past F and K3's resident wide
-    tiles, at full width (``TABULAR_RUNS``: K1 2000 launches a run,
-    ``fedavg.cu`` as many, K3 41 a step), each from its reference init."""
+    """susy (F 18, the fnn 18 -> 10 -> 2) and ro (F 5) on K1's fused kernel
+    (2000 launches a run, each with K2 as its epilogue, 400 evals folded
+    in, 10 launches of K3's fused kernel), stackoverflow_lr (F 1000, the
+    fnn 1000 -> 10 -> 50, AMSGrad) on K1's split kernel padded past F and
+    K3's resident wide tiles (K1 2000 launches a run, ``fedavg.cu`` as
+    many, K3 41 a step), at full width (``TABULAR_RUNS``), each from its
+    reference init."""
     _new_dataset_runs("train_tabular", TABULAR_RUNS, entries)
 
 

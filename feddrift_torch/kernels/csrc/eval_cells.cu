@@ -32,13 +32,15 @@
 // thread reads the same address. Three kernels of the one function; the
 // wrapper (eval_cells.py::_route) picks one by shape alone, before the
 // launch:
-// - eval_fused_kernel<F, H, K> for the registry's widths (F in {2, 3},
-//   H = 10, K = 2): x, h and z of a row in registers, fully unrolled.
+// - eval_fused_kernel<F, H, K> for the registry's widths at
+//   fnn_hidden_dim = 10 (F in {2, 3, 5, 18}: sine and circle, SEA, ro,
+//   susy; H = 10, K = 2): x, h and z of a row in registers, fully
+//   unrolled.
 // - eval_general_kernel<false> for the widths the others do not take
-//   (fnn_hidden_dim = 32, F % 4 != 0, or inputs too wide for the wide
-//   kernel's shared memory): a loop over the hidden units, each accumulated into
-//   the row's K logits kept in shared memory ([K][threads], one column a
-//   thread). Its shared memory is 4 * (P + F + K * threads) bytes; above
+//   (fnn_hidden_dim = 32, F % 4 != 0 outside the fused widths, or inputs
+//   too wide for the wide kernel's shared memory): a loop over the hidden
+//   units, each accumulated into the row's K logits kept in shared memory
+//   ([K][threads], one column a thread). Its shared memory is 4 * (P + F + K * threads) bytes; above
 //   what a block may take the entry point returns kErrSmem without a
 //   launch, and the wrapper raises ValueError.
 // - eval_general_kernel<true>, the lr (LogisticRegression, H = 0 on the
@@ -932,6 +934,10 @@ extern "C" int eval_cells_f32(const Params* p, int route, void* stream) {
     ret = launch_fused<3, 10, 2>(a, blocks, p->threads, st);
   else if (route == 1 && p->F == 2 && p->H == 10 && p->K == 2)
     ret = launch_fused<2, 10, 2>(a, blocks, p->threads, st);
+  else if (route == 1 && p->F == 18 && p->H == 10 && p->K == 2)
+    ret = launch_fused<18, 10, 2>(a, blocks, p->threads, st);
+  else if (route == 1 && p->F == 5 && p->H == 10 && p->K == 2)
+    ret = launch_fused<5, 10, 2>(a, blocks, p->threads, st);
   else
     ret = (int)cudaErrorInvalidValue;
   if (current != p->device) cudaSetDevice(current);

@@ -26,6 +26,11 @@ namespace fnn_eval {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWarps = 512 / 32;  // the largest block either kernel uses
+// Values (the params and the loss) above which a cell's row loop reads the
+// params from shared memory for each row: hoisted out of the loop as
+// invariant loads, susy's 212 params do not fit in registers and spill to
+// local memory (SEA's 62 do, and keep their code).
+constexpr int kHoistMax = 64;
 
 // relu that keeps NaN (fmaxf(NaN, 0) would give 0)
 __device__ __forceinline__ float relu(float v) {
@@ -115,6 +120,8 @@ __device__ __forceinline__ void cell(const float* sp, const float* sf,
   int cnt = 0;
   float nll = 0.f;
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    if constexpr (F * H + H + H * K + K + 1 > kHoistMax)
+      asm volatile("" ::: "memory");  // no params hoisted out of the loop
     float xv[F];
 #pragma unroll
     for (int f = 0; f < F; ++f)

@@ -41,7 +41,9 @@
 //
 // local_sgd_fused_kernel<F, H, K>: the widths the port's registry produces
 // at the default fnn_hidden_dim = 10 (F = 3 for SEA, F = 2 for sine and
-// circle; H = 10, K = 2; P = 62 and 52) and B <= 512.
+// circle, F = 5 for ro, F = 18 for susy; H = 10, K = 2; P = 62, 52, 82 and
+// 212), under AMSGrad, B <= 512 with a thread for each parameter and the
+// loss (round_up(B, 32) >= P + 1: susy from B = 193, ro from B = 65).
 // - One block per pair of round_up(B, 32) threads (at least 64): one batch
 //   row a thread. Each thread runs its row's forward, softmax cross-entropy,
 //   dlogits, the ReLU mask and its row's share of all P gradients (x (x) dh,
@@ -58,6 +60,17 @@
 //   the new parameters. Two barriers a step (the first design had five),
 //   and a fixed summation order: the result is bitwise the same call after
 //   call.
+// - The chunked fold, where P + 1 > 64 (ro's 83, susy's 213 values: V = 96
+//   and 224 would not stay in registers, 128 a thread at 512 threads). The
+//   row's x (masked), h, dz, dh and loss stay in registers (the mask moves
+//   to shared memory), and its P + 1 values are generated from them in
+//   packed-param order kFoldChunk = 32 at a time (fused_value), each chunk
+//   folded by the same five butterfly rounds into its slice of s_red and
+//   its registers reused by the next; the chunk loop is unrolled, so every
+//   index is a compile-time constant and nothing goes to local memory.
+//   Each sum runs over the same butterfly tree as a one-pass fold and then
+//   the warps in order: a chunk only changes which lane ends up holding
+//   it. SEA's and sine's instances (one fold of 64) keep their code.
 // - Asynchronous batch copies. Every step's rows are known at entry, and
 //   each batch is contiguous (B*F*4 bytes of x, B*4 of labels). One thread
 //   issues them as TMA bulk copies (cp.async.bulk, completion counted in
@@ -71,9 +84,13 @@
 // - No tensor cores: at H = 10 and K = 2 an mma tile would be more than
 //   80 % padding. No thread-block clusters: the chain is latency-bound, and
 //   a cluster barrier per step would cost more than the rows it splits.
-// Shared memory: stages * B * (F + 1) * 4 bytes of batches (40 KB at SEA),
-// warps * V * 4 of partials, P * 4 of parameters, 8 a stage of mbarriers;
-// with the eval below, 4 * (P + F + 64) more and its window's rows.
+// Shared memory (fused_layout): stages * B * (F + 1) * 4 bytes of batches
+// (40 KB at SEA, 190 KB at susy), warps * V * 4 of partials, P * 4 of
+// parameters (and F * 4 of the mask, chunked), 8 a stage of mbarriers; with
+// the eval below, 4 * (P + F + 64) more and its window's rows. The ring
+// takes min(S, 8) stages where they fit; with an eval it gives up stages,
+// down to 2, until the window fits beside it (susy: 3 stages and a 76 KB
+// window, 207 KB), else the window is read where it lies.
 //
 // K2 as the fused kernel's epilogue. Where the caller passes agg_out, the
 // fused kernel also aggregates each model's round, exactly as fedavg.cu
@@ -107,8 +124,9 @@
 // before the ticket (placing it after the ticket measured slower, PERF.md).
 //
 // local_sgd_general_kernel<kLr, kSgd>: the widths, batches, models and
-// updates the other two do not take (e.g. fnn_hidden_dim = 32, the lr and
-// SGD at SEA's F = 3, or a batch the wide kernel's budget refuses). One block
+// updates the others do not take (e.g. fnn_hidden_dim = 32, the lr and SGD
+// at SEA's F = 3, SGD at susy's and ro's widths, susy below B = 193 and ro
+// below B = 65, or a batch the wide kernel's budget refuses). One block
 // of 256 threads per pair; params (and moments) in shared memory for all S
 // steps; threads over rows for the forward; a warp per parameter for the
 // gradient sums (a shuffle tree, fixed order); five barriers a step (four
@@ -273,6 +291,11 @@ constexpr int kGeneralThreads = 256;
 constexpr int kGeneralWarps = kGeneralThreads / 32;
 constexpr int kFusedMaxThreads = 512;
 constexpr int kStages = 8;    // batch stages of the fused kernel's ring
+constexpr int kMinStages = 2;  // at least, where an eval window wants room
+// the fused kernel's fold: P + 1 values up to kFoldOne fold at once (SEA's,
+// sine's), more kFoldChunk at a time (susy's, ro's)
+constexpr int kFoldOne = 64;
+constexpr int kFoldChunk = 32;
 constexpr int kAggBatch = 16;  // loads in flight a thread in the epilogue
 // the fused kernel's mbarriers (the ring's, then the eval window's), padded
 // to keep the batch stages 16-byte aligned
@@ -1138,13 +1161,49 @@ __device__ __forceinline__ void stage_window(const Args& a, int c, bool bulk,
   }
 }
 
+// The values a row of the fused kernel folds: its P gradients and its loss,
+// padded to a whole number of folds (kFoldOne at once, else kFoldChunk at a
+// time).
+__host__ __device__ constexpr int fused_values(int P) {
+  return P + 1 <= kFoldOne ? (P + 1 + 31) / 32 * 32
+                           : (P + 1 + kFoldChunk - 1) / kFoldChunk * kFoldChunk;
+}
+
+// The fused kernel's block at batch B: one row a thread, round_up(B, 32)
+// and at least 64 threads; thread p < P owns parameter p, thread P the loss.
+__host__ __device__ constexpr int fused_threads(int B) {
+  return (B + 31) / 32 * 32 < 64 ? 64 : (B + 31) / 32 * 32;
+}
+
+// Value q of a row's P + 1 in packed-param order (W1, b1, W2, b2, then the
+// loss; 0 past them) from the row's registers: (x * fm) (x) dh, dh, h (x)
+// dz, dz. q is a compile-time constant wherever the chunk loop is unrolled,
+// so every index below is too.
+template <int F, int H, int K>
+__device__ __forceinline__ float fused_value(int q, const float (&xv)[F],
+                                             const float (&h)[H],
+                                             const float (&dz)[K],
+                                             const float (&dh)[H],
+                                             float loss) {
+  constexpr int P = F * H + H + H * K + K;
+  if (q < F * H) return xv[q / H] * dh[q % H];
+  if (q < F * H + H) return dh[q - F * H];
+  if (q < P - K) return h[(q - F * H - H) / K] * dz[(q - F * H - H) % K];
+  if (q < P) return dz[q - (P - K)];
+  return q == P ? loss : 0.f;
+}
+
 template <int F, int H, int K>
 __global__ void __launch_bounds__(kFusedMaxThreads, 1)
 local_sgd_fused_kernel(const Args a, int stages, int bulk, int emode) {
   constexpr int P = F * H + H + H * K + K;
   constexpr int oB1 = F * H, oW2 = oB1 + H, oB2 = oW2 + H * K;
-  constexpr int V = (P + 1 + 31) / 32 * 32;  // P gradients and the loss
+  constexpr int V = fused_values(P);         // P gradients and the loss
   constexpr int VL = V / 32;                 // of them a lane keeps
+  // the values fold kFoldChunk at a time (the mask then in shared memory,
+  // to leave the registers to the row)
+  constexpr bool kChunked = P + 1 > kFoldOne;
+  constexpr int FM = kChunked ? F : 0;
   constexpr int EW = 2 * fnn_eval::kMaxWarps;  // the eval's warp totals
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // [kStages] the ring's, then the eval window's
@@ -1155,9 +1214,10 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk, int emode) {
   int* s_y = reinterpret_cast<int*>(s_x + (size_t)stages * B * F); // [st, B]
   float* s_red = reinterpret_cast<float*>(s_y + (size_t)stages * B); // [w, V]
   float* s_p = s_red + warps * V;                                  // [P]
+  float* s_fm = s_p + P;                                           // [FM]
   // the eval (emode != kEvalNone): the input params, the mask, the warp
   // totals of the two cells and, 16-byte aligned, the window's rows
-  float* s_pe = s_p + P;                                           // [P]
+  float* s_pe = s_fm + FM;                                         // [P]
   float* s_fe = s_pe + P;                                          // [F]
   int* s_ecnt = reinterpret_cast<int*>(s_fe + F);                  // [EW]
   float* s_enll = reinterpret_cast<float*>(s_ecnt + EW);           // [EW]
@@ -1193,9 +1253,13 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk, int emode) {
     if (emode != kEvalNone) s_pe[tid] = w_own;  // s_p changes at step 0
   }
   int count = a.count[pair];
-  float fm[F];                      // model m's feature mask
+  float fm[kChunked ? 1 : F];       // model m's feature mask
+  if constexpr (kChunked) {
+    if (tid < F) s_fm[tid] = a.fmask ? a.fmask[m * F + tid] : 1.f;
+  } else {
 #pragma unroll
-  for (int f = 0; f < F; ++f) fm[f] = a.fmask ? a.fmask[m * F + f] : 1.f;
+    for (int f = 0; f < F; ++f) fm[f] = a.fmask ? a.fmask[m * F + f] : 1.f;
+  }
   if (emode != kEvalNone && tid < F)
     s_fe[tid] = a.fmask ? a.fmask[m * F + tid] : 1.f;
   __syncthreads();
@@ -1211,71 +1275,150 @@ local_sgd_fused_kernel(const Args a, int stages, int bulk, int emode) {
     const int st = s % stages;
     mbar_wait(bars + st, (unsigned)(s / stages) & 1u);
 
-    // this thread's row: forward, loss, dlogits, dh and its gradient share
-    float v[V];
+    if constexpr (!kChunked) {
+      // this thread's row: forward, loss, dlogits, dh and its gradient share
+      float v[V];
 #pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = 0.f;
-    if (tid < B) {
-      const float* xr = s_x + ((size_t)st * B + tid) * F;
-      const int yi = s_y[(size_t)st * B + tid];
-      float xv[F], h[H], z[K], e[K];
+      for (int i = 0; i < V; ++i) v[i] = 0.f;
+      if (tid < B) {
+        const float* xr = s_x + ((size_t)st * B + tid) * F;
+        const int yi = s_y[(size_t)st * B + tid];
+        float xv[F], h[H], z[K], e[K];
 #pragma unroll
-      for (int f = 0; f < F; ++f) xv[f] = xr[f] * fm[f];
+        for (int f = 0; f < F; ++f) xv[f] = xr[f] * fm[f];
 #pragma unroll
-      for (int j = 0; j < H; ++j) {
-        float acc = 0.f;
+        for (int j = 0; j < H; ++j) {
+          float acc = 0.f;
 #pragma unroll
-        for (int f = 0; f < F; ++f) acc = fmaf(xv[f], s_p[f * H + j], acc);
-        acc += s_p[oB1 + j];
-        h[j] = fnn_eval::relu_select(acc);
-      }
-      float zmax = -INFINITY;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        float acc = 0.f;
-#pragma unroll
-        for (int j = 0; j < H; ++j)
-          acc = fmaf(h[j], s_p[oW2 + j * K + k], acc);
-        z[k] = acc + s_p[oB2 + k];
-        zmax = fnn_eval::max_nan(zmax, z[k]);
-      }
-      float se = 0.f, zy = 0.f;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        e[k] = expf(z[k] - zmax);
-        se += e[k];
-        zy = k == yi ? z[k] : zy;
-      }
-      v[P] = logf(se) - (zy - zmax);
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float dz = (e[k] / se - (k == yi ? 1.f : 0.f)) * inv_b;
-        v[oB2 + k] = dz;
-#pragma unroll
-        for (int j = 0; j < H; ++j) v[oW2 + j * K + k] = h[j] * dz;
-      }
-#pragma unroll
-      for (int j = 0; j < H; ++j) {
-        float d = 0.f;
-        if (h[j] > 0.f) {
-#pragma unroll
-          for (int k = 0; k < K; ++k)
-            d = fmaf(v[oB2 + k], s_p[oW2 + j * K + k], d);
+          for (int f = 0; f < F; ++f) acc = fmaf(xv[f], s_p[f * H + j], acc);
+          acc += s_p[oB1 + j];
+          h[j] = fnn_eval::relu_select(acc);
         }
-        v[oB1 + j] = d;
+        float zmax = -INFINITY;
 #pragma unroll
-        for (int f = 0; f < F; ++f) v[f * H + j] = xv[f] * d;
+        for (int k = 0; k < K; ++k) {
+          float acc = 0.f;
+#pragma unroll
+          for (int j = 0; j < H; ++j)
+            acc = fmaf(h[j], s_p[oW2 + j * K + k], acc);
+          z[k] = acc + s_p[oB2 + k];
+          zmax = fnn_eval::max_nan(zmax, z[k]);
+        }
+        float se = 0.f, zy = 0.f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          e[k] = expf(z[k] - zmax);
+          se += e[k];
+          zy = k == yi ? z[k] : zy;
+        }
+        v[P] = logf(se) - (zy - zmax);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float dz = (e[k] / se - (k == yi ? 1.f : 0.f)) * inv_b;
+          v[oB2 + k] = dz;
+#pragma unroll
+          for (int j = 0; j < H; ++j) v[oW2 + j * K + k] = h[j] * dz;
+        }
+#pragma unroll
+        for (int j = 0; j < H; ++j) {
+          float d = 0.f;
+          if (h[j] > 0.f) {
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              d = fmaf(v[oB2 + k], s_p[oW2 + j * K + k], d);
+          }
+          v[oB1 + j] = d;
+#pragma unroll
+          for (int f = 0; f < F; ++f) v[f * H + j] = xv[f] * d;
+        }
+      }
+
+      // the warp's sums: lane l ends with values [l * VL, (l + 1) * VL)
+      fold<16, V / 2>(v, lane);
+      fold<8, V / 4>(v, lane);
+      fold<4, V / 8>(v, lane);
+      fold<2, V / 16>(v, lane);
+      fold<1, V / 32>(v, lane);
+#pragma unroll
+      for (int i = 0; i < VL; ++i) s_red[warp * V + lane * VL + i] = v[i];
+    } else {
+      // this thread's row: its masked x, forward, loss, dlogits and dh in
+      // registers; then its P + 1 values, generated and folded kFoldChunk
+      // at a time into s_red, each chunk reusing the registers of the last.
+      // Each sum runs over the same butterfly as a one-pass fold, then the
+      // warps in order: a chunk only changes which lane ends up holding it.
+      // (Leaving x in shared memory for the chunks, or summing the forward
+      // input by input, measured 1.25-1.55 x slower a launch: PERF.md.)
+      float xv[F], h[H], dz[K], dh[H], lrow = 0.f;
+#pragma unroll
+      for (int f = 0; f < F; ++f) xv[f] = 0.f;
+#pragma unroll
+      for (int j = 0; j < H; ++j) h[j] = dh[j] = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) dz[k] = 0.f;
+      if (tid < B) {
+        const float* xr = s_x + ((size_t)st * B + tid) * F;
+        const int yi = s_y[(size_t)st * B + tid];
+        float z[K], e[K];
+#pragma unroll
+        for (int f = 0; f < F; ++f) xv[f] = xr[f] * s_fm[f];
+#pragma unroll
+        for (int j = 0; j < H; ++j) {
+          float acc = 0.f;
+#pragma unroll
+          for (int f = 0; f < F; ++f) acc = fmaf(xv[f], s_p[f * H + j], acc);
+          acc += s_p[oB1 + j];
+          h[j] = fnn_eval::relu_select(acc);
+        }
+        float zmax = -INFINITY;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          float acc = 0.f;
+#pragma unroll
+          for (int j = 0; j < H; ++j)
+            acc = fmaf(h[j], s_p[oW2 + j * K + k], acc);
+          z[k] = acc + s_p[oB2 + k];
+          zmax = fnn_eval::max_nan(zmax, z[k]);
+        }
+        float se = 0.f, zy = 0.f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          e[k] = expf(z[k] - zmax);
+          se += e[k];
+          zy = k == yi ? z[k] : zy;
+        }
+        lrow = logf(se) - (zy - zmax);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          dz[k] = (e[k] / se - (k == yi ? 1.f : 0.f)) * inv_b;
+#pragma unroll
+        for (int j = 0; j < H; ++j) {
+          float d = 0.f;
+          if (h[j] > 0.f) {
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              d = fmaf(dz[k], s_p[oW2 + j * K + k], d);
+          }
+          dh[j] = d;
+        }
+      }
+      constexpr int CL = kFoldChunk / 32;  // of a chunk's values a lane keeps
+#pragma unroll
+      for (int c0 = 0; c0 < V; c0 += kFoldChunk) {
+        float v[kFoldChunk];
+#pragma unroll
+        for (int i = 0; i < kFoldChunk; ++i)
+          v[i] = fused_value<F, H, K>(c0 + i, xv, h, dz, dh, lrow);
+        fold<16, kFoldChunk / 2>(v, lane);
+        fold<8, kFoldChunk / 4>(v, lane);
+        fold<4, kFoldChunk / 8>(v, lane);
+        fold<2, kFoldChunk / 16>(v, lane);
+        fold<1, kFoldChunk / 32>(v, lane);
+#pragma unroll
+        for (int i = 0; i < CL; ++i)
+          s_red[warp * V + c0 + lane * CL + i] = v[i];
       }
     }
-
-    // the warp's sums: lane l ends with values [l * VL, (l + 1) * VL)
-    fold<16, V / 2>(v, lane);
-    fold<8, V / 4>(v, lane);
-    fold<4, V / 8>(v, lane);
-    fold<2, V / 16>(v, lane);
-    fold<1, V / 32>(v, lane);
-#pragma unroll
-    for (int i = 0; i < VL; ++i) s_red[warp * V + lane * VL + i] = v[i];
     __syncthreads();
 
     // every thread has read stage st: refill it for step s + stages
@@ -1980,15 +2123,52 @@ int launch_general(const Args& a, int pairs, int device, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The fused kernel's launch at these sizes: its shared memory, its ring's
+// stages and how it reads the eval window (kEvalNone without an eval). The
+// ring takes min(S, kStages) stages, fewer where they would not fit a block
+// (at least one). With an eval, the ring gives up stages, down to
+// kMinStages, until the window fits beside it (staged by TMA bulk copies
+// where `eval_bulk`, else by 4-byte copies); where even that does not fit
+// the ring keeps its stages and the window is read where it lies. Layout:
+// the mbarriers, the batch stages [stages, B, F + 1], the warps' partials
+// [warps, fused_values(P)], the params [P] and, folding in chunks, the mask
+// [F]; with an eval, the input params, the mask and the warp totals, then,
+// 16-byte aligned, the window's rows [2, N, F] and labels [2, N].
+// local_sgd.py's fused_smem_bytes mirrors it.
+struct FusedLayout {
+  long long smem;
+  int stages, emode;
+};
+
+FusedLayout fused_layout(int F, int H, int K, int B, int S, int N, bool eval,
+                         bool eval_bulk) {
+  const int P = F * H + H + H * K + K;
+  const int FM = P + 1 > kFoldOne ? F : 0;
+  const long long fixed = kBarBytes + 4LL * (fused_threads(B) / 32)
+                          * fused_values(P) + 4LL * (P + FM);
+  auto ring = [&](int st) { return fixed + 4LL * st * B * (F + 1); };
+  auto head = [&](int st) {
+    return (ring(st) + 4LL * (P + F + 4 * fnn_eval::kMaxWarps) + 15) & ~15LL;
+  };
+  int stages = S < kStages ? S : kStages;
+  while (stages > 1 && ring(stages) > kMaxSmem) --stages;
+  if (!eval) return {ring(stages), stages, kEvalNone};
+  const long long window = ((8LL * N * F + 15) & ~15LL)
+                           + ((8LL * N + 15) & ~15LL);
+  for (int st = stages; st >= (stages < kMinStages ? stages : kMinStages);
+       --st)
+    if (head(st) + window <= kMaxSmem)
+      return {head(st) + window, st, eval_bulk ? kEvalBulk : kEvalCopies};
+  return {head(stages), stages, kEvalGlobal};
+}
+
+// Returns a cudaError_t, or kErrSmem without a launch where even one batch
+// stage would not fit a block.
 template <int F, int H, int K>
 int launch_fused(const Args& a, int pairs, int device, cudaStream_t st) {
   constexpr int P = F * H + H + H * K + K;
-  constexpr int V = (P + 1 + 31) / 32 * 32;
-  if (a.B > kFusedMaxThreads) return (int)cudaErrorInvalidValue;
-  const int rows = (a.B + 31) / 32 * 32;
-  const int threads = rows < 64 ? 64 : rows;  // P + 1 <= 64 threads own the
-                                              // parameters and the loss
-  const int stages = a.S < kStages ? a.S : kStages;
+  if (a.B > kFusedMaxThreads || fused_threads(a.B) < P + 1)
+    return (int)cudaErrorInvalidValue;  // a thread a parameter and the loss
   // TMA bulk copies need contiguous batches, and 16-byte aligned addresses
   // and sizes: every batch offset t*N + slot*B is a multiple of 4 rows
   // when N and B are
@@ -1996,35 +2176,23 @@ int launch_fused(const Args& a, int pairs, int device, cudaStream_t st) {
                     && ((reinterpret_cast<uintptr_t>(a.x)
                       | reinterpret_cast<uintptr_t>(a.y)) & 15) == 0
                     && a.N % 4 == 0 && a.B % 4 == 0;
-  long long smem = kBarBytes + 4LL * stages * a.B * (F + 1)
-                   + 4LL * (threads / 32) * V + 4LL * P;
-  int emode = kEvalNone;
-  if (a.eval_correct) {
-    // the input params, the mask and the warp totals, then the window's
-    // rows 16-byte aligned: staged where they fit, else read where they lie
-    smem = (smem + 4LL * (P + F + 4 * fnn_eval::kMaxWarps) + 15) & ~15LL;
-    const long long window = ((8LL * a.N * F + 15) & ~15LL)
-                             + ((8LL * a.N + 15) & ~15LL);
-    const bool eval_bulk =
-        ((reinterpret_cast<uintptr_t>(a.ex)
-          | reinterpret_cast<uintptr_t>(a.ey)) & 15) == 0
-        && (a.exs_c % 4 | a.exs_g % 4 | a.eys_c % 4 | a.eys_g % 4) == 0
-        && a.N % 4 == 0;
-    if (smem + window <= kMaxSmem) {
-      smem += window;
-      emode = eval_bulk ? kEvalBulk : kEvalCopies;
-    } else {
-      emode = kEvalGlobal;
-    }
-  }
-  if (smem > 48 * 1024) {
+  const bool eval_bulk =
+      ((reinterpret_cast<uintptr_t>(a.ex)
+        | reinterpret_cast<uintptr_t>(a.ey)) & 15) == 0
+      && (a.exs_c % 4 | a.exs_g % 4 | a.eys_c % 4 | a.eys_g % 4) == 0
+      && a.N % 4 == 0;
+  const FusedLayout lay = fused_layout(F, H, K, a.B, a.S, a.N,
+                                       a.eval_correct != nullptr, eval_bulk);
+  if (lay.smem > kMaxSmem) return kErrSmem;
+  if (lay.smem > 48 * 1024) {
     static std::atomic<unsigned long long> ready{0};
     const cudaError_t err = allow_smem(local_sgd_fused_kernel<F, H, K>, ready,
                                        device);
     if (err != cudaSuccess) return (int)err;
   }
   local_sgd_fused_kernel<F, H, K>
-      <<<pairs, threads, (size_t)smem, st>>>(a, stages, bulk ? 1 : 0, emode);
+      <<<pairs, fused_threads(a.B), (size_t)lay.smem, st>>>(
+          a, lay.stages, bulk ? 1 : 0, lay.emode);
   return (int)cudaGetLastError();
 }
 
@@ -2228,6 +2396,10 @@ extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
     ret = launch_fused<3, 10, 2>(a, pairs, p->device, st);
   else if (route == 1 && p->F == 2 && p->H == 10 && p->K == 2)
     ret = launch_fused<2, 10, 2>(a, pairs, p->device, st);
+  else if (route == 1 && p->F == 18 && p->H == 10 && p->K == 2)
+    ret = launch_fused<18, 10, 2>(a, pairs, p->device, st);
+  else if (route == 1 && p->F == 5 && p->H == 10 && p->K == 2)
+    ret = launch_fused<5, 10, 2>(a, pairs, p->device, st);
   else
     ret = (int)cudaErrorInvalidValue;
   if (current != p->device) cudaSetDevice(current);
@@ -2239,6 +2411,20 @@ extern "C" int local_sgd_f32(const Params* p, int route, void* stream) {
 extern "C" long long local_sgd_wide_smem(int F, int H, int K, int B,
                                          int sgd) {
   return wide_smem_bytes(F, H, K, B, sgd != 0);
+}
+
+// The fused kernel's shared memory a block at these sizes, in bytes, its
+// ring's stages into *stages and its eval mode into *emode (0 none, 1 and 2
+// the window staged, by bulk copies where eval_bulk, 3 read where it lies):
+// local_sgd.py's fused_smem_bytes mirrors it.
+extern "C" long long local_sgd_fused_smem(int F, int H, int K, int B, int S,
+                                          int N, int eval, int eval_bulk,
+                                          int* stages, int* emode) {
+  const FusedLayout lay = fused_layout(F, H, K, B, S, N, eval != 0,
+                                       eval_bulk != 0);
+  *stages = lay.stages;
+  *emode = lay.emode;
+  return lay.smem;
 }
 
 // The general kernel's shared memory a block at these sizes, in bytes:

@@ -22,7 +22,8 @@ of ``-log_softmax`` at the label (None unless ``with_nll``).
 version, ``eval_cells_ref``, for CPU tensors. There is no fallback for a
 CUDA tensor: the kernel launches or the call raises. The source holds three
 kernels of the one function, and ``_route`` picks one by shape alone
-before the launch: the fused kernel for the registry's widths; the wide
+before the launch: the fused kernel for the registry's widths at
+``fnn_hidden_dim = 10`` (sine, circle, SEA, ro, susy); the wide
 route (a cluster of CTAs a (client, step), the models' first layers side by
 side on the tensor cores in 3xTF32) for rows of a multiple of 4 floats:
 its resident kernel (32-row tiles staged by TMA once for every model)
@@ -30,9 +31,9 @@ where ``wide_smem_bytes`` fits, as at MNIST-4's F = 784, else its
 streamed kernel (64-row tiles, F streamed in chunks of 32 with the group's
 W0 rows; ``stream_smem_bytes``), as at fmow's F = 3072 (``wide_rows``
 says which: 32 or 64); the general one for any other.
-``eval_cells.launches`` counts every launch, ``eval_cells.wide_launches``
-the wide route's and ``eval_cells.stream_launches`` those of its streamed
-kernel.
+``eval_cells.launches`` counts every launch, ``eval_cells.fused_launches``
+the fused kernel's, ``eval_cells.wide_launches`` the wide route's and
+``eval_cells.stream_launches`` those of its streamed kernel.
 ``eval_cells_ref.cuda_calls`` counts the plain version's calls on CUDA
 tensors (only a comparison with the kernel makes them), so a run can show
 that none carried its evals.
@@ -61,8 +62,12 @@ MAX_THREADS = 512
 # csrc/eval_cells.cu's kErrSmem: the general kernel needs more shared
 # memory per block than it may take (the size and limit live in that file)
 _ERR_SMEM = -1
-# the (F, H, K) fnn widths csrc/eval_cells.cu's fused kernel is built for
-FUSED_WIDTHS = ((2, 10, 2), (3, 10, 2))
+# the (F, H, K) fnn widths the fused kernels are built for: sine and circle,
+# SEA, ro and susy at fnn_hidden_dim = 10. K3's and K1's (local_sgd.py
+# imports this one: a round folds its eval only where both take the width)
+# must match the entry points' dispatch lines, eval_cells_f32's in
+# csrc/eval_cells.cu and local_sgd_f32's in csrc/local_sgd.cu
+FUSED_WIDTHS = ((2, 10, 2), (3, 10, 2), (5, 10, 2), (18, 10, 2))
 _ROUTES = {"general": 0, "fused": 1, "wide": 2}  # eval_cells_f32's route
 # The wide kernels of K1 and K3 (csrc/local_sgd.cu, csrc/eval_cells.cu):
 # rows a CTA, CTAs a cluster at most, and a block's shared memory
@@ -342,7 +347,9 @@ def eval_cells(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
         raise RuntimeError(f"eval_cells_f32 ({route}) launch failed: "
                            f"cudaError {err}")
     eval_cells.launches += 1
-    if route == "wide":
+    if route == "fused":
+        eval_cells.fused_launches += 1
+    elif route == "wide":
         eval_cells.wide_launches += 1
         if wide_rows(F, H, K) == STREAM_ROWS:
             eval_cells.stream_launches += 1
@@ -350,5 +357,6 @@ def eval_cells(params: torch.Tensor, x: torch.Tensor, y: torch.Tensor, *,
 
 
 eval_cells.launches = 0
+eval_cells.fused_launches = 0
 eval_cells.wide_launches = 0
 eval_cells.stream_launches = 0

@@ -28,10 +28,12 @@ inactive pair) and the mean loss over the S steps ``[M, C]``.
 state IN PLACE (the dict it returns is the one it was given); for CPU
 tensors it runs ``local_sgd_ref``, which returns a new state. There is no
 fallback for a CUDA tensor: the kernel launches or the call raises. The
-source holds three kernels of the one function, and ``_route`` picks one
+source holds four kernels of the one function, and ``_route`` picks one
 by shape, model and update alone before the launch: the fused kernel (one
-batch row a thread, two barriers a step) for the fnn widths it is built
-for under AMSGrad; the wide kernel (a cluster of CTAs a pair, 32 batch rows
+batch row a thread, two barriers a step; at susy's and ro's widths the
+row's P + 1 values folded 32 at a time) for the fnn widths it is built
+for under AMSGrad, where its block has a thread for each parameter and the
+loss; the wide kernel (a cluster of CTAs a pair, 32 batch rows
 each staged by TMA, both products in float32 FMAs) for rows of a multiple
 of 4 floats, such as MNIST-4's F = 784 (and femnist's fnn, 62 classes, two
 a lane), the fnn or the lr, AMSGrad or SGD, where ``wide_smem_bytes``
@@ -41,8 +43,9 @@ inputs the wide kernel's budget refuses, such as fmow's F = 3072 or
 stackoverflow_lr's F = 1000 under AMSGrad (a sixteenth rounded up to
 float4s, ``split_fq``, the last CTA padded past F), where
 ``split_smem_bytes`` fits; the general kernel for the rest (e.g.
-``fnn_hidden_dim = 32`` and the lr at SEA's F = 3). ``local_sgd.launches``
-counts every launch, ``local_sgd.wide_launches`` the wide kernel's and
+``fnn_hidden_dim = 32``, the lr at SEA's F = 3, SGD at susy's width).
+``local_sgd.launches`` counts every launch, ``local_sgd.fused_launches``
+the fused kernel's, ``local_sgd.wide_launches`` the wide kernel's and
 ``local_sgd.split_launches`` the split kernel's.
 
 ``local_sgd_fedavg`` is a round's K1 and K2 in one launch: the fused
@@ -75,10 +78,10 @@ import torch
 from feddrift_torch.kernels.build import library
 from feddrift_torch.kernels.eval_cells import _route as _eval_route
 from feddrift_torch.kernels.eval_cells import _threads as _eval_threads
-from feddrift_torch.kernels.eval_cells import (MAX_SMEM, WIDE_MAX_CLUSTER,
-                                               WIDE_ROWS, _apply, _classes,
-                                               _unpack, _wide_stride,
-                                               eval_cells_ref)
+from feddrift_torch.kernels.eval_cells import (FUSED_WIDTHS, MAX_SMEM,
+                                               WIDE_MAX_CLUSTER, WIDE_ROWS,
+                                               _apply, _classes, _unpack,
+                                               _wide_stride, eval_cells_ref)
 from feddrift_torch.kernels.fedavg import fedavg_ref
 
 B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.amsgrad defaults
@@ -86,10 +89,19 @@ MAX_BLOCKS = 2 ** 31 - 1
 # csrc/local_sgd.cu's kErrSmem: the shape needs more shared memory per block
 # than the kernel may take (the size and the limit live in that file only)
 _ERR_SMEM = -1
-# the (F, H, K) fnn widths csrc/local_sgd.cu's fused kernel is built for
-# (sine and circle, SEA at fnn_hidden_dim = 10) and its most rows (a block)
-FUSED_WIDTHS = ((2, 10, 2), (3, 10, 2))
+# The fused kernel's widths are K3's FUSED_WIDTHS (imported above: one list,
+# which both entry points' dispatch lines must match, local_sgd_f32's in
+# csrc/local_sgd.cu and eval_cells_f32's in csrc/eval_cells.cu), and its
+# most rows (a block)
 FUSED_MAX_BATCH = 512
+# csrc/local_sgd.cu's fused kernel: batch stages of its ring at most, and at
+# least where an eval window wants the room; a row's values folded at once
+# up to FOLD_ONE, else FOLD_CHUNK at a time; its mbarriers' bytes; the
+# eval's warps at most
+FUSED_STAGES, FUSED_MIN_STAGES = 8, 2
+FOLD_ONE, FOLD_CHUNK = 64, 32
+_BAR_BYTES = 8 * (FUSED_STAGES + 2)
+_EVAL_WARPS = 16
 # local_sgd_f32's route
 _ROUTES = {"general": 0, "fused": 1, "wide": 2, "split": 3}
 OPTIMIZERS = ("adam", "sgd")              # the reference's make_optimizer
@@ -195,12 +207,55 @@ def _split_fits(F: int, H: int, K: int, B: int, optimizer: str) -> bool:
         and split_smem_bytes(F, H, K, B, optimizer) <= MAX_SMEM
 
 
+def fused_threads(B: int) -> int:
+    """The fused kernel's block at batch ``B``: one row a thread,
+    round_up(B, 32) and at least 64 threads (``csrc/local_sgd.cu::
+    fused_threads``)."""
+    return max(64, -(-B // 32) * 32)
+
+
+def fused_smem_bytes(F: int, H: int, K: int, B: int, S: int, N: int = 0,
+                     eval_window: bool = False) -> tuple[int, int, str]:
+    """``(bytes, stages, eval mode)`` of one block of the fused kernel, as
+    ``csrc/local_sgd.cu::fused_layout`` sets them: a batch ring of min(S,
+    8) stages, fewer where they would not fit a block; with an eval on
+    ``N``-row steps the ring gives up stages, down to 2, until the window
+    fits beside it (``"staged"``), else the window is read where it lies
+    (``"global"``); ``"none"`` without an eval. Bytes: the mbarriers, the
+    stages' rows and labels, the warps' partials of the P + 1 values (padded
+    to whole folds), the params and, folding in chunks, the mask; with an
+    eval the input params, the mask and the warp totals, then the window's
+    rows and labels, each 16-byte aligned."""
+    P = F * H + H + H * K + K
+    V = -(-(P + 1) // 32) * 32 if P + 1 <= FOLD_ONE \
+        else -(-(P + 1) // FOLD_CHUNK) * FOLD_CHUNK
+    fm = F if P + 1 > FOLD_ONE else 0
+    fixed = _BAR_BYTES + 4 * (fused_threads(B) // 32) * V + 4 * (P + fm)
+    ring = lambda st: fixed + 4 * st * B * (F + 1)
+    head = lambda st: -(-(ring(st) + 4 * (P + F + 4 * _EVAL_WARPS)) // 16) \
+        * 16
+    stages = min(S, FUSED_STAGES)
+    while stages > 1 and ring(stages) > MAX_SMEM:
+        stages -= 1
+    if not eval_window:
+        return ring(stages), stages, "none"
+    window = -(-8 * N * F // 16) * 16 + -(-8 * N // 16) * 16
+    for st in range(stages, min(stages, FUSED_MIN_STAGES) - 1, -1):
+        if head(st) + window <= MAX_SMEM:
+            return head(st) + window, st, "staged"
+    return head(stages), stages, "global"
+
+
 def _route(F: int, H: int, K: int, B: int, optimizer: str = "adam") -> str:
     """Which kernel takes a ``F -> H -> K`` fnn (``H = 0``: the lr) at
     batch ``B`` under ``optimizer``: by shape, model and update alone,
-    decided before the launch."""
+    decided before the launch. The fused kernel takes its widths under
+    AMSGrad where its block has a thread for each parameter and the loss
+    (susy's P 212 from B = 193 on, ro's P 82 from B = 65); below that the
+    general kernel does."""
     if (F, H, K) in FUSED_WIDTHS and B <= FUSED_MAX_BATCH \
-            and optimizer == "adam":
+            and optimizer == "adam" \
+            and fused_threads(B) >= F * H + H + H * K + K + 1:
         return "fused"
     if _wide_fits(F, H, K, B, optimizer):
         return "wide"
@@ -447,9 +502,11 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
             or (route == "wide" and not _wide_fits(F, H, K, B, optimizer)) \
             or (route == "split" and not _split_fits(F, H, K, B, optimizer)):
         raise ValueError(f"route {route!r}: the fused kernel takes (F, H, K) "
-                         f"in {FUSED_WIDTHS}, B <= {FUSED_MAX_BATCH} and "
-                         f"AMSGrad, the wide one F % 4 == 0, a first layer "
-                         f"of at most {WIDE_MAX_WIDTH}, B <= "
+                         f"in {FUSED_WIDTHS}, B <= {FUSED_MAX_BATCH} with "
+                         f"a thread for each of the P + 1 values "
+                         f"(fused_threads) and AMSGrad, the wide one F % 4 "
+                         f"== 0, a first layer of at most {WIDE_MAX_WIDTH}, "
+                         f"B <= "
                          f"{WIDE_ROWS * WIDE_MAX_CLUSTER} within "
                          f"{MAX_SMEM} bytes (wide_smem_bytes), the split one "
                          f"the fnn at F % 4 == 0 within its budget "
@@ -521,7 +578,9 @@ def _launch(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
         raise RuntimeError(f"local_sgd_f32 ({route}, {optimizer}) launch "
                            f"failed: cudaError {err}")
     local_sgd.launches += 1
-    if route == "wide":
+    if route == "fused":
+        local_sgd.fused_launches += 1
+    elif route == "wide":
         local_sgd.wide_launches += 1
     elif route == "split":
         local_sgd.split_launches += 1
@@ -557,6 +616,7 @@ def local_sgd(x, y, params, opt_state, t_idx, slot, total_w, *, hidden: int,
 
 
 local_sgd.launches = 0
+local_sgd.fused_launches = 0
 local_sgd.wide_launches = 0
 local_sgd.split_launches = 0
 

@@ -14,10 +14,15 @@ checkout, builds that side's kernels there, and for each case, on
 (``local_sgd_fedavg``, SEA), the same launch with the folded eval, K1's
 general kernel forced at SEA (the fnn under AMSGrad and SGD, the lr under
 AMSGrad), its wide kernel at MNIST-4's width (the same three) and at
-femnist-fnn's (784 -> 10 -> 62, two classes a lane) and its split kernel at
-fmow's (the fnn under AMSGrad and SGD); K3's
+femnist-fnn's (784 -> 10 -> 62, two classes a lane), its split kernel at
+fmow's (the fnn under AMSGrad and SGD), and at susy's width (18 -> 10 ->
+2) and ro's (5 -> 10 -> 2) its default route (the fused kernel since it
+folds in chunks; the general one before) and the general one forced; K3's
 fused and general kernels at SEA (G = 2), its wide route at MNIST-4's
-width (G = 2) and at fmow's (G = 2 and every step, T1). It prints one
+width (G = 2) and at fmow's (G = 2 and every step, T1), its default route
+at susy's (G = 2). ``k1_susy_fused_eval`` and ``k1_ro_fused_eval`` (the
+fused round with its epilogue and the eval folded in) run only where
+``--cases`` names them: both sides must take the fused route there. It prints one
 ``ab_kernel`` JSON line a side and case: ms a call (CUDA events), device
 ms (torch.profiler), and a sha256 of every output of a fresh call; and one
 ``ab_ptxas`` line a side with ptxas' registers and spills of every kernel
@@ -48,8 +53,11 @@ ORDER = ("base", "this", "this", "base")
 CASES = ("k1_fused", "k1_fused_eval", "k1_general", "k1_general_sgd",
          "k1_general_lr", "k1_wide", "k1_wide_sgd", "k1_wide_lr",
          "k1_wide_femnist", "k1_split",
-         "k1_split_sgd", "k3_fused", "k3_general", "k3_wide", "k3_fmow",
-         "k3_fmow_cells")
+         "k1_split_sgd", "k1_susy", "k1_susy_general", "k1_ro", "k3_fused",
+         "k3_general", "k3_wide", "k3_fmow", "k3_fmow_cells", "k3_susy")
+# cases whose call needs the fused route at susy's and ro's widths on both
+# sides (K2 as the epilogue, the eval folded in): name them in --cases
+FUSED_TABULAR = ("k1_susy_fused_eval", "k1_ro_fused_eval")
 
 
 def _digest(tensors) -> str:
@@ -118,11 +126,17 @@ def child(cases) -> None:
         "k1_wide_femnist": lambda: k1("femnist"),
         "k1_split": lambda: k1("fmow"),
         "k1_split_sgd": lambda: k1("fmow", optimizer="sgd"),
+        "k1_susy": lambda: k1("susy"),
+        "k1_susy_general": lambda: k1("susy", route="general"),
+        "k1_ro": lambda: k1("ro"),
+        "k1_susy_fused_eval": lambda: k1("susy", fused=True, fold=True),
+        "k1_ro_fused_eval": lambda: k1("ro", fused=True, fold=True),
         "k3_fused": lambda: k3("sea"),
         "k3_general": lambda: k3("sea", route="general"),
         "k3_wide": lambda: k3("MNIST"),
         "k3_fmow": lambda: k3("fmow"),
-        "k3_fmow_cells": lambda: k3("fmow", window="T1")}
+        "k3_fmow_cells": lambda: k3("fmow", window="T1"),
+        "k3_susy": lambda: k3("susy")}
     for label in cases:
         digest, fn = table[label]()
         wide = any(w in label for w in ("wide", "split", "fmow"))
@@ -146,8 +160,9 @@ def main() -> int:
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     cases = tuple(filter(None, args.cases.split(","))) or CASES
-    if set(cases) - set(CASES):
-        ap.error(f"unknown cases {sorted(set(cases) - set(CASES))}")
+    if set(cases) - set(CASES + FUSED_TABULAR):
+        ap.error(f"unknown cases "
+                 f"{sorted(set(cases) - set(CASES + FUSED_TABULAR))}")
     if args.child:
         child(cases)
         return 0

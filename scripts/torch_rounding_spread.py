@@ -2,13 +2,14 @@
 on the card: the win-1 and oblivious runs of ``chip_smoke.py``'s
 ``MNIST_RUNS`` (or ``FMOW_RUNS``, ``TABULAR_RUNS``' or ``IMAGE_RUNS``' runs
 of the dataset; 10 steps, the reference's init) through K1's kernel of that
-width (the wide one; fmow's: the split one), the same kernel with its
+width (the wide one; fmow's: the split one; susy's and ro's: the fused
+one, K2 its epilogue and the evals folded in), the same kernel with its
 cluster sum taken in reverse rank order (a copy of ``csrc/local_sgd.cu``
 built beside the package's: the wide kernel's gradient sum, the split
 kernel's sum of Z1's partials), at MNIST's width the general kernel, and
 the plain version (``local_sgd_ref`` on the card, on the batch rows as drawn
-and permuted within each batch). Each changes only the order of float32
-sums. ``--plain_only`` runs the plain variants alone: the envelope from
+and permuted within each batch, with K2 and K3 launched on their own).
+Each changes only the order of float32 sums. ``--plain_only`` runs the plain variants alone: the envelope from
 which a gate is fixed before any kernel's run of the dataset is read.
 
     python3 scripts/torch_rounding_spread.py [--runs win-1,oblivious]
@@ -130,6 +131,15 @@ def main() -> int:
         torch.from_numpy(np.load(path)))
     runs = {r[0]: r for r in table if r[0] in args.runs.split(",")}
     kernel, route, k1_fn = k1._kernel, k1._route, step_mod.local_sgd
+    step_route, step_folds = step_mod._route, step_mod._folds_eval
+
+    def on_plain(fn):
+        # the round then calls local_sgd (the plain version) and agg_mean,
+        # never the fused route's local_sgd_fedavg, and launches K3 for
+        # every eval (susy's and ro's widths are fused otherwise)
+        step_mod.local_sgd = fn
+        step_mod._route = lambda *a, **k: "general"
+        step_mod._folds_eval = lambda *a, **k: False
 
     def plain_on(perm):
         def plain(x, y, flat, opt, t_idx, slot, tw, *, batch_size,
@@ -144,12 +154,13 @@ def main() -> int:
 
     means, envelope = {}, {}
     def permuted(seed):
-        return lambda: setattr(step_mod, "local_sgd", plain_on(
+        return lambda: on_plain(plain_on(
             torch.from_numpy(np.random.default_rng(seed).permutation(500))
             .cuda()))
 
     with tempfile.TemporaryDirectory() as tmp:
-        reversed_fn = None if args.plain_only or width == "general" \
+        reversed_fn = None if args.plain_only \
+            or width in ("general", "fused") \
             else reversed_sum_kernel(build, tmp, width)
         variants = () if args.plain_only else (
             (width, lambda: None),
@@ -161,7 +172,7 @@ def main() -> int:
             *(() if fmow or new else (("general", lambda: setattr(
                 k1, "_route", lambda F, H, K, B, o="adam": "general")),)),)
         variants += (
-            ("plain", lambda: setattr(step_mod, "local_sgd", plain_on(
+            ("plain", lambda: on_plain(plain_on(
                 torch.arange(500, device="cuda")))),
             *((f"plain_rows_permuted_{i}", permuted(i))
               for i in range(1, args.permutations + 1)))
@@ -170,6 +181,8 @@ def main() -> int:
                     in runs.items():
                 k1._kernel, k1._route = kernel, route
                 step_mod.local_sgd = k1_fn
+                step_mod._route, step_mod._folds_eval = step_route, \
+                    step_folds
                 setup()
                 cfg = ExperimentConfig(dataset=args.dataset,
                                        concept_drift_algo=algo,
@@ -207,6 +220,7 @@ def main() -> int:
                                   "seconds": time.time() - t0}), flush=True)
         k1._kernel, k1._route = kernel, route
         step_mod.local_sgd = k1_fn
+        step_mod._route, step_mod._folds_eval = step_route, step_folds
     print(json.dumps({"card": card, "spread_of_means": {
         algo: {"min": min(v.values()), "max": max(v.values())}
         for algo, v in means.items()}, "plain_envelope": envelope}))

@@ -8,7 +8,9 @@ without one. They import nothing of JAX, so they run on the card with
   canonical SEA shape (M=4, C=10, T1=11, N=B=500, S=5, F=3, H=10, K=2), at
   F=2 (sine, circle), with more steps than its ring has stages, with rows
   whose offsets rule out the bulk copies, and with fewer rows than
-  threads; the general one at H=32 and, forced, at the SEA shape; some
+  threads, and at susy's F=18 (contiguous, and gathered with feature
+  masks) and ro's F=5, where it folds a row's values in chunks; the
+  general one at H=32 and, forced, at the SEA shape; some
   pairs inactive. Tolerance: params, mu and losses at atol 1e-5 (float32
   sums over 500 rows in another order, five AMSGrad steps of lr = 0.01);
   nu and nu_max at rtol 1e-4 (squares of gradients). Inactive pairs come
@@ -81,24 +83,38 @@ def _to(dev, args):
 # (name, _case arguments, route): the canonical SEA shape and sine's F = 2;
 # 12 steps through the fused kernel's 8-stage ring; N = B = 498, whose
 # batch offsets are not 16-byte aligned (per-thread copies); 20 rows in a
-# block of 64 threads; H = 32 (the general kernel); SEA forced general
+# block of 64 threads; H = 32 (the general kernel); SEA forced general;
+# susy's and ro's widths (18 -> 10 -> 2, P 212, and 5 -> 10 -> 2, P 82: the
+# fused kernel folding a row's values 32 at a time), and susy's on gathered
+# rows with feature masks (K4's draw, the per-thread copies)
 K1_CASES = (("sea", dict(F=3), "fused"), ("sine", dict(F=2), "fused"),
             ("ring", dict(F=2, S=12), "fused"),
             ("unaligned", dict(F=3, N=498, B=498, S=10), "fused"),
             ("few_rows", dict(F=3, N=40, B=20, S=12), "fused"),
             ("h32", dict(F=3, H=32), "general"),
-            ("sea_general", dict(F=3), "general"))
+            ("sea_general", dict(F=3), "general"),
+            ("susy", dict(F=18), "fused"), ("ro", dict(F=5), "fused"),
+            ("susy_gather", dict(F=18, gather=True), "fused"))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,case,route", K1_CASES,
                          ids=[c[0] for c in K1_CASES])
 def test_local_sgd_kernel_matches_plain(cuda, name, case, route):
+    case = dict(case)
+    gather = case.pop("gather", False)
     args, kw = _case(**case)
     F, H, B = case["F"], kw["hidden"], kw["batch_size"]
     forced = name == "sea_general"
     assert forced or _route(F, H, 2, B) == route
     k_args, r_args = _to(cuda, args), _to(cuda, args)
+    if gather:
+        # K4's rows and feature masks; the case's weights keep its
+        # inactive pairs
+        idx, fm, _ = _gathered(cuda, args, kw)
+        kw = dict(kw, idx=idx, feat_mask=fm)
+        k_args = k_args[:4] + (None, None) + k_args[6:]
+        r_args = r_args[:4] + (None, None) + r_args[6:]
     before = local_sgd.launches
     client, opt, n, loss = local_sgd(*k_args, **kw,
                                      route=route if forced else None)

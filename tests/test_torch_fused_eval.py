@@ -174,11 +174,16 @@ def test_plain_fold_is_the_eval_of_the_input_params(masked):
 
 @pytest.mark.parametrize("F_,H_,K_,B_,N_,want", [
     (3, 10, 2, 500, 500, True), (3, 10, 2, 64, 500, False),
-    (3, 32, 2, 500, 500, False), (2, 10, 2, 500, 500, True)])
+    (3, 32, 2, 500, 500, False), (2, 10, 2, 500, 500, True),
+    (18, 10, 2, 500, 500, True), (5, 10, 2, 500, 500, True),
+    (18, 10, 2, 192, 192, False), (18, 10, 2, 193, 193, True),
+    (5, 10, 2, 64, 64, False)])
 def test_folds_eval_is_pinned(F_, H_, K_, B_, N_, want):
     """The fold needs both fused kernels and one block size: at B = 64
     K1's block has 64 threads and K3's 512, and H = 32 takes the general
-    kernels."""
+    kernels. At susy's and ro's widths K1's fused kernel needs a thread for
+    each of the P + 1 values (susy 213, ro 83): below that batch the round
+    takes the general kernel and folds no eval."""
     assert _folds_eval(F_, H_, K_, B_, N_) is want
 
 
@@ -337,15 +342,21 @@ def _card_round(seed, f, b, masked, m=4, c=10, t1=11, n=500, s=5):
 # (f, feature masks, N, B): SEA, sine and SEA with masks stage the window
 # by TMA bulk copies; at N = 498 its rows are not 16-byte aligned
 # (4-byte cp.async); at N = 6000 they do not fit in shared memory beside
-# the batch ring and are read from device memory
+# the batch ring and are read from device memory; susy (f = 18, with and
+# without masks) and ro (f = 5) fold a row's values in chunks, susy's ring
+# giving up stages so that the window fits, and at N = 3000 reading it
+# where it lies
 FOLD_CASES = ((3, False, 500, 500), (2, False, 500, 500), (3, True, 500, 500),
-              (3, False, 498, 498), (3, True, 6000, 500))
+              (3, False, 498, 498), (3, True, 6000, 500),
+              (18, False, 500, 500), (18, True, 500, 500),
+              (5, False, 500, 500), (18, False, 3000, 500))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("f,masked,n,b", FOLD_CASES,
                          ids=["sea", "sine", "sea_masks", "unaligned",
-                              "unstaged"])
+                              "unstaged", "susy", "susy_masks", "ro",
+                              "susy_unstaged"])
 def test_folded_launch_is_k1_k2_then_k3(cuda, f, masked, n, b):
     """One launch with the eval folded in equals the K1 + K2 launch
     followed by a standalone K3 launch on its input params, bitwise in

@@ -141,17 +141,20 @@ def test_reset_and_read_counts_cover_every_training_kernel():
     local_sgd.launches = local_sgd_fedavg.launches = 4
     local_sgd.wide_launches = eval_cells.wide_launches = 7
     local_sgd.split_launches = eval_cells.stream_launches = 8
+    local_sgd.fused_launches = eval_cells.fused_launches = 9
     local_sgd_fedavg.evals = 6
     weighted_cdf.launches = weighted_search.launches = 5
     fedavg_ref.cuda_calls = eval_cells_ref.cuda_calls = 2
     weighted_cdf_ref.cuda_calls = weighted_search_ref.cuda_calls = 2
     chip_smoke._reset_counts()
     assert chip_smoke._read_counts() == {
-        "k1_launches": 0, "k1_without_epilogue": 0, "k1_wide_launches": 0,
-        "k1_split_launches": 0,
+        "k1_launches": 0, "k1_without_epilogue": 0, "k1_fused_launches": 0,
+        "k1_wide_launches": 0, "k1_split_launches": 0,
+        "k1_general_launches": 0,
         "k4a_launches": 0, "k4b_launches": 0, "k2_launches": 0,
         "k2_epilogues": 0, "aggregations": 0, "k3_launches": 0,
-        "k3_wide_launches": 0, "k3_stream_launches": 0, "folded_evals": 0,
+        "k3_fused_launches": 0, "k3_wide_launches": 0,
+        "k3_stream_launches": 0, "folded_evals": 0,
         "plain_calls": {"fedavg_ref": 0, "eval_cells_ref": 0,
                         "weighted_cdf_ref": 0, "weighted_search_ref": 0}}
 
@@ -324,22 +327,28 @@ def test_mnist_runs_fit_the_time_budget():
 
 def test_k1_cases_run_every_instantiation_of_both_kernels():
     """``K1_CASES`` hold each of the general and the wide kernel's four
-    instantiations (the lr or the fnn, AMSGrad or SGD) and the split
-    kernel's two (the fnn, AMSGrad or SGD) to the plain version, each
+    instantiations (the lr or the fnn, AMSGrad or SGD), the split
+    kernel's two (the fnn, AMSGrad or SGD) and the fused kernel's at each
+    of its widths to the plain version, each
     kernels-line entry of K1 names a case, and the runs held at step 0 only
     are lr runs."""
     from feddrift_torch.kernels.local_sgd import _route
     widths = {"sea": (3, 2), "sine": (2, 2), "MNIST": (784, 10),
               "fmow": (3072, 62), "femnist": (784, 62),
-              "stackoverflow_lr": (1000, 50), "susy": (18, 2),
+              "stackoverflow_lr": (1000, 50), "susy": (18, 2), "ro": (5, 2),
               "cifar10": (3072, 10)}
-    routes = set()
+    routes, fused = set(), set()
     for label, dataset, _, model, hidden, optimizer, forced, _ \
             in chip_smoke.K1_CASES:
         F, K = widths[dataset]
         H = 0 if model == "lr" else hidden
         routes.add((forced or _route(F, H, K, 500, optimizer), model,
                     optimizer))
+        if (forced or _route(F, H, K, 500, optimizer)) == "fused":
+            fused.add((F, H, K))
+    # and each instantiation of the fused kernel
+    from feddrift_torch.kernels.local_sgd import FUSED_WIDTHS
+    assert fused == set(FUSED_WIDTHS)
     assert {(r, m, o) for r in ("general", "wide") for m in ("lr", "fnn")
             for o in ("adam", "sgd")} <= routes
     assert {("split", "fnn", "adam"), ("split", "fnn", "sgd")} <= routes
@@ -422,3 +431,56 @@ def test_mnist_reference_init_is_the_reference_pools():
     slots = jax.tree_util.tree_map(np.asarray, exp.pool.params)
     assert np.array_equal(mod.pack(params_from_jax(slots, "cpu"))[-1].numpy(),
                           got)
+
+
+def _fused_tabular_got(**over):
+    """The counts of a 10-step susy run on the fused route: 2000 fused K1
+    launches each with its epilogue, 400 folded evals, 10 fused K3
+    launches; ``over`` replaces some."""
+    got = {"k1_launches": 2000, "k1_without_epilogue": 0,
+           "k1_fused_launches": 2000, "k1_wide_launches": 0,
+           "k1_split_launches": 0, "k1_general_launches": 0,
+           "k4a_launches": 0, "k4b_launches": 0, "k2_launches": 0,
+           "k2_epilogues": 2000, "aggregations": 2000, "k3_launches": 10,
+           "k3_fused_launches": 10, "k3_wide_launches": 0,
+           "k3_stream_launches": 0, "folded_evals": 400,
+           "plain_calls": {"fedavg_ref": 0, "eval_cells_ref": 0,
+                           "weighted_cdf_ref": 0, "weighted_search_ref": 0},
+           "paths": ["fused"] * 10}
+    got.update(over)
+    return got
+
+
+@pytest.mark.parametrize("over,ok", [
+    ({}, True),
+    ({"k1_fused_launches": 0, "k1_general_launches": 2000,
+      "k2_epilogues": 0, "aggregations": 2000, "k2_launches": 2000,
+      "folded_evals": 0, "k3_launches": 410, "k3_fused_launches": 0}, False),
+    ({"k1_launches": 2001, "k1_general_launches": 1}, False),
+    ({"k3_fused_launches": 9}, False),
+    ({"folded_evals": 399, "k3_launches": 11, "k3_fused_launches": 11},
+     False),
+    ({"k2_launches": 1, "aggregations": 2001}, False),
+    ({"paths": ["fused"] * 9 + ["per_round"]}, False)],
+    ids=["fused", "general", "one_general", "k3_elsewhere", "one_unfolded",
+         "fedavg_launch", "per_round_step"])
+def test_check_fused_tabular_run(over, ok):
+    """A susy or ro run passes only where every round was one fused K1
+    launch with K2 as its epilogue (no fedavg.cu, no general K1), every
+    eval but a step's last folded, and those last ones on K3's fused
+    kernel."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.models.mlp import FeedForwardNN
+    cfg = ExperimentConfig(dataset="susy", train_iterations=10)
+    exp = SimpleNamespace(step=SimpleNamespace(module=FeedForwardNN(
+        (18,), 2, 10)), x=torch.zeros(10, 11, 500, 18))
+    got = _fused_tabular_got(**over)
+    if ok:
+        chip_smoke._check_fused_tabular_run("susy", got, cfg, exp, 2000)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke._check_fused_tabular_run("susy", got, cfg, exp, 2000)

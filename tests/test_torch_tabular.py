@@ -50,7 +50,12 @@ ATOL, ADAM_PARAM_ATOL, NU_RTOL, NLL_RTOL = 2e-6, 2e-5, 1e-4, 1e-5
 ACC_ATOL, LOSS_ATOL = 1e-4, 1e-3
 SMALL_SO = dict(so_vocab_size=64, so_tag_size=8)
 # (dataset, extra config, F, K) of the narrow fnn cases
-WIDTHS = {"susy": ({}, 18, 2), "stackoverflow_lr": (SMALL_SO, 64, 8)}
+WIDTHS = {"susy": ({}, 18, 2), "ro": ({}, 5, 2),
+          "stackoverflow_lr": (SMALL_SO, 64, 8)}
+# N = B of the rounds and runs on K1's fused route at susy's and ro's
+# widths: its block (a thread a row) needs a thread for each of the P + 1
+# values (susy's 213), so the fused round starts at B = 193
+FUSED_ROWS = 224
 
 
 def _same(got, want):
@@ -168,11 +173,11 @@ def test_stackoverflow_files_are_refused(tmp_path, present):
 # K1 and K3's plain versions at susy's and a small stackoverflow_lr's fnn,
 # on the reference's draws
 
-def _data(dataset, seed):
+def _data(dataset, seed, n=N):
     extra, F, _ = WIDTHS[dataset]
-    ds = jax_make(JaxConfig(dataset=dataset, train_iterations=T, sample_num=N,
+    ds = jax_make(JaxConfig(dataset=dataset, train_iterations=T, sample_num=n,
                             seed=seed, **extra))
-    x = ds.x[:C].reshape(C, T + 1, N, F)
+    x = ds.x[:C].reshape(C, T + 1, n, F)
     return np.ascontiguousarray(x), np.ascontiguousarray(ds.y[:C])
 
 
@@ -187,11 +192,11 @@ def _jax_pool(seed, F, K):
     return jm, jax.tree_util.tree_map(np.asarray, jp)
 
 
-def _jax_step(jm, optimizer, K):
+def _jax_step(jm, optimizer, K, b=B):
     from feddrift_tpu.core.step import TrainStep as JStep
     from feddrift_tpu.core.step import make_optimizer
     return JStep(lambda p, x: jm.apply({"params": p}, x),
-                 make_optimizer(optimizer, LR, WD), B, S, K)
+                 make_optimizer(optimizer, LR, WD), b, S, K)
 
 
 def _pack(tree, F, K):
@@ -201,29 +206,37 @@ def _pack(tree, F, K):
 
 
 @pytest.fixture(scope="module", params=[
-    ("susy", "adam"), ("susy", "sgd"), ("stackoverflow_lr", "adam"),
-    ("stackoverflow_lr", "sgd")], ids=lambda p: f"{p[0]}-{p[1]}")
+    ("susy", "adam", N), ("susy", "sgd", N), ("stackoverflow_lr", "adam", N),
+    ("stackoverflow_lr", "sgd", N), ("susy", "adam", FUSED_ROWS),
+    ("ro", "adam", FUSED_ROWS)],
+    ids=lambda p: f"{p[0]}-{p[1]}" + ("-fused" if p[2] == FUSED_ROWS else ""))
 def jax_round(request):
     """One reference train_round at the dataset's narrow fnn, with its
-    draws and masks (model 1 off on every third input)."""
+    draws and masks (model 1 off on every third input); at N = B =
+    FUSED_ROWS (the "-fused" cases) the port's round takes K1's fused
+    route with K2 as its epilogue."""
     import jax
     import jax.numpy as jnp
-    dataset, optimizer = request.param
+    dataset, optimizer, n = request.param
+    b = B if n == N else n
     _, F, K = WIDTHS[dataset]
     seed = 1 if optimizer == "adam" else 2
-    x, y = _data(dataset, seed)
+    x, y = _data(dataset, seed, n)
     tw = _time_w(seed)
     fm = np.ones((M, F), np.float32)
     fm[1, ::3] = 0.0
     jm, jp = _jax_pool(seed, F, K)
-    jstep = _jax_step(jm, optimizer, K)
+    jstep = _jax_step(jm, optimizer, K, b)
     key = jax.random.PRNGKey(30 + seed)
     out = jstep.train_round(
         jp, jstep.init_opt_states(jp, M, C), key, jnp.asarray(x),
-        jnp.asarray(y), jnp.asarray(tw), jnp.ones((M, C, N)), jnp.asarray(fm),
+        jnp.asarray(y), jnp.asarray(tw), jnp.ones((M, C, n)), jnp.asarray(fm),
         jnp.float32(0.5), with_agg_stats=True)
-    return dict(optimizer=optimizer, F=F, K=K, x=x, y=y, tw=tw, fm=fm, jp=jp,
-                out=out, draws=_jax_draws(key, tw))
+    t_idx, slot = _jax_draws(key, tw)
+    if n == b:     # the reference's slot draw is randint(0, N // B) = 0
+        slot = torch.zeros_like(slot)
+    return dict(optimizer=optimizer, F=F, K=K, N=n, B=b, x=x, y=y, tw=tw,
+                fm=fm, jp=jp, out=out, draws=(t_idx, slot))
 
 
 def test_local_sgd_ref_matches_reference(jax_round):
@@ -236,7 +249,7 @@ def test_local_sgd_ref_matches_reference(jax_round):
         torch.from_numpy(r["x"]), torch.from_numpy(r["y"]), flat,
         init_opt_state(M, C, flat.shape[1], "cpu", r["optimizer"]),
         *r["draws"], torch.from_numpy(r["tw"]).sum(-1), hidden=H,
-        batch_size=B, lr=LR, wd=WD, lr_scale=0.5,
+        batch_size=r["B"], lr=LR, wd=WD, lr_scale=0.5,
         feat_mask=torch.from_numpy(r["fm"]), optimizer=r["optimizer"])
     _newp, jopt, jclient, jn, jloss, _stats, _ = r["out"]
     atol = ATOL if r["optimizer"] == "sgd" else ADAM_PARAM_ATOL
@@ -257,20 +270,30 @@ def test_local_sgd_ref_matches_reference(jax_round):
     assert n[1, 2] == 0 and torch.equal(client[1, 2], flat[1])
 
 
-def test_train_round_matches_reference(jax_round):
+def test_train_round_matches_reference(jax_round, monkeypatch):
     """The port's round: K1's plain version, then K2's, with the new
-    params and aggregation stats."""
+    params and aggregation stats; at N = B = FUSED_ROWS through the fused
+    route's one call (``local_sgd_fedavg``, K2 as K1's epilogue), else K1
+    and K2 each called."""
+    from feddrift_torch.core import step as step_module
     r = jax_round
     F, K = r["F"], r["K"]
     mod = FeedForwardNN((F,), K, H)
-    step = TrainStep(mod, B, S, K, lr=LR, wd=WD, optimizer=r["optimizer"],
-                     device="cpu")
+    step = TrainStep(mod, r["B"], S, K, lr=LR, wd=WD,
+                     optimizer=r["optimizer"], device="cpu")
+    calls = []
+    for name in ("local_sgd_fedavg", "local_sgd"):
+        fn = getattr(step_module, name)
+        monkeypatch.setattr(step_module, name, lambda *a, _n=name, _f=fn,
+                            **kw: calls.append(_n) or _f(*a, **kw))
     params = params_from_jax(r["jp"], "cpu")
     newp, _opt, client, n, losses, stats = step.train_round(
         params, step.init_opt_states(params, M, C), torch.from_numpy(r["x"]),
         torch.from_numpy(r["y"]), torch.from_numpy(r["tw"]), 0.5,
         feat_mask=torch.from_numpy(r["fm"]), draws=r["draws"],
         with_agg_stats=True)
+    assert calls == ["local_sgd_fedavg" if r["N"] == FUSED_ROWS
+                     else "local_sgd"]
     jnewp, _, jclient, jn, jloss, jstats, _ = r["out"]
     atol = ATOL if r["optimizer"] == "sgd" else ADAM_PARAM_ATOL
     np.testing.assert_allclose(mod.pack(newp), _pack(jnewp, F, K), atol=atol,
@@ -311,22 +334,45 @@ def test_eval_matches_reference(dataset, masked):
 # --------------------------------------------------------------------------
 # The slice: a short run against the reference's
 
-@pytest.mark.parametrize("dataset,algo", [
-    ("susy", "softcluster"), ("susy", "win-1"), ("ro", "softcluster"),
-    ("stackoverflow_lr", "softcluster")])
-def test_run_tracks_the_reference(dataset, algo):
+@pytest.mark.parametrize("dataset,algo,rows", [
+    pytest.param("susy", "softcluster", 40, id="susy-softcluster"),
+    pytest.param("susy", "win-1", 40, id="susy-win-1"),
+    pytest.param("ro", "softcluster", 40, id="ro-softcluster"),
+    pytest.param("stackoverflow_lr", "softcluster", 40,
+                 id="stackoverflow_lr-softcluster"),
+    pytest.param("susy", "softcluster", FUSED_ROWS,
+                 id="susy-softcluster-fused"),
+    pytest.param("susy", "win-1", FUSED_ROWS, id="susy-win-1-fused"),
+    pytest.param("ro", "softcluster", FUSED_ROWS,
+                 id="ro-softcluster-fused")])
+def test_run_tracks_the_reference(dataset, algo, rows, monkeypatch):
     """The dataset through ``Experiment`` in both packages from the
-    reference's initial pool, 4 clients, N = B = 40, T = 2, R = 10: step
-    0's logged evals agree (the same batches); step 1's draws differ, so
-    only its shape and finiteness are held."""
+    reference's initial pool, 4 clients, N = B = ``rows``, T = 2, R = 10:
+    step 0's logged evals agree (the same batches); step 1's draws differ,
+    so only its shape and finiteness are held. At 40 rows the rounds take
+    the general route (K1, then K2, every eval its own K3 call); at
+    FUSED_ROWS susy and ro take the fused one, each eval but a step's last
+    folded into the next round's K1 call."""
     import jax
 
+    from feddrift_torch.core import step as step_module
+    from feddrift_torch.kernels.local_sgd import _folds_eval
     from feddrift_torch.simulation.runner import Experiment
     from feddrift_tpu.simulation.runner import Experiment as JExp
     small = dict(dataset=dataset, concept_drift_algo=algo,
                  client_num_in_total=4, client_num_per_round=4,
-                 sample_num=40, batch_size=40, train_iterations=2,
+                 sample_num=rows, batch_size=rows, train_iterations=2,
                  comm_round=10, frequency_of_the_test=5)
+    fused = rows == FUSED_ROWS
+    _, F, K = WIDTHS[dataset] if dataset in WIDTHS else (None, None, None)
+    if F is not None:
+        assert _folds_eval(F, H, K, rows, rows) is fused
+    folded = []
+    fn = step_module.local_sgd_fedavg
+    monkeypatch.setattr(
+        step_module, "local_sgd_fedavg",
+        lambda *a, **kw: folded.append(kw.get("eval_window") is not None)
+        or fn(*a, **kw))
     if dataset == "stackoverflow_lr":
         small.update(SMALL_SO)
     jexp = JExp(JaxConfig(**small))
@@ -350,6 +396,10 @@ def test_run_tracks_the_reference(dataset, algo):
                 assert a[k] == b[k], k
     assert all(np.isfinite(v) for r in ours for k, v in r.items()
                if "/" in k)
+    # a step's R = 10 rounds evaluate after rounds 0, 5 and 9: the first
+    # two in the next round's K1 call on the fused route
+    assert len(folded) == (2 * 10 if fused else 0)
+    assert sum(folded) == (2 * 2 if fused else 0)
 
 
 # --------------------------------------------------------------------------

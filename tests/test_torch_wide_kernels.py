@@ -583,6 +583,30 @@ def test_budget_mirrors_equal_the_kernels_own(cuda):
 
 
 @pytest.mark.gpu
+def test_fused_budget_mirror_equals_the_kernels_own(cuda):
+    """``fused_smem_bytes`` sets the bytes, the ring's stages and the eval
+    mode as ``csrc/local_sgd.cu::fused_layout`` does, at every fused width,
+    with and without an eval, where the window is staged and where it is
+    read where it lies."""
+    import ctypes
+
+    from feddrift_torch.kernels.build import library
+    fn = library("local_sgd").local_sgd_fused_smem
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)] * 2
+    modes = {0: "none", 1: "staged", 2: "staged", 3: "global"}
+    for F_, H_, K_ in k1_wrapper.FUSED_WIDTHS:
+        for B_, S_, N_ in ((500, 5, 500), (512, 12, 6000), (256, 1, 256),
+                           (200, 8, 3000)):
+            for ev in (False, True):
+                st, em = ctypes.c_int(), ctypes.c_int()
+                got = fn(F_, H_, K_, B_, S_, N_, int(ev), 1,
+                         ctypes.byref(st), ctypes.byref(em))
+                assert (got, st.value, modes[em.value]) \
+                    == k1_wrapper.fused_smem_bytes(F_, H_, K_, B_, S_, N_, ev)
+
+
+@pytest.mark.gpu
 def test_general_budget_mirror_and_early_refusal(cuda):
     """``general_smem_bytes`` counts as the source does, and on the card
     ``TrainStep.create`` refuses a shape no K1 layout takes (fmow's lr)
