@@ -251,6 +251,27 @@ Phases, one or more lines of output each:
    (``NEW_REFERENCE_ACCS``), within the larger of SEA's tolerances and the
    plain version's rounding envelope (``NEW_PLAIN_ENVELOPE``); every run
    is driven before the phase fails.
+   Before train_fmow, train_conv: the conv models, trained by the
+   model-generic local SGD (cuDNN and cuBLAS, no K1 or K3) with K2's
+   ``fedavg.cu`` closing every round. Each registry name (``cnn``,
+   ``cnn_dropout``, ``resnet`` / ``resnet20``, ``resnet8``, ``resnet56``,
+   ``resnet110``, ``resnet56_gn``, ``resnet18``) at its published width:
+   logits and gradient on the card against the CPU path in float64: the
+   card's float64 within ``CONV_F64_CARD_TOL``, its float32 under the
+   package's ``conv_numerics`` within ``CONV_F64_FLOOR`` /
+   ``CONV_F64_FACTOR``; two forwards bitwise. The timing case, a round of
+   the cnn at fmow-smooth (M 4, C 10, S 5) at B 32 and 500: two rounds
+   from the same inputs bitwise, every forward of them under cuDNN's TF32
+   off and its algorithms deterministic and the process's flags restored
+   after them (asserted), the wall, device ms,
+   launches, busy share and top device operations of a round, no gate;
+   K2 at that width (P 2,183,166) against its plain version. Then the
+   three committed conv runs at their own configurations and full width
+   (``CONV_RUNS``: femnist-smooth's cnn under Ada, fmow-smooth's cnn under
+   softcluster H_A_C_1_10_0 per round, cifar10-smooth's resnet8 under
+   ``hard-r``): every round one ``fedavg.cu`` launch, no K1, K3, K4 or
+   plain call, the data and pool on the card; Test/Acc a step and on the
+   mean against the committed run within ``_conv_gate``.
 
 It then prints a ``phase_walls`` line (each phase's seconds), the kernels'
 JSON line, the card line and, last, the result line. Each entry of the kernels line takes its launches from the driven
@@ -270,7 +291,8 @@ width (``local_sgd_fedavg_susy``, ``local_sgd_fedavg_eval_susy``,
 cases from ``train_agg`` / ``train_eval``, the split K1 padded
 past F and K3's resident wide tiles at stackoverflow_lr's from its runs,
 the wide K1 at two classes a lane and the split K1 at K 10 from
-``train_images``' femnist and cifar10 runs. Every entry
+``train_images``' femnist and cifar10 runs, ``fedavg.cu`` at the conv
+width (``fedavg_conv``) from ``train_conv``'s runs. Every entry
 also carries
 ``device_ms`` beside ``ms``. Any failed phase exits non-zero before the result line. It imports
 nothing of JAX.
@@ -750,10 +772,12 @@ def _time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _profile(fn, reps: int):
+def _profile(fn, reps: int, union: bool = False):
     """Run ``fn`` ``reps`` times under torch.profiler; returns the CUDA
     kernels it launched (FunctionEventAvg, device time > 0) and the wall
-    microseconds of the run."""
+    microseconds of the run; with ``union``, also the microseconds the card
+    was busy: the union of the kernels' device intervals (the sum of their
+    times counts kernels that overlap twice)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -768,7 +792,18 @@ def _profile(fn, reps: int):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
-    return kernels, wall_us
+    if not union:
+        return kernels, wall_us
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return kernels, wall_us, busy
 
 
 def _device_ms(fn, reps: int = 20):
@@ -2054,67 +2089,79 @@ def _k2_phase() -> dict:
     row equal and written only where asked, two calls bitwise; timed
     beside its plain version and bound. Returns the kernels line's entries
     of ``K2_ENTRIES`` by name."""
-    import torch
-    from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
     entries = {}
     for label, hidden, dataset, models in K2_CASES:
         client, n, prev, _ = _k2_case(hidden, dataset, models)
-        M, C, P = client.shape
-        rows = torch.full((3, M, 3), -1.0, device="cuda")
-        out, stats = fedavg(client, n, prev, stats_out=rows[1])
-        again, again_stats = fedavg(client, n, prev)
-        torch.cuda.synchronize()
-        want, want_stats = fedavg_ref(client, n, prev)
-        err = float((out - want).abs().max())
-        empty = n.sum(1) == 0
-        empty_bitwise = bool(torch.equal(out[empty], prev[empty]))
-        stats_equal = bool(torch.equal(stats, want_stats)
-                           and torch.equal(rows[1], want_stats)
-                           and (rows[[0, 2]] == -1).all())
-        bitwise = bool(torch.equal(out, again)
-                       and torch.equal(stats, again_stats))
-        times = _timed({"kernel": lambda: fedavg(client, n, prev),
-                        "plain": lambda: fedavg_ref(client, n, prev)})
-        # bytes: the stack, n, prev read once; out and stats written once;
-        # operations: the weighted sum (a multiply and an add a term), the
-        # weights' sum and divisions
-        bound_ms, bound_by = _bound(
-            4 * (M * C * P + M * C + 2 * M * P + 3 * M),
-            2 * M * C * P + 2 * M * C)
-        kernel = times["kernel"]
-        _say("train_agg", name="fedavg", case=label, dataset=dataset, M=M,
-             C=C, P=P, hidden=hidden, empty_clusters=int(empty.sum()),
-             active_clients=stats[:, 0].tolist(), max_abs_err=err,
-             atol=AGG_ATOL, empty_bitwise_prev=empty_bitwise,
-             stats_equal=stats_equal, two_calls_bitwise=bitwise,
-             kernel_ms=kernel["ms"], kernel_device_ms=kernel["device_ms"],
-             kernel_enqueue_ms=times["kernel_enqueue_ms"],
-             plain_ms=times["plain"]["ms"],
-             plain_device_ms=times["plain"]["device_ms"],
-             plain_launches_per_call=_launches(
-                 lambda: fedavg_ref(client, n, prev)),
-             bound_ms=bound_ms, bound_by=bound_by,
-             kernel_vs_bound=(kernel["device_ms"] or kernel["ms"])
-             / bound_ms)
-        if not (err <= AGG_ATOL and empty_bitwise and stats_equal
-                and bitwise and bool(empty.any())):
-            raise AssertionError(f"fedavg ({label}): |kernel - plain| {err} "
-                                 f"(atol {AGG_ATOL}), empty clusters "
-                                 f"bitwise {empty_bitwise}, stats equal "
-                                 f"{stats_equal}, two calls bitwise "
-                                 f"{bitwise}")
+        entry = _k2_check(label, client, n, prev, dataset=dataset,
+                          hidden=hidden)
         if label in K2_ENTRIES:
-            entries[K2_ENTRIES[label]] = {
-                 "name": K2_ENTRIES[label], "route": "cuda",
-                 "source": "feddrift_torch/kernels/csrc/fedavg.cu",
-                 "replaces": "feddrift_tpu/resilience/robust_agg.py:139",
-                 "case": f"M {M}, C {C}, P {P} ({dataset}, fnn H = "
-                 f"{hidden}, K1's general route)", "launches": None,
-                 "max_abs_err": err, "ms": kernel["ms"],
-                 "plain_ms": times["plain"]["ms"], "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": None,
-                 "device_ms": kernel["device_ms"]}
+            entries[K2_ENTRIES[label]] = dict(
+                entry, name=K2_ENTRIES[label],
+                case=f"{entry['case']} ({dataset}, fnn H = {hidden}, K1's "
+                f"general route)")
     return entries
+
+
+def _k2_check(label: str, client, n, prev, **case) -> dict:
+    """K2 on ``client [M, C, P]``, ``n`` and ``prev`` against its plain
+    version (see ``_k2_phase``), one ``train_agg`` line with ``case``'s
+    fields; returns its kernels-line entry, named and counted by the
+    caller."""
+    import torch
+    from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
+    M, C, P = client.shape
+    rows = torch.full((3, M, 3), -1.0, device="cuda")
+    out, stats = fedavg(client, n, prev, stats_out=rows[1])
+    again, again_stats = fedavg(client, n, prev)
+    torch.cuda.synchronize()
+    want, want_stats = fedavg_ref(client, n, prev)
+    err = float((out - want).abs().max())
+    empty = n.sum(1) == 0
+    empty_bitwise = bool(torch.equal(out[empty], prev[empty]))
+    stats_equal = bool(torch.equal(stats, want_stats)
+                       and torch.equal(rows[1], want_stats)
+                       and (rows[[0, 2]] == -1).all())
+    bitwise = bool(torch.equal(out, again)
+                   and torch.equal(stats, again_stats))
+    times = _timed({"kernel": lambda: fedavg(client, n, prev),
+                    "plain": lambda: fedavg_ref(client, n, prev)})
+    # what this call's n needs: bytes, the stack's columns of the active
+    # pairs (a weight of 0 adds nothing), n, and prev of the empty clusters
+    # read once, out and stats written once; operations, a multiply and an
+    # add a term of the active pairs, the weights' sums and divisions
+    active = int((n > 0).sum())
+    bound_ms, bound_by = _bound(
+        4 * (active * P + M * C + int(empty.sum()) * P + M * P + 3 * M),
+        2 * active * P + 2 * M * C)
+    kernel = times["kernel"]
+    _say("train_agg", name="fedavg", case=label, **case, M=M, C=C, P=P,
+         empty_clusters=int(empty.sum()), active_pairs=active,
+         active_clients=stats[:, 0].tolist(), max_abs_err=err,
+         atol=AGG_ATOL, empty_bitwise_prev=empty_bitwise,
+         stats_equal=stats_equal, two_calls_bitwise=bitwise,
+         kernel_ms=kernel["ms"], kernel_device_ms=kernel["device_ms"],
+         kernel_enqueue_ms=times["kernel_enqueue_ms"],
+         plain_ms=times["plain"]["ms"],
+         plain_device_ms=times["plain"]["device_ms"],
+         plain_launches_per_call=_launches(
+             lambda: fedavg_ref(client, n, prev)),
+         bound_ms=bound_ms, bound_by=bound_by,
+         kernel_vs_bound=(kernel["device_ms"] or kernel["ms"]) / bound_ms)
+    if not (err <= AGG_ATOL and empty_bitwise and stats_equal
+            and bitwise and bool(empty.any())):
+        raise AssertionError(f"fedavg ({label}): |kernel - plain| {err} "
+                             f"(atol {AGG_ATOL}), empty clusters "
+                             f"bitwise {empty_bitwise}, stats equal "
+                             f"{stats_equal}, two calls bitwise "
+                             f"{bitwise}")
+    return {"name": None, "route": "cuda",
+            "source": "feddrift_torch/kernels/csrc/fedavg.cu",
+            "replaces": "feddrift_tpu/resilience/robust_agg.py:139",
+            "case": f"M {M}, C {C}, P {P}", "launches": None,
+            "max_abs_err": err, "ms": kernel["ms"],
+            "plain_ms": times["plain"]["ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "device_ms": kernel["device_ms"]}
 
 
 def _k3_case(dataset: str, model: str, hidden: int, window: str,
@@ -2892,17 +2939,20 @@ def _host_syncs_per_round(cfg, out_dir=None, init=None):
         else None
 
 
-def _profile_step(exp) -> dict:
+def _profile_step(exp, top: bool = False) -> dict:
     """One more time step of a finished run under the profiler, on the path
     its last step took: kernel launches a round (and each kernel's a
-    step), the device-busy share and K1's device time a launch."""
+    step), the device-busy share and K1's device time a launch; with
+    ``top``, the kernels with the most device time a round too
+    (``_top_device_ops``)."""
     T, R = exp.cfg.train_iterations, exp.cfg.comm_round
     opt = exp.step.init_opt_states(exp.pool.params, exp.pool.num_models,
                                    exp.C_)
     fused = exp.cfg.chunk_rounds and exp.algo.chunkable(T - 1)
     run = exp._run_iteration_fused if fused else exp._run_rounds
     # the step alone: no copy of the state inside the profiled window
-    kernels, wall_us = _profile(lambda: run(T - 1, opt), 1)
+    kernels, wall_us, union_us = _profile(lambda: run(T - 1, opt), 1,
+                                          union=True)
     busy_us = sum(e.self_device_time_total for e in kernels)
     out = {"launches_per_round": sum(e.count for e in kernels) / R,
            "device_busy_share": busy_us / wall_us if busy_us
@@ -2918,6 +2968,10 @@ def _profile_step(exp) -> dict:
             if us else "not measured"
     out["profiled_step_wall_ms"] = wall_us / 1e3
     out["launches_a_step_by_kernel"] = _launches_by_kernel(kernels)
+    if top:
+        out["top_device_ops_a_round"] = _top_device_ops(kernels, R)
+        out["device_union_ms_per_round"] = union_us / R / 1e3
+        out["device_union_share"] = union_us / wall_us
     return out
 
 
@@ -4052,6 +4106,361 @@ def phase_trace_plane() -> None:
     _say("trace_plane", phase_wall_s=time.perf_counter() - t_phase)
 
 
+# train_conv: the conv models of the registry (models/cnn.py,
+# models/resnet.py), trained by the model-generic local SGD
+# (core/functional.py::model_local_sgd: cuDNN's convolutions and cuBLAS'
+# products, no K1 layout) with K2, fedavg.cu, closing every round, and
+# evaluated through their forward (model_logits, no K3). Each registry name
+# is first held on the card against the port's CPU path in float64 at a
+# batch of CONV_CHECK_ROWS, relative to the largest magnitude: logits and
+# the gradient of the cross entropy computed on the card in float64 within
+# CONV_F64_CARD_TOL (the card's convolutions, paddings and norms apart
+# from TF32: float64's rounding, amplified as float32's is below, lies
+# near 1e-11 at resnet110), and in float32 under the package's
+# conv_numerics within the larger of CONV_F64_FLOOR (TF32 in a conv or a
+# product would leave it, ~1e-3, where float32 is well conditioned, as
+# for the cnn and resnet8) and CONV_F64_FACTOR times the CPU float32
+# path's own distance from float64 on the same inputs (the deep ResNets'
+# float32 gradients at init lie ~1e-2 from float64 on the CPU too: a
+# batch norm's backward cancels).
+CONV_CHECK_MODELS = (("cnn", (784,), 62), ("cnn_dropout", (784,), 62),
+                     ("resnet", (32, 32, 3), 10),
+                     ("resnet20", (32, 32, 3), 10),
+                     ("resnet8", (32, 32, 3), 10),
+                     ("resnet56", (32, 32, 3), 10),
+                     ("resnet110", (32, 32, 3), 10),
+                     ("resnet56_gn", (32, 32, 3), 10),
+                     ("resnet18", (32, 32, 3), 10))
+CONV_CHECK_ROWS = 32
+CONV_F64_FLOOR, CONV_F64_FACTOR, CONV_F64_CARD_TOL = 1e-4, 4.0, 1e-8
+# cuDNN's TF32, determinism and autotuning, and the matmuls' TF32, as
+# models/base.py::conv_numerics sets them
+CONV_FLAGS = {"cudnn_allow_tf32": False, "cudnn_deterministic": True,
+              "cudnn_benchmark": False, "matmul_allow_tf32": False}
+# The three committed conv runs (scripts/run_round5_cpu.sh, made by the JAX
+# package on one CPU core) at their own configurations and full model
+# width: (committed run, its configuration, that run's final Test/Acc per
+# step as committed, the path its steps take). femnist's command line asks
+# for 5 steps; its committed file holds 2, and the card runs those 2.
+CONV_RUNS = (
+    ("femnist-smooth-cnn-ada-win-1_iter-s0",
+     dict(dataset="femnist-smooth", model="cnn", concept_drift_algo="ada",
+          concept_drift_algo_arg="win-1_iter", concept_num=2,
+          change_points="rand", client_num_in_total=20,
+          client_num_per_round=10, train_iterations=2, comm_round=12,
+          epochs=5, batch_size=32, sample_num=500, lr=0.003,
+          frequency_of_the_test=3),
+     (0.393, 0.5007), "per_round"),
+    ("fmow-smooth-cnn-softcluster-H_A_C_1_10_0-s0",
+     dict(dataset="fmow-smooth", model="cnn",
+          concept_drift_algo="softcluster", chunk_rounds=False,
+          concept_drift_algo_arg="H_A_C_1_10_0", concept_num=4,
+          change_points="A", client_num_in_total=10,
+          client_num_per_round=10, train_iterations=2, comm_round=4,
+          epochs=5, batch_size=32, sample_num=500, lr=0.003,
+          frequency_of_the_test=4),
+     (0.0154, 0.0238), "per_round"),
+    ("cifar10-smooth-resnet8-hard-r-s0",
+     dict(dataset="cifar10-smooth", model="resnet8",
+          concept_drift_algo="softclusterwin-1",
+          concept_drift_algo_arg="hard-r", concept_num=2,
+          change_points="rand", client_num_in_total=4,
+          client_num_per_round=4, train_iterations=2, comm_round=6,
+          epochs=5, batch_size=32, sample_num=500, lr=0.05,
+          frequency_of_the_test=2),
+     (0.1815, 0.2855), "per_round"))
+# The gates, fixed before the card's seed-0 runs were compared: the whole
+# conv path is plain PyTorch and the port's draws and init are not the JAX
+# package's, so a run is held to its committed series a step and on the
+# mean within the larger of SEA's STEP_ACC_TOL / MEAN_ACC_TOL and the
+# spread of the port's own card runs at seeds 1-3 of the same
+# configuration (scripts/torch_conv_seed_runs.py --seeds 1,2,3: the
+# largest max - min over the seeds of a step's final Test/Acc, and of
+# their means), as (step, mean) by run.
+# (on an NVIDIA H100 80GB HBM3, 700.00 W; the seeds' final Test/Acc:
+# femnist (0.2468, 0.488), (0.1903, 0.5016), (0.309, 0.4989); fmow (0.018,
+# 0.034), (0.0168, 0.0226), (0.0194, 0.0132); cifar10 (0.213, 0.337),
+# (0.196, 0.238), (0.1605, 0.223)). fmow-smooth's committed run sits at
+# chance (1/62 ~ 0.016) at both steps, as do the port's seeds: its gate
+# cannot tell chance from learning.
+CONV_SEED_SPREAD = {
+    "femnist-smooth-cnn-ada-win-1_iter-s0": (0.1187, 0.058),
+    "fmow-smooth-cnn-softcluster-H_A_C_1_10_0-s0": (0.0208, 0.0097),
+    "cifar10-smooth-resnet8-hard-r-s0": (0.114, 0.08325)}
+
+
+def _conv_gate(run: str) -> tuple[float, float]:
+    step, mean = CONV_SEED_SPREAD[run]
+    return max(STEP_ACC_TOL, step), max(MEAN_ACC_TOL, mean)
+
+
+# the timing case: a round of the cnn at fmow-smooth (M 4, C 10, S 5, 32 x
+# 32 x 3 images, 62 classes) at each batch, model 3 with no active client
+CONV_TIMING_BATCHES = (32, 500)
+CONV_TOP_OPS = 8
+
+
+def _rel_err(got, want) -> float:
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def _conv_flags() -> dict:
+    import torch
+    b = torch.backends
+    return {"cudnn_allow_tf32": b.cudnn.allow_tf32,
+            "cudnn_deterministic": b.cudnn.deterministic,
+            "cudnn_benchmark": b.cudnn.benchmark,
+            "matmul_allow_tf32": b.cuda.matmul.allow_tf32}
+
+
+def _conv_model_checks() -> None:
+    """Each of ``CONV_CHECK_MODELS`` at its published width: the card's
+    logits and gradient in float64 and in float32 (both under the
+    package's ``conv_numerics``, as ``core/functional.py``'s conv programs
+    run) against the CPU path in float64, beside the CPU float32 path's
+    own error."""
+    import numpy as np
+    import torch
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.core.functional import cross_entropy
+    from feddrift_torch.data.drift_dataset import DriftDataset
+    from feddrift_torch.models import create_model
+    from feddrift_torch.models.base import conv_numerics
+    for name, shape, classes in CONV_CHECK_MODELS:
+        ds = DriftDataset(x=np.zeros((1, 1, 1, *shape), np.float32),
+                          y=np.zeros((1, 1, 1), np.int32),
+                          concepts=np.zeros((1, 1), np.int64),
+                          num_classes=classes)
+        mod = create_model(name, ds, ExperimentConfig())
+        params = mod.init_params(torch.Generator().manual_seed(0), "cpu")
+        gen = torch.Generator().manual_seed(1)
+        x = torch.rand(CONV_CHECK_ROWS, *shape, generator=gen)
+        y = torch.randint(0, classes, (CONV_CHECK_ROWS,), generator=gen)
+        out = {}
+        for key, dt, dev in (("card", torch.float32, "cuda"),
+                             ("card64", torch.float64, "cuda"),
+                             ("cpu32", torch.float32, "cpu"),
+                             ("cpu64", torch.float64, "cpu")):
+            with conv_numerics():
+                flat = mod.pack(params).to(dev, dt).requires_grad_(True)
+                logits = mod(mod.unpack(flat), x.to(dev, dt))
+                grad, = torch.autograd.grad(
+                    cross_entropy(logits, y.to(dev)), flat)
+            out[key] = (logits.detach().cpu(), grad.cpu())
+        with conv_numerics():
+            again = mod(mod.unpack(mod.pack(params).cuda()), x.cuda())
+        bitwise = bool(torch.equal(again.cpu(), out["card"][0]))
+        errs, errs64 = {}, {}
+        for i, part in enumerate(("logits", "grad")):
+            want = out["cpu64"][i]
+            cpu32 = _rel_err(out["cpu32"][i], want)
+            tol = max(CONV_F64_FLOOR, CONV_F64_FACTOR * cpu32)
+            errs[part] = (_rel_err(out["card"][i], want), cpu32, tol)
+            errs64[part] = _rel_err(out["card64"][i], want)
+        _say("train_conv_model", model=name, input=list(shape),
+             classes=classes, params=mod.num_params, rows=CONV_CHECK_ROWS,
+             card64_logits_rel_err_vs_f64=errs64["logits"],
+             card64_grad_rel_err_vs_f64=errs64["grad"],
+             card64_tol=CONV_F64_CARD_TOL,
+             logits_rel_err_vs_f64=errs["logits"][0],
+             cpu32_logits_rel_err_vs_f64=errs["logits"][1],
+             logits_tol=errs["logits"][2],
+             grad_rel_err_vs_f64=errs["grad"][0],
+             cpu32_grad_rel_err_vs_f64=errs["grad"][1],
+             grad_tol=errs["grad"][2], two_forwards_bitwise=bitwise)
+        if not bitwise or any(e > tol for e, _, tol in errs.values()) \
+                or any(e > CONV_F64_CARD_TOL for e in errs64.values()):
+            raise AssertionError(f"{name} on the card: two forwards bitwise "
+                                 f"{bitwise}, float32 (error, cpu float32's, "
+                                 f"tolerance) {errs}, float64 errors "
+                                 f"{errs64} (tolerance "
+                                 f"{CONV_F64_CARD_TOL})")
+
+
+def _conv_timing_setup(batch: int):
+    """The timing case's experiment at ``batch``, a round's inputs and a
+    call of one round."""
+    import torch
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.simulation.runner import Experiment
+    kw = dict(CONV_RUNS[1][1], batch_size=batch)
+    exp = Experiment(ExperimentConfig(**kw))
+    M, C, T1 = exp.pool.num_models, exp.C_, exp.x.shape[1]
+    tw = torch.zeros(M, C, T1, device="cuda")
+    tw[:3, :, 0] = 1.0                        # model 3: no active client
+    step, params = exp.step, exp.pool.params
+    opt = step.init_opt_states(params, M, C)
+    step.generator.manual_seed(0)
+    draws = step.draw_batches(tw, 1, exp.x.shape[2])
+    draws = (draws[0][0], draws[1][0])
+    return exp, lambda: step.train_round(params, opt, exp.x, exp.y, tw,
+                                         draws=draws)
+
+
+def _top_device_ops(kernels, per: int) -> list:
+    """The ``CONV_TOP_OPS`` kernels with the most device time: name (60
+    characters), device ms and launches, each per ``per``."""
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    return [{"op": e.key[:60], "device_ms": e.self_device_time_total
+             / per / 1e3, "launches": e.count / per}
+            for e in top[:CONV_TOP_OPS]]
+
+
+def _conv_round_checks() -> dict:
+    """The timing case at each of ``CONV_TIMING_BATCHES``: one round twice
+    from the same inputs, bitwise (params, client stack, optimizer state,
+    n, losses; cuDNN deterministic), every forward of them under
+    ``CONV_FLAGS`` and the process's flags as they were after them; the
+    wall a round (median of 5), its
+    device ms, launches, busy share and top device operations under the
+    profiler, no gate. At B 32, K2 on that round's client stack (P
+    2,183,166; model 3 an empty cluster) through ``_k2_check``: the
+    kernels line's ``fedavg_conv``."""
+    import statistics
+
+    import torch
+    entry = None
+    for batch in CONV_TIMING_BATCHES:
+        exp, fn = _conv_timing_setup(batch)
+        mod = exp.module
+        seen, before = [], _conv_flags()
+        hook = mod.register_forward_pre_hook(
+            lambda m, args: seen.append(_conv_flags()))
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        hook.remove()
+        scoped = bool(seen) and all(f == CONV_FLAGS for f in seen) \
+            and _conv_flags() == before
+        bitwise = all(torch.equal(a[i][k], b[i][k]) for i in (0, 2)
+                      for k in a[i]) \
+            and all(torch.equal(a[1][k], b[1][k]) for k in a[1]) \
+            and torch.equal(a[3], b[3]) and torch.equal(a[4], b[4])
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        kernels, wall_us, union_us = _profile(fn, 3, union=True)
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        _say("train_conv_round", model="cnn", dataset="fmow-smooth",
+             M=exp.pool.num_models, C=exp.C_, S=exp.step.num_steps,
+             B=batch, P=mod.num_params, two_rounds_bitwise=bitwise,
+             forwards=len(seen), forwards_under_conv_flags=scoped,
+             flags_after=_conv_flags(),
+             wall_ms=statistics.median(walls),
+             device_ms=busy_us / 3 / 1e3 if busy_us else "not measured",
+             busy_share=busy_us / wall_us if busy_us else "not measured",
+             device_union_ms=union_us / 3 / 1e3,
+             device_union_share=union_us / wall_us,
+             profiled_wall_ms=wall_us / 3 / 1e3,
+             launches=sum(e.count for e in kernels) / 3,
+             fedavg_launches=sum(e.count for e in kernels
+                                 if "fedavg_kernel" in e.key) / 3,
+             top_device_ops=_top_device_ops(kernels, 3))
+        if not (bitwise and scoped):
+            raise AssertionError(f"a conv round at B {batch} twice from the "
+                                 f"same inputs: bitwise {bitwise}; its "
+                                 f"{len(seen)} forwards under {CONV_FLAGS} "
+                                 f"and the flags restored: {scoped}")
+        if batch != CONV_TIMING_BATCHES[0]:
+            continue
+        client, n, prev = mod.pack(a[2]), a[3], mod.pack(exp.pool.params)
+        entry = _k2_check("conv", client, n, prev, dataset="fmow-smooth",
+                          model="cnn")
+        entry.update(name="fedavg_conv", case=f"{entry['case']} "
+                     f"(fmow-smooth, the cnn, a conv round's client stack)")
+        del exp, fn, a, b, client
+        torch.cuda.empty_cache()
+    return entry
+
+
+def _conv_runs() -> tuple[int, list[str]]:
+    """``CONV_RUNS`` through the runner on the card, each gated against its
+    committed run (``_conv_gate``): every round one ``fedavg.cu`` launch,
+    no K1, K3 or K4 launch and no plain call on the card, the pool and the
+    data on the card; one ``train_conv`` line a run with its wall, launches,
+    the device ms, busy share and top device operations of one more
+    profiled step, and each step's Test/Acc beside the committed run's.
+    Returns the ``fedavg.cu`` launches and the runs outside their gates."""
+    import torch
+    from feddrift_torch.config import ExperimentConfig
+    here = os.path.dirname(os.path.abspath(__file__))
+    launches, missed = 0, []
+    for run, kw, pinned, path in CONV_RUNS:
+        ref = _reference_accs(os.path.join(here, "runs", run,
+                                           "metrics.jsonl"), pinned)
+        cfg = ExperimentConfig(**kw)
+        got = _drive(cfg, syncs=False)
+        exp, accs = got.pop("exp"), got["accs"]
+        rounds = cfg.train_iterations * cfg.comm_round
+        on_card = all(t.is_cuda for t in (exp.x, exp.y,
+                                          *exp.pool.params.values()))
+        prof = _profile_step(exp, top=True)
+        step_tol, mean_tol = _conv_gate(run)
+        diffs = [a - b for a, b in zip(accs, ref)]
+        mean, ref_mean = sum(accs) / len(accs), sum(ref) / len(ref)
+        within = max(map(abs, diffs)) <= step_tol \
+            and abs(mean - ref_mean) <= mean_tol
+        chance = 1.0 / exp.ds.num_classes
+        _say("train_conv", run=run, model=cfg.model, dataset=cfg.dataset,
+             algo=cfg.concept_drift_algo, arg=cfg.concept_drift_algo_arg,
+             models=exp.pool.num_models, clients=exp.C_,
+             params=exp.module.num_params, steps=cfg.train_iterations,
+             rounds=rounds, paths=got["paths"], wall_s=got["wall_s"],
+             step_wall_s=got["step_wall_s"],
+             rounds_per_s=got["rounds_per_s"],
+             fedavg_launches=got["k2_launches"],
+             k1_launches=got["k1_launches"], k3_launches=got["k3_launches"],
+             k4_launches=got["k4a_launches"] + got["k4b_launches"],
+             plain_calls=got["plain_calls"], on_card=on_card,
+             test_acc=accs, committed_test_acc=ref, test_acc_mean=mean,
+             committed_mean=ref_mean, max_step_diff=max(map(abs, diffs)),
+             step_tol=step_tol, mean_tol=mean_tol, within_gate=within,
+             chance=chance,
+             gate_separates_committed_from_chance=max(ref) - chance
+             > step_tol,
+             **prof)
+        if got["k2_launches"] != rounds or got["k1_launches"] \
+                or got["k3_launches"] or got["k4a_launches"] \
+                or got["k4b_launches"] or any(got["plain_calls"].values()) \
+                or set(got["paths"]) != {path} or not on_card \
+                or len(accs) != cfg.train_iterations:
+            raise AssertionError(f"{run}: fedavg.cu launched "
+                                 f"{got['k2_launches']} times for {rounds} "
+                                 f"rounds, K1 {got['k1_launches']}, K3 "
+                                 f"{got['k3_launches']}, K4 "
+                                 f"{got['k4a_launches']} / "
+                                 f"{got['k4b_launches']}, plain calls "
+                                 f"{got['plain_calls']}, paths "
+                                 f"{got['paths']} (want {path}), on the "
+                                 f"card {on_card}, {len(accs)} steps")
+        launches += got["k2_launches"]
+        if not within:
+            missed.append(f"{run}: Test/Acc per step {accs} against the "
+                          f"committed {ref} (step tolerance {step_tol}, "
+                          f"mean {mean_tol})")
+        del exp, got
+        torch.cuda.empty_cache()
+    return launches, missed
+
+
+def phase_train_conv() -> dict:
+    """The conv models on the card: ``_conv_model_checks``, the timing case
+    and K2 at the conv width (``_conv_round_checks``), then the three
+    committed conv runs (``_conv_runs``), every run driven before the phase
+    fails. Returns the kernels line's ``fedavg_conv`` entry, its launches
+    those of the three runs."""
+    _conv_model_checks()
+    entry = _conv_round_checks()
+    entry["launches"], missed = _conv_runs()
+    if missed:
+        raise AssertionError("conv runs outside their gates: "
+                             + "; ".join(missed))
+    return entry
+
+
 def main() -> int:
     try:
         import torch
@@ -4100,6 +4509,7 @@ def main() -> int:
         timed(phase_trace_plane)
         timed(phase_train_tabular, wide)
         timed(phase_train_images, wide)
+        conv_entry = timed(phase_train_conv)
         timed(phase_train_fmow, wide)
         _say("phase_walls", seconds=walls, total_s=sum(walls.values()))
     except Exception:   # noqa: BLE001 — report the phase that failed
@@ -4108,7 +4518,7 @@ def main() -> int:
         return 1
     kernels = [entry, train_entry, fused_entry, fold_entry, dense_entry,
                cdf_entry, search_entry, agg_entry, eval_entry] \
-        + [wide[k] for k in WIDE_ENTRIES]
+        + [wide[k] for k in WIDE_ENTRIES] + [conv_entry]
     for e in kernels:   # above 1: the kernel loses to its plain version
         e["ms_vs_plain"] = e["ms"] / e["plain_ms"]
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,9 @@
 port's flat dict keyed by the flax path: ``{"block_0": {"Dense_0":
 {"kernel": a}}}`` becomes ``{"block_0/Dense_0/kernel": tensor(a)}``. The
 port keeps flax's layouts (Dense kernels ``[in, out]``, embeddings
-``[n, E]``), so no leaf is transposed. A stacked pool tree (leading
+``[n, E]``, conv kernels HWIO ``[kh, kw, in, out]``, a norm's ``scale``
+and ``bias`` under its scope, e.g. ``ResNetFeatures_0/_Norm_0/scale`` or
+``.../_Norm_0/GroupNorm_0/scale``), so no leaf is transposed. A stacked pool tree (leading
 ``[M]`` axis on every leaf) converts the same way; ``pool_from_jax`` turns
 a whole JAX ``ModelPool`` into the port's, given the port's module.
 """

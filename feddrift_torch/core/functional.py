@@ -1,13 +1,25 @@
 """Numerical primitives: loss, confusion matrices and selection over
-parameter dicts.
+parameter dicts, and the model-generic local SGD and forward of the conv
+models.
 
 Counterparts of ``feddrift_tpu/core/functional.py::cross_entropy``,
-``confusion_matrix`` and ``tree_select``.
+``confusion_matrix`` and ``tree_select``. ``model_local_sgd`` computes what
+``feddrift_tpu/core/step.py::TrainStep._local_sgd`` computes under
+``_round_body``'s double vmap for any functional module (the conv models:
+K1 trains the fnn and the lr only), and ``model_logits`` what the eval
+programs' ``jax.vmap(one)(params, ...)`` over ``apply_fn`` compute. Both
+are plain PyTorch (cuDNN's convolutions and cuBLAS' products on the card):
+the JAX package runs these models' layers in XLA, outside any Pallas
+kernel.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.func import grad_and_value, vmap
+
+from feddrift_torch.kernels.local_sgd import local_steps
+from feddrift_torch.models.base import conv_numerics
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -35,3 +47,54 @@ def tree_select(cond: torch.Tensor | bool, a: dict, b: dict) -> dict:
     is a scalar (a Python bool or a 0-d tensor)."""
     return {k: torch.where(torch.as_tensor(cond, device=a[k].device), a[k],
                            b[k]) for k in a}
+
+
+def model_local_sgd(module, x, y, params, opt_state, t_idx, slot, total_w, *,
+                    batch_size: int, lr: float, wd: float,
+                    lr_scale: float = 1.0, idx=None, feat_mask=None,
+                    optimizer: str = "adam"):
+    """Every (model, client) pair's S local steps of ``module`` at once:
+    ``kernels/local_sgd.py::local_steps`` (its shapes, draws, optimizers and
+    return) with a step's gradients ``torch.func.vmap`` over the M·C pairs
+    of ``grad`` of the mean cross entropy of the pair's B rows, so a batch
+    norm normalises by the pair's own batch. ``x [C, T1, N, *features]``,
+    ``params [M, P]`` in ``module.pack`` order, ``feat_mask [M,
+    *features]``. Runs inside ``conv_numerics``."""
+    M, C, P = params.shape[0], x.shape[0], params.shape[1]
+
+    def loss(flat, xb, yb):
+        return cross_entropy(module(module.unpack(flat), xb), yb)
+    step = vmap(grad_and_value(loss))
+
+    def grad_fn(p, xb, yb):
+        grad, ls = step(p.reshape(M * C, P), xb.flatten(0, 1),
+                        yb.flatten(0, 1))
+        return grad.view(M, C, P), ls.view(M, C)
+    with conv_numerics():
+        return local_steps(grad_fn, x, y, params, opt_state, t_idx, slot,
+                           total_w, batch_size=batch_size, lr=lr, wd=wd,
+                           lr_scale=lr_scale, idx=idx, feat_mask=feat_mask,
+                           optimizer=optimizer)
+
+
+def model_logits(module, params: torch.Tensor, x: torch.Tensor,
+                 feat_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Every model of ``params [M, P]`` on every group of rows of ``x [C,
+    ..., N, *features]``: ``[M, C, ..., N, K]``. Each group of N rows is one
+    forward (a batch norm takes the statistics of those N rows, as the JAX
+    package's per-client ``apply_fn`` does); the groups of one model are a
+    ``vmap`` of its forward, one model at a time. ``feat_mask [M,
+    *features]`` multiplies model m's input (None: ones). Runs inside
+    ``conv_numerics``."""
+    feat = tuple(module.feature_shape)
+    N = x.shape[x.dim() - len(feat) - 1]
+    lead = x.shape[:x.dim() - len(feat) - 1]
+    xq = x.reshape(-1, N, *feat)
+    out = []
+    with conv_numerics():
+        for m in range(params.shape[0]):
+            pm = module.unpack(params[m])
+            xm = xq if feat_mask is None else xq * feat_mask[m]
+            out.append(vmap(lambda xb, pm=pm: module(pm, xb))(xm))
+    logits = torch.stack(out)
+    return logits.reshape(logits.shape[0], *lead, N, logits.shape[-1])

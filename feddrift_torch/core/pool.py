@@ -3,12 +3,14 @@
 Counterpart of ``feddrift_tpu/core/pool.py::ModelPool``. Each leaf of
 ``params`` stacks the M models on a leading axis; ``slot(m)`` reads one
 model out and ``set_slot`` writes one back. The module is functional
-(``feddrift_torch.models.transformer``): it takes per-row parameters, so
-``apply`` broadcasts one model's leaves over the batch rows and
-``apply_rows`` takes rows already gathered (the serving step's path). The
-edits a training algorithm makes (``reinit_slot``, ``distinct_reinit_slot``,
-``copy_slot``, ``merge_slots``) rebuild the dict, as the reference rebinds
-its pytree.
+(``feddrift_torch.models``): ``apply`` runs one model's leaves on a
+batch and ``apply_rows`` rows already gathered (the serving step's path),
+each through the module's own ``apply_one`` / ``apply_rows``
+(``models/base.py``). The example input is a sample batch ``[2,
+*feature_shape]``: an image dataset's rows keep their ``H, W, C`` shape.
+The edits a training algorithm makes (``reinit_slot``,
+``distinct_reinit_slot``, ``copy_slot``, ``merge_slots``) rebuild the
+dict, as the reference rebinds its pytree.
 """
 
 from __future__ import annotations
@@ -60,14 +62,12 @@ class ModelPool:
     def apply(self, params: dict[str, torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
         """One model's params (no row axis) on a batch ``x [B, ...]``."""
-        B = x.shape[0]
-        return self.module({k: p[None].expand(B, *p.shape)
-                            for k, p in params.items()}, x)
+        return self.module.apply_one(params, x)
 
     def apply_rows(self, rows: dict[str, torch.Tensor],
                    x: torch.Tensor) -> torch.Tensor:
         """Per-row params (leaves ``[B, ...]``) on ``x [B, ...]``."""
-        return self.module(rows, x)
+        return self.module.apply_rows(rows, x)
 
     def slot(self, m: int) -> dict[str, torch.Tensor]:
         return {k: p[m] for k, p in self.params.items()}

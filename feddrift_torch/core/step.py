@@ -4,7 +4,7 @@
 on the main path (dense clients, the ``mean`` aggregator, no byzantine,
 codec or hierarchy path):
 
-    params      [M, ...]        model pool: the fnn or the lr
+    params      [M, ...]        model pool: the fnn, the lr or a conv model
     opt_state   [M, C, ...]     per-(model, client) optimizer state (AMSGrad's;
                                 SGD keeps none); persists across the rounds
                                 of a time step, fresh at each step boundary
@@ -59,6 +59,18 @@ round's eval, the per-round path's evals and ``acc_matrix`` /
 each. The ensemble vote, the MSE matrix and the confusion matrices (K5's)
 are plain batched PyTorch for now.
 
+The conv models (``models/base.py::ConvNet``: the cnns and the ResNets) take
+no K1 or K3 layout: their round is ``core/functional.py::model_local_sgd``
+(every pair's S steps as one ``torch.func.vmap`` over the M·C pairs of
+``grad``, the optimizer on the flat ``[M, C, P]`` params, cuDNN and cuBLAS
+on the card) followed by K2, ``fedavg.cu``, one launch a round; their evals
+are ``core/functional.py::model_logits`` reduced to the same count and NLL
+cells. Images keep their ``[.., H, W, C]`` rows. Both run inside
+``models/base.py::conv_numerics``, restored after each call: no TF32 in
+cuDNN either, and deterministic cuDNN algorithms without autotuning, so
+that a conv round gives the same bits call after call (fused against per
+round, planes on against off, resume).
+
 ``ForwardStep`` is the counterpart of ``ForwardStep`` (:905-960): one call
 answers a whole micro-batch whose rows may target different models; each
 row's parameters are gathered out of the pool by its model index and the
@@ -76,7 +88,8 @@ from typing import Callable
 
 import torch
 
-from feddrift_torch.core.functional import confusion_matrix
+from feddrift_torch.core.functional import (confusion_matrix, model_local_sgd,
+                                            model_logits)
 from feddrift_torch.kernels.eval_cells import eval_cells
 from feddrift_torch.kernels.local_sgd import (OPTIMIZERS, _folds_eval,
                                               _route, init_opt_state,
@@ -84,6 +97,7 @@ from feddrift_torch.kernels.local_sgd import (OPTIMIZERS, _folds_eval,
                                               local_sgd_fedavg)
 from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
                                                   weighted_search)
+from feddrift_torch.models.base import ConvNet
 from feddrift_torch.models.mlp import FeedForwardNN, LogisticRegression
 from feddrift_torch.resilience.robust_agg import agg_mean
 from feddrift_torch.utils.device import resolve_device
@@ -94,7 +108,7 @@ from feddrift_torch.utils.invariants import check_no_nan
 class TrainStep:
     """Train and eval steps for one (module, dataset geometry)."""
 
-    module: FeedForwardNN | LogisticRegression
+    module: FeedForwardNN | LogisticRegression | ConvNet
     batch_size: int
     num_steps: int              # local SGD steps per round (reference `epochs`)
     num_classes: int
@@ -113,16 +127,23 @@ class TrainStep:
             raise ValueError(
                 f"client_optimizer {self.optimizer!r}: the reference's "
                 f"make_optimizer steps {OPTIMIZERS}")
-        if not isinstance(self.module, (FeedForwardNN, LogisticRegression)):
+        if not isinstance(self.module, (FeedForwardNN, LogisticRegression,
+                                        ConvNet)):
             raise NotImplementedError(
-                f"training {type(self.module).__name__}: the port's local "
-                f"SGD kernel trains the fnn and the lr only (ROADMAP §1 "
-                f"'The model zoo and transformer training')")
+                f"training {type(self.module).__name__}: the port trains the "
+                f"fnn, the lr and the conv models only (ROADMAP §1 'The "
+                f"model zoo and transformer training')")
         self.device = resolve_device(self.device)
         self.generator = torch.Generator(device=self.device)
         # the weighted draw's cdf and the tensors (and their versions) it
         # was computed from
         self._cdf = self._cdf_key = None
+
+    @property
+    def conv(self) -> bool:
+        """A conv model: the model-generic local SGD and evals, not K1 /
+        K3."""
+        return isinstance(self.module, ConvNet)
 
     @classmethod
     def create(cls, cfg, module, num_classes: int,
@@ -137,7 +158,7 @@ class TrainStep:
                    wd=cfg.wd, optimizer=cfg.client_optimizer, device=device,
                    weighted_sampling=weighted_sampling,
                    debug_nans=cfg.debug_checks)
-        if step.device.type == "cuda":
+        if step.device.type == "cuda" and not step.conv:
             why = layout_refusal(module.in_dim, module.hidden_dim,
                                  module.num_classes,
                                  min(cfg.batch_size, cfg.sample_num),
@@ -244,7 +265,7 @@ class TrainStep:
         """One round on packed params ``flat [M, P]``: K4b (weighted
         sampling only), then K1 and K2, the masked FedAvg: one launch on the
         fused kernel's route (K2 as K1's epilogue), two on the wide and
-        general ones.
+        general ones; for a conv model ``model_local_sgd``, then K2.
         ``total_w [M, C]``: the round's pair weights, 0 for a client its
         mask leaves out. ``rows``: ``(t_idx, slot)`` of contiguous batches,
         or the weighted draw's uniforms ``u [M, C, S, B]``, searched in the
@@ -258,10 +279,21 @@ class TrainStep:
             idx = weighted_search(cdf, total_w, rows)
         else:
             t_idx, slot = rows
+        mod, B = self.module, min(self.batch_size, x.shape[2])
+        if self.conv:
+            client, opt_state, n, losses = model_local_sgd(
+                mod, x, y, flat, opt_state, t_idx, slot, total_w,
+                batch_size=B, lr=self.lr, wd=self.wd, lr_scale=lr_scale,
+                idx=idx, feat_mask=feat_mask, optimizer=self.optimizer)
+            self._check("local SGD (model_local_sgd)", client=client,
+                        opt_state=opt_state, losses=losses)
+            new_flat, agg_stats = agg_mean(client, n, flat,
+                                           stats_out=stats_out)
+            self._check("K2 (fedavg)", params=new_flat, agg_stats=agg_stats)
+            return new_flat, opt_state, client, n, losses, agg_stats
         fm = None if feat_mask is None else \
             feat_mask.reshape(feat_mask.shape[0], -1).contiguous()
         x = x.flatten(3)                     # image rows [.., H, W, C] -> F
-        mod, B = self.module, min(self.batch_size, x.shape[2])
         kw = dict(hidden=mod.hidden_dim, batch_size=B, lr=self.lr, wd=self.wd,
                   lr_scale=lr_scale, idx=idx, feat_mask=fm)
         if _route(mod.in_dim, mod.hidden_dim, mod.num_classes, B,
@@ -370,9 +402,10 @@ class TrainStep:
             if self.weighted_sampling else None
         total_w = self.total_weight(time_w)
         mod, N = self.module, x.shape[2]
-        fold = _folds_eval(mod.in_dim, mod.hidden_dim, mod.num_classes,
-                           min(self.batch_size, N), N, self.optimizer)
-        window = (xw.flatten(3), yw)
+        fold = not self.conv and _folds_eval(
+            mod.in_dim, mod.hidden_dim, mod.num_classes,
+            min(self.batch_size, N), N, self.optimizer)
+        window = (xw.flatten(3), yw) if fold else None
         pending = None            # the eval slot the next round's launch fills
         for r in range(R):
             if client_masks is not None:
@@ -409,6 +442,9 @@ class TrainStep:
         """Every model on every client: params leaves ``[M, ...]``, x ``[C,
         ..., N, *features]`` -> ``[M, C, ..., N, K]``; ``feat_mask [M,
         *features]`` multiplies model m's input (None: ones)."""
+        if self.conv:
+            return model_logits(self.module, self.module.pack(params), x,
+                                feat_mask)
         fs = len(self.module.feature_shape)
         extra = x.dim() - 1 - fs
         lead = (slice(None),) + (None,) * extra
@@ -423,7 +459,11 @@ class TrainStep:
                      out=(None, None)):
         """K3 on packed params ``flat [M, P]`` over a window ``x [C, G, N,
         ...]``: ``(correct, nll)`` each ``[M, C, G]`` (nll None unless
-        ``with_nll``), written into ``out`` where it holds tensors."""
+        ``with_nll``), written into ``out`` where it holds tensors. A conv
+        model's cells come from its logits (``model_logits``)."""
+        if self.conv:
+            return self._conv_eval_window(flat, x, y, feat_mask, with_nll,
+                                          out)
         fm = None if feat_mask is None else \
             feat_mask.reshape(feat_mask.shape[0], -1).contiguous()
         correct, nll = eval_cells(flat, x.flatten(3), y,
@@ -431,6 +471,24 @@ class TrainStep:
                                   with_nll=with_nll, correct_out=out[0],
                                   nll_out=out[1])
         self._check("K3 (eval_cells)", nll=nll)
+        return correct, nll
+
+    def _conv_eval_window(self, flat, x, y, feat_mask, with_nll, out):
+        """``_eval_window`` of a conv model: each (model, client, step)'s
+        count of rows whose argmax is the label and sum of their NLL, the
+        JAX package's ``_acc_matrix_body`` cells."""
+        logits = model_logits(self.module, flat, x, feat_mask)
+        yl = y.long()[None].expand(logits.shape[:-1])
+        correct = (logits.argmax(-1) == yl).sum(-1).to(torch.int32)
+        nll = None
+        if with_nll:
+            logp = torch.log_softmax(logits, dim=-1)
+            nll = -logp.gather(-1, yl[..., None])[..., 0].sum(-1)
+        if out[0] is not None:
+            correct = out[0].copy_(correct)
+        if nll is not None and out[1] is not None:
+            nll = out[1].copy_(nll)
+        self._check("eval (model_logits)", nll=nll)
         return correct, nll
 
     @torch.no_grad()

@@ -275,7 +275,8 @@ def layout_refusal(F: int, H: int, K: int, B: int,
     at batch ``B`` under ``optimizer``, or None where a K1 layout takes
     it: every other route refuses the shape and the general kernel's
     shared memory (``general_smem_bytes``) exceeds a block's. The CPU's
-    plain version takes every shape."""
+    plain version takes every shape. It concerns the fnn and the lr only:
+    the conv models take no K1 layout."""
     if _route(F, H, K, B, optimizer) != "general" \
             or general_smem_bytes(F, H, K, B, optimizer) <= MAX_SMEM:
         return None
@@ -314,8 +315,9 @@ def init_opt_state(M: int, C: int, P: int, device: str | torch.device,
 def amsgrad_step(p, grad, mu, nu, nu_max, count, *, lr: float, wd: float,
                  lr_scale: float = 1.0):
     """One step of optax.chain(add_decayed_weights(wd), amsgrad(lr)) and the
-    reference's lr_scale; ``count [...]`` has p's shape without the last
-    axis. Returns ``(p, mu, nu, nu_max, count)``."""
+    reference's lr_scale on flat params ``p [..., P]`` (the plain K1's
+    ``[M, C, P]``, the conv models' ``[M·C, P]``); ``count [...]`` has p's
+    shape without the last axis. Returns ``(p, mu, nu, nu_max, count)``."""
     g = grad + wd * p
     mu = (1 - B1) * g + B1 * mu
     nu = (1 - B2) * (g * g) + B2 * nu
@@ -332,41 +334,46 @@ def sgd_step(p, grad, *, lr: float, lr_scale: float = 1.0):
     return p + (-lr * grad) * lr_scale
 
 
-def local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w, *,
-                  hidden: int, batch_size: int, lr: float, wd: float,
-                  lr_scale: float = 1.0, idx=None, feat_mask=None,
-                  optimizer: str = "adam"):
-    """The plain version: the S steps batched over ``[M, C]`` with autograd
-    for the gradient; returns a new optimizer state."""
-    C, T1, N, F = x.shape
+def local_steps(grad_fn, x, y, params, opt_state, t_idx, slot, total_w, *,
+                batch_size: int, lr: float, wd: float, lr_scale: float = 1.0,
+                idx=None, feat_mask=None, optimizer: str = "adam"):
+    """The plain local SGD of every (model, client) pair, for any model:
+    ``TrainStep._local_sgd``'s contract with the gradient left to
+    ``grad_fn(p [M, C, P], xb [M, C, B, *features], yb [M, C, B] int64) ->
+    (grad [M, C, P], loss [M, C])``, the mean cross entropy of each pair's
+    batch and its gradient. ``x [C, T1, N, *features]``; each step gathers
+    its batch rows (contiguous from ``t_idx, slot``, or ``idx``), applies
+    ``feat_mask [M, *features]``, and steps the flat params with
+    ``amsgrad_step`` / ``sgd_step``. A pair of total weight 0 keeps its
+    params and state. Returns ``(client [M, C, P], opt_state, n [M, C],
+    mean loss over the S steps [M, C])``, n = ``total_w·N`` (0 where
+    inactive)."""
+    C, T1, N = x.shape[:3]
+    feat = x.shape[3:]
     M, P = params.shape
-    B, H = batch_size, hidden
-    K = _classes(F, H, P)
-    if idx is None:
+    B = batch_size
+    if idx is None:                  # contiguous: t_idx·N + slot·B + [0, B)
         rows = (t_idx.long() * N + slot.long() * B)[..., None] \
             + torch.arange(B, device=x.device)                # [M, C, S, B]
     else:
         rows = idx.long()
-    S = rows.shape[2]
-    cidx = torch.arange(C, device=x.device)[None, :, None, None]
-    xb = x.reshape(C, T1 * N, F)[cidx, rows]                  # [M, C, S, B, F]
+    cidx = torch.arange(C, device=x.device)[None, :, None]
+    xf, yf = x.reshape(C, T1 * N, *feat), y.reshape(C, T1 * N)
     if feat_mask is not None:
-        xb = xb * feat_mask[:, None, None, None, :]
-    yb = y.reshape(C, T1 * N)[cidx, rows].long()              # [M, C, S, B]
+        feat_mask = feat_mask.reshape(M, 1, 1, *feat)
     p = params[:, None].expand(M, C, P)
     sgd = optimizer == "sgd"
     if not sgd:
         mu, nu, vmax = opt_state["mu"], opt_state["nu"], opt_state["nu_max"]
         count = opt_state["count"]
     losses = []
-    for s in range(S):
-        with torch.enable_grad():
-            pg = p.detach().requires_grad_(True)
-            logp = torch.log_softmax(
-                _apply(_unpack(pg, F, H, K), xb[:, :, s]), dim=-1)
-            loss = -logp.gather(-1, yb[:, :, s, :, None])[..., 0].mean(-1)
-            grad, = torch.autograd.grad(loss.sum(), pg)
-        losses.append(loss.detach())
+    for s in range(rows.shape[2]):
+        r = rows[:, :, s]                                     # [M, C, B]
+        xb = xf[cidx, r]                                      # [M, C, B, ..]
+        if feat_mask is not None:
+            xb = xb * feat_mask
+        grad, loss = grad_fn(p, xb, yf[cidx, r].long())
+        losses.append(loss)
         if sgd:
             p = sgd_step(p, grad, lr=lr, lr_scale=lr_scale)
         else:
@@ -383,6 +390,30 @@ def local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w, *,
     client = torch.where(a, p, params[:, None])
     n = torch.where(active, total_w * N, torch.zeros_like(total_w))
     return client, new_state, n, torch.stack(losses, -1).mean(-1)
+
+
+def local_sgd_ref(x, y, params, opt_state, t_idx, slot, total_w, *,
+                  hidden: int, batch_size: int, lr: float, wd: float,
+                  lr_scale: float = 1.0, idx=None, feat_mask=None,
+                  optimizer: str = "adam"):
+    """The plain version: ``local_steps`` with the fnn's (or the lr's)
+    gradient by autograd, batched over ``[M, C]``; returns a new optimizer
+    state."""
+    F, P = x.shape[3], params.shape[1]
+    K = _classes(F, hidden, P)
+
+    def grad_fn(p, xb, yb):
+        with torch.enable_grad():
+            pg = p.detach().requires_grad_(True)
+            logp = torch.log_softmax(_apply(_unpack(pg, F, hidden, K), xb),
+                                     dim=-1)
+            loss = -logp.gather(-1, yb[..., None])[..., 0].mean(-1)
+            grad, = torch.autograd.grad(loss.sum(), pg)
+        return grad, loss.detach()
+    return local_steps(grad_fn, x, y, params, opt_state, t_idx, slot,
+                       total_w, batch_size=batch_size, lr=lr, wd=wd,
+                       lr_scale=lr_scale, idx=idx, feat_mask=feat_mask,
+                       optimizer=optimizer)
 
 
 # csrc/local_sgd.cu's Params: 22 pointers; the eval window's x and y client

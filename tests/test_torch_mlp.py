@@ -60,7 +60,7 @@ def test_registry_builds_the_fnn():
     assert (mod.in_dim, mod.hidden_dim, mod.num_classes) == (3, 7, 2)
     assert mod.num_params == 3 * 7 + 7 + 7 * 2 + 2
     with pytest.raises(KeyError):
-        create_model("cnn", ds, None)
+        create_model("vgg11", ds, None)
 
 
 class TestForward:

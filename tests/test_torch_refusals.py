@@ -9,7 +9,6 @@ import re
 
 import numpy as np
 import pytest
-import torch
 
 from feddrift_torch.config import ExperimentConfig
 
@@ -29,8 +28,10 @@ def _megastep():
 
 
 def _model_zoo():
-    from feddrift_torch.core.step import TrainStep
-    TrainStep(torch.nn.Identity(), 10, 1, 2, device="cpu")
+    from feddrift_torch.data.registry import make_dataset
+    from feddrift_torch.models import create_model
+    create_model("mobilenet", make_dataset(ExperimentConfig(sample_num=10)),
+                 ExperimentConfig())
 
 
 def _mnist_files(tmp_path):
