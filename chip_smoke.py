@@ -258,7 +258,7 @@ Phases, one or more lines of output each:
    ``resnet110``, ``resnet56_gn``, ``resnet18``) at its published width:
    logits and gradient on the card against the CPU path in float64: the
    card's float64 within ``CONV_F64_CARD_TOL``, its float32 under the
-   package's ``conv_numerics`` within ``CONV_F64_FLOOR`` /
+   package's ``model_numerics`` within ``CONV_F64_FLOOR`` /
    ``CONV_F64_FACTOR``; two forwards bitwise. The timing case, a round of
    the cnn at fmow-smooth (M 4, C 10, S 5) at B 32 and 500: two rounds
    from the same inputs bitwise, every forward of them under cuDNN's TF32
@@ -272,6 +272,21 @@ Phases, one or more lines of output each:
    ``hard-r``): every round one ``fedavg.cu`` launch, no K1, K3, K4 or
    plain call, the data and pool on the card; Test/Acc a step and on the
    mean against the committed run within ``_conv_gate``.
+   Last, train_rnn: the LSTMs (``rnn``, ``rnn_stackoverflow``), trained by
+   the same model-generic local SGD with each step's LSTM cell one
+   ``csrc/lstm_cell.cu`` launch forward and one backward. The cell kernels
+   against their plain versions at CharLSTM's (R 960, H 256) and
+   WordLSTM's (R 1280, H 670) step shapes, float64 and float32, within
+   ``RNN_CELL_RTOL``, timed and bound; each LSTM at its published width
+   held as the conv models are, its cell launches counted; the timing
+   case, a round of the committed run's configuration, twice bitwise,
+   with its wall, device ms, launches and top device operations, and K2
+   at CharLSTM's width (P 820,522; ``fedavg_rnn``); then
+   ``fed_shakespeare-rnn-aue-10c-s0`` at its own configuration (lr 0.03)
+   against its committed run within ``_rnn_gate``, and ``rnn_stackoverflow``
+   on ``stackoverflow_nwp`` (``RNN_SO_RUN``, no committed run: no gate).
+   Each run: every round one ``fedavg.cu`` launch, the cell kernels
+   launched, no K1, K3, K4 or plain call.
 
 It then prints a ``phase_walls`` line (each phase's seconds), the kernels'
 JSON line, the card line and, last, the result line. Each entry of the kernels line takes its launches from the driven
@@ -292,7 +307,10 @@ cases from ``train_agg`` / ``train_eval``, the split K1 padded
 past F and K3's resident wide tiles at stackoverflow_lr's from its runs,
 the wide K1 at two classes a lane and the split K1 at K 10 from
 ``train_images``' femnist and cifar10 runs, ``fedavg.cu`` at the conv
-width (``fedavg_conv``) from ``train_conv``'s runs. Every entry
+width (``fedavg_conv``) from ``train_conv``'s runs, the LSTM cell's
+kernels (``lstm_cell_fwd``, ``lstm_cell_bwd``) and ``fedavg.cu`` at
+CharLSTM's width (``fedavg_rnn``) from ``train_rnn``'s committed run with
+their cases at CharLSTM's shapes. Every entry
 also carries
 ``device_ms`` beside ``ms``. Any failed phase exits non-zero before the result line. It imports
 nothing of JAX.
@@ -1512,6 +1530,10 @@ WIDE_TIMING = dict(iters=5, rounds=3, reps=5, enqueue=20)
 # plain version (~13 ms a call, hundreds of launches under the profiler)
 # sets the cost of a case
 TABULAR_TIMING = dict(iters=20, rounds=3, reps=5, enqueue=100)
+# every other K1 case; _timed's defaults (K2's, K3's, K4's and the LSTM
+# cell's cases) take the same depth, which keeps the whole script well
+# inside its time limit on a slow host
+K1_TIMING = dict(iters=20, rounds=3, reps=10, enqueue=100)
 
 
 def _over(got, want, atol: float = 0.0, rtol: float = 0.0) -> int:
@@ -1616,7 +1638,7 @@ def phase_train_kernel() -> tuple[dict, dict]:
                      x, y, params, state, t_idx, slot, total_w, **plain_kw)}
         timing = WIDE_TIMING if wide and route in ("general", "split") \
             else TABULAR_TIMING if dataset in FUSED_CHUNKED \
-            else dict(iters=50, rounds=5, reps=20, enqueue=200)
+            else K1_TIMING
         ms, plain_ms = _interleaved(
             lambda f: _time_ms(f, timing["iters"]), calls,
             timing["rounds"]).values()
@@ -2046,8 +2068,8 @@ def _eval_bound_ms(flat, xw, F: int, H: int, K: int, nll_on: bool,
                   _forward_flops(M * C * G * N, F, H, K))
 
 
-def _timed(calls: dict, iters: int = 50, rounds: int = 5, reps: int = 20,
-           enqueue: int = 200) -> dict:
+def _timed(calls: dict, iters: int = 20, rounds: int = 3, reps: int = 10,
+           enqueue: int = 100) -> dict:
     """Per call (``iters`` calls a measure, in turns for ``rounds``), on
     the device (``reps`` calls) and, for the kernel, the host's enqueue
     alone (``enqueue`` calls): ``{name: {"ms", "device_ms"}}`` plus
@@ -2642,10 +2664,16 @@ def _reset_counts() -> None:
     from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
     from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_fedavg
+    from feddrift_torch.kernels.lstm_cell import (lstm_cell_bwd,
+                                                  lstm_cell_bwd_ref,
+                                                  lstm_cell_fwd,
+                                                  lstm_cell_fwd_ref)
     from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
                                                       weighted_cdf_ref,
                                                       weighted_search,
                                                       weighted_search_ref)
+    lstm_cell_fwd.launches = lstm_cell_bwd.launches = 0
+    lstm_cell_fwd_ref.cuda_calls = lstm_cell_bwd_ref.cuda_calls = 0
     local_sgd.launches = local_sgd_fedavg.launches = 0
     local_sgd.fused_launches = eval_cells.fused_launches = 0
     local_sgd.wide_launches = eval_cells.wide_launches = 0
@@ -2668,10 +2696,15 @@ def _read_counts() -> dict:
     rest. An eval runs in a K1 launch (``folded_evals``) or as its own K3
     launch (``k3_launches``; on the fused kernel ``k3_fused_launches``, on
     the wide one ``k3_wide_launches``, of which ``k3_stream_launches`` on
-    its streamed kernel)."""
+    its streamed kernel). An LSTM step's cell launches ``lstm_cell_fwd``
+    once and, in training, ``lstm_cell_bwd`` once."""
     from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
     from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_fedavg
+    from feddrift_torch.kernels.lstm_cell import (lstm_cell_bwd,
+                                                  lstm_cell_bwd_ref,
+                                                  lstm_cell_fwd,
+                                                  lstm_cell_fwd_ref)
     from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
                                                       weighted_cdf_ref,
                                                       weighted_search,
@@ -2695,7 +2728,11 @@ def _read_counts() -> dict:
             "k3_wide_launches": eval_cells.wide_launches,
             "k3_stream_launches": eval_cells.stream_launches,
             "folded_evals": local_sgd_fedavg.evals,
+            "lstm_cell_fwd_launches": lstm_cell_fwd.launches,
+            "lstm_cell_bwd_launches": lstm_cell_bwd.launches,
             "plain_calls": {"fedavg_ref": fedavg_ref.cuda_calls,
+                            "lstm_cell_fwd_ref": lstm_cell_fwd_ref.cuda_calls,
+                            "lstm_cell_bwd_ref": lstm_cell_bwd_ref.cuda_calls,
                             "eval_cells_ref": eval_cells_ref.cuda_calls,
                             "weighted_cdf_ref": weighted_cdf_ref.cuda_calls,
                             "weighted_search_ref":
@@ -4117,7 +4154,7 @@ def phase_trace_plane() -> None:
 # CONV_F64_CARD_TOL (the card's convolutions, paddings and norms apart
 # from TF32: float64's rounding, amplified as float32's is below, lies
 # near 1e-11 at resnet110), and in float32 under the package's
-# conv_numerics within the larger of CONV_F64_FLOOR (TF32 in a conv or a
+# model_numerics within the larger of CONV_F64_FLOOR (TF32 in a conv or a
 # product would leave it, ~1e-3, where float32 is well conditioned, as
 # for the cnn and resnet8) and CONV_F64_FACTOR times the CPU float32
 # path's own distance from float64 on the same inputs (the deep ResNets'
@@ -4134,7 +4171,7 @@ CONV_CHECK_MODELS = (("cnn", (784,), 62), ("cnn_dropout", (784,), 62),
 CONV_CHECK_ROWS = 32
 CONV_F64_FLOOR, CONV_F64_FACTOR, CONV_F64_CARD_TOL = 1e-4, 4.0, 1e-8
 # cuDNN's TF32, determinism and autotuning, and the matmuls' TF32, as
-# models/base.py::conv_numerics sets them
+# models/base.py::model_numerics sets them
 CONV_FLAGS = {"cudnn_allow_tf32": False, "cudnn_deterministic": True,
               "cudnn_benchmark": False, "matmul_allow_tf32": False}
 # The three committed conv runs (scripts/run_round5_cpu.sh, made by the JAX
@@ -4214,67 +4251,27 @@ def _conv_flags() -> dict:
 
 
 def _conv_model_checks() -> None:
-    """Each of ``CONV_CHECK_MODELS`` at its published width: the card's
-    logits and gradient in float64 and in float32 (both under the
-    package's ``conv_numerics``, as ``core/functional.py``'s conv programs
-    run) against the CPU path in float64, beside the CPU float32 path's
-    own error."""
+    """Each of ``CONV_CHECK_MODELS`` at its published width through
+    ``_model_errors``."""
     import numpy as np
     import torch
     from feddrift_torch.config import ExperimentConfig
-    from feddrift_torch.core.functional import cross_entropy
     from feddrift_torch.data.drift_dataset import DriftDataset
     from feddrift_torch.models import create_model
-    from feddrift_torch.models.base import conv_numerics
     for name, shape, classes in CONV_CHECK_MODELS:
         ds = DriftDataset(x=np.zeros((1, 1, 1, *shape), np.float32),
                           y=np.zeros((1, 1, 1), np.int32),
                           concepts=np.zeros((1, 1), np.int64),
                           num_classes=classes)
         mod = create_model(name, ds, ExperimentConfig())
-        params = mod.init_params(torch.Generator().manual_seed(0), "cpu")
         gen = torch.Generator().manual_seed(1)
         x = torch.rand(CONV_CHECK_ROWS, *shape, generator=gen)
         y = torch.randint(0, classes, (CONV_CHECK_ROWS,), generator=gen)
-        out = {}
-        for key, dt, dev in (("card", torch.float32, "cuda"),
-                             ("card64", torch.float64, "cuda"),
-                             ("cpu32", torch.float32, "cpu"),
-                             ("cpu64", torch.float64, "cpu")):
-            with conv_numerics():
-                flat = mod.pack(params).to(dev, dt).requires_grad_(True)
-                logits = mod(mod.unpack(flat), x.to(dev, dt))
-                grad, = torch.autograd.grad(
-                    cross_entropy(logits, y.to(dev)), flat)
-            out[key] = (logits.detach().cpu(), grad.cpu())
-        with conv_numerics():
-            again = mod(mod.unpack(mod.pack(params).cuda()), x.cuda())
-        bitwise = bool(torch.equal(again.cpu(), out["card"][0]))
-        errs, errs64 = {}, {}
-        for i, part in enumerate(("logits", "grad")):
-            want = out["cpu64"][i]
-            cpu32 = _rel_err(out["cpu32"][i], want)
-            tol = max(CONV_F64_FLOOR, CONV_F64_FACTOR * cpu32)
-            errs[part] = (_rel_err(out["card"][i], want), cpu32, tol)
-            errs64[part] = _rel_err(out["card64"][i], want)
+        fields, failed = _model_errors(mod, x, y)
         _say("train_conv_model", model=name, input=list(shape),
-             classes=classes, params=mod.num_params, rows=CONV_CHECK_ROWS,
-             card64_logits_rel_err_vs_f64=errs64["logits"],
-             card64_grad_rel_err_vs_f64=errs64["grad"],
-             card64_tol=CONV_F64_CARD_TOL,
-             logits_rel_err_vs_f64=errs["logits"][0],
-             cpu32_logits_rel_err_vs_f64=errs["logits"][1],
-             logits_tol=errs["logits"][2],
-             grad_rel_err_vs_f64=errs["grad"][0],
-             cpu32_grad_rel_err_vs_f64=errs["grad"][1],
-             grad_tol=errs["grad"][2], two_forwards_bitwise=bitwise)
-        if not bitwise or any(e > tol for e, _, tol in errs.values()) \
-                or any(e > CONV_F64_CARD_TOL for e in errs64.values()):
-            raise AssertionError(f"{name} on the card: two forwards bitwise "
-                                 f"{bitwise}, float32 (error, cpu float32's, "
-                                 f"tolerance) {errs}, float64 errors "
-                                 f"{errs64} (tolerance "
-                                 f"{CONV_F64_CARD_TOL})")
+             classes=classes, **fields)
+        if failed:
+            raise AssertionError(f"{name} on the card: {failed}")
 
 
 def _conv_timing_setup(batch: int):
@@ -4461,6 +4458,528 @@ def phase_train_conv() -> dict:
     return entry
 
 
+# train_rnn: the LSTMs of the registry (models/rnn.py: CharLSTM ``rnn``,
+# WordLSTM ``rnn_stackoverflow``), trained by the model-generic local SGD
+# with each LSTM step's cell in kernels/lstm_cell.py (one csrc/lstm_cell.cu
+# launch forward, one backward; the gate products cuBLAS' float32 matmuls)
+# and K2's fedavg.cu closing every round. First the cell kernels against
+# their plain versions at the two models' main-path shapes (RNN_CELL_CASES:
+# the rows of a step, M·C pairs of B, and H), within RNN_CELL_RTOL of the
+# plain output's largest magnitude (float32 exp and tanh, a few ulp
+# apart); each registry name then held as CONV_CHECK_MODELS are
+# (RNN_CHECK_MODELS: float64 on the card within CONV_F64_CARD_TOL of the
+# CPU's, float32 within the larger of CONV_F64_FLOOR and CONV_F64_FACTOR
+# times the CPU float32's own error).
+RNN_CELL_CASES = (("rnn", 30 * 32, 256), ("rnn_stackoverflow", 40 * 32, 670))
+RNN_CELL_RTOL = 1e-6
+# The cell's timed calls rotate through copies of their inputs holding
+# twice the H100's 50 MB L2, so a call reads its inputs from HBM.
+CELL_COLD_BYTES = 100 * 2**20
+# A cell call's float32 words and operations a (row, unit): the forward
+# reads z (4) and c and writes h' and c'; the backward reads dh', dc', the
+# gates (4), c and c' and writes dz (4) and dc. The gates the forward also
+# writes are the backward's to read: a backward that recomputed them
+# would read z instead, the same words.
+CELL_COST = {"fwd": (7, 20), "bwd": (13, 25)}
+RNN_CHECK_MODELS = (("rnn", "fed_shakespeare", 80, 90),
+                    ("rnn_stackoverflow", "stackoverflow_nwp", 20, 10000))
+RNN_CHECK_ROWS = 32
+# The committed LSTM run at its own configuration
+# (scripts/run_round4_cpu.sh:45-51; its lr is the 0.03 PARITY.md records,
+# not the script's 0.1): (committed run, its configuration, its final
+# Test/Acc per step as committed, the path its steps take).
+RNN_RUNS = (
+    ("fed_shakespeare-rnn-aue-10c-s0",
+     dict(dataset="fed_shakespeare", model="rnn", concept_drift_algo="aue",
+          concept_num=3, change_points="rand", client_num_in_total=10,
+          client_num_per_round=10, train_iterations=3, comm_round=20,
+          epochs=5, batch_size=32, sample_num=1000, lr=0.03,
+          frequency_of_the_test=5),
+     (0.1738, 0.2987, 0.4233), "per_round"),)
+# The gate, fixed before the card's seed-0 run was read, as
+# CONV_SEED_SPREAD: the larger of SEA's tolerances and the spread of the
+# port's card runs at seeds 1-3 (scripts/torch_conv_seed_runs.py --family
+# rnn --seeds 1,2,3), as (step, mean). (On an NVIDIA H100 80GB HBM3,
+# 700.00 W, the seeds' final Test/Acc: (0.2203, 0.2081, 0.4245), (0.1376,
+# 0.3451, 0.4303), (0.1757, 0.2919, 0.4348).)
+RNN_SEED_SPREAD = {"fed_shakespeare-rnn-aue-10c-s0": (0.137, 0.02003)}
+# rnn_stackoverflow on stackoverflow_nwp at the registry's sizes (V 10000,
+# seq 20) in the conv runs' shape (fmow-smooth's: softcluster H_A_C_1_10_0,
+# change points A, C 10, T 2, 4 rounds, S 5, B 32, N 500): no committed
+# run exists, so it is held to its model checks and to the launches of its
+# path, and its Test/Acc is reported without a gate.
+RNN_SO_RUN = dict(dataset="stackoverflow_nwp", model="rnn_stackoverflow",
+                  concept_drift_algo="softcluster",
+                  concept_drift_algo_arg="H_A_C_1_10_0", concept_num=4,
+                  change_points="A", client_num_in_total=10,
+                  client_num_per_round=10, train_iterations=2, comm_round=4,
+                  epochs=5, batch_size=32, sample_num=500, lr=0.003,
+                  frequency_of_the_test=4)
+
+
+def _rnn_gate(run: str) -> tuple[float, float]:
+    step, mean = RNN_SEED_SPREAD[run]
+    return max(STEP_ACC_TOL, step), max(MEAN_ACC_TOL, mean)
+
+
+def _cell_inputs(R: int, H: int, seed: int = 0):
+    """One cell step's inputs on the card: pre-activations ~ N(0, 2²) (the
+    gates span their saturating range), carry and upstream gradients ~
+    N(0, 1)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    return 2.0 * rand(R, 4 * H), rand(R, H), rand(R, H), rand(R, H)
+
+
+def _cell_rel(got, want) -> float:
+    return max(float((g - w).abs().max() / w.abs().max())
+               for g, w in zip(got, want))
+
+
+def _cell_errs(got, want) -> tuple[float, float]:
+    """(relative to the largest plain output, absolute) of a cell call."""
+    return _cell_rel(got, want), max(float((a - b).abs().max())
+                                     for a, b in zip(got, want))
+
+
+def _rotating(sets: list, fn):
+    """A call of ``fn`` on each of ``sets`` in turn, call after call."""
+    turn = iter(range(1 << 62))
+    return lambda: fn(*sets[next(turn) % len(sets)])
+
+
+def _lstm_library():
+    """PyTorch's own fused LSTM cell (the CUDA kernels behind ``nn.LSTM``
+    without cuDNN), on the cell kernels' arguments: the forward
+    ``aten._thnn_fused_lstm_cell(input_gates, hidden_gates, cx)`` with
+    ``z`` as the input gates and a zero hidden gates tensor (it adds the
+    two), giving ``(h', c', the activated gates)`` in the same i, f, g, o
+    order; the backward ``_thnn_fused_lstm_cell_backward_impl(dh', dc',
+    c, c', gates, has_bias)``, giving ``(dz, dc)``. Timed and checked
+    beside the kernels; the port never calls them."""
+    import torch
+    aten = torch.ops.aten
+    return (lambda z, c, zero: aten._thnn_fused_lstm_cell(z, zero, c),
+            lambda dh, dcn, gates, c, cn:
+            aten._thnn_fused_lstm_cell_backward_impl(dh, dcn, c, cn, gates,
+                                                     False)[:2])
+
+
+def _lstm_cell_checks() -> tuple[dict, dict]:
+    """``lstm_cell_fwd`` and ``lstm_cell_bwd`` against their plain versions
+    at each of ``RNN_CELL_CASES``, in float32 and float64: within
+    ``RNN_CELL_RTOL`` of the largest plain output, two calls bitwise;
+    PyTorch's fused LSTM cell (``_lstm_library``) held to the same plain
+    outputs. In float32 the kernel, the plain version and the library are
+    timed (CUDA events, and the profiler's device time) on inputs rotated
+    through ``CELL_COLD_BYTES`` of copies, so each call reads them from HBM
+    as the bound counts; the bound is the bytes of the function's inputs
+    and outputs (forward: z and c in, h' and c' out; backward: dh', dc',
+    the gates, c and c' in, dz and dc out). Returns the kernels line's
+    ``lstm_cell_fwd`` and ``lstm_cell_bwd`` entries, at CharLSTM's shape
+    (launches from the run)."""
+    import torch
+    from feddrift_torch.kernels.lstm_cell import (lstm_cell_bwd,
+                                                  lstm_cell_bwd_ref,
+                                                  lstm_cell_fwd,
+                                                  lstm_cell_fwd_ref)
+    lib_fwd, lib_bwd = _lstm_library()
+    entries = {}
+    for model, R, H in RNN_CELL_CASES:
+        z, c, dh, dcn = _cell_inputs(R, H)
+        for dt in (torch.float64, torch.float32):
+            z_, c_, dh_, dcn_ = (t.to(dt) for t in (z, c, dh, dcn))
+            fwd = lstm_cell_fwd(z_, c_)
+            bwd = lstm_cell_bwd(dh_, dcn_, fwd[2], c_, fwd[1])
+            again = (lstm_cell_fwd(z_, c_),
+                     lstm_cell_bwd(dh_, dcn_, fwd[2], c_, fwd[1]))
+            zero = torch.zeros_like(z_)
+            lib = (lib_fwd(z_, c_, zero),)
+            torch.cuda.synchronize()
+            want_f = lstm_cell_fwd_ref(z_, c_)
+            want_b = lstm_cell_bwd_ref(dh_, dcn_, want_f[2], c_, want_f[1])
+            lib += (lib_bwd(dh_, dcn_, want_f[2], c_, want_f[1]),)
+            bitwise = all(torch.equal(a, b) for a, b in
+                          zip((*fwd, *bwd), (*again[0], *again[1])))
+            errs = {"fwd": _cell_errs(fwd, want_f),
+                    "bwd": _cell_errs(bwd, want_b),
+                    "library_fwd": _cell_errs(lib[0], want_f),
+                    "library_bwd": _cell_errs(lib[1], want_b)}
+            ok = bitwise and all(r <= RNN_CELL_RTOL for r, _ in
+                                 errs.values())
+            if dt == torch.float64:
+                _say("train_rnn_cell", model=model, R=R, H=H,
+                     dtype="float64", fwd_rel_err=errs["fwd"][0],
+                     bwd_rel_err=errs["bwd"][0],
+                     library_fwd_rel_err=errs["library_fwd"][0],
+                     library_bwd_rel_err=errs["library_bwd"][0],
+                     rtol=RNN_CELL_RTOL, two_calls_bitwise=bitwise)
+                if not ok:
+                    raise AssertionError(f"lstm_cell float64 at R {R}, H "
+                                         f"{H}: {errs}, bitwise {bitwise}")
+                continue
+            one = (z_, c_, dh_, dcn_, fwd[2], fwd[1], zero)
+            per_set = sum(t.numel() * t.element_size() for t in one)
+            sets = [one] + [tuple(t.clone() for t in one) for _ in
+                            range(-(-CELL_COLD_BYTES // per_set) - 1)]
+            times = {}
+            for part, kernel, plain, library in (
+                    ("fwd", lambda z, c, *_: lstm_cell_fwd(z, c),
+                     lambda z, c, *_: lstm_cell_fwd_ref(z, c),
+                     lambda z, c, _a, _b, _g, _n, zero: lib_fwd(z, c, zero)),
+                    ("bwd", lambda _z, c, dh, dcn, g, cn, _: lstm_cell_bwd(
+                        dh, dcn, g, c, cn),
+                     lambda _z, c, dh, dcn, g, cn, _: lstm_cell_bwd_ref(
+                         dh, dcn, g, c, cn),
+                     lambda _z, c, dh, dcn, g, cn, _: lib_bwd(
+                         dh, dcn, g, c, cn))):
+                t = _timed({"kernel": _rotating(sets, kernel),
+                            "plain": _rotating(sets, plain),
+                            "library": _rotating(sets, library)}, iters=200)
+                words, ops = CELL_COST[part]
+                bound_ms, bound_by = _bound(words * R * H * 4, ops * R * H)
+                times[part] = (t, bound_ms, bound_by,
+                               _launches(_rotating(sets, plain)))
+            _say("train_rnn_cell", model=model, R=R, H=H, dtype="float32",
+                 rtol=RNN_CELL_RTOL, two_calls_bitwise=bitwise,
+                 rotated_input_sets=len(sets),
+                 rotated_mb=len(sets) * per_set / 1e6,
+                 **{f"{p}_{k}": v for p, (t, b, by, pl) in times.items()
+                    for k, v in (("rel_err", errs[p][0]),
+                                 ("max_abs_err", errs[p][1]),
+                                 ("library_rel_err", errs[f"library_{p}"][0]),
+                                 ("ms", t["kernel"]["ms"]),
+                                 ("device_ms", t["kernel"]["device_ms"]),
+                                 ("enqueue_ms", t["kernel_enqueue_ms"]),
+                                 ("plain_ms", t["plain"]["ms"]),
+                                 ("plain_device_ms",
+                                  t["plain"]["device_ms"]),
+                                 ("plain_launches_per_call", pl),
+                                 ("library_ms", t["library"]["ms"]),
+                                 ("library_device_ms",
+                                  t["library"]["device_ms"]),
+                                 ("bound_ms", b), ("bound_by", by),
+                                 ("kernel_vs_bound",
+                                  (t["kernel"]["device_ms"]
+                                   or t["kernel"]["ms"]) / b),
+                                 ("kernel_vs_library",
+                                  t["kernel"]["ms"] / t["library"]["ms"]))})
+            if not ok:
+                raise AssertionError(f"lstm_cell float32 at R {R}, H {H}: "
+                                     f"(relative, absolute) {errs}, two "
+                                     f"calls bitwise {bitwise}")
+            del sets, one
+            if model != RNN_CELL_CASES[0][0]:
+                continue
+            for part, (t, b, by, _) in times.items():
+                entries[part] = {
+                    "name": f"lstm_cell_{part}", "route": "cuda",
+                    "source": "feddrift_torch/kernels/csrc/lstm_cell.cu",
+                    "replaces": "feddrift_tpu/models/rnn.py:25 (flax's "
+                    "OptimizedLSTMCell, also :26, :40; left to XLA: no "
+                    "Pallas kernel)",
+                    "case": f"R {R}, H {H} (CharLSTM's step: 30 pairs of "
+                    f"32 rows), inputs read from HBM", "launches": None,
+                    "max_abs_err": errs[part][1], "ms": t["kernel"]["ms"],
+                    "plain_ms": t["plain"]["ms"], "bound_ms": b,
+                    "bound_by": by, "library_ms": t["library"]["ms"],
+                    "library": "aten._thnn_fused_lstm_cell" if part == "fwd"
+                    else "aten._thnn_fused_lstm_cell_backward_impl",
+                    "device_ms": t["kernel"]["device_ms"],
+                    "library_device_ms": t["library"]["device_ms"]}
+        del z, c, dh, dcn
+        torch.cuda.empty_cache()
+    return entries["fwd"], entries["bwd"]
+
+
+def _model_errors(mod, x, y) -> tuple[dict, str | None]:
+    """``mod``'s logits and the gradient of its cross entropy on ``(x,
+    y)`` on the card in float32 and float64 and on the CPU in float32
+    (all under the package's ``model_numerics``, as ``core/functional.py``'s
+    programs run) against the CPU in float64, and two card forwards
+    bitwise: the float64 card within ``CONV_F64_CARD_TOL``, the float32
+    card within the larger of ``CONV_F64_FLOOR`` and ``CONV_F64_FACTOR``
+    times the CPU float32's own error. Returns the line's fields and what
+    failed (None if nothing)."""
+    import torch
+    from feddrift_torch.core.functional import cross_entropy
+    from feddrift_torch.models.base import model_numerics
+    params = mod.init_params(torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for key, dt, dev in (("card", torch.float32, "cuda"),
+                         ("card64", torch.float64, "cuda"),
+                         ("cpu32", torch.float32, "cpu"),
+                         ("cpu64", torch.float64, "cpu")):
+        xs = x.to(dev, dt) if x.is_floating_point() else x.to(dev)
+        with model_numerics():
+            flat = mod.pack(params).to(dev, dt).requires_grad_(True)
+            logits = mod(mod.unpack(flat), xs)
+            grad, = torch.autograd.grad(cross_entropy(logits, y.to(dev)),
+                                        flat)
+        out[key] = (logits.detach().cpu(), grad.cpu())
+    with model_numerics():
+        again = mod(mod.unpack(mod.pack(params).cuda()), x.cuda())
+    bitwise = bool(torch.equal(again.cpu(), out["card"][0]))
+    errs, errs64 = {}, {}
+    for i, part in enumerate(("logits", "grad")):
+        want = out["cpu64"][i]
+        cpu32 = _rel_err(out["cpu32"][i], want)
+        tol = max(CONV_F64_FLOOR, CONV_F64_FACTOR * cpu32)
+        errs[part] = (_rel_err(out["card"][i], want), cpu32, tol)
+        errs64[part] = _rel_err(out["card64"][i], want)
+    fields = dict(params=mod.num_params, rows=x.shape[0],
+                  card64_logits_rel_err_vs_f64=errs64["logits"],
+                  card64_grad_rel_err_vs_f64=errs64["grad"],
+                  card64_tol=CONV_F64_CARD_TOL,
+                  logits_rel_err_vs_f64=errs["logits"][0],
+                  cpu32_logits_rel_err_vs_f64=errs["logits"][1],
+                  logits_tol=errs["logits"][2],
+                  grad_rel_err_vs_f64=errs["grad"][0],
+                  cpu32_grad_rel_err_vs_f64=errs["grad"][1],
+                  grad_tol=errs["grad"][2], two_forwards_bitwise=bitwise)
+    if bitwise and all(e <= tol for e, _, tol in errs.values()) \
+            and all(e <= CONV_F64_CARD_TOL for e in errs64.values()):
+        return fields, None
+    return fields, (f"two forwards bitwise {bitwise}, float32 (error, cpu "
+                    f"float32's, tolerance) {errs}, float64 errors "
+                    f"{errs64} (tolerance {CONV_F64_CARD_TOL})")
+
+
+def _rnn_model_checks() -> None:
+    """Each of ``RNN_CHECK_MODELS`` at its published width on
+    ``RNN_CHECK_ROWS`` random token rows through ``_model_errors`` (the
+    card's forwards and backwards through the cell kernels), and the
+    kernels launched once a step of each card forward and backward."""
+    import numpy as np
+    import torch
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.data.drift_dataset import DriftDataset
+    from feddrift_torch.kernels.lstm_cell import (lstm_cell_bwd,
+                                                  lstm_cell_fwd)
+    from feddrift_torch.models import create_model
+    for name, dataset, L, V in RNN_CHECK_MODELS:
+        ds = DriftDataset(x=np.zeros((1, 1, 1, L), np.int32),
+                          y=np.zeros((1, 1, 1), np.int32),
+                          concepts=np.zeros((1, 1), np.int64),
+                          num_classes=V, name=dataset, is_sequence=True)
+        mod = create_model(name, ds, ExperimentConfig())
+        gen = torch.Generator().manual_seed(1)
+        x = torch.randint(0, V, (RNN_CHECK_ROWS, L), generator=gen,
+                          dtype=torch.int32)
+        y = torch.randint(0, V, (RNN_CHECK_ROWS,), generator=gen)
+        before = lstm_cell_fwd.launches, lstm_cell_bwd.launches
+        fields, failed = _model_errors(mod, x, y)
+        launched = (lstm_cell_fwd.launches - before[0],
+                    lstm_cell_bwd.launches - before[1])
+        # a step of each layer: three card forwards, two backwards
+        steps = L * (2 if name == "rnn" else 1)
+        want = (3 * steps, 2 * steps)
+        _say("train_rnn_model", model=name, dataset=dataset, seq_len=L,
+             classes=mod.num_classes, **fields, cell_launches=list(launched),
+             cell_launches_want=list(want))
+        if failed or launched != want:
+            raise AssertionError(f"{name} on the card: {failed}, cell "
+                                 f"launches {launched} (want {want})")
+
+
+def _rnn_round_checks() -> dict:
+    """The timing case: one round of the committed run's configuration (M
+    3, C 10, S 5, B 32, seq 80; model 2 with no active client) from fixed
+    draws, twice, bitwise; the peak of allocated device memory in the
+    first, its wall (median of 5), and under the profiler its device ms
+    (the union of the kernels' intervals), launches, ``lstm_cell``
+    launches, plain calls and top device operations, no gate. Then K2 on
+    that round's client stack (P 820,522) through ``_k2_check``: the
+    kernels line's ``fedavg_rnn``."""
+    import statistics
+
+    import torch
+    from feddrift_torch.config import ExperimentConfig
+    from feddrift_torch.kernels.lstm_cell import (lstm_cell_bwd,
+                                                  lstm_cell_bwd_ref,
+                                                  lstm_cell_fwd,
+                                                  lstm_cell_fwd_ref)
+    from feddrift_torch.simulation.runner import Experiment
+    exp = Experiment(ExperimentConfig(**RNN_RUNS[0][1]))
+    M, C, T1 = exp.pool.num_models, exp.C_, exp.x.shape[1]
+    tw = torch.zeros(M, C, T1, device="cuda")
+    tw[:2, :, 0] = 1.0                        # model 2: no active client
+    step, params = exp.step, exp.pool.params
+    opt = step.init_opt_states(params, M, C)
+    step.generator.manual_seed(0)
+    draws = step.draw_batches(tw, 1, exp.x.shape[2])
+    draws = (draws[0][0], draws[1][0])
+
+    def fn():
+        return step.train_round(params, opt, exp.x, exp.y, tw, draws=draws)
+    counts = (lstm_cell_fwd.launches, lstm_cell_bwd.launches,
+              lstm_cell_fwd_ref.cuda_calls, lstm_cell_bwd_ref.cuda_calls)
+    torch.cuda.reset_peak_memory_stats()
+    a = fn()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    one = (lstm_cell_fwd.launches - counts[0],
+           lstm_cell_bwd.launches - counts[1],
+           lstm_cell_fwd_ref.cuda_calls - counts[2],
+           lstm_cell_bwd_ref.cuda_calls - counts[3])
+    b = fn()
+    bitwise = all(torch.equal(a[i][k], b[i][k]) for i in (0, 2)
+                  for k in a[i]) \
+        and all(torch.equal(a[1][k], b[1][k]) for k in a[1]) \
+        and torch.equal(a[3], b[3]) and torch.equal(a[4], b[4])
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    kernels, wall_us, union_us = _profile(fn, 2, union=True)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    L, S = exp.x.shape[3], step.num_steps
+    want = 2 * L * S                           # two layers a step
+    _say("train_rnn_round", model="rnn", dataset="fed_shakespeare", M=M,
+         C=C, S=S, B=step.batch_size, seq_len=L, P=exp.module.num_params,
+         two_rounds_bitwise=bitwise, wall_ms=statistics.median(walls),
+         peak_memory_gb=peak_gb,
+         card_memory_gb=torch.cuda.get_device_properties(0).total_memory
+         / 1e9,
+         device_ms=busy_us / 2 / 1e3 if busy_us else "not measured",
+         device_union_ms=union_us / 2 / 1e3,
+         device_union_share=union_us / wall_us,
+         profiled_wall_ms=wall_us / 2 / 1e3,
+         launches=sum(e.count for e in kernels) / 2,
+         lstm_cell_fwd_launches=one[0], lstm_cell_bwd_launches=one[1],
+         lstm_cell_launches_want=want, plain_calls=list(one[2:]),
+         lstm_cell_device_ms=sum(e.self_device_time_total for e in kernels
+                                 if "lstm_cell" in e.key) / 2 / 1e3,
+         fedavg_launches=sum(e.count for e in kernels
+                             if "fedavg_kernel" in e.key) / 2,
+         top_device_ops=_top_device_ops(kernels, 2))
+    if not bitwise or one != (want, want, 0, 0):
+        raise AssertionError(f"an rnn round twice from the same inputs: "
+                             f"bitwise {bitwise}; cell launches and plain "
+                             f"calls {one} (want {want}, {want}, 0, 0)")
+    mod = exp.module
+    client, n, prev = mod.pack(a[2]), a[3], mod.pack(exp.pool.params)
+    entry = _k2_check("rnn", client, n, prev, dataset="fed_shakespeare",
+                      model="rnn")
+    entry.update(name="fedavg_rnn", case=f"{entry['case']} "
+                 f"(fed_shakespeare, CharLSTM, an rnn round's client stack)")
+    del exp, a, b, client
+    torch.cuda.empty_cache()
+    return entry
+
+
+def _rnn_drive(run: str, cfg, path: str, ref=None) -> tuple[dict, list]:
+    """One LSTM run through the runner on the card: every round one
+    ``fedavg.cu`` launch, the cell kernels launched forward and backward,
+    no K1, K3, K4 or plain call (the cell's included), the data and pool
+    on the card; one ``train_rnn`` line with its wall, the peak of
+    allocated device memory (its evals' included), launches, each
+    step's Test/Acc and, given the committed series ``ref``, the gate (a
+    round's device time is ``_rnn_round_checks``'s: a profiled step of
+    this run would take 20 more rounds). Returns the cell's (forward,
+    backward) launches and the gate's failures."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    got = _drive(cfg, syncs=False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    exp, accs = got.pop("exp"), got["accs"]
+    cells = (got["lstm_cell_fwd_launches"], got["lstm_cell_bwd_launches"])
+    rounds = cfg.train_iterations * cfg.comm_round
+    on_card = all(t.is_cuda for t in (exp.x, exp.y,
+                                      *exp.pool.params.values()))
+    fields, missed = {}, []
+    if ref is not None:
+        step_tol, mean_tol = _rnn_gate(run)
+        diffs = [a - b for a, b in zip(accs, ref)]
+        mean, ref_mean = sum(accs) / len(accs), sum(ref) / len(ref)
+        within = max(map(abs, diffs)) <= step_tol \
+            and abs(mean - ref_mean) <= mean_tol
+        fields = dict(committed_test_acc=ref, test_acc_mean=mean,
+                      committed_mean=ref_mean,
+                      max_step_diff=max(map(abs, diffs)), step_tol=step_tol,
+                      mean_tol=mean_tol, within_gate=within)
+        if not within:
+            missed.append(f"{run}: Test/Acc per step {accs} against the "
+                          f"committed {ref} (step tolerance {step_tol}, "
+                          f"mean {mean_tol})")
+    _say("train_rnn", run=run, model=cfg.model, dataset=cfg.dataset,
+         algo=cfg.concept_drift_algo, arg=cfg.concept_drift_algo_arg,
+         models=exp.pool.num_models, clients=exp.C_,
+         params=exp.module.num_params, seq_len=exp.x.shape[3],
+         steps=cfg.train_iterations, rounds=rounds, paths=got["paths"],
+         wall_s=got["wall_s"], step_wall_s=got["step_wall_s"],
+         rounds_per_s=got["rounds_per_s"], peak_memory_gb=peak_gb,
+         fedavg_launches=got["k2_launches"], k1_launches=got["k1_launches"],
+         k3_launches=got["k3_launches"],
+         k4_launches=got["k4a_launches"] + got["k4b_launches"],
+         lstm_cell_fwd_launches=cells[0], lstm_cell_bwd_launches=cells[1],
+         plain_calls=got["plain_calls"], on_card=on_card, test_acc=accs,
+         chance=1.0 / exp.ds.num_classes, **fields)
+    if got["k2_launches"] != rounds or got["k1_launches"] \
+            or got["k3_launches"] or got["k4a_launches"] \
+            or got["k4b_launches"] or any(got["plain_calls"].values()) \
+            or not all(cells) or set(got["paths"]) != {path} or not on_card \
+            or len(accs) != cfg.train_iterations:
+        raise AssertionError(f"{run}: fedavg.cu launched "
+                             f"{got['k2_launches']} times for {rounds} "
+                             f"rounds, K1 {got['k1_launches']}, K3 "
+                             f"{got['k3_launches']}, K4 "
+                             f"{got['k4a_launches']} / "
+                             f"{got['k4b_launches']}, cell (forward, "
+                             f"backward) {cells}, plain "
+                             f"calls {got['plain_calls']}, paths "
+                             f"{got['paths']} (want {path}), on the card "
+                             f"{on_card}, {len(accs)} steps")
+    del exp, got
+    torch.cuda.empty_cache()
+    return cells, missed
+
+
+def _rnn_runs() -> tuple[int, int, int, list[str]]:
+    """``RNN_RUNS`` gated against their committed runs (``_rnn_gate``),
+    then ``RNN_SO_RUN`` ungated. Returns the cell kernels' forward and
+    backward launches and ``fedavg.cu``'s over the gated runs, and the runs
+    outside their gates."""
+    from feddrift_torch.config import ExperimentConfig
+    here = os.path.dirname(os.path.abspath(__file__))
+    fwd = bwd = agg = 0
+    missed = []
+    for run, kw, pinned, path in RNN_RUNS:
+        ref = _reference_accs(os.path.join(here, "runs", run,
+                                           "metrics.jsonl"), pinned)
+        cfg = ExperimentConfig(**kw)
+        cells, miss = _rnn_drive(run, cfg, path, ref)
+        fwd += cells[0]
+        bwd += cells[1]
+        agg += cfg.train_iterations * cfg.comm_round
+        missed += miss
+    _rnn_drive("stackoverflow_nwp-rnn_stackoverflow-softcluster",
+               ExperimentConfig(**RNN_SO_RUN), "fused")
+    return fwd, bwd, agg, missed
+
+
+def phase_train_rnn() -> tuple[dict, dict, dict]:
+    """The LSTMs on the card: the cell kernels against their plain versions
+    (``_lstm_cell_checks``), ``_rnn_model_checks``, the timing case and K2
+    at CharLSTM's width (``_rnn_round_checks``), then the committed run
+    and the WordLSTM run (``_rnn_runs``), every run driven before the phase
+    fails. Returns the kernels line's ``lstm_cell_fwd``, ``lstm_cell_bwd``
+    and ``fedavg_rnn`` entries, their launches those of the gated run."""
+    fwd_entry, bwd_entry = _lstm_cell_checks()
+    _rnn_model_checks()
+    agg_entry = _rnn_round_checks()
+    (fwd_entry["launches"], bwd_entry["launches"], agg_entry["launches"],
+     missed) = _rnn_runs()
+    if missed:
+        raise AssertionError("rnn runs outside their gates: "
+                             + "; ".join(missed))
+    return fwd_entry, bwd_entry, agg_entry
+
+
 def main() -> int:
     try:
         import torch
@@ -4511,6 +5030,7 @@ def main() -> int:
         timed(phase_train_images, wide)
         conv_entry = timed(phase_train_conv)
         timed(phase_train_fmow, wide)
+        rnn_entries = timed(phase_train_rnn)
         _say("phase_walls", seconds=walls, total_s=sum(walls.values()))
     except Exception:   # noqa: BLE001 — report the phase that failed
         traceback.print_exc()
@@ -4518,7 +5038,7 @@ def main() -> int:
         return 1
     kernels = [entry, train_entry, fused_entry, fold_entry, dense_entry,
                cdf_entry, search_entry, agg_entry, eval_entry] \
-        + [wide[k] for k in WIDE_ENTRIES] + [conv_entry]
+        + [wide[k] for k in WIDE_ENTRIES] + [conv_entry, *rnn_entries]
     for e in kernels:   # above 1: the kernel loses to its plain version
         e["ms_vs_plain"] = e["ms"] / e["plain_ms"]
     print(json.dumps({"kernels": kernels}))

@@ -169,7 +169,11 @@ class DriftAlgorithm:
     # -- helpers --------------------------------------------------------
     def feature_mask_for(self, mask_flat: np.ndarray) -> torch.Tensor:
         """``[M, F_flat]`` masks reshaped to ``[M, *feature_shape]`` on the
-        step's device (KUE masks a sample's features)."""
+        step's device (KUE masks a sample's features); a sequence's tokens
+        are never masked: ``[M, 1]`` ones (the JAX package's
+        ``feature_mask_for``)."""
+        if self.ds.is_sequence:
+            return torch.ones((self.M, 1), device=self.step.device)
         return torch.as_tensor(np.asarray(mask_flat, np.float32)).reshape(
             self.M, *self.ds.feature_shape).to(self.step.device)
 

@@ -161,7 +161,8 @@ class Kue(DriftAlgorithm):
 
     def __init__(self, cfg, ds, pool, step) -> None:
         super().__init__(cfg, ds, pool, step)
-        self.F = int(np.prod(ds.feature_shape))
+        # one mask slot a sequence, whose tokens are never masked
+        self.F = int(np.prod(ds.feature_shape)) if not ds.is_sequence else 1
         self.rng = np.random.default_rng(cfg.seed + 31337)
         self.masks = np.zeros((self.M, self.F), dtype=np.float32)
         for m in range(self.M):

@@ -4,7 +4,8 @@
 on the main path (dense clients, the ``mean`` aggregator, no byzantine,
 codec or hierarchy path):
 
-    params      [M, ...]        model pool: the fnn, the lr or a conv model
+    params      [M, ...]        model pool: the fnn, the lr, a conv model or
+                                an LSTM
     opt_state   [M, C, ...]     per-(model, client) optimizer state (AMSGrad's;
                                 SGD keeps none); persists across the rounds
                                 of a time step, fresh at each step boundary
@@ -59,16 +60,18 @@ round's eval, the per-round path's evals and ``acc_matrix`` /
 each. The ensemble vote, the MSE matrix and the confusion matrices (K5's)
 are plain batched PyTorch for now.
 
-The conv models (``models/base.py::ConvNet``: the cnns and the ResNets) take
-no K1 or K3 layout: their round is ``core/functional.py::model_local_sgd``
+The model-generic path (``models/base.py::GenericNet``: the cnns, the
+ResNets and the LSTMs) takes no K1 or K3 layout: its round is ``core/functional.py::model_local_sgd``
 (every pair's S steps as one ``torch.func.vmap`` over the M·C pairs of
 ``grad``, the optimizer on the flat ``[M, C, P]`` params, cuDNN and cuBLAS
-on the card) followed by K2, ``fedavg.cu``, one launch a round; their evals
-are ``core/functional.py::model_logits`` reduced to the same count and NLL
-cells. Images keep their ``[.., H, W, C]`` rows. Both run inside
-``models/base.py::conv_numerics``, restored after each call: no TF32 in
+on the card; an LSTM step's cell is one ``kernels/lstm_cell.py`` launch
+forward and one backward) followed by K2, ``fedavg.cu``, one launch a
+round; its evals are ``core/functional.py::model_logits`` reduced to the
+same count and NLL cells. Images keep their ``[.., H, W, C]`` rows, token
+sequences their ``[.., L]`` ids. Both run inside
+``models/base.py::model_numerics``, restored after each call: no TF32 in
 cuDNN either, and deterministic cuDNN algorithms without autotuning, so
-that a conv round gives the same bits call after call (fused against per
+that a round gives the same bits call after call (fused against per
 round, planes on against off, resume).
 
 ``ForwardStep`` is the counterpart of ``ForwardStep`` (:905-960): one call
@@ -97,7 +100,7 @@ from feddrift_torch.kernels.local_sgd import (OPTIMIZERS, _folds_eval,
                                               local_sgd_fedavg)
 from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
                                                   weighted_search)
-from feddrift_torch.models.base import ConvNet
+from feddrift_torch.models.base import GenericNet
 from feddrift_torch.models.mlp import FeedForwardNN, LogisticRegression
 from feddrift_torch.resilience.robust_agg import agg_mean
 from feddrift_torch.utils.device import resolve_device
@@ -108,7 +111,7 @@ from feddrift_torch.utils.invariants import check_no_nan
 class TrainStep:
     """Train and eval steps for one (module, dataset geometry)."""
 
-    module: FeedForwardNN | LogisticRegression | ConvNet
+    module: FeedForwardNN | LogisticRegression | GenericNet
     batch_size: int
     num_steps: int              # local SGD steps per round (reference `epochs`)
     num_classes: int
@@ -128,11 +131,11 @@ class TrainStep:
                 f"client_optimizer {self.optimizer!r}: the reference's "
                 f"make_optimizer steps {OPTIMIZERS}")
         if not isinstance(self.module, (FeedForwardNN, LogisticRegression,
-                                        ConvNet)):
+                                        GenericNet)):
             raise NotImplementedError(
                 f"training {type(self.module).__name__}: the port trains the "
-                f"fnn, the lr and the conv models only (ROADMAP §1 'The "
-                f"model zoo and transformer training')")
+                f"fnn, the lr, the conv models and the LSTMs only (ROADMAP "
+                f"§1 'The model zoo and transformer training')")
         self.device = resolve_device(self.device)
         self.generator = torch.Generator(device=self.device)
         # the weighted draw's cdf and the tensors (and their versions) it
@@ -140,10 +143,10 @@ class TrainStep:
         self._cdf = self._cdf_key = None
 
     @property
-    def conv(self) -> bool:
-        """A conv model: the model-generic local SGD and evals, not K1 /
-        K3."""
-        return isinstance(self.module, ConvNet)
+    def generic(self) -> bool:
+        """A conv model or an LSTM: the model-generic local SGD and evals,
+        not K1 / K3."""
+        return isinstance(self.module, GenericNet)
 
     @classmethod
     def create(cls, cfg, module, num_classes: int,
@@ -158,7 +161,7 @@ class TrainStep:
                    wd=cfg.wd, optimizer=cfg.client_optimizer, device=device,
                    weighted_sampling=weighted_sampling,
                    debug_nans=cfg.debug_checks)
-        if step.device.type == "cuda" and not step.conv:
+        if step.device.type == "cuda" and not step.generic:
             why = layout_refusal(module.in_dim, module.hidden_dim,
                                  module.num_classes,
                                  min(cfg.batch_size, cfg.sample_num),
@@ -265,7 +268,7 @@ class TrainStep:
         """One round on packed params ``flat [M, P]``: K4b (weighted
         sampling only), then K1 and K2, the masked FedAvg: one launch on the
         fused kernel's route (K2 as K1's epilogue), two on the wide and
-        general ones; for a conv model ``model_local_sgd``, then K2.
+        general ones; for a ``GenericNet`` ``model_local_sgd``, then K2.
         ``total_w [M, C]``: the round's pair weights, 0 for a client its
         mask leaves out. ``rows``: ``(t_idx, slot)`` of contiguous batches,
         or the weighted draw's uniforms ``u [M, C, S, B]``, searched in the
@@ -280,7 +283,7 @@ class TrainStep:
         else:
             t_idx, slot = rows
         mod, B = self.module, min(self.batch_size, x.shape[2])
-        if self.conv:
+        if self.generic:
             client, opt_state, n, losses = model_local_sgd(
                 mod, x, y, flat, opt_state, t_idx, slot, total_w,
                 batch_size=B, lr=self.lr, wd=self.wd, lr_scale=lr_scale,
@@ -402,7 +405,7 @@ class TrainStep:
             if self.weighted_sampling else None
         total_w = self.total_weight(time_w)
         mod, N = self.module, x.shape[2]
-        fold = not self.conv and _folds_eval(
+        fold = not self.generic and _folds_eval(
             mod.in_dim, mod.hidden_dim, mod.num_classes,
             min(self.batch_size, N), N, self.optimizer)
         window = (xw.flatten(3), yw) if fold else None
@@ -442,7 +445,7 @@ class TrainStep:
         """Every model on every client: params leaves ``[M, ...]``, x ``[C,
         ..., N, *features]`` -> ``[M, C, ..., N, K]``; ``feat_mask [M,
         *features]`` multiplies model m's input (None: ones)."""
-        if self.conv:
+        if self.generic:
             return model_logits(self.module, self.module.pack(params), x,
                                 feat_mask)
         fs = len(self.module.feature_shape)
@@ -459,11 +462,11 @@ class TrainStep:
                      out=(None, None)):
         """K3 on packed params ``flat [M, P]`` over a window ``x [C, G, N,
         ...]``: ``(correct, nll)`` each ``[M, C, G]`` (nll None unless
-        ``with_nll``), written into ``out`` where it holds tensors. A conv
-        model's cells come from its logits (``model_logits``)."""
-        if self.conv:
-            return self._conv_eval_window(flat, x, y, feat_mask, with_nll,
-                                          out)
+        ``with_nll``), written into ``out`` where it holds tensors. A
+        ``GenericNet``'s cells come from its logits (``model_logits``)."""
+        if self.generic:
+            return self._generic_eval_window(flat, x, y, feat_mask,
+                                             with_nll, out)
         fm = None if feat_mask is None else \
             feat_mask.reshape(feat_mask.shape[0], -1).contiguous()
         correct, nll = eval_cells(flat, x.flatten(3), y,
@@ -473,8 +476,8 @@ class TrainStep:
         self._check("K3 (eval_cells)", nll=nll)
         return correct, nll
 
-    def _conv_eval_window(self, flat, x, y, feat_mask, with_nll, out):
-        """``_eval_window`` of a conv model: each (model, client, step)'s
+    def _generic_eval_window(self, flat, x, y, feat_mask, with_nll, out):
+        """``_eval_window`` of a ``GenericNet``: each (model, client, step)'s
         count of rows whose argmax is the label and sum of their NLL, the
         JAX package's ``_acc_matrix_body`` cells."""
         logits = model_logits(self.module, flat, x, feat_mask)

@@ -8,10 +8,10 @@ numpy path), the synthetic prototype image data (``MNIST``, ``femnist``,
 ``fmow_image_size`` x ``fmow_image_size`` x 3 images, real ``.npz``
 partitions read where they are present), the UCI streams ``susy`` and
 ``ro`` (synthetic, or their CSV where it is present), ``stackoverflow_lr``
-(synthetic bag-of-words) and the character datasets of the transformer
-serving slice (``shakespeare`` and its alias ``fed_shakespeare``); any
-other name (``stackoverflow`` and ``stackoverflow_nwp`` among them) raises
-``KeyError``.
+(synthetic bag-of-words), the character datasets (``shakespeare`` and its
+alias ``fed_shakespeare``) and the synthetic next-word data
+(``stackoverflow_nwp`` and its alias ``stackoverflow``); any other name
+raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ from feddrift_torch.data.prototype import generate_prototype_drift
 from feddrift_torch.data.synthetic import generate_synthetic
 from feddrift_torch.data.tabular import (generate_stackoverflow_lr_drift,
                                          generate_uci_drift)
-from feddrift_torch.data.text import generate_text_drift
+from feddrift_torch.data.text import (generate_text_drift,
+                                     generate_word_drift)
 
 _REGISTRY: dict[str, Callable[..., DriftDataset]] = {}
 
@@ -96,6 +97,16 @@ def _mk_text(cfg: ExperimentConfig, change_points: np.ndarray) -> DriftDataset:
         change_points, cfg.train_iterations, cfg.client_num_in_total,
         cfg.sample_num, cfg.noise_prob, cfg.time_stretch, cfg.seed,
         seq_len=cfg.text_seq_len, data_dir=cfg.data_dir)
+
+
+@register_dataset("stackoverflow", "stackoverflow_nwp")
+def _mk_word(cfg: ExperimentConfig, change_points: np.ndarray) -> DriftDataset:
+    # the word data keeps its own sequence length (20, StackOverflow's
+    # windows); cfg.text_seq_len governs the character datasets
+    return generate_word_drift(
+        change_points, cfg.train_iterations, cfg.client_num_in_total,
+        cfg.sample_num, cfg.noise_prob, cfg.time_stretch, cfg.seed,
+        data_dir=cfg.data_dir)
 
 
 @register_dataset("susy", "ro")

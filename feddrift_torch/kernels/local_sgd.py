@@ -343,7 +343,7 @@ def local_steps(grad_fn, x, y, params, opt_state, t_idx, slot, total_w, *,
     (grad [M, C, P], loss [M, C])``, the mean cross entropy of each pair's
     batch and its gradient. ``x [C, T1, N, *features]``; each step gathers
     its batch rows (contiguous from ``t_idx, slot``, or ``idx``), applies
-    ``feat_mask [M, *features]``, and steps the flat params with
+    ``feat_mask [M, *features]`` (or ``[M, 1]``, a sequence's), and steps the flat params with
     ``amsgrad_step`` / ``sgd_step``. A pair of total weight 0 keeps its
     params and state. Returns ``(client [M, C, P], opt_state, n [M, C],
     mean loss over the S steps [M, C])``, n = ``total_w·N`` (0 where
@@ -360,7 +360,7 @@ def local_steps(grad_fn, x, y, params, opt_state, t_idx, slot, total_w, *,
     cidx = torch.arange(C, device=x.device)[None, :, None]
     xf, yf = x.reshape(C, T1 * N, *feat), y.reshape(C, T1 * N)
     if feat_mask is not None:
-        feat_mask = feat_mask.reshape(M, 1, 1, *feat)
+        feat_mask = feat_mask.reshape(M, 1, 1, *feat_mask.shape[1:])
     p = params[:, None].expand(M, C, P)
     sgd = optimizer == "sgd"
     if not sgd:

@@ -3,7 +3,8 @@
 Mirrors ``feddrift_tpu/models/__init__.py``, with the registry's exact
 sizes: the ``lr``, the ``fnn``, the conv models (``cnn``, ``cnn_dropout``,
 ``resnet`` / ``resnet20``, ``resnet8``, ``resnet56``, ``resnet110``,
-``resnet56_gn``, ``resnet18``) and the served ``transformer``. The JAX
+``resnet56_gn``, ``resnet18``), the LSTMs (``rnn``, ``rnn_stackoverflow``)
+and the served ``transformer``. The JAX
 package's other names (``UNPORTED``) raise ``NotImplementedError`` naming
 the ROADMAP item that queues them; a name neither package knows raises
 ``KeyError``.
@@ -78,6 +79,18 @@ def _resnet18(ds: DriftDataset, cfg) -> nn.Module:
     return ResNet18(ds.feature_shape, num_classes=ds.num_classes)
 
 
+@register_model("rnn")
+def _rnn(ds: DriftDataset, cfg) -> nn.Module:
+    from feddrift_torch.models.rnn import CharLSTM
+    return CharLSTM(ds.feature_shape, vocab_size=ds.num_classes)
+
+
+@register_model("rnn_stackoverflow")
+def _rnn_so(ds: DriftDataset, cfg) -> nn.Module:
+    from feddrift_torch.models.rnn import WordLSTM
+    return WordLSTM(ds.feature_shape, vocab_size=ds.num_classes)
+
+
 @register_model("transformer")
 def _transformer(ds: DriftDataset, cfg) -> nn.Module:
     from feddrift_torch.models.transformer import TransformerLM
@@ -87,8 +100,7 @@ def _transformer(ds: DriftDataset, cfg) -> nn.Module:
 
 
 # the JAX package's models the port does not build yet
-UNPORTED = ("mobilenet", "mobilenet_gn", "densenet", "densenet121", "darts",
-            "rnn", "rnn_stackoverflow")
+UNPORTED = ("mobilenet", "mobilenet_gn", "densenet", "densenet121", "darts")
 
 
 def create_model(name: str, ds: DriftDataset, cfg=None) -> nn.Module:

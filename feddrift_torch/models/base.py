@@ -17,6 +17,15 @@ GroupNorm's is flax's ``E[x^2] - E[x]^2`` with eps 1e-6. Activations run
 NCHW between the layers, the layout ``torch.nn.functional.conv2d`` takes;
 a model turns its NHWC input once on entry and back before a flatten,
 which flax takes in H, W, C order.
+
+The LSTMs' layers (``pair_embed``, ``pair_lstm``, ``pair_dense``) keep
+flax's leaves too: an
+``nn.Embed``'s ``embedding [V, E]``, and the input kernels
+``i{i,f,g,o}/kernel [in, H]`` (no bias) and recurrent kernels and biases
+``h{i,f,g,o}/kernel [H, H]``, ``/bias [H]`` of the ``OptimizedLSTMCell``
+that an ``nn.RNN`` scans (flax names the cell in its parent's scope:
+``OptimizedLSTMCell_0``), each four concatenated along the output axis
+before one product.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import vmap
+
+from feddrift_torch.kernels.lstm_cell import lstm_cell
 
 TRUNC_STD = 0.87962566103423978    # std of N(0, 1) truncated to (-2, 2)
 
@@ -47,6 +58,13 @@ def init_leaf(kind: str, shape: tuple[int, ...],
                                      -2.0 * std, 2.0 * std, generator=gen)
     if kind == "embed":             # flax default_embed_init, fan_in = E
         return torch.randn(shape, generator=gen) * math.sqrt(1.0 / shape[1])
+    if kind == "orthogonal":        # flax initializers.orthogonal(), scale 1
+        rows, cols = math.prod(shape[:-1]), shape[-1]
+        a = torch.randn((cols, rows) if rows < cols else (rows, cols),
+                        generator=gen)
+        q, r = torch.linalg.qr(a)
+        q = q * torch.sign(torch.diagonal(r))
+        return (q.T if rows < cols else q).reshape(shape)
     raise ValueError(kind)
 
 
@@ -96,18 +114,27 @@ class Functional(nn.Module):
         return self(rows, x)
 
 
-class ConvNet(Functional):
-    """A model of convolutions, pools, norms and Dense layers (the cnns and
-    the ResNets), trained by the model-generic local SGD
-    (``core/functional.py::model_local_sgd``) rather than K1.
+class GenericNet(Functional):
+    """A model trained by the model-generic local SGD
+    (``core/functional.py::model_local_sgd``) rather than K1, and evaluated
+    through its forward (``model_logits``) rather than K3: the conv models
+    and the LSTMs.
 
     ``forward(params, x)``: one model's leaves (no row axis) and ``x [N,
     *feature_shape]`` give logits ``[N, K]``; a batch norm's statistics are
     those of the N rows. The pool's and the pairs' axes go through
-    ``torch.func.vmap``."""
+    ``torch.func.vmap``, unless the model defines ``pair_logits(leaves [P,
+    ...], x [P, N, *feature_shape]) -> [P, N, K]``: P models at once, each
+    on its own rows, every row independent of the others. Then
+    ``model_local_sgd`` takes the pairs' gradients by plain autograd
+    through that one batched program, and ``model_logits`` runs a model's
+    groups of rows as one batch: the host dispatches each op once for all
+    pairs, where a ``vmap`` of ``grad`` passes every op through
+    ``torch.func``'s layers (the LSTMs: thousands of small ops a step)."""
 
     feature_shape: tuple[int, ...]
     num_classes: int
+    pair_logits = None
 
     def apply_one(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """One model's leaves on a batch ``x [B, ...]``: one forward."""
@@ -115,19 +142,27 @@ class ConvNet(Functional):
 
     def apply_rows(self, rows: Params, x: torch.Tensor) -> torch.Tensor:
         """Per-row leaves ``[B, ...]`` on ``x [B, ...]``: each row a batch
-        of one (``vmap``), as the JAX package's ``ForwardStep`` applies a
-        row."""
+        of one, as the JAX package's ``ForwardStep`` applies a row (a
+        ``vmap``, or ``pair_logits`` with B pairs of one row)."""
+        if self.pair_logits is not None:
+            return self.pair_logits(rows, x[:, None])[:, 0]
         return vmap(lambda p, xr: self(p, xr[None])[0])(rows, x)
 
 
+class ConvNet(GenericNet):
+    """A model of convolutions, pools, norms and Dense layers (the cnns and
+    the ResNets)."""
+
+
 @contextlib.contextmanager
-def conv_numerics():
-    """The conv path's numerics on the card, for the scope of one program
-    and restored after it: float32 convolutions and matmuls without TF32
-    (cuDNN takes TF32 by default), and deterministic cuDNN algorithms
-    without autotuning, so a round gives the same bits call after call.
-    ``core/functional.py``'s conv programs (``model_local_sgd``,
-    ``model_logits``) run inside it, their backward included."""
+def model_numerics():
+    """The model-generic path's numerics on the card, for the scope of one
+    program and restored after it: float32 convolutions and matmuls (the
+    LSTMs' gate products) without TF32 (cuDNN takes TF32 by default), and
+    deterministic cuDNN algorithms without autotuning, so a round gives the
+    same bits call after call. ``core/functional.py``'s programs
+    (``model_local_sgd``, ``model_logits``) run inside it, their backward
+    included."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     held = (cudnn.allow_tf32, cudnn.deterministic, cudnn.benchmark,
             matmul.allow_tf32)
@@ -200,3 +235,65 @@ def group_norm(x: torch.Tensor, params: Params, name: str) -> torch.Tensor:
         N, C, 1, 1) * params[f"{name}/scale"][:, None, None]
     mean = mean.expand(N, G, C // G, 1, 1).reshape(N, C, 1, 1)
     return (x - mean) * mul + params[f"{name}/bias"][:, None, None]
+
+
+def pair_embed(x: torch.Tensor, params: Params, name: str) -> torch.Tensor:
+    """flax ``nn.Embed`` of each of K pairs: ``x [K, ...]`` token ids (which
+    may arrive as float, after a feature mask: exact below 2^24) through
+    the pair's own table ``{name}/embedding [K, V, E]``; one embedding
+    lookup in the K tables stacked, each pair's ids offset by k·V."""
+    table = params[f"{name}/embedding"]
+    K, V = table.shape[:2]
+    offset = torch.arange(K, device=x.device).view(K, *(1,) * (x.dim() - 1))
+    return F.embedding(x.long() + offset * V, table.reshape(K * V, -1))
+
+
+def pair_dense(x: torch.Tensor, params: Params, name: str) -> torch.Tensor:
+    """flax ``nn.Dense`` of each of K pairs: ``x [K, N, in]`` -> ``[K, N,
+    out]``, ``bias + x @ kernel``."""
+    return torch.baddbmm(params[f"{name}/bias"][:, None], x,
+                         params[f"{name}/kernel"])
+
+
+LSTM_GATES = "ifgo"     # flax's OptimizedLSTMCell concatenation order
+
+
+def pair_lstm(x: torch.Tensor, params: Params, name: str,
+              sequence: bool = True) -> torch.Tensor:
+    """flax ``nn.RNN(nn.OptimizedLSTMCell(H))`` of each of K pairs (the
+    cell's scope ``name``, e.g. ``OptimizedLSTMCell_0``; leaves ``[K,
+    ...]``) over ``x [K, N, L, in]`` from a zero carry: every step's output
+    ``[K, N, L, H]``, or the last one ``[K, N, H]`` where not
+    ``sequence``. The input products of all L steps are one batched
+    product; a step's pre-activations are flax's ``(h·W_h + b) + x·W_i``,
+    and its cell, over the K·N rows, ``kernels/lstm_cell.py::lstm_cell``
+    (one kernel launch forward, one backward, on the card)."""
+    K, N, L = x.shape[:3]
+    wi = torch.cat([params[f"{name}/i{g}/kernel"] for g in LSTM_GATES], -1)
+    wh = torch.cat([params[f"{name}/h{g}/kernel"] for g in LSTM_GATES], -1)
+    b = torch.cat([params[f"{name}/h{g}/bias"] for g in LSTM_GATES], -1)
+    H = wh.shape[1]
+    zx = torch.bmm(x.reshape(K, N * L, -1), wi).view(K, N, L, 4 * H)
+    h = x.new_zeros(K, N, H)
+    c = x.new_zeros(K * N, H)
+    outs = []
+    # unbind, not zx[:, :, t]: a slice's backward would write a zero tensor
+    # of zx's whole size a step, where unbind's stacks the L gradients once
+    for zt in zx.unbind(2):
+        z = torch.baddbmm(b[:, None], h, wh) + zt
+        h, c = lstm_cell(z.view(K * N, 4 * H), c)
+        h = h.view(K, N, H)
+        outs.append(h)
+    return torch.stack(outs, 2) if sequence else h
+
+
+def lstm_specs(name: str, features: int,
+               hidden: int) -> dict[str, tuple[tuple[int, ...], str]]:
+    """``param_specs`` of one ``pair_lstm`` scope, flax's initialisers: input
+    kernels lecun_normal, recurrent kernels orthogonal, biases zeros."""
+    specs = {}
+    for g in LSTM_GATES:
+        specs[f"{name}/i{g}/kernel"] = ((features, hidden), "lecun_normal")
+        specs[f"{name}/h{g}/kernel"] = ((hidden, hidden), "orthogonal")
+        specs[f"{name}/h{g}/bias"] = ((hidden,), "zeros")
+    return specs

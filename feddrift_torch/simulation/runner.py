@@ -386,8 +386,9 @@ class Experiment:
         check_round_inputs(
             host(tw), np.ones((M, C, N), np.float32) if sw is None
             else host(sw),
-            np.ones((M, *self.ds.feature_shape), np.float32) if fm is None
-            else host(fm),
+            np.ones((M, *((1,) if self.ds.is_sequence
+                          else self.ds.feature_shape)), np.float32)
+            if fm is None else host(fm),
             num_models=M, num_clients=C, num_steps_p1=self.ds.num_steps + 1,
             sample_num=N)
 

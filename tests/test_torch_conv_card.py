@@ -7,7 +7,7 @@ No JAX here: the card's results are held to the port's own CPU path.
   float64, relative to the largest magnitude. In float64 on the card
   within 1e-8 (the card's convolutions, paddings and norms, apart from
   TF32: the deep ResNets amplify float64's rounding to ~1e-11). In
-  float32 under ``conv_numerics`` within the larger of 1e-4 and 4 times
+  float32 under ``model_numerics`` within the larger of 1e-4 and 4 times
   the CPU float32 path's own distance from float64 (TF32's ~1e-3 fails
   it where float32 is well conditioned, as for the cnn and resnet8; the
   deep ResNets' float32 gradients at init lie ~1e-2 from float64 on the
@@ -34,7 +34,7 @@ from feddrift_torch.kernels.eval_cells import eval_cells
 from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
 from feddrift_torch.kernels.local_sgd import local_sgd
 from feddrift_torch.models import create_model
-from feddrift_torch.models.base import conv_numerics
+from feddrift_torch.models.base import model_numerics
 from feddrift_torch.resilience.robust_agg import agg_mean
 
 MODELS = (("cnn", (784,), 62), ("cnn_dropout", (784,), 62),
@@ -87,7 +87,7 @@ def test_forward_and_gradient_match_the_cpu_path(cuda, name, shape,
                          ("card64", torch.float64, cuda),
                          ("cpu32", torch.float32, "cpu"),
                          ("cpu64", torch.float64, "cpu")):
-        with conv_numerics():
+        with model_numerics():
             assert _flags() == CONV_FLAGS
             flat = mod.pack(params).to(dev, dt).requires_grad_(True)
             logits = mod(mod.unpack(flat), x.to(dev, dt))
@@ -127,7 +127,7 @@ def test_conv_round_is_bitwise_call_after_call(cuda):
     M, C, T1, N, B, S, K = 4, 10, 3, 64, 32, 5, 62
     mod = _module("cnn", (32, 32, 3), K)
     step = TrainStep(mod, B, S, K, device=cuda)
-    assert step.conv
+    assert step.generic
     seen = []
     hook = mod.register_forward_pre_hook(lambda m, a: seen.append(_flags()))
     gen = torch.Generator(device=cuda).manual_seed(0)

@@ -141,7 +141,7 @@ def _round_both(name, optimizer="adam", weighted=False, masked=False):
         jnp.float32(1.0), with_agg_stats=True)
     step = TrainStep(mod, B, S, K, lr=LR, wd=WD, optimizer=optimizer,
                      device="cpu", weighted_sampling=weighted)
-    assert step.conv
+    assert step.generic
     out = step.train_round(
         params, step.init_opt_states(params, M, C), torch.from_numpy(x),
         torch.from_numpy(y), torch.from_numpy(tw),

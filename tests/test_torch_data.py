@@ -78,8 +78,8 @@ def test_presets_are_copies():
 
 
 def test_errors(tmp_path):
-    with pytest.raises(KeyError):             # not ported yet
-        torch_make(TorchConfig(dataset="stackoverflow_nwp"))
+    with pytest.raises(KeyError):             # neither package's name
+        torch_make(TorchConfig(dataset="imagenet"))
     with pytest.raises(FileNotFoundError):
         torch_make(TorchConfig(dataset="shakespeare", change_points="nope",
                                data_dir=str(tmp_path)))

@@ -48,6 +48,15 @@ def _other_image_data(tmp_path):
                              5, data_dir=str(tmp_path))
 
 
+def _word_corpus(tmp_path):
+    from feddrift_torch.data.registry import make_dataset
+    base = tmp_path / "stackoverflow" / "datasets"
+    base.mkdir(parents=True)
+    (base / "stackoverflow_train.h5").write_bytes(b"")
+    make_dataset(ExperimentConfig(dataset="stackoverflow_nwp", sample_num=1,
+                                  data_dir=str(tmp_path)))
+
+
 def _text_corpus(tmp_path):
     from feddrift_torch.data.registry import make_dataset
     (tmp_path / "shakespeare" / "train").mkdir(parents=True)
@@ -68,6 +77,7 @@ REFUSALS = (
     ("other_image_data", _other_image_data, NotImplementedError,
      "The other datasets"),
     ("text_corpus", _text_corpus, NotImplementedError, "The other datasets"),
+    ("word_corpus", _word_corpus, NotImplementedError, "The other datasets"),
 )
 
 

@@ -133,10 +133,16 @@ def test_reset_and_read_counts_cover_every_training_kernel():
     from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
     from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_fedavg
+    from feddrift_torch.kernels.lstm_cell import (lstm_cell_bwd,
+                                                  lstm_cell_bwd_ref,
+                                                  lstm_cell_fwd,
+                                                  lstm_cell_fwd_ref)
     from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
                                                       weighted_cdf_ref,
                                                       weighted_search,
                                                       weighted_search_ref)
+    lstm_cell_fwd.launches = lstm_cell_bwd.launches = 10
+    lstm_cell_fwd_ref.cuda_calls = lstm_cell_bwd_ref.cuda_calls = 11
     fedavg.launches = eval_cells.launches = 3
     local_sgd.launches = local_sgd_fedavg.launches = 4
     local_sgd.wide_launches = eval_cells.wide_launches = 7
@@ -155,7 +161,9 @@ def test_reset_and_read_counts_cover_every_training_kernel():
         "k2_epilogues": 0, "aggregations": 0, "k3_launches": 0,
         "k3_fused_launches": 0, "k3_wide_launches": 0,
         "k3_stream_launches": 0, "folded_evals": 0,
-        "plain_calls": {"fedavg_ref": 0, "eval_cells_ref": 0,
+        "lstm_cell_fwd_launches": 0, "lstm_cell_bwd_launches": 0,
+        "plain_calls": {"fedavg_ref": 0, "lstm_cell_fwd_ref": 0,
+                        "lstm_cell_bwd_ref": 0, "eval_cells_ref": 0,
                         "weighted_cdf_ref": 0, "weighted_search_ref": 0}}
 
 
@@ -484,3 +492,27 @@ def test_check_fused_tabular_run(over, ok):
     else:
         with pytest.raises(AssertionError):
             chip_smoke._check_fused_tabular_run("susy", got, cfg, exp, 2000)
+
+
+def test_rotating_calls_take_each_input_set_in_turn():
+    """The cell's timed calls cycle through their copies of the inputs."""
+    seen = []
+    call = chip_smoke._rotating([(1, "a"), (2, "b"), (3, "c")],
+                                lambda n, s: seen.append((n, s)))
+    for _ in range(7):
+        call()
+    assert [n for n, _ in seen] == [1, 2, 3, 1, 2, 3, 1]
+
+
+def test_cell_bounds_hold_more_than_l2_and_count_the_functions_words():
+    """The cold copies of a cell case's inputs exceed the H100's 50 MB L2
+    twice over; the bounds count the words the function reads and writes
+    (forward 7 a (row, unit), not the 11 the kernel also writes for the
+    backward), and both bounds are bytes at the cases' shapes."""
+    assert chip_smoke.CELL_COLD_BYTES >= 2 * 50 * 10**6
+    assert chip_smoke.CELL_COST["fwd"][0] == 4 + 1 + 2
+    assert chip_smoke.CELL_COST["bwd"][0] == 2 + 4 + 2 + 4 + 1
+    for _, R, H in chip_smoke.RNN_CELL_CASES:
+        for words, ops in chip_smoke.CELL_COST.values():
+            assert chip_smoke._bound(words * R * H * 4,
+                                     ops * R * H)[1] == "bytes"
