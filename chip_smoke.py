@@ -273,21 +273,31 @@ Phases, one or more lines of output each:
    plain call, the data and pool on the card; Test/Acc a step and on the
    mean against the committed run within ``_conv_gate``.
    Last, train_rnn: the LSTMs (``rnn``, ``rnn_stackoverflow``), trained by
-   the same model-generic local SGD with each step's LSTM cell one
-   ``csrc/lstm_cell.cu`` launch forward and one backward. The cell kernels
-   against their plain versions at CharLSTM's (R 960, H 256) and
-   WordLSTM's (R 1280, H 670) step shapes, float64 and float32, within
-   ``RNN_CELL_RTOL``, timed and bound; each LSTM at its published width
-   held as the conv models are, its cell launches counted; the timing
-   case, a round of the committed run's configuration, twice bitwise,
-   with its wall, device ms, launches and top device operations, and K2
-   at CharLSTM's width (P 820,522; ``fedavg_rnn``); then
-   ``fed_shakespeare-rnn-aue-10c-s0`` at its own configuration (lr 0.03)
-   against its committed run within ``_rnn_gate``, and ``rnn_stackoverflow``
-   on ``stackoverflow_nwp`` (``RNN_SO_RUN``, no committed run: no gate).
-   Each run: every round one ``fedavg.cu`` launch, the cell kernels
-   launched, no K1, K3, K4 or plain call.
-
+   the same model-generic local SGD. A float32 layer of a width the layer
+   kernels take (CharLSTM's 256) runs its L steps in one
+   ``csrc/lstm_layer.cu`` launch forward and one backward; other layers
+   (WordLSTM's 670, float64) take the per-step route, each step's cell one
+   ``csrc/lstm_cell.cu`` launch forward and one backward. The layer
+   kernels against their plain versions at CharLSTM's training shape (K
+   30, N 32, L 80), its eval forward (K 1, N 8192) and a ragged N 37,
+   within ``LAYER_F64_FACTOR`` times the float32 plain version's distance
+   from float64 plus ``LAYER_F64_FLOOR``, two calls bitwise, each
+   direction timed beside its bound, the per-step route with the cell
+   kernels, the per-step route with PyTorch's fused cell and cuDNN's layer;
+   the cell kernels against their plain versions at CharLSTM's (R 960, H
+   256) and WordLSTM's (R 1280, H 670) step shapes, float64 and float32,
+   within ``RNN_CELL_RTOL``, timed (the per-step route's checked-once call
+   and the checked wrappers) beside PyTorch's fused cell and bound; each
+   LSTM at its published width held as the conv models are, its layer and
+   cell launches counted; the timing case, a round of the committed run's
+   configuration, twice bitwise, with its wall, device ms, launches, peak
+   memory and top device operations, and K2 at CharLSTM's width (P
+   820,522; ``fedavg_rnn``); then ``fed_shakespeare-rnn-aue-10c-s0`` at
+   its own configuration (lr 0.03) against its committed run within
+   ``_rnn_gate``, and ``rnn_stackoverflow`` on ``stackoverflow_nwp``
+   (``RNN_SO_RUN``, no committed run: no gate). Each run: every round one
+   ``fedavg.cu`` launch, its route's kernels launched and the other's not,
+   no K1, K3, K4 or plain call.
 It then prints a ``phase_walls`` line (each phase's seconds), the kernels'
 JSON line, the card line and, last, the result line. Each entry of the kernels line takes its launches from the driven
 run whose path launches it and its error, times and bound from the case
@@ -307,10 +317,12 @@ cases from ``train_agg`` / ``train_eval``, the split K1 padded
 past F and K3's resident wide tiles at stackoverflow_lr's from its runs,
 the wide K1 at two classes a lane and the split K1 at K 10 from
 ``train_images``' femnist and cifar10 runs, ``fedavg.cu`` at the conv
-width (``fedavg_conv``) from ``train_conv``'s runs, the LSTM cell's
-kernels (``lstm_cell_fwd``, ``lstm_cell_bwd``) and ``fedavg.cu`` at
+width (``fedavg_conv``) from ``train_conv``'s runs, the LSTM layer's
+kernels (``lstm_layer_fwd``, ``lstm_layer_bwd``) and ``fedavg.cu`` at
 CharLSTM's width (``fedavg_rnn``) from ``train_rnn``'s committed run with
-their cases at CharLSTM's shapes. Every entry
+their cases at CharLSTM's shapes, the LSTM cell's kernels
+(``lstm_cell_fwd``, ``lstm_cell_bwd``) from its WordLSTM run with their
+case at WordLSTM's step shape. Every entry
 also carries
 ``device_ms`` beside ``ms``. Any failed phase exits non-zero before the result line. It imports
 nothing of JAX.
@@ -2672,8 +2684,14 @@ def _reset_counts() -> None:
                                                       weighted_cdf_ref,
                                                       weighted_search,
                                                       weighted_search_ref)
+    from feddrift_torch.kernels.lstm_layer import (lstm_layer_bwd,
+                                                   lstm_layer_bwd_ref,
+                                                   lstm_layer_fwd,
+                                                   lstm_layer_fwd_ref)
     lstm_cell_fwd.launches = lstm_cell_bwd.launches = 0
     lstm_cell_fwd_ref.cuda_calls = lstm_cell_bwd_ref.cuda_calls = 0
+    lstm_layer_fwd.launches = lstm_layer_bwd.launches = 0
+    lstm_layer_fwd_ref.cuda_calls = lstm_layer_bwd_ref.cuda_calls = 0
     local_sgd.launches = local_sgd_fedavg.launches = 0
     local_sgd.fused_launches = eval_cells.fused_launches = 0
     local_sgd.wide_launches = eval_cells.wide_launches = 0
@@ -2696,8 +2714,10 @@ def _read_counts() -> dict:
     rest. An eval runs in a K1 launch (``folded_evals``) or as its own K3
     launch (``k3_launches``; on the fused kernel ``k3_fused_launches``, on
     the wide one ``k3_wide_launches``, of which ``k3_stream_launches`` on
-    its streamed kernel). An LSTM step's cell launches ``lstm_cell_fwd``
-    once and, in training, ``lstm_cell_bwd`` once."""
+    its streamed kernel). An LSTM layer on the layer kernels launches
+    ``lstm_layer_fwd`` once and, in training, ``lstm_layer_bwd`` once; on
+    the per-step route each step's cell launches ``lstm_cell_fwd`` once
+    and, in training, ``lstm_cell_bwd`` once."""
     from feddrift_torch.kernels.eval_cells import eval_cells, eval_cells_ref
     from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
     from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_fedavg
@@ -2705,6 +2725,10 @@ def _read_counts() -> dict:
                                                   lstm_cell_bwd_ref,
                                                   lstm_cell_fwd,
                                                   lstm_cell_fwd_ref)
+    from feddrift_torch.kernels.lstm_layer import (lstm_layer_bwd,
+                                                   lstm_layer_bwd_ref,
+                                                   lstm_layer_fwd,
+                                                   lstm_layer_fwd_ref)
     from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
                                                       weighted_cdf_ref,
                                                       weighted_search,
@@ -2730,9 +2754,15 @@ def _read_counts() -> dict:
             "folded_evals": local_sgd_fedavg.evals,
             "lstm_cell_fwd_launches": lstm_cell_fwd.launches,
             "lstm_cell_bwd_launches": lstm_cell_bwd.launches,
+            "lstm_layer_fwd_launches": lstm_layer_fwd.launches,
+            "lstm_layer_bwd_launches": lstm_layer_bwd.launches,
             "plain_calls": {"fedavg_ref": fedavg_ref.cuda_calls,
                             "lstm_cell_fwd_ref": lstm_cell_fwd_ref.cuda_calls,
                             "lstm_cell_bwd_ref": lstm_cell_bwd_ref.cuda_calls,
+                            "lstm_layer_fwd_ref":
+                            lstm_layer_fwd_ref.cuda_calls,
+                            "lstm_layer_bwd_ref":
+                            lstm_layer_bwd_ref.cuda_calls,
                             "eval_cells_ref": eval_cells_ref.cuda_calls,
                             "weighted_cdf_ref": weighted_cdf_ref.cuda_calls,
                             "weighted_search_ref":
@@ -4571,16 +4601,22 @@ def _lstm_cell_checks() -> tuple[dict, dict]:
     at each of ``RNN_CELL_CASES``, in float32 and float64: within
     ``RNN_CELL_RTOL`` of the largest plain output, two calls bitwise;
     PyTorch's fused LSTM cell (``_lstm_library``) held to the same plain
-    outputs. In float32 the kernel, the plain version and the library are
-    timed (CUDA events, and the profiler's device time) on inputs rotated
+    outputs. In float32 the kernel (through the per-step route's
+    ``CellLauncher``, checked once a layer, its forward's outputs allocated
+    once as in training, and through the wrappers, which check and
+    allocate every call: ``checked_ms``), the plain version and the library
+    are timed (CUDA events, and the profiler's device time) on inputs rotated
     through ``CELL_COLD_BYTES`` of copies, so each call reads them from HBM
     as the bound counts; the bound is the bytes of the function's inputs
     and outputs (forward: z and c in, h' and c' out; backward: dh', dc',
     the gates, c and c' in, dz and dc out). Returns the kernels line's
-    ``lstm_cell_fwd`` and ``lstm_cell_bwd`` entries, at CharLSTM's shape
-    (launches from the run)."""
+    ``lstm_cell_fwd`` and ``lstm_cell_bwd`` entries at WordLSTM's shape,
+    the per-step route's only driven one since the layer kernels (launches
+    from its run)."""
     import torch
-    from feddrift_torch.kernels.lstm_cell import (lstm_cell_bwd,
+    from feddrift_torch.kernels.lstm_cell import (CellLauncher,
+                                                  StepOutputs,
+                                                  lstm_cell_bwd,
                                                   lstm_cell_bwd_ref,
                                                   lstm_cell_fwd,
                                                   lstm_cell_fwd_ref)
@@ -4624,17 +4660,25 @@ def _lstm_cell_checks() -> tuple[dict, dict]:
             sets = [one] + [tuple(t.clone() for t in one) for _ in
                             range(-(-CELL_COLD_BYTES // per_set) - 1)]
             times = {}
-            for part, kernel, plain, library in (
-                    ("fwd", lambda z, c, *_: lstm_cell_fwd(z, c),
+            # the per-step route's call in training: checked once a
+            # layer, the forward's outputs allocated once (a step each)
+            thin = CellLauncher(R, H, dt, "cuda")
+            slots = StepOutputs(len(sets), R, H, z_)
+            for part, kernel, checked, plain, library in (
+                    ("fwd", lambda z, c, *_: thin.fwd(z, c, slots),
+                     lambda z, c, *_: lstm_cell_fwd(z, c),
                      lambda z, c, *_: lstm_cell_fwd_ref(z, c),
                      lambda z, c, _a, _b, _g, _n, zero: lib_fwd(z, c, zero)),
-                    ("bwd", lambda _z, c, dh, dcn, g, cn, _: lstm_cell_bwd(
+                    ("bwd", lambda _z, c, dh, dcn, g, cn, _: thin.bwd(
                         dh, dcn, g, c, cn),
+                     lambda _z, c, dh, dcn, g, cn, _: lstm_cell_bwd(
+                         dh, dcn, g, c, cn),
                      lambda _z, c, dh, dcn, g, cn, _: lstm_cell_bwd_ref(
                          dh, dcn, g, c, cn),
                      lambda _z, c, dh, dcn, g, cn, _: lib_bwd(
                          dh, dcn, g, c, cn))):
                 t = _timed({"kernel": _rotating(sets, kernel),
+                            "checked": _rotating(sets, checked),
                             "plain": _rotating(sets, plain),
                             "library": _rotating(sets, library)}, iters=200)
                 words, ops = CELL_COST[part]
@@ -4652,6 +4696,7 @@ def _lstm_cell_checks() -> tuple[dict, dict]:
                                  ("ms", t["kernel"]["ms"]),
                                  ("device_ms", t["kernel"]["device_ms"]),
                                  ("enqueue_ms", t["kernel_enqueue_ms"]),
+                                 ("checked_ms", t["checked"]["ms"]),
                                  ("plain_ms", t["plain"]["ms"]),
                                  ("plain_device_ms",
                                   t["plain"]["device_ms"]),
@@ -4669,8 +4714,8 @@ def _lstm_cell_checks() -> tuple[dict, dict]:
                 raise AssertionError(f"lstm_cell float32 at R {R}, H {H}: "
                                      f"(relative, absolute) {errs}, two "
                                      f"calls bitwise {bitwise}")
-            del sets, one
-            if model != RNN_CELL_CASES[0][0]:
+            del sets, one, slots
+            if model != RNN_CELL_CASES[1][0]:
                 continue
             for part, (t, b, by, _) in times.items():
                 entries[part] = {
@@ -4679,8 +4724,14 @@ def _lstm_cell_checks() -> tuple[dict, dict]:
                     "replaces": "feddrift_tpu/models/rnn.py:25 (flax's "
                     "OptimizedLSTMCell, also :26, :40; left to XLA: no "
                     "Pallas kernel)",
-                    "case": f"R {R}, H {H} (CharLSTM's step: 30 pairs of "
-                    f"32 rows), inputs read from HBM", "launches": None,
+                    "case": f"R {R}, H {H} (WordLSTM's step: 40 pairs of "
+                    f"32 rows; the per-step route's driven shape), inputs "
+                    f"read from HBM, the per-step route's call in training "
+                    f"(checked once a layer, the forward's outputs "
+                    f"allocated once a layer; every call checked and "
+                    f"allocating: checked_ms)",
+                    "launches": None,
+                    "checked_ms": t["checked"]["ms"],
                     "max_abs_err": errs[part][1], "ms": t["kernel"]["ms"],
                     "plain_ms": t["plain"]["ms"], "bound_ms": b,
                     "bound_by": by, "library_ms": t["library"]["ms"],
@@ -4691,6 +4742,248 @@ def _lstm_cell_checks() -> tuple[dict, dict]:
         del z, c, dh, dcn
         torch.cuda.empty_cache()
     return entries["fwd"], entries["bwd"]
+
+
+# The layer kernels' cases (label, K pairs, N rows, L steps, H, gradient):
+# CharLSTM's training step (M·C = 30 pairs of B = 32 rows, seq 80), its
+# eval forward (one model over EVAL_ROWS rows, no gradient: only h
+# written), a ragged N (a last block of 5 rows).
+LSTM_LAYER_CASES = (("rnn_train", 30, 32, 80, 256, True),
+                    ("rnn_eval", 1, 8192, 80, 256, False),
+                    ("ragged", 30, 37, 80, 256, True))
+# A kernel output's distance from the plain version run in float64 (its
+# largest difference over the float64 output's largest magnitude) may be at
+# most LAYER_F64_FACTOR times the float32 plain version's plus
+# LAYER_F64_FLOOR: the rule of the K1 checks, the floor fixed before the
+# kernels' first card run.
+LAYER_F64_FACTOR, LAYER_F64_FLOOR = 2.0, 1e-6
+LAYER_TIMING = dict(iters=5, rounds=3)
+# CharLSTM's first layer reads the 8-wide embedding: cuDNN's layer there
+# does the recurrence of the layer kernels plus an input product of 8.
+LAYER_CUDNN_INPUT = 8
+
+
+def _layer_inputs(K: int, N: int, L: int, H: int, seed: int = 0):
+    """float64 inputs of a layer on the card: zx and b ~ N(0, 1), W_h ~
+    N(0, 1 / H) (an orthogonal init's scale), the outputs' gradient ~
+    N(0, 1)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, device="cuda", generator=gen,
+                                  dtype=torch.float64)
+    return (rand(K, N, L, 4 * H), rand(K, H, 4 * H) / H ** 0.5,
+            rand(K, 4 * H), rand(K, N, L, H))
+
+
+def _f64_dist(got, want) -> float:
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def _layer_layouts(zx, wh, b):
+    """The same layer's recurrence four ways, as callables of the forward
+    and of the backward of ``(zx, wh, b)``'s every step's output: the layer
+    op (``lstm_layer``), the per-step route with the cell kernels (its
+    launcher checked once, in training its outputs allocated once), the
+    per-step route with PyTorch's fused cell,
+    and cuDNN's layer (``torch._VF.lstm``, K calls of ``nn.LSTM``, on an
+    input of ``LAYER_CUDNN_INPUT``). The backward of each is autograd's
+    over its graph (the layer op's: the backward kernel, then dW_h's one
+    product and db's sum)."""
+    import torch
+    from feddrift_torch.kernels.lstm_cell import (StepOutputs, cell_launcher,
+                                                  lstm_cell)
+    from feddrift_torch.kernels.lstm_layer import lstm_layer
+    aten = torch.ops.aten
+    K, N, L, G = zx.shape
+    H = G // 4
+    launcher = cell_launcher(K * N, H, zx)
+    zero = zx.new_zeros(K * N, G)
+
+    def step(cell):
+        def run(zx_, wh_, b_):
+            h = zx_.new_zeros(K, N, H)
+            c = zx_.new_zeros(K * N, H)
+            slots = StepOutputs(L, K * N, H, zx_) if zx_.requires_grad \
+                and torch.is_grad_enabled() else None
+            outs = []
+            for zt in zx_.unbind(2):
+                z = torch.baddbmm(b_[:, None], h, wh_) + zt
+                h, c = cell(z.view(K * N, G), c, slots)[:2]
+                h = h.view(K, N, H)
+                outs.append(h)
+            return torch.stack(outs, 2)
+        return run
+    ours = step(lambda z, c, slots: lstm_cell(z, c, launcher, slots))
+    library = step(lambda z, c, _: aten._thnn_fused_lstm_cell(z, zero, c))
+    nets = [torch.nn.LSTM(LAYER_CUDNN_INPUT, H, batch_first=True).cuda()
+            for _ in range(K)]
+    xs = torch.randn(K, N, L, LAYER_CUDNN_INPUT, device="cuda")
+    with torch.no_grad():
+        for k, net in enumerate(nets):
+            net.weight_hh_l0.copy_(wh[k].T)
+            net.bias_hh_l0.copy_(b[k])
+            net.bias_ih_l0.zero_()
+
+    def cudnn(*_):
+        return torch.stack([net(xs[k])[0] for k, net in enumerate(nets)])
+    return {"layer": lambda zx_, wh_, b_: lstm_layer(zx_, wh_, b_),
+            "per_step_cell_kernels": ours, "per_step_fused_cell": library,
+            "cudnn": cudnn}, nets
+
+
+def _layer_bounds(K: int, N: int, L: int, H: int, grad: bool) -> dict:
+    """Each direction's least time: its FMAs (the recurrent product, 2
+    operations each, and the cell's CELL_COST operations a unit) at the
+    float32 rate against its bytes (forward: zx, W_h and b in, h out and,
+    with a gradient, c and the gates; backward: dH, the gates, c and W_h
+    in, dZ out) over HBM."""
+    units = K * N * L * H
+    prod = 2 * K * N * L * H * 4 * H
+    out = {"fwd": _bound(4 * (units * 4 + K * H * 4 * H + K * 4 * H
+                              + units * (6 if grad else 1)),
+                         prod + CELL_COST["fwd"][1] * units)}
+    if grad:
+        out["bwd"] = _bound(4 * (units * (1 + 4 + 1 + 4) + K * H * 4 * H),
+                            prod + CELL_COST["bwd"][1] * units)
+    return out
+
+
+def _lstm_layer_checks() -> tuple[dict, dict]:
+    """``lstm_layer_fwd`` and ``lstm_layer_bwd`` against their plain
+    versions at each of ``LSTM_LAYER_CASES``: every output within the rule
+    of ``LAYER_F64_FACTOR`` and ``LAYER_F64_FLOOR`` against the plain
+    version run in float64, two calls bitwise, one launch a call. Each
+    direction timed by CUDA events (``LAYER_TIMING``) beside its bound:
+    the kernel alone, and the layer's whole forward or backward four ways
+    (``_layer_layouts``), side by side; with ``cudaOccupancyMaxActiveClusters``.
+    Returns the kernels line's ``lstm_layer_fwd`` and ``lstm_layer_bwd``
+    entries at CharLSTM's training shape (launches from the run)."""
+    import torch
+    from feddrift_torch.kernels.lstm_layer import (lstm_layer_bwd,
+                                                   lstm_layer_bwd_ref,
+                                                   lstm_layer_fwd,
+                                                   lstm_layer_fwd_ref,
+                                                   max_active_clusters)
+    from feddrift_torch.models.base import model_numerics
+    entries = {}
+    clusters = {d: max_active_clusters(256, d) for d in ("fwd", "bwd")}
+    for label, K, N, L, H, grad in LSTM_LAYER_CASES:
+        zx64, wh64, b64, dH64 = _layer_inputs(K, N, L, H)
+        zx, wh, b, dH = (t.float() for t in (zx64, wh64, b64, dH64))
+        with torch.no_grad(), model_numerics():
+            before = lstm_layer_fwd.launches, lstm_layer_bwd.launches
+            got = lstm_layer_fwd(zx, wh, b, state=grad)
+            again = lstm_layer_fwd(zx, wh, b, state=grad)
+            outs = {"h": (got[0], again[0])}
+            if grad:
+                outs.update(c=(got[1], again[1]), gates=(got[2], again[2]))
+                outs["dZ"] = (lstm_layer_bwd(dH, got[2], got[1], wh),
+                              lstm_layer_bwd(dH, again[2], again[1], wh))
+            torch.cuda.synchronize()
+            launched = (lstm_layer_fwd.launches - before[0],
+                        lstm_layer_bwd.launches - before[1])
+            bitwise = all(torch.equal(a, b_) for a, b_ in outs.values())
+            p32 = lstm_layer_fwd_ref(zx, wh, b, state=grad)
+            p64 = lstm_layer_fwd_ref(zx64, wh64, b64, state=grad)
+            plain = {"h": (p32[0], p64[0])}
+            if grad:
+                plain.update(c=(p32[1], p64[1]), gates=(p32[2], p64[2]))
+                plain["dZ"] = (lstm_layer_bwd_ref(dH, p32[2], p32[1], wh),
+                               lstm_layer_bwd_ref(dH64, p64[2], p64[1],
+                                                  wh64))
+            errs, max_abs = {}, {}
+            for key, (k32, _) in outs.items():
+                q32, q64 = plain[key]
+                errs[key] = (_f64_dist(k32, q64), _f64_dist(q32, q64))
+                max_abs[key] = float((k32.double() - q64).abs().max())
+            del p32, p64, plain
+        within = all(e <= LAYER_F64_FACTOR * p + LAYER_F64_FLOOR
+                     for e, p in errs.values())
+        want = (2, 2 if grad else 0)
+        bounds = _layer_bounds(K, N, L, H, grad)
+        fields = dict(case=label, K=K, N=N, L=L, H=H, gradient=grad,
+                      two_calls_bitwise=bitwise, launches=list(launched),
+                      launches_want=list(want),
+                      max_active_clusters=clusters,
+                      rule=f"dist <= {LAYER_F64_FACTOR} x plain32 dist + "
+                      f"{LAYER_F64_FLOOR}",
+                      **{f"{key}_dist_vs_f64": e for key, (e, _) in
+                         errs.items()},
+                      **{f"{key}_plain32_dist_vs_f64": p for key, (_, p) in
+                         errs.items()})
+        # timing, float32, under the model path's numerics
+        with model_numerics():
+            calls = {"fwd": {"kernel": lambda: lstm_layer_fwd(
+                zx, wh, b, state=grad), "plain": lambda: lstm_layer_fwd_ref(
+                    zx, wh, b, state=grad)}}
+            if grad:
+                calls["bwd"] = {"kernel": lambda: lstm_layer_bwd(
+                    dH, got[2], got[1], wh), "plain": lambda:
+                    lstm_layer_bwd_ref(dH, got[2], got[1], wh)}
+            layouts, nets = _layer_layouts(zx, wh, b)
+            ins = [t.clone().requires_grad_(grad) for t in (zx, wh, b)]
+            graphs = {}
+            for name, fn in layouts.items():
+                if grad:
+                    graphs[name] = fn(*ins)
+                    tensors = ins if name != "cudnn" else [
+                        p for net in nets for p in net.parameters()]
+                    calls["bwd"][name] = (
+                        lambda out=graphs[name], ts=tensors:
+                        torch.autograd.grad(out, ts, dH,
+                                            retain_graph=True))
+                calls["fwd"][name] = (lambda fn=fn: fn(*ins)) if grad \
+                    else (lambda fn=fn: _no_grad(fn, zx, wh, b))
+            times = {d: _interleaved(
+                lambda f: _time_ms(f, LAYER_TIMING["iters"]), c,
+                LAYER_TIMING["rounds"]) for d, c in calls.items()}
+            del graphs, ins, nets
+        for d, t in times.items():
+            bound_ms, by = bounds[d]
+            fields.update({f"{d}_{name}_ms": v for name, v in t.items()})
+            fields.update({f"{d}_bound_ms": bound_ms, f"{d}_bound_by": by,
+                           f"{d}_kernel_vs_bound": t["kernel"] / bound_ms})
+        _say("train_rnn_layer", **fields)
+        if not (bitwise and within and launched == want):
+            raise AssertionError(f"lstm_layer at {label}: two calls bitwise "
+                                 f"{bitwise}, launches {launched} (want "
+                                 f"{want}), (distance, plain float32's) from "
+                                 f"float64 {errs}")
+        if label == "rnn_train":
+            for d, part in (("fwd", "h"), ("bwd", "dZ")):
+                t = times[d]
+                entries[d] = {
+                    "name": f"lstm_layer_{d}", "route": "cuda",
+                    "source": "feddrift_torch/kernels/csrc/lstm_layer.cu",
+                    "replaces": "feddrift_tpu/models/rnn.py:25 (flax's "
+                    "nn.RNN(nn.OptimizedLSTMCell), a lax.scan; also :26, "
+                    ":40; left to XLA: no Pallas kernel)",
+                    "case": f"K {K}, N {N}, L {L}, H {H} (CharLSTM's "
+                    f"training step: M·C pairs of B rows)",
+                    "launches": None,
+                    "max_abs_err": max_abs[part],
+                    "error_against": "the plain version in float64",
+                    "ms": t["kernel"],
+                    "plain_ms": t["plain"], "bound_ms": bounds[d][0],
+                    "bound_by": bounds[d][1],
+                    "library_ms": t["cudnn"],
+                    "library": f"cuDNN's layer (torch._VF.lstm, K calls of "
+                    f"nn.LSTM on a {LAYER_CUDNN_INPUT}-wide input"
+                    + ("" if d == "fwd" else ", autograd's backward: "
+                       "every weight's gradient") + ")",
+                    "per_step_cell_kernels_ms": t["per_step_cell_kernels"],
+                    "per_step_fused_cell_ms": t["per_step_fused_cell"],
+                    "layer_op_ms": t["layer"],
+                    "max_active_clusters": clusters[d]}
+        del zx64, wh64, b64, dH64, zx, wh, b, dH, got, again, outs
+        torch.cuda.empty_cache()
+    return entries["fwd"], entries["bwd"]
+
+
+def _no_grad(fn, *args):
+    import torch
+    with torch.no_grad():
+        return fn(*args)
 
 
 def _model_errors(mod, x, y) -> tuple[dict, str | None]:
@@ -4749,14 +5042,17 @@ def _model_errors(mod, x, y) -> tuple[dict, str | None]:
 def _rnn_model_checks() -> None:
     """Each of ``RNN_CHECK_MODELS`` at its published width on
     ``RNN_CHECK_ROWS`` random token rows through ``_model_errors`` (the
-    card's forwards and backwards through the cell kernels), and the
-    kernels launched once a step of each card forward and backward."""
+    card's forwards and backwards: CharLSTM's float32 through the layer
+    kernels, once a layer; its float64 and WordLSTM's through the cell
+    kernels, once a step), and those launches counted."""
     import numpy as np
     import torch
     from feddrift_torch.config import ExperimentConfig
     from feddrift_torch.data.drift_dataset import DriftDataset
     from feddrift_torch.kernels.lstm_cell import (lstm_cell_bwd,
                                                   lstm_cell_fwd)
+    from feddrift_torch.kernels.lstm_layer import (lstm_layer_bwd,
+                                                   lstm_layer_fwd)
     from feddrift_torch.models import create_model
     for name, dataset, L, V in RNN_CHECK_MODELS:
         ds = DriftDataset(x=np.zeros((1, 1, 1, L), np.int32),
@@ -4768,19 +5064,27 @@ def _rnn_model_checks() -> None:
         x = torch.randint(0, V, (RNN_CHECK_ROWS, L), generator=gen,
                           dtype=torch.int32)
         y = torch.randint(0, V, (RNN_CHECK_ROWS,), generator=gen)
-        before = lstm_cell_fwd.launches, lstm_cell_bwd.launches
+        counters = (lstm_cell_fwd, lstm_cell_bwd, lstm_layer_fwd,
+                    lstm_layer_bwd)
+        before = [f.launches for f in counters]
         fields, failed = _model_errors(mod, x, y)
-        launched = (lstm_cell_fwd.launches - before[0],
-                    lstm_cell_bwd.launches - before[1])
-        # a step of each layer: three card forwards, two backwards
-        steps = L * (2 if name == "rnn" else 1)
-        want = (3 * steps, 2 * steps)
+        launched = [f.launches - b for f, b in zip(counters, before)]
+        # three card forwards (float32 twice, float64), two backwards: a
+        # float32 layer of CharLSTM's on the layer kernels, every other
+        # layer's step on the cell kernels
+        layers = 2 if name == "rnn" else 1
+        if name == "rnn":
+            want = [L * layers, L * layers, 2 * layers, layers]
+        else:
+            want = [3 * L * layers, 2 * L * layers, 0, 0]
         _say("train_rnn_model", model=name, dataset=dataset, seq_len=L,
-             classes=mod.num_classes, **fields, cell_launches=list(launched),
-             cell_launches_want=list(want))
+             classes=mod.num_classes, **fields,
+             cell_launches=launched[:2], cell_launches_want=want[:2],
+             layer_launches=launched[2:], layer_launches_want=want[2:])
         if failed or launched != want:
-            raise AssertionError(f"{name} on the card: {failed}, cell "
-                                 f"launches {launched} (want {want})")
+            raise AssertionError(f"{name} on the card: {failed}, cell and "
+                                 f"layer launches {launched} (want "
+                                 f"{want})")
 
 
 def _rnn_round_checks() -> dict:
@@ -4788,18 +5092,14 @@ def _rnn_round_checks() -> dict:
     3, C 10, S 5, B 32, seq 80; model 2 with no active client) from fixed
     draws, twice, bitwise; the peak of allocated device memory in the
     first, its wall (median of 5), and under the profiler its device ms
-    (the union of the kernels' intervals), launches, ``lstm_cell``
-    launches, plain calls and top device operations, no gate. Then K2 on
-    that round's client stack (P 820,522) through ``_k2_check``: the
-    kernels line's ``fedavg_rnn``."""
+    (the union of the kernels' intervals), launches, the layer and cell
+    kernels' launches, plain calls and top device operations, no gate.
+    Then K2 on that round's client stack (P 820,522) through
+    ``_k2_check``: the kernels line's ``fedavg_rnn``."""
     import statistics
 
     import torch
     from feddrift_torch.config import ExperimentConfig
-    from feddrift_torch.kernels.lstm_cell import (lstm_cell_bwd,
-                                                  lstm_cell_bwd_ref,
-                                                  lstm_cell_fwd,
-                                                  lstm_cell_fwd_ref)
     from feddrift_torch.simulation.runner import Experiment
     exp = Experiment(ExperimentConfig(**RNN_RUNS[0][1]))
     M, C, T1 = exp.pool.num_models, exp.C_, exp.x.shape[1]
@@ -4813,16 +5113,16 @@ def _rnn_round_checks() -> dict:
 
     def fn():
         return step.train_round(params, opt, exp.x, exp.y, tw, draws=draws)
-    counts = (lstm_cell_fwd.launches, lstm_cell_bwd.launches,
-              lstm_cell_fwd_ref.cuda_calls, lstm_cell_bwd_ref.cuda_calls)
+    _reset_counts()
     torch.cuda.reset_peak_memory_stats()
     a = fn()
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    one = (lstm_cell_fwd.launches - counts[0],
-           lstm_cell_bwd.launches - counts[1],
-           lstm_cell_fwd_ref.cuda_calls - counts[2],
-           lstm_cell_bwd_ref.cuda_calls - counts[3])
+    counts = _read_counts()
+    one = (counts["lstm_layer_fwd_launches"],
+           counts["lstm_layer_bwd_launches"],
+           counts["lstm_cell_fwd_launches"], counts["lstm_cell_bwd_launches"])
+    plain = {k: v for k, v in counts["plain_calls"].items() if v}
     b = fn()
     bitwise = all(torch.equal(a[i][k], b[i][k]) for i in (0, 2)
                   for k in a[i]) \
@@ -4837,12 +5137,12 @@ def _rnn_round_checks() -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
     kernels, wall_us, union_us = _profile(fn, 2, union=True)
     busy_us = sum(e.self_device_time_total for e in kernels)
-    L, S = exp.x.shape[3], step.num_steps
-    want = 2 * L * S                           # two layers a step
+    S = step.num_steps
+    want = (2 * S, 2 * S, 0, 0)                # two layers a local step
     _say("train_rnn_round", model="rnn", dataset="fed_shakespeare", M=M,
-         C=C, S=S, B=step.batch_size, seq_len=L, P=exp.module.num_params,
-         two_rounds_bitwise=bitwise, wall_ms=statistics.median(walls),
-         peak_memory_gb=peak_gb,
+         C=C, S=S, B=step.batch_size, seq_len=exp.x.shape[3],
+         P=exp.module.num_params, two_rounds_bitwise=bitwise,
+         wall_ms=statistics.median(walls), peak_memory_gb=peak_gb,
          card_memory_gb=torch.cuda.get_device_properties(0).total_memory
          / 1e9,
          device_ms=busy_us / 2 / 1e3 if busy_us else "not measured",
@@ -4850,17 +5150,17 @@ def _rnn_round_checks() -> dict:
          device_union_share=union_us / wall_us,
          profiled_wall_ms=wall_us / 2 / 1e3,
          launches=sum(e.count for e in kernels) / 2,
-         lstm_cell_fwd_launches=one[0], lstm_cell_bwd_launches=one[1],
-         lstm_cell_launches_want=want, plain_calls=list(one[2:]),
-         lstm_cell_device_ms=sum(e.self_device_time_total for e in kernels
-                                 if "lstm_cell" in e.key) / 2 / 1e3,
+         lstm_layer_launches=list(one[:2]), lstm_cell_launches=list(one[2:]),
+         launches_want=list(want), plain_calls=plain,
+         lstm_layer_device_ms=sum(e.self_device_time_total for e in kernels
+                                  if "lstm_layer" in e.key) / 2 / 1e3,
          fedavg_launches=sum(e.count for e in kernels
                              if "fedavg_kernel" in e.key) / 2,
          top_device_ops=_top_device_ops(kernels, 2))
-    if not bitwise or one != (want, want, 0, 0):
+    if not bitwise or one != want or plain:
         raise AssertionError(f"an rnn round twice from the same inputs: "
-                             f"bitwise {bitwise}; cell launches and plain "
-                             f"calls {one} (want {want}, {want}, 0, 0)")
+                             f"bitwise {bitwise}; layer and cell launches "
+                             f"{one} (want {want}), plain calls {plain}")
     mod = exp.module
     client, n, prev = mod.pack(a[2]), a[3], mod.pack(exp.pool.params)
     entry = _k2_check("rnn", client, n, prev, dataset="fed_shakespeare",
@@ -4874,21 +5174,37 @@ def _rnn_round_checks() -> dict:
 
 def _rnn_drive(run: str, cfg, path: str, ref=None) -> tuple[dict, list]:
     """One LSTM run through the runner on the card: every round one
-    ``fedavg.cu`` launch, the cell kernels launched forward and backward,
-    no K1, K3, K4 or plain call (the cell's included), the data and pool
-    on the card; one ``train_rnn`` line with its wall, the peak of
-    allocated device memory (its evals' included), launches, each
-    step's Test/Acc and, given the committed series ``ref``, the gate (a
-    round's device time is ``_rnn_round_checks``'s: a profiled step of
-    this run would take 20 more rounds). Returns the cell's (forward,
-    backward) launches and the gate's failures."""
+    ``fedavg.cu`` launch; a layer the layer kernels take
+    (``layer_refusal``) launched once a local step forward and backward
+    (and once an eval piece forward), else its steps' cell kernels; the
+    other route's kernels not at all; no K1, K3, K4 or plain call (the
+    layer's and cell's included), the data and pool on the card; one
+    ``train_rnn`` line with its wall, the peak of allocated device memory
+    (its evals' included), launches, each step's Test/Acc and, given the
+    committed series ``ref``, the gate (a round's device time is
+    ``_rnn_round_checks``'s: a profiled step of this run would take 20
+    more rounds). Returns the (cell forward, cell backward, layer forward,
+    layer backward) launches and the gate's failures."""
     import torch
+    from feddrift_torch.kernels.lstm_layer import layer_refusal
     torch.cuda.reset_peak_memory_stats()
     got = _drive(cfg, syncs=False)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     exp, accs = got.pop("exp"), got["accs"]
-    cells = (got["lstm_cell_fwd_launches"], got["lstm_cell_bwd_launches"])
+    counts = (got["lstm_cell_fwd_launches"], got["lstm_cell_bwd_launches"],
+              got["lstm_layer_fwd_launches"], got["lstm_layer_bwd_launches"])
     rounds = cfg.train_iterations * cfg.comm_round
+    widths = [shape[0] for key, (shape, _) in
+              exp.module.param_specs().items() if key.endswith("/hi/kernel")]
+    on_layer = all(layer_refusal(torch.float32, w) is None for w in widths)
+    layer_bwd = rounds * exp.step.num_steps * len(widths) if on_layer else 0
+    # the layer route: the backward's launches exactly, the forward's those
+    # and the evals' (a forward of every layer a piece); the per-step route:
+    # the cells launched, the layer kernels not
+    routed = counts[3] == layer_bwd and (
+        (counts[:2] == (0, 0) and counts[2] > layer_bwd
+         and (counts[2] - layer_bwd) % len(widths) == 0) if on_layer
+        else (all(counts[:2]) and counts[2] == 0))
     on_card = all(t.is_cuda for t in (exp.x, exp.y,
                                       *exp.pool.params.values()))
     fields, missed = {}, []
@@ -4916,68 +5232,81 @@ def _rnn_drive(run: str, cfg, path: str, ref=None) -> tuple[dict, list]:
          fedavg_launches=got["k2_launches"], k1_launches=got["k1_launches"],
          k3_launches=got["k3_launches"],
          k4_launches=got["k4a_launches"] + got["k4b_launches"],
-         lstm_cell_fwd_launches=cells[0], lstm_cell_bwd_launches=cells[1],
+         route="layer kernels" if on_layer else "per-step cell kernels",
+         lstm_cell_fwd_launches=counts[0], lstm_cell_bwd_launches=counts[1],
+         lstm_layer_fwd_launches=counts[2], lstm_layer_bwd_launches=counts[3],
+         lstm_layer_bwd_want=layer_bwd,
          plain_calls=got["plain_calls"], on_card=on_card, test_acc=accs,
          chance=1.0 / exp.ds.num_classes, **fields)
     if got["k2_launches"] != rounds or got["k1_launches"] \
             or got["k3_launches"] or got["k4a_launches"] \
             or got["k4b_launches"] or any(got["plain_calls"].values()) \
-            or not all(cells) or set(got["paths"]) != {path} or not on_card \
+            or not routed or set(got["paths"]) != {path} or not on_card \
             or len(accs) != cfg.train_iterations:
         raise AssertionError(f"{run}: fedavg.cu launched "
                              f"{got['k2_launches']} times for {rounds} "
                              f"rounds, K1 {got['k1_launches']}, K3 "
                              f"{got['k3_launches']}, K4 "
                              f"{got['k4a_launches']} / "
-                             f"{got['k4b_launches']}, cell (forward, "
-                             f"backward) {cells}, plain "
-                             f"calls {got['plain_calls']}, paths "
-                             f"{got['paths']} (want {path}), on the card "
-                             f"{on_card}, {len(accs)} steps")
+                             f"{got['k4b_launches']}, cell and layer "
+                             f"(forward, backward) {counts} (the layer "
+                             f"route {on_layer}, its backward's want "
+                             f"{layer_bwd}), plain calls "
+                             f"{got['plain_calls']}, paths {got['paths']} "
+                             f"(want {path}), on the card {on_card}, "
+                             f"{len(accs)} steps")
     del exp, got
     torch.cuda.empty_cache()
-    return cells, missed
+    return counts, missed
 
 
-def _rnn_runs() -> tuple[int, int, int, list[str]]:
+def _rnn_runs() -> tuple[tuple, tuple, int, list[str]]:
     """``RNN_RUNS`` gated against their committed runs (``_rnn_gate``),
-    then ``RNN_SO_RUN`` ungated. Returns the cell kernels' forward and
-    backward launches and ``fedavg.cu``'s over the gated runs, and the runs
+    then ``RNN_SO_RUN`` ungated. Returns the layer kernels' (forward,
+    backward) launches and ``fedavg.cu``'s over the gated runs, the cell
+    kernels' over the WordLSTM run (the per-step route's), and the runs
     outside their gates."""
     from feddrift_torch.config import ExperimentConfig
     here = os.path.dirname(os.path.abspath(__file__))
-    fwd = bwd = agg = 0
+    layer = [0, 0]
+    agg = 0
     missed = []
     for run, kw, pinned, path in RNN_RUNS:
         ref = _reference_accs(os.path.join(here, "runs", run,
                                            "metrics.jsonl"), pinned)
         cfg = ExperimentConfig(**kw)
-        cells, miss = _rnn_drive(run, cfg, path, ref)
-        fwd += cells[0]
-        bwd += cells[1]
+        counts, miss = _rnn_drive(run, cfg, path, ref)
+        layer[0] += counts[2]
+        layer[1] += counts[3]
         agg += cfg.train_iterations * cfg.comm_round
         missed += miss
-    _rnn_drive("stackoverflow_nwp-rnn_stackoverflow-softcluster",
-               ExperimentConfig(**RNN_SO_RUN), "fused")
-    return fwd, bwd, agg, missed
+    counts, _ = _rnn_drive("stackoverflow_nwp-rnn_stackoverflow-softcluster",
+                           ExperimentConfig(**RNN_SO_RUN), "fused")
+    return tuple(layer), counts[:2], agg, missed
 
 
-def phase_train_rnn() -> tuple[dict, dict, dict]:
-    """The LSTMs on the card: the cell kernels against their plain versions
+def phase_train_rnn() -> tuple[dict, dict, dict, dict, dict]:
+    """The LSTMs on the card: the layer kernels against their plain
+    versions and timed beside the per-step routes and cuDNN
+    (``_lstm_layer_checks``), the cell kernels likewise
     (``_lstm_cell_checks``), ``_rnn_model_checks``, the timing case and K2
-    at CharLSTM's width (``_rnn_round_checks``), then the committed run
-    and the WordLSTM run (``_rnn_runs``), every run driven before the phase
-    fails. Returns the kernels line's ``lstm_cell_fwd``, ``lstm_cell_bwd``
-    and ``fedavg_rnn`` entries, their launches those of the gated run."""
+    at CharLSTM's width (``_rnn_round_checks``), then the committed run and
+    the WordLSTM run (``_rnn_runs``), every run driven before the phase
+    fails. Returns the kernels line's ``lstm_layer_fwd``,
+    ``lstm_layer_bwd``, ``lstm_cell_fwd``, ``lstm_cell_bwd`` and
+    ``fedavg_rnn`` entries, the layer kernels' and K2's launches those of
+    the gated run, the cell kernels' those of the WordLSTM run."""
+    layer_fwd, layer_bwd = _lstm_layer_checks()
     fwd_entry, bwd_entry = _lstm_cell_checks()
     _rnn_model_checks()
     agg_entry = _rnn_round_checks()
-    (fwd_entry["launches"], bwd_entry["launches"], agg_entry["launches"],
+    ((layer_fwd["launches"], layer_bwd["launches"]),
+     (fwd_entry["launches"], bwd_entry["launches"]), agg_entry["launches"],
      missed) = _rnn_runs()
     if missed:
         raise AssertionError("rnn runs outside their gates: "
                              + "; ".join(missed))
-    return fwd_entry, bwd_entry, agg_entry
+    return layer_fwd, layer_bwd, fwd_entry, bwd_entry, agg_entry
 
 
 def main() -> int:

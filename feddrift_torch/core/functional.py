@@ -9,7 +9,8 @@ Counterparts of ``feddrift_tpu/core/functional.py::cross_entropy``,
 and the LSTMs: K1 trains the fnn and the lr only), and ``model_logits``
 what the eval programs' ``jax.vmap(one)(params, ...)`` over ``apply_fn``
 compute. Both are PyTorch (cuDNN's convolutions and cuBLAS' products on the
-card; an LSTM step's cell is ``kernels/lstm_cell.py``'s kernel): the JAX
+card; an LSTM layer's recurrence is ``kernels/lstm_layer.py``'s kernels,
+or its steps' cells ``kernels/lstm_cell.py``'s): the JAX
 package runs these models' layers in XLA, outside any Pallas kernel. The
 inputs are float features or, for the LSTMs, int32 token ids ``[..., L]``,
 which a feature mask (``[M, 1]`` ones for a sequence, as the JAX package

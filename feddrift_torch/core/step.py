@@ -64,8 +64,10 @@ The model-generic path (``models/base.py::GenericNet``: the cnns, the
 ResNets and the LSTMs) takes no K1 or K3 layout: its round is ``core/functional.py::model_local_sgd``
 (every pair's S steps as one ``torch.func.vmap`` over the M·C pairs of
 ``grad``, the optimizer on the flat ``[M, C, P]`` params, cuDNN and cuBLAS
-on the card; an LSTM step's cell is one ``kernels/lstm_cell.py`` launch
-forward and one backward) followed by K2, ``fedavg.cu``, one launch a
+on the card; a float32 LSTM layer of a width ``kernels/lstm_layer.py``
+takes is one launch of its layer kernel forward and one backward, any
+other LSTM step's cell one ``kernels/lstm_cell.py`` launch each way)
+followed by K2, ``fedavg.cu``, one launch a
 round; its evals are ``core/functional.py::model_logits`` reduced to the
 same count and NLL cells. Images keep their ``[.., H, W, C]`` rows, token
 sequences their ``[.., L]`` ids. Both run inside

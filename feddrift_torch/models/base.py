@@ -38,7 +38,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import vmap
 
-from feddrift_torch.kernels.lstm_cell import lstm_cell
+from feddrift_torch.kernels._checks import needs_grad
+from feddrift_torch.kernels.lstm_cell import (StepOutputs, cell_launcher,
+                                              lstm_cell)
+from feddrift_torch.kernels.lstm_layer import layer_refusal, lstm_layer
 
 TRUNC_STD = 0.87962566103423978    # std of N(0, 1) truncated to (-2, 2)
 
@@ -265,23 +268,35 @@ def pair_lstm(x: torch.Tensor, params: Params, name: str,
     ...]``) over ``x [K, N, L, in]`` from a zero carry: every step's output
     ``[K, N, L, H]``, or the last one ``[K, N, H]`` where not
     ``sequence``. The input products of all L steps are one batched
-    product; a step's pre-activations are flax's ``(h·W_h + b) + x·W_i``,
-    and its cell, over the K·N rows, ``kernels/lstm_cell.py::lstm_cell``
-    (one kernel launch forward, one backward, on the card)."""
+    product; a step's pre-activations are flax's ``(h·W_h + b) + x·W_i``.
+    Where ``kernels/lstm_layer.py::layer_refusal`` takes the layer, the
+    recurrence is ``lstm_layer`` (one kernel launch forward, one backward,
+    on the card); else the per-step route: a loop of one batched product
+    and ``kernels/lstm_cell.py::lstm_cell`` a step over the K·N rows (one
+    cell launch forward, one backward, checked once a layer; in training
+    the L steps' outputs allocated at once)."""
     K, N, L = x.shape[:3]
     wi = torch.cat([params[f"{name}/i{g}/kernel"] for g in LSTM_GATES], -1)
     wh = torch.cat([params[f"{name}/h{g}/kernel"] for g in LSTM_GATES], -1)
     b = torch.cat([params[f"{name}/h{g}/bias"] for g in LSTM_GATES], -1)
     H = wh.shape[1]
     zx = torch.bmm(x.reshape(K, N * L, -1), wi).view(K, N, L, 4 * H)
+    if layer_refusal(zx.dtype, H) is None:
+        return lstm_layer(zx, wh, b, sequence)
     h = x.new_zeros(K, N, H)
     c = x.new_zeros(K * N, H)
+    cell = cell_launcher(K * N, H, c)
+    # in training autograd keeps every step's outputs: allocate them once
+    slots = StepOutputs(L, K * N, H, c) \
+        if cell is not None and needs_grad(zx, wh, b) else None
     outs = []
     # unbind, not zx[:, :, t]: a slice's backward would write a zero tensor
-    # of zx's whole size a step, where unbind's stacks the L gradients once
+    # of zx's whole size a step, where unbind's stacks the L gradients once.
+    # A step's z is contiguous (baddbmm's output plus a slice of zx), as the
+    # launcher trusts.
     for zt in zx.unbind(2):
         z = torch.baddbmm(b[:, None], h, wh) + zt
-        h, c = lstm_cell(z.view(K * N, 4 * H), c)
+        h, c = lstm_cell(z.view(K * N, 4 * H), c, cell, slots)
         h = h.view(K, N, H)
         outs.append(h)
     return torch.stack(outs, 2) if sequence else h

@@ -8,7 +8,9 @@ layouts are flax's (``Embed_0/embedding [V, E]``,
 out]``), with flax's initialisers. Both take token
 ids ``x [N, L]`` (int32, or float after a feature mask) and return the
 logits of the token after the last position, from the last step's hidden
-state. Each LSTM step's cell is ``kernels/lstm_cell.py::lstm_cell``.
+state. Each LSTM layer is ``models/base.py::pair_lstm``: on the layer
+kernels (``kernels/lstm_layer.py``: CharLSTM's float32 layers) or step by
+step with the cell kernel (``kernels/lstm_cell.py``: WordLSTM, float64).
 
 Both define ``pair_logits``: P models' leaves ``[P, ...]`` on their own
 rows ``x [P, N, L]`` in one batched program (a row's logits depend on its

@@ -7,6 +7,7 @@ import shutil
 import pytest
 
 from feddrift_torch.kernels import build
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -29,6 +29,7 @@ import chip_smoke
 from feddrift_torch.config import ExperimentConfig
 from feddrift_torch.convert import params_from_jax, pool_from_jax
 from feddrift_torch.simulation.runner import Experiment
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ARG = "cfl_0.1_win-1"
 SPLIT_KEYS = chip_smoke.SPLIT_KEYS

@@ -8,6 +8,7 @@ import json
 import os
 import subprocess
 import sys
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -12,6 +12,7 @@ import pytest
 from test_torch_conv_models import (DEEP, _both, _jax_specs,  # noqa: F401
                                     _one_thread, check_init_leaves,
                                     check_logits_and_gradients)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", DEEP)

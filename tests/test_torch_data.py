@@ -11,6 +11,7 @@ import pytest
 import feddrift_torch.data.changepoints as tcp
 from feddrift_torch.config import ExperimentConfig as TorchConfig
 from feddrift_torch.data.registry import make_dataset as torch_make
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _both(tmp_path, **kw):

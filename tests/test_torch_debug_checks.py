@@ -14,6 +14,7 @@ restored after each of its runs, as ``tests/test_invariants.py`` does.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 BLOWUP = dict(train_iterations=2, comm_round=5, lr=1e20)
 

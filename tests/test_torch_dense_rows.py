@@ -30,6 +30,7 @@ import torch
 from feddrift_torch.kernels.dense_rows import (MAX_GRID_X, SMS, LaunchConfig,
                                                _launch_config, dense_rows,
                                                dense_rows_ref, grid_blocks)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ATOL = 1e-5
 # (layer, L, in, out, bias) of the served transformer (shakespeare sizes:

@@ -26,6 +26,7 @@ from feddrift_torch.core.step import TrainStep
 from feddrift_torch.data.retrain import poisson_sample_counts
 from feddrift_torch.models.mlp import FeedForwardNN
 from test_torch_statebased import _pair, assert_runs_agree, run_both
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 M, C, N, F, K = 3, 4, 40, 3, 2
 

@@ -28,6 +28,7 @@ from feddrift_torch.kernels.eval_cells import (_route, _threads, eval_cells,
 from feddrift_torch.kernels.fedavg import fedavg, fedavg_ref
 from feddrift_torch.kernels.local_sgd import local_sgd, local_sgd_fedavg
 from feddrift_torch.models.mlp import FeedForwardNN
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 M, C, T1, N = 3, 4, 5, 40
 NLL_RTOL = 1e-5

@@ -32,6 +32,7 @@ from feddrift_torch.kernels.local_sgd import (_tickets, init_opt_state,
                                               local_sgd_ref)
 from feddrift_torch.models.mlp import FeedForwardNN
 from feddrift_torch.resilience.robust_agg import agg_mean
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ATOL = 1e-6
 

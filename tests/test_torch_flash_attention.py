@@ -22,6 +22,7 @@ from feddrift_torch.kernels.flash_attention import (HEAD_DIMS, MAX_GRID_X,
                                                     flash_attention,
                                                     flash_attention_ref)
 from feddrift_torch.parallel.ring_attention import blockwise_attention
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ATOL = 1e-5
 

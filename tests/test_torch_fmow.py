@@ -39,6 +39,7 @@ from feddrift_torch.models.mlp import FeedForwardNN
 from feddrift_tpu.config import ExperimentConfig as JaxConfig
 from feddrift_tpu.data import fmow as jfmow
 from feddrift_tpu.data.registry import make_dataset as jax_make
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 M, C, T, N, B, S = 2, 3, 2, 40, 20, 3
 SIDE, H, K = 8, 10, 62

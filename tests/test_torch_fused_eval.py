@@ -34,6 +34,7 @@ from feddrift_torch.kernels.local_sgd import (_folds_eval, init_opt_state,
                                               local_sgd, local_sgd_fedavg,
                                               local_sgd_fedavg_ref)
 from feddrift_torch.models.mlp import FeedForwardNN
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 # the fused widths at a small size: K1's block (64 threads at B = 20) is
 # K3's (N = 40 rows), so the fold applies

@@ -24,6 +24,7 @@ from feddrift_torch.kernels.local_sgd import (FUSED_WIDTHS, _folds_eval,
                                               _route, fused_smem_bytes,
                                               fused_threads)
 from test_torch_train_step import _fold_warp, _kernel_order_grad
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 # the modules (the package's attributes of these names are the functions)
 k1_module = importlib.import_module("feddrift_torch.kernels.local_sgd")

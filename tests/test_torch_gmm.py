@@ -25,6 +25,7 @@ from feddrift_torch import obs as tobs
 from feddrift_torch.algorithms.gmm import GaussianMixture
 from feddrift_torch.config import ExperimentConfig
 from test_torch_softcluster import _assert_same_state, _events, _pair
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 ATOL = 1e-6
 

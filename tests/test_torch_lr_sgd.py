@@ -42,6 +42,7 @@ from feddrift_torch.kernels.local_sgd import (_folds_eval, _route,
                                               local_sgd_ref, sgd_step)
 from feddrift_torch.models import create_model
 from feddrift_torch.models.mlp import FeedForwardNN, LogisticRegression
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 M, C, T, N, B, S, F, K, H = 2, 3, 2, 40, 20, 3, 784, 10, 10
 LR, WD = 0.05, 0.001

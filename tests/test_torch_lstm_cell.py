@@ -23,6 +23,7 @@ from feddrift_torch.kernels.lstm_cell import (lstm_cell_bwd,
                                               lstm_cell_fwd,
                                               lstm_cell_fwd_ref)
 from feddrift_torch.models.base import LSTM_GATES, lstm_specs, pair_lstm
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 FLAX_RTOL, F64_TOL = 1e-6, 1e-12
 

@@ -26,6 +26,7 @@ from feddrift_torch.core.pool import ModelPool
 from feddrift_torch.data.registry import make_dataset
 from feddrift_torch.models import create_model
 from feddrift_torch.models.mlp import FeedForwardNN
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name,kw", [

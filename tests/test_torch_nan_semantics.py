@@ -30,6 +30,7 @@ from feddrift_torch.kernels.local_sgd import (init_opt_state,
                                               local_sgd_fedavg_ref,
                                               local_sgd_ref)
 from feddrift_torch.models.mlp import FeedForwardNN, LogisticRegression
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 M, C, T, N, B, S = 3, 4, 2, 40, 20, 4
 LR, WD = 0.05, 0.001

@@ -14,6 +14,7 @@ import threading
 import time
 
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 PACKAGES = ["feddrift_tpu", "feddrift_torch"]
 

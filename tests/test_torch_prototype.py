@@ -20,6 +20,7 @@ from feddrift_torch.data.registry import make_dataset as torch_make
 from feddrift_tpu.config import ExperimentConfig as JaxConfig
 from feddrift_tpu.data import prototype as jproto
 from feddrift_tpu.data.registry import make_dataset as jax_make
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from feddrift_torch.config import ExperimentConfig
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

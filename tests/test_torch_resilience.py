@@ -26,6 +26,7 @@ import torch
 from feddrift_torch.config import ExperimentConfig
 from feddrift_torch.resilience.divergence import (DivergenceError,
                                                   DivergenceGuard)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

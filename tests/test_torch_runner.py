@@ -26,6 +26,7 @@ from feddrift_torch.config import ExperimentConfig
 from feddrift_torch.convert import params_from_jax
 from feddrift_torch.simulation.runner import Experiment
 from feddrift_torch.utils import checkpoint
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SMALL = dict(train_iterations=3, comm_round=20, frequency_of_the_test=5)
 LATER_STEP_TOL = 0.03

@@ -26,6 +26,7 @@ import torch
 from feddrift_torch.config import ExperimentConfig
 from feddrift_torch.convert import params_from_jax
 from feddrift_torch.simulation.runner import Experiment
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SMALL = dict(client_num_in_total=6, train_iterations=2, comm_round=13,
              frequency_of_the_test=5, sample_num=50)

@@ -23,6 +23,7 @@ from feddrift_torch.models.transformer import TransformerLM
 from feddrift_torch.platform.serving import (
     SERVE_BUCKETS, EngineStopped, InferenceEngine, MalformedRequestError,
     RoutingTable, TrafficGenerator, UnknownClientError)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 L = 12
 KW = dict(vocab_size=90, d_model=32, num_heads=2, num_layers=1, max_len=L)

@@ -18,6 +18,7 @@ from feddrift_torch.core.pool import ModelPool
 from feddrift_torch.data import retrain
 from feddrift_torch.data.registry import make_dataset
 from feddrift_torch.models.mlp import FeedForwardNN
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SPECS = ("all", "win-1", "win-2", "win-5", "weight-linear", "weight-exp",
          "sel-0,2", "sel-",

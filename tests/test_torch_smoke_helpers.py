@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def test_reference_run_is_the_committed_one():
@@ -137,12 +138,18 @@ def test_reset_and_read_counts_cover_every_training_kernel():
                                                   lstm_cell_bwd_ref,
                                                   lstm_cell_fwd,
                                                   lstm_cell_fwd_ref)
+    from feddrift_torch.kernels.lstm_layer import (lstm_layer_bwd,
+                                                   lstm_layer_bwd_ref,
+                                                   lstm_layer_fwd,
+                                                   lstm_layer_fwd_ref)
     from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
                                                       weighted_cdf_ref,
                                                       weighted_search,
                                                       weighted_search_ref)
     lstm_cell_fwd.launches = lstm_cell_bwd.launches = 10
     lstm_cell_fwd_ref.cuda_calls = lstm_cell_bwd_ref.cuda_calls = 11
+    lstm_layer_fwd.launches = lstm_layer_bwd.launches = 12
+    lstm_layer_fwd_ref.cuda_calls = lstm_layer_bwd_ref.cuda_calls = 13
     fedavg.launches = eval_cells.launches = 3
     local_sgd.launches = local_sgd_fedavg.launches = 4
     local_sgd.wide_launches = eval_cells.wide_launches = 7
@@ -162,8 +169,10 @@ def test_reset_and_read_counts_cover_every_training_kernel():
         "k3_fused_launches": 0, "k3_wide_launches": 0,
         "k3_stream_launches": 0, "folded_evals": 0,
         "lstm_cell_fwd_launches": 0, "lstm_cell_bwd_launches": 0,
+        "lstm_layer_fwd_launches": 0, "lstm_layer_bwd_launches": 0,
         "plain_calls": {"fedavg_ref": 0, "lstm_cell_fwd_ref": 0,
-                        "lstm_cell_bwd_ref": 0, "eval_cells_ref": 0,
+                        "lstm_cell_bwd_ref": 0, "lstm_layer_fwd_ref": 0,
+                        "lstm_layer_bwd_ref": 0, "eval_cells_ref": 0,
                         "weighted_cdf_ref": 0, "weighted_search_ref": 0}}
 
 

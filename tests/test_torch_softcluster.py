@@ -36,6 +36,7 @@ from feddrift_torch.convert import params_from_jax, pool_from_jax
 from feddrift_torch.data.registry import make_dataset
 from feddrift_torch.models.mlp import FeedForwardNN
 from feddrift_torch.utils.metrics import MetricsLogger
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 M, C, T, N = 4, 6, 7, 50
 KINDS = ("drift_detected", "cluster_create", "cluster_merge",

@@ -27,6 +27,7 @@ import torch
 from feddrift_torch.config import ExperimentConfig
 from feddrift_torch.convert import params_from_jax, pool_from_jax
 from feddrift_torch.simulation.runner import Experiment
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SMALL = dict(train_iterations=2, comm_round=12, frequency_of_the_test=4,
              sample_num=100, batch_size=50)

@@ -40,6 +40,7 @@ from feddrift_tpu.config import ExperimentConfig as JaxConfig
 from feddrift_tpu.data import tabular as jtab
 from feddrift_tpu.data.registry import make_dataset as jax_make
 from test_torch_fmow import _jax_draws, _time_w
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 # the round's sizes are test_torch_fmow's, whose time weights and

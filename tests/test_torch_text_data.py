@@ -11,6 +11,7 @@ import pytest
 from feddrift_torch.config import ExperimentConfig as TorchConfig
 from feddrift_torch.data.registry import make_dataset as torch_make
 from feddrift_torch.data.text import generate_word_drift
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _same(got, want):

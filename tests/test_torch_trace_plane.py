@@ -27,6 +27,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(train_iterations=3, comm_round=10)

@@ -28,6 +28,7 @@ from feddrift_torch.kernels.local_sgd import (_route, _unpack, amsgrad_step,
                                               local_sgd_fedavg, local_sgd_ref)
 from feddrift_torch.models.mlp import FeedForwardNN
 from feddrift_torch.resilience.robust_agg import agg_mean
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 M, C, T, N, B, S, H, LR, WD = 3, 4, 2, 40, 20, 4, 6, 0.05, 0.001
 ATOL = 2e-6

@@ -22,6 +22,7 @@ from feddrift_torch.core.pool import ModelPool
 from feddrift_torch.models.transformer import (ATTENTION_IMPLS,
                                                MultiHeadAttention,
                                                TransformerLM)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 SMALL = dict(vocab_size=50, d_model=32, num_heads=2, num_layers=2,
              max_len=32)

@@ -36,6 +36,7 @@ from feddrift_torch.kernels.weighted_draw import (weighted_cdf,
                                                   weighted_draw_ref,
                                                   weighted_search,
                                                   weighted_search_ref)
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 CDF_RTOL = 1e-6
 

@@ -29,6 +29,7 @@ from feddrift_torch.kernels.eval_cells import _unpack, eval_cells, \
 from feddrift_torch.kernels.local_sgd import (FUSED_WIDTHS, init_opt_state,
                                               local_sgd, local_sgd_ref)
 from feddrift_torch.models.mlp import FeedForwardNN, LogisticRegression
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 # the wrapper modules (the package exports their functions under the same
 # names)
