@@ -27,7 +27,9 @@ other shape) K2 is its own launch (``resilience/robust_agg.py`` ->
 Inside a time step the parameters travel packed as one ``[M, P]`` tensor,
 the kernel's layout; the caller sees the usual dict of leaves. Where the
 reference draws each batch inside its program from fold_in keys, the port
-draws a whole time step's randomness up front on the device from the step's own ``generator`` (``draw_uniforms``):
+draws a whole time step's randomness up front on the device from the step's own ``generator`` (``draw_uniforms``;
+drawn where the generator lives and moved to the step's device, so a CPU
+generator gives a card step the CPU run's draws):
 ``u ~ U[0, 1)`` and ``slot ~ U[0, nb)``, each ``[R, M, C, S]``. Round r's
 ``u`` becomes its time-step indices through the inverse CDF of round r's
 weights (``time_index``, the reference's ``weight_cdf`` /
@@ -195,10 +197,11 @@ class TrainStep:
         int32."""
         shape = (R, M, C, self.num_steps)
         nb = N // min(self.batch_size, N)
-        u = torch.rand(shape, generator=self.generator, device=self.device)
-        slot = torch.randint(0, nb, shape, generator=self.generator,
-                             device=self.device, dtype=torch.int32)
-        return u, slot
+        gen = self.generator
+        u = torch.rand(shape, generator=gen, device=gen.device)
+        slot = torch.randint(0, nb, shape, generator=gen, device=gen.device,
+                             dtype=torch.int32)
+        return u.to(self.device), slot.to(self.device)
 
     @staticmethod
     def time_index(time_w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -231,7 +234,8 @@ class TrainStep:
         """One round's uniforms ``u [M, C, S, B]`` for the weighted draw,
         from ``self.generator``."""
         shape = (M, C, self.num_steps, min(self.batch_size, N))
-        return torch.rand(shape, generator=self.generator, device=self.device)
+        return torch.rand(shape, generator=self.generator,
+                          device=self.generator.device).to(self.device)
 
     @staticmethod
     def total_weight(time_w: torch.Tensor,

@@ -51,3 +51,15 @@ class DriftDataset:
     @property
     def feature_shape(self) -> tuple[int, ...]:
         return self.x.shape[3:]
+
+
+def open_h5(path: str):
+    """An h5py read handle of ``path``, a file that is present: h5py is
+    imported here alone, and a host without it raises."""
+    try:
+        import h5py
+    except ImportError as err:
+        raise ModuleNotFoundError(
+            f"{path} is an h5 file, and reading it needs h5py, which this "
+            f"host lacks") from err
+    return h5py.File(path, "r")

@@ -1,17 +1,27 @@
 """Dataset registry of the port: ``make_dataset(cfg)``.
 
-Mirrors ``feddrift_tpu/data/registry.py``. Ported so far: the synthetic
-tabular datasets of the training slice (``sea``, ``sine``, ``circle``, their
-numpy path), the synthetic prototype image data (``MNIST``, ``femnist``,
-``cifar10``, ``cifar100``, ``cinic10`` and ``fed_cifar100``, each with its
-``-smooth`` name), FMoW (``fmow`` and ``fmow-smooth``: 62 classes of
-``fmow_image_size`` x ``fmow_image_size`` x 3 images, real ``.npz``
-partitions read where they are present), the UCI streams ``susy`` and
-``ro`` (synthetic, or their CSV where it is present), ``stackoverflow_lr``
-(synthetic bag-of-words), the character datasets (``shakespeare`` and its
-alias ``fed_shakespeare``) and the synthetic next-word data
-(``stackoverflow_nwp`` and its alias ``stackoverflow``); any other name
-raises ``KeyError``.
+Mirrors ``feddrift_tpu/data/registry.py``; each builder gives the JAX
+package's arrays bitwise. Registered:
+
+- ``sea``, ``sine``, ``circle``: synthetic (numpy);
+- ``MNIST``, ``femnist``, ``cifar10``, ``cifar100``, ``cinic10`` and
+  ``fed_cifar100``: the real files under ``data_dir`` where present (LEAF
+  MNIST JSON, the TFF h5 of FederatedEMNIST and fed_cifar100, the CIFAR
+  python pickles, cinic10's PNG tree; ``meta["real_data"]``), else the
+  synthetic prototype images; each ``-smooth`` name is always synthetic;
+- ``fmow`` and ``fmow-smooth``: 62 classes of ``fmow_image_size`` x
+  ``fmow_image_size`` x 3 images, real ``.npz`` partitions where present;
+- ``susy`` and ``ro``: their CSV where present, else synthetic;
+- ``stackoverflow_lr``: the TFF StackOverflow h5 and its vocabularies
+  where present, else synthetic bag-of-words;
+- ``shakespeare`` / ``fed_shakespeare``: the TFF h5 or LEAF JSON corpus
+  where present, else synthetic Markov text;
+- ``stackoverflow_nwp`` / ``stackoverflow``: the TFF h5 word corpus where
+  present, else the synthetic affine language.
+
+Any other name raises ``KeyError``. ``data/partition.py`` and
+``data/vertical_data.py`` (the non-drift partitions and the vertical
+party splits) are not datasets of the registry, as in the reference.
 """
 
 from __future__ import annotations
@@ -64,9 +74,9 @@ for _name in ("sea", "sine", "circle"):
             cfg.sample_num, cfg.noise_prob, cfg.time_stretch, cfg.seed)
 
 
-# "<name>": real files under data_dir are refused (not ported), else the
+# "<name>": the real files under data_dir where present, else the
 # white-noise-basis prototypes; "<name>-smooth": the Gaussian-smoothed basis,
-# always synthetic (the reference ignores real files there)
+# always synthetic (real files ignored, as the reference ignores them)
 for _name in ("MNIST", "femnist", "cifar10", "cifar100", "cinic10",
               "fed_cifar100"):
     for _suffix, _smooth in (("", False), ("-smooth", True)):

@@ -11,15 +11,16 @@ bitwise-equal ``x``, ``y`` and ``concepts``.
   the half-space ``x @ plane_k > 0``; else Gaussian rows labelled by
   concept k's own hyperplane.
 - stackoverflow_lr (``generate_stackoverflow_lr_drift``): bag-of-words tag
-  prediction on its synthetic path, each tag a peaked topic over the
-  vocabulary, a sample ~30 word draws of its tag's topic, a concept
-  permuting the tag assignment. The reference reads the TFF StackOverflow
-  h5 files where they exist (``stackoverflow/datasets/
+  prediction. The TFF StackOverflow files under ``data_dir`` are read
+  where all three are present (``stackoverflow/datasets/
   stackoverflow_train.h5``, ``stackoverflow.word_count``,
-  ``stackoverflow.tag_count``); that reader needs ``h5py`` and is not
-  ported, so where the three files exist the port raises
-  ``NotImplementedError`` (ROADMAP §1 "The other datasets") rather than
-  make synthetic data in their place.
+  ``stackoverflow.tag_count``): word-count vectors over the
+  frequency-ranked vocabulary, the principal known tag as the label, at
+  most 100,000 samples, sliced per (client, step) in file order (``h5py``
+  imported only then). Else each tag is a peaked topic over the
+  vocabulary and a sample ~30 word draws of its tag's topic. Either way a
+  concept permutes the tag assignment (``meta["real_data"]`` is true on
+  the real path).
 
 Scale note: the reference's stackoverflow vocabulary is 10000 with 500 tag
 classes; dense [C, T, N, F] storage makes that ~2 GB per 10-client run, so
@@ -30,23 +31,20 @@ the default here is vocab 1000 / 50 tags (``ExperimentConfig.so_vocab_size``
 from __future__ import annotations
 
 import csv
+import json
 import os
 
 import numpy as np
 
 from feddrift_torch.data.changepoints import concept_matrix
-from feddrift_torch.data.drift_dataset import DriftDataset
+from feddrift_torch.data.drift_dataset import DriftDataset, open_h5
+from feddrift_torch.data.text import iter_tff_clients, load_word_ranks
 
 UCI_SPECS = {
     # name: (feature_dim, csv filename under data_dir)
     "susy": (18, "SUSY.csv"),
     "ro": (5, "datatraining.txt"),
 }
-
-# the TFF StackOverflow files the reference reads, under data_dir
-SO_FILES = ("stackoverflow_train.h5", "stackoverflow.word_count",
-            "stackoverflow.tag_count")
-
 
 def _load_uci_csv(path: str, name: str, feature_dim: int,
                   max_rows: int) -> tuple[np.ndarray, np.ndarray] | None:
@@ -140,15 +138,51 @@ def generate_uci_drift(
                                          else "synthetic"})
 
 
-def _refuse_stackoverflow_files(data_dir: str) -> None:
-    """The TFF StackOverflow reader is not ported: refuse its files."""
+def _try_load_stackoverflow_lr(
+    data_dir: str, vocab_size: int, tag_size: int,
+    max_samples: int = 100_000,
+) -> tuple[np.ndarray, np.ndarray] | None:
+    """The TFF StackOverflow files as (bag-of-words ``[N, vocab]``,
+    principal tag ``[N]``), or None unless all three are present:
+    ``stackoverflow_train.h5`` (``examples/<client>/{tokens,title,tags}``
+    byte strings), ``stackoverflow.word_count`` ("word count" a line,
+    ranked by frequency) and ``stackoverflow.tag_count`` (a JSON dict in
+    count order). A sample none of whose tags is among the first
+    ``tag_size`` is skipped; at most ``max_samples`` are read, client by
+    client."""
     base = os.path.join(data_dir, "stackoverflow", "datasets")
-    paths = [os.path.join(base, f) for f in SO_FILES]
-    if all(os.path.isfile(p) for p in paths):
-        raise NotImplementedError(
-            f"real StackOverflow files ({base}) are not ported yet (ROADMAP "
-            f"§1 'The other datasets'); point data_dir elsewhere for the "
-            f"synthetic bag-of-words data")
+    h5path = os.path.join(base, "stackoverflow_train.h5")
+    wcpath = os.path.join(base, "stackoverflow.word_count")
+    tcpath = os.path.join(base, "stackoverflow.tag_count")
+    if not all(os.path.isfile(p) for p in (h5path, wcpath, tcpath)):
+        return None
+    word_id = {w: i
+               for i, w in enumerate(load_word_ranks(wcpath, vocab_size))}
+    with open(tcpath) as fh:
+        tag_id = {t: i for i, t in enumerate(list(json.load(fh))[:tag_size])}
+    X, Y = [], []
+    with open_h5(h5path) as f:
+        for ex in iter_tff_clients(f):
+            if len(X) >= max_samples:
+                break
+            titles = ex["title"][()] if "title" in ex \
+                else [b""] * len(ex["tokens"])
+            for tok, tit, tag in zip(ex["tokens"][()], titles,
+                                     ex["tags"][()]):
+                tags = [tag_id[t] for t in tag.decode("utf8").split("|")
+                        if t in tag_id]
+                if not tags:
+                    continue
+                vec = np.zeros(vocab_size, np.float32)
+                words = tok.decode("utf8") + " " + tit.decode("utf8")
+                for w in words.split():
+                    if w in word_id:
+                        vec[word_id[w]] += 1.0
+                X.append(vec)
+                Y.append(tags[0])
+    if not X:
+        return None
+    return np.stack(X), np.asarray(Y, np.int32)
 
 
 def generate_stackoverflow_lr_drift(
@@ -164,15 +198,41 @@ def generate_stackoverflow_lr_drift(
     data_dir: str = "./data",
 ) -> DriftDataset:
     """Bag-of-words tag prediction under drift, ``x [C, T+1, N, vocab]``
-    word counts and ``y`` the principal tag: each tag class has a sparse
-    topic distribution over the vocabulary (20 signature words), a sample
-    is ~30 tokens drawn from its tag's topic, and a concept permutes the
-    tag assignment (concept 0: the identity)."""
-    _refuse_stackoverflow_files(data_dir)
+    word counts and ``y`` the principal tag: the TFF files' samples in
+    order where they are present under ``data_dir``; else each tag class
+    has a sparse topic distribution over the vocabulary (20 signature
+    words) and a sample is ~30 tokens drawn from its tag's topic. A concept
+    permutes the tag assignment (concept 0: the identity)."""
     T = train_iterations
     rng = np.random.default_rng(seed)
     concepts = concept_matrix(change_points, T + 1, num_clients, time_stretch)
     n_concepts = max(int(concepts.max()) + 1, 2)
+
+    real = _try_load_stackoverflow_lr(data_dir, vocab_size, tag_size)
+    if real is not None:
+        rx, ry = real
+        trng = np.random.default_rng(7793)
+        perms = np.stack(
+            [np.arange(tag_size)] +
+            [trng.permutation(tag_size) for _ in range(n_concepts - 1)])
+        x = np.zeros((num_clients, T + 1, sample_num, vocab_size),
+                     np.float32)
+        y = np.zeros((num_clients, T + 1, sample_num), np.int32)
+        used = 0
+        for t in range(T + 1):
+            for c in range(num_clients):
+                k = int(concepts[t, c]) % n_concepts
+                take = np.arange(used, used + sample_num) % len(rx)
+                used = (used + sample_num) % len(rx)
+                x[c, t] = rx[take]
+                y[c, t] = perms[k][ry[take]]
+        if noise_prob > 0:
+            flip = rng.random(y.shape) < noise_prob
+            y = np.where(flip, rng.integers(0, tag_size, size=y.shape),
+                         y).astype(np.int32)
+        return DriftDataset(x=x, y=y, num_classes=tag_size,
+                            concepts=concepts, name="stackoverflow_lr",
+                            meta={"real_data": True})
 
     trng = np.random.default_rng(7793)
     # per-tag topic: a peaked distribution over 20 signature words + noise

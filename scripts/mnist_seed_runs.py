@@ -20,6 +20,15 @@ times dearer); the committed run's mean is then taken over the same steps.
     JAX_PLATFORMS=cpu python scripts/mnist_seed_runs.py softcluster \\
         H_A_C_1_10_0 --dataset fmow --seeds 0 1 2 --steps 10 \\
         --committed runs/fmow-fnn-softcluster-H_A_C_1_10_0-s0/metrics.jsonl
+
+``--data_dir`` reads the real files there (the digits that
+``scripts/torch_make_digits_files.py`` writes); ``--config`` sets any
+other field of the configuration, as a JSON object:
+
+    JAX_PLATFORMS=cpu python scripts/mnist_seed_runs.py softcluster \\
+        H_A_C_1_10_0 --dataset cinic10 --seeds 0 --steps 5 \\
+        --data_dir DIR --config '{"change_points": "rand", "comm_round": 100,
+        "frequency_of_the_test": 50}'
 """
 
 import argparse
@@ -63,7 +72,8 @@ def main() -> None:
     ap.add_argument("arg")
     ap.add_argument("--dataset", default="MNIST",
                     choices=("MNIST", "fmow", "susy", "ro",
-                             "stackoverflow_lr", "femnist", "cifar10"),
+                             "stackoverflow_lr", "femnist", "cifar10",
+                             "cinic10", "fed_cifar100"),
                     help="the dataset, at its registry defaults (fmow at "
                          "32x32x3)")
     ap.add_argument("--pool", type=int, default=4)
@@ -72,6 +82,10 @@ def main() -> None:
     ap.add_argument("--committed",
                     help="metrics.jsonl of the committed seed-0 run, where "
                          "there is one")
+    ap.add_argument("--data_dir", default=None,
+                    help="the directory of real files to read")
+    ap.add_argument("--config", default="{}",
+                    help="other configuration fields, a JSON object")
     ap.add_argument("--port", action="store_true",
                     help="run the port on the CPU from the reference's init")
     args = ap.parse_args()
@@ -81,9 +95,14 @@ def main() -> None:
     for seed in args.seeds:
         kw = dict(dataset=args.dataset, concept_drift_algo=args.algo,
                   concept_drift_algo_arg=args.arg, concept_num=args.pool,
-                  train_iterations=args.steps, seed=seed)
+                  train_iterations=args.steps, seed=seed,
+                  **json.loads(args.config))
+        if args.data_dir is not None:
+            kw["data_dir"] = args.data_dir
         t0 = time.time()
         exp = Experiment(ExperimentConfig(**kw))
+        if args.data_dir is not None and not exp.ds.meta.get("real_data"):
+            raise SystemExit(f"{args.data_dir}: no real {args.dataset} files")
         if args.port:
             exp = port_experiment(kw, exp)
         exp.run()

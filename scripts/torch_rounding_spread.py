@@ -13,8 +13,15 @@ Each changes only the order of float32 sums. ``--plain_only`` runs the plain var
 which a gate is fixed before any kernel's run of the dataset is read.
 
     python3 scripts/torch_rounding_spread.py [--runs win-1,oblivious]
-        [--dataset MNIST|fmow|susy|ro|stackoverflow_lr|femnist|cifar10]
-        [--permutations 2] [--plain_only]
+        [--dataset MNIST|fmow|susy|ro|stackoverflow_lr|femnist|cifar10|
+        cinic10] [--data_dir DIR] [--permutations 2] [--plain_only]
+
+``--data_dir`` takes the runs on real files instead: ``chip_smoke.py``'s
+``READER_RUNS`` of the dataset whose algorithm ``--runs`` names, each at
+its own configuration and seed, from the reference's init at that seed,
+reading the digits that ``scripts/torch_make_digits_files.py`` wrote into
+DIR; each is keyed by its committed run's name, and its gate series is
+``READER_REFERENCE_ACCS``' or else its committed one.
 
 One JSON line a (variant, run): its Test/Acc per step, mean, and the
 committed run's mean where there is one (beyond MNIST also its largest
@@ -92,7 +99,10 @@ def main() -> int:
     ap.add_argument("--runs", default="win-1,oblivious")
     ap.add_argument("--dataset", default="MNIST",
                     choices=("MNIST", "fmow", "susy", "ro",
-                             "stackoverflow_lr", "femnist", "cifar10"))
+                             "stackoverflow_lr", "femnist", "cifar10",
+                             "cinic10"))
+    ap.add_argument("--data_dir", default=None,
+                    help="the real files of chip_smoke.READER_RUNS")
     ap.add_argument("--permutations", type=int, default=2,
                     help="plain runs on batch rows permuted within a batch")
     ap.add_argument("--plain_only", action="store_true",
@@ -112,7 +122,23 @@ def main() -> int:
     card = cs.phase_device()
     build.build_all()
     fmow, new = args.dataset == "fmow", args.dataset in cs.NEW_DATASETS
-    if new:
+    readers = args.data_dir is not None
+    if readers:
+        shape, classes, width, _, _, base = cs.READER_DATASETS[args.dataset]
+        new = True      # the reader datasets' kernels are their own
+        table = [r for r in cs.READER_RUNS if r[0] == args.dataset
+                 and r[2] in args.runs.split(",")]
+        inits = {seed: cs.reader_init(args.dataset, seed)
+                 for seed in {r[1] for r in table}}
+        reference = {r[6]: cs.READER_REFERENCE_ACCS.get(r[6], r[7])
+                     for r in table}
+        # (key, algo, arg, pool, T, committed series, mean tolerance,
+        # configuration beyond the defaults, init file)
+        cases = [(run, algo, arg, pool, T, pinned, None,
+                  dict(base, seed=seed, data_dir=args.data_dir),
+                  inits[seed])
+                 for _, seed, algo, arg, pool, T, run, pinned in table]
+    elif new:
         shape, classes, width, _ = cs.NEW_DATASETS[args.dataset]
         path = cs._reference_init(args.dataset)
         table = {**cs.TABULAR_RUNS, **cs.IMAGE_RUNS}[args.dataset]
@@ -127,9 +153,12 @@ def main() -> int:
         table = cs.FMOW_RUNS if fmow else cs.MNIST_RUNS
         reference = cs.FMOW_REFERENCE_ACCS if fmow else {}
         width = "split" if fmow else "wide"
-    init = FeedForwardNN(shape, classes, 10).unpack(
-        torch.from_numpy(np.load(path)))
-    runs = {r[0]: r for r in table if r[0] in args.runs.split(",")}
+    if not readers:
+        cases = [(algo, algo, arg, pool, T, pinned, mean_tol, {}, path)
+                 for algo, arg, pool, T, run, pinned, _, mean_tol in table
+                 if algo in args.runs.split(",")]
+    inits = {f: FeedForwardNN(shape, classes, 10).unpack(
+        torch.from_numpy(np.load(f))) for f in {c[8] for c in cases}}
     kernel, route, k1_fn = k1._kernel, k1._route, step_mod.local_sgd
     step_route, step_folds = step_mod._route, step_mod._folds_eval
 
@@ -177,8 +206,8 @@ def main() -> int:
             *((f"plain_rows_permuted_{i}", permuted(i))
               for i in range(1, args.permutations + 1)))
         for name, setup in variants:
-            for algo, (_, arg, pool, T, run, pinned, _, mean_tol) \
-                    in runs.items():
+            for key, algo, arg, pool, T, pinned, mean_tol, extra, init_path \
+                    in cases:
                 k1._kernel, k1._route = kernel, route
                 step_mod.local_sgd = k1_fn
                 step_mod._route, step_mod._folds_eval = step_route, \
@@ -187,28 +216,33 @@ def main() -> int:
                 cfg = ExperimentConfig(dataset=args.dataset,
                                        concept_drift_algo=algo,
                                        concept_drift_algo_arg=arg,
-                                       concept_num=pool, train_iterations=T)
+                                       concept_num=pool, train_iterations=T,
+                                       **extra)
                 t0 = time.time()
-                got = cs._drive(cfg, init=init, syncs=False)
+                got = cs._drive(cfg, init=inits[init_path], syncs=False)
+                if readers and got["exp"].ds.meta.get("real_data") \
+                        is not True:
+                    raise RuntimeError(f"{key}: the real files under "
+                                       f"{args.data_dir} were not read")
                 accs = got["accs"]
                 mean = sum(accs) / len(accs)
                 ref = None if pinned is None else sum(pinned[:T]) / T
-                means.setdefault(algo, {})[name] = mean
+                means.setdefault(key, {})[name] = mean
                 dist = {}
-                if algo in reference:
-                    want = reference[algo][:T]
+                if key in reference:
+                    want = reference[key][:T]
                     dist = {"reference_test_acc": want,
                             "max_step_from_reference": max(
                                 abs(a - b) for a, b in zip(accs, want)),
                             "mean_from_reference": abs(mean - sum(want) / T)}
                     if name.startswith("plain"):
-                        env = envelope.setdefault(algo, {"step": 0.0,
+                        env = envelope.setdefault(key, {"step": 0.0,
                                                          "mean": 0.0})
                         env["step"] = max(env["step"],
                                           dist["max_step_from_reference"])
                         env["mean"] = max(env["mean"],
                                           dist["mean_from_reference"])
-                print(json.dumps({"variant": name, "run": algo,
+                print(json.dumps({"variant": name, "run": key,
                                   "test_acc": accs, "mean": mean, **dist,
                                   "committed_mean": ref,
                                   "mean_minus_committed": None if ref is None
@@ -222,8 +256,8 @@ def main() -> int:
         step_mod.local_sgd = k1_fn
         step_mod._route, step_mod._folds_eval = step_route, step_folds
     print(json.dumps({"card": card, "spread_of_means": {
-        algo: {"min": min(v.values()), "max": max(v.values())}
-        for algo, v in means.items()}, "plain_envelope": envelope}))
+        key: {"min": min(v.values()), "max": max(v.values())}
+        for key, v in means.items()}, "plain_envelope": envelope}))
     return 0
 
 

@@ -20,6 +20,8 @@ without one. They import nothing of JAX, so they run on the card with
   and the per-round path alike (the two give the same numbers bitwise). A
   client mask reaches K1 as total weight 0: masked pairs come back as they
   went in, sampled pairs bitwise as in the unmasked call.
+- A step draws where its generator lives: a card step given a CPU
+  generator draws bitwise what a CPU step draws from the same seed.
 - K1's gather route (explicit rows from the weighted draw, K4, and
   per-model feature masks) against the plain version through both
   kernels, and a KUE run through K4 (its cdf once a step, its search once
@@ -322,6 +324,27 @@ def test_launches_one_per_round(cuda):
     torch.cuda.synchronize()
     assert local_sgd.launches == before + 13
     assert all(b.shape == (4, 4, 10) for b in out[4])
+
+
+@pytest.mark.gpu
+def test_a_cpu_generator_gives_a_card_step_the_cpu_draws(cuda):
+    """A step draws where its generator lives: a card step given a CPU
+    generator draws, bitwise, what a CPU step draws from the same seed,
+    and returns the draws on the card."""
+    from feddrift_torch.core.step import TrainStep
+    from feddrift_torch.models.mlp import FeedForwardNN
+    mod = FeedForwardNN((3,), 2, 10)
+    cpu = TrainStep(mod, 50, 5, 2, device="cpu")
+    card = TrainStep(mod, 50, 5, 2, device=cuda)
+    card.generator = torch.Generator()
+    draws = []
+    for step in (cpu, card):
+        step.generator.manual_seed(3)
+        draws.append((*step.draw_uniforms(4, 2, 3, 500),
+                      step.draw_row_uniforms(2, 3, 500)))
+    for want, got in zip(*draws):
+        assert got.is_cuda and not want.is_cuda
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
 
 
 @pytest.mark.gpu

@@ -88,8 +88,13 @@ def test_errors(tmp_path):
         torch_make(TorchConfig(dataset="shakespeare", sample_num=1,
                                client_num_in_total=11,
                                data_dir=str(tmp_path)))
-    # a real corpus under data_dir is refused, not silently replaced
-    os.makedirs(tmp_path / "shakespeare" / "train")
-    with pytest.raises(NotImplementedError):
+    # a corpus file under data_dir that cannot be read raises, as the
+    # reference's reader does; it is never silently replaced by synthetic
+    # data (h5py refuses the empty file; a host without h5py refuses it
+    # too)
+    os.makedirs(tmp_path / "fed_shakespeare" / "datasets")
+    (tmp_path / "fed_shakespeare" / "datasets" / "shakespeare_train.h5") \
+        .write_bytes(b"")
+    with pytest.raises((OSError, ModuleNotFoundError)):
         torch_make(TorchConfig(dataset="shakespeare", sample_num=1,
                                data_dir=str(tmp_path)))

@@ -1,8 +1,9 @@
 """The port's prototype image data (``data/prototype.py``: MNIST-4,
 femnist, cifar10, cifar100, cinic10, fed_cifar100 and their ``-smooth``
-names) against the JAX package's generator on the CPU, the refusal of each
-real-file layout the reference reads, and the reference inits that
-``chip_smoke.py``'s ``train_images`` starts from.
+names) against the JAX package's generator on the CPU, on its synthetic
+path (``tests/test_torch_readers.py`` holds the real files' readers), and
+the reference inits that ``chip_smoke.py``'s ``train_images`` starts
+from.
 
 Both packages draw from numpy ``default_rng`` in the same order, so the
 arrays, labels and concepts are compared bitwise: MNIST at the canonical
@@ -15,7 +16,6 @@ import pytest
 
 from feddrift_torch.config import ExperimentConfig as TorchConfig
 from feddrift_torch.data import prototype as tproto
-from feddrift_torch.data.registry import available_datasets
 from feddrift_torch.data.registry import make_dataset as torch_make
 from feddrift_tpu.config import ExperimentConfig as JaxConfig
 from feddrift_tpu.data import prototype as jproto
@@ -72,57 +72,20 @@ def test_smoothing_and_prototypes_match_reference(sigma):
     assert np.array_equal(got.prototypes, want.prototypes)
 
 
-def test_real_files_are_refused_and_smooth_ignores_them(tmp_path):
-    """A LEAF MNIST tree under data_dir is refused, never silently replaced
-    by synthetic data; the -smooth family ignores it, as the reference's
-    does."""
+def test_smooth_ignores_real_files(tmp_path):
+    """The -smooth family ignores a LEAF MNIST tree under data_dir, as the
+    reference's does (``tests/test_torch_readers.py`` holds every reader
+    and the other datasets' -smooth names)."""
     (tmp_path / "MNIST" / "train").mkdir(parents=True)
     kw = dict(data_dir=str(tmp_path), train_iterations=1, sample_num=20)
-    with pytest.raises(NotImplementedError, match="real MNIST files"):
-        torch_make(TorchConfig(dataset="MNIST", **kw))
     got = torch_make(TorchConfig(dataset="MNIST-smooth", **kw))
     want = jax_make(JaxConfig(dataset="MNIST-smooth", **kw))
     assert np.array_equal(got.x, want.x) and np.array_equal(got.y, want.y)
+    assert got.meta == want.meta == {"real_data": False,
+                                     "smooth_sigma": 3.0}
 
 
 OTHER_IMAGES = ("femnist", "cifar10", "cifar100", "cinic10", "fed_cifar100")
-
-
-def _real_files(root, dataset):
-    """The real-file layout the reference reads for ``dataset`` under
-    ``root``, made empty: a TFF h5 file, the CIFAR pickle batches' folder or
-    cinic10's PNG folder."""
-    (parts, is_dir) = tproto._REAL_FILES[dataset]
-    path = root.joinpath(*parts)
-    if is_dir:
-        path.mkdir(parents=True)
-    else:
-        path.parent.mkdir(parents=True)
-        path.write_bytes(b"")
-    return path
-
-
-@pytest.mark.parametrize("dataset", ["femnist", "cifar10", "cifar100",
-                                     "cinic10", "fed_cifar100",
-                                     "femnist-smooth"])
-def test_other_image_datasets_are_refused(dataset, tmp_path):
-    """Each image dataset's real files, the layout the reference reads,
-    are refused naming ROADMAP §1's item, never replaced by synthetic data;
-    the -smooth family ignores them (always synthetic, as the
-    reference's)."""
-    name = dataset.removesuffix("-smooth")
-    assert {name, name + "-smooth"} <= set(available_datasets())
-    _real_files(tmp_path, name)
-    kw = dict(dataset=dataset, data_dir=str(tmp_path), train_iterations=1,
-              sample_num=8)
-    if dataset.endswith("-smooth"):
-        got, want = torch_make(TorchConfig(**kw)), jax_make(JaxConfig(**kw))
-        assert np.array_equal(got.x, want.x) and np.array_equal(got.y, want.y)
-    else:
-        with pytest.raises(NotImplementedError,
-                           match=f"real {name} files.*ROADMAP §1 'The other "
-                                 f"datasets'"):
-            torch_make(TorchConfig(**kw))
 
 
 @pytest.mark.parametrize("smooth", ["", "-smooth"])

@@ -35,36 +35,6 @@ def _model_zoo():
                  ExperimentConfig())
 
 
-def _mnist_files(tmp_path):
-    from feddrift_torch.data.registry import make_dataset
-    (tmp_path / "MNIST" / "train").mkdir(parents=True)
-    make_dataset(ExperimentConfig(dataset="MNIST", data_dir=str(tmp_path),
-                                  train_iterations=1, sample_num=10))
-
-
-def _other_image_data(tmp_path):
-    from feddrift_torch.data.prototype import generate_prototype_drift
-    (tmp_path / "cifar-10-batches-py").mkdir()
-    generate_prototype_drift("cifar10", np.zeros((1, 10), np.int64), 1, 10,
-                             5, data_dir=str(tmp_path))
-
-
-def _word_corpus(tmp_path):
-    from feddrift_torch.data.registry import make_dataset
-    base = tmp_path / "stackoverflow" / "datasets"
-    base.mkdir(parents=True)
-    (base / "stackoverflow_train.h5").write_bytes(b"")
-    make_dataset(ExperimentConfig(dataset="stackoverflow_nwp", sample_num=1,
-                                  data_dir=str(tmp_path)))
-
-
-def _text_corpus(tmp_path):
-    from feddrift_torch.data.registry import make_dataset
-    (tmp_path / "shakespeare" / "train").mkdir(parents=True)
-    make_dataset(ExperimentConfig(dataset="shakespeare", sample_num=1,
-                                  data_dir=str(tmp_path)))
-
-
 # (case, the call, the exception, the ROADMAP §1 item it names)
 REFUSALS = (
     ("population", _population, NotImplementedError,
@@ -74,11 +44,6 @@ REFUSALS = (
     ("megastep", _megastep, NotImplementedError, "Megastep"),
     ("model_zoo", _model_zoo, NotImplementedError,
      "The model zoo and transformer training"),
-    ("mnist_files", _mnist_files, NotImplementedError, "The other datasets"),
-    ("other_image_data", _other_image_data, NotImplementedError,
-     "The other datasets"),
-    ("text_corpus", _text_corpus, NotImplementedError, "The other datasets"),
-    ("word_corpus", _word_corpus, NotImplementedError, "The other datasets"),
 )
 
 

@@ -525,3 +525,28 @@ def test_cell_bounds_hold_more_than_l2_and_count_the_functions_words():
         for words, ops in chip_smoke.CELL_COST.values():
             assert chip_smoke._bound(words * R * H * 4,
                                      ops * R * H)[1] == "bytes"
+
+
+def test_sample_gate_holds_the_means_within_the_standard_error():
+    """A seed sample's column passes where the card's mean over the seeds
+    lies within max(floor, CONV_SAMPLE_SE_FACTOR x the standard error of
+    the two means' difference) of the reference's, and fails outside."""
+    import math
+    card = [[0.70, 0.95], [0.74, 0.97], [0.72, 0.93], [0.66, 0.95]]
+    ref = [[0.60, 0.94], [0.70, 0.96], [0.72, 0.94], [0.68, 0.96]]
+    rows = chip_smoke._sample_gate(card, ref, [0.04, 0.015])
+    c_mean, r_mean = 0.705, 0.675
+    c_var = sum((c[0] - c_mean) ** 2 for c in card) / 3 / 4
+    r_var = sum((r[0] - r_mean) ** 2 for r in ref) / 3 / 4
+    tol = chip_smoke.CONV_SAMPLE_SE_FACTOR * math.sqrt(c_var + r_var)
+    assert rows[0]["card_mean"] == pytest.approx(c_mean)
+    assert rows[0]["reference_mean"] == pytest.approx(r_mean)
+    assert rows[0]["tol"] == pytest.approx(max(0.04, tol))
+    assert rows[0]["within"] and rows[1]["within"]
+    # the floor holds where the seeds agree; a shift past it fails
+    same = [[0.7, 0.9]] * 3
+    assert chip_smoke._sample_gate(same, same, [0.04, 0.015])[0]["tol"] \
+        == 0.04
+    shifted = [[0.75, 0.9]] * 3
+    got = chip_smoke._sample_gate(shifted, same, [0.04, 0.015])
+    assert not got[0]["within"] and got[1]["within"]

@@ -150,26 +150,6 @@ def test_stackoverflow_lr_defaults_bitwise_equal_reference():
     _same(got, want)
 
 
-@pytest.mark.parametrize("present", [3, 2])
-def test_stackoverflow_files_are_refused(tmp_path, present):
-    """The TFF StackOverflow files, written empty here, are refused naming
-    ROADMAP §1's item, never replaced by synthetic data; where one of the
-    three is missing the reference makes synthetic data, and so does the
-    port."""
-    base = tmp_path / "stackoverflow" / "datasets"
-    base.mkdir(parents=True)
-    for name in ttab.SO_FILES[:present]:
-        (base / name).write_bytes(b"")
-    kw = dict(dataset="stackoverflow_lr", train_iterations=1, sample_num=5,
-              data_dir=str(tmp_path), **SMALL_SO)
-    if present == 3:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP §1 'The other datasets'"):
-            torch_make(TorchConfig(**kw))
-    else:
-        _same(torch_make(TorchConfig(**kw)), jax_make(JaxConfig(**kw)))
-
-
 # --------------------------------------------------------------------------
 # K1 and K3's plain versions at susy's and a small stackoverflow_lr's fnn,
 # on the reference's draws

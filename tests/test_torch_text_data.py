@@ -2,8 +2,8 @@
 package's on the CPU: ``stackoverflow_nwp`` (and its alias
 ``stackoverflow``) and ``fed_shakespeare`` arrays bitwise the reference's
 for the same configuration, through both registries and through
-``generate_word_drift`` directly; a real StackOverflow corpus under
-``data_dir`` is refused, not silently replaced."""
+``generate_word_drift`` directly (``tests/test_torch_readers.py`` holds
+the real corpora's readers)."""
 
 import numpy as np
 import pytest
@@ -49,12 +49,3 @@ def test_direct_call_at_other_sizes():
     kw = dict(noise_prob=0.05, seed=9, seq_len=7, vocab=50,
               data_dir="/nonexistent")
     _same(generate_word_drift(*args, **kw), jax_word(*args, **kw))
-
-
-def test_real_corpus_is_refused(tmp_path):
-    base = tmp_path / "stackoverflow" / "datasets"
-    base.mkdir(parents=True)
-    (base / "stackoverflow_train.h5").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="The other datasets"):
-        torch_make(TorchConfig(dataset="stackoverflow_nwp", sample_num=2,
-                               data_dir=str(tmp_path)))
